@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the flagship train step goes on the card.
+"""Where the time of the flagship train step, or of int8 serving, goes
+on the card.
 
-    python3 profile_step.py [--steps 3] [--seed 0] [--trace PATH]
+    python3 profile_step.py [--serve] [--steps 3] [--seed 0] [--trace PATH]
 
-Builds benchmark_config(3) at full width (ResNet-50, 512×640, batch 32)
-as chip_smoke.py does, runs 3 warm-up steps, then traces --steps steps
-with torch.profiler and prints: the device time by PyTorch operator and
-by kernel (top rows), the device time of each kernel family, and the
-share of the traced window in which the card ran no kernel. --trace
-writes the Chrome trace. Needs a CUDA card.
+Without --serve: builds benchmark_config(3) at full width (ResNet-50,
+512×640, batch 32) as chip_smoke.py does, runs 3 warm-up steps, then
+traces --steps train steps. With --serve: quantizes serving_config()
+(batch 128, seeded random weights, calibrate + smooth(0.5)) as
+chip_smoke.py does, serves 3 warm-up batches of device-resident uint8
+images, then traces --steps served batches. Prints, with torch.profiler:
+the device time by PyTorch operator and by kernel (top rows), the device
+time of each kernel family, and the share of the traced window in which
+the card ran no kernel. --trace writes the Chrome trace. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -18,14 +23,20 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
+from ursonet_torch import presets
+from ursonet_torch.engine import ServingEngine
 
 # Kernel families by substrings of the kernel name, first match wins.
 FAMILIES = (
     ('warp kernel (ours)', ('warp_homography',)),
+    ('int8 conv kernel (ours)', ('conv_s8_kernel',)),
+    ('int8 GEMM kernel (ours)', ('gemm_s8_kernel',)),
+    ('maxpool', ('max_pool',)),
     ('conv wgrad', ('wgrad',)),
     ('conv dgrad', ('dgrad',)),
     ('conv fprop / other cuDNN', ('fprop', 'conv', 'cudnn', 'xmma',
@@ -66,6 +77,8 @@ def main(argv=None) -> int:
     ap.add_argument('--steps', type=int, default=3)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--trace', default=None)
+    ap.add_argument('--serve', action='store_true',
+                    help='profile int8 serving instead of the train step')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -76,18 +89,40 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = cs.run_main_path(cs.flagship_config(), 'cuda', args.seed, steps=3)
-    step, raw = res['step'], res['raw']
-    gen = torch.Generator()
+    if args.serve:
+        cfg = presets.serving_config()
+        rng = np.random.RandomState(args.seed)
+        h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+        images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
+        engine = ServingEngine(cfg, 'cuda', generator=torch.Generator()
+                               .manual_seed(args.seed))
+        engine.quantize(list(images[:8]))
+        engine.qmodel.smooth(0.5)
+        x = torch.from_numpy(images).cuda()
+
+        def run(i):
+            engine.qmodel(x)
+        what, unit = f"served batches of {cfg.BATCH_SIZE}", "batch"
+    else:
+        res = cs.run_main_path(cs.flagship_config(), 'cuda', args.seed,
+                               steps=3)
+        step, raw = res['step'], res['raw']
+        gen = torch.Generator()
+
+        def run(i):
+            step(raw, gen.manual_seed(args.seed + 10 + i))
+        what, unit = "train steps", "step"
+    for i in range(3 if args.serve else 0):
+        run(i)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(args.steps):
-            step(raw, gen.manual_seed(args.seed + 10 + i))
+            run(i)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    print(f"card: {smi}; {args.steps} traced steps, host wall "
+    print(f"card: {smi}; {args.steps} traced {what}, host wall "
           f"{wall_ms:.3f} ms")
     print(prof.key_averages().table(sort_by='self_device_time_total',
                                     row_limit=20))
@@ -102,14 +137,14 @@ def main(argv=None) -> int:
         fam = family(k.name)
         by_fam[fam] = by_fam.get(fam, 0.0) + dur
     total = sum(by_fam.values())
-    print(f"device kernel time: {total / 1e3 / args.steps:.3f} ms per step "
+    print(f"device kernel time: {total / 1e3 / args.steps:.3f} ms per {unit} "
           f"over {len(kernels)} kernel launches")
     for fam, us in sorted(by_fam.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:28s} {us / 1e3 / args.steps:9.3f} ms/step "
+        print(f"  {fam:28s} {us / 1e3 / args.steps:9.3f} ms/{unit} "
               f"{us / total:7.2%}")
     print("top kernels:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {us / 1e3 / args.steps:9.3f} ms/step  {name[:110]}")
+        print(f"  {us / 1e3 / args.steps:9.3f} ms/{unit}  {name[:110]}")
     busy, window = busy_share(kernels)
     print(f"device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms "
           f"kernel window: idle share {1 - busy / window:.4f}")

@@ -14,8 +14,13 @@ import pytest
 import torch
 
 import chip_smoke
+from ursonet_torch import presets
+from ursonet_torch.checkpoint.quant_store import load_quantized
 from ursonet_torch.data.loader import make_device_preprocess
+from ursonet_torch.engine import ServingEngine
+from ursonet_torch.models.quant import QuantizedModel
 from ursonet_torch.models.ursonet import build_model
+from ursonet_torch.ops import cuda_build, int8_cuda
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.step import make_eval_step, make_train_step
 from torch_parity import small_configs
@@ -24,7 +29,7 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'ursonet_tpu', 'pandas', 'PIL',
-             'cv2')
+             'cv2', 'msgpack', 'tools')
 
 
 def _port_sources():
@@ -125,3 +130,61 @@ def test_chip_smoke_raw_batch_is_well_formed():
     Ms = chip_smoke.homographies(4, chip_smoke.net_intrinsics(cfg),
                                  np.random.RandomState(0))
     assert Ms.shape == (4, 3, 3) and Ms.dtype == np.float32
+
+
+def test_serving_entry_points_refuse_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    _, cfg = small_configs()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        ServingEngine(cfg)
+    model = build_model(cfg, device='cpu')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        ServingEngine(cfg, model=model)
+    flat = {'conv1': (np.zeros((7, 7, 3, 64), np.float32),
+                      np.zeros(64, np.float32))}
+    with pytest.raises(RuntimeError, match='CUDA'):
+        QuantizedModel(cfg, flat)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        load_quantized(str(ROOT / 'tests' / 'data' / 'gate_int8.msgpack'),
+                       presets.serving_config())
+    # the kernels' wrappers: plain versions for CPU tensors only
+    a = torch.zeros(4, 8, dtype=torch.int8)
+    b = int8_cuda.kernel_layout(np.zeros((8, 3), np.int8))
+    assert int8_cuda.gemm_s8(a, b).dtype == torch.int32
+    with pytest.raises(ValueError):
+        int8_cuda.gemm_s8(a.to('meta'), b.to('meta'))
+
+
+def test_build_helper_names_every_source():
+    names = sorted(p.stem for p in (ROOT / 'ursonet_torch' / 'csrc')
+                   .glob('*.cu'))
+    assert sorted(cuda_build.SOURCES) == names
+    paths = {n: cuda_build.library_path(n) for n in names}
+    assert len(set(paths.values())) == len(names)
+    for n, p in paths.items():
+        assert p.parent == cuda_build.BUILD_DIR and p.name.startswith(n)
+    assert '-fmad=false' in cuda_build.NVCC_FLAGS
+    assert 'arch=compute_90a,code=sm_90a' in cuda_build.NVCC_FLAGS
+
+
+def test_chip_smoke_serving_cases_follow_the_flagship():
+    """The kernel checks and timings cover the serving path's shapes:
+    per stage the 3x3 conv and four 1x1 kinds, the stem, the bottleneck
+    conv and the three head denses."""
+    convs = dict(chip_smoke.conv_cases(8))
+    assert len(convs) == 6
+    assert convs['stem 7x7/2'][3:6] == (3, 7, 7)
+    assert convs['bottleneck 3x3/2'][1:4] == (16, 20, 2048)
+    gemms = dict(chip_smoke.gemm_cases(128))
+    assert len(gemms) == 19
+    assert gemms['ori_final'] == (128, 1024, 13824)
+    assert gemms['C5 branch1'] == (128, 1024, 2048)
+    cfg = presets.serving_config()
+    assert cfg.head_input_features() == gemms['loc_dense_0'][1]
+    args = chip_smoke.epilogue_args(torch.device('cpu'),
+                                    np.random.RandomState(0), (4, 6), 64,
+                                    'join')
+    assert args['alpha'].shape == (6,) and args['res'].shape == (4, 6)
+    small = chip_smoke.small_serving_config()
+    assert small.BATCH_SIZE == 2 and tuple(small.IMAGE_SHAPE[:2]) == (64, 64)
+    assert small.REGRESS_LOC and not small.REGRESS_ORI

@@ -4,8 +4,8 @@ Same knob names and derived-field semantics as the JAX package, so one
 configuration reads the same in both: attributes are set after
 construction and `update()` recomputes the derived fields
 (BATCH_SIZE, IMAGE_SHAPE, IMAGE_META_SIZE). Knobs that only steered the
-TPU build (mesh shape, Pallas switch, int8 serving, remat, host loader)
-are left out; a later slice adds the ones it needs. numpy only.
+TPU build (mesh shape, Pallas switch, remat, host loader) are left out;
+a later slice adds the ones it needs. numpy only.
 """
 
 from __future__ import annotations
@@ -61,6 +61,20 @@ class Config:
 
     # --- precision -----------------------------------------------------------------
     F16 = False
+
+    # --- int8 PTQ serving (models/quant.py) -------------------------------------------
+    # INT8_U8_INPUT ships served batches as raw uint8 pixels and folds the
+    # mean-subtract into the input quantize. The QUANT_* knobs are the JAX
+    # package's serving ablations; this port serves their defaults and
+    # raises NotImplementedError for the others (QUANT_FLOAT_* are read,
+    # checked against artifacts and served).
+    INT8_U8_INPUT = True
+    QUANT_STEM_S2D = False
+    QUANT_HOST_S2D = False
+    QUANT_BF16_STEM = False
+    QUANT_S8_JOIN = False
+    QUANT_FLOAT_CLS_FINAL = False
+    QUANT_FLOAT_REG_HEAD = False
 
     # --- losses --------------------------------------------------------------------
     LEARNABLE_LOSS_WEIGHTS = False

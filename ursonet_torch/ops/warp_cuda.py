@@ -9,34 +9,23 @@ all channels. On a CUDA tensor the wrappers launch the kernel, and a
 failed build or launch raises; on a CPU tensor they run the plain
 PyTorch versions in `ursonet_torch/ops/augment.py`.
 
-The kernel is compiled with `nvcc` for sm_90a at first use, into
-`.torch_ext/` at the root of the checkout, and loaded with ctypes. The
-library name carries a hash of the source and the flags, so an edited
-source is rebuilt. Each launch adds one to `launches["warp_homography"]`.
+The kernel is built and loaded by `ops/cuda_build.py` (nvcc for sm_90a
+at first use, ctypes). Each launch adds one to
+`launches["warp_homography"]`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "warp.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from ursonet_torch.ops import cuda_build
+
 INTERPOLATIONS = {"nearest": 0, "bilinear": 1}
 
 # Kernel launches since the last reset_counts(), by kernel name.
 launches = {"warp_homography": 0}
-
-_lib = None
 
 
 def reset_counts() -> None:
@@ -44,52 +33,20 @@ def reset_counts() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    candidates = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    candidates.append(shutil.which("nvcc") or "")
-    for c in candidates:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found: the warp kernel cannot be built "
-                       "(set CUDA_HOME to the CUDA toolkit)")
-
-
-def build() -> tuple[Path, str]:
-    """Compile warp.cu into a shared library unless an identical build
-    exists. Returns (library path, compiler output)."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"warp_{key[:16]}.so"
-    if lib.exists():
-        return lib, "cached build"
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+def _bind(lib) -> None:
+    fn = lib.ursonet_warp_homography
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.ursonet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ursonet_cuda_error_string.restype = ctypes.c_char_p
 
 
 def load() -> ctypes.CDLL:
     """Build if needed and load the kernel library (once per process)."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.ursonet_warp_homography
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.ursonet_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ursonet_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return cuda_build.load("warp", _bind)
 
 
 def _launch(images: torch.Tensor, Ms: torch.Tensor, interpolation: str,

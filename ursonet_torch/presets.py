@@ -2,9 +2,10 @@
 `ursonet_tpu/presets.py::benchmark_config`).
 
 `benchmark_config(n)` returns a fresh `Config` with `update()` applied
-for the five benchmark configurations of BASELINE.md. This slice of the
-port trains configuration 3; the others build but reach code paths a
-later slice ports (sim2real, CLR, keypoints, bf16).
+for the five benchmark configurations of BASELINE.md. The port trains
+configuration 3; the others build but reach code paths a later slice
+ports (sim2real, CLR, keypoints, bf16). `serving_config(batch)` is the
+flagship int8 serving configuration that `bench.py` times.
 """
 
 from __future__ import annotations
@@ -88,3 +89,33 @@ def benchmark_config(n: int) -> Config:
         cfg.IMAGE_RESIZE_MODE = 'pad64'
         return _apply(cfg, 0.5, _URSO_WH)
     raise ValueError(f"unknown benchmark config {n} (1-5)")
+
+
+def serving_config(batch: int = 128) -> Config:
+    """The flagship int8 PTQ serving configuration: the one `bench.py`
+    times and `tools/make_gate_artifact.py::flagship_gate_config` builds
+    the committed artifact for. ResNet-50, bottleneck 128, one 1024-wide
+    dense per head, location regression, 24³-bin orientation
+    classification (int8 `ori_final` 1024→13824 with a ReLU), pad64 at
+    512×640, uint8 input, every QUANT_* knob at its default.
+
+    One deviation: F16 is False. Under F16 the JAX package runs the int8
+    epilogues in bf16; the port serves the f32 epilogue, the other mode
+    of the same artifact (F16 is not recorded in it)."""
+    cfg = Config()
+    cfg.NAME = 'flagship_serving'
+    cfg.BACKBONE = 'resnet50'
+    cfg.BOTTLENECK_WIDTH = 128
+    cfg.BRANCH_SIZE = 1024
+    cfg.NR_DENSE_LAYERS = 1
+    cfg.REGRESS_LOC = True
+    cfg.REGRESS_ORI = False
+    cfg.ORI_BINS_PER_DIM = 24
+    cfg.IMAGE_RESIZE_MODE = 'pad64'
+    cfg.IMAGE_MIN_DIM = 512
+    cfg.IMAGE_MAX_DIM = 640
+    cfg.IMAGES_PER_GPU = batch
+    cfg.INT8_U8_INPUT = True
+    cfg.F16 = False
+    cfg.update()
+    return cfg

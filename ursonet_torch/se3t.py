@@ -1,5 +1,6 @@
 """Batched, branchless tensor versions of the SE(3) math: the counterpart
-of `ursonet_tpu/se3jax.py` for the subset the training step needs.
+of `ursonet_tpu/se3jax.py` for the subset the training step and the
+pose decode need.
 
 Same conventions as `ursonet_torch.se3`. Every function takes tensors with
 arbitrary leading batch dimensions; the Shepperd case selection runs as
@@ -82,3 +83,73 @@ def quat_mult(a, b):
         -a0 * b0 - a1 * b1 - a2 * b2 + a3 * b3,
     ], dim=-1)
     return c / torch.linalg.vector_norm(c, dim=-1, keepdim=True)
+
+
+def quat_inv(q):
+    """Conjugate of a unit quaternion, batched."""
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def quat2euler(q):
+    """Scalar-last quaternion -> Euler (pitch, yaw, roll) degrees, batched
+    and branchless (the pole cases by torch.where)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    sqx, sqy, sqz = x * x, y * y, z * z
+    test = x * z + y * w
+
+    pitch_n = torch.atan2(2 * (y * z - x * w), 1 - 2 * sqx - 2 * sqy)
+    yaw_n = torch.asin(torch.clamp(-2 * (x * z + y * w), -1.0, 1.0))
+    roll_n = torch.atan2(2 * (x * y - z * w), 1 - 2 * sqy - 2 * sqz)
+
+    pitch_pole = 2.0 * torch.atan2(x, w)
+    north = test > 0.499
+    south = test < -0.499
+    pole = north | south
+
+    half_pi = torch.full_like(yaw_n, math.pi / 2)
+    pitch = torch.where(pole, torch.where(north, pitch_pole, -pitch_pole),
+                        pitch_n)
+    yaw = torch.where(pole, torch.where(north, -half_pi, half_pi), yaw_n)
+    roll = torch.where(pole, torch.zeros_like(roll_n), roll_n)
+
+    pitch = torch.where(pitch > math.pi, 2 * math.pi - pitch, pitch)
+    pitch = torch.where(pitch < -math.pi, 2 * math.pi + pitch, pitch)
+    return torch.stack([pitch / _DEG, yaw / _DEG, roll / _DEG], dim=-1)
+
+
+def angle_between_quats(q1, q2):
+    """Angular distance in degrees along the last axis, batched."""
+    dots = torch.sum(q1 * q2, dim=-1)
+    return 2.0 * torch.arccos(torch.clamp(torch.abs(dots), 0.0, 1.0)) / _DEG
+
+
+def _accumulator(Q, W):
+    """A = Σ_n w_n q_n q_nᵀ: Q (..., n, 4) or a shared (n, 4), W (..., n)."""
+    return torch.einsum('...ni,...n,...nj->...ij', Q, W, Q) if Q.dim() > 2 \
+        else torch.einsum('ni,...n,nj->...ij', Q, W, Q)
+
+
+def quat_weighted_avg(Q, W):
+    """Weighted quaternion average by eigendecomposition of the 4x4
+    accumulator, batched. Q: (..., n, 4) or (n, 4), W: (..., n) ->
+    (q_avg (..., 4), A (..., 4, 4)). The eigenvector's sign is the
+    solver's; q and -q are the same rotation."""
+    A = _accumulator(Q, W)
+    _, v = torch.linalg.eigh(A)
+    q_avg = v[..., :, -1]
+    q_avg = q_avg / torch.linalg.vector_norm(q_avg, dim=-1, keepdim=True)
+    return q_avg, A
+
+
+def quat_weighted_avg_power(Q, W, iters: int = 30):
+    """Weighted quaternion average by power iteration on the (PSD, for a
+    PMF) accumulator from a vector of ones: the dominant eigenvector, as
+    quat_weighted_avg, without a 4x4 eigendecomposition per sample.
+    Q: (..., n, 4) or (n, 4), W: (..., n) -> (..., 4)."""
+    A = _accumulator(Q, W)
+    v = torch.ones(A.shape[:-1], dtype=A.dtype, device=A.device)
+    for _ in range(iters):
+        v = torch.einsum('...ij,...j->...i', A, v)
+        v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v
