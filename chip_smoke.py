@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
               nvcc per source, all at once.
   3. kernels  each kernel against its plain PyTorch version on the card:
               the warp at the train path's shapes, conv_s8 and gemm_s8 at
-              the serving path's shapes in every epilogue (bit-exact).
+              the serving path's shapes in every epilogue, stem_s8 in
+              both input modes, block_s8 at the probe's shape and on
+              ragged tiles, mma_rate in every kind (integers bit-exact).
   4. train    the train step of benchmark_config(3) at full width
               (ResNet-50, 512×640, batch 32) for 5 steps on one seeded
               random batch, then one validation step; losses must be
@@ -18,12 +20,21 @@ Phases, in order; any failure exits non-zero:
   5. artifact the committed flagship int8 artifact served on its golden
               input: kernel path equal to the plain path, within the
               gate bound of the float twin, both int8 kernels launched;
-              decoded poses printed.
+              decoded poses printed; its stem rewritten to space-to-depth
+              form in memory and served through stem_s8 gives the same
+              bits.
   6. serve    int8 serving of serving_config() at full width and batch
               (128 × 512×640, seeded random weights, calibrate +
-              smooth(0.5)) through ServingEngine.predict_molded; both
-              int8 kernels launched; decode and ESA score finite.
-  7. numbers  train step and serving time, memory, and each kernel's
+              smooth(0.5)) through ServingEngine.predict_molded, in the
+              `base` and the `host_s2d` variant: every int8 kernel of the
+              variant launched (stem_s8 exactly once per batch), outputs
+              within the random-init gate of the float twin, decode and
+              ESA score finite; the `s2d` variant equal to `host_s2d`
+              bit for bit.
+  7. probes   the three kernel-probe entry points at their own shapes
+              (ursonet_torch.probes.fused_block, int8_mma, int4_mma),
+              their JSON lines printed as they come.
+  8. numbers  train step and serving time, memory, and each kernel's
               time at the main paths' shapes beside its plain version,
               the library call and the card's bound.
 The second-to-last line is the kernels JSON, the last line
@@ -54,6 +65,7 @@ from ursonet_torch.models import quant
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops import augment, cuda_build, int8_cuda, warp_cuda
 from ursonet_torch.ops.image import resize_geometry
+from ursonet_torch.probes import fused_block, int4_mma, int8_mma, mma_rate
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import make_eval_step, make_train_step
@@ -63,10 +75,16 @@ from ursonet_torch.train.step import make_eval_step, make_train_step
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
+BF16_FLOP_PER_S = 989e12
 
 FLAGSHIP_BATCH = 32
 STEPS = 5            # train steps of the main path, then 1 validation step
 SERVE_ITERS = 10     # timed serving calls, after 2 warm-up calls
+# What this script measured for the same train and `base` serving code
+# before the s2d variants and the probes existed, printed beside this
+# run's numbers for the reader.
+EARLIER_TRAIN_MS, EARLIER_SERVE_MS = 136.353, 89.481
+EARLIER_CARD = "[NVIDIA H100 80GB HBM3, 700.00 W]"
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
                     'data')
@@ -140,9 +158,9 @@ def flagship_config() -> Config:
     return cfg
 
 
-def small_serving_config() -> Config:
+def small_serving_config(variant: str = 'base') -> Config:
     """The serving configuration at a size the CPU runs in seconds."""
-    cfg = presets.serving_config(batch=2)
+    cfg = presets.serving_config(batch=2, variant=variant)
     cfg.IMAGE_RESIZE_MODE = 'square'
     cfg.IMAGE_MIN_DIM = cfg.IMAGE_MAX_DIM = 64
     cfg.BRANCH_SIZE = 32
@@ -251,6 +269,20 @@ def epilogue_args(dev, rng, out_shape, k, epilogue) -> dict:
     return kw
 
 
+def stem_args(dev, rng, mode) -> dict:
+    """Operands of stem_s8 beside x and w: the flagship's pixel mean, an
+    input step near the calibrated one, and epilogue operands that spread
+    the requantized values over 0..127 for random operands (K = 192)."""
+    mean = np.tile(np.array([123.7, 116.8, 103.9], np.float32), 4)
+    alpha = rng.uniform(0.5, 1.5, 64) * 0.6 / (np.sqrt(192) * 128 * 100 / 3)
+    return dict(alpha=torch.from_numpy(alpha.astype(np.float32)).to(dev),
+                beta=torch.from_numpy(
+                    rng.uniform(-1, 1, 64).astype(np.float32)).to(dev),
+                inv_s_out=float(np.float32(1) / np.float32(3.0 / 127)),
+                mode=mode, mean=mean,
+                inv_s_in=float(np.float32(1) / np.float32(1.09)))
+
+
 def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=128) -> float:
     """conv_s8 and gemm_s8 against their plain versions (float64
     accumulation) in every epilogue; any difference raises. Returns the
@@ -294,6 +326,88 @@ def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=128) -> float:
                     int8_cuda.epilogue_torch(acc, ep, **args))
         log(f"check gemm_s8 {name} {m}x{k} @ {k}x{n}: "
             f"{len(int8_cuda.EPILOGUES)} epilogues bit-exact")
+    return worst
+
+
+def _must_equal(name, got, want) -> None:
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise RuntimeError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+                           f"{want.dtype}{tuple(want.shape)}")
+    diff = int((got != want).sum())
+    if diff:
+        raise RuntimeError(f"{name}: kernel differs from its plain version "
+                           f"in {diff} of {got.numel()} elements")
+
+
+def stem_operands(dev, rng, b, h2, w2):
+    """Packed u8 pixels [b, h2, w2, 12] and an s2d stem kernel."""
+    x = torch.from_numpy(rng.randint(0, 256, (b, h2, w2, 12), np.uint8))
+    w = int8_cuda.kernel_layout(
+        rng.randint(-127, 128, (4, 4, 12, 64)).astype(np.int8))
+    return x.to(dev), w.to(dev)
+
+
+def check_stem_kernel(dev, rng, batch=8) -> float:
+    """stem_s8 against its plain version in both input modes: at the
+    flagship shape (256x320 packed pixels) and at an odd small shape
+    whose tiles overhang every border. Any difference raises."""
+    for b, h2, w2 in [(batch, 256, 320), (3, 37, 51)]:
+        x, w = stem_operands(dev, rng, b, h2, w2)
+        for mode in int8_cuda.STEM_MODES:
+            kw = stem_args(dev, rng, mode)
+            _must_equal(f"stem_s8 {mode} {b}x{h2}x{w2}x12",
+                        int8_cuda.stem_s8(x, w, **kw),
+                        int8_cuda.stem_s8_torch(x, w, **kw))
+        log(f"check stem_s8 {b}x{h2}x{w2}x12 -> 64: calibrated and shift128 "
+            "bit-exact")
+    return 0.0
+
+
+def check_block_kernel(dev, batch=4) -> float:
+    """block_s8 against its plain version and against the unfused route
+    at the probe's shape and on images whose ragged tiles touch all four
+    borders. Any difference raises."""
+    for b, h, w in [(batch, 128, 160), (2, 13, 21), (1, 3, 5)]:
+        ops = fused_block.operands(b, h, w, b + h + w, dev)
+        got = fused_block.block_s8(*ops)
+        _must_equal(f"block_s8 {b}x{h}x{w}", got,
+                    fused_block.block_s8_torch(*ops))
+        _must_equal(f"block_s8 {b}x{h}x{w} vs unfused", got,
+                    fused_block.block_s8_unfused(*ops))
+        log(f"check block_s8 {b}x{h}x{w}x256 (64 inside): bit-exact against "
+            "the plain version and the unfused route")
+    return 0.0
+
+
+BF16_RATE_TOL = 1e-5   # of the output's largest magnitude
+
+
+def check_mma_rate(dev, iters=4) -> dict:
+    """mma_rate against its plain version at the probes' shapes in every
+    replica: the integer kinds exact; bf16 within BF16_RATE_TOL of the
+    output's largest magnitude (f32 sums in another order). Returns the
+    largest absolute error per kind."""
+    worst = {}
+    shapes = sorted(set(int8_mma.SHAPES) | set(int4_mma.SHAPES))
+    for kind in mma_rate.KINDS:
+        worst[kind] = 0.0
+        for m, n, k in shapes:
+            a, b = mma_rate.operands(kind, m, n, k, m + k, dev)
+            got = mma_rate.mma_rate(a, b, iters, kind, all_replicas=True)
+            want = mma_rate.mma_rate_torch(a, b, iters, kind)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            worst[kind] = max(worst[kind], err)
+            tol = BF16_RATE_TOL * float(want.abs().max()) \
+                if kind == 'bf16' else 0.0
+            if err > tol:
+                raise RuntimeError(f"mma_rate {kind} {m}x{n}x{k}: max abs "
+                                   f"err {err} over {tol}")
+        log(f"check mma_rate {kind} iters={iters} at {len(shapes)} shapes, "
+            f"every replica: max abs err {worst[kind]} "
+            + ("(tol 1e-5 of the largest output)" if kind == 'bf16'
+               else "(exact)"))
     return worst
 
 
@@ -341,21 +455,53 @@ def serve_artifact(dev) -> dict:
             raise RuntimeError(f"artifact {k}: int8 vs float twin rel "
                                f"{r_twin} over the gate {bound}")
     log(f"artifact launches: {launches}")
-    if min(launches.values()) < 1:
+    if min(launches['gemm_s8'], launches['conv_s8']) < 1:
         raise RuntimeError(f"the artifact serve missed a kernel: {launches}")
     loc, q = evaluate.decode_results(out, cfg)
     for i in range(len(loc)):
         log(f"artifact pose {i}: loc {np.round(loc[i], 4).tolist()} "
             f"quat {np.round(q[i], 5).tolist()}")
+    serve_artifact_s2d(dev, engine, x)
     return launches
 
 
-def serve_flagship(dev, seed: int) -> dict:
-    """The serving main path at full width and batch: seeded random
-    weights, calibrate on 8 images + smooth(0.5), then one served batch
-    of random uint8 images through ServingEngine.predict_molded, decoded
-    and ESA-scored against seeded poses."""
-    cfg = presets.serving_config()
+def serve_artifact_s2d(dev, engine, x) -> None:
+    """The same artifact with its stem rewritten to space-to-depth form
+    in memory (exact in integers), served from host-packed uint8 pixels
+    through stem_s8, against the artifact as it is on the same uint8
+    pixels: the same bits, or the difference is printed and raises."""
+    qm = engine.qmodel
+    base = engine.predict_molded(x)
+    cfg = presets.serving_config(batch=2, variant='host_s2d')
+    eng2 = ServingEngine(cfg, dev)
+    eng2.qmodel = quant.QuantizedModel(cfg, qm.flat, dev)
+    eng2.qmodel.act_scales = dict(qm.act_scales)
+    eng2.qmodel.bias_delta = dict(qm.bias_delta)
+    int8_cuda.reset_counts()
+    out = eng2.predict_molded(x)
+    torch.cuda.synchronize()
+    if int8_cuda.launches['stem_s8'] != 1:
+        raise RuntimeError("the s2d artifact did not serve through stem_s8: "
+                           f"{int8_cuda.launches}")
+    for k in out:
+        diff = int((out[k] != base[k]).sum())
+        log(f"artifact {k}: stem rewritten to s2d and served through stem_s8 "
+            f"vs the 7x7 stem: {diff} of {out[k].numel()} values differ, "
+            f"max abs {float((out[k] - base[k]).abs().max())}")
+        if diff:
+            raise RuntimeError(f"artifact {k}: the s2d rewrite changed the "
+                               "served outputs")
+
+
+def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
+    """The serving main path at full width and batch in one variant:
+    seeded random weights, calibrate on 8 images + smooth(0.5), then one
+    served batch of random uint8 images through
+    ServingEngine.predict_molded, decoded and ESA-scored against seeded
+    poses. Every int8 kernel of the variant must launch (stem_s8 exactly
+    once per batch under the s2d variants, never under `base`), and the
+    outputs stay within the random-init gate of the float twin."""
+    cfg = presets.serving_config(variant=variant)
     rng = np.random.RandomState(seed)
     h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
     images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
@@ -365,7 +511,7 @@ def serve_flagship(dev, seed: int) -> dict:
     t0 = time.perf_counter()
     qm = engine.quantize(list(images[:8]))
     spread = qm.smooth(0.5)
-    log(f"quantize: calibrate (8 images) + smooth(0.5) "
+    log(f"serve [{variant}] quantize: calibrate (8 images) + smooth(0.5) "
         f"{time.perf_counter() - t0:.1f} s, {len(spread)} groups, worst "
         f"spread {max(spread.values()):.1f}x")
     torch.cuda.synchronize()
@@ -377,22 +523,31 @@ def serve_flagship(dev, seed: int) -> dict:
     launches, calls = dict(int8_cuda.launches), int8_cuda.calls
     int8_cuda.calls = None
     peak = torch.cuda.max_memory_allocated()
-    log(f"serve launches per batch: {launches}")
+    log(f"serve [{variant}] launches per batch: {launches}")
     want = {'loc': (cfg.BATCH_SIZE, 3),
             'ori': (cfg.BATCH_SIZE, cfg.ORI_BINS_PER_DIM ** 3)}
     for k, shape in want.items():
         if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
             raise RuntimeError(f"serve {k}: {tuple(out[k].shape)}, finite "
                                f"{bool(torch.isfinite(out[k]).all())}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"the serving path missed a kernel: {launches}")
-    flt = qm.float_twin(images[:8])
-    log("serve int8 vs float twin on 8 images (random weights, not gated): "
-        + ", ".join(f"{k} rel {rel(out[k][:8], flt[k]):.4f}" for k in flt))
+    want_stem = 0 if variant == 'base' else 1
+    if min(launches['gemm_s8'], launches['conv_s8']) < 1 \
+            or launches['stem_s8'] != want_stem:
+        raise RuntimeError(f"the {variant} serving path must launch gemm_s8 "
+                           f"and conv_s8, and stem_s8 {want_stem} times a "
+                           f"batch: {launches}")
+    flt = qm.float_twin(engine._host_s2d_maybe(images[:8]))
+    rels = {k: rel(out[k][:8], flt[k]) for k in flt}
+    log(f"serve [{variant}] int8 vs float twin on 8 images (random weights, "
+        f"gate {quant.RANDOM_INIT_GATE_REL}): "
+        + ", ".join(f"{k} rel {v:.4f}" for k, v in rels.items()))
+    if max(rels.values()) >= quant.RANDOM_INIT_GATE_REL:
+        raise RuntimeError(f"serve [{variant}]: int8 vs float twin {rels} "
+                           "over the random-init gate")
     t0 = time.perf_counter()
     loc, q = evaluate.decode_results(out, cfg)
     scores = evaluate.esa_scores(loc, q, loc_gt, q_gt)
-    log(f"decode + ESA of {cfg.BATCH_SIZE} poses: "
+    log(f"serve [{variant}] decode + ESA of {cfg.BATCH_SIZE} poses: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms host wall; mean ESA "
         f"{scores['mean_esa']:.4f}, mean loc err {scores['mean_loc_err']:.3f}"
         f" m, mean ori err {scores['mean_ori_err_deg']:.2f} deg (random "
@@ -400,7 +555,30 @@ def serve_flagship(dev, seed: int) -> dict:
     if not np.isfinite(scores['esa']).all():
         raise RuntimeError("non-finite ESA scores")
     return {'engine': engine, 'images': images, 'launches': launches,
-            'calls': calls, 'peak': peak}
+            'calls': calls, 'peak': peak, 'out': out}
+
+
+def check_device_s2d(dev, served) -> ServingEngine:
+    """The `s2d` variant (the device packs the pixels) on the weights and
+    scales of the served `host_s2d` model: the same bits on one batch.
+    Returns the `s2d` engine."""
+    host, images = served['engine'], served['images']
+    cfg = presets.serving_config(variant='s2d')
+    eng = ServingEngine(cfg, dev)
+    eng.qmodel = quant.QuantizedModel(cfg, host.qmodel.flat, dev)
+    eng.qmodel.act_scales = dict(host.qmodel.act_scales)
+    int8_cuda.reset_counts()
+    out = eng.predict_molded(images)
+    torch.cuda.synchronize()
+    if int8_cuda.launches['stem_s8'] != 1:
+        raise RuntimeError(f"s2d did not run stem_s8: {int8_cuda.launches}")
+    for k, v in served['out'].items():
+        diff = int((out[k] != v).sum())
+        log(f"serve [s2d] vs [host_s2d] {k}: {diff} of {v.numel()} values "
+            "differ")
+        if diff:
+            raise RuntimeError(f"s2d and host_s2d disagree on {k}")
+    return eng
 
 
 # --------------------------------------------------------------------------
@@ -463,6 +641,18 @@ def _int8_call(name, a, dev, rng):
     library fn or None, operations, bytes). The bytes count each input
     once (activations, weights, epilogue vectors, residual) and each
     output once."""
+    if name == 'stem_s8':
+        b, h2, w2 = a['b'], a['h2'], a['w2']
+        x, wt = stem_operands(dev, rng, b, h2, w2)
+        kw = stem_args(dev, rng, a['mode'])
+        ph, pw = -(-h2 // 2), -(-w2 // 2)
+
+        def plain():   # 32 images at a time: the float64 conv is large
+            return torch.cat([int8_cuda.stem_s8_torch(x[i:i + 32], wt, **kw)
+                              for i in range(0, b, 32)])
+        return (lambda: int8_cuda.stem_s8(x, wt, **kw), plain, None,
+                2 * b * h2 * w2 * 192 * 64,
+                b * h2 * w2 * 12 + b * ph * pw * 64 + 192 * 64 + 8 * 64)
     ep = a['epilogue']
     if name == 'gemm_s8':
         m, k, n = a['m'], a['k'], a['n']
@@ -491,16 +681,24 @@ def _int8_call(name, a, dev, rng):
             None, ops, nbytes + 8 * n + (m * n if ep == 'join' else 0))
 
 
+# The 1x1 convs whose ReLU + requantize runs in gemm_s8's epilogue: what
+# tools/probe_pallas_c2.py::matmul_requant_kernel computes. A subset of
+# gemm_s8's launches, listed apart.
+C2_REQUANT = 'gemm_s8_q8_relu'
+
+
 def time_int8_kernels(calls, dev, rng, card) -> dict:
     """Each int8 kernel's time per served batch: every distinct call of
     one served batch timed once on fresh operands of its shapes (kernel
     by 10 launches, plain version by 1, torch._int_mm by 10 for the GEMM)
     and weighted by how often the batch makes it. Bound per call: the
-    larger of operations at 1979 TOP/s and bytes at 3.35 TB/s."""
+    larger of operations at 1979 TOP/s and bytes at 3.35 TB/s. gemm_s8's
+    q8_relu calls are also summed apart, under C2_REQUANT."""
     groups = Counter((name, tuple(sorted(a.items()))) for name, a in calls)
     tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
-                   t_ops=0.0, library_ms=0.0 if k == 'gemm_s8' else None)
-           for k in int8_cuda.launches}
+                   t_ops=0.0, launches=0,
+                   library_ms=0.0 if k.startswith('gemm_s8') else None)
+           for k in (*int8_cuda.launches, C2_REQUANT)}
     for (name, items), count in sorted(groups.items()):
         a = dict(items)
         fn, plain, lib, ops, nbytes = _int8_call(name, a, dev, rng)
@@ -517,8 +715,12 @@ def time_int8_kernels(calls, dev, rng, card) -> dict:
                                           if lib is not None else
                                           "no library int8 conv")
             + f", {ops / t['ms'] / 1e9:.1f} TOP/s {card}")
-        for k, v in t.items():
-            tot[name][k] += count * v
+        rows = [name] + ([C2_REQUANT] if name == 'gemm_s8'
+                         and a['epilogue'] == 'q8_relu' else [])
+        for row in rows:
+            tot[row]['launches'] += count
+            for k, v in t.items():
+                tot[row][k] += count * v
         del fn, plain, lib
         torch.cuda.empty_cache()
     for t in tot.values():
@@ -528,10 +730,11 @@ def time_int8_kernels(calls, dev, rng, card) -> dict:
 
 
 def time_serving(engine, images, dev) -> dict:
-    """Median int8 forward time of a device-resident batch over
-    SERVE_ITERS calls after 2 warm-up calls (CUDA events), and the host
-    wall time of predict_molded from host uint8 (copy included)."""
-    x = torch.from_numpy(images).to(dev)
+    """Median int8 forward time of a device-resident batch (packed on
+    the host first under host_s2d) over SERVE_ITERS calls after 2 warm-up
+    calls (CUDA events), and the host wall time of predict_molded from
+    host uint8 (reindex and copy included)."""
+    x = torch.from_numpy(engine._host_s2d_maybe(images)).to(dev)
     qm = engine.qmodel
     times = []
     for i in range(2 + SERVE_ITERS):
@@ -551,6 +754,67 @@ def time_serving(engine, images, dev) -> dict:
         host.append((time.perf_counter() - t0) * 1e3)
     return {'median_ms': statistics.median(times), 'all_ms': times,
             'host_ms': statistics.median(host)}
+
+
+def _bound(ops, nbytes, rate) -> dict:
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {'bound_ms': max(t_ops, t_bytes),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def time_block(dev, card, batch=128, h=128, w=160) -> dict:
+    """block_s8 at the probe's shape: the kernel, its plain version (16
+    images at a time: the float64 products are large) and the bound from
+    x read once, out written once and 2 * 139,264 operations a pixel.
+    PyTorch has no int8 convolution on the card: no library call."""
+    ops = fused_block.operands(batch, h, w, 0, dev)
+
+    def plain():
+        return torch.cat([fused_block.block_s8_torch(ops[0][i:i + 16],
+                                                     *ops[1:])
+                          for i in range(0, batch, 16)])
+    nbytes, nops = fused_block.block_bytes_ops(batch, h, w)
+    out = {'ms': cuda_ms(lambda: fused_block.block_s8(*ops), 10),
+           'plain_ms': cuda_ms(plain, 1, 1), 'library_ms': None,
+           **_bound(nops, nbytes, INT8_OP_PER_S)}
+    log(f"block_s8 {batch}x{h}x{w}x256: kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ("
+        f"{out['bound_by']}: {nbytes} B at 3.35 TB/s, {nops} op at 1979 "
+        f"TOP/s), no library int8 conv, {nbytes / out['ms'] / 1e6:.1f} GB/s "
+        f"{card}")
+    return out
+
+
+def time_mma_rate(kind, dev, card, mnk=(1024, 1024, 512), iters=512) -> dict:
+    """mma_rate of one kind at the probes' largest shape: the kernel, its
+    plain version, the one PyTorch call that gives the same values
+    (torch._int_mm or a bf16 matmul, times iters; none for int4) and the
+    bound: replicas * 2mnk * iters operations at the card's rate for the
+    type (int4 has no rate of its own on this card: the int8 rate), the
+    operands read once and every replica's output written once."""
+    m, n, k = mnk
+    a, b = mma_rate.operands(kind, m, n, k, 0, dev)
+    replicas = mma_rate.mma_rate(a, b, 1, kind, all_replicas=True).shape[0]
+    elt = 2 if kind == 'bf16' else 1
+    ops = replicas * 2 * m * n * k * iters
+    nbytes = (m * k + k * n) * elt + replicas * m * n * 4
+    rate = BF16_FLOP_PER_S if kind == 'bf16' else INT8_OP_PER_S
+    out = {'ms': cuda_ms(lambda: mma_rate.mma_rate(a, b, iters, kind), 5, 1),
+           'plain_ms': cuda_ms(lambda: mma_rate.mma_rate_torch(
+               a, b, iters, kind), 3, 1),
+           'library_ms': None, **_bound(ops, nbytes, rate)}
+    if kind == 's8':
+        out['library_ms'] = cuda_ms(lambda: torch._int_mm(a, b) * iters, 5, 1)
+    elif kind == 'bf16':
+        out['library_ms'] = cuda_ms(
+            lambda: torch.matmul(a, b).float() * iters, 5, 1)
+    lib = "null" if out['library_ms'] is None else f"{out['library_ms']:.4f}"
+    log(f"mma_rate {kind} {m}x{n}x{k} iters {iters} x {replicas} replicas: "
+        f"kernel {out['ms']:.4f} ms ({ops / out['ms'] / 1e9:.1f} TOP/s), "
+        f"plain {out['plain_ms']:.4f} ms, library (one product, times "
+        f"iters) {lib} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}) {card}")
+    return out
 
 
 def check_warp(dev, rng, K) -> float:
@@ -652,7 +916,10 @@ def main(argv=None) -> int:
     warp_err = check_warp(dev, rng, K)
     t0 = time.perf_counter()
     int8_err = check_int8_kernels(dev, rng)
-    log(f"int8 kernel checks: {time.perf_counter() - t0:.1f} s")
+    stem_err = check_stem_kernel(dev, rng)
+    block_err = check_block_kernel(dev)
+    rate_err = check_mma_rate(dev)
+    log(f"int8 and rate kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. train path
     torch.cuda.reset_peak_memory_stats()
@@ -672,7 +939,8 @@ def main(argv=None) -> int:
     train_ms = time_train(res, args.seed)
     log(f"train step: median {train_ms:.3f} ms over 10 steps after 2 "
         f"warm-up, {FLAGSHIP_BATCH / train_ms * 1e3:.2f} imgs/s, batch "
-        f"{FLAGSHIP_BATCH} 512x640 {card}")
+        f"{FLAGSHIP_BATCH} 512x640 {card} (before the s2d variants and the "
+        f"probes existed: {EARLIER_TRAIN_MS} ms {EARLIER_CARD})")
     log(f"train peak memory allocated: {peak} bytes "
         f"({peak / 2**30:.2f} GiB) {card}")
     del res
@@ -682,24 +950,61 @@ def main(argv=None) -> int:
     serve_artifact(dev)
 
     # 6. serving path at full width and batch
-    served = serve_flagship(dev, args.seed)
-    int8_launches, peak = served['launches'], served['peak']
-    t = time_serving(served['engine'], served['images'], dev)
-    batch = len(served['images'])
-    log(f"serve int8 batch {batch} 512x640: median {t['median_ms']:.3f} ms "
-        f"over {SERVE_ITERS} calls after 2 warm-up (device-resident input), "
-        f"{batch / t['median_ms'] * 1e3:.2f} imgs/s {card}")
-    log(f"serve calls (ms): {' '.join(f'{v:.3f}' for v in t['all_ms'])}")
-    log(f"serve predict_molded from host uint8 (copy included): median "
-        f"{t['host_ms']:.3f} ms host wall over 3, "
-        f"{batch / t['host_ms'] * 1e3:.2f} imgs/s {card}")
-    log(f"serve peak memory allocated: {peak} bytes "
-        f"({peak / 2**30:.2f} GiB) {card}")
-    calls = served['calls']
-    del served
-    torch.cuda.empty_cache()
+    int8_launches, calls, serve_ms = {}, [], {}
+    for variant in ('base', 'host_s2d'):
+        served = serve_flagship(dev, args.seed, variant)
+        if variant == 'host_s2d':
+            t = time_serving(check_device_s2d(dev, served), served['images'],
+                             dev)
+            log(f"serve [s2d] int8 batch {len(served['images'])} 512x640 "
+                f"(the device packs the pixels): median {t['median_ms']:.3f} "
+                f"ms over {SERVE_ITERS} calls after 2 warm-up; "
+                f"predict_molded from host uint8 {t['host_ms']:.3f} ms host "
+                f"wall {card}")
+        peak = served['peak']
+        t = time_serving(served['engine'], served['images'], dev)
+        batch = len(served['images'])
+        serve_ms[variant] = t['median_ms']
+        log(f"serve [{variant}] int8 batch {batch} 512x640: median "
+            f"{t['median_ms']:.3f} ms over {SERVE_ITERS} calls after 2 "
+            f"warm-up (device-resident input), "
+            f"{batch / t['median_ms'] * 1e3:.2f} imgs/s {card}")
+        log(f"serve [{variant}] calls (ms): "
+            f"{' '.join(f'{v:.3f}' for v in t['all_ms'])}")
+        log(f"serve [{variant}] predict_molded from host uint8 (reindex and "
+            f"copy included): median {t['host_ms']:.3f} ms host wall over 3, "
+            f"{batch / t['host_ms'] * 1e3:.2f} imgs/s {card}")
+        log(f"serve [{variant}] peak memory allocated: {peak} bytes "
+            f"({peak / 2**30:.2f} GiB) {card}")
+        # gemm_s8 and conv_s8 are counted and timed on the base path,
+        # stem_s8 on the host_s2d path
+        for name, count in served['launches'].items():
+            if (name == 'stem_s8') == (variant == 'host_s2d'):
+                int8_launches[name] = count
+        calls += [c for c in served['calls']
+                  if (c[0] == 'stem_s8') == (variant == 'host_s2d')]
+        del served
+        torch.cuda.empty_cache()
+    log(f"serve base {serve_ms['base']:.3f} ms vs host_s2d "
+        f"{serve_ms['host_s2d']:.3f} ms per batch of {batch} in this run "
+        f"{card} (base before the s2d variants existed: {EARLIER_SERVE_MS} "
+        f"ms {EARLIER_CARD})")
 
-    # 7. numbers per kernel
+    # 7. the kernel-probe entry points at their own shapes
+    fused_block.reset_counts()
+    mma_rate.reset_counts()
+    t0 = time.perf_counter()
+    for probe in (fused_block, int8_mma, int4_mma):
+        log(f"probe {probe.__name__}:")
+        probe.main([])
+    torch.cuda.synchronize()
+    probe_launches = {**fused_block.launches, **mma_rate.launches}
+    log(f"probes: {time.perf_counter() - t0:.1f} s, launches "
+        f"{probe_launches}")
+    if min(probe_launches.values()) < 1:
+        raise RuntimeError(f"a probe missed its kernel: {probe_launches}")
+
+    # 8. numbers per kernel
     b, c, h, w = FLAGSHIP_BATCH, 3, 512, 640
     imgs = torch.from_numpy(
         (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
@@ -714,6 +1019,7 @@ def main(argv=None) -> int:
     on_path = timed[cfg.WARP_INTERPOLATION]
     del imgs, Ms
     int8 = time_int8_kernels(calls, dev, rng, card)
+    int8_launches[C2_REQUANT] = int8[C2_REQUANT]['launches']
     for name, tk in int8.items():
         lib = (f"{tk['library_ms']:.4f}" if tk['library_ms'] is not None
                else "null")
@@ -721,6 +1027,9 @@ def main(argv=None) -> int:
             f"kernel {tk['ms']:.4f} ms, plain {tk['plain_ms']:.4f} ms, bound "
             f"{tk['bound_ms']:.4f} ms ({tk['bound_by']}), library {lib} ms "
             f"{card}")
+
+    block = time_block(dev, card)
+    rates = {kind: time_mma_rate(kind, dev, card) for kind in mma_rate.KINDS}
 
     keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     kernels = [{
@@ -733,16 +1042,40 @@ def main(argv=None) -> int:
         "name": "gemm_s8", "route": "cuda",
         "source": "ursonet_torch/csrc/int8_gemm.cu",
         "replaces": "tools/probe_pallas_int8_matmul.py:45",
-        "also_replaces": "tools/probe_pallas_c2.py:39",
         "launches": int8_launches['gemm_s8'], "max_abs_err": int8_err,
         **{k: int8['gemm_s8'][k] for k in keys},
+    }, {
+        "name": C2_REQUANT, "route": "cuda",
+        "source": "ursonet_torch/csrc/int8_gemm.cu",
+        "replaces": "tools/probe_pallas_c2.py:39",
+        "launches": int8_launches[C2_REQUANT], "max_abs_err": int8_err,
+        **{k: int8[C2_REQUANT][k] for k in keys},
     }, {
         "name": "conv_s8", "route": "cuda",
         "source": "ursonet_torch/csrc/int8_conv.cu",
         "replaces": "tools/probe_pallas_conv3.py:45",
         "launches": int8_launches['conv_s8'], "max_abs_err": int8_err,
         **{k: int8['conv_s8'][k] for k in keys},
-    }]
+    }, {
+        "name": "stem_s8", "route": "cuda",
+        "source": "ursonet_torch/csrc/int8_stem.cu",
+        "replaces": "tools/probe_pallas_stem.py:55",
+        "launches": int8_launches['stem_s8'], "max_abs_err": stem_err,
+        **{k: int8['stem_s8'][k] for k in keys},
+    }, {
+        "name": "block_s8", "route": "cuda",
+        "source": "ursonet_torch/csrc/int8_block.cu",
+        "replaces": "tools/probe_fused_block.py:60",
+        "launches": probe_launches['block_s8'], "max_abs_err": block_err,
+        **{k: block[k] for k in keys},
+    }] + [{
+        "name": f"mma_rate_{kind}", "route": "cuda",
+        "source": "ursonet_torch/csrc/mma_rate.cu",
+        "replaces": ("tools/probe_int4_mxu.py:102" if kind == 's4'
+                     else "tools/probe_int8_mxu.py:38"),
+        "launches": probe_launches[f'mma_rate_{kind}'],
+        "max_abs_err": rate_err[kind], **{k: rates[kind][k] for k in keys},
+    } for kind in mma_rate.KINDS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,18 +2,23 @@
 """Where the time of the flagship train step, or of int8 serving, goes
 on the card.
 
-    python3 profile_step.py [--serve] [--steps 3] [--seed 0] [--trace PATH]
+    python3 profile_step.py [--serve [--variant base host_s2d]] [--steps 3]
+                            [--seed 0] [--trace PATH]
 
 Without --serve: builds benchmark_config(3) at full width (ResNet-50,
 512×640, batch 32) as chip_smoke.py does, runs 3 warm-up steps, then
 traces --steps train steps. With --serve: quantizes serving_config()
 (batch 128, seeded random weights, calibrate + smooth(0.5)) as
 chip_smoke.py does, serves 3 warm-up batches of device-resident uint8
-images, then traces --steps served batches. Prints, with torch.profiler:
-the device time by PyTorch operator and by kernel (top rows), the device
-time of each kernel family, and the share of the traced window in which
-the card ran no kernel. --trace writes the Chrome trace. Needs a CUDA
-card.
+images, then traces --steps served batches; --variant names one or more
+of the serving variants (base, s2d, host_s2d), profiled one after the
+other in the same process, each followed by the device time and the
+kernel launches of its stem section alone (input quantize, stem conv,
+ReLU + requantize, maxpool), so the variants read side by side. Prints,
+with torch.profiler: the device time by PyTorch operator and by kernel
+(top rows), the device time of each kernel family, and the share of the
+traced window in which the card ran no kernel. --trace writes the Chrome
+trace (of the last variant). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import argparse
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -30,10 +36,12 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from ursonet_torch import presets
 from ursonet_torch.engine import ServingEngine
+from ursonet_torch.models import quant
 
 # Kernel families by substrings of the kernel name, first match wins.
 FAMILIES = (
     ('warp kernel (ours)', ('warp_homography',)),
+    ('int8 stem kernel (ours)', ('stem_s8_kernel',)),
     ('int8 conv kernel (ours)', ('conv_s8_kernel',)),
     ('int8 GEMM kernel (ours)', ('gemm_s8_kernel',)),
     ('maxpool', ('max_pool',)),
@@ -72,6 +80,93 @@ def busy_share(kernels) -> tuple[float, float]:
     return busy, spans[-1][1] - spans[0][0] if spans else 0.0
 
 
+def device_kernels(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def report(prof, steps, unit, trace=None) -> None:
+    print(prof.key_averages().table(sort_by='self_device_time_total',
+                                    row_limit=20))
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    by_name, by_fam = {}, {}
+    for k in kernels:
+        dur = k.time_range.end - k.time_range.start
+        by_name[k.name] = by_name.get(k.name, 0.0) + dur
+        fam = family(k.name)
+        by_fam[fam] = by_fam.get(fam, 0.0) + dur
+    total = sum(by_fam.values())
+    print(f"device kernel time: {total / 1e3 / steps:.3f} ms per {unit} "
+          f"over {len(kernels)} kernel launches")
+    for fam, us in sorted(by_fam.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:28s} {us / 1e3 / steps:9.3f} ms/{unit} "
+              f"{us / total:7.2%}")
+    print("top kernels:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {us / 1e3 / steps:9.3f} ms/{unit}  {name[:110]}")
+    busy, window = busy_share(kernels)
+    print(f"device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms "
+          f"kernel window: idle share {1 - busy / window:.4f}")
+    if trace:
+        prof.export_chrome_trace(trace)
+        print(f"trace: {trace}")
+
+
+def traced(run, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            run(i)
+        torch.cuda.synchronize()
+    return prof, (time.perf_counter() - t0) * 1e3
+
+
+def stem_section(qm, x):
+    """The int8 model's stem section alone on a device-resident batch:
+    input quantize, stem conv, ReLU + requantize onto conv1/out, 3x3/2
+    maxpool. Returns the pooled int8 activations."""
+    ops = quant.Int8Ops(qm._prepared_q(), {}, qm.act_scales,
+                        mean_pixel=qm._mcfg['mean_pixel'], alphas=qm._alphas,
+                        fused_stem=qm._mcfg['stem_s2d'])
+    with quant.no_tf32(), torch.no_grad():
+        y = quant._stem(ops, ops.input(x), qm._mcfg, 'conv1')
+        return ops.maxpool(ops.relu(y, 'conv1/out')).arr
+
+
+def profile_serving(variant, args, smi) -> None:
+    cfg = presets.serving_config(variant=variant)
+    rng = np.random.RandomState(args.seed)
+    h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+    images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
+    engine = ServingEngine(cfg, 'cuda', generator=torch.Generator()
+                           .manual_seed(args.seed))
+    engine.quantize(list(images[:8]))
+    engine.qmodel.smooth(0.5)
+    x = torch.from_numpy(engine._host_s2d_maybe(images)).cuda()
+    qm = engine.qmodel
+    for _ in range(3):
+        qm(x)
+    prof, wall_ms = traced(lambda i: qm(x), args.steps)
+    print(f"card: {smi}; serve [{variant}]: {args.steps} traced served "
+          f"batches of {cfg.BATCH_SIZE}, host wall {wall_ms:.3f} ms")
+    report(prof, args.steps, 'batch', args.trace)
+    stem_ms = cs.cuda_ms(lambda: stem_section(qm, x), 10)
+    prof, _ = traced(lambda i: stem_section(qm, x), 1)
+    kernels = device_kernels(prof)
+    fams = Counter(family(k.name) for k in kernels)
+    dev_ms = sum(k.time_range.end - k.time_range.start for k in kernels) / 1e3
+    print(f"serve [{variant}] stem section alone (input quantize, stem conv, "
+          f"ReLU + requantize, maxpool), batch {cfg.BATCH_SIZE}: "
+          f"{dev_ms:.3f} ms device kernel time in {len(kernels)} launches ("
+          + ', '.join(f"{n} x{c}" for n, c in sorted(fams.items()))
+          + f"); {stem_ms:.3f} ms a call by CUDA events, mean of 10, host "
+          f"gaps included [{smi}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--steps', type=int, default=3)
@@ -79,6 +174,9 @@ def main(argv=None) -> int:
     ap.add_argument('--trace', default=None)
     ap.add_argument('--serve', action='store_true',
                     help='profile int8 serving instead of the train step')
+    ap.add_argument('--variant', nargs='+', default=['base'],
+                    choices=presets.SERVING_VARIANTS,
+                    help='with --serve: the serving variants to profile')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -90,67 +188,18 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.serve:
-        cfg = presets.serving_config()
-        rng = np.random.RandomState(args.seed)
-        h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
-        images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
-        engine = ServingEngine(cfg, 'cuda', generator=torch.Generator()
-                               .manual_seed(args.seed))
-        engine.quantize(list(images[:8]))
-        engine.qmodel.smooth(0.5)
-        x = torch.from_numpy(images).cuda()
-
-        def run(i):
-            engine.qmodel(x)
-        what, unit = f"served batches of {cfg.BATCH_SIZE}", "batch"
-    else:
-        res = cs.run_main_path(cs.flagship_config(), 'cuda', args.seed,
-                               steps=3)
-        step, raw = res['step'], res['raw']
-        gen = torch.Generator()
-
-        def run(i):
-            step(raw, gen.manual_seed(args.seed + 10 + i))
-        what, unit = "train steps", "step"
-    for i in range(3 if args.serve else 0):
-        run(i)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(args.steps):
-            run(i)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    print(f"card: {smi}; {args.steps} traced {what}, host wall "
+        for variant in args.variant:
+            profile_serving(variant, args, smi)
+            torch.cuda.empty_cache()
+        return 0
+    res = cs.run_main_path(cs.flagship_config(), 'cuda', args.seed, steps=3)
+    step, raw = res['step'], res['raw']
+    gen = torch.Generator()
+    prof, wall_ms = traced(
+        lambda i: step(raw, gen.manual_seed(args.seed + 10 + i)), args.steps)
+    print(f"card: {smi}; {args.steps} traced train steps, host wall "
           f"{wall_ms:.3f} ms")
-    print(prof.key_averages().table(sort_by='self_device_time_total',
-                                    row_limit=20))
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device time")
-    by_name, by_fam = {}, {}
-    for k in kernels:
-        dur = k.time_range.end - k.time_range.start
-        by_name[k.name] = by_name.get(k.name, 0.0) + dur
-        fam = family(k.name)
-        by_fam[fam] = by_fam.get(fam, 0.0) + dur
-    total = sum(by_fam.values())
-    print(f"device kernel time: {total / 1e3 / args.steps:.3f} ms per {unit} "
-          f"over {len(kernels)} kernel launches")
-    for fam, us in sorted(by_fam.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:28s} {us / 1e3 / args.steps:9.3f} ms/{unit} "
-              f"{us / total:7.2%}")
-    print("top kernels:")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {us / 1e3 / args.steps:9.3f} ms/{unit}  {name[:110]}")
-    busy, window = busy_share(kernels)
-    print(f"device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms "
-          f"kernel window: idle share {1 - busy / window:.4f}")
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-        print(f"trace: {args.trace}")
+    report(prof, args.steps, 'step', args.trace)
     return 0
 
 

@@ -14,6 +14,8 @@ import torch
 import chip_smoke
 from ursonet_torch.ops import augment
 from ursonet_torch.ops import warp_cuda as wc
+from ursonet_torch.probes import fused_block as fb
+from ursonet_torch.probes import mma_rate as mr
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -167,3 +169,166 @@ def test_small_int8_serve_launches_both_kernels(cuda_device):
     for k in out:
         assert torch.isfinite(out[k]).all()
         torch.testing.assert_close(out[k], plain[k], rtol=1e-6, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the fused stem (csrc/int8_stem.cu)
+
+
+def _stem_operands(dev, rng, b, h2, w2):
+    x = torch.from_numpy(rng.randint(0, 256, (b, h2, w2, 12))
+                         .astype(np.uint8)).to(dev)
+    w = ic.kernel_layout(rng.randint(-127, 128, (4, 4, 12, 64))
+                         .astype(np.int8)).to(dev)
+    return x, w
+
+
+@pytest.mark.parametrize('mode', list(ic.STEM_MODES))
+@pytest.mark.parametrize('b,h2,w2', [(2, 64, 32), (3, 37, 51), (1, 5, 3),
+                                     (2, 16, 34), (1, 256, 320)])
+def test_stem_s8_matches_plain(cuda_device, b, h2, w2, mode):
+    """Even, odd and tiny sizes (tiles that overhang every border, the
+    (1, 1) pool padding of odd sizes), both input modes: bit-exact."""
+    rng = np.random.RandomState(b * h2 + w2)
+    x, w = _stem_operands(cuda_device, rng, b, h2, w2)
+    kw = chip_smoke.stem_args(cuda_device, rng, mode)
+    before = ic.launches['stem_s8']
+    got = ic.stem_s8(x, w, **kw)
+    torch.cuda.synchronize()
+    assert ic.launches['stem_s8'] == before + 1
+    want = ic.stem_s8_torch(x, w, **kw)
+    assert got.shape == (b, -(-h2 // 2), -(-w2 // 2), 64)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert int(got.max()) > 0
+
+
+def test_stem_s8_rejects_what_it_does_not_take(cuda_device):
+    rng = np.random.RandomState(0)
+    x, w = _stem_operands(cuda_device, rng, 1, 8, 8)
+    kw = chip_smoke.stem_args(cuda_device, rng, 'calibrated')
+    with pytest.raises(ValueError):
+        ic.stem_s8(x.to(torch.int8), w, **kw)                 # not uint8
+    with pytest.raises(ValueError):
+        ic.stem_s8(x[..., :3].contiguous(), w, **kw)          # not packed
+    with pytest.raises(ValueError):
+        ic.stem_s8(x, w.contiguous(), **kw)                   # HWIO memory
+    with pytest.raises(ValueError):
+        ic.stem_s8(x, w, **dict(kw, mode='bogus'))
+    with pytest.raises(ValueError):
+        ic.stem_s8(x, w, **dict(kw, mean=(1.0, 2.0, 3.0)))
+    with pytest.raises(ValueError):
+        ic.stem_s8(x, w, **dict(kw, alpha=kw['alpha'].cpu()))
+
+
+@pytest.mark.parametrize('variant', ['s2d', 'host_s2d'])
+def test_small_s2d_serve_launches_the_stem(cuda_device, variant):
+    """A small int8 serve of the s2d variants through the engine: one
+    stem_s8 launch per batch, outputs equal to the plain path's and, bit
+    for bit in the int8 body, to the base variant's."""
+    from ursonet_torch.engine import ServingEngine
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    outs = {}
+    for v in ('base', variant):
+        cfg = chip_smoke.small_serving_config(v)
+        eng = ServingEngine(cfg, cuda_device,
+                            generator=torch.Generator().manual_seed(0))
+        eng.quantize(list(imgs))
+        ic.reset_counts()
+        outs[v] = eng.predict_molded(imgs)
+        torch.cuda.synchronize()
+        assert ic.launches['stem_s8'] == (0 if v == 'base' else 1)
+        plain = eng.qmodel(eng._host_s2d_maybe(imgs), plain=True)
+        for k in plain:
+            torch.testing.assert_close(outs[v][k], plain[k], rtol=1e-6,
+                                       atol=1e-6)
+    for k in outs['base']:
+        assert torch.isfinite(outs[variant][k]).all()
+
+
+# --------------------------------------------------------------------------
+# the fused bottleneck block (csrc/int8_block.cu)
+
+@pytest.mark.parametrize('b,h,w', [(1, 8, 16), (2, 13, 21), (1, 3, 5),
+                                   (3, 24, 40), (1, 128, 160)])
+def test_block_s8_matches_plain_and_unfused(cuda_device, b, h, w):
+    """One tile, ragged tiles on every border, an image smaller than a
+    tile, many tiles: equal to the plain version and to the unfused
+    route through gemm_s8 / conv_s8, bit for bit."""
+    ops = fb.operands(b, h, w, seed=b * h + w, device=cuda_device)
+    before = fb.launches['block_s8']
+    got = fb.block_s8(*ops)
+    torch.cuda.synchronize()
+    assert fb.launches['block_s8'] == before + 1
+    assert torch.equal(got, fb.block_s8_torch(*ops))
+    assert torch.equal(got, fb.block_s8_unfused(*ops))
+    assert 0 < int(got.max()) <= 127 and int(got.min()) >= 0
+
+
+def test_block_s8_rejects_what_it_does_not_take(cuda_device):
+    x, w1, w2, w3, ab = fb.operands(1, 8, 8, 0, cuda_device)
+    with pytest.raises(ValueError):
+        fb.block_s8(x[..., :128].contiguous(), w1, w2, w3, ab)   # Cin 128
+    with pytest.raises(ValueError):
+        fb.block_s8(x, w1.contiguous(), w2, w3, ab)          # row-major [K,N]
+    with pytest.raises(ValueError):
+        fb.block_s8(x, w1, w2, w3, ab[:, :64].contiguous())
+    with pytest.raises(ValueError):
+        fb.block_s8(x.float(), w1, w2, w3, ab)
+    with pytest.raises(ValueError):
+        fb.block_s8(x, w1, w2, w3.cpu(), ab)
+
+
+# --------------------------------------------------------------------------
+# the tensor-core rate loops (csrc/mma_rate.cu)
+
+
+@pytest.mark.parametrize('kind', list(mr.KINDS))
+@pytest.mark.parametrize('m,n,k', [(128, 128, 64), (256, 256, 256),
+                                   (128, 256, 1024), (64, 128, 2048)])
+def test_mma_rate_matches_plain(cuda_device, kind, m, n, k):
+    """Every block tile (K picks it), iters 0, 1 and 4: the integer kinds
+    exact in every replica; bf16 within 1e-5 of the output's largest
+    magnitude (f32 accumulation in another order)."""
+    if kind == 'bf16':
+        k //= 2         # 2 bytes a value: the same rows in shared memory
+    bm, bn = mr.tile_for(kind, k)
+    m, n = -(-m // bm) * bm, -(-n // bn) * bn
+    a, b = mr.operands(kind, m, n, k, seed=m + k, device=cuda_device)
+    for iters in (0, 1, 4):
+        before = mr.launches['mma_rate_' + kind]
+        got = mr.mma_rate(a, b, iters, kind, replicas=3, all_replicas=True)
+        torch.cuda.synchronize()
+        assert mr.launches['mma_rate_' + kind] == before + 1
+        want = mr.mma_rate_torch(a, b, iters, kind)
+        assert got.shape == (3, m, n) and got.dtype == want.dtype
+        for r in range(3):
+            if kind == 'bf16':
+                tol = 1e-5 * max(float(want.abs().max()), 1.0)
+                assert float((got[r] - want).abs().max()) <= tol
+            else:
+                assert torch.equal(got[r], want)
+
+
+def test_mma_rate_wraps_int32(cuda_device):
+    """Saturated operands overflow int32 within the loop; the kernel wraps
+    as the plain version says."""
+    a = torch.full((128, 512), 127, dtype=torch.int8, device=cuda_device)
+    b = torch.full((128, 512), 127, dtype=torch.int8, device=cuda_device).t()
+    got = mr.mma_rate(a, b, 512, 's8')
+    want = mr.mma_rate_torch(a, b, 512, 's8')
+    assert 127 * 127 * 512 * 512 > 2 ** 31 and torch.equal(got, want)
+
+
+def test_mma_rate_rejects_what_it_does_not_take(cuda_device):
+    a, b = mr.operands('s8', 128, 128, 64, 0, cuda_device)
+    with pytest.raises(ValueError):
+        mr.mma_rate(a, b, 1, 'fp8')
+    with pytest.raises(ValueError):
+        mr.mma_rate(a, b.contiguous(), 1, 's8')            # row-major [K,N]
+    with pytest.raises(ValueError):
+        mr.mma_rate(a[:100], b, 1, 's8')                   # M not a tile
+    with pytest.raises(ValueError):
+        mr.mma_rate(a, b, 1, 'bf16')                       # int8 operands
+    with pytest.raises(ValueError):
+        mr.mma_rate(a[:, :48].contiguous(), b[:48], 1, 's8')   # K % 32

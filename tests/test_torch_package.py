@@ -188,3 +188,60 @@ def test_chip_smoke_serving_cases_follow_the_flagship():
     small = chip_smoke.small_serving_config()
     assert small.BATCH_SIZE == 2 and tuple(small.IMAGE_SHAPE[:2]) == (64, 64)
     assert small.REGRESS_LOC and not small.REGRESS_ORI
+
+
+def test_kernel_modules_import_and_run_on_cpu_without_building():
+    """Importing the modules that hold kernels, and calling their
+    wrappers on CPU tensors, starts no compiler and loads no library."""
+    code = (
+        "import subprocess, sys, json\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started')\n"
+        "subprocess.Popen = subprocess.run = refuse\n"
+        "import numpy as np, torch\n"
+        "from ursonet_torch.ops import cuda_build, int8_cuda, warp_cuda\n"
+        "from ursonet_torch.probes import fused_block, int4_mma, int8_mma, "
+        "mma_rate\n"
+        "x = torch.zeros(1, 4, 6, 12, dtype=torch.uint8)\n"
+        "w = int8_cuda.kernel_layout(np.ones((4, 4, 12, 64), np.int8))\n"
+        "y = int8_cuda.stem_s8(x, w, torch.ones(64), torch.zeros(64))\n"
+        "ops = fused_block.operands(1, 3, 3, 0, 'cpu')\n"
+        "z = fused_block.block_s8(*ops)\n"
+        "a, b = mma_rate.operands('s4', 32, 64, 64, 0, 'cpu')\n"
+        "r = mma_rate.mma_rate(a, b, 2, 's4')\n"
+        "print(json.dumps([list(y.shape), list(z.shape), list(r.shape), "
+        "len(cuda_build._libs), cuda_build.BUILD_DIR.exists(), "
+        "sum(int8_cuda.launches.values()) + "
+        "sum(fused_block.launches.values()) + "
+        "sum(mma_rate.launches.values())]))\n")
+    existed = cuda_build.BUILD_DIR.exists()
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [
+        [1, 2, 3, 64], [1, 3, 3, 256], [32, 64], 0, existed, 0]
+
+
+@pytest.mark.parametrize('probe', ['fused_block', 'int8_mma', 'int4_mma'])
+def test_probe_entry_points_refuse_cpu_fallback(monkeypatch, probe):
+    import importlib
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    mod = importlib.import_module(f'ursonet_torch.probes.{probe}')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mod.main([])
+
+
+def test_serving_variants_set_the_s2d_knobs():
+    knobs = {v: (presets.serving_config(variant=v).QUANT_STEM_S2D,
+                 presets.serving_config(variant=v).QUANT_HOST_S2D)
+             for v in presets.SERVING_VARIANTS}
+    assert knobs == {'base': (False, False), 's2d': (True, False),
+                     'host_s2d': (True, True)}
+    for v in presets.SERVING_VARIANTS:
+        small = chip_smoke.small_serving_config(v)
+        assert small.QUANT_STEM_S2D == knobs[v][0]
+    args = chip_smoke.stem_args(torch.device('cpu'), np.random.RandomState(0),
+                                'shift128')
+    assert args['mean'].shape == (12,) and args['alpha'].shape == (64,)
+    x, w = chip_smoke.stem_operands('cpu', np.random.RandomState(0), 1, 6, 4)
+    assert int8_cuda.stem_s8(x, w, **args).shape == (1, 3, 2, 64)

@@ -209,11 +209,14 @@ def test_requires_calibration_and_refuses_unported(jax_qm):
         qm.bias_correct(_images(0))
     with pytest.raises(NotImplementedError):
         qm.shard_over(None)
-    for knob in ('F16', 'QUANT_S8_JOIN', 'QUANT_BF16_STEM', 'QUANT_STEM_S2D',
-                 'QUANT_HOST_S2D'):
+    for knob in ('F16', 'QUANT_S8_JOIN', 'QUANT_BF16_STEM'):
         _, cfg = small_configs(**{knob: True})
         with pytest.raises(NotImplementedError, match=knob):
             tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')
+    # the space-to-depth stems are served (tests/test_torch_s2d.py)
+    _, cfg = small_configs(QUANT_STEM_S2D=True, QUANT_HOST_S2D=True)
+    mcfg = tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')._mcfg
+    assert mcfg['stem_s2d'] and mcfg['host_s2d']
     _, cfg = small_configs(BACKBONE='resnet18')
     with pytest.raises(NotImplementedError):
         tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')

@@ -11,6 +11,12 @@ that flax writes by itself: maps, arrays, str/bin, ints, floats,
 nil/bool, ext type 1 (ndarray: msgpack (shape, dtype name, C-order
 bytes)), ext type 3 (numpy scalar, the same body) and flax's
 `__msgpack_chunked_array__` dicts. `save_quantized` is not ported yet.
+
+An artifact saved after the space-to-depth rewrite stores its stem
+kernel in (4,4,12,64) form and loads as such: `stem_s2d` and `host_s2d`
+in its `mcfg` are informational (the model derives the first from the
+kernel's shape and the second from the config's QUANT_HOST_S2D), so
+neither is checked against a config knob.
 """
 
 from __future__ import annotations
@@ -162,7 +168,7 @@ def check_mcfg(mcfg: dict, config) -> None:
     for key, val in mcfg.items():
         ckey = _CONFIG_KEYS.get(key)
         if ckey is None:
-            continue  # informational entries (e.g. stem_s2d)
+            continue  # informational entries (stem_s2d, host_s2d, s8_join)
         want = getattr(config, ckey, missing)
         if want is missing:
             raise ValueError(f'artifact/config mismatch: config has no '

@@ -27,6 +27,8 @@ class Config:
     BOTTLENECK_WIDTH = 128
     BRANCH_SIZE = 1024
     NR_DENSE_LAYERS = 1
+    # the stem as its exact space-to-depth rewrite (4×4/1 over 12 channels)
+    STEM_SPACE_TO_DEPTH = False
 
     # --- input resizing ---------------------------------------------------------
     IMAGE_RESIZE_MODE = "pad64"     # none | square | pad64 | crop
@@ -65,9 +67,14 @@ class Config:
     # --- int8 PTQ serving (models/quant.py) -------------------------------------------
     # INT8_U8_INPUT ships served batches as raw uint8 pixels and folds the
     # mean-subtract into the input quantize. The QUANT_* knobs are the JAX
-    # package's serving ablations; this port serves their defaults and
-    # raises NotImplementedError for the others (QUANT_FLOAT_* are read,
-    # checked against artifacts and served).
+    # package's serving ablations. QUANT_STEM_S2D rewrites the 7×7/2 stem
+    # exactly into its 4×4/1 space-to-depth form at quantization time
+    # (needs even H and W); QUANT_HOST_S2D also ships served and
+    # calibration batches already packed ([B,H/2,W/2,12], a numpy
+    # reindex on the host). Under either a uint8 batch runs the fused
+    # stem kernel (ops/int8_cuda.py::stem_s8). QUANT_FLOAT_* are read,
+    # checked against artifacts and served; QUANT_BF16_STEM and
+    # QUANT_S8_JOIN raise NotImplementedError.
     INT8_U8_INPUT = True
     QUANT_STEM_S2D = False
     QUANT_HOST_S2D = False

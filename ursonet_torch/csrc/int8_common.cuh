@@ -1,5 +1,6 @@
-// Shared pieces of the int8 kernels (int8_gemm.cu, int8_conv.cu): the
-// s8 x s8 -> s32 tensor-core tile loop and the fused epilogues.
+// Shared pieces of the int8 kernels (int8_gemm.cu, int8_conv.cu,
+// int8_stem.cu, int8_block.cu): the s8 x s8 -> s32 tensor-core tile loop
+// and the fused epilogues.
 //
 // Tiling. A block of 256 threads (8 warps) computes a BM x BN tile of
 // the output; each warp a WM x WN sub-tile as (WM/16) x (WN/8)
@@ -136,6 +137,24 @@ __device__ __forceinline__ int8_t saturate_s8(float q, float lo) {
   return static_cast<int8_t>(__float2int_rn(fminf(fmaxf(q, lo), 127.f)));
 }
 
+// The q8_relu epilogue on one accumulator.
+__device__ __forceinline__ int8_t requant_relu(int acc, float alpha,
+                                               float beta, float inv_s_out) {
+  const float y = __fmaf_rn(__int2float_rn(acc), alpha, beta);
+  return saturate_s8(rintf(__fmul_rn(fmaxf(y, 0.f), inv_s_out)), 0.f);
+}
+
+// The join epilogue on one accumulator and its residual.
+__device__ __forceinline__ int8_t requant_join(int acc, float alpha,
+                                               float beta, int res,
+                                               float res_scale,
+                                               float inv_s_out) {
+  const float y = __fmaf_rn(__int2float_rn(acc), alpha, beta);
+  const float r = __fmul_rn(__int2float_rn(res), res_scale);
+  const float z = fmaxf(__fadd_rn(y, r), 0.f);
+  return saturate_s8(rintf(__fmul_rn(z, inv_s_out)), 0.f);
+}
+
 __device__ __forceinline__ void epilogue_store(const Epilogue& e,
                                                int64_t idx, int n, int acc) {
   if (e.mode == kS32) {
@@ -150,16 +169,14 @@ __device__ __forceinline__ void epilogue_store(const Epilogue& e,
     static_cast<float*>(e.out)[idx] = fmaxf(y, 0.f);
   } else if (e.mode == kQ8Relu) {
     static_cast<int8_t*>(e.out)[idx] =
-        saturate_s8(rintf(__fmul_rn(fmaxf(y, 0.f), e.inv_s_out)), 0.f);
+        requant_relu(acc, __ldg(e.alpha + n), __ldg(e.beta + n), e.inv_s_out);
   } else if (e.mode == kQ8) {
     static_cast<int8_t*>(e.out)[idx] =
         saturate_s8(rintf(__fmul_rn(y, e.inv_s_out)), -127.f);
   } else {  // kJoin
-    const float r = __fmul_rn(__int2float_rn(static_cast<int>(e.res[idx])),
-                              e.res_scale);
-    const float z = fmaxf(__fadd_rn(y, r), 0.f);
     static_cast<int8_t*>(e.out)[idx] =
-        saturate_s8(rintf(__fmul_rn(z, e.inv_s_out)), 0.f);
+        requant_join(acc, __ldg(e.alpha + n), __ldg(e.beta + n),
+                     static_cast<int>(e.res[idx]), e.res_scale, e.inv_s_out);
   }
 }
 

@@ -8,7 +8,10 @@
 `predict_molded` is the one forward entry point: after `quantize()` or
 `load_serving_artifact()` it serves the int8 model, and under
 INT8_U8_INPUT it ships the batch as uint8 pixels, rint(molded + mean)
-clipped to 0..255; otherwise it runs the float model in eval mode.
+clipped to 0..255; otherwise it runs the float model in eval mode. Under
+QUANT_HOST_S2D every batch the int8 model sees, served or calibrated, is
+packed space-to-depth on the host first (`_host_s2d_maybe`), so the
+device reads [B,H/2,W/2,12] pixels straight into the fused stem kernel.
 `detect` takes images already at the network resolution (pad64 may still
 pad them); an image that needs resampling raises NotImplementedError.
 Runs on `device` (default the card); the CPU only when asked for.
@@ -25,6 +28,7 @@ from ursonet_torch.checkpoint.convert import params_to_jax_layout
 from ursonet_torch.checkpoint.quant_store import load_quantized
 from ursonet_torch.device import resolve_device
 from ursonet_torch.models.quant import QuantizedModel
+from ursonet_torch.models.resnet import space_to_depth2
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops.image import resize_geometry
 
@@ -78,8 +82,26 @@ class ServingEngine:
             self.config, tree['params'], tree['batch_stats'], self.device)
         if calib_images is not None:
             molded, _, _ = self.mold_inputs(calib_images)
-            self.qmodel.calibrate(molded, percentile_headroom=headroom)
+            self.qmodel.calibrate(self._host_s2d_maybe(molded),
+                                  percentile_headroom=headroom)
         return self.qmodel
+
+    def _host_s2d_maybe(self, molded):
+        """Space-to-depth reindex of a [B,H,W,3] batch for a model in
+        host-s2d mode (QUANT_HOST_S2D): the same bytes as
+        [B,H/2,W/2,12], channel order (dy,dx,c). A numpy batch is
+        reindexed on the host (by torch's threaded CPU copy, which takes
+        a third of numpy's time for a 128x512x640 batch), a tensor where
+        it lies. Anything else (no int8 model, another mode, a batch
+        already packed) passes through."""
+        if not (self.qmodel is not None
+                and self.qmodel._mcfg.get('host_s2d')
+                and tuple(molded.shape)[-1] == 3):
+            return molded
+        if isinstance(molded, torch.Tensor):
+            return space_to_depth2(molded).contiguous()
+        x = torch.from_numpy(np.ascontiguousarray(molded))
+        return space_to_depth2(x).contiguous().numpy()
 
     def load_serving_artifact(self, path: str) -> QuantizedModel:
         """Serve a calibrated int8 artifact (checkpoint/quant_store.py)."""
@@ -94,6 +116,7 @@ class ServingEngine:
         tensors on the device."""
         if self.qmodel is not None:
             if (getattr(self.config, 'INT8_U8_INPUT', True)
+                    and tuple(molded.shape)[-1] == 3
                     and not (isinstance(molded, np.ndarray)
                              and molded.dtype == np.uint8)
                     and not (isinstance(molded, torch.Tensor)
@@ -103,6 +126,7 @@ class ServingEngine:
                     molded = molded.cpu().numpy()
                 molded = np.clip(np.rint(np.asarray(molded, np.float32)
                                          + mean), 0, 255).astype(np.uint8)
+            molded = self._host_s2d_maybe(molded)
             if self.qmodel.act_scales is None:
                 self.qmodel.calibrate(molded)
             return self.qmodel(molded)

@@ -14,7 +14,7 @@ object: the float reference (`F32Ops`), the max-abs calibration
 kernels HWIO and [in, out], and sites carry the JAX package's names, so
 the phases compare with the JAX package's site for site.
 
-On the card, `Int8Ops` computes every int8 product through the two
+On the card, `Int8Ops` computes every int8 product through the
 hand-written kernels of `ops/int8_cuda.py`: `conv_s8` for the 7x7/2 stem,
 the 3x3 convs and the 3x3/2 bottleneck conv, `gemm_s8` for the 1x1 convs
 and the int8 head denses. A conv or dense returns a pending product that
@@ -24,9 +24,16 @@ accumulator or float activation is written between two int8 sites. The
 maxpool, the input quantize and the float final dense stay plain
 PyTorch ops, as they were XLA ops in the JAX package.
 
-Not ported (NotImplementedError): bias_correct, shard_over, the s2d and
-host-s2d stems, the bf16 stem, s8_join, F16 (bf16 epilogues) and the
-ResNet-18/34 twin.
+The space-to-depth stem (QUANT_STEM_S2D, or a kernel already in
+(4,4,12,64) form) dispatches on the input's type: a uint8 batch runs the
+whole stem section (input quantize, 4x4/1 conv, ReLU + requantize,
+maxpool) as one launch of `stem_s8`, packed on the host under
+QUANT_HOST_S2D and on the device otherwise; a float molded batch, like
+the 7x7 stem, takes input quantize -> `conv_s8` -> maxpool. Both give
+the same bits.
+
+Not ported (NotImplementedError): bias_correct, shard_over, the bf16
+stem, s8_join, F16 (bf16 epilogues) and the ResNet-18/34 twin.
 
 Usage:
     qm = QuantizedModel.from_variables(config, params, batch_stats)
@@ -46,7 +53,8 @@ import torch.nn.functional as F
 
 from ursonet_torch.device import resolve_device
 from ursonet_torch.models.folding import _bn_name_for, fold_bn
-from ursonet_torch.models.resnet import same_pads
+from ursonet_torch.models.resnet import same_pads, space_to_depth2, \
+    stem_kernel_to_s2d
 from ursonet_torch.ops import int8_cuda
 
 # Accuracy-gate thresholds of the JAX package (bench.py, test_quant.py):
@@ -144,6 +152,14 @@ def _nhwc(x):
 # Phase ops
 # --------------------------------------------------------------------------
 
+def _mean_for(mean_pixel, channels: int) -> np.ndarray:
+    """The f32 pixel mean per input channel; for a space-to-depth input
+    ([B,H/2,W/2,4C], channel order (dy,dx,c)) tiled over the four
+    phases."""
+    mean = np.asarray(mean_pixel, np.float32)
+    return np.tile(mean, 4) if channels == 4 * mean.shape[0] else mean
+
+
 class F32Ops:
     """Float twin of the model on folded params: conv -> +bias -> ReLU;
     dense likewise. `flat` holds device tensors: conv kernels as OIHW,
@@ -157,9 +173,8 @@ class F32Ops:
         """uint8 input = raw pixels: subtract the mean here (the serving
         host ships 1 byte a pixel); float input = already molded."""
         if x.dtype == torch.uint8:
-            mean = torch.tensor(np.asarray(self.mean_pixel, np.float32),
-                                device=x.device)
-            return x.to(torch.float32) - mean
+            return x.to(torch.float32) - torch.tensor(
+                _mean_for(self.mean_pixel, x.shape[-1]), device=x.device)
         return x
 
     def input(self, x):
@@ -255,6 +270,16 @@ class _QT:
         self.arr, self.scale = arr, scale
 
 
+class _U8(_QT):
+    """Raw uint8 pixels on their way to the fused stem (no scale yet:
+    stem_s8 quantizes them as it stages them)."""
+
+    __slots__ = ()
+
+    def __init__(self, arr, scale=None):
+        super().__init__(arr, scale)
+
+
 class _Pending:
     """An int8 conv or dense whose epilogue its consumer picks."""
 
@@ -262,6 +287,16 @@ class _Pending:
 
     def __init__(self, x, site, stride=1, padding=None):
         self.x, self.site, self.stride, self.padding = x, site, stride, padding
+
+
+class _PendingStem:
+    """The s2d stem conv over raw uint8 pixels with its ReLU + requantize
+    site, waiting for the maxpool that launches the fused stem."""
+
+    __slots__ = ('x', 'site', 'out_site')
+
+    def __init__(self, x, site, out_site):
+        self.x, self.site, self.out_site = x, site, out_site
 
 
 class Int8Ops:
@@ -273,10 +308,11 @@ class Int8Ops:
     tensor)}; ffinal: {site: (w [in,out] f32, b)} for the float finals;
     alphas: a dict shared across calls that caches sw * f32(s_in) per
     (site, s_in). plain=True computes the products with the kernels'
-    plain versions (float64 accumulation) on any device."""
+    plain versions (float64 accumulation) on any device. fused_stem: the
+    stem kernel is in s2d form, so a uint8 batch takes `stem_s8`."""
 
     def __init__(self, q, ffinal, act_scales, mean_pixel=None,
-                 alphas=None, plain=False):
+                 alphas=None, plain=False, fused_stem=False):
         self.q = q
         self.ffinal = ffinal
         self.mean_pixel = mean_pixel
@@ -286,6 +322,8 @@ class Int8Ops:
         self.alphas = {} if alphas is None else alphas
         self._gemm = int8_cuda.gemm_s8_torch if plain else int8_cuda.gemm_s8
         self._conv = int8_cuda.conv_s8_torch if plain else int8_cuda.conv_s8
+        self._stem = int8_cuda.stem_s8_torch if plain else int8_cuda.stem_s8
+        self.fused_stem = fused_stem
 
     def _step(self, site):
         return self.scales[site] / 127.0
@@ -344,10 +382,24 @@ class Int8Ops:
         return _QT(out, step) if step is not None else out
 
     def input(self, x):
+        if self.fused_stem and x.dtype == torch.uint8:
+            return _U8(x)
         return self._q8(F32Ops._mold_maybe(self, x), 'input')
 
     def conv(self, x, site, stride=1, padding='SAME'):
         return _Pending(x, site, stride, padding)
+
+    def _run_stem(self, p: _PendingStem):
+        """One stem_s8 launch: input quantize at the 'input' step, the
+        s2d conv, q8_relu onto `out_site`'s step, the 3x3/2 maxpool."""
+        s_in, step = self._step('input'), self._step(p.out_site)
+        w8, _, b = self.q[p.site]
+        x = p.x.arr.contiguous()
+        out = self._stem(
+            x, w8, self._alpha(p.site, s_in, x.device), b,
+            inv_s_out=self._inv(step), mode='calibrated',
+            mean=_mean_for(self.mean_pixel, 12), inv_s_in=self._inv(s_in))
+        return _QT(out, step)
 
     def dense(self, x, site):
         return _Pending(x, site)
@@ -363,6 +415,8 @@ class Int8Ops:
 
     def relu(self, x, site=None):
         if isinstance(x, _Pending):
+            if isinstance(x.x, _U8):
+                return _PendingStem(x.x, x.site, site)
             if site:
                 return self._run(x, 'q8_relu', site)
             return self._run(x, 'f32_relu')
@@ -381,15 +435,11 @@ class Int8Ops:
 
     def maxpool(self, x):
         """3x3/2 SAME max over int8 (monotone, so it commutes with the
-        quantization), padded with -128; through an exact float view
-        because CUDA's max_pool2d takes no int8."""
-        ft = torch.float16 if x.arr.is_cuda else torch.float32
-        xc = _nchw(x.arr).to(ft)
-        (pt, pb), (pl, pr) = (same_pads(xc.shape[2], 3, 2),
-                              same_pads(xc.shape[3], 3, 2))
-        xc = F.pad(xc, (pl, pr, pt, pb), value=-128.0)
-        y = _nhwc(F.max_pool2d(xc, 3, 2)).to(torch.int8).contiguous()
-        return _QT(y, x.scale)
+        quantization); inside the fused stem's launch where that is
+        pending."""
+        if isinstance(x, _PendingStem):
+            return self._run_stem(x)
+        return _QT(int8_cuda.maxpool_s8(x.arr), x.scale)
 
     def dequant(self, x):
         return x.arr.to(torch.float32) * torch.tensor(
@@ -525,9 +575,25 @@ def migration_groups(mcfg) -> list:
 # The twin graph (mirrors the model exactly)
 # --------------------------------------------------------------------------
 
-def _bottleneck_backbone(ops, x, architecture):
-    """ResNet-50/101; the stem is the 7x7/2 conv with (3,3) pads."""
-    y = ops.conv(x, 'conv1', 2, [(3, 3), (3, 3)])
+def _stem(ops, x, mcfg, name):
+    """Stem conv: 7x7/2 with (3,3) pads, or its exact space-to-depth
+    rewrite when the folded kernel is in (4,4,12,O) form: 4x4/1 with
+    (2,1) pads on the packed input, which the device packs here unless
+    the host already did (host_s2d)."""
+    if mcfg.get('stem_s2d'):
+        if not mcfg.get('host_s2d'):
+            if isinstance(x, _QT):
+                x = type(x)(space_to_depth2(x.arr), x.scale)
+            else:
+                x = space_to_depth2(x)
+        return ops.conv(x, name, 1, [(2, 1), (2, 1)])
+    return ops.conv(x, name, 2, [(3, 3), (3, 3)])
+
+
+def _bottleneck_backbone(ops, x, mcfg):
+    """ResNet-50/101."""
+    architecture = mcfg['backbone']
+    y = _stem(ops, x, mcfg, 'conv1')
     y = ops.relu(y, 'conv1/out')
     y = ops.maxpool(y)
 
@@ -569,7 +635,7 @@ def twin_forward(ops, images, mcfg: dict) -> Dict[str, torch.Tensor]:
     """The graph shared by all phases; `mcfg` is the model-config
     snapshot (QuantizedModel._mcfg)."""
     x = ops.input(images)
-    y = _bottleneck_backbone(ops, x, mcfg['backbone'])
+    y = _bottleneck_backbone(ops, x, mcfg)
     y = ops.conv(y, 'bottleneck_layer', 2, 'SAME')
     feats = ops.flatten(y, 'bottleneck/out')
 
@@ -625,9 +691,7 @@ def twin_forward(ops, images, mcfg: dict) -> Dict[str, torch.Tensor]:
 # Public facade
 # --------------------------------------------------------------------------
 
-_UNPORTED_KNOBS = (('QUANT_STEM_S2D', 'the space-to-depth stem'),
-                   ('QUANT_HOST_S2D', 'host space-to-depth input'),
-                   ('QUANT_BF16_STEM', 'the bf16 stem'),
+_UNPORTED_KNOBS = (('QUANT_BF16_STEM', 'the bf16 stem'),
                    ('QUANT_S8_JOIN', 'integer residual joins'),
                    ('F16', 'bf16 epilogues (F16)'))
 
@@ -651,8 +715,16 @@ class QuantizedModel:
                 'ported')
         self.flat = flat_params
         stem = 'conv1'
-        if self.flat[stem][0].shape[0] != 7:
-            raise NotImplementedError('an s2d stem kernel is not ported')
+        if (getattr(config, 'QUANT_STEM_S2D', False)
+                and self.flat[stem][0].shape[0] == 7):
+            # the 7x7/2 stem rewritten exactly into its (4,4,12,O)/1
+            # space-to-depth form, however the model was trained
+            k, b = self.flat[stem]
+            self.flat = dict(self.flat)
+            self.flat[stem] = (stem_kernel_to_s2d(k), b)
+        # derived from the kernel that is in `flat`, not from the knob:
+        # an artifact saved after the rewrite describes itself
+        stem_s2d = self.flat[stem][0].shape[0] == 4
         self._mcfg = dict(
             backbone=config.BACKBONE,
             nr_dense_layers=config.NR_DENSE_LAYERS,
@@ -662,8 +734,10 @@ class QuantizedModel:
             orientation_param=config.ORIENTATION_PARAM,
             loc_bins=config.LOC_BINS_PER_DIM,
             ori_bins=config.ORI_BINS_PER_DIM,
-            stem_s2d=False,
-            host_s2d=False,
+            stem_s2d=stem_s2d,
+            # served and calibration batches arrive packed from the host
+            host_s2d=(stem_s2d
+                      and bool(getattr(config, 'QUANT_HOST_S2D', False))),
             bf16_stem=False,
             s8_join=False,
             float_cls_final=bool(getattr(config, 'QUANT_FLOAT_CLS_FINAL',
@@ -848,6 +922,7 @@ class QuantizedModel:
                   if s in flat_dev}
         ops = Int8Ops(self._prepared_q(), ffinal, self.act_scales,
                       mean_pixel=self._mcfg['mean_pixel'],
-                      alphas=self._alphas, plain=plain)
+                      alphas=self._alphas, plain=plain,
+                      fused_stem=self._mcfg['stem_s2d'])
         with no_tf32(), torch.no_grad():
             return twin_forward(ops, self._images(images), self._mcfg)

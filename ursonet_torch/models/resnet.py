@@ -16,10 +16,14 @@ Semantics kept from the JAX package:
     3×3/2 bottleneck conv of `models/ursonet.py`.
   * Conv-block shortcuts and the '2a' convs are 1×1 with the block's
     stride, VALID.
+  * `stem_s2d` (STEM_SPACE_TO_DEPTH): the stem as its exact
+    space-to-depth rewrite, a 4×4/1 conv with (2,1) pads over the 2×2
+    packed input (`space_to_depth2`, `stem_kernel_to_s2d`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,6 +47,46 @@ def pad_same(x: torch.Tensor, k: int, s: int, value: float = 0.0):
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom), value=value)
     return x
+
+
+def space_to_depth2(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,W,C] -> [B,H/2,W/2,4C] (NHWC), output channel
+    (dy·2+dx)·C + c holding pixel (2i+dy, 2j+dx): the packing the s2d
+    stem kernel of `stem_kernel_to_s2d` is laid out for. H and W even."""
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space_to_depth2 needs even H and W, got {h}x{w}")
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+def _space_to_depth2_nchw(x: torch.Tensor) -> torch.Tensor:
+    """space_to_depth2 on [B,C,H,W]: the same channel order."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, 4 * c, h // 2, w // 2)
+
+
+def stem_kernel_to_s2d(kernel) -> np.ndarray:
+    """Exactly rewrite a (7,7,C,O) stride-2 stem kernel (HWIO, numpy) as
+    the equivalent (4,4,4C,O) stride-1 kernel on space_to_depth2 input
+    with padding [(2,1),(2,1)]: W'[R,S,(dy·2+dx)·C+c,o] =
+    W[2R+dy−1, 2S+dx−1, c, o], zero where the source index falls outside
+    [0,7)."""
+    kernel = np.asarray(kernel)
+    kh, kw, c, o = kernel.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"a 7x7 stem kernel, got {kh}x{kw}")
+    out = np.zeros((4, 4, 4 * c, o), kernel.dtype)
+    for r in range(4):
+        for s in range(4):
+            for dy in range(2):
+                for dx in range(2):
+                    u, v = 2 * r + dy - 1, 2 * s + dx - 1
+                    if 0 <= u < 7 and 0 <= v < 7:
+                        p = dy * 2 + dx
+                        out[r, s, p * c:(p + 1) * c] = kernel[u, v]
+    return out
 
 
 class FrozenBN(nn.Module):
@@ -103,13 +147,16 @@ class BottleneckBlock(nn.Module):
 class ResNetBackbone(nn.Module):
     """ResNet-50 feature extractor; returns C5 [N,2048,H/32,W/32]."""
 
-    def __init__(self, architecture: str = 'resnet50', train_bn=False):
+    def __init__(self, architecture: str = 'resnet50', train_bn=False,
+                 stem_s2d: bool = False):
         super().__init__()
         if architecture != 'resnet50':
             raise NotImplementedError(
                 f"backbone {architecture!r}: this port has resnet50; "
                 "resnet18/34/101 come in a later slice")
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3)
+        self.stem_s2d = stem_s2d
+        self.conv1 = nn.Conv2d(12, 64, 4, 1) if stem_s2d \
+            else nn.Conv2d(3, 64, 7, 2, padding=3)
         self.bn_conv1 = FrozenBN(64, train_bn)
         self.blocks = []
         in_ch = 64
@@ -137,6 +184,8 @@ class ResNetBackbone(nn.Module):
         blk((512, 512, 2048), 5, 'c')
 
     def forward(self, x):
+        if self.stem_s2d:
+            x = F.pad(_space_to_depth2_nchw(x), (2, 1, 2, 1))
         y = F.relu(self.bn_conv1(self.conv1(x)), inplace=True)
         y = F.max_pool2d(pad_same(y, 3, 2, float('-inf')), 3, 2)
         for name in self.blocks:

@@ -33,9 +33,9 @@ class UrsoNetModule(nn.Module):
                  nr_dense_layers: int = 1, regress_loc: bool = True,
                  regress_ori: bool = True,
                  orientation_param: str = 'quaternion', loc_bins: int = 16,
-                 ori_bins: int = 32, train_bn=False):
+                 ori_bins: int = 32, train_bn=False, stem_s2d: bool = False):
         super().__init__()
-        self.backbone = ResNetBackbone(backbone, train_bn)
+        self.backbone = ResNetBackbone(backbone, train_bn, stem_s2d)
         self.bottleneck_layer = nn.Conv2d(2048, bottleneck_width, 3, 2)
         h6, w6 = _c6_hw(*image_hw)
         feats = bottleneck_width * h6 * w6
@@ -112,7 +112,8 @@ def build_model(config, device="cuda",
             regress_loc=config.REGRESS_LOC, regress_ori=config.REGRESS_ORI,
             orientation_param=config.ORIENTATION_PARAM,
             loc_bins=config.LOC_BINS_PER_DIM, ori_bins=config.ORI_BINS_PER_DIM,
-            train_bn=config.TRAIN_BN)
+            train_bn=config.TRAIN_BN,
+            stem_s2d=bool(getattr(config, 'STEM_SPACE_TO_DEPTH', False)))
     model.to_empty(device='cpu')
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.SEED))

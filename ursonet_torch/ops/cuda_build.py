@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("warp", "int8_gemm", "int8_conv")
+SOURCES = ("warp", "int8_gemm", "int8_conv", "int8_stem", "int8_block",
+           "mma_rate")
 
 _libs: dict = {}
 

@@ -1,17 +1,23 @@
-"""int8 GEMM and int8 convolution with fused epilogues: the CUDA kernels
-`csrc/int8_gemm.cu` and `csrc/int8_conv.cu`, their wrappers, and their
-plain PyTorch versions.
+"""int8 GEMM, int8 convolution and the fused int8 stem, with fused
+epilogues: the CUDA kernels `csrc/int8_gemm.cu`, `csrc/int8_conv.cu` and
+`csrc/int8_stem.cu`, their wrappers, and their plain PyTorch versions.
 
     gemm_s8(a, b, epilogue, ...)   a [M,K] s8 @ b [K,N] s8 -> [M,N]
     conv_s8(x, w, stride, padding, epilogue, ...)
                                    x [B,H,W,C] s8 (NHWC), w [KH,KW,C,N] s8
                                    (HWIO) -> [B,OH,OW,N]
+    stem_s8(x, w, alpha, beta, ...)
+                                   x [B,H/2,W/2,12] u8 (space-to-depth
+                                   pixels), w [4,4,12,64] s8 (HWIO) ->
+                                   [B,H/4,W/4,64] s8: input quantize, 4x4/1
+                                   conv, ReLU + requant, 3x3/2 max-pool
 
 They are the Hopper ports of the Pallas TPU kernels
 `tools/probe_pallas_int8_matmul.py::_matmul_kernel` and
-`tools/probe_pallas_c2.py::matmul_requant_kernel` (gemm_s8) and
-`tools/probe_pallas_conv3.py::_conv_kernel` (conv_s8). The int8 serving
-path (`models/quant.py`) reaches only these two on the card.
+`tools/probe_pallas_c2.py::matmul_requant_kernel` (gemm_s8),
+`tools/probe_pallas_conv3.py::_conv_kernel` (conv_s8) and
+`tools/probe_pallas_stem.py::_stem_kernel` (stem_s8). The int8 serving
+path (`models/quant.py`) reaches these three on the card.
 
 Epilogues, with y = fma(f32(acc), alpha[n], beta[n]) (one rounding):
 
@@ -59,7 +65,7 @@ OUT_DTYPES = {"s32": torch.int32, "f32": torch.float32,
               "f32_relu": torch.float32, "q8_relu": torch.int8,
               "q8": torch.int8, "join": torch.int8}
 # Kernel launches since the last reset_counts(), by kernel name.
-launches = {"gemm_s8": 0, "conv_s8": 0}
+launches = {"gemm_s8": 0, "conv_s8": 0, "stem_s8": 0}
 # None, or a list that each launch appends (name, shapes, epilogue) to.
 calls = None
 
@@ -83,6 +89,15 @@ def _bind_conv(lib) -> None:
     lib.ursonet_conv_s8.argtypes = [P, P] + [I] * 14 + [I, P, P, Fl, P, Fl,
                                                         P, I, I, P]
     lib.ursonet_conv_s8.restype = I
+    lib.ursonet_int8_error_string.argtypes = [I]
+    lib.ursonet_int8_error_string.restype = ctypes.c_char_p
+
+
+def _bind_stem(lib) -> None:
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ursonet_stem_s8.argtypes = [P, P, I, I, I, I, P, Fl, P, P, Fl, P, I,
+                                    P]
+    lib.ursonet_stem_s8.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
 
@@ -189,6 +204,62 @@ def conv_s8_torch(x, w, stride=1, padding=((0, 0), (0, 0)), epilogue="s32",
         acc = F.conv2d(xd, wd, stride=stride).permute(0, 2, 3, 1)
     return epilogue_torch(acc.contiguous(), epilogue, alpha, beta,
                           inv_s_out, res, res_scale)
+
+
+def pool_pads(n: int) -> tuple[int, int]:
+    """(low, high) padding of a 3/2 'SAME' window over n elements: (0, 1)
+    for even n, (1, 1) for odd n."""
+    total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
+    return total // 2, total - total // 2
+
+
+def maxpool_s8(x: torch.Tensor) -> torch.Tensor:
+    """3x3/2 'SAME' max over an int8 [B,H,W,C] tensor, padded with -128;
+    through an exact float view (f16 on the card, whose max_pool2d takes
+    no int8)."""
+    ft = torch.float16 if x.is_cuda else torch.float32
+    xc = x.permute(0, 3, 1, 2).to(ft)
+    (pt, pb), (pl, pr) = pool_pads(xc.shape[2]), pool_pads(xc.shape[3])
+    xc = F.pad(xc, (pl, pr, pt, pb), value=-128.0)
+    return F.max_pool2d(xc, 3, 2).permute(0, 2, 3, 1).to(torch.int8) \
+        .contiguous()
+
+
+STEM_MODES = {"calibrated": 0, "shift128": 1}
+
+
+def stem_input_s8(x: torch.Tensor, mode: str, mean, inv_s_in: float):
+    """The stem's input quantize on u8 pixels [..., 12]: (s8 tensor, the
+    s8 value per channel that fills the conv's padding).
+      calibrated  clip(rint((f32(x) - mean[c]) * inv_s_in), -127, 127),
+                  the subtraction and the product each rounded to f32;
+                  padding 0
+      shift128    x - 128 (step 1.0, zero point 128); padding
+                  rint(mean[c]) - 128, the value a zero of the molded
+                  image maps to"""
+    if mode not in STEM_MODES:
+        raise ValueError(f"unknown stem mode {mode!r}")
+    mean = torch.tensor(np.asarray(mean, np.float32), device=x.device)
+    if mode == "shift128":
+        q = (x.to(torch.int16) - 128).to(torch.int8)
+        return q, (torch.round(mean) - 128).to(torch.int8)
+    y = (x.to(torch.float32) - mean) * _f32(inv_s_in, x.device)
+    q = torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    return q, torch.zeros_like(mean, dtype=torch.int8)
+
+
+def stem_s8_torch(x, w, alpha, beta, inv_s_out=1.0, mode="calibrated",
+                  mean=(0.0,) * 12, inv_s_in=1.0) -> torch.Tensor:
+    """Plain version of stem_s8, as the unfused composition: input
+    quantize, the padding written out, conv_s8_torch with the q8_relu
+    epilogue, maxpool_s8."""
+    q, fill = stem_input_s8(x, mode, mean, inv_s_in)
+    b, h, wd, c = q.shape
+    xp = fill.expand(b, h + 3, wd + 3, c).contiguous()
+    xp[:, 2:h + 2, 2:wd + 2] = q
+    y = conv_s8_torch(xp, w, 1, ((0, 0), (0, 0)), "q8_relu", alpha, beta,
+                      inv_s_out)
+    return maxpool_s8(y)
 
 
 # --------------------------------------------------------------------------
@@ -314,4 +385,54 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
         calls.append(("conv_s8", dict(b=bsz, h=h, w=wd, c=c, kh=kh, kw=kw,
                                       n=n, stride=stride, padding=padding,
                                       epilogue=epilogue)))
+    return out
+
+
+def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+            beta: torch.Tensor, inv_s_out: float = 1.0,
+            mode: str = "calibrated", mean=(0.0,) * 12,
+            inv_s_in: float = 1.0) -> torch.Tensor:
+    """The fused int8 stem in one launch: out[B,ceil(H2/2),ceil(W2/2),64]
+    s8 = maxpool3x3/2_SAME(q8_relu(conv4x4/1(quantize(x)))) for
+    space-to-depth u8 pixels x [B,H2,W2,12] and the s2d stem kernel w
+    [4,4,12,64] s8 (HWIO view, `kernel_layout`), pads (2,1),(2,1). `mode`
+    picks the input quantize and the padding value (`stem_input_s8`);
+    the epilogue is q8_relu with alpha, beta and inv_s_out. The 64-wide
+    conv output stays in shared memory."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return stem_s8_torch(x, w, alpha, beta, inv_s_out, mode, mean,
+                             inv_s_in)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if mode not in STEM_MODES:
+        raise ValueError(f"unknown stem mode {mode!r}")
+    if x.dim() != 4 or x.shape[3] != 12 or x.dtype != torch.uint8 \
+            or not x.is_contiguous() or x.data_ptr() % 4:
+        raise ValueError("x must be a contiguous [B,H/2,W/2,12] uint8 "
+                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+    if tuple(w.shape) != (4, 4, 12, 64) or w.dtype != torch.int8 \
+            or not w.permute(3, 0, 1, 2).is_contiguous() \
+            or w.device != x.device or w.data_ptr() % 16:
+        raise ValueError("w must be a [4,4,12,64] int8 view of a contiguous "
+                         f"[64,4,4,12] tensor on {x.device} (kernel_layout), "
+                         f"got {tuple(w.shape)} {w.dtype}")
+    mean = np.ascontiguousarray(np.asarray(mean, np.float32))
+    if mean.shape != (12,):
+        raise ValueError(f"mean must hold 12 values, got {mean.shape}")
+    bsz, h2, w2, _ = x.shape
+    if bsz == 0 or h2 == 0 or w2 == 0:
+        raise ValueError(f"empty input {tuple(x.shape)}")
+    _check_epilogue(x.device, 0, 64, "q8_relu", alpha, beta, None)
+    out = torch.empty((bsz, -(-h2 // 2), -(-w2 // 2), 64), dtype=torch.int8,
+                      device=x.device)
+    lib = cuda_build.load("int8_stem", _bind_stem)
+    rc = lib.ursonet_stem_s8(
+        x.data_ptr(), w.data_ptr(), bsz, h2, w2, STEM_MODES[mode],
+        mean.ctypes.data, float(inv_s_in), alpha.data_ptr(), beta.data_ptr(),
+        float(inv_s_out), out.data_ptr(), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_if(rc, lib, "stem_s8")
+    launches["stem_s8"] += 1
+    if calls is not None:
+        calls.append(("stem_s8", dict(b=bsz, h2=h2, w2=w2, mode=mode)))
     return out

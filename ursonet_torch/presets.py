@@ -91,7 +91,10 @@ def benchmark_config(n: int) -> Config:
     raise ValueError(f"unknown benchmark config {n} (1-5)")
 
 
-def serving_config(batch: int = 128) -> Config:
+SERVING_VARIANTS = ('base', 's2d', 'host_s2d')
+
+
+def serving_config(batch: int = 128, variant: str = 'base') -> Config:
     """The flagship int8 PTQ serving configuration: the one `bench.py`
     times and `tools/make_gate_artifact.py::flagship_gate_config` builds
     the committed artifact for. ResNet-50, bottleneck 128, one 1024-wide
@@ -99,11 +102,22 @@ def serving_config(batch: int = 128) -> Config:
     classification (int8 `ori_final` 1024→13824 with a ReLU), pad64 at
     512×640, uint8 input, every QUANT_* knob at its default.
 
+    `variant` picks the stem as `tools/ab_serving.py` does: 'base' (the
+    7×7/2 stem), 's2d' (QUANT_STEM_S2D: the exact 4×4/1 rewrite, the
+    device packs the pixels) or 'host_s2d' (QUANT_STEM_S2D +
+    QUANT_HOST_S2D: the host packs them). Under the last two a uint8
+    batch runs the fused stem kernel.
+
     One deviation: F16 is False. Under F16 the JAX package runs the int8
     epilogues in bf16; the port serves the f32 epilogue, the other mode
     of the same artifact (F16 is not recorded in it)."""
+    if variant not in SERVING_VARIANTS:
+        raise ValueError(f"unknown serving variant {variant!r} "
+                         f"{SERVING_VARIANTS}")
     cfg = Config()
     cfg.NAME = 'flagship_serving'
+    cfg.QUANT_STEM_S2D = variant in ('s2d', 'host_s2d')
+    cfg.QUANT_HOST_S2D = variant == 'host_s2d'
     cfg.BACKBONE = 'resnet50'
     cfg.BOTTLENECK_WIDTH = 128
     cfg.BRANCH_SIZE = 1024

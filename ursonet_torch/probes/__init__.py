@@ -1,0 +1,10 @@
+"""Kernel probes of the port, the counterparts of the JAX package's
+`tools/probe_fused_block.py`, `tools/probe_int8_mxu.py` and
+`tools/probe_int4_mxu.py`. Each builds its operands from a seed, runs
+its kernel on the card, checks or records, and prints one JSON line per
+variant:
+
+    python -m ursonet_torch.probes.fused_block
+    python -m ursonet_torch.probes.int8_mma
+    python -m ursonet_torch.probes.int4_mma
+"""

@@ -1,0 +1,50 @@
+"""Timing and labelling shared by the probe entry points."""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import torch
+
+
+def card_label(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi prints them; 'cpu'
+    for the CPU."""
+    if device.type != 'cuda':
+        return 'cpu'
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[device.index or 0]
+
+
+def time_ms(fn, reps: int, device: torch.device, warmup: int = 1) -> float:
+    """Mean time of fn() in ms over `reps` calls after `warmup`: CUDA
+    events around the queued calls on the card, the host clock on the
+    CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type != 'cuda':
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
+def record(results: list, **row) -> dict:
+    """Print one JSON line and keep the row."""
+    print(json.dumps(row), flush=True)
+    results.append(row)
+    return row
