@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
               nvcc per source, all at once.
   3. kernels  each kernel against its plain PyTorch version on the card:
               the warp at the train path's shapes, conv_s8 and gemm_s8 at
-              the serving path's shapes in every epilogue, stem_s8 in
+              the serving path's shapes in every epilogue and on both of
+              their routes (TMA + wgmma, and mma.sync), stem_s8 in
               both input modes, block_s8 at the probe's shape and on
               ragged tiles, mma_rate in every kind (integers bit-exact).
   4. train    the train step of benchmark_config(3) at full width
@@ -30,13 +31,16 @@ Phases, in order; any failure exits non-zero:
               variant launched (stem_s8 exactly once per batch), outputs
               within the random-init gate of the float twin, decode and
               ESA score finite; the `s2d` variant equal to `host_s2d`
-              bit for bit.
+              bit for bit; every GEMM and every 3x3 conv of the served
+              model must have taken the TMA + wgmma route.
   7. probes   the three kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma),
               their JSON lines printed as they come.
   8. numbers  train step and serving time, memory, and each kernel's
               time at the main paths' shapes beside its plain version,
-              the library call and the card's bound.
+              the library call and the card's bound; every distinct int8
+              call of a served batch equal to its plain version at its
+              full shape.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -80,10 +84,14 @@ BF16_FLOP_PER_S = 989e12
 FLAGSHIP_BATCH = 32
 STEPS = 5            # train steps of the main path, then 1 validation step
 SERVE_ITERS = 10     # timed serving calls, after 2 warm-up calls
-# What this script measured for the same train and `base` serving code
-# before the s2d variants and the probes existed, printed beside this
-# run's numbers for the reader.
-EARLIER_TRAIN_MS, EARLIER_SERVE_MS = 136.353, 89.481
+# What this script measured while gemm_s8 and conv_s8 had only their
+# mma.sync kernels (the ragged route of today), printed beside this run's
+# numbers for the reader: train step, served batch per variant, and the
+# kernels' time per served batch.
+EARLIER_TRAIN_MS = 132.355
+EARLIER_SERVE_MS = {'base': 89.336, 'host_s2d': 76.261}
+EARLIER_KERNEL_MS = {'gemm_s8': 55.416, 'gemm_s8_q8_relu': 8.215,
+                     'conv_s8': 24.875}
 EARLIER_CARD = "[NVIDIA H100 80GB HBM3, 700.00 W]"
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
@@ -237,16 +245,19 @@ def conv_cases(batch):
     return cases
 
 
-def gemm_cases(m):
+def gemm_cases(m, batch=128):
     """(name, (m, k, n)) of gemm_s8: the four 1x1 kinds of each stage
-    and the three head denses."""
+    with `m` rows (None: the rows a served batch of `batch` images gives
+    them) and the three head denses with `batch` rows."""
     cases = []
-    for s, (_, _, f, out, cin) in STAGES.items():
-        cases += [(f'{s} 2a first', (m, cin, f)), (f'{s} 2a', (m, out, f)),
-                  (f'{s} 2c', (m, f, out)), (f'{s} branch1', (m, cin, out))]
-    return cases + [('loc_dense_0', (m, 10240, 1024)),
-                    ('ori_dense_0', (m, 10240, 1024)),
-                    ('ori_final', (m, 1024, 13824))]
+    for s, (h, w, f, out, cin) in STAGES.items():
+        rows = batch * h * w if m is None else m
+        cases += [(f'{s} 2a first', (rows, cin, f)),
+                  (f'{s} 2a', (rows, out, f)), (f'{s} 2c', (rows, f, out)),
+                  (f'{s} branch1', (rows, cin, out))]
+    return cases + [('loc_dense_0', (batch, 10240, 1024)),
+                    ('ori_dense_0', (batch, 10240, 1024)),
+                    ('ori_final', (batch, 1024, 13824))]
 
 
 def s8(rng, shape, dev):
@@ -283,10 +294,13 @@ def stem_args(dev, rng, mode) -> dict:
                 inv_s_in=float(np.float32(1) / np.float32(1.09)))
 
 
-def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=128) -> float:
+def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=1317) -> float:
     """conv_s8 and gemm_s8 against their plain versions (float64
-    accumulation) in every epilogue; any difference raises. Returns the
-    largest absolute difference (0.0)."""
+    accumulation) in every epilogue and on both routes: the route the
+    wrapper picks for the shape (TMA + wgmma for all but the C = 3 stem)
+    and, where that is not it, the mma.sync route forced. `gemm_m` rows
+    for the 1x1 shapes: ragged, and enough for the 256-wide tile. Any
+    difference raises. Returns the largest absolute difference (0.0)."""
     worst = 0.0
 
     def compare(name, got, want):
@@ -301,30 +315,45 @@ def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=128) -> float:
             raise RuntimeError(f"{name}: kernel differs from its plain "
                                f"version, max abs err {err}")
 
+    def both_routes(name, launch, acc, out_shape, k, picked):
+        """`launch(epilogue, route, args)` on the picked route and on the
+        forced mma.sync one, every epilogue."""
+        routes = sorted({picked, 'ragged'}, reverse=True)
+        for ep in int8_cuda.EPILOGUES:
+            args = epilogue_args(dev, rng, out_shape, k, ep)
+            want = int8_cuda.epilogue_torch(acc, ep, **args)
+            for route in routes:
+                compare(f"{name} {ep} [{route}]", launch(ep, route, args),
+                        want)
+        return '+'.join(routes)
+
     for name, (b, h, w, c, kh, kw, n, st, pads) in conv_cases(conv_batch):
         x = s8(rng, (b, h, w, c), dev)
         wt = int8_cuda.kernel_layout(
             rng.randint(-128, 128, (kh, kw, c, n)).astype(np.int8)).to(dev)
         oh, ow = int8_cuda.conv_out_hw(h, w, kh, kw, st, pads)
         acc = int8_cuda.conv_s8_torch(x, wt, st, pads, 's32')
-        for ep in int8_cuda.EPILOGUES:
-            args = epilogue_args(dev, rng, (b, oh, ow, n), kh * kw * c, ep)
-            compare(f"conv_s8 {name} {ep}",
-                    int8_cuda.conv_s8(x, wt, st, pads, ep, **args),
-                    int8_cuda.epilogue_torch(acc, ep, **args))
-        log(f"check conv_s8 {name} {b}x{h}x{w}x{c} -> {n}: "
+        picked = int8_cuda.conv_route(c, n, kh * kw, x.numel() * 2)
+        if picked != ('ragged' if c % 16 else 'tma'):
+            raise RuntimeError(f"conv_s8 {name}: route {picked}")
+        routes = both_routes(
+            f"conv_s8 {name}",
+            lambda ep, route, args: int8_cuda.conv_s8(
+                x, wt, st, pads, ep, route=route, **args),
+            acc, (b, oh, ow, n), kh * kw * c, picked)
+        log(f"check conv_s8 {name} {b}x{h}x{w}x{c} -> {n} [{routes}]: "
             f"{len(int8_cuda.EPILOGUES)} epilogues bit-exact")
     for name, (m, k, n) in gemm_cases(gemm_m):
         a = s8(rng, (m, k), dev)
         bt = int8_cuda.kernel_layout(
             rng.randint(-128, 128, (k, n)).astype(np.int8)).to(dev)
         acc = int8_cuda.gemm_s8_torch(a, bt, 's32')
-        for ep in int8_cuda.EPILOGUES:
-            args = epilogue_args(dev, rng, (m, n), k, ep)
-            compare(f"gemm_s8 {name} {ep}",
-                    int8_cuda.gemm_s8(a, bt, ep, **args),
-                    int8_cuda.epilogue_torch(acc, ep, **args))
-        log(f"check gemm_s8 {name} {m}x{k} @ {k}x{n}: "
+        routes = both_routes(
+            f"gemm_s8 {name}",
+            lambda ep, route, args: int8_cuda.gemm_s8(
+                a, bt, ep, route=route, **args),
+            acc, (m, n), k, 'tma')
+        log(f"check gemm_s8 {name} {m}x{k} @ {k}x{n} [{routes}]: "
             f"{len(int8_cuda.EPILOGUES)} epilogues bit-exact")
     return worst
 
@@ -536,6 +565,7 @@ def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
         raise RuntimeError(f"the {variant} serving path must launch gemm_s8 "
                            f"and conv_s8, and stem_s8 {want_stem} times a "
                            f"batch: {launches}")
+    check_served_routes(variant, calls)
     flt = qm.float_twin(engine._host_s2d_maybe(images[:8]))
     rels = {k: rel(out[k][:8], flt[k]) for k in flt}
     log(f"serve [{variant}] int8 vs float twin on 8 images (random weights, "
@@ -556,6 +586,21 @@ def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
         raise RuntimeError("non-finite ESA scores")
     return {'engine': engine, 'images': images, 'launches': launches,
             'calls': calls, 'peak': peak, 'out': out}
+
+
+def check_served_routes(variant, calls) -> None:
+    """Every GEMM and every 3x3 conv of a served batch must have taken
+    the TMA + wgmma route; only the C = 3 stem conv of `base` may take
+    the mma.sync one."""
+    routes = Counter((name, a['route']) for name, a in calls if 'route' in a)
+    log(f"serve [{variant}] routes per batch: "
+        + ", ".join(f"{n} {r} x{c}" for (n, r), c in sorted(routes.items())))
+    for name, a in calls:
+        stem = name == 'conv_s8' and a['c'] == 3
+        if name in ('gemm_s8', 'conv_s8') and not stem \
+                and a['route'] != 'tma':
+            raise RuntimeError(f"serve [{variant}]: {name} {a} did not take "
+                               "the tma route")
 
 
 def check_device_s2d(dev, served) -> ServingEngine:
@@ -689,36 +734,44 @@ C2_REQUANT = 'gemm_s8_q8_relu'
 
 def time_int8_kernels(calls, dev, rng, card) -> dict:
     """Each int8 kernel's time per served batch: every distinct call of
-    one served batch timed once on fresh operands of its shapes (kernel
-    by 10 launches, plain version by 1, torch._int_mm by 10 for the GEMM)
-    and weighted by how often the batch makes it. Bound per call: the
+    one served batch run on fresh operands of its full shapes, held
+    against its plain version (any differing element raises: here the
+    persistent blocks walk many tiles each), timed (kernel by 10
+    launches, plain version by 1, torch._int_mm by 10 for the GEMM) and
+    weighted by how often the batch makes it. Bound per call: the
     larger of operations at 1979 TOP/s and bytes at 3.35 TB/s. gemm_s8's
-    q8_relu calls are also summed apart, under C2_REQUANT."""
+    q8_relu calls are also summed apart, under C2_REQUANT. `routes`
+    counts the launches per route (the timed call takes the route the
+    recorded one took: the wrapper picks it from the same shapes)."""
     groups = Counter((name, tuple(sorted(a.items()))) for name, a in calls)
     tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
-                   t_ops=0.0, launches=0,
+                   t_ops=0.0, launches=0, routes=Counter(),
                    library_ms=0.0 if k.startswith('gemm_s8') else None)
            for k in (*int8_cuda.launches, C2_REQUANT)}
     for (name, items), count in sorted(groups.items()):
         a = dict(items)
         fn, plain, lib, ops, nbytes = _int8_call(name, a, dev, rng)
+        shape = ' '.join(f'{k}={v}' for k, v in items)
+        _must_equal(f"{name} [{shape}]", fn(), plain())
         t = dict(ms=cuda_ms(fn, 10, 1), plain_ms=cuda_ms(plain, 1, 1),
                  t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
                  t_ops=ops / INT8_OP_PER_S * 1e3)
         t['bound_ms'] = max(t['t_bytes'], t['t_ops'])
         if lib is not None:
             t['library_ms'] = cuda_ms(lib, 10, 1)
-        shape = ' '.join(f'{k}={v}' for k, v in items)
-        log(f"{name} x{count} [{shape}]: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ("
+        log(f"{name} x{count} [{shape}]: 0 differing elements, kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ("
             f"{ops} op, {nbytes} B), " + (f"_int_mm {t['library_ms']:.4f} ms"
                                           if lib is not None else
                                           "no library int8 conv")
-            + f", {ops / t['ms'] / 1e9:.1f} TOP/s {card}")
+            + f", {ops / t['ms'] / 1e9:.1f} TOP/s, "
+            f"{nbytes / t['ms'] / 1e6:.1f} GB/s {card}")
         rows = [name] + ([C2_REQUANT] if name == 'gemm_s8'
                          and a['epilogue'] == 'q8_relu' else [])
         for row in rows:
             tot[row]['launches'] += count
+            if 'route' in a:
+                tot[row]['routes'][a['route']] += count
             for k, v in t.items():
                 tot[row][k] += count * v
         del fn, plain, lib
@@ -939,8 +992,8 @@ def main(argv=None) -> int:
     train_ms = time_train(res, args.seed)
     log(f"train step: median {train_ms:.3f} ms over 10 steps after 2 "
         f"warm-up, {FLAGSHIP_BATCH / train_ms * 1e3:.2f} imgs/s, batch "
-        f"{FLAGSHIP_BATCH} 512x640 {card} (before the s2d variants and the "
-        f"probes existed: {EARLIER_TRAIN_MS} ms {EARLIER_CARD})")
+        f"{FLAGSHIP_BATCH} 512x640 {card} (the same code in an earlier run: "
+        f"{EARLIER_TRAIN_MS} ms {EARLIER_CARD})")
     log(f"train peak memory allocated: {peak} bytes "
         f"({peak / 2**30:.2f} GiB) {card}")
     del res
@@ -968,7 +1021,9 @@ def main(argv=None) -> int:
         log(f"serve [{variant}] int8 batch {batch} 512x640: median "
             f"{t['median_ms']:.3f} ms over {SERVE_ITERS} calls after 2 "
             f"warm-up (device-resident input), "
-            f"{batch / t['median_ms'] * 1e3:.2f} imgs/s {card}")
+            f"{batch / t['median_ms'] * 1e3:.2f} imgs/s {card} (with the "
+            f"mma.sync kernels alone: {EARLIER_SERVE_MS[variant]} ms "
+            f"{EARLIER_CARD})")
         log(f"serve [{variant}] calls (ms): "
             f"{' '.join(f'{v:.3f}' for v in t['all_ms'])}")
         log(f"serve [{variant}] predict_molded from host uint8 (reindex and "
@@ -987,8 +1042,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     log(f"serve base {serve_ms['base']:.3f} ms vs host_s2d "
         f"{serve_ms['host_s2d']:.3f} ms per batch of {batch} in this run "
-        f"{card} (base before the s2d variants existed: {EARLIER_SERVE_MS} "
-        f"ms {EARLIER_CARD})")
+        f"{card}")
 
     # 7. the kernel-probe entry points at their own shapes
     fused_block.reset_counts()
@@ -1023,10 +1077,14 @@ def main(argv=None) -> int:
     for name, tk in int8.items():
         lib = (f"{tk['library_ms']:.4f}" if tk['library_ms'] is not None
                else "null")
-        log(f"{name} per served batch ({int8_launches[name]} launches): "
+        earlier = (f", with the mma.sync kernel alone "
+                   f"{EARLIER_KERNEL_MS[name]} ms {EARLIER_CARD}"
+                   if name in EARLIER_KERNEL_MS else "")
+        log(f"{name} per served batch ({int8_launches[name]} launches, "
+            f"routes {dict(tk['routes'])}): "
             f"kernel {tk['ms']:.4f} ms, plain {tk['plain_ms']:.4f} ms, bound "
             f"{tk['bound_ms']:.4f} ms ({tk['bound_by']}), library {lib} ms "
-            f"{card}")
+            f"{card}{earlier}")
 
     block = time_block(dev, card)
     rates = {kind: time_mma_rate(kind, dev, card) for kind in mma_rate.KINDS}
@@ -1044,18 +1102,21 @@ def main(argv=None) -> int:
         "replaces": "tools/probe_pallas_int8_matmul.py:45",
         "launches": int8_launches['gemm_s8'], "max_abs_err": int8_err,
         **{k: int8['gemm_s8'][k] for k in keys},
+        "routes": dict(int8['gemm_s8']['routes']),
     }, {
         "name": C2_REQUANT, "route": "cuda",
         "source": "ursonet_torch/csrc/int8_gemm.cu",
         "replaces": "tools/probe_pallas_c2.py:39",
         "launches": int8_launches[C2_REQUANT], "max_abs_err": int8_err,
         **{k: int8[C2_REQUANT][k] for k in keys},
+        "routes": dict(int8[C2_REQUANT]['routes']),
     }, {
         "name": "conv_s8", "route": "cuda",
         "source": "ursonet_torch/csrc/int8_conv.cu",
         "replaces": "tools/probe_pallas_conv3.py:45",
         "launches": int8_launches['conv_s8'], "max_abs_err": int8_err,
         **{k: int8['conv_s8'][k] for k in keys},
+        "routes": dict(int8['conv_s8']['routes']),
     }, {
         "name": "stem_s8", "route": "cuda",
         "source": "ursonet_torch/csrc/int8_stem.cu",

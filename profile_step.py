@@ -39,11 +39,18 @@ from ursonet_torch.engine import ServingEngine
 from ursonet_torch.models import quant
 
 # Kernel families by substrings of the kernel name, first match wins.
+# gemm_s8 and conv_s8 each have two kernels, reported apart: the
+# persistent TMA + wgmma one, `tma_s8_kernel<BN, kConv>` (kConv false for
+# the GEMM, true for the conv), and the mma.sync one of the ragged route.
 FAMILIES = (
     ('warp kernel (ours)', ('warp_homography',)),
     ('int8 stem kernel (ours)', ('stem_s8_kernel',)),
-    ('int8 conv kernel (ours)', ('conv_s8_kernel',)),
-    ('int8 GEMM kernel (ours)', ('gemm_s8_kernel',)),
+    ('int8 conv kernel, TMA + wgmma route (ours)',
+     tuple(f'tma_s8_kernel<{bn}, true>' for bn in (64, 128, 256))),
+    ('int8 GEMM kernel, TMA + wgmma route (ours)',
+     tuple(f'tma_s8_kernel<{bn}, false>' for bn in (64, 128, 256))),
+    ('int8 conv kernel, mma.sync route (ours)', ('conv_s8_kernel',)),
+    ('int8 GEMM kernel, mma.sync route (ours)', ('gemm_s8_kernel',)),
     ('maxpool', ('max_pool',)),
     ('conv wgrad', ('wgrad',)),
     ('conv dgrad', ('dgrad',)),
@@ -101,7 +108,7 @@ def report(prof, steps, unit, trace=None) -> None:
     print(f"device kernel time: {total / 1e3 / steps:.3f} ms per {unit} "
           f"over {len(kernels)} kernel launches")
     for fam, us in sorted(by_fam.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:28s} {us / 1e3 / steps:9.3f} ms/{unit} "
+        print(f"  {fam:46s} {us / 1e3 / steps:9.3f} ms/{unit} "
               f"{us / total:7.2%}")
     print("top kernels:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:

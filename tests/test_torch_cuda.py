@@ -76,24 +76,40 @@ from ursonet_torch.ops import int8_cuda as ic  # noqa: E402
 EPILOGUES = list(ic.EPILOGUES)
 
 
+def _routes(picked):
+    """The route the wrapper picks, and the mma.sync one forced where
+    that is another."""
+    return sorted({picked, 'ragged'}, reverse=True)
+
+
 @pytest.mark.parametrize('epilogue', EPILOGUES)
-@pytest.mark.parametrize('m,k,n', [(77, 147, 13), (300, 64, 200),
-                                   (2000, 96, 64), (1500, 40, 136)])
+@pytest.mark.parametrize('m,k,n', [
+    (77, 147, 13), (300, 64, 200), (2000, 96, 64), (1500, 40, 136),
+    # the TMA + wgmma route: one row, a row past a tile, rows that end
+    # mid-tile under every tile width, the narrowest and widest N, the
+    # shallowest and deepest K (split over K below 1025 rows)
+    (1, 16, 16), (129, 64, 48), (40960 + 37, 64, 256), (1317, 16, 13824),
+    (129, 10240, 48), (128, 10240, 1024), (2085, 1024, 320),
+    (5000, 256, 512)])
 def test_gemm_s8_matches_plain(cuda_device, m, k, n, epilogue):
-    """Ragged M, K and N, every tile configuration, every epilogue:
-    bit-exact."""
+    """Ragged M, K and N, every tile configuration, every epilogue, both
+    routes where the shape allows the TMA one: bit-exact."""
     rng = np.random.RandomState(m + k + n)
     a = chip_smoke.s8(rng, (m, k), cuda_device)
     b = ic.kernel_layout(rng.randint(-128, 128, (k, n)).astype(np.int8)) \
         .to(cuda_device)
     kw = chip_smoke.epilogue_args(cuda_device, rng, (m, n), k, epilogue)
-    before = ic.launches['gemm_s8']
-    got = ic.gemm_s8(a, b, epilogue, **kw)
-    torch.cuda.synchronize()
-    assert ic.launches['gemm_s8'] == before + 1
     want = ic.gemm_s8_torch(a, b, epilogue, **kw)
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got, want)
+    for route in _routes(ic.gemm_route(m, k, n, epilogue)):
+        before = ic.launches['gemm_s8']
+        ic.calls = []
+        got = ic.gemm_s8(a, b, epilogue, route=route, **kw)
+        torch.cuda.synchronize()
+        (_, call), ic.calls = ic.calls[0], None
+        assert call['route'] == route
+        assert ic.launches['gemm_s8'] == before + 1
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want), route
 
 
 @pytest.mark.parametrize('epilogue', EPILOGUES)
@@ -102,7 +118,17 @@ def test_gemm_s8_matches_plain(cuda_device, m, k, n, epilogue):
     (2, 9, 11, 3, 7, 7, 13, 2, ((3, 3), (3, 3))),
     (3, 7, 5, 32, 3, 3, 70, 1, ((1, 1), (1, 1))),
     (2, 8, 10, 48, 3, 3, 24, 2, ((0, 1), (0, 1))),
-    (1, 6, 6, 20, 1, 1, 9, 2, ((0, 0), (0, 0)))])
+    (1, 6, 6, 20, 1, 1, 9, 2, ((0, 0), (0, 0))),
+    # the TMA + wgmma route: H * W no multiple of the tile and a batch
+    # boundary inside one, C = 16, stride 2 with pads (0, 1), C = 2048,
+    # many tiles a block, a 1x1 and a 5x5 kernel
+    (2, 9, 11, 16, 3, 3, 16, 1, ((1, 1), (1, 1))),
+    (3, 7, 5, 32, 3, 3, 80, 1, ((1, 1), (1, 1))),
+    (2, 8, 10, 48, 3, 3, 32, 2, ((0, 1), (0, 1))),
+    (1, 6, 5, 2048, 3, 3, 128, 2, ((0, 1), (0, 1))),
+    (40, 32, 40, 64, 3, 3, 256, 1, ((1, 1), (1, 1))),
+    (2, 6, 6, 32, 1, 1, 16, 2, ((0, 0), (0, 0))),
+    (1, 9, 7, 16, 5, 5, 48, 1, ((2, 2), (2, 2)))])
 def test_conv_s8_matches_plain(cuda_device, geom, epilogue):
     b, h, w, c, kh, kw, n, stride, padding = geom
     rng = np.random.RandomState(b * h * w + c + n)
@@ -112,13 +138,105 @@ def test_conv_s8_matches_plain(cuda_device, geom, epilogue):
     oh, ow = ic.conv_out_hw(h, w, kh, kw, stride, padding)
     kw_ = chip_smoke.epilogue_args(cuda_device, rng, (b, oh, ow, n),
                                    kh * kw * c, epilogue)
-    before = ic.launches['conv_s8']
-    got = ic.conv_s8(x, wt, stride, padding, epilogue, **kw_)
-    torch.cuda.synchronize()
-    assert ic.launches['conv_s8'] == before + 1
     want = ic.conv_s8_torch(x, wt, stride, padding, epilogue, **kw_)
-    assert got.shape == (b, oh, ow, n) and got.dtype == want.dtype
+    for route in _routes(ic.conv_route(c, n, kh * kw)):
+        before = ic.launches['conv_s8']
+        got = ic.conv_s8(x, wt, stride, padding, epilogue, route=route,
+                         **kw_)
+        torch.cuda.synchronize()
+        assert ic.launches['conv_s8'] == before + 1
+        assert got.shape == (b, oh, ow, n) and got.dtype == want.dtype
+        assert torch.equal(got, want), route
+
+
+def _gemm_operands(dev, m, k, n, epilogue, seed=0):
+    rng = np.random.RandomState(seed)
+    a = chip_smoke.s8(rng, (m, k), dev)
+    b = ic.kernel_layout(rng.randint(-128, 128, (k, n)).astype(np.int8)) \
+        .to(dev)
+    return a, b, chip_smoke.epilogue_args(dev, rng, (m, n), k, epilogue)
+
+
+@pytest.mark.parametrize('epilogue', ['f32', 'q8_relu'])
+def test_split_k_gives_the_same_bits_on_every_run(cuda_device, epilogue):
+    m, k, n = 128, 10240, 1024
+    assert ic.hopper_plan(m, k, n, epilogue)['splits'] > 1
+    a, b, kw = _gemm_operands(cuda_device, m, k, n, epilogue)
+    runs = [ic.gemm_s8(a, b, epilogue, route='tma', **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    assert torch.equal(runs[0], ic.gemm_s8(a, b, epilogue, route='ragged',
+                                           **kw))
+
+
+def test_tma_route_on_another_stream(cuda_device):
+    a, b, kw = _gemm_operands(cuda_device, 3000, 256, 512, 'join')
+    want = ic.gemm_s8_torch(a, b, 'join', **kw)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        got = ic.gemm_s8(a, b, 'join', route='tma', **kw)
+    stream.synchronize()
     assert torch.equal(got, want)
+
+
+def test_tma_route_shapes_back_to_back(cuda_device):
+    """Different shapes, tiles and epilogues launched without a
+    synchronize between them: every launch carries its own tensor maps
+    and tile counters."""
+    shapes = [(2000, 64, 256, 'join'), (128, 10240, 256, 'f32'),
+              (129, 64, 48, 'q8'), (128, 10240, 256, 'f32'),
+              (5000, 512, 128, 'q8_relu'), (2000, 64, 256, 'join')]
+    ops = [_gemm_operands(cuda_device, m, k, n, ep, seed=i)
+           for i, (m, k, n, ep) in enumerate(shapes)]
+    got = [ic.gemm_s8(a, b, ep, route='tma', **kw)
+           for (a, b, kw), (_, _, _, ep) in zip(ops, shapes)]
+    torch.cuda.synchronize()
+    for out, (a, b, kw), (_, _, _, ep) in zip(got, ops, shapes):
+        assert torch.equal(out, ic.gemm_s8_torch(a, b, ep, **kw))
+
+
+def test_tma_route_under_load_gives_the_same_bits(cuda_device):
+    """Served shapes of every tile width (GEMM and conv, resident and
+    streamed weights, join, split K) launched back to back in shuffled
+    order, 30 rounds of 3 launches each: every output equals the first
+    round's, which equals the mma.sync route's."""
+    rng = np.random.RandomState(7)
+    cases = []
+    for i, (m, k, n, ep) in enumerate([
+            (163840, 64, 256, 'join'), (163840, 256, 1024, 'join'),
+            (40960, 2048, 512, 'q8_relu'), (163840, 256, 64, 'q8_relu'),
+            (163840, 512, 128, 'q8'), (128, 10240, 1024, 'f32_relu')]):
+        a, b, kw = _gemm_operands(cuda_device, m, k, n, ep, seed=i)
+        cases.append(lambda r, a=a, b=b, ep=ep, kw=kw:
+                     ic.gemm_s8(a, b, ep, route=r, **kw))
+    for c, n, hw in [(64, 64, (64, 80)), (256, 256, (32, 40))]:
+        x = chip_smoke.s8(rng, (16, *hw, c), cuda_device)
+        w = ic.kernel_layout(rng.randint(-128, 128, (3, 3, c, n))
+                             .astype(np.int8)).to(cuda_device)
+        kw = chip_smoke.epilogue_args(cuda_device, rng, (16, *hw, n), 9 * c,
+                                      'q8_relu')
+        cases.append(lambda r, x=x, w=w, kw=kw: ic.conv_s8(
+            x, w, 1, ((1, 1), (1, 1)), 'q8_relu', route=r, **kw))
+    first = [fn('ragged') for fn in cases]
+    for _ in range(30):
+        order = rng.permutation(len(cases))
+        outs = [(i, [cases[i]('tma') for _ in range(3)][-1]) for i in order]
+        torch.cuda.synchronize()
+        for i, out in outs:
+            assert torch.equal(out, first[i]), i
+
+
+def test_forced_tma_route_refuses_what_it_cannot_address(cuda_device):
+    a, b, kw = _gemm_operands(cuda_device, 77, 147, 13, 's32')
+    with pytest.raises(ValueError):
+        ic.gemm_s8(a, b, 's32', route='tma')
+    with pytest.raises(ValueError):
+        ic.gemm_s8(a, b, 's32', route='wgmma')
+    x = chip_smoke.s8(np.random.RandomState(0), (1, 8, 8, 3), cuda_device)
+    w = ic.kernel_layout(np.ones((7, 7, 3, 16), np.int8)).to(cuda_device)
+    with pytest.raises(ValueError):
+        ic.conv_s8(x, w, 2, ((3, 3), (3, 3)), route='tma')
 
 
 def test_int8_wrappers_reject_what_they_do_not_take(cuda_device):

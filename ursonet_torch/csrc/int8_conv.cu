@@ -24,12 +24,26 @@
 // (N = 64) to 4608 at C5 (N = 512), against the card's ~590 int8
 // operations a byte. So C3..C5 and the bottleneck conv are bound by the
 // tensor cores' rate, C2 sits at the ridge, and the stem (C = 3) is
-// bound by its bytes. The design: the GEMM tile loop of
-// int8_common.cuh (mma.sync s8, two shared-memory stages, epilogue in
-// registers); when C % 16 == 0 a 16-byte chunk of K lies inside one tap
-// and is one aligned 16-byte load. Later work: TMA im2col loads and wgmma.
+// bound by its bytes. Two routes, chosen by the wrapper from the shapes
+// before the launch:
+//   ursonet_conv_s8_tma  (C % 16 == 0, N % 16 == 0, 16-byte aligned
+//     pointers: every 3x3 conv of the served model) the persistent
+//     TMA + wgmma kernel of int8_tma.cuh with a gathering producer: the
+//     weights [N, KH*KW*C] are a K-major matrix loaded by TMA; the
+//     patches are still never built: a producer warpgroup copies each
+//     16-byte chunk of K (it lies inside one tap) from the NHWC input
+//     with cp.async, zero-filled in the padding, to the swizzled address
+//     the wgmma descriptor expects, arriving on the stage's mbarrier;
+//     the (b, oy, ox) of a row is decomposed once per tile, the tap once
+//     per stage and chunk.
+//   ursonet_conv_s8      (any shape: the ragged route; on the serving
+//     path only the C = 3 stem of the `base` variant) the mma.sync tile
+//     loop of int8_common.cuh with a register-staged gather, byte-wise
+//     when C % 16 != 0.
+// Later work: TMA im2col loads for the patches.
 
 #include "int8_common.cuh"
+#include "int8_tma.cuh"
 
 namespace ursonet_int8 {
 namespace {
@@ -160,6 +174,58 @@ extern "C" int ursonet_conv_s8(const void* X, const void* Wt, int B, int H,
     case 2: err = launch<TileSmall>(x, w, g, M, N, vec_x, vec_w, ep, s); break;
     default: err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+extern "C" int ursonet_conv_s8_tma(const void* X, const void* Wt, int B,
+                                   int H, int W, int C, int N, int KH, int KW,
+                                   int stride, int pad_t, int pad_b,
+                                   int pad_l, int pad_r, int mode,
+                                   const void* alpha, const void* beta,
+                                   float inv_s_out, const void* res,
+                                   float res_scale, void* out, int bn,
+                                   int stages, int bufs, int resident,
+                                   int grid, int device, void* stream) {
+  using namespace ursonet_int8;
+  const Epilogue ep{mode, static_cast<const float*>(alpha),
+                    static_cast<const float*>(beta), inv_s_out,
+                    static_cast<const int8_t*>(res), res_scale, out};
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || N <= 0 ||
+      KH <= 0 || KW <= 0 || stride <= 0 || pad_t < 0 || pad_b < 0 ||
+      pad_l < 0 || pad_r < 0 || X == nullptr || Wt == nullptr ||
+      !epilogue_ok(ep) || bn <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hp = H + pad_t + pad_b, wp = W + pad_l + pad_r;
+  if (hp < KH || wp < KW) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ktot = static_cast<long long>(KH) * KW * C;
+  const long long oh = (hp - KH) / stride + 1, ow = (wp - KW) / stride + 1;
+  const long long m = B * oh * ow;
+  // the gather keeps a row's taps in 32 bits and its offsets in 32
+  if (ktot > 0x7fffffffLL || m > 0x7fffffffLL || KH * KW > 32 ||
+      static_cast<long long>(B) * hp * wp * C > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tma::Params p{};
+  p.M = static_cast<int>(m), p.N = N, p.K = static_cast<int>(ktot);
+  p.n_tiles = (N + bn - 1) / bn;
+  p.ksteps = (p.K + tma::kBK - 1) / tma::kBK;
+  p.splits = 1;
+  const long long items = (m + tma::kBM - 1) / tma::kBM * p.n_tiles;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.items = static_cast<int>(items);
+  p.stages = stages, p.bufs = bufs, p.resident = resident;
+  p.mode = mode, p.out_bytes = tma::out_bytes_of(mode);
+  p.alpha = ep.alpha, p.beta = ep.beta;
+  p.inv_s_out = inv_s_out, p.res_scale = res_scale;
+  p.X = static_cast<const int8_t*>(X);
+  p.g = tma::ConvGeom{H, W, C, static_cast<int>(oh), static_cast<int>(ow), KH,
+                      KW, stride, pad_t, pad_l};
+  err = tma::launch_bn<true>(bn, nullptr, static_cast<const int8_t*>(Wt),
+                             ep.res, out, p, grid,
+                             static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

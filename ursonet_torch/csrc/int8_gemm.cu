@@ -18,14 +18,26 @@
 // K, N of 64..2048 that is 32..1000 operations a byte, mostly below the
 // card's ~590 int8 operations a byte, so most of them are bound by
 // memory; the head denses at M = 128 are bound by reading their weights.
-// The design: tensor-core mma.sync s8 tiles (128x128, 128x64 or 64x64
-// by shape), 16-byte global loads, a two-stage shared-memory pipeline,
-// the epilogue applied in registers so the s32 accumulator never reaches
-// device memory, and consecutive blocks sharing one A row-tile so that A
-// is read from device memory about once. Later work: TMA + wgmma, and a
-// split over K for the M = 128 denses, which fill only 32 of 132 SMs.
+// So the design moves bytes first. Two routes, chosen by the wrapper from
+// the shapes before the launch:
+//   ursonet_gemm_s8_tma  (K % 16 == 0, N * out_bytes % 16 == 0, 16-byte
+//     aligned pointers: every GEMM of the served model) the persistent
+//     TMA + wgmma kernel of int8_tma.cuh: A and Bt by TMA into a ring of
+//     128-byte-swizzled stages that runs across tiles, Bt resident in
+//     shared memory when it fits, wgmma m64nNk32 from shared memory,
+//     the epilogue staged through shared memory and written by TMA
+//     stores, the residual of `join` TMA-loaded ahead, and a split over
+//     K for the M = 128 denses.
+//   ursonet_gemm_s8      (any shape: the ragged route) mma.sync s8 tiles
+//     (128x128, 128x64 or 64x64 by shape), 16-byte global loads where
+//     aligned, a two-stage shared-memory pipeline, the epilogue applied
+//     in registers.
+// In both the s32 accumulator never reaches device memory (but as split-K
+// partial sums), and blocks running together share one A row-tile so
+// that A is read from device memory about once.
 
 #include "int8_common.cuh"
+#include "int8_tma.cuh"
 
 namespace ursonet_int8 {
 namespace {
@@ -88,6 +100,46 @@ extern "C" int ursonet_gemm_s8(const void* A, const void* Bt, int M, int N,
     case 2: err = launch<TileSmall>(a, b, M, N, K, vec_a, vec_b, ep, s); break;
     default: err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+extern "C" int ursonet_gemm_s8_tma(const void* A, const void* Bt, int M,
+                                   int N, int K, int mode, const void* alpha,
+                                   const void* beta, float inv_s_out,
+                                   const void* res, float res_scale,
+                                   void* out, int bn, int stages, int bufs,
+                                   int resident, int splits, void* partial,
+                                   void* counters, int grid, int device,
+                                   void* stream) {
+  using namespace ursonet_int8;
+  const Epilogue ep{mode, static_cast<const float*>(alpha),
+                    static_cast<const float*>(beta), inv_s_out,
+                    static_cast<const int8_t*>(res), res_scale, out};
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || A == nullptr ||
+      Bt == nullptr || !epilogue_ok(ep) || bn <= 0 ||
+      (splits > 1 && (partial == nullptr || counters == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tma::Params p{};
+  p.M = M, p.N = N, p.K = K;
+  p.n_tiles = (N + bn - 1) / bn;
+  p.ksteps = (K + tma::kBK - 1) / tma::kBK;
+  p.splits = splits;
+  const long long items = static_cast<long long>((M + tma::kBM - 1) /
+                                                 tma::kBM) * p.n_tiles * splits;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.items = static_cast<int>(items);
+  p.stages = stages, p.bufs = bufs, p.resident = resident;
+  p.mode = mode, p.out_bytes = tma::out_bytes_of(mode);
+  p.alpha = ep.alpha, p.beta = ep.beta;
+  p.inv_s_out = inv_s_out, p.res_scale = res_scale;
+  p.partial = static_cast<int32_t*>(partial);
+  p.counters = static_cast<int*>(counters);
+  err = tma::launch_bn<false>(bn, static_cast<const int8_t*>(A),
+                              static_cast<const int8_t*>(Bt), ep.res, out, p,
+                              grid, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -46,12 +46,32 @@ float64 (exact: |acc| < 2^53) and applies the same epilogue with
 PyTorch operations in the same order, the FMA rounded once by
 `fma_f32`. Each launch adds one to
 `launches[name]`; when `calls` is a list, each launch also appends its
-shapes there (what chip_smoke.py times at the serving path's shapes).
+shapes and its route there (what chip_smoke.py times at the serving
+path's shapes).
+
+Routes. `gemm_s8` and `conv_s8` each have two hand-written kernels, and
+the wrapper picks one from the shapes and the pointers' alignment before
+the launch (`gemm_route`, `conv_route`), never by catching a failure:
+
+    'tma'     the persistent TMA + wgmma kernel of `csrc/int8_tma.cuh`
+              (Hopper machinery in `csrc/hopper.cuh`): K % 16 == 0 and
+              N * out_bytes % 16 == 0 for the GEMM, C % 16 == 0 and
+              N % 16 == 0 for the conv, 16-byte aligned operands. Every
+              GEMM and every 3x3 conv of the served model takes it.
+              `hopper_plan` picks its tile width, the depth of its
+              pipeline, whether the weights stay in shared memory, and
+              the split over K for outputs of few rows.
+    'ragged'  the mma.sync kernel of `csrc/int8_common.cuh`, for any
+              shape (the C = 3 stem conv of the `base` variant, odd K).
+
+`route=` forces one (the checks hold both against the plain version); a
+forced 'tma' on a shape it does not take raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -80,6 +100,9 @@ def _bind_gemm(lib) -> None:
     lib.ursonet_gemm_s8.argtypes = [P, P, I, I, I, I, I, I, P, P, Fl, P, Fl,
                                     P, I, I, P]
     lib.ursonet_gemm_s8.restype = I
+    lib.ursonet_gemm_s8_tma.argtypes = [P, P, I, I, I, I, P, P, Fl, P, Fl, P,
+                                        I, I, I, I, I, P, P, I, I, P]
+    lib.ursonet_gemm_s8_tma.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
 
@@ -89,6 +112,10 @@ def _bind_conv(lib) -> None:
     lib.ursonet_conv_s8.argtypes = [P, P] + [I] * 14 + [I, P, P, Fl, P, Fl,
                                                         P, I, I, P]
     lib.ursonet_conv_s8.restype = I
+    lib.ursonet_conv_s8_tma.argtypes = [P, P] + [I] * 12 + [I, P, P, Fl, P,
+                                                            Fl, P, I, I, I, I,
+                                                            I, I, P]
+    lib.ursonet_conv_s8_tma.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
 
@@ -117,14 +144,144 @@ def kernel_layout(w8: np.ndarray) -> torch.Tensor:
 
 
 def tile_for(m: int, n: int) -> int:
-    """Tile configuration of csrc/int8_common.cuh for an [m, n] output:
-    2 (64x64) for few rows (the head denses), 1 (128x64) for narrow N,
-    else 0 (128x128)."""
+    """Tile configuration of csrc/int8_common.cuh (the ragged route) for
+    an [m, n] output: 2 (64x64) for few rows (the head denses), 1
+    (128x64) for narrow N, else 0 (128x128)."""
     if m <= 1024:
         return 2
     if n <= 64:
         return 1
     return 0
+
+
+# --------------------------------------------------------------------------
+# the TMA + wgmma route: what the host decides (csrc/int8_tma.cuh mirrors
+# the sizes)
+
+ROUTES = ("tma", "ragged")
+OUT_BYTES = {"s32": 4, "f32": 4, "f32_relu": 4, "q8_relu": 1, "q8": 1,
+             "join": 1}
+SM_COUNT = 132            # H100 SXM; the wrappers ask the device
+SMEM_LIMIT = 232448       # 227 KB a block on sm_90
+TILE_M = 128              # rows of an output tile, 64 per warpgroup
+STAGE_K = 128             # bytes of K in a pipeline stage
+RESIDENT_LIMIT = 65536    # weights kept in shared memory up to this
+SPLIT_K_MAX_M = 1024      # outputs of at most this many rows split K
+# (stages, output buffers), best first; the first that fits is taken.
+# `join` keeps three buffers and gives up stages instead: its residual
+# tile is loaded into the buffer two tiles ahead (measured on the H100:
+# PERF.md).
+_DEPTHS = ((4, 3), (3, 3), (4, 2), (3, 2), (4, 1))
+_DEPTHS_JOIN = ((4, 3), (3, 3), (2, 3))
+
+
+def gemm_route(m: int, k: int, n: int, epilogue: str,
+               aligned: bool = True) -> str:
+    """'tma' when TMA can address the operands of an [m,k] @ [k,n]
+    product (global strides are multiples of 16 bytes), else 'ragged'.
+    `aligned`: every pointer is 16-byte aligned."""
+    ok = aligned and k % 16 == 0 and (n * OUT_BYTES[epilogue]) % 16 == 0 \
+        and (epilogue != "join" or n % 16 == 0)
+    return "tma" if ok else "ragged"
+
+
+def conv_route(c: int, n: int, taps: int = 9, padded_numel: int = 0,
+               aligned: bool = True) -> str:
+    """'tma' for a conv over c input and n output channels when a 16-byte
+    chunk of K lies inside one tap and TMA can address the weights and
+    the output (N % 16 == 0 does for every epilogue); the gather keeps a
+    row's valid taps in 32 bits (`taps` = KH * KW) and indexes the padded
+    input (`padded_numel` elements) with 32-bit offsets."""
+    ok = aligned and c % 16 == 0 and n % 16 == 0 and taps <= 32 \
+        and padded_numel < 2 ** 31
+    return "tma" if ok else "ragged"
+
+
+def swizzle128(row: int, chunk: int) -> int:
+    """Where 16-byte chunk `chunk` (0..7) of 128-byte row `row` of a tile
+    lies in shared memory under the 128-byte swizzle: the chunk index
+    within the row (tiles are aligned to 1024 bytes)."""
+    return chunk ^ (row % 8)
+
+
+def out_box_offset(row: int, byte: int, inner: int) -> int:
+    """Byte offset of byte `byte` of row `row` inside a [64, inner] box
+    of the output buffer (inner = 128 or 64): rows of `inner` bytes with
+    the 16-byte chunk index XORed with the 128-byte line index (the 128-
+    and 64-byte swizzles of the boxes' tensor maps)."""
+    x = row * inner + byte
+    return x ^ (((x >> 7) & (7 if inner == 128 else 3)) << 4)
+
+
+def tma_smem_bytes(bn: int, out_bytes: int, stages: int, bufs: int,
+                   resident: bool, ksteps: int, n_tiles: int) -> int:
+    """Dynamic shared memory of a launch of the TMA route: alignment
+    slack, the ring of stages (A 128 x 128 B, and the weights' bn x 128 B
+    unless resident), the resident weights, the output buffers, alpha and
+    beta of both warpgroups, barriers."""
+    stage = TILE_M * STAGE_K + (0 if resident else bn * STAGE_K)
+    bres = ksteps * n_tiles * bn * STAGE_K if resident else 0
+    return 1024 + stages * stage + bres + bufs * TILE_M * bn * out_bytes \
+        + 16 * bn + 256
+
+
+# What one more split costs the block that sums the partial sums, in
+# units of one K stage of the pipeline (measured on the H100: see PERF.md).
+SPLIT_COST_STAGES = 2
+
+
+def split_k(m: int, tiles: int, ksteps: int, epilogue: str,
+            sms: int = SM_COUNT) -> int:
+    """Into how many parts the K stages of each tile are split: 1 for
+    more than SPLIT_K_MAX_M rows, for `join` (the residual is loaded per
+    tile) and when the tiles fill the SMs. Else the divisor d of `ksteps`
+    with tiles * d <= sms (one wave of blocks) that makes the longest
+    block's work least: ksteps / d stages, and SPLIT_COST_STAGES * d for
+    the block that sums the d partial sums."""
+    if m > SPLIT_K_MAX_M or epilogue == "join" or tiles >= sms:
+        return 1
+    best, best_cost = 1, ksteps
+    for d in range(2, ksteps + 1):
+        if ksteps % d == 0 and tiles * d <= sms:
+            cost = ksteps // d + SPLIT_COST_STAGES * d
+            if cost < best_cost:
+                best, best_cost = d, cost
+    return best
+
+
+@functools.lru_cache(maxsize=4096)
+def hopper_plan(m: int, k: int, n: int, epilogue: str,
+                sms: int = SM_COUNT, split: bool = True) -> dict:
+    """Launch configuration of the TMA route for an [m,k] @ [k,n] product
+    (a conv: k = KH * KW * C, and `split` False: its kernel does not split
+    K): tile width `bn` (256 for wide int8 outputs of many rows, 128, or
+    64 for narrow N and for few rows whose 64-wide tiles fit one wave of
+    blocks), K `ksteps`, `splits`, `resident` weights, `stages`, `bufs`,
+    `grid` and `smem` bytes."""
+    ob = OUT_BYTES[epilogue]
+    if m <= SPLIT_K_MAX_M:      # few rows: more tiles, in one wave
+        bn = 64 if n < 128 or -(-m // TILE_M) * -(-n // 64) <= sms else 128
+    elif n >= 256 and ob == 1:
+        bn = 256
+    else:
+        bn = 128 if n >= 128 else 64
+    m_tiles, n_tiles = -(-m // TILE_M), -(-n // bn)
+    ksteps = -(-k // STAGE_K)
+    splits = split_k(m, m_tiles * n_tiles, ksteps, epilogue, sms) \
+        if split else 1
+    resident = splits == 1 \
+        and ksteps * n_tiles * bn * STAGE_K <= RESIDENT_LIMIT
+    for stages, bufs in _DEPTHS_JOIN if epilogue == "join" else _DEPTHS:
+        smem = tma_smem_bytes(bn, ob, stages, bufs, resident, ksteps, n_tiles)
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"no pipeline depth fits {m}x{k}x{n} {epilogue} "
+                         f"with tiles of {bn} columns")
+    items = m_tiles * n_tiles * splits
+    return dict(bn=bn, m_tiles=m_tiles, n_tiles=n_tiles, ksteps=ksteps,
+                splits=splits, resident=resident, stages=stages, bufs=bufs,
+                grid=min(items, sms), smem=smem)
 
 
 # --------------------------------------------------------------------------
@@ -294,10 +451,31 @@ def _raise_if(rc, lib, name):
                            + lib.ursonet_int8_error_string(rc).decode())
 
 
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _pick_route(name, route, auto):
+    if route is None:
+        return auto
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}")
+    if route == "tma" and auto != "tma":
+        raise ValueError(f"{name}: the tma route does not take these shapes "
+                         "or this alignment")
+    return route
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
             alpha=None, beta=None, inv_s_out: float = 1.0, res=None,
-            res_scale: float = 1.0) -> torch.Tensor:
-    """out[M,N] = epilogue(a[M,K] s8 @ b[K,N] s8)."""
+            res_scale: float = 1.0, route=None) -> torch.Tensor:
+    """out[M,N] = epilogue(a[M,K] s8 @ b[K,N] s8). `route`: None picks by
+    shape (`gemm_route`), or one of ROUTES."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gemm_s8_torch(a, b, epilogue, alpha, beta, inv_s_out, res,
                              res_scale)
@@ -318,18 +496,37 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
     _check_epilogue(a.device, m, n, epilogue, alpha, beta, res)
     out = torch.empty((m, n), dtype=OUT_DTYPES[epilogue], device=a.device)
     lib = cuda_build.load("int8_gemm", _bind_gemm)
-    tile = tile_for(m, n)
-    rc = lib.ursonet_gemm_s8(
-        a.data_ptr(), b.data_ptr(), m, n, k,
-        int(k % 16 == 0 and a.data_ptr() % 16 == 0),
-        int(k % 16 == 0 and b.data_ptr() % 16 == 0),
-        EPILOGUES[epilogue], _ptr(alpha), _ptr(beta), float(inv_s_out),
-        _ptr(res), float(res_scale), out.data_ptr(), tile, a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    route = _pick_route("gemm_s8", route, gemm_route(
+        m, k, n, epilogue, _aligned(a, b, out, res)))
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if route == "tma":
+        plan = hopper_plan(m, k, n, epilogue, _sms(a.device))
+        partial = counters = None
+        if plan["splits"] > 1:
+            partial = torch.empty((plan["splits"], m, n), dtype=torch.int32,
+                                  device=a.device)
+            counters = torch.zeros(2 * plan["m_tiles"] * plan["n_tiles"],
+                                   dtype=torch.int32, device=a.device)
+        rc = lib.ursonet_gemm_s8_tma(
+            a.data_ptr(), b.data_ptr(), m, n, k, EPILOGUES[epilogue],
+            _ptr(alpha), _ptr(beta), float(inv_s_out), _ptr(res),
+            float(res_scale), out.data_ptr(), plan["bn"], plan["stages"],
+            plan["bufs"], int(plan["resident"]), plan["splits"],
+            _ptr(partial), _ptr(counters), plan["grid"], a.device.index,
+            stream)
+    else:
+        rc = lib.ursonet_gemm_s8(
+            a.data_ptr(), b.data_ptr(), m, n, k,
+            int(k % 16 == 0 and a.data_ptr() % 16 == 0),
+            int(k % 16 == 0 and b.data_ptr() % 16 == 0),
+            EPILOGUES[epilogue], _ptr(alpha), _ptr(beta), float(inv_s_out),
+            _ptr(res), float(res_scale), out.data_ptr(), tile_for(m, n),
+            a.device.index, stream)
     _raise_if(rc, lib, "gemm_s8")
     launches["gemm_s8"] += 1
     if calls is not None:
-        calls.append(("gemm_s8", dict(m=m, k=k, n=n, epilogue=epilogue)))
+        calls.append(("gemm_s8", dict(m=m, k=k, n=n, epilogue=epilogue,
+                                      route=route)))
     return out
 
 
@@ -341,9 +538,10 @@ def conv_out_hw(h, w, kh, kw, stride, padding):
 def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             padding=((0, 0), (0, 0)), epilogue: str = "s32", alpha=None,
             beta=None, inv_s_out: float = 1.0, res=None,
-            res_scale: float = 1.0) -> torch.Tensor:
+            res_scale: float = 1.0, route=None) -> torch.Tensor:
     """out[B,OH,OW,N] = epilogue(conv(x NHWC s8, w HWIO s8)), explicit
-    ((top, bottom), (left, right)) zero pads."""
+    ((top, bottom), (left, right)) zero pads. `route`: None picks by shape
+    (`conv_route`), or one of ROUTES."""
     (pt, pb), (pl, pr) = padding
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv_s8_torch(x, w, stride, padding, epilogue, alpha, beta,
@@ -371,20 +569,34 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     out = torch.empty((bsz, oh, ow, n), dtype=OUT_DTYPES[epilogue],
                       device=x.device)
     lib = cuda_build.load("int8_conv", _bind_conv)
-    vec = c % 16 == 0
-    rc = lib.ursonet_conv_s8(
-        x.data_ptr(), w.data_ptr(), bsz, h, wd, c, n, kh, kw, stride,
-        pt, pb, pl, pr, int(vec and x.data_ptr() % 16 == 0),
-        int((kh * kw * c) % 16 == 0 and w.data_ptr() % 16 == 0),
-        EPILOGUES[epilogue], _ptr(alpha), _ptr(beta), float(inv_s_out),
-        _ptr(res), float(res_scale), out.data_ptr(), tile_for(m, n),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    route = _pick_route("conv_s8", route, conv_route(
+        c, n, kh * kw, bsz * (h + pt + pb) * (wd + pl + pr) * c,
+        _aligned(x, w, out, res)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "tma":
+        plan = hopper_plan(m, kh * kw * c, n, epilogue, _sms(x.device),
+                           split=False)
+        rc = lib.ursonet_conv_s8_tma(
+            x.data_ptr(), w.data_ptr(), bsz, h, wd, c, n, kh, kw, stride,
+            pt, pb, pl, pr, EPILOGUES[epilogue], _ptr(alpha), _ptr(beta),
+            float(inv_s_out), _ptr(res), float(res_scale), out.data_ptr(),
+            plan["bn"], plan["stages"], plan["bufs"], int(plan["resident"]),
+            plan["grid"], x.device.index, stream)
+    else:
+        vec = c % 16 == 0
+        rc = lib.ursonet_conv_s8(
+            x.data_ptr(), w.data_ptr(), bsz, h, wd, c, n, kh, kw, stride,
+            pt, pb, pl, pr, int(vec and x.data_ptr() % 16 == 0),
+            int((kh * kw * c) % 16 == 0 and w.data_ptr() % 16 == 0),
+            EPILOGUES[epilogue], _ptr(alpha), _ptr(beta), float(inv_s_out),
+            _ptr(res), float(res_scale), out.data_ptr(), tile_for(m, n),
+            x.device.index, stream)
     _raise_if(rc, lib, "conv_s8")
     launches["conv_s8"] += 1
     if calls is not None:
         calls.append(("conv_s8", dict(b=bsz, h=h, w=wd, c=c, kh=kh, kw=kw,
                                       n=n, stride=stride, padding=padding,
-                                      epilogue=epilogue)))
+                                      epilogue=epilogue, route=route)))
     return out
 
 
