@@ -12,8 +12,10 @@ Phases, in order; any failure exits non-zero:
               the warp at the train path's shapes, conv_s8 and gemm_s8 at
               the serving path's shapes in every epilogue and on both of
               their routes (TMA + wgmma, and mma.sync), stem_s8 in
-              both input modes, block_s8 at the probe's shape and on
-              ragged tiles, mma_rate in every kind (integers bit-exact).
+              both input modes on both of its routes (persistent TMA +
+              wgmma, and mma.sync), block_s8 at the probe's shape and on
+              ragged tiles, mma_rate in every kind on both of its routes
+              (wgmma, mma.sync; integers bit-exact).
   4. train    the train step of benchmark_config(3) at full width
               (ResNet-50, 512×640, batch 32) for 5 steps on one seeded
               random batch, then one validation step; losses must be
@@ -31,16 +33,18 @@ Phases, in order; any failure exits non-zero:
               variant launched (stem_s8 exactly once per batch), outputs
               within the random-init gate of the float twin, decode and
               ESA score finite; the `s2d` variant equal to `host_s2d`
-              bit for bit; every GEMM and every 3x3 conv of the served
-              model must have taken the TMA + wgmma route.
-  7. probes   the three kernel-probe entry points at their own shapes
-              (ursonet_torch.probes.fused_block, int8_mma, int4_mma),
-              their JSON lines printed as they come.
+              bit for bit; every GEMM, every 3x3 conv and the fused stem
+              of the served model must have taken the TMA + wgmma route.
+  7. probes   the four kernel-probe entry points at their own shapes
+              (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
+              stem), their JSON lines printed as they come; the rate
+              probes and the stem probe run each kernel on both routes.
   8. numbers  train step and serving time, memory, and each kernel's
               time at the main paths' shapes beside its plain version,
-              the library call and the card's bound; every distinct int8
-              call of a served batch equal to its plain version at its
-              full shape.
+              the library call and the card's bound (the stem and the
+              rate loops on both routes, with the SM clock read while
+              they run); every distinct int8 call of a served batch equal
+              to its plain version at its full shape.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -70,6 +74,8 @@ from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops import augment, cuda_build, int8_cuda, warp_cuda
 from ursonet_torch.ops.image import resize_geometry
 from ursonet_torch.probes import fused_block, int4_mma, int8_mma, mma_rate
+from ursonet_torch.probes import stem as stem_probe
+from ursonet_torch.probes.timing import sm_clock_mhz
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import make_eval_step, make_train_step
@@ -378,18 +384,26 @@ def stem_operands(dev, rng, b, h2, w2):
 
 
 def check_stem_kernel(dev, rng, batch=8) -> float:
-    """stem_s8 against its plain version in both input modes: at the
-    flagship shape (256x320 packed pixels) and at an odd small shape
-    whose tiles overhang every border. Any difference raises."""
-    for b, h2, w2 in [(batch, 256, 320), (3, 37, 51)]:
+    """stem_s8 against its plain version in both input modes, on the
+    route the wrapper picks and on the mma.sync route forced: at the
+    flagship shape (256x320 packed pixels), at a shape whose tiles
+    overhang every border that the TMA route takes (W2 % 4 == 0), and at
+    an odd one that only the mma.sync route takes. Any difference
+    raises."""
+    for b, h2, w2 in [(batch, 256, 320), (3, 37, 52), (3, 37, 51)]:
         x, w = stem_operands(dev, rng, b, h2, w2)
+        picked = int8_cuda.stem_route(w2)
+        if picked != ('tma' if w2 % 4 == 0 else 'ragged'):
+            raise RuntimeError(f"stem_s8 {b}x{h2}x{w2}: route {picked}")
+        routes = sorted({picked, 'ragged'}, reverse=True)
         for mode in int8_cuda.STEM_MODES:
             kw = stem_args(dev, rng, mode)
-            _must_equal(f"stem_s8 {mode} {b}x{h2}x{w2}x12",
-                        int8_cuda.stem_s8(x, w, **kw),
-                        int8_cuda.stem_s8_torch(x, w, **kw))
-        log(f"check stem_s8 {b}x{h2}x{w2}x12 -> 64: calibrated and shift128 "
-            "bit-exact")
+            want = int8_cuda.stem_s8_torch(x, w, **kw)
+            for route in routes:
+                _must_equal(f"stem_s8 {mode} {b}x{h2}x{w2}x12 [{route}]",
+                            int8_cuda.stem_s8(x, w, route=route, **kw), want)
+        log(f"check stem_s8 {b}x{h2}x{w2}x12 -> 64 [{'+'.join(routes)}]: "
+            "calibrated and shift128 bit-exact")
     return 0.0
 
 
@@ -413,30 +427,33 @@ BF16_RATE_TOL = 1e-5   # of the output's largest magnitude
 
 
 def check_mma_rate(dev, iters=4) -> dict:
-    """mma_rate against its plain version at the probes' shapes in every
-    replica: the integer kinds exact; bf16 within BF16_RATE_TOL of the
-    output's largest magnitude (f32 sums in another order). Returns the
-    largest absolute error per kind."""
+    """mma_rate against its plain version at the probes' shapes on both
+    routes, in every replica: the integer kinds exact; bf16 within
+    BF16_RATE_TOL of the output's largest magnitude (f32 sums in another
+    order). Returns the largest absolute error per kind and route."""
     worst = {}
     shapes = sorted(set(int8_mma.SHAPES) | set(int4_mma.SHAPES))
     for kind in mma_rate.KINDS:
-        worst[kind] = 0.0
-        for m, n, k in shapes:
-            a, b = mma_rate.operands(kind, m, n, k, m + k, dev)
-            got = mma_rate.mma_rate(a, b, iters, kind, all_replicas=True)
-            want = mma_rate.mma_rate_torch(a, b, iters, kind)
-            torch.cuda.synchronize()
-            err = float((got.double() - want.double()).abs().max())
-            worst[kind] = max(worst[kind], err)
-            tol = BF16_RATE_TOL * float(want.abs().max()) \
-                if kind == 'bf16' else 0.0
-            if err > tol:
-                raise RuntimeError(f"mma_rate {kind} {m}x{n}x{k}: max abs "
-                                   f"err {err} over {tol}")
-        log(f"check mma_rate {kind} iters={iters} at {len(shapes)} shapes, "
-            f"every replica: max abs err {worst[kind]} "
-            + ("(tol 1e-5 of the largest output)" if kind == 'bf16'
-               else "(exact)"))
+        for route in mma_rate.ROUTES:
+            worst[kind, route] = 0.0
+            for m, n, k in shapes:
+                a, b = mma_rate.operands(kind, m, n, k, m + k, dev)
+                got = mma_rate.mma_rate(a, b, iters, kind, all_replicas=True,
+                                        route=route)
+                want = mma_rate.mma_rate_torch(a, b, iters, kind)
+                torch.cuda.synchronize()
+                err = float((got.double() - want.double()).abs().max())
+                worst[kind, route] = max(worst[kind, route], err)
+                tol = BF16_RATE_TOL * float(want.abs().max()) \
+                    if kind == 'bf16' else 0.0
+                if err > tol:
+                    raise RuntimeError(f"mma_rate {kind} [{route}] {m}x{n}x"
+                                       f"{k}: max abs err {err} over {tol}")
+            log(f"check mma_rate {kind} [{route}] iters={iters} at "
+                f"{len(shapes)} shapes, every replica: max abs err "
+                f"{worst[kind, route]} "
+                + ("(tol 1e-5 of the largest output)" if kind == 'bf16'
+                   else "(exact)"))
     return worst
 
 
@@ -589,16 +606,15 @@ def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
 
 
 def check_served_routes(variant, calls) -> None:
-    """Every GEMM and every 3x3 conv of a served batch must have taken
-    the TMA + wgmma route; only the C = 3 stem conv of `base` may take
-    the mma.sync one."""
+    """Every GEMM, every 3x3 conv and the fused stem of a served batch
+    must have taken the TMA + wgmma route; only the C = 3 stem conv of
+    `base` may take the mma.sync one."""
     routes = Counter((name, a['route']) for name, a in calls if 'route' in a)
     log(f"serve [{variant}] routes per batch: "
         + ", ".join(f"{n} {r} x{c}" for (n, r), c in sorted(routes.items())))
     for name, a in calls:
         stem = name == 'conv_s8' and a['c'] == 3
-        if name in ('gemm_s8', 'conv_s8') and not stem \
-                and a['route'] != 'tma':
+        if not stem and a['route'] != 'tma':
             raise RuntimeError(f"serve [{variant}]: {name} {a} did not take "
                                "the tma route")
 
@@ -682,22 +698,10 @@ _OUT_BYTES = {'s32': 4, 'f32': 4, 'f32_relu': 4, 'q8_relu': 1, 'q8': 1,
 
 
 def _int8_call(name, a, dev, rng):
-    """Fresh operands for one recorded call: (kernel fn, plain fn,
-    library fn or None, operations, bytes). The bytes count each input
+    """Fresh operands for one recorded GEMM or conv call: (kernel fn,
+    plain fn, library fn or None, operations, bytes). The bytes count each input
     once (activations, weights, epilogue vectors, residual) and each
     output once."""
-    if name == 'stem_s8':
-        b, h2, w2 = a['b'], a['h2'], a['w2']
-        x, wt = stem_operands(dev, rng, b, h2, w2)
-        kw = stem_args(dev, rng, a['mode'])
-        ph, pw = -(-h2 // 2), -(-w2 // 2)
-
-        def plain():   # 32 images at a time: the float64 conv is large
-            return torch.cat([int8_cuda.stem_s8_torch(x[i:i + 32], wt, **kw)
-                              for i in range(0, b, 32)])
-        return (lambda: int8_cuda.stem_s8(x, wt, **kw), plain, None,
-                2 * b * h2 * w2 * 192 * 64,
-                b * h2 * w2 * 12 + b * ph * pw * 64 + 192 * 64 + 8 * 64)
     ep = a['epilogue']
     if name == 'gemm_s8':
         m, k, n = a['m'], a['k'], a['n']
@@ -747,7 +751,7 @@ def time_int8_kernels(calls, dev, rng, card) -> dict:
     tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
                    t_ops=0.0, launches=0, routes=Counter(),
                    library_ms=0.0 if k.startswith('gemm_s8') else None)
-           for k in (*int8_cuda.launches, C2_REQUANT)}
+           for k in ('gemm_s8', 'conv_s8', C2_REQUANT)}
     for (name, items), count in sorted(groups.items()):
         a = dict(items)
         fn, plain, lib, ops, nbytes = _int8_call(name, a, dev, rng)
@@ -838,21 +842,67 @@ def time_block(dev, card, batch=128, h=128, w=160) -> dict:
     return out
 
 
-def time_mma_rate(kind, dev, card, mnk=(1024, 1024, 512), iters=512) -> dict:
-    """mma_rate of one kind at the probes' largest shape: the kernel, its
-    plain version, the one PyTorch call that gives the same values
-    (torch._int_mm or a bf16 matmul, times iters; none for int4) and the
-    bound: replicas * 2mnk * iters operations at the card's rate for the
-    type (int4 has no rate of its own on this card: the int8 rate), the
-    operands read once and every replica's output written once."""
+def time_stem(dev, rng, card, a) -> dict:
+    """stem_s8 at the shape and mode of a served call `a`, on both
+    routes: each equal to its plain version at this full shape (0
+    differing elements), timed by 10 launches, the SM clock read while
+    it runs; the plain version (32 images at a time: the float64 conv is
+    large) once; the bound from the packed pixels read once, the pooled
+    output written once, the weights and epilogue vectors, and the conv's
+    2 * 192 * 64 operations at every conv pixel. No library call computes
+    it. Returns {route: row}."""
+    b, h2, w2 = a['b'], a['h2'], a['w2']
+    x, wt = stem_operands(dev, rng, b, h2, w2)
+    kw = stem_args(dev, rng, a['mode'])
+    ph, pw = -(-h2 // 2), -(-w2 // 2)
+
+    def plain():
+        return torch.cat([int8_cuda.stem_s8_torch(x[i:i + 32], wt, **kw)
+                          for i in range(0, b, 32)])
+    want = plain()
+    plain_ms = cuda_ms(plain, 1, 0)
+    ops = 2 * b * h2 * w2 * 192 * 64
+    nbytes = b * h2 * w2 * 12 + b * ph * pw * 64 + 192 * 64 + 8 * 64
+    rows = {}
+    for route in int8_cuda.ROUTES:
+        def fn(route=route):
+            return int8_cuda.stem_s8(x, wt, route=route, **kw)
+        _must_equal(f"stem_s8 [{route}] {b}x{h2}x{w2}x12", fn(), want)
+        ms = cuda_ms(fn, 10, 1)
+        rows[route] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                           sm_clock_mhz=sm_clock_mhz(fn, ms, dev),
+                           **_bound(ops, nbytes, INT8_OP_PER_S))
+        r = rows[route]
+        log(f"stem_s8 [{route}] {b}x{h2}x{w2}x12 {a['mode']}: 0 differing "
+            f"elements, kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s, SM "
+            f"clock {r['sm_clock_mhz']:.0f} MHz), plain {plain_ms:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops} op at 1979 "
+            f"TOP/s, {nbytes} B at 3.35 TB/s), no library call {card}")
+    return rows
+
+
+def time_mma_rate(kind, route, dev, card, mnk=(1024, 1024, 512),
+                  iters=512) -> dict:
+    """mma_rate of one kind on one route at the probes' largest shape:
+    the kernel, the SM clock read while it runs, its plain version, the
+    one PyTorch call that gives the same values (torch._int_mm or a bf16
+    matmul, times iters; none for int4) and the bound: replicas * 2mnk *
+    iters operations at the card's rate for the type (int4 has no rate
+    of its own on this card: the int8 rate), the operands read once and
+    every replica's output written once."""
     m, n, k = mnk
     a, b = mma_rate.operands(kind, m, n, k, 0, dev)
-    replicas = mma_rate.mma_rate(a, b, 1, kind, all_replicas=True).shape[0]
+    replicas = mma_rate.mma_rate(a, b, 1, kind, all_replicas=True,
+                                 route=route).shape[0]
     elt = 2 if kind == 'bf16' else 1
     ops = replicas * 2 * m * n * k * iters
     nbytes = (m * k + k * n) * elt + replicas * m * n * 4
     rate = BF16_FLOP_PER_S if kind == 'bf16' else INT8_OP_PER_S
-    out = {'ms': cuda_ms(lambda: mma_rate.mma_rate(a, b, iters, kind), 5, 1),
+
+    def fn():
+        return mma_rate.mma_rate(a, b, iters, kind, route=route)
+    ms = cuda_ms(fn, 5, 1)
+    out = {'ms': ms, 'sm_clock_mhz': sm_clock_mhz(fn, ms, dev),
            'plain_ms': cuda_ms(lambda: mma_rate.mma_rate_torch(
                a, b, iters, kind), 3, 1),
            'library_ms': None, **_bound(ops, nbytes, rate)}
@@ -862,11 +912,11 @@ def time_mma_rate(kind, dev, card, mnk=(1024, 1024, 512), iters=512) -> dict:
         out['library_ms'] = cuda_ms(
             lambda: torch.matmul(a, b).float() * iters, 5, 1)
     lib = "null" if out['library_ms'] is None else f"{out['library_ms']:.4f}"
-    log(f"mma_rate {kind} {m}x{n}x{k} iters {iters} x {replicas} replicas: "
-        f"kernel {out['ms']:.4f} ms ({ops / out['ms'] / 1e9:.1f} TOP/s), "
-        f"plain {out['plain_ms']:.4f} ms, library (one product, times "
-        f"iters) {lib} ms, bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}) {card}")
+    log(f"mma_rate {kind} [{route}] {m}x{n}x{k} iters {iters} x {replicas} "
+        f"replicas: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s, SM clock "
+        f"{out['sm_clock_mhz']:.0f} MHz), plain {out['plain_ms']:.4f} ms, "
+        f"library (one product, times iters) {lib} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}) {card}")
     return out
 
 
@@ -1003,7 +1053,7 @@ def main(argv=None) -> int:
     serve_artifact(dev)
 
     # 6. serving path at full width and batch
-    int8_launches, calls, serve_ms = {}, [], {}
+    int8_launches, calls, serve_ms, stem_call = {}, [], {}, None
     for variant in ('base', 'host_s2d'):
         served = serve_flagship(dev, args.seed, variant)
         if variant == 'host_s2d':
@@ -1036,8 +1086,10 @@ def main(argv=None) -> int:
         for name, count in served['launches'].items():
             if (name == 'stem_s8') == (variant == 'host_s2d'):
                 int8_launches[name] = count
-        calls += [c for c in served['calls']
-                  if (c[0] == 'stem_s8') == (variant == 'host_s2d')]
+        if variant == 'base':
+            calls = served['calls']
+        else:
+            stem_call = next(a for n, a in served['calls'] if n == 'stem_s8')
         del served
         torch.cuda.empty_cache()
     log(f"serve base {serve_ms['base']:.3f} ms vs host_s2d "
@@ -1047,12 +1099,18 @@ def main(argv=None) -> int:
     # 7. the kernel-probe entry points at their own shapes
     fused_block.reset_counts()
     mma_rate.reset_counts()
+    int8_cuda.calls = []
     t0 = time.perf_counter()
-    for probe in (fused_block, int8_mma, int4_mma):
+    for probe in (fused_block, int8_mma, int4_mma, stem_probe):
         log(f"probe {probe.__name__}:")
         probe.main([])
     torch.cuda.synchronize()
-    probe_launches = {**fused_block.launches, **mma_rate.launches}
+    stem_routes = Counter(a['route'] for n, a in int8_cuda.calls
+                          if n == 'stem_s8')
+    int8_cuda.calls = None
+    probe_launches = {**fused_block.launches, **mma_rate.launches,
+                      **{f'stem_s8_{r}': stem_routes[r]
+                         for r in int8_cuda.ROUTES}}
     log(f"probes: {time.perf_counter() - t0:.1f} s, launches "
         f"{probe_launches}")
     if min(probe_launches.values()) < 1:
@@ -1086,10 +1144,16 @@ def main(argv=None) -> int:
             f"{tk['bound_ms']:.4f} ms ({tk['bound_by']}), library {lib} ms "
             f"{card}{earlier}")
 
+    stem = time_stem(dev, rng, card, stem_call)
     block = time_block(dev, card)
-    rates = {kind: time_mma_rate(kind, dev, card) for kind in mma_rate.KINDS}
+    rates = {(kind, route): time_mma_rate(kind, route, dev, card)
+             for kind in mma_rate.KINDS for route in mma_rate.ROUTES}
 
     keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    # stem_s8 and mma_rate have a row per route: the route the main path
+    # takes under the kernel's name, the other with the route appended;
+    # `kernel_route` names it, `sm_clock_mhz` is the clock while it ran.
+    timed_keys = keys + ('sm_clock_mhz',)
     kernels = [{
         "name": "warp_homography", "route": "cuda",
         "source": "ursonet_torch/csrc/warp.cu",
@@ -1118,11 +1182,18 @@ def main(argv=None) -> int:
         **{k: int8['conv_s8'][k] for k in keys},
         "routes": dict(int8['conv_s8']['routes']),
     }, {
-        "name": "stem_s8", "route": "cuda",
+        "name": "stem_s8", "route": "cuda", "kernel_route": "tma",
         "source": "ursonet_torch/csrc/int8_stem.cu",
         "replaces": "tools/probe_pallas_stem.py:55",
         "launches": int8_launches['stem_s8'], "max_abs_err": stem_err,
-        **{k: int8['stem_s8'][k] for k in keys},
+        **{k: stem['tma'][k] for k in timed_keys},
+    }, {
+        "name": "stem_s8_ragged", "route": "cuda", "kernel_route": "ragged",
+        "source": "ursonet_torch/csrc/int8_stem.cu",
+        "replaces": "tools/probe_pallas_stem.py:55",
+        "launches": probe_launches['stem_s8_ragged'],
+        "max_abs_err": stem_err,
+        **{k: stem['ragged'][k] for k in timed_keys},
     }, {
         "name": "block_s8", "route": "cuda",
         "source": "ursonet_torch/csrc/int8_block.cu",
@@ -1130,13 +1201,16 @@ def main(argv=None) -> int:
         "launches": probe_launches['block_s8'], "max_abs_err": block_err,
         **{k: block[k] for k in keys},
     }] + [{
-        "name": f"mma_rate_{kind}", "route": "cuda",
+        "name": f"mma_rate_{kind}" + ('' if route == 'wgmma'
+                                      else f'_{route}'),
+        "route": "cuda", "kernel_route": route,
         "source": "ursonet_torch/csrc/mma_rate.cu",
         "replaces": ("tools/probe_int4_mxu.py:102" if kind == 's4'
                      else "tools/probe_int8_mxu.py:38"),
-        "launches": probe_launches[f'mma_rate_{kind}'],
-        "max_abs_err": rate_err[kind], **{k: rates[kind][k] for k in keys},
-    } for kind in mma_rate.KINDS]
+        "launches": probe_launches[f'mma_rate_{kind}_{route}'],
+        "max_abs_err": rate_err[kind, route],
+        **{k: rates[kind, route][k] for k in timed_keys},
+    } for kind in mma_rate.KINDS for route in mma_rate.ROUTES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -41,10 +41,12 @@ from ursonet_torch.models import quant
 # Kernel families by substrings of the kernel name, first match wins.
 # gemm_s8 and conv_s8 each have two kernels, reported apart: the
 # persistent TMA + wgmma one, `tma_s8_kernel<BN, kConv>` (kConv false for
-# the GEMM, true for the conv), and the mma.sync one of the ragged route.
+# the GEMM, true for the conv), and the mma.sync one of the ragged route;
+# so has stem_s8 (`stem_s8_tma_kernel`, `stem_s8_kernel`).
 FAMILIES = (
     ('warp kernel (ours)', ('warp_homography',)),
-    ('int8 stem kernel (ours)', ('stem_s8_kernel',)),
+    ('int8 stem kernel, TMA + wgmma route (ours)', ('stem_s8_tma_kernel',)),
+    ('int8 stem kernel, mma.sync route (ours)', ('stem_s8_kernel',)),
     ('int8 conv kernel, TMA + wgmma route (ours)',
      tuple(f'tma_s8_kernel<{bn}, true>' for bn in (64, 128, 256))),
     ('int8 GEMM kernel, TMA + wgmma route (ours)',

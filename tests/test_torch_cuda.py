@@ -303,21 +303,70 @@ def _stem_operands(dev, rng, b, h2, w2):
 
 @pytest.mark.parametrize('mode', list(ic.STEM_MODES))
 @pytest.mark.parametrize('b,h2,w2', [(2, 64, 32), (3, 37, 51), (1, 5, 3),
-                                     (2, 16, 34), (1, 256, 320)])
+                                     (2, 16, 34), (1, 256, 320),
+                                     # the tma route: tiles that overhang
+                                     # every border, a tiny image, the
+                                     # flagship shape at batch 8
+                                     (3, 37, 52), (2, 29, 76), (1, 5, 4),
+                                     (8, 256, 320)])
 def test_stem_s8_matches_plain(cuda_device, b, h2, w2, mode):
     """Even, odd and tiny sizes (tiles that overhang every border, the
-    (1, 1) pool padding of odd sizes), both input modes: bit-exact."""
+    (1, 1) pool padding of odd sizes), both input modes, the route the
+    wrapper picks and the mma.sync one forced: bit-exact."""
     rng = np.random.RandomState(b * h2 + w2)
     x, w = _stem_operands(cuda_device, rng, b, h2, w2)
     kw = chip_smoke.stem_args(cuda_device, rng, mode)
-    before = ic.launches['stem_s8']
-    got = ic.stem_s8(x, w, **kw)
-    torch.cuda.synchronize()
-    assert ic.launches['stem_s8'] == before + 1
     want = ic.stem_s8_torch(x, w, **kw)
-    assert got.shape == (b, -(-h2 // 2), -(-w2 // 2), 64)
-    assert got.dtype == torch.int8 and torch.equal(got, want)
-    assert int(got.max()) > 0
+    for route in _routes(ic.stem_route(w2)):
+        before = ic.launches['stem_s8']
+        ic.calls = []
+        got = ic.stem_s8(x, w, route=route, **kw)
+        torch.cuda.synchronize()
+        (_, call), ic.calls = ic.calls[0], None
+        assert call['route'] == route
+        assert ic.launches['stem_s8'] == before + 1
+        assert got.shape == (b, -(-h2 // 2), -(-w2 // 2), 64)
+        assert got.dtype == torch.int8 and torch.equal(got, want), route
+        assert int(got.max()) > 0
+
+
+def test_stem_routes_under_load_give_the_same_bits(cuda_device):
+    """Both routes at five shapes and both modes launched back to back in
+    shuffled order, 20 rounds: every output equals the plain version's."""
+    rng = np.random.RandomState(11)
+    cases = []
+    for i, (b, h2, w2) in enumerate([(16, 256, 320), (3, 37, 52),
+                                     (2, 29, 76), (4, 64, 32),
+                                     (5, 40, 100)]):
+        x, w = _stem_operands(cuda_device, rng, b, h2, w2)
+        kw = chip_smoke.stem_args(cuda_device, rng,
+                                  list(ic.STEM_MODES)[i % 2])
+        cases.append((x, w, kw, ic.stem_s8_torch(x, w, **kw)))
+    for _ in range(20):
+        order = rng.permutation(2 * len(cases))
+        outs = [(i, ic.stem_s8(*cases[i // 2][:2], route=ic.ROUTES[i % 2],
+                               **cases[i // 2][2])) for i in order]
+        torch.cuda.synchronize()
+        for i, out in outs:
+            assert torch.equal(out, cases[i // 2][3]), i
+
+
+def test_forced_stem_route_refuses_what_it_cannot_address(cuda_device):
+    rng = np.random.RandomState(1)
+    kw = chip_smoke.stem_args(cuda_device, rng, 'calibrated')
+    x, w = _stem_operands(cuda_device, rng, 1, 8, 10)      # W2 % 4 == 2
+    with pytest.raises(ValueError):
+        ic.stem_s8(x, w, route='tma', **kw)
+    with pytest.raises(ValueError):
+        ic.stem_s8(x, w, route='wgmma', **kw)
+    x, w = _stem_operands(cuda_device, rng, 1, 8, 16)
+    buf = torch.empty(x.numel() + 4, dtype=torch.uint8, device=cuda_device)
+    x4 = buf[4:].view(x.shape)                               # 4-byte aligned
+    x4.copy_(x)
+    assert ic.stem_route(16, ic._aligned(x4)) == 'ragged'
+    with pytest.raises(ValueError):
+        ic.stem_s8(x4, w, route='tma', **kw)
+    assert torch.equal(ic.stem_s8(x4, w, **kw), ic.stem_s8_torch(x, w, **kw))
 
 
 def test_stem_s8_rejects_what_it_does_not_take(cuda_device):
@@ -353,9 +402,14 @@ def test_small_s2d_serve_launches_the_stem(cuda_device, variant):
                             generator=torch.Generator().manual_seed(0))
         eng.quantize(list(imgs))
         ic.reset_counts()
+        ic.calls = []
         outs[v] = eng.predict_molded(imgs)
         torch.cuda.synchronize()
+        calls, ic.calls = ic.calls, None
         assert ic.launches['stem_s8'] == (0 if v == 'base' else 1)
+        # the served stem takes the persistent TMA + wgmma kernel
+        assert [a['route'] for n, a in calls if n == 'stem_s8'] == (
+            [] if v == 'base' else ['tma'])
         plain = eng.qmodel(eng._host_s2d_maybe(imgs), plain=True)
         for k in plain:
             torch.testing.assert_close(outs[v][k], plain[k], rtol=1e-6,
@@ -401,41 +455,76 @@ def test_block_s8_rejects_what_it_does_not_take(cuda_device):
 # the tensor-core rate loops (csrc/mma_rate.cu)
 
 
+@pytest.mark.parametrize('route', list(mr.ROUTES))
 @pytest.mark.parametrize('kind', list(mr.KINDS))
 @pytest.mark.parametrize('m,n,k', [(128, 128, 64), (256, 256, 256),
-                                   (128, 256, 1024), (64, 128, 2048)])
-def test_mma_rate_matches_plain(cuda_device, kind, m, n, k):
-    """Every block tile (K picks it), iters 0, 1 and 4: the integer kinds
-    exact in every replica; bf16 within 1e-5 of the output's largest
-    magnitude (f32 accumulation in another order)."""
+                                   (128, 256, 1024), (64, 128, 2048),
+                                   (128, 256, 96)])
+def test_mma_rate_matches_plain(cuda_device, kind, m, n, k, route):
+    """Every block tile of each route (K picks it), a depth that ends
+    mid K-block, iters 0, 1 and 4: the integer kinds exact in every
+    replica; bf16 within BF16_RATE_TOL of the output's largest magnitude
+    (f32 accumulation in another order)."""
     if kind == 'bf16':
         k //= 2         # 2 bytes a value: the same rows in shared memory
-    bm, bn = mr.tile_for(kind, k)
+    bm, bn = mr.tile_for(kind, k, route)
     m, n = -(-m // bm) * bm, -(-n // bn) * bn
     a, b = mr.operands(kind, m, n, k, seed=m + k, device=cuda_device)
+    if k % mr.k_step(kind, route):      # s4 K = 96 on the mma_sync route
+        with pytest.raises(ValueError):
+            mr.mma_rate(a, b, 1, kind, route=route)
+        return
     for iters in (0, 1, 4):
-        before = mr.launches['mma_rate_' + kind]
-        got = mr.mma_rate(a, b, iters, kind, replicas=3, all_replicas=True)
+        key = f'mma_rate_{kind}_{route}'
+        before = mr.launches[key]
+        got = mr.mma_rate(a, b, iters, kind, replicas=3, all_replicas=True,
+                          route=route)
         torch.cuda.synchronize()
-        assert mr.launches['mma_rate_' + kind] == before + 1
+        assert mr.launches[key] == before + 1
         want = mr.mma_rate_torch(a, b, iters, kind)
         assert got.shape == (3, m, n) and got.dtype == want.dtype
         for r in range(3):
             if kind == 'bf16':
-                tol = 1e-5 * max(float(want.abs().max()), 1.0)
+                tol = chip_smoke.BF16_RATE_TOL * max(float(want.abs().max()),
+                                                     1.0)
                 assert float((got[r] - want).abs().max()) <= tol
             else:
                 assert torch.equal(got[r], want)
 
 
-def test_mma_rate_wraps_int32(cuda_device):
+@pytest.mark.parametrize('route', list(mr.ROUTES))
+def test_mma_rate_wraps_int32(cuda_device, route):
     """Saturated operands overflow int32 within the loop; the kernel wraps
     as the plain version says."""
     a = torch.full((128, 512), 127, dtype=torch.int8, device=cuda_device)
-    b = torch.full((128, 512), 127, dtype=torch.int8, device=cuda_device).t()
-    got = mr.mma_rate(a, b, 512, 's8')
+    b = torch.full((256, 512), 127, dtype=torch.int8, device=cuda_device).t()
+    got = mr.mma_rate(a, b, 512, 's8', route=route)
     want = mr.mma_rate_torch(a, b, 512, 's8')
     assert 127 * 127 * 512 * 512 > 2 ** 31 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize('kind', list(mr.KINDS))
+def test_mma_rate_wgmma_time_is_linear_in_iters(cuda_device, kind):
+    """A loop the compiler had hoisted would not scale with `iters`."""
+    a, b = mr.operands(kind, 1024, 1024, 512, 0, cuda_device)
+    ms = {it: chip_smoke.cuda_ms(lambda it=it: mr.mma_rate(
+        a, b, it, kind, route='wgmma'), 3, 1) for it in (128, 256)}
+    assert 1.7 <= ms[256] / ms[128] <= 2.3, ms
+
+
+def test_forced_rate_routes_refuse_what_they_do_not_take(cuda_device):
+    a, b = mr.operands('s8', 128, 128, 64, 0, cuda_device)
+    with pytest.raises(ValueError):
+        mr.mma_rate(a, b, 1, 's8', route='wgmma')          # N < 256, K < 128
+    assert mr.rate_route('s8', 128, 128, 64) == 'mma_sync'
+    assert torch.equal(mr.mma_rate(a, b, 3, 's8'),
+                       mr.mma_rate_torch(a, b, 3, 's8'))
+    a, b = mr.operands('bf16', 64, 32, 1024, 0, cuda_device)
+    with pytest.raises(ValueError):
+        mr.mma_rate(a, b, 1, 'bf16', route='mma_sync')     # N % 64
+    assert mr.rate_route('bf16', 64, 32, 1024) == 'wgmma'
+    with pytest.raises(ValueError):
+        mr.mma_rate(a, b, 1, 'bf16', route='tma')
 
 
 def test_mma_rate_rejects_what_it_does_not_take(cuda_device):

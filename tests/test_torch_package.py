@@ -222,7 +222,8 @@ def test_kernel_modules_import_and_run_on_cpu_without_building():
         [1, 2, 3, 64], [1, 3, 3, 256], [32, 64], 0, existed, 0]
 
 
-@pytest.mark.parametrize('probe', ['fused_block', 'int8_mma', 'int4_mma'])
+@pytest.mark.parametrize('probe', ['fused_block', 'int8_mma', 'int4_mma',
+                                   'stem'])
 def test_probe_entry_points_refuse_cpu_fallback(monkeypatch, probe):
     import importlib
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

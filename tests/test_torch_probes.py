@@ -243,13 +243,15 @@ def test_mma_rate_plain_matches_pallas_int4_loop(interpreted):
 
 
 def test_mma_rate_tiles_and_replicas():
-    assert mr.tile_for('s8', 512) == (128, 128)
-    assert mr.tile_for('s8', 1024) == (64, 128)
-    assert mr.tile_for('bf16', 512) == (64, 128)
-    assert mr.tile_for('bf16', 1024) == (32, 64)
-    assert mr.tile_for('s4', 1024) == (128, 128)
-    with pytest.raises(ValueError):
-        mr.tile_for('bf16', 2048)
+    assert mr.tile_for('s8', 512, 'mma_sync') == (128, 128)
+    assert mr.tile_for('s8', 1024, 'mma_sync') == (64, 128)
+    assert mr.tile_for('bf16', 512, 'mma_sync') == (64, 128)
+    assert mr.tile_for('bf16', 1024, 'mma_sync') == (32, 64)
+    assert mr.tile_for('s4', 1024, 'mma_sync') == (128, 128)
+    assert mr.tile_for('s8', 512) == (128, 256)          # wgmma, the default
+    for route in mr.ROUTES:
+        with pytest.raises(ValueError):
+            mr.tile_for('bf16', 2048, route)
     # a 256x256 output is four 128x128 tiles: 33 replicas fill 132 SMs
     assert mr.default_replicas(4, 132) == 33
     assert mr.default_replicas(64, 132) == 33
@@ -291,13 +293,19 @@ def test_int8_mma_entry_point(capsys):
                           '--matmul-size', '64', '--max-dim', '256'])
     assert rows == _json_lines(capsys)
     assert [r['probe'] for r in rows] == ['torch-matmul'] * 2 \
-        + ['mma-smem-loop'] * 3
-    loops = {r['variant']: r for r in rows[2:]}
-    assert loops['int8->bf16']['error'].startswith('unsupported')
-    for name in ('bf16->f32', 'int8->int32'):
-        assert loops[name]['mnk'] == [256, 256, 256]
-        assert loops[name]['iters'] == 2 and loops[name]['tops'] > 0
-        assert 'ms_half_iters' in loops[name] and 'linear' in loops[name]
+        + ['mma-smem-loop'] * 6
+    loops = {(r['variant'], r['route']): r for r in rows[2:]}
+    assert len(loops) == 6
+    for route in mr.ROUTES:
+        assert loops['int8->bf16', route]['error'].startswith('unsupported')
+        for name in ('bf16->f32', 'int8->int32'):
+            row = loops[name, route]
+            assert row['mnk'] == [256, 256, 256]
+            assert row['iters'] == 2 and row['tops'] > 0
+            assert 'ms_half_iters' in row and 'linear' in row
+            assert row['sm_clock_mhz'] is None          # no card
+    assert loops['int8->int32', 'wgmma']['tile'] == [128, 256]
+    assert loops['int8->int32', 'mma_sync']['tile'] == [128, 128]
 
 
 def test_int4_mma_entry_point(capsys):
@@ -312,3 +320,6 @@ def test_int4_mma_entry_point(capsys):
         assert by[(probe, 'int8')]['tops'] > 0
     assert by[('mma-smem-loop', 'int4')]['mnk'] == [512, 512, 512]
     assert by[('mma-smem-loop', 'int8')]['replicas'] == 1
+    routes = {(r['variant'], r['route']) for r in rows
+              if r['probe'] == 'mma-smem-loop'}
+    assert routes == {(v, r) for v in ('int4', 'int8') for r in mr.ROUTES}

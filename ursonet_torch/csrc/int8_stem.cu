@@ -40,10 +40,59 @@
 // bytes, so K = 192 is 4 runs of 48 bytes and no patch matrix exists.
 // The requantized s8 conv tile goes to shared memory, the pool reads it
 // four channels at a time (__vmaxs4) and writes 64 contiguous bytes a
-// pooled pixel.
+// pooled pixel. This is the 'ragged' route (any width): one block a tile,
+// 20,480 blocks at the flagship shape, each staging the weights anew.
+//
+// The 'tma' route (stem_s8_tma_kernel; W2 % 4 == 0 and 16-byte aligned
+// pointers, every served batch) computes the same bits with the Hopper
+// machinery of hopper.cuh:
+//   Blocks   persistent, one per SM, 384 threads (3 warpgroups), walking
+//            the tiles tile = blockIdx.x, + gridDim.x, ... (same tiles
+//            as above, neighbours on neighbouring SMs share their halo
+//            through L2).
+//   Weights  staged once per block as the wgmma B operand: 64 rows of
+//            192 bytes in two 128-byte-swizzled K-blocks (the second
+//            half-used: K = 192 is 1.5 swizzle rows, its k32 steps 4
+//            and 5 read bytes 128..191 only); alpha and beta once, as
+//            (alpha, beta) pairs.
+//   Input    TMA loads of the 20 x 36 packed pixels a tile needs, viewed
+//            as 32-bit words [B][H2][W2 * 3] (a row is 16-byte aligned
+//            when W2 % 4 == 0), into a ring of 3 stages: thread 0 keeps
+//            the next two tiles in flight while the block computes this
+//            one. A box must start on a 16-byte boundary (a box at word
+//            3 * ic0 faults otherwise), so it starts at the multiple of 4
+//            words at or below it and is 120 words wide: the tile's 108
+//            words lie `shift` = 0..3 words into each 480-byte staged
+//            row. TMA fills out-of-bounds words with zeros; the quantize
+//            overwrites every pixel outside the image with the mode's
+//            fill value, so the zeros never count.
+//   Quantize once per staged byte, in place, a pixel a thread, through
+//            a 12 x 256 table of the mode's quantize built once per block
+//            (exact: the table holds the function itself).
+//   GEMM     the tile's 561 conv pixels, padded to 9 row-chunks of 64
+//            (576 rows), 3 chunks a warpgroup: wgmma.m64n64k32 s8 with A
+//            from registers (loaded from the staged pixels, one row of
+//            the 4 x 4 window a fragment lane: the depth is permuted the
+//            same way in A and B, see load_a) and B from the resident
+//            weights. Two accumulator sets: a chunk's products run while
+//            the warpgroup requantizes the previous chunk.
+//   Cost     the halo (17 x 33 conv pixels for 16 x 32 owned) is 9.6%
+//            more products, the padding to 576 rows another 2.7%: 12.5%
+//            over the conv the output needs.
+//   Epilogue q8_relu of each accumulator (one FMA, one multiply, a min
+//            at 127 and a saturating conversion: the bits of
+//            requant_relu) into a conv tile in shared memory that keeps
+//            each value in a 16-bit lane, 0 outside the image; then the
+//            3x3/2 pool, 8 channels a thread, as 3-way maxima of 16-bit
+//            lanes (__vimax3_s16x2, one DPX instruction on Hopper, where
+//            the byte-wise __vmaxs4 / __vminu4 cost eight each), 64
+//            contiguous output bytes a pixel.
+//   Stalls   every mbarrier wait is hopper::mbar_wait, which traps after
+//            ~3 s instead of hanging the card.
 
 #include <math.h>
 
+#include "hopper.cuh"
 #include "int8_common.cuh"
 
 namespace ursonet_int8 {
@@ -79,6 +128,7 @@ struct StemArgs {
   const float* beta;
   float inv_s_out;
   int8_t* out;
+  int tiles;
 };
 
 __device__ __forceinline__ int quantize_pixel(int v, float mean, float inv,
@@ -236,8 +286,382 @@ __global__ void __launch_bounds__(THREADS) stem_s8_kernel(StemArgs p) {
   }
 }
 
+// ---- the 'tma' route ----------------------------------------------------
+
+namespace tma_stem {
+
+constexpr int kWgs = 3, kThreads = 128 * kWgs;
+constexpr int kChunks = (CM + 63) / 64;                 // 9 row-chunks of 64
+static_assert(kChunks == 3 * kWgs, "three chunks a warpgroup");
+constexpr int kStages = 3;
+// 108 words + the shift; 120 words (24 mod 32 banks) rather than 112
+// make the A-fragment loads of a warp hit 32 distinct banks (load_a)
+constexpr int kBoxWords = 120;
+constexpr int kXRow = kBoxWords * 4;           // bytes a staged row
+constexpr int kBoxBytes = IR * kXRow;          // 9600
+constexpr int kStageBytes = (kBoxBytes + 127) / 128 * 128;
+constexpr int kWsBytes = 2 * N * 128;                    // two K-blocks
+// the conv tile holds each value in a 16-bit lane (channels n, n + 1 in
+// one word), pixels 144 bytes apart: the epilogue's 32-bit stores of a
+// warp hit 32 distinct banks, and 8 lanes read a pixel's 128 bytes
+constexpr int kQRow = 144;
+constexpr int kQsBytes = CM * kQRow;
+constexpr int kTabBytes = 12 * 256;
+constexpr int kSmemBytes = 1024 + kWsBytes + kStages * kStageBytes +
+                           kQsBytes + N * 8 + kTabBytes + kStages * 8;
+
+struct StemTile {
+  int b, py0, px0, cr0, cc0, ir0, ic0;
+  int w0, shift;   // the box's first word (a multiple of 4), 3 * ic0 - w0
+};
+
+__device__ __forceinline__ StemTile tile_at(const StemArgs& p, int tile) {
+  StemTile t;
+  const int tx = tile % p.tiles_x;
+  const int rest = tile / p.tiles_x;
+  const int ty = rest % p.tiles_y;
+  t.b = rest / p.tiles_y;
+  t.py0 = ty * TPH;
+  t.px0 = tx * TPW;
+  t.cr0 = 2 * t.py0 - p.plo_y;
+  t.cc0 = 2 * t.px0 - p.plo_x;
+  t.ir0 = t.cr0 - 2;
+  t.ic0 = t.cc0 - 2;
+  t.shift = (3 * t.ic0) & 3;   // two's complement: the floor's remainder
+  t.w0 = 3 * t.ic0 - t.shift;
+  return t;
+}
+
+__device__ __forceinline__ void load_tile(const CUtensorMap* map,
+                                          const StemArgs& p, int tile,
+                                          uint32_t dst, uint32_t bar) {
+  const StemTile t = tile_at(p, tile);
+  hopper::mbar_arrive_expect_tx(bar, kBoxBytes);
+  hopper::tma_load_3d(dst, map, bar, t.w0, t.ir0, t.b);
+}
+
+// The GEMM's depth runs in a permuted order, the same for A and B (the
+// sum does not care): logical index kappa = 32 ks + 16 hf + 4 t + e (k32
+// step ks, half hf, fragment lane t = lane % 4, byte e) holds patch byte
+// p = 48 t + 8 ks + 4 hf + e, p = (ky * 4 + kx) * 12 + c. So lane t's
+// A fragments of a conv pixel are the 48 contiguous staged bytes of
+// window row ky = t, words 2 ks + hf: its row of the 4 x 4 window, where
+// the natural order would read 12 words 16 bytes apart across all four.
+// With staged rows 120 words apart, the 32 lanes' words of one load lie
+// in 32 distinct banks (3 g + 24 t mod 32 for 8 neighbouring pixels).
+//
+// The thread's A fragments of one 64-row chunk for all six k32 steps:
+// row g (+8) of its warp's 16 rows; rows past the tile's 561 read the
+// last one (their products are not stored). `xs`: the tile's first
+// staged pixel (the stage plus its shift).
+__device__ __forceinline__ void load_a(const uint8_t* xs, int chunk, int warp,
+                                       int lane, uint32_t (&a)[6][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t* run[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = min(chunk * 64 + warp * 16 + g + 8 * h, CM - 1);
+    const int cr = m / CW, cc = m - cr * CW;
+    run[h] = reinterpret_cast<const uint32_t*>(xs + (cr + t) * kXRow +
+                                               cc * 12);
+  }
+#pragma unroll
+  for (int ks = 0; ks < KTOT / 32; ++ks) {
+    a[ks][0] = run[0][2 * ks];
+    a[ks][1] = run[1][2 * ks];
+    a[ks][2] = run[0][2 * ks + 1];
+    a[ks][3] = run[1][2 * ks + 1];
+  }
+}
+
+// The six k32 wgmmas of one chunk as one commit group. The epilogue
+// branches per row: __syncwarp() brings the warp back together for the
+// .aligned wgmma instructions.
+__device__ __forceinline__ void issue(int (&acc)[32],
+                                      const uint32_t (&a)[6][4],
+                                      uint32_t ws_addr) {
+  __syncwarp();
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KTOT / 32; ++ks) {
+    hopper::wgmma_m64n64k32_s8_rs(
+        acc, a[ks],
+        hopper::wgmma_desc_sw128(ws_addr + (ks >> 2) * (N * 128) +
+                                 (ks & 3) * 32),
+        ks != 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// clip(rint(x), 0, 127) of two floats as two 16-bit lanes, `x0` low:
+// the bits of requant_relu's saturate_s8(rintf(max(x, 0)), 0) for
+// x = y * inv_s_out: clipping at 127 commutes with rounding, and the
+// saturating pack maps every x <= 0 (max(y, 0) * inv_s_out = 0) to 0.
+// One min and one conversion a value where __vminu4 and __vmaxs4 cost
+// eight instructions each on this card.
+__device__ __forceinline__ uint32_t requant_pair_relu16(float x0, float x1) {
+  uint32_t d;
+  asm("cvt.pack.sat.u16.s32 %0, %1, %2;\n"
+      : "=r"(d)
+      : "r"(__float2int_rn(fminf(x1, 127.f))),
+        "r"(__float2int_rn(fminf(x0, 127.f))));
+  return d;
+}
+
+// q8_relu of one chunk's accumulators into the conv tile; 0 outside the
+// image, nothing for the padding rows.
+__device__ __forceinline__ void epilogue(const StemArgs& p,
+                                         const StemTile& tl,
+                                         const int (&acc)[32], int chunk,
+                                         int warp, int lane,
+                                         const float2* ab, int8_t* qs) {
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  float4 abj[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    abj[j] = *reinterpret_cast<const float4*>(ab + 8 * j + t2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = chunk * 64 + warp * 16 + g + 8 * h;
+    if (m >= CM) continue;
+    const int cr = m / CW, cc = m - cr * CW;
+    const int gr = tl.cr0 + cr, gc = tl.cc0 + cc;
+    const bool inside = gr >= 0 && gr < p.H2 && gc >= 0 && gc < p.W2;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(qs + m * kQRow) + t2 / 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t o = 0;
+      if (inside) {
+        const float y0 = __fmaf_rn(__int2float_rn(acc[4 * j + 2 * h]),
+                                   abj[j].x, abj[j].y);
+        const float y1 = __fmaf_rn(__int2float_rn(acc[4 * j + 2 * h + 1]),
+                                   abj[j].z, abj[j].w);
+        o = requant_pair_relu16(__fmul_rn(y0, p.inv_s_out),
+                                __fmul_rn(y1, p.inv_s_out));
+      }
+      dst[4 * j] = o;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const StemArgs p) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* ws = sm;
+  uint8_t* ring = ws + kWsBytes;
+  int8_t* qs = reinterpret_cast<int8_t*>(ring + kStages * kStageBytes);
+  float2* ab = reinterpret_cast<float2*>(qs + kQsBytes);
+  int8_t* qtab = reinterpret_cast<int8_t*>(ab + N);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qtab + kTabBytes);
+  const uint32_t full = smem_u32(bars);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(full + 8 * s, 1);
+    fence_barrier_init();
+    for (int s = 0; s < kStages; ++s) {
+      const int tile = blockIdx.x + s * gridDim.x;
+      if (tile < p.tiles)
+        load_tile(&map_x, p, tile, smem_u32(ring) + s * kStageBytes,
+                  full + 8 * s);
+    }
+  }
+  // weights in the permuted depth order (load_a): 16-byte chunk c of
+  // row n holds words c, 12 + c, 24 + c, 36 + c of the row; it lies at
+  // K-block c / 8, chunk (c % 8) ^ (n % 8); the unused half of the second
+  // block zeroed
+  const uint32_t* wt32 = reinterpret_cast<const uint32_t*>(p.wt);
+  for (int i = tid; i < N * 16; i += kThreads) {
+    const int n = i >> 4, c = i & 15;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (c < KTOT / 16) {
+      const uint32_t* w = wt32 + n * (KTOT / 4) + c;
+      v = make_int4(static_cast<int>(__ldg(w)), static_cast<int>(__ldg(w + 12)),
+                    static_cast<int>(__ldg(w + 24)),
+                    static_cast<int>(__ldg(w + 36)));
+    }
+    *reinterpret_cast<int4*>(ws + (c >> 3) * (N * 128) + n * 128 +
+                             (((c & 7) ^ (n & 7)) << 4)) = v;
+  }
+  for (int i = tid; i < N; i += kThreads)
+    ab[i] = make_float2(__ldg(p.alpha + i), __ldg(p.beta + i));
+  for (int i = tid; i < kTabBytes; i += kThreads) {
+    const int c = i >> 8;
+    qtab[i] = static_cast<int8_t>(
+        quantize_pixel(i & 255, p.mean[c], p.inv_s_in, p.mode));
+  }
+  // the fill value of each word of a pixel (channels 4w..4w+3)
+  uint32_t fillw[3];
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    fillw[w] = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      fillw[w] |= static_cast<uint32_t>(p.fill[4 * w + j] & 0xff) << (8 * j);
+  }
+  fence_proxy_async();   // the weights are read by wgmma
+  __syncthreads();
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const uint32_t ws_addr = smem_u32(ws);
+  int acc0[32], acc1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0;
+  uint32_t a[6][4];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
+    const int slot = it % kStages;
+    const StemTile tl = tile_at(p, tile);
+    uint8_t* stage = ring + slot * kStageBytes;
+    uint8_t* xs = stage + 4 * tl.shift;
+    mbar_wait(full + 8 * slot, (it / kStages) & 1);
+
+    // quantize in place, a pixel (3 words) a thread; every pixel outside
+    // the image takes the fill
+    uint32_t* xs32 = reinterpret_cast<uint32_t*>(xs);
+    const bool interior = tl.ir0 >= 0 && tl.ir0 + IR <= p.H2 &&
+                          tl.ic0 >= 0 && tl.ic0 + IC <= p.W2;
+    for (int i = tid; i < IR * IC; i += kThreads) {
+      const int r = i / IC, col = i - r * IC;
+      const int gr = tl.ir0 + r, gc = tl.ic0 + col;
+      uint32_t* px = xs32 + r * kBoxWords + 3 * col;
+      if (interior || (gr >= 0 && gr < p.H2 && gc >= 0 && gc < p.W2)) {
+#pragma unroll
+        for (int w = 0; w < 3; ++w) {
+          const uint32_t v = px[w];
+          const int8_t* tab = qtab + w * 1024;
+          px[w] = __byte_perm(
+              __byte_perm(static_cast<uint8_t>(tab[v & 0xff]),
+                          static_cast<uint8_t>(tab[256 + ((v >> 8) & 0xff)]),
+                          0x0040),
+              __byte_perm(static_cast<uint8_t>(tab[512 + ((v >> 16) & 0xff)]),
+                          static_cast<uint8_t>(tab[768 + (v >> 24)]), 0x0040),
+              0x5410);
+        }
+      } else {
+        px[0] = fillw[0];
+        px[1] = fillw[1];
+        px[2] = fillw[2];
+      }
+    }
+    __syncthreads();
+
+    // the tile's GEMM, chunks wg, wg + 3, wg + 6: one chunk's wgmmas run
+    // while the previous chunk is requantized
+    load_a(xs, wg, warp, lane, a);
+    issue(acc0, a, ws_addr);
+    wgmma_wait<0>();
+    fence_registers(acc0);
+    load_a(xs, wg + kWgs, warp, lane, a);
+    issue(acc1, a, ws_addr);
+    epilogue(p, tl, acc0, wg, warp, lane, ab, qs);
+    __syncwarp();
+    wgmma_wait<0>();
+    fence_registers(acc1);
+    load_a(xs, wg + 2 * kWgs, warp, lane, a);
+    issue(acc0, a, ws_addr);
+    epilogue(p, tl, acc1, wg + kWgs, warp, lane, ab, qs);
+    __syncwarp();
+    wgmma_wait<0>();
+    fence_registers(acc0);
+    epilogue(p, tl, acc0, wg + 2 * kWgs, warp, lane, ab, qs);
+    // the stage was written through the generic proxy; the next TMA load
+    // into it writes through the async one
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      const int next = tile + kStages * gridDim.x;
+      if (next < p.tiles)
+        load_tile(&map_x, p, next, smem_u32(stage), full + 8 * slot);
+    }
+
+    // 3x3/2 max-pool of the conv tile, 8 channels a thread: per row the
+    // 3-way max of 16-bit lanes (__vimax3_s16x2, one instruction on this
+    // card), then of the three rows
+    for (int i = tid; i < TPH * TPW * 8; i += kThreads) {
+      const int grp = i & 7, pix = i >> 3;
+      const int py = pix / TPW, px = pix - py * TPW;
+      const int gy = tl.py0 + py, gx = tl.px0 + px;
+      if (gy >= p.PH || gx >= p.PW) continue;
+      const uint8_t* cell =
+          reinterpret_cast<const uint8_t*>(qs) +
+          ((2 * py) * CW + 2 * px) * kQRow + grp * 16;
+      uint4 r[3];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const uint8_t* row = cell + dy * (CW * kQRow);
+        const uint4 u0 = *reinterpret_cast<const uint4*>(row);
+        const uint4 u1 = *reinterpret_cast<const uint4*>(row + kQRow);
+        const uint4 u2 = *reinterpret_cast<const uint4*>(row + 2 * kQRow);
+        r[dy] = make_uint4(__vimax3_s16x2(u0.x, u1.x, u2.x),
+                           __vimax3_s16x2(u0.y, u1.y, u2.y),
+                           __vimax3_s16x2(u0.z, u1.z, u2.z),
+                           __vimax3_s16x2(u0.w, u1.w, u2.w));
+      }
+      const uint32_t m0 = __vimax3_s16x2(r[0].x, r[1].x, r[2].x);
+      const uint32_t m1 = __vimax3_s16x2(r[0].y, r[1].y, r[2].y);
+      const uint32_t m2 = __vimax3_s16x2(r[0].z, r[1].z, r[2].z);
+      const uint32_t m3 = __vimax3_s16x2(r[0].w, r[1].w, r[2].w);
+      // the low byte of each 16-bit lane, in channel order
+      *reinterpret_cast<uint2*>(
+          p.out + ((static_cast<int64_t>(tl.b) * p.PH + gy) * p.PW + gx) * N +
+          grp * 8) = make_uint2(__byte_perm(m0, m1, 0x6420),
+                                __byte_perm(m2, m3, 0x6420));
+    }
+  }
+}
+
+}  // namespace tma_stem
+
 }  // namespace
 }  // namespace ursonet_int8
+
+namespace {
+
+// The launch arguments both routes share; false if refused.
+bool stem_args(const void* x, const void* wt, int B, int H2, int W2,
+               int mode, const float* mean12, float inv_s_in,
+               const void* alpha, const void* beta, float inv_s_out,
+               void* out, ursonet_int8::StemArgs* a) {
+  using namespace ursonet_int8;
+  if (B <= 0 || H2 <= 0 || W2 <= 0 || x == nullptr || wt == nullptr ||
+      mean12 == nullptr || alpha == nullptr || beta == nullptr ||
+      out == nullptr || (mode != kCalibrated && mode != kShift128)) {
+    return false;
+  }
+  a->x = static_cast<const uint8_t*>(x);
+  a->wt = static_cast<const int8_t*>(wt);
+  a->B = B;
+  a->H2 = H2;
+  a->W2 = W2;
+  a->PH = (H2 + 1) / 2;
+  a->PW = (W2 + 1) / 2;
+  // 3/2 SAME: even sizes pad (0, 1), odd sizes (1, 1)
+  a->plo_y = H2 % 2;
+  a->plo_x = W2 % 2;
+  a->tiles_y = (a->PH + TPH - 1) / TPH;
+  a->tiles_x = (a->PW + TPW - 1) / TPW;
+  a->mode = mode;
+  for (int c = 0; c < 12; ++c) {
+    a->mean[c] = mean12[c];
+    a->fill[c] = mode == kShift128
+                     ? static_cast<int>(nearbyintf(mean12[c])) - 128 : 0;
+  }
+  a->inv_s_in = inv_s_in;
+  a->alpha = static_cast<const float*>(alpha);
+  a->beta = static_cast<const float*>(beta);
+  a->inv_s_out = inv_s_out;
+  a->out = static_cast<int8_t*>(out);
+  const long long tiles = static_cast<long long>(B) * a->tiles_y * a->tiles_x;
+  if (tiles > 0x7fffffffLL) return false;
+  a->tiles = static_cast<int>(tiles);
+  return true;
+}
+
+}  // namespace
 
 extern "C" int ursonet_stem_s8(const void* x, const void* wt, int B, int H2,
                                int W2, int mode, const float* mean12,
@@ -245,46 +669,58 @@ extern "C" int ursonet_stem_s8(const void* x, const void* wt, int B, int H2,
                                const void* beta, float inv_s_out, void* out,
                                int device, void* stream) {
   using namespace ursonet_int8;
-  if (B <= 0 || H2 <= 0 || W2 <= 0 || x == nullptr || wt == nullptr ||
-      mean12 == nullptr || alpha == nullptr || beta == nullptr ||
-      out == nullptr || (mode != kCalibrated && mode != kShift128)) {
+  StemArgs a;
+  if (!stem_args(x, wt, B, H2, W2, mode, mean12, inv_s_in, alpha, beta,
+                 inv_s_out, out, &a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  StemArgs a;
-  a.x = static_cast<const uint8_t*>(x);
-  a.wt = static_cast<const int8_t*>(wt);
-  a.B = B;
-  a.H2 = H2;
-  a.W2 = W2;
-  a.PH = (H2 + 1) / 2;
-  a.PW = (W2 + 1) / 2;
-  // 3/2 SAME: even sizes pad (0, 1), odd sizes (1, 1)
-  a.plo_y = H2 % 2;
-  a.plo_x = W2 % 2;
-  a.tiles_y = (a.PH + TPH - 1) / TPH;
-  a.tiles_x = (a.PW + TPW - 1) / TPW;
-  a.mode = mode;
-  for (int c = 0; c < 12; ++c) {
-    a.mean[c] = mean12[c];
-    a.fill[c] = mode == kShift128
-                    ? static_cast<int>(nearbyintf(mean12[c])) - 128 : 0;
-  }
-  a.inv_s_in = inv_s_in;
-  a.alpha = static_cast<const float*>(alpha);
-  a.beta = static_cast<const float*>(beta);
-  a.inv_s_out = inv_s_out;
-  a.out = static_cast<int8_t*>(out);
-  const long long blocks =
-      static_cast<long long>(B) * a.tiles_y * a.tiles_x;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(stem_s8_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stem_s8_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
+  stem_s8_kernel<<<static_cast<unsigned>(a.tiles), THREADS, SMEM_BYTES,
                    static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 'tma' route: W2 % 4 == 0 and x 16-byte aligned (the tensor map's
+// row pitch and base), wt and out 16-byte aligned.
+extern "C" int ursonet_stem_s8_tma(const void* x, const void* wt, int B,
+                                   int H2, int W2, int mode,
+                                   const float* mean12, float inv_s_in,
+                                   const void* alpha, const void* beta,
+                                   float inv_s_out, void* out, int device,
+                                   void* stream) {
+  using namespace ursonet_int8;
+  StemArgs a;
+  if (!stem_args(x, wt, B, H2, W2, mode, mean12, inv_s_in, alpha, beta,
+                 inv_s_out, out, &a) ||
+      W2 % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(wt) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map;
+  const uint64_t row = static_cast<uint64_t>(W2) * 12;
+  if (!hopper::make_word_map_3d(&map, x, static_cast<uint64_t>(W2) * 3, H2,
+                                B, row, row * H2, tma_stem::kBoxWords, IR)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaFuncSetAttribute(tma_stem::stem_s8_tma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tma_stem::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = a.tiles < sms ? a.tiles : sms;
+  tma_stem::stem_s8_tma_kernel<<<grid, tma_stem::kThreads,
+                                 tma_stem::kSmemBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(map, a);
   return static_cast<int>(cudaGetLastError());
 }
 

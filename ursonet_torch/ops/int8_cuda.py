@@ -64,6 +64,14 @@ the launch (`gemm_route`, `conv_route`), never by catching a failure:
     'ragged'  the mma.sync kernel of `csrc/int8_common.cuh`, for any
               shape (the C = 3 stem conv of the `base` variant, odd K).
 
+`stem_s8` has two kernels in `csrc/int8_stem.cu`, picked by `stem_route`:
+
+    'tma'     persistent blocks, TMA loads of the packed pixels into a
+              ring, resident weights, wgmma with A in registers: W2 % 4
+              == 0 and 16-byte aligned pointers (every served batch).
+    'ragged'  one block a tile, mma.sync on 32-bit shared loads: any
+              width.
+
 `route=` forces one (the checks hold both against the plain version); a
 forced 'tma' on a shape it does not take raises.
 """
@@ -122,9 +130,9 @@ def _bind_conv(lib) -> None:
 
 def _bind_stem(lib) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ursonet_stem_s8.argtypes = [P, P, I, I, I, I, P, Fl, P, P, Fl, P, I,
-                                    P]
-    lib.ursonet_stem_s8.restype = I
+    for fn in (lib.ursonet_stem_s8, lib.ursonet_stem_s8_tma):
+        fn.argtypes = [P, P, I, I, I, I, P, Fl, P, P, Fl, P, I, P]
+        fn.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
 
@@ -195,6 +203,14 @@ def conv_route(c: int, n: int, taps: int = 9, padded_numel: int = 0,
     ok = aligned and c % 16 == 0 and n % 16 == 0 and taps <= 32 \
         and padded_numel < 2 ** 31
     return "tma" if ok else "ragged"
+
+
+def stem_route(w2: int, aligned: bool = True) -> str:
+    """'tma' for the fused stem when TMA can address the packed pixels
+    as rows of 32-bit words (a row of W2 * 12 bytes is a multiple of 16:
+    W2 % 4 == 0) and `aligned` (every pointer 16-byte aligned), else
+    'ragged'."""
+    return "tma" if aligned and w2 % 4 == 0 else "ragged"
 
 
 def swizzle128(row: int, chunk: int) -> int:
@@ -603,14 +619,15 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
             beta: torch.Tensor, inv_s_out: float = 1.0,
             mode: str = "calibrated", mean=(0.0,) * 12,
-            inv_s_in: float = 1.0) -> torch.Tensor:
+            inv_s_in: float = 1.0, route=None) -> torch.Tensor:
     """The fused int8 stem in one launch: out[B,ceil(H2/2),ceil(W2/2),64]
     s8 = maxpool3x3/2_SAME(q8_relu(conv4x4/1(quantize(x)))) for
     space-to-depth u8 pixels x [B,H2,W2,12] and the s2d stem kernel w
     [4,4,12,64] s8 (HWIO view, `kernel_layout`), pads (2,1),(2,1). `mode`
     picks the input quantize and the padding value (`stem_input_s8`);
     the epilogue is q8_relu with alpha, beta and inv_s_out. The 64-wide
-    conv output stays in shared memory."""
+    conv output stays in shared memory. `route`: None picks by shape
+    (`stem_route`), or one of ROUTES."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return stem_s8_torch(x, w, alpha, beta, inv_s_out, mode, mean,
                              inv_s_in)
@@ -637,8 +654,10 @@ def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
     _check_epilogue(x.device, 0, 64, "q8_relu", alpha, beta, None)
     out = torch.empty((bsz, -(-h2 // 2), -(-w2 // 2), 64), dtype=torch.int8,
                       device=x.device)
+    route = _pick_route("stem_s8", route, stem_route(w2, _aligned(x, w, out)))
     lib = cuda_build.load("int8_stem", _bind_stem)
-    rc = lib.ursonet_stem_s8(
+    launch = lib.ursonet_stem_s8_tma if route == "tma" else lib.ursonet_stem_s8
+    rc = launch(
         x.data_ptr(), w.data_ptr(), bsz, h2, w2, STEM_MODES[mode],
         mean.ctypes.data, float(inv_s_in), alpha.data_ptr(), beta.data_ptr(),
         float(inv_s_out), out.data_ptr(), x.device.index,
@@ -646,5 +665,6 @@ def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
     _raise_if(rc, lib, "stem_s8")
     launches["stem_s8"] += 1
     if calls is not None:
-        calls.append(("stem_s8", dict(b=bsz, h2=h2, w2=w2, mode=mode)))
+        calls.append(("stem_s8", dict(b=bsz, h2=h2, w2=w2, mode=mode,
+                                      route=route)))
     return out

@@ -1,10 +1,11 @@
 """Kernel probes of the port, the counterparts of the JAX package's
-`tools/probe_fused_block.py`, `tools/probe_int8_mxu.py` and
-`tools/probe_int4_mxu.py`. Each builds its operands from a seed, runs
-its kernel on the card, checks or records, and prints one JSON line per
-variant:
+`tools/probe_fused_block.py`, `tools/probe_int8_mxu.py`,
+`tools/probe_int4_mxu.py` and `tools/probe_pallas_stem.py`. Each builds
+its operands from a seed, runs its kernel on the card, checks or
+records, and prints one JSON line per variant:
 
     python -m ursonet_torch.probes.fused_block
     python -m ursonet_torch.probes.int8_mma
     python -m ursonet_torch.probes.int4_mma
+    python -m ursonet_torch.probes.stem
 """

@@ -13,8 +13,10 @@ Rows, one JSON line each:
     (128 x 32 x 40, 512 -> 512) through `conv_s8` with s32 output; int4
     and w4a8 unsupported likewise;
   * `mma-smem-loop`: `mma_rate` at 512^3 and 1024x1024x512 for int8 and
-    int4 (`mma.sync.m16n8k64.s4`). Hopper's `wgmma` has no int4 form, so
-    the int4 rate against the int8 rate of the same loop is the finding.
+    int4, on each route. Hopper's `wgmma` has no int4 form: its route
+    sign-extends the int4 values to int8 while staging and runs the s8
+    loop (the same sums); the `mma_sync` route runs
+    `mma.sync.m16n8k64.s4`, the record that the card has no int4 rate.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ursonet_torch.device import resolve_device
 from ursonet_torch.ops import int8_cuda
+from ursonet_torch.probes import mma_rate
 from ursonet_torch.probes.int8_mma import loop_row, torch_matmul_row
 from ursonet_torch.probes.timing import card_label, record, time_ms
 
@@ -76,8 +79,9 @@ def main(argv=None) -> list:
         for mnk in SHAPES:
             if max(mnk) > args.max_dim:
                 continue
-            loop_row(results, name, kind, mnk, args.iters, args.reps, dev,
-                     card)
+            for route in mma_rate.ROUTES:
+                loop_row(results, name, kind, mnk, args.iters, args.reps,
+                         dev, card, route)
     return results
 
 

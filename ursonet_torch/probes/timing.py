@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
 
@@ -41,6 +42,23 @@ def time_ms(fn, reps: int, device: torch.device, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def sm_clock_mhz(fn, ms: float, device: torch.device,
+                 busy_ms: float = 300.0):
+    """The SM clock in MHz as nvidia-smi reads it while the card runs
+    fn(): calls for about `busy_ms` of work (`ms` each) are queued, the
+    clock is read, then the queue drains. None on the CPU."""
+    if device.type != 'cuda':
+        return None
+    for _ in range(min(2000, max(1, math.ceil(busy_ms / max(ms, 1e-3))))):
+        fn()
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm', '--format=csv,noheader,nounits',
+         '-i', str(device.index or 0)], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize(device)
+    return float(out)
 
 
 def record(results: list, **row) -> dict:
