@@ -7,14 +7,17 @@ Phases, in order; any failure exits non-zero:
   1. device   the card's name, power limit and the software versions;
               no CUDA device -> exit 1 at once.
   2. build    nvcc builds every kernel of the port from the checkout, one
-              nvcc per source, all at once.
+              nvcc per source, all at once; ptxas's registers and spills
+              and, per kernel, its count of wgmma (IGMMA, HGMMA), TMA
+              (UTMALDG, UTMASTG) and ldmatrix (LDSM) instructions.
   3. kernels  each kernel against its plain PyTorch version on the card:
               the warp at the train path's shapes, conv_s8 and gemm_s8 at
               the serving path's shapes in every epilogue and on both of
               their routes (TMA + wgmma, and mma.sync), stem_s8 in
               both input modes on both of its routes (persistent TMA +
-              wgmma, and mma.sync), block_s8 at the probe's shape and on
-              ragged tiles, mma_rate in every kind on both of its routes
+              wgmma, and mma.sync), block_s8 (persistent TMA + wgmma)
+              at the probe's shape and on ragged tiles, also against its
+              unfused route, mma_rate in every kind on both of its routes
               (wgmma, mma.sync; integers bit-exact).
   4. train    the train step of benchmark_config(3) at full width
               (ResNet-50, 512×640, batch 32) for 5 steps on one seeded
@@ -38,13 +41,15 @@ Phases, in order; any failure exits non-zero:
   7. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
-              probes and the stem probe run each kernel on both routes.
+              and stem probes run each kernel on both routes.
   8. numbers  train step and serving time, memory, and each kernel's
               time at the main paths' shapes beside its plain version,
               the library call and the card's bound (the stem and the
               rate loops on both routes, with the SM clock read while
-              they run); every distinct int8 call of a served batch equal
-              to its plain version at its full shape.
+              they run; the block beside its unfused route, with the SM
+              clock); every distinct int8 call of a served batch, and the
+              block at the probe's shape, equal to its plain version at
+              its full shape.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -54,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +114,33 @@ GOLDEN = os.path.join(DATA, 'gate_golden.npz')
 
 def log(*a):
     print(*a, flush=True)
+
+
+# Instructions counted per kernel in a build's SASS: what a design
+# promised (IGMMA / HGMMA for wgmma, UTMALDG / UTMASTG for TMA, LDSM for
+# ldmatrix) is in the machine code.
+SASS_OPS = ("IGMMA", "HGMMA", "UTMALDG", "UTMASTG", "LDSM")
+
+
+def sass_counts(lib_path) -> dict:
+    """{mangled kernel name: {op: count}} of a built library, from
+    `cuobjdump -sass`: instructions whose opcode, before its first '.',
+    is one of SASS_OPS. Each template instantiation is its own entry."""
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts: dict = {}
+    kernel = None
+    for line in out.splitlines():
+        f = re.match(r"\s*Function : (\S+)", line)
+        if f:
+            kernel = counts.setdefault(f.group(1), dict.fromkeys(SASS_OPS, 0))
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                       line)
+        if kernel is not None and ins and ins.group(1) in kernel:
+            kernel[ins.group(1)] += 1
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -820,25 +853,44 @@ def _bound(ops, nbytes, rate) -> dict:
 
 
 def time_block(dev, card, batch=128, h=128, w=160) -> dict:
-    """block_s8 at the probe's shape: the kernel, its plain version (16
-    images at a time: the float64 products are large) and the bound from
-    x read once, out written once and 2 * 139,264 operations a pixel.
-    PyTorch has no int8 convolution on the card: no library call."""
+    """block_s8 at the probe's shape: the kernel, equal to its plain
+    version and to the unfused route at this full shape (0 differing
+    elements), timed by 20 launches in turns with the unfused route
+    (kernel, unfused, kernel; the kernel's time is the mean of its two
+    turns), the SM clock read while it runs; the plain version (16
+    images at a time: the float64 products are large) once; the bound
+    from x read once, out written once and 2 * 139,264 operations a
+    pixel. PyTorch has no int8 convolution on the card: no library
+    call."""
     ops = fused_block.operands(batch, h, w, 0, dev)
 
     def plain():
         return torch.cat([fused_block.block_s8_torch(ops[0][i:i + 16],
                                                      *ops[1:])
                           for i in range(0, batch, 16)])
+
+    def kernel():
+        return fused_block.block_s8(*ops)
+
+    def unfused():
+        return fused_block.block_s8_unfused(*ops)
+    want = plain()
+    plain_ms = cuda_ms(plain, 1, 0)
+    _must_equal(f"block_s8 {batch}x{h}x{w}", kernel(), want)
+    _must_equal(f"block_s8 unfused {batch}x{h}x{w}", unfused(), want)
+    turns = [cuda_ms(kernel, 20), cuda_ms(unfused, 20), cuda_ms(kernel, 20)]
+    ms, unfused_ms = statistics.mean(turns[::2]), turns[1]
     nbytes, nops = fused_block.block_bytes_ops(batch, h, w)
-    out = {'ms': cuda_ms(lambda: fused_block.block_s8(*ops), 10),
-           'plain_ms': cuda_ms(plain, 1, 1), 'library_ms': None,
-           **_bound(nops, nbytes, INT8_OP_PER_S)}
-    log(f"block_s8 {batch}x{h}x{w}x256: kernel {out['ms']:.4f} ms, plain "
-        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ("
-        f"{out['bound_by']}: {nbytes} B at 3.35 TB/s, {nops} op at 1979 "
-        f"TOP/s), no library int8 conv, {nbytes / out['ms'] / 1e6:.1f} GB/s "
-        f"{card}")
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               unfused_ms=unfused_ms,
+               sm_clock_mhz=sm_clock_mhz(kernel, ms, dev),
+               **_bound(nops, nbytes, INT8_OP_PER_S))
+    log(f"block_s8 {batch}x{h}x{w}x256: 0 differing elements, kernel "
+        f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, SM clock "
+        f"{out['sm_clock_mhz']:.0f} MHz), unfused route {unfused_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {nbytes} B at 3.35 TB/s, {nops} op at 1979 "
+        f"TOP/s), no library int8 conv {card}")
     return out
 
 
@@ -1011,6 +1063,9 @@ def main(argv=None) -> int:
         log(f"  {name} -> {lib_path.name}")
         for line in build_log.strip().splitlines():
             log(f"    {line}")
+        for kernel, counts in sass_counts(lib_path).items():
+            log(f"  sass {kernel}: " + " ".join(
+                f"{op} {n}" for op, n in counts.items() if n))
 
     # 3. kernels vs plain
     cfg = flagship_config()
@@ -1153,6 +1208,7 @@ def main(argv=None) -> int:
     # stem_s8 and mma_rate have a row per route: the route the main path
     # takes under the kernel's name, the other with the route appended;
     # `kernel_route` names it, `sm_clock_mhz` is the clock while it ran.
+    # block_s8's row carries its unfused route's time and the SM clock.
     timed_keys = keys + ('sm_clock_mhz',)
     kernels = [{
         "name": "warp_homography", "route": "cuda",
@@ -1199,7 +1255,7 @@ def main(argv=None) -> int:
         "source": "ursonet_torch/csrc/int8_block.cu",
         "replaces": "tools/probe_fused_block.py:60",
         "launches": probe_launches['block_s8'], "max_abs_err": block_err,
-        **{k: block[k] for k in keys},
+        **{k: block[k] for k in timed_keys + ('unfused_ms',)},
     }] + [{
         "name": f"mma_rate_{kind}" + ('' if route == 'wgmma'
                                       else f'_{route}'),

@@ -422,7 +422,10 @@ def test_small_s2d_serve_launches_the_stem(cuda_device, variant):
 # the fused bottleneck block (csrc/int8_block.cu)
 
 @pytest.mark.parametrize('b,h,w', [(1, 8, 16), (2, 13, 21), (1, 3, 5),
-                                   (3, 24, 40), (1, 128, 160)])
+                                   (3, 24, 40), (1, 128, 160),
+                                   # the persistent walk: 165 tiles, not a
+                                   # multiple of the 132 SMs
+                                   (3, 40, 176)])
 def test_block_s8_matches_plain_and_unfused(cuda_device, b, h, w):
     """One tile, ragged tiles on every border, an image smaller than a
     tile, many tiles: equal to the plain version and to the unfused
@@ -437,6 +440,23 @@ def test_block_s8_matches_plain_and_unfused(cuda_device, b, h, w):
     assert 0 < int(got.max()) <= 127 and int(got.min()) >= 0
 
 
+def test_block_s8_back_to_back_gives_the_same_bits(cuda_device):
+    """Five shapes, each twice a round, launched back to back in shuffled
+    order, 20 rounds: every output equals the plain version's."""
+    rng = np.random.RandomState(7)
+    cases = []
+    for i, (b, h, w) in enumerate([(8, 128, 160), (3, 40, 176), (2, 13, 21),
+                                   (1, 3, 5), (4, 24, 40)]):
+        ops = fb.operands(b, h, w, 100 + i, cuda_device)
+        cases.append((ops, fb.block_s8_torch(*ops)))
+    for _ in range(20):
+        order = rng.permutation(2 * len(cases))
+        outs = [(i, fb.block_s8(*cases[i % len(cases)][0])) for i in order]
+        torch.cuda.synchronize()
+        for i, out in outs:
+            assert torch.equal(out, cases[i % len(cases)][1]), i
+
+
 def test_block_s8_rejects_what_it_does_not_take(cuda_device):
     x, w1, w2, w3, ab = fb.operands(1, 8, 8, 0, cuda_device)
     with pytest.raises(ValueError):
@@ -449,6 +469,11 @@ def test_block_s8_rejects_what_it_does_not_take(cuda_device):
         fb.block_s8(x.float(), w1, w2, w3, ab)
     with pytest.raises(ValueError):
         fb.block_s8(x, w1, w2, w3.cpu(), ab)
+    buf = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda_device)
+    x4 = buf[4:4 + x.numel()].view(x.shape)   # off 16 bytes: no tensor map
+    x4.copy_(x)
+    with pytest.raises(ValueError):
+        fb.block_s8(x4, w1, w2, w3, ab)
 
 
 # --------------------------------------------------------------------------

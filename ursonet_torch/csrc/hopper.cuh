@@ -1,19 +1,22 @@
 // Hopper (sm_90a) machinery shared by the TMA + wgmma kernels
 // (int8_tma.cuh, used by int8_gemm.cu and int8_conv.cu; int8_stem.cu;
-// mma_rate.cu), as inline PTX:
+// int8_block.cu; mma_rate.cu), as inline PTX:
 //   mbarrier      init, arrive, arrive.expect_tx, try_wait.parity
-//   TMA           cp.async.bulk.tensor.2d / .3d loads that complete on an
-//                 mbarrier, stores tracked by bulk groups, and the host
-//                 side: a CUtensorMap over a byte matrix or a 3-D word
-//                 array, encoded through cuTensorMapEncodeTiled looked up
-//                 at run time (cudaGetDriverEntryPoint), so nothing links
-//                 libcuda
+//   TMA           cp.async.bulk.tensor.2d / .3d / .4d loads that complete
+//                 on an mbarrier, 2-D and 4-D stores tracked by bulk
+//                 groups, and the host side: a CUtensorMap over a byte
+//                 matrix, a 3-D word array or a 4-D byte array in the
+//                 128-byte swizzle, encoded through cuTensorMapEncodeTiled
+//                 looked up at run time (cudaGetDriverEntryPoint), so
+//                 nothing links libcuda
 //   cp.async      16-byte copies with zero fill that arrive on an mbarrier
+//   ldmatrix      .x4 of b16: four 8 x 16-byte row sets, the s8 m16n8k32
+//                 A fragment of a 16-row, 32-byte tile
 //   wgmma         m64nNk32 s8 x s8 -> s32 (N = 32..256) and m64nNk16
 //                 bf16 x bf16 -> f32 with both operands in shared memory,
-//                 m64n64k32 s8 with A in registers, the K-major
-//                 128-byte-swizzle matrix descriptor, fence / commit_group
-//                 / wait_group
+//                 m64n64k32 and m64n128k32 s8 with A in registers, the
+//                 K-major 128-byte-swizzle matrix descriptor, fence /
+//                 commit_group / wait_group
 //   setmaxnreg, named barriers, the proxy fence
 //
 // Shared-memory layout of a wgmma operand tile here: rows of 128 bytes
@@ -127,6 +130,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// 4-D box at (c0, c1, c2, c3) -> shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Shared memory -> the box at (c0, c1), clipped to the tensor; part of
 // the thread's current bulk group.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
@@ -138,6 +154,19 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       : "memory");
 }
 
+// Shared memory -> the 4-D box at (c0, c1, c2, c3), clipped to the
+// tensor; part of the thread's current bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -146,6 +175,13 @@ __device__ __forceinline__ void bulk_commit() {
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Until at most N of the thread's bulk groups are still in flight (their
+// writes to global memory included).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ---- cp.async -----------------------------------------------------------
@@ -163,6 +199,22 @@ __device__ __forceinline__ void cp_async_16_zfill(uint32_t dst,
 __device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
                :: "r"(bar) : "memory");
+}
+
+// ---- ldmatrix ------------------------------------------------------------
+
+// Four 8 x 8 b16 matrices: lane l gives the 16-byte row address of row
+// l % 8 of matrix l / 8; register q of lane l receives bytes
+// 4 (l % 4) .. 4 (l % 4) + 3 of row l / 4 of matrix q. With matrices
+// (rows 0-7, bytes 0-15), (rows 8-15, bytes 0-15), (rows 0-7, bytes
+// 16-31), (rows 8-15, bytes 16-31) of a 16 x 32-byte s8 tile that is the
+// A fragment of mma.sync m16n8k32 and of a register-A wgmma (below).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
 // ---- warpgroups ---------------------------------------------------------
@@ -556,6 +608,44 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32],
         "r"(scale_d));
 }
 
+// The s8 m64n128k32 with A from registers, as wgmma_m64n64k32_s8_rs.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64],
+    const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 
 // ---- host: tensor maps --------------------------------------------------
 
@@ -618,6 +708,31 @@ inline bool make_word_map_3d(CUtensorMap* map, const void* base, uint64_t d0,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map over bytes [d3][d2][d1][d0] (d0 innermost and contiguous;
+// d1 steps `pitch1` bytes, d2 `pitch2`, d3 `pitch3`: base and pitches
+// multiples of 16), boxes of 128 x box1 x box2 x 1 bytes in the 128-byte
+// swizzle: a box lands as box1 * box2 rows of 128 bytes (d1 fastest), 16-
+// byte chunk c of row r at chunk c ^ (r % 8) when the destination is
+// 1024-byte aligned, and reads as a K-major wgmma operand tile.
+// Out-of-bounds bytes load as zeros, start coordinates may be negative.
+// False if refused.
+inline bool make_byte_map_4d_sw128(CUtensorMap* map, const void* base,
+                                   uint64_t d0, uint64_t d1, uint64_t d2,
+                                   uint64_t d3, uint64_t pitch1,
+                                   uint64_t pitch2, uint64_t pitch3,
+                                   uint32_t box1, uint32_t box2) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {pitch1, pitch2, pitch3};
+  const cuuint32_t box[4] = {128, box1, box2, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

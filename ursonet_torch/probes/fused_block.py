@@ -3,6 +3,7 @@
 route through `gemm_s8` / `conv_s8`, and the probe entry point
 
     python -m ursonet_torch.probes.fused_block [--batch 128] [--reps 20]
+                                               [--device cuda]
 
 The Hopper port of the Pallas TPU kernel
 `tools/probe_fused_block.py::_fused_kernel`, with the operands of its
@@ -28,8 +29,19 @@ kernel takes the C2 identity block's widths (Cin = Cout = 256, Cmid =
 64) at any B, H, W and raises otherwise. It is a probe: the JAX package
 never served through its fused block, and `models/quant.py` does not
 either. On a CUDA tensor the wrapper launches the kernel or raises; on a
-CPU tensor it runs the plain version. Each launch adds one to
-`launches['block_s8']`.
+CPU tensor it runs the plain version.
+
+The kernel is persistent and warp-specialized: TMA loads of the x halo
+tiles into a ring of two stages, the three weight matrices resident in
+shared memory as wgmma B operands, wgmma for all three products, the
+tile sent out by TMA stores. It takes every x block_s8 accepts (16-byte
+aligned: rows of 256 bytes keep every pitch of the tensor map a multiple
+of 16; TMA fills the halo outside any B, H, W with zeros). Each launch
+adds one to `launches['block_s8']`.
+
+The entry point prints one JSON line for the kernel (the plain version on
+the CPU), on the card with the SM clock while it ran, then one for the
+unfused route.
 """
 
 from __future__ import annotations
@@ -43,7 +55,8 @@ import torch
 
 from ursonet_torch.device import resolve_device
 from ursonet_torch.ops import cuda_build, int8_cuda
-from ursonet_torch.probes.timing import card_label, record, time_ms
+from ursonet_torch.probes.timing import (card_label, record, sm_clock_mhz,
+                                         time_ms)
 
 launches = {"block_s8": 0}
 CIN, CMID = 256, 64
@@ -224,7 +237,9 @@ def main(argv=None) -> list:
            max_lsb_diff_vs_plain=int(d_plain.max()),
            frac_diff_vs_plain=float((d_plain > 0).float().mean()),
            plain_images=nb, max_lsb_diff_vs_unfused=int(d_unf.max()),
-           ms=ms, gbps=nbytes / ms / 1e6, tops=nops / ms / 1e9, device=card)
+           ms=ms, gbps=nbytes / ms / 1e6, tops=nops / ms / 1e9,
+           sm_clock_mhz=sm_clock_mhz(lambda: block_s8(*ops), ms, dev),
+           device=card)
     ms_u = time_ms(lambda: block_s8_unfused(*ops), args.reps, dev)
     record(results, probe='unfused gemm_s8+conv_s8+gemm_s8', shape=shape,
            ms=ms_u, tops=nops / ms_u / 1e9, device=card)
