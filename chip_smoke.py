@@ -9,13 +9,16 @@ Phases, in order; any failure exits non-zero:
   2. build    nvcc builds every kernel of the port from the checkout, one
               nvcc per source, all at once; ptxas's registers and spills
               and, per kernel, its count of wgmma (IGMMA, HGMMA), TMA
-              (UTMALDG, UTMASTG) and ldmatrix (LDSM) instructions.
+              (UTMALDG, UTMASTG) and ldmatrix (LDSM) instructions; one
+              line each for the bf16-epilogue instantiations.
   3. kernels  each kernel against its plain PyTorch version on the card:
               the warp at the train path's shapes, conv_s8 and gemm_s8 at
-              the serving path's shapes in every epilogue and on both of
-              their routes (TMA + wgmma, and mma.sync), stem_s8 in
-              both input modes on both of its routes (persistent TMA +
-              wgmma, and mma.sync), block_s8 (persistent TMA + wgmma)
+              the serving path's shapes in every epilogue, in both
+              accumulation modes (f32, bf16) and on both of their routes
+              (TMA + wgmma, and mma.sync), and at C5's depth with
+              accumulators above 2^24, stem_s8 in both input modes and
+              both accumulation modes on both of its routes (persistent
+              TMA + wgmma, and mma.sync), block_s8 (persistent TMA + wgmma)
               at the probe's shape and on ragged tiles, also against its
               unfused route, mma_rate in every kind on both of its routes
               (wgmma, mma.sync; integers bit-exact).
@@ -24,26 +27,32 @@ Phases, in order; any failure exits non-zero:
               random batch, then one validation step; losses must be
               finite and fall; the warp kernel must have been launched.
   5. artifact the committed flagship int8 artifact served on its golden
-              input: kernel path equal to the plain path, within the
-              gate bound of the float twin, both int8 kernels launched;
-              decoded poses printed; its stem rewritten to space-to-depth
-              form in memory and served through stem_s8 gives the same
-              bits.
+              input under F16 and in the f32-epilogue mode: kernel path
+              equal to the plain path, within the gate bound of the float
+              twin, both int8 kernels launched; drift against the TPU
+              goldens and decoded poses printed; its stem rewritten to
+              space-to-depth form in memory and served through stem_s8
+              gives the same bits.
   6. serve    int8 serving of serving_config() at full width and batch
-              (128 × 512×640, seeded random weights, calibrate +
-              smooth(0.5)) through ServingEngine.predict_molded, in the
-              `base` and the `host_s2d` variant: every int8 kernel of the
-              variant launched (stem_s8 exactly once per batch), outputs
-              within the random-init gate of the float twin, decode and
-              ESA score finite; the `s2d` variant equal to `host_s2d`
-              bit for bit; every GEMM, every 3x3 conv and the fused stem
-              of the served model must have taken the TMA + wgmma route.
+              (128 × 512×640, seeded random weights; calibrate on 8
+              images, smooth(0.5), bias_correct(passes=1), as bench.py)
+              through ServingEngine.predict_molded, in the `base` and the
+              `host_s2d` variant, under F16 (bench.py's mode) and with
+              f32 epilogues: every int8 kernel of the variant launched
+              (stem_s8 exactly once per batch), in the served mode,
+              outputs within the random-init gate of the float twin,
+              decode and ESA score finite; the `s2d` variant equal to
+              `host_s2d` bit for bit under F16; every GEMM, every 3x3
+              conv and the fused stem of the served model must have
+              taken the TMA + wgmma route.
   7. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
               and stem probes run each kernel on both routes.
-  8. numbers  train step and serving time, memory, and each kernel's
-              time at the main paths' shapes beside its plain version,
+  8. numbers  train step and serving time per variant and mode, memory,
+              the bf16 float forward at batch 128 (bench.py's
+              BENCH_QUANT=0), and each kernel's time in both modes at the
+              main paths' shapes beside its plain version,
               the library call and the card's bound (the stem and the
               rate loops on both routes, with the SM clock read while
               they run; the block beside its unfused route, with the SM
@@ -93,6 +102,8 @@ F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
 
+ACC_NAMES = int8_cuda.ACC_NAMES
+ACC_DTYPES = {v: k for k, v in ACC_NAMES.items()}
 FLAGSHIP_BATCH = 32
 STEPS = 5            # train steps of the main path, then 1 validation step
 SERVE_ITERS = 10     # timed serving calls, after 2 warm-up calls
@@ -141,6 +152,65 @@ def sass_counts(lib_path) -> dict:
         if kernel is not None and ins and ins.group(1) in kernel:
             kernel[ins.group(1)] += 1
     return counts
+
+
+def ptxas_entries(build_log) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from a build's `ptxas -v` output."""
+    out, entry, spills = {}, None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)),) + spills
+    return out
+
+
+def demangle(names) -> dict:
+    """{mangled: demangled} through c++filt where the toolkit's host has
+    it, else the names as they are."""
+    names = list(names)
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        res = names
+    return dict(zip(names, res)) if len(res) == len(names) \
+        else {n: n for n in names}
+
+
+# The epilogues' instantiations of the bf16 accumulation mode: the last
+# template flag of the TMA GEMM / conv kernel, the flag of the stem's.
+_BF16_INSTANCE = re.compile(r"(tma_s8_kernel<\d+, (true|false), true>|"
+                            r"stem_s8_tma_kernel<true>)")
+
+
+def log_bf16_instances(builds) -> None:
+    """Registers, spills and SASS counts of the bf16 instantiations of
+    the epilogues, one line each; a spill is flagged, not fatal."""
+    for name, (lib_path, build_log) in builds.items():
+        entries = ptxas_entries(build_log)
+        sass = sass_counts(lib_path)
+        names = demangle(set(entries) | set(sass))
+        for mangled, pretty in sorted(names.items(), key=lambda kv: kv[1]):
+            m = _BF16_INSTANCE.search(pretty)
+            if not m:
+                continue
+            regs, st, ld = entries.get(mangled, (-1, -1, -1))
+            counts = sass.get(mangled, {})
+            log(f"  bf16 epilogue {name}: {m.group(0)}: {regs} "
+                f"registers, spill stores {st} B, loads {ld} B"
+                + (" SPILLS" if st or ld else "") + "; sass "
+                + " ".join(f"{op} {n}" for op, n in counts.items() if n))
 
 
 # --------------------------------------------------------------------------
@@ -319,6 +389,48 @@ def epilogue_args(dev, rng, out_shape, k, epilogue) -> dict:
     return kw
 
 
+def big_acc_cases(dev, rng, kind, m=1317, batch=2):
+    """Operands whose s32 accumulators lie above 2^24: depth 4608 (C5's
+    3x3 convs: 3 * 3 * 512) with operands in 100..127, as a GEMM of `m`
+    rows or as the C5 3x3 conv at `batch` images; alpha puts y at about
+    ±3 (`kind` 'gemm' or 'conv'). Returns [(fn(epilogue, acc_dtype,
+    route), plain(epilogue, acc_dtype), name)]."""
+    k, n = 4608, 512
+    if kind == 'gemm':
+        a = torch.from_numpy(rng.randint(100, 128, (m, k)).astype(np.int8))
+        shape, name = (m, n), f"gemm_s8 {m}x{k} @ {k}x{n}"
+    else:
+        a = torch.from_numpy(rng.randint(100, 128, (batch, 16, 20, 512))
+                             .astype(np.int8))
+        shape, name = (batch, 16, 20, n), f"conv_s8 {batch}x16x20x512 3x3"
+    a = a.to(dev)
+    w8 = rng.randint(100, 128, (k, n) if kind == 'gemm' else (3, 3, 512, n))
+    w = int8_cuda.kernel_layout(w8.astype(np.int8)).to(dev)
+    mean_acc = k * 113.5 * 113.5 * (8 / 9 if kind == 'conv' else 1)
+    kw = dict(alpha=torch.from_numpy((rng.uniform(0.5, 1.5, n) * 3 / mean_acc)
+                                     .astype(np.float32)).to(dev),
+              beta=torch.from_numpy(rng.uniform(-4, 0, n).astype(np.float32))
+              .to(dev),
+              inv_s_out=float(np.float32(1) / np.float32(3.0 / 127)),
+              res=s8(rng, shape, dev), res_scale=0.0123)
+    pads = ((1, 1), (1, 1))
+
+    def args(ep, acc):
+        return {k_: v for k_, v in dict(kw, acc_dtype=acc).items()
+                if ep == 'join' or k_ not in ('res', 'res_scale')}
+    if kind == 'gemm':
+        return [(lambda ep, acc, route: int8_cuda.gemm_s8(
+                    a, w, ep, route=route, **args(ep, acc)),
+                 lambda ep, acc: int8_cuda.gemm_s8_torch(a, w, ep,
+                                                         **args(ep, acc)),
+                 name)]
+    return [(lambda ep, acc, route: int8_cuda.conv_s8(
+                a, w, 1, pads, ep, route=route, **args(ep, acc)),
+             lambda ep, acc: int8_cuda.conv_s8_torch(a, w, 1, pads, ep,
+                                                     **args(ep, acc)),
+             name)]
+
+
 def stem_args(dev, rng, mode) -> dict:
     """Operands of stem_s8 beside x and w: the flagship's pixel mean, an
     input step near the calibrated one, and epilogue operands that spread
@@ -335,11 +447,13 @@ def stem_args(dev, rng, mode) -> dict:
 
 def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=1317) -> float:
     """conv_s8 and gemm_s8 against their plain versions (float64
-    accumulation) in every epilogue and on both routes: the route the
-    wrapper picks for the shape (TMA + wgmma for all but the C = 3 stem)
-    and, where that is not it, the mma.sync route forced. `gemm_m` rows
-    for the 1x1 shapes: ragged, and enough for the 256-wide tile. Any
-    difference raises. Returns the largest absolute difference (0.0)."""
+    accumulation) in every epilogue, in both accumulation modes (f32 and
+    bf16) and on both routes: the route the wrapper picks for the shape
+    (TMA + wgmma for all but the C = 3 stem) and, where that is not it,
+    the mma.sync route forced. `gemm_m` rows for the 1x1 shapes: ragged,
+    and enough for the 256-wide tile. Then both kernels at C5's depth
+    with accumulators above 2^24 (`big_acc_cases`). Any difference
+    raises. Returns the largest absolute difference (0.0)."""
     worst = 0.0
 
     def compare(name, got, want):
@@ -356,14 +470,16 @@ def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=1317) -> float:
 
     def both_routes(name, launch, acc, out_shape, k, picked):
         """`launch(epilogue, route, args)` on the picked route and on the
-        forced mma.sync one, every epilogue."""
+        forced mma.sync one, every epilogue, both accumulation modes."""
         routes = sorted({picked, 'ragged'}, reverse=True)
         for ep in int8_cuda.EPILOGUES:
-            args = epilogue_args(dev, rng, out_shape, k, ep)
-            want = int8_cuda.epilogue_torch(acc, ep, **args)
-            for route in routes:
-                compare(f"{name} {ep} [{route}]", launch(ep, route, args),
-                        want)
+            for mode in int8_cuda.ACC_DTYPES:
+                args = dict(epilogue_args(dev, rng, out_shape, k, ep),
+                            acc_dtype=mode)
+                want = int8_cuda.epilogue_torch(acc, ep, **args)
+                for route in routes:
+                    compare(f"{name} {ep} {ACC_NAMES[mode]} [{route}]",
+                            launch(ep, route, args), want)
         return '+'.join(routes)
 
     for name, (b, h, w, c, kh, kw, n, st, pads) in conv_cases(conv_batch):
@@ -381,7 +497,7 @@ def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=1317) -> float:
                 x, wt, st, pads, ep, route=route, **args),
             acc, (b, oh, ow, n), kh * kw * c, picked)
         log(f"check conv_s8 {name} {b}x{h}x{w}x{c} -> {n} [{routes}]: "
-            f"{len(int8_cuda.EPILOGUES)} epilogues bit-exact")
+            f"{len(int8_cuda.EPILOGUES)} epilogues x (f32, bf16) bit-exact")
     for name, (m, k, n) in gemm_cases(gemm_m):
         a = s8(rng, (m, k), dev)
         bt = int8_cuda.kernel_layout(
@@ -393,7 +509,18 @@ def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=1317) -> float:
                 a, bt, ep, route=route, **args),
             acc, (m, n), k, 'tma')
         log(f"check gemm_s8 {name} {m}x{k} @ {k}x{n} [{routes}]: "
-            f"{len(int8_cuda.EPILOGUES)} epilogues bit-exact")
+            f"{len(int8_cuda.EPILOGUES)} epilogues x (f32, bf16) bit-exact")
+    for kind in ('gemm', 'conv'):
+        for fn, plain, name in big_acc_cases(dev, rng, kind):
+            for ep in int8_cuda.EPILOGUES:
+                for mode in int8_cuda.ACC_DTYPES:
+                    want = plain(ep, mode)
+                    for route in int8_cuda.ROUTES:
+                        compare(f"{name} (acc > 2^24) {ep} {ACC_NAMES[mode]} "
+                                f"[{route}]", fn(ep, mode, route), want)
+            log(f"check {name} with accumulators above 2^24 [tma+ragged]: "
+                f"{len(int8_cuda.EPILOGUES)} epilogues x (f32, bf16) "
+                "bit-exact")
     return worst
 
 
@@ -417,7 +544,8 @@ def stem_operands(dev, rng, b, h2, w2):
 
 
 def check_stem_kernel(dev, rng, batch=8) -> float:
-    """stem_s8 against its plain version in both input modes, on the
+    """stem_s8 against its plain version in both input modes and both
+    accumulation modes, on the
     route the wrapper picks and on the mma.sync route forced: at the
     flagship shape (256x320 packed pixels), at a shape whose tiles
     overhang every border that the TMA route takes (W2 % 4 == 0), and at
@@ -430,13 +558,16 @@ def check_stem_kernel(dev, rng, batch=8) -> float:
             raise RuntimeError(f"stem_s8 {b}x{h2}x{w2}: route {picked}")
         routes = sorted({picked, 'ragged'}, reverse=True)
         for mode in int8_cuda.STEM_MODES:
-            kw = stem_args(dev, rng, mode)
-            want = int8_cuda.stem_s8_torch(x, w, **kw)
-            for route in routes:
-                _must_equal(f"stem_s8 {mode} {b}x{h2}x{w2}x12 [{route}]",
-                            int8_cuda.stem_s8(x, w, route=route, **kw), want)
+            for acc in int8_cuda.ACC_DTYPES:
+                kw = dict(stem_args(dev, rng, mode), acc_dtype=acc)
+                want = int8_cuda.stem_s8_torch(x, w, **kw)
+                for route in routes:
+                    _must_equal(f"stem_s8 {mode} {ACC_NAMES[acc]} "
+                                f"{b}x{h2}x{w2}x12 [{route}]",
+                                int8_cuda.stem_s8(x, w, route=route, **kw),
+                                want)
         log(f"check stem_s8 {b}x{h2}x{w2}x12 -> 64 [{'+'.join(routes)}]: "
-            "calibrated and shift128 bit-exact")
+            "calibrated and shift128, f32 and bf16 epilogues, bit-exact")
     return 0.0
 
 
@@ -500,14 +631,17 @@ def rel(a, b) -> float:
     return float((a - b).norm() / max(float(b.norm()), 1e-9))
 
 
-def serve_artifact(dev) -> dict:
+def serve_artifact(dev, f16: bool = True) -> dict:
     """Serve the committed flagship artifact on its golden input (batch
-    2): the kernel path must equal the plain path and stay within the
-    gate bound of the float twin (tests/test_quant.py's
-    test_gate_artifact_passes); both int8 kernels must launch. Drift
-    against the TPU export goldens is printed, not asserted: they were
-    computed in bf16 on a TPU."""
-    cfg = presets.serving_config(batch=2)
+    2) under F16 (the bf16 epilogues; the mode its goldens were exported
+    in) or in the f32-epilogue mode: the kernel path must equal the plain
+    path and stay within the gate bound of the float twin
+    (tests/test_quant.py's test_gate_artifact_passes); both int8 kernels
+    must launch. Drift against the TPU export goldens is printed, not
+    asserted: they were computed on a TPU, and TRAINED_GATE_DRIFT holds
+    only on the same backend."""
+    cfg = presets.serving_config(batch=2, f16=f16)
+    mode = 'bf16' if f16 else 'f32'
     g = np.load(GOLDEN)
     engine = ServingEngine(cfg, dev)
     qm = engine.load_serving_artifact(ARTIFACT)
@@ -521,7 +655,8 @@ def serve_artifact(dev) -> dict:
     bound = max(quant.TRAINED_GATE_REL, 1.25 * float(g['gate_rel']))
     for k in out:
         r_plain, r_twin = rel(out[k], plain[k]), rel(out[k], flt[k])
-        log(f"artifact {k}: kernel vs plain rel {r_plain:.3e} (tol 1e-6); "
+        log(f"artifact [{mode}] {k}: kernel vs plain rel {r_plain:.3e} "
+            "(tol 1e-6); "
             f"int8 vs float twin rel {r_twin:.6f} (gate < {bound:.6f}); "
             f"drift vs TPU int8 golden {rel(out[k], g[f'q_{k}']):.6f}; "
             f"float twin vs TPU float golden {rel(flt[k], g[f'f_{k}']):.6f}")
@@ -533,25 +668,25 @@ def serve_artifact(dev) -> dict:
         if not r_twin < bound:
             raise RuntimeError(f"artifact {k}: int8 vs float twin rel "
                                f"{r_twin} over the gate {bound}")
-    log(f"artifact launches: {launches}")
+    log(f"artifact [{mode}] launches: {launches}")
     if min(launches['gemm_s8'], launches['conv_s8']) < 1:
         raise RuntimeError(f"the artifact serve missed a kernel: {launches}")
     loc, q = evaluate.decode_results(out, cfg)
     for i in range(len(loc)):
-        log(f"artifact pose {i}: loc {np.round(loc[i], 4).tolist()} "
-            f"quat {np.round(q[i], 5).tolist()}")
-    serve_artifact_s2d(dev, engine, x)
+        log(f"artifact [{mode}] pose {i}: loc {np.round(loc[i], 4).tolist()}"
+            f" quat {np.round(q[i], 5).tolist()}")
+    serve_artifact_s2d(dev, engine, x, f16)
     return launches
 
 
-def serve_artifact_s2d(dev, engine, x) -> None:
+def serve_artifact_s2d(dev, engine, x, f16: bool = True) -> None:
     """The same artifact with its stem rewritten to space-to-depth form
     in memory (exact in integers), served from host-packed uint8 pixels
     through stem_s8, against the artifact as it is on the same uint8
     pixels: the same bits, or the difference is printed and raises."""
     qm = engine.qmodel
     base = engine.predict_molded(x)
-    cfg = presets.serving_config(batch=2, variant='host_s2d')
+    cfg = presets.serving_config(batch=2, variant='host_s2d', f16=f16)
     eng2 = ServingEngine(cfg, dev)
     eng2.qmodel = quant.QuantizedModel(cfg, qm.flat, dev)
     eng2.qmodel.act_scales = dict(qm.act_scales)
@@ -564,7 +699,8 @@ def serve_artifact_s2d(dev, engine, x) -> None:
                            f"{int8_cuda.launches}")
     for k in out:
         diff = int((out[k] != base[k]).sum())
-        log(f"artifact {k}: stem rewritten to s2d and served through stem_s8 "
+        log(f"artifact [{'bf16' if f16 else 'f32'}] {k}: stem rewritten to "
+            "s2d and served through stem_s8 "
             f"vs the 7x7 stem: {diff} of {out[k].numel()} values differ, "
             f"max abs {float((out[k] - base[k]).abs().max())}")
         if diff:
@@ -572,15 +708,20 @@ def serve_artifact_s2d(dev, engine, x) -> None:
                                "served outputs")
 
 
-def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
-    """The serving main path at full width and batch in one variant:
-    seeded random weights, calibrate on 8 images + smooth(0.5), then one
+def serve_flagship(dev, seed: int, variant: str = 'base',
+                   f16: bool = True) -> dict:
+    """The serving main path at full width and batch in one variant and
+    accumulation mode (F16: the bf16 epilogues, bench.py's; else the f32
+    ones): seeded random weights, then as bench.py: calibrate on 8
+    images, smooth(0.5), bias_correct(passes=1) on the same 8; then one
     served batch of random uint8 images through
     ServingEngine.predict_molded, decoded and ESA-scored against seeded
     poses. Every int8 kernel of the variant must launch (stem_s8 exactly
-    once per batch under the s2d variants, never under `base`), and the
-    outputs stay within the random-init gate of the float twin."""
-    cfg = presets.serving_config(variant=variant)
+    once per batch under the s2d variants, never under `base`), every
+    launch in the mode, and the outputs stay within the random-init gate
+    of the float twin."""
+    cfg = presets.serving_config(variant=variant, f16=f16)
+    tag = f"{variant} {'bf16' if f16 else 'f32'}"
     rng = np.random.RandomState(seed)
     h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
     images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
@@ -588,11 +729,22 @@ def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
     engine = ServingEngine(cfg, dev,
                            generator=torch.Generator().manual_seed(seed))
     t0 = time.perf_counter()
-    qm = engine.quantize(list(images[:8]))
+    qm = engine.quantize()
+    x8 = engine._host_s2d_maybe(images[:8])
+    qm.calibrate(x8)
     spread = qm.smooth(0.5)
-    log(f"serve [{variant}] quantize: calibrate (8 images) + smooth(0.5) "
-        f"{time.perf_counter() - t0:.1f} s, {len(spread)} groups, worst "
-        f"spread {max(spread.values()):.1f}x")
+    t1 = time.perf_counter()
+    int8_cuda.reset_counts()
+    deltas = qm.bias_correct(x8, passes=1)
+    torch.cuda.synchronize()
+    log(f"serve [{tag}] quantize: calibrate (8 images) + smooth(0.5) "
+        f"{t1 - t0:.1f} s, {len(spread)} groups, worst spread "
+        f"{max(spread.values()):.1f}x; bias_correct(passes=1) "
+        f"{time.perf_counter() - t1:.1f} s, {len(deltas)} sites, largest "
+        f"|delta| {max(deltas.values()):.4f}, launches "
+        f"{dict(int8_cuda.launches)}")
+    if not all(np.isfinite(v).all() for v in qm.bias_delta.values()):
+        raise RuntimeError(f"serve [{tag}]: non-finite bias deltas")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     int8_cuda.reset_counts()
@@ -602,7 +754,7 @@ def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
     launches, calls = dict(int8_cuda.launches), int8_cuda.calls
     int8_cuda.calls = None
     peak = torch.cuda.max_memory_allocated()
-    log(f"serve [{variant}] launches per batch: {launches}")
+    log(f"serve [{tag}] launches per batch: {launches}")
     want = {'loc': (cfg.BATCH_SIZE, 3),
             'ori': (cfg.BATCH_SIZE, cfg.ORI_BINS_PER_DIM ** 3)}
     for k, shape in want.items():
@@ -615,19 +767,22 @@ def serve_flagship(dev, seed: int, variant: str = 'base') -> dict:
         raise RuntimeError(f"the {variant} serving path must launch gemm_s8 "
                            f"and conv_s8, and stem_s8 {want_stem} times a "
                            f"batch: {launches}")
-    check_served_routes(variant, calls)
-    flt = qm.float_twin(engine._host_s2d_maybe(images[:8]))
+    check_served_routes(tag, calls)
+    modes = Counter(a['acc'] for _, a in calls)
+    if set(modes) != {'bf16' if f16 else 'f32'}:
+        raise RuntimeError(f"serve [{tag}]: launches in modes {modes}")
+    flt = qm.float_twin(x8)
     rels = {k: rel(out[k][:8], flt[k]) for k in flt}
-    log(f"serve [{variant}] int8 vs float twin on 8 images (random weights, "
+    log(f"serve [{tag}] int8 vs float twin on 8 images (random weights, "
         f"gate {quant.RANDOM_INIT_GATE_REL}): "
         + ", ".join(f"{k} rel {v:.4f}" for k, v in rels.items()))
     if max(rels.values()) >= quant.RANDOM_INIT_GATE_REL:
-        raise RuntimeError(f"serve [{variant}]: int8 vs float twin {rels} "
+        raise RuntimeError(f"serve [{tag}]: int8 vs float twin {rels} "
                            "over the random-init gate")
     t0 = time.perf_counter()
     loc, q = evaluate.decode_results(out, cfg)
     scores = evaluate.esa_scores(loc, q, loc_gt, q_gt)
-    log(f"serve [{variant}] decode + ESA of {cfg.BATCH_SIZE} poses: "
+    log(f"serve [{tag}] decode + ESA of {cfg.BATCH_SIZE} poses: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms host wall; mean ESA "
         f"{scores['mean_esa']:.4f}, mean loc err {scores['mean_loc_err']:.3f}"
         f" m, mean ori err {scores['mean_ori_err_deg']:.2f} deg (random "
@@ -653,14 +808,16 @@ def check_served_routes(variant, calls) -> None:
 
 
 def check_device_s2d(dev, served) -> ServingEngine:
-    """The `s2d` variant (the device packs the pixels) on the weights and
-    scales of the served `host_s2d` model: the same bits on one batch.
-    Returns the `s2d` engine."""
+    """The `s2d` variant (the device packs the pixels) on the weights,
+    scales and bias deltas of the served `host_s2d` model, in its
+    accumulation mode: the same bits on one batch. Returns the `s2d`
+    engine."""
     host, images = served['engine'], served['images']
-    cfg = presets.serving_config(variant='s2d')
+    cfg = presets.serving_config(variant='s2d', f16=host.config.F16)
     eng = ServingEngine(cfg, dev)
     eng.qmodel = quant.QuantizedModel(cfg, host.qmodel.flat, dev)
     eng.qmodel.act_scales = dict(host.qmodel.act_scales)
+    eng.qmodel.bias_delta = dict(host.qmodel.bias_delta)
     int8_cuda.reset_counts()
     out = eng.predict_molded(images)
     torch.cuda.synchronize()
@@ -726,24 +883,23 @@ def time_warp(imgs, Ms, interp) -> dict:
     return out
 
 
-_OUT_BYTES = {'s32': 4, 'f32': 4, 'f32_relu': 4, 'q8_relu': 1, 'q8': 1,
-              'join': 1}
-
-
 def _int8_call(name, a, dev, rng):
     """Fresh operands for one recorded GEMM or conv call: (kernel fn,
-    plain fn, library fn or None, operations, bytes). The bytes count each input
-    once (activations, weights, epilogue vectors, residual) and each
-    output once."""
+    plain fn, library fn or None, operations, bytes), in the call's
+    accumulation mode. The bytes count each input once (activations,
+    weights, epilogue vectors, residual) and each output once (bf16 for
+    the f32 epilogues of the bf16 mode)."""
     ep = a['epilogue']
+    acc = ACC_DTYPES[a['acc']]
+    ob = int8_cuda.OUT_BYTES[acc][ep]
     if name == 'gemm_s8':
         m, k, n = a['m'], a['k'], a['n']
         x = s8(rng, (m, k), dev)
         wt = int8_cuda.kernel_layout(
             rng.randint(-128, 128, (k, n)).astype(np.int8)).to(dev)
-        kw = epilogue_args(dev, rng, (m, n), k, ep)
+        kw = dict(epilogue_args(dev, rng, (m, n), k, ep), acc_dtype=acc)
         ops = 2 * m * n * k
-        nbytes = m * k + k * n + m * n * _OUT_BYTES[ep]
+        nbytes = m * k + k * n + m * n * ob
         return (lambda: int8_cuda.gemm_s8(x, wt, ep, **kw),
                 lambda: int8_cuda.gemm_s8_torch(x, wt, ep, **kw),
                 lambda: torch._int_mm(x, wt),
@@ -754,10 +910,11 @@ def _int8_call(name, a, dev, rng):
     x = s8(rng, (b, h, w, c), dev)
     wt = int8_cuda.kernel_layout(
         rng.randint(-128, 128, (kh, kw_, c, n)).astype(np.int8)).to(dev)
-    kw = epilogue_args(dev, rng, (b, oh, ow, n), kh * kw_ * c, ep)
+    kw = dict(epilogue_args(dev, rng, (b, oh, ow, n), kh * kw_ * c, ep),
+              acc_dtype=acc)
     m = b * oh * ow
     ops = 2 * m * n * kh * kw_ * c
-    nbytes = b * h * w * c + kh * kw_ * c * n + m * n * _OUT_BYTES[ep]
+    nbytes = b * h * w * c + kh * kw_ * c * n + m * n * ob
     return (lambda: int8_cuda.conv_s8(x, wt, st, pads, ep, **kw),
             lambda: int8_cuda.conv_s8_torch(x, wt, st, pads, ep, **kw),
             None, ops, nbytes + 8 * n + (m * n if ep == 'join' else 0))
@@ -846,6 +1003,49 @@ def time_serving(engine, images, dev) -> dict:
             'host_ms': statistics.median(host)}
 
 
+def time_float_forward(dev, seed: int, card) -> dict:
+    """bench.py's BENCH_QUANT=0 forward: the float model of
+    serving_config() under F16 (f32 parameters, bf16 compute, f32 head
+    outputs) on a device-resident batch of 128 uniform [0, 1) images at
+    512x640 in eval, median of SERVE_ITERS calls after 2 warm-up (CUDA
+    events). Its outputs must be finite; their distance to the f32
+    model's on the same weights and 8 images is printed."""
+    cfg = presets.serving_config()
+    model = build_model(cfg, dev, torch.Generator().manual_seed(seed)).eval()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+    x = torch.rand((cfg.BATCH_SIZE, 3, h, w), generator=g, device=dev)
+    times = []
+    with torch.no_grad():
+        out = model(x)
+        for i in range(2 + SERVE_ITERS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(x)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+        for k, v in out.items():
+            if v.dtype != torch.float32 or not torch.isfinite(v).all():
+                raise RuntimeError(f"bf16 float forward {k}: {v.dtype}, "
+                                   f"finite {bool(torch.isfinite(v).all())}")
+        cfg32 = presets.serving_config(f16=False)
+        model32 = build_model(cfg32, dev).eval()
+        model32.load_state_dict(model.state_dict())
+        with quant.no_tf32():
+            ref = model32(x[:8])
+        rels = {k: rel(out[k][:8], ref[k]) for k in ref}
+    ms = statistics.median(times)
+    log(f"float forward [bf16] batch {cfg.BATCH_SIZE} 512x640 (bench.py "
+        f"BENCH_QUANT=0): median {ms:.3f} ms over {SERVE_ITERS} calls after 2 "
+        f"warm-up, {cfg.BATCH_SIZE / ms * 1e3:.2f} imgs/s {card}; vs the f32 "
+        "model on 8 images: "
+        + ", ".join(f"{k} rel {v:.4f}" for k, v in rels.items()))
+    return {'median_ms': ms, 'all_ms': times, 'rel_f32': rels}
+
+
 def _bound(ops, nbytes, rate) -> dict:
     t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {'bound_ms': max(t_ops, t_bytes),
@@ -895,8 +1095,8 @@ def time_block(dev, card, batch=128, h=128, w=160) -> dict:
 
 
 def time_stem(dev, rng, card, a) -> dict:
-    """stem_s8 at the shape and mode of a served call `a`, on both
-    routes: each equal to its plain version at this full shape (0
+    """stem_s8 at the shape, input mode and accumulation mode of a served
+    call `a`, on both routes: each equal to its plain version at this full shape (0
     differing elements), timed by 10 launches, the SM clock read while
     it runs; the plain version (32 images at a time: the float64 conv is
     large) once; the bound from the packed pixels read once, the pooled
@@ -905,7 +1105,7 @@ def time_stem(dev, rng, card, a) -> dict:
     it. Returns {route: row}."""
     b, h2, w2 = a['b'], a['h2'], a['w2']
     x, wt = stem_operands(dev, rng, b, h2, w2)
-    kw = stem_args(dev, rng, a['mode'])
+    kw = dict(stem_args(dev, rng, a['mode']), acc_dtype=ACC_DTYPES[a['acc']])
     ph, pw = -(-h2 // 2), -(-w2 // 2)
 
     def plain():
@@ -925,7 +1125,8 @@ def time_stem(dev, rng, card, a) -> dict:
                            sm_clock_mhz=sm_clock_mhz(fn, ms, dev),
                            **_bound(ops, nbytes, INT8_OP_PER_S))
         r = rows[route]
-        log(f"stem_s8 [{route}] {b}x{h2}x{w2}x12 {a['mode']}: 0 differing "
+        log(f"stem_s8 [{route}] {b}x{h2}x{w2}x12 {a['mode']} {a['acc']}: "
+            "0 differing "
             f"elements, kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s, SM "
             f"clock {r['sm_clock_mhz']:.0f} MHz), plain {plain_ms:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops} op at 1979 "
@@ -1066,6 +1267,7 @@ def main(argv=None) -> int:
         for kernel, counts in sass_counts(lib_path).items():
             log(f"  sass {kernel}: " + " ".join(
                 f"{op} {n}" for op, n in counts.items() if n))
+    log_bf16_instances(builds)
 
     # 3. kernels vs plain
     cfg = flagship_config()
@@ -1104,52 +1306,64 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # 5. the committed artifact
-    serve_artifact(dev)
+    # 5. the committed artifact, under F16 and in the f32-epilogue mode
+    for f16 in (True, False):
+        serve_artifact(dev, f16)
 
-    # 6. serving path at full width and batch
-    int8_launches, calls, serve_ms, stem_call = {}, [], {}, None
+    # 6. serving path at full width and batch: F16 (bench.py's mode) and
+    # the f32-epilogue mode, in the base and host_s2d variants
+    int8_launches, calls, serve_ms, stem_call = {}, {}, {}, {}
+    for f16 in (True, False):
+        mode = 'bf16' if f16 else 'f32'
+        for variant in ('base', 'host_s2d'):
+            served = serve_flagship(dev, args.seed, variant, f16)
+            tag = f"{variant} {mode}"
+            if variant == 'host_s2d' and f16:
+                t = time_serving(check_device_s2d(dev, served),
+                                 served['images'], dev)
+                log(f"serve [s2d {mode}] int8 batch "
+                    f"{len(served['images'])} 512x640 (the device packs the "
+                    f"pixels): median {t['median_ms']:.3f} ms over "
+                    f"{SERVE_ITERS} calls after 2 warm-up; predict_molded "
+                    f"from host uint8 {t['host_ms']:.3f} ms host wall {card}")
+            peak = served['peak']
+            t = time_serving(served['engine'], served['images'], dev)
+            batch = len(served['images'])
+            serve_ms[variant, mode] = t['median_ms']
+            earlier = "" if f16 else (
+                f" (with the mma.sync kernels alone: "
+                f"{EARLIER_SERVE_MS[variant]} ms {EARLIER_CARD})")
+            log(f"serve [{tag}] int8 batch {batch} 512x640: median "
+                f"{t['median_ms']:.3f} ms over {SERVE_ITERS} calls after 2 "
+                f"warm-up (device-resident input), "
+                f"{batch / t['median_ms'] * 1e3:.2f} imgs/s {card}{earlier}")
+            log(f"serve [{tag}] calls (ms): "
+                f"{' '.join(f'{v:.3f}' for v in t['all_ms'])}")
+            log(f"serve [{tag}] predict_molded from host uint8 (reindex and "
+                f"copy included): median {t['host_ms']:.3f} ms host wall "
+                f"over 3, {batch / t['host_ms'] * 1e3:.2f} imgs/s {card}")
+            log(f"serve [{tag}] peak memory allocated: {peak} bytes "
+                f"({peak / 2**30:.2f} GiB) {card}")
+            # gemm_s8 and conv_s8 are counted and timed on the base path,
+            # stem_s8 on the host_s2d path
+            for name, count in served['launches'].items():
+                if (name == 'stem_s8') == (variant == 'host_s2d'):
+                    int8_launches[name, mode] = count
+            if variant == 'base':
+                calls[mode] = served['calls']
+            else:
+                stem_call[mode] = next(a for n, a in served['calls']
+                                       if n == 'stem_s8')
+            del served
+            torch.cuda.empty_cache()
+    for mode in ('bf16', 'f32'):
+        log(f"serve [{mode}] base {serve_ms['base', mode]:.3f} ms vs host_s2d "
+            f"{serve_ms['host_s2d', mode]:.3f} ms per batch of {batch} in this "
+            f"run {card}")
     for variant in ('base', 'host_s2d'):
-        served = serve_flagship(dev, args.seed, variant)
-        if variant == 'host_s2d':
-            t = time_serving(check_device_s2d(dev, served), served['images'],
-                             dev)
-            log(f"serve [s2d] int8 batch {len(served['images'])} 512x640 "
-                f"(the device packs the pixels): median {t['median_ms']:.3f} "
-                f"ms over {SERVE_ITERS} calls after 2 warm-up; "
-                f"predict_molded from host uint8 {t['host_ms']:.3f} ms host "
-                f"wall {card}")
-        peak = served['peak']
-        t = time_serving(served['engine'], served['images'], dev)
-        batch = len(served['images'])
-        serve_ms[variant] = t['median_ms']
-        log(f"serve [{variant}] int8 batch {batch} 512x640: median "
-            f"{t['median_ms']:.3f} ms over {SERVE_ITERS} calls after 2 "
-            f"warm-up (device-resident input), "
-            f"{batch / t['median_ms'] * 1e3:.2f} imgs/s {card} (with the "
-            f"mma.sync kernels alone: {EARLIER_SERVE_MS[variant]} ms "
-            f"{EARLIER_CARD})")
-        log(f"serve [{variant}] calls (ms): "
-            f"{' '.join(f'{v:.3f}' for v in t['all_ms'])}")
-        log(f"serve [{variant}] predict_molded from host uint8 (reindex and "
-            f"copy included): median {t['host_ms']:.3f} ms host wall over 3, "
-            f"{batch / t['host_ms'] * 1e3:.2f} imgs/s {card}")
-        log(f"serve [{variant}] peak memory allocated: {peak} bytes "
-            f"({peak / 2**30:.2f} GiB) {card}")
-        # gemm_s8 and conv_s8 are counted and timed on the base path,
-        # stem_s8 on the host_s2d path
-        for name, count in served['launches'].items():
-            if (name == 'stem_s8') == (variant == 'host_s2d'):
-                int8_launches[name] = count
-        if variant == 'base':
-            calls = served['calls']
-        else:
-            stem_call = next(a for n, a in served['calls'] if n == 'stem_s8')
-        del served
-        torch.cuda.empty_cache()
-    log(f"serve base {serve_ms['base']:.3f} ms vs host_s2d "
-        f"{serve_ms['host_s2d']:.3f} ms per batch of {batch} in this run "
-        f"{card}")
+        log(f"serve [{variant}] bf16 epilogues {serve_ms[variant, 'bf16']:.3f}"
+            f" ms vs f32 epilogues {serve_ms[variant, 'f32']:.3f} ms per batch "
+            f"in this run {card}")
 
     # 7. the kernel-probe entry points at their own shapes
     fused_block.reset_counts()
@@ -1185,21 +1399,23 @@ def main(argv=None) -> int:
             f"flop at 67 TFLOP/s) {card}")
     on_path = timed[cfg.WARP_INTERPOLATION]
     del imgs, Ms
-    int8 = time_int8_kernels(calls, dev, rng, card)
-    int8_launches[C2_REQUANT] = int8[C2_REQUANT]['launches']
-    for name, tk in int8.items():
-        lib = (f"{tk['library_ms']:.4f}" if tk['library_ms'] is not None
-               else "null")
-        earlier = (f", with the mma.sync kernel alone "
-                   f"{EARLIER_KERNEL_MS[name]} ms {EARLIER_CARD}"
-                   if name in EARLIER_KERNEL_MS else "")
-        log(f"{name} per served batch ({int8_launches[name]} launches, "
-            f"routes {dict(tk['routes'])}): "
-            f"kernel {tk['ms']:.4f} ms, plain {tk['plain_ms']:.4f} ms, bound "
-            f"{tk['bound_ms']:.4f} ms ({tk['bound_by']}), library {lib} ms "
-            f"{card}{earlier}")
-
-    stem = time_stem(dev, rng, card, stem_call)
+    int8, stem = {}, {}
+    for mode in ('bf16', 'f32'):
+        int8[mode] = time_int8_kernels(calls[mode], dev, rng, card)
+        int8_launches[C2_REQUANT, mode] = int8[mode][C2_REQUANT]['launches']
+        for name, tk in int8[mode].items():
+            lib = (f"{tk['library_ms']:.4f}" if tk['library_ms'] is not None
+                   else "null")
+            earlier = (f", with the mma.sync kernel alone (f32 epilogues) "
+                       f"{EARLIER_KERNEL_MS[name]} ms {EARLIER_CARD}"
+                       if name in EARLIER_KERNEL_MS and mode == 'f32' else "")
+            log(f"{name} [{mode}] per served batch "
+                f"({int8_launches[name, mode]} launches, routes "
+                f"{dict(tk['routes'])}): kernel {tk['ms']:.4f} ms, plain "
+                f"{tk['plain_ms']:.4f} ms, bound {tk['bound_ms']:.4f} ms "
+                f"({tk['bound_by']}), library {lib} ms {card}{earlier}")
+        stem[mode] = time_stem(dev, rng, card, stem_call[mode])
+    float_fwd = time_float_forward(dev, args.seed, card)
     block = time_block(dev, card)
     rates = {(kind, route): time_mma_rate(kind, route, dev, card)
              for kind in mma_rate.KINDS for route in mma_rate.ROUTES}
@@ -1210,46 +1426,46 @@ def main(argv=None) -> int:
     # `kernel_route` names it, `sm_clock_mhz` is the clock while it ran.
     # block_s8's row carries its unfused route's time and the SM clock.
     timed_keys = keys + ('sm_clock_mhz',)
+    # The int8 rows are per accumulation mode: under the kernel's name the
+    # main path's (bf16, F16), with `_f32acc` appended the f32-epilogue
+    # mode's; `acc` names it.
+    int8_rows = []
+    for mode in ('bf16', 'f32'):
+        sfx = '' if mode == 'bf16' else '_f32acc'
+        for name, source, replaces in (
+                ('gemm_s8', 'int8_gemm.cu',
+                 'tools/probe_pallas_int8_matmul.py:45'),
+                (C2_REQUANT, 'int8_gemm.cu', 'tools/probe_pallas_c2.py:39'),
+                ('conv_s8', 'int8_conv.cu',
+                 'tools/probe_pallas_conv3.py:45')):
+            int8_rows.append({
+                "name": name + sfx, "route": "cuda", "acc": mode,
+                "source": f"ursonet_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": int8_launches[name, mode],
+                "max_abs_err": int8_err,
+                **{k: int8[mode][name][k] for k in keys},
+                "routes": dict(int8[mode][name]['routes'])})
+        int8_rows.append({
+            "name": "stem_s8" + sfx, "route": "cuda", "kernel_route": "tma",
+            "acc": mode, "source": "ursonet_torch/csrc/int8_stem.cu",
+            "replaces": "tools/probe_pallas_stem.py:55",
+            "launches": int8_launches['stem_s8', mode],
+            "max_abs_err": stem_err,
+            **{k: stem[mode]['tma'][k] for k in timed_keys}})
     kernels = [{
         "name": "warp_homography", "route": "cuda",
         "source": "ursonet_torch/csrc/warp.cu",
         "replaces": "ursonet_tpu/ops/warp_pallas.py:56",
         "launches": launches['warp_homography'], "max_abs_err": warp_err,
         **{k: on_path[k] for k in keys},
-    }, {
-        "name": "gemm_s8", "route": "cuda",
-        "source": "ursonet_torch/csrc/int8_gemm.cu",
-        "replaces": "tools/probe_pallas_int8_matmul.py:45",
-        "launches": int8_launches['gemm_s8'], "max_abs_err": int8_err,
-        **{k: int8['gemm_s8'][k] for k in keys},
-        "routes": dict(int8['gemm_s8']['routes']),
-    }, {
-        "name": C2_REQUANT, "route": "cuda",
-        "source": "ursonet_torch/csrc/int8_gemm.cu",
-        "replaces": "tools/probe_pallas_c2.py:39",
-        "launches": int8_launches[C2_REQUANT], "max_abs_err": int8_err,
-        **{k: int8[C2_REQUANT][k] for k in keys},
-        "routes": dict(int8[C2_REQUANT]['routes']),
-    }, {
-        "name": "conv_s8", "route": "cuda",
-        "source": "ursonet_torch/csrc/int8_conv.cu",
-        "replaces": "tools/probe_pallas_conv3.py:45",
-        "launches": int8_launches['conv_s8'], "max_abs_err": int8_err,
-        **{k: int8['conv_s8'][k] for k in keys},
-        "routes": dict(int8['conv_s8']['routes']),
-    }, {
-        "name": "stem_s8", "route": "cuda", "kernel_route": "tma",
-        "source": "ursonet_torch/csrc/int8_stem.cu",
-        "replaces": "tools/probe_pallas_stem.py:55",
-        "launches": int8_launches['stem_s8'], "max_abs_err": stem_err,
-        **{k: stem['tma'][k] for k in timed_keys},
-    }, {
+    }] + int8_rows + [{
         "name": "stem_s8_ragged", "route": "cuda", "kernel_route": "ragged",
-        "source": "ursonet_torch/csrc/int8_stem.cu",
+        "acc": "bf16", "source": "ursonet_torch/csrc/int8_stem.cu",
         "replaces": "tools/probe_pallas_stem.py:55",
         "launches": probe_launches['stem_s8_ragged'],
         "max_abs_err": stem_err,
-        **{k: stem['ragged'][k] for k in timed_keys},
+        **{k: stem['bf16']['ragged'][k] for k in timed_keys},
     }, {
         "name": "block_s8", "route": "cuda",
         "source": "ursonet_torch/csrc/int8_block.cu",
@@ -1267,6 +1483,9 @@ def main(argv=None) -> int:
         "max_abs_err": rate_err[kind, route],
         **{k: rates[kind, route][k] for k in timed_keys},
     } for kind in mma_rate.KINDS for route in mma_rate.ROUTES]
+    log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
+        f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
+        f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

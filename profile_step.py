@@ -2,13 +2,15 @@
 """Where the time of the flagship train step, or of int8 serving, goes
 on the card.
 
-    python3 profile_step.py [--serve [--variant base host_s2d]] [--steps 3]
-                            [--seed 0] [--trace PATH]
+    python3 profile_step.py [--serve [--variant base host_s2d]
+                             [--f32-epilogues]] [--steps 3] [--seed 0]
+                            [--trace PATH]
 
 Without --serve: builds benchmark_config(3) at full width (ResNet-50,
 512×640, batch 32) as chip_smoke.py does, runs 3 warm-up steps, then
 traces --steps train steps. With --serve: quantizes serving_config()
-(batch 128, seeded random weights, calibrate + smooth(0.5)) as
+(batch 128, F16: the bf16 epilogues, or the f32 ones with
+--f32-epilogues; seeded random weights, calibrate + smooth(0.5)) as
 chip_smoke.py does, serves 3 warm-up batches of device-resident uint8
 images, then traces --steps served batches; --variant names one or more
 of the serving variants (base, s2d, host_s2d), profiled one after the
@@ -47,10 +49,11 @@ FAMILIES = (
     ('warp kernel (ours)', ('warp_homography',)),
     ('int8 stem kernel, TMA + wgmma route (ours)', ('stem_s8_tma_kernel',)),
     ('int8 stem kernel, mma.sync route (ours)', ('stem_s8_kernel',)),
+    # tma_s8_kernel<BN, conv, bf16 epilogues>
     ('int8 conv kernel, TMA + wgmma route (ours)',
-     tuple(f'tma_s8_kernel<{bn}, true>' for bn in (64, 128, 256))),
+     tuple(f'tma_s8_kernel<{bn}, true,' for bn in (64, 128, 256))),
     ('int8 GEMM kernel, TMA + wgmma route (ours)',
-     tuple(f'tma_s8_kernel<{bn}, false>' for bn in (64, 128, 256))),
+     tuple(f'tma_s8_kernel<{bn}, false,' for bn in (64, 128, 256))),
     ('int8 conv kernel, mma.sync route (ours)', ('conv_s8_kernel',)),
     ('int8 GEMM kernel, mma.sync route (ours)', ('gemm_s8_kernel',)),
     ('maxpool', ('max_pool',)),
@@ -140,14 +143,15 @@ def stem_section(qm, x):
     maxpool. Returns the pooled int8 activations."""
     ops = quant.Int8Ops(qm._prepared_q(), {}, qm.act_scales,
                         mean_pixel=qm._mcfg['mean_pixel'], alphas=qm._alphas,
-                        fused_stem=qm._mcfg['stem_s2d'])
+                        fused_stem=qm._mcfg['stem_s2d'],
+                        acc_dtype=qm.acc_dtype)
     with quant.no_tf32(), torch.no_grad():
         y = quant._stem(ops, ops.input(x), qm._mcfg, 'conv1')
         return ops.maxpool(ops.relu(y, 'conv1/out')).arr
 
 
 def profile_serving(variant, args, smi) -> None:
-    cfg = presets.serving_config(variant=variant)
+    cfg = presets.serving_config(variant=variant, f16=not args.f32_epilogues)
     rng = np.random.RandomState(args.seed)
     h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
     images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
@@ -160,7 +164,9 @@ def profile_serving(variant, args, smi) -> None:
     for _ in range(3):
         qm(x)
     prof, wall_ms = traced(lambda i: qm(x), args.steps)
-    print(f"card: {smi}; serve [{variant}]: {args.steps} traced served "
+    print(f"card: {smi}; serve [{variant} "
+          f"{'f32' if args.f32_epilogues else 'bf16'} epilogues]: "
+          f"{args.steps} traced served "
           f"batches of {cfg.BATCH_SIZE}, host wall {wall_ms:.3f} ms")
     report(prof, args.steps, 'batch', args.trace)
     stem_ms = cs.cuda_ms(lambda: stem_section(qm, x), 10)
@@ -186,6 +192,8 @@ def main(argv=None) -> int:
     ap.add_argument('--variant', nargs='+', default=['base'],
                     choices=presets.SERVING_VARIANTS,
                     help='with --serve: the serving variants to profile')
+    ap.add_argument('--f32-epilogues', action='store_true',
+                    help='with --serve: the f32-epilogue mode, not F16')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)

@@ -82,6 +82,7 @@ def _routes(picked):
     return sorted({picked, 'ragged'}, reverse=True)
 
 
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
 @pytest.mark.parametrize('epilogue', EPILOGUES)
 @pytest.mark.parametrize('m,k,n', [
     (77, 147, 13), (300, 64, 200), (2000, 96, 64), (1500, 40, 136),
@@ -91,27 +92,31 @@ def _routes(picked):
     (1, 16, 16), (129, 64, 48), (40960 + 37, 64, 256), (1317, 16, 13824),
     (129, 10240, 48), (128, 10240, 1024), (2085, 1024, 320),
     (5000, 256, 512)])
-def test_gemm_s8_matches_plain(cuda_device, m, k, n, epilogue):
-    """Ragged M, K and N, every tile configuration, every epilogue, both
-    routes where the shape allows the TMA one: bit-exact."""
+def test_gemm_s8_matches_plain(cuda_device, m, k, n, epilogue, acc):
+    """Ragged M, K and N, every tile configuration, every epilogue in
+    both accumulation modes, both routes where the shape allows the TMA
+    one: bit-exact."""
     rng = np.random.RandomState(m + k + n)
     a = chip_smoke.s8(rng, (m, k), cuda_device)
     b = ic.kernel_layout(rng.randint(-128, 128, (k, n)).astype(np.int8)) \
         .to(cuda_device)
     kw = chip_smoke.epilogue_args(cuda_device, rng, (m, n), k, epilogue)
+    kw['acc_dtype'] = acc
     want = ic.gemm_s8_torch(a, b, epilogue, **kw)
-    for route in _routes(ic.gemm_route(m, k, n, epilogue)):
+    for route in _routes(ic.gemm_route(m, k, n, epilogue, acc_dtype=acc)):
         before = ic.launches['gemm_s8']
         ic.calls = []
         got = ic.gemm_s8(a, b, epilogue, route=route, **kw)
         torch.cuda.synchronize()
         (_, call), ic.calls = ic.calls[0], None
         assert call['route'] == route
+        assert call['acc'] == ('bf16' if acc == torch.bfloat16 else 'f32')
         assert ic.launches['gemm_s8'] == before + 1
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got, want), route
 
 
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
 @pytest.mark.parametrize('epilogue', EPILOGUES)
 @pytest.mark.parametrize('geom', [
     # b, h, w, c, kh, kw, n, stride, padding
@@ -129,7 +134,7 @@ def test_gemm_s8_matches_plain(cuda_device, m, k, n, epilogue):
     (40, 32, 40, 64, 3, 3, 256, 1, ((1, 1), (1, 1))),
     (2, 6, 6, 32, 1, 1, 16, 2, ((0, 0), (0, 0))),
     (1, 9, 7, 16, 5, 5, 48, 1, ((2, 2), (2, 2)))])
-def test_conv_s8_matches_plain(cuda_device, geom, epilogue):
+def test_conv_s8_matches_plain(cuda_device, geom, epilogue, acc):
     b, h, w, c, kh, kw, n, stride, padding = geom
     rng = np.random.RandomState(b * h * w + c + n)
     x = chip_smoke.s8(rng, (b, h, w, c), cuda_device)
@@ -138,6 +143,7 @@ def test_conv_s8_matches_plain(cuda_device, geom, epilogue):
     oh, ow = ic.conv_out_hw(h, w, kh, kw, stride, padding)
     kw_ = chip_smoke.epilogue_args(cuda_device, rng, (b, oh, ow, n),
                                    kh * kw * c, epilogue)
+    kw_['acc_dtype'] = acc
     want = ic.conv_s8_torch(x, wt, stride, padding, epilogue, **kw_)
     for route in _routes(ic.conv_route(c, n, kh * kw)):
         before = ic.launches['conv_s8']
@@ -147,6 +153,24 @@ def test_conv_s8_matches_plain(cuda_device, geom, epilogue):
         assert ic.launches['conv_s8'] == before + 1
         assert got.shape == (b, oh, ow, n) and got.dtype == want.dtype
         assert torch.equal(got, want), route
+
+
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
+@pytest.mark.parametrize('kind', ['gemm', 'conv'])
+def test_int8_kernels_above_2_24_match_plain(cuda_device, kind, acc):
+    """Accumulators above 2^24 (C5's depth of 4608, operands near 127;
+    the bf16 mode rounds them to f32 and then to bf16, twice), every
+    epilogue, both routes: bit-exact."""
+    rng = np.random.RandomState(24)
+    for case in chip_smoke.big_acc_cases(cuda_device, rng, kind):
+        fn, plain, name = case
+        for ep in EPILOGUES:
+            want = plain(ep, acc)
+            for route in ('tma', 'ragged'):
+                got = fn(ep, acc, route)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype
+                assert torch.equal(got, want), (name, ep, route)
 
 
 def _gemm_operands(dev, m, k, n, epilogue, seed=0):
@@ -289,6 +313,36 @@ def test_small_int8_serve_launches_both_kernels(cuda_device):
         torch.testing.assert_close(out[k], plain[k], rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize('f16', [True, False])
+def test_small_int8_serve_bias_corrected_on_the_card(cuda_device, f16):
+    """calibrate, smooth and bias_correct on the card (its capture passes
+    launch the kernels' s32 mode), in both accumulation modes: every
+    quantized site gets a finite delta, the served outputs equal the
+    plain path's and stay within the random-init gate of the float
+    twin."""
+    from ursonet_torch.engine import ServingEngine
+    from ursonet_torch.models import quant as tq
+    cfg = chip_smoke.small_serving_config()
+    cfg.F16 = f16
+    eng = ServingEngine(cfg, cuda_device,
+                        generator=torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(1)
+    imgs = rng.randint(0, 256, (cfg.BATCH_SIZE, 64, 64, 3)).astype(np.uint8)
+    qm = eng.quantize(list(imgs))
+    qm.smooth(0.5)
+    ic.reset_counts()
+    report = qm.bias_correct(imgs, passes=1)
+    assert ic.launches['gemm_s8'] > 0 and ic.launches['conv_s8'] > 0
+    assert set(report) == set(qm.flat) - tq.float_sites(qm._mcfg)
+    assert all(np.isfinite(v).all() for v in qm.bias_delta.values())
+    out = eng.predict_molded(imgs)
+    plain = qm(imgs, plain=True)
+    flt = qm.float_twin(imgs)
+    for k in out:
+        torch.testing.assert_close(out[k], plain[k], rtol=0, atol=0)
+        assert chip_smoke.rel(out[k], flt[k]) < tq.RANDOM_INIT_GATE_REL
+
+
 # --------------------------------------------------------------------------
 # the fused stem (csrc/int8_stem.cu)
 
@@ -301,6 +355,7 @@ def _stem_operands(dev, rng, b, h2, w2):
     return x, w
 
 
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
 @pytest.mark.parametrize('mode', list(ic.STEM_MODES))
 @pytest.mark.parametrize('b,h2,w2', [(2, 64, 32), (3, 37, 51), (1, 5, 3),
                                      (2, 16, 34), (1, 256, 320),
@@ -309,13 +364,15 @@ def _stem_operands(dev, rng, b, h2, w2):
                                      # flagship shape at batch 8
                                      (3, 37, 52), (2, 29, 76), (1, 5, 4),
                                      (8, 256, 320)])
-def test_stem_s8_matches_plain(cuda_device, b, h2, w2, mode):
+def test_stem_s8_matches_plain(cuda_device, b, h2, w2, mode, acc):
     """Even, odd and tiny sizes (tiles that overhang every border, the
-    (1, 1) pool padding of odd sizes), both input modes, the route the
-    wrapper picks and the mma.sync one forced: bit-exact."""
+    (1, 1) pool padding of odd sizes), both input modes, both
+    accumulation modes, the route the wrapper picks and the mma.sync one
+    forced: bit-exact."""
     rng = np.random.RandomState(b * h2 + w2)
     x, w = _stem_operands(cuda_device, rng, b, h2, w2)
     kw = chip_smoke.stem_args(cuda_device, rng, mode)
+    kw['acc_dtype'] = acc
     want = ic.stem_s8_torch(x, w, **kw)
     for route in _routes(ic.stem_route(w2)):
         before = ic.launches['stem_s8']

@@ -32,10 +32,12 @@ def _conv_mkn(case):
 @pytest.mark.parametrize('name,mkn', SERVED_GEMMS, ids=lambda v: str(v))
 def test_every_served_gemm_takes_the_tma_route(name, mkn):
     m, k, n = mkn
-    for ep in EPILOGUES:
-        assert ic.gemm_route(m, k, n, ep) == 'tma'
-        plan = ic.hopper_plan(m, k, n, ep)
-        assert plan['grid'] <= ic.SM_COUNT and plan['smem'] <= ic.SMEM_LIMIT
+    for acc in ic.ACC_DTYPES:
+        for ep in EPILOGUES:
+            assert ic.gemm_route(m, k, n, ep, acc_dtype=acc) == 'tma'
+            plan = ic.hopper_plan(m, k, n, ep, acc_dtype=acc)
+            assert plan['grid'] <= ic.SM_COUNT \
+                and plan['smem'] <= ic.SMEM_LIMIT
 
 
 @pytest.mark.parametrize('name,case', SERVED_CONVS, ids=lambda v: str(v))
@@ -65,6 +67,27 @@ def test_served_convs_take_the_tma_route_but_the_rgb_stem(name, case):
 def test_gemm_route_by_shape(m, k, n, ep, route):
     assert ic.gemm_route(m, k, n, ep) == route
     assert ic.gemm_route(m, k, n, ep, aligned=False) == 'ragged'
+
+
+@pytest.mark.parametrize('m,k,n,ep,f32_route,bf16_route', [
+    (300, 64, 200, 'f32', 'tma', 'tma'),          # 400-byte bf16 rows
+    (300, 64, 100, 'f32', 'tma', 'ragged'),       # 200-byte bf16 rows
+    (128, 10240, 4, 'f32_relu', 'tma', 'ragged'),
+    (128, 1024, 8, 'f32_relu', 'tma', 'tma'),
+    (300, 64, 100, 'q8_relu', 'ragged', 'ragged'),  # int8 either way
+    (128, 64, 4, 's32', 'tma', 'tma'),            # s32 either way
+])
+def test_gemm_route_by_output_bytes_per_mode(m, k, n, ep, f32_route,
+                                             bf16_route):
+    """f32 and f32_relu write 2-byte bf16 rows in the bf16 mode, so the
+    TMA route needs N % 8 == 0 there where the f32 mode needs N % 4."""
+    assert ic.OUT_BYTES[torch.bfloat16][ep] == \
+        (2 if ep in ('f32', 'f32_relu') else ic.OUT_BYTES[torch.float32][ep])
+    assert ic.gemm_route(m, k, n, ep) == f32_route
+    assert ic.gemm_route(m, k, n, ep, acc_dtype=torch.bfloat16) == bf16_route
+    assert ic.OUT_DTYPES[torch.bfloat16][ep] == (
+        torch.bfloat16 if ep in ('f32', 'f32_relu')
+        else ic.OUT_DTYPES[torch.float32][ep])
 
 
 @pytest.mark.parametrize('c,n,taps,numel,route', [
@@ -144,11 +167,12 @@ def test_resident_weights_on_the_served_path():
 @settings(max_examples=200, deadline=None)
 @given(m=st.integers(1, 3_000_000), k16=st.integers(1, 1200),
        n4=st.integers(1, 4000), ep=st.sampled_from(EPILOGUES),
-       sms=st.sampled_from([108, 114, 132]))
-def test_every_plan_fits_shared_memory(m, k16, n4, ep, sms):
+       sms=st.sampled_from([108, 114, 132]),
+       acc=st.sampled_from(ic.ACC_DTYPES))
+def test_every_plan_fits_shared_memory(m, k16, n4, ep, sms, acc):
     k, n = 16 * k16, 4 * n4
-    plan = ic.hopper_plan(m, k, n, ep, sms)
-    ob = ic.OUT_BYTES[ep]
+    plan = ic.hopper_plan(m, k, n, ep, sms, acc_dtype=acc)
+    ob = ic.OUT_BYTES[acc][ep]
     assert plan['smem'] == ic.tma_smem_bytes(
         plan['bn'], ob, plan['stages'], plan['bufs'], plan['resident'],
         plan['ksteps'], plan['n_tiles']) <= ic.SMEM_LIMIT
@@ -165,7 +189,7 @@ def test_every_plan_fits_shared_memory(m, k16, n4, ep, sms):
 
 
 @pytest.mark.parametrize('bn,ob', [(64, 1), (128, 1), (256, 1), (64, 4),
-                                   (128, 4)])
+                                   (128, 4), (64, 2), (128, 2)])
 def test_smem_budget_of_each_tile_configuration(bn, ob):
     """Some depth of _DEPTHS fits the 227 KB of a block for every tile
     configuration with streamed weights; the plan takes the first that
@@ -174,7 +198,9 @@ def test_smem_budget_of_each_tile_configuration(bn, ob):
     fits = [d for d in ic._DEPTHS
             if ic.tma_smem_bytes(bn, ob, *d, False, 64, 1) <= ic.SMEM_LIMIT]
     ep = 'q8_relu' if ob == 1 else 'f32'
-    plan = ic.hopper_plan(5000, 64 * 128, bn, ep)
+    acc = torch.bfloat16 if ob == 2 else torch.float32
+    assert ic.OUT_BYTES[acc][ep] == ob
+    plan = ic.hopper_plan(5000, 64 * 128, bn, ep, acc_dtype=acc)
     assert plan['bn'] == bn and not plan['resident']
     assert (plan['stages'], plan['bufs']) == fits[0]
 

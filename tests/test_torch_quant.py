@@ -205,14 +205,19 @@ def test_requires_calibration_and_refuses_unported(jax_qm):
         qm(_images(0))
     with pytest.raises(RuntimeError):
         qm.smooth()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match='calibrate'):
         qm.bias_correct(_images(0))
     with pytest.raises(NotImplementedError):
         qm.shard_over(None)
-    for knob in ('F16', 'QUANT_S8_JOIN', 'QUANT_BF16_STEM'):
+    for knob in ('QUANT_S8_JOIN', 'QUANT_BF16_STEM'):
         _, cfg = small_configs(**{knob: True})
         with pytest.raises(NotImplementedError, match=knob):
             tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')
+    # F16 is served: the bf16 epilogues (tests/test_torch_f16.py)
+    assert qm.acc_dtype == torch.float32
+    _, cfg = small_configs(F16=True)
+    assert tq.QuantizedModel(cfg, jax_qm['flat0'],
+                             device='cpu').acc_dtype == torch.bfloat16
     # the space-to-depth stems are served (tests/test_torch_s2d.py)
     _, cfg = small_configs(QUANT_STEM_S2D=True, QUANT_HOST_S2D=True)
     mcfg = tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')._mcfg
@@ -332,21 +337,25 @@ def test_serving_config_is_the_benched_one():
               'QUANT_FLOAT_REG_HEAD'):
         assert getattr(cfg, k) == getattr(jcfg, k, False), k
     assert tuple(cfg.IMAGE_SHAPE) == (512, 640, 3)
-    assert cfg.BATCH_SIZE == 128 and cfg.F16 is False
+    # bench.py serves F16; f16=False keeps the f32-epilogue mode
+    assert cfg.BATCH_SIZE == 128 and cfg.F16 is True
+    assert presets.serving_config(f16=False).F16 is False
     assert cfg.head_input_features() == 10240
 
 
 def test_artifact_serves_as_jax_does():
     """The committed flagship artifact at full width (512×640) on one
     golden image, served by the JAX package (F16 False: the f32
-    epilogue) and by the port on the CPU: the orientation logits
-    bit-exact, the location within the f32 final dense's reordering."""
+    epilogue) and by the port on the CPU (serving_config's f32-epilogue
+    mode): the orientation logits bit-exact, the location within the f32
+    final dense's reordering."""
     jcfg = _jax_gate_config()
     jcfg.F16 = False
     x = np.load(GOLDEN)['golden_in'][:1]
     want = {k: np.asarray(v) for k, v in
             jqs.load_quantized(ARTIFACT, jcfg)(jnp.asarray(x)).items()}
-    got = tqs.load_quantized(ARTIFACT, presets.serving_config(batch=1),
+    got = tqs.load_quantized(ARTIFACT,
+                             presets.serving_config(batch=1, f16=False),
                              device='cpu')(x)
     np.testing.assert_array_equal(got['ori'].numpy(), want['ori'])
     assert rel_l2(got['loc'].numpy(), want['loc']) <= 1e-6

@@ -180,7 +180,8 @@ def check_mcfg(mcfg: dict, config) -> None:
 
 def load_quantized(path: str, config, device='cuda'):
     """Load a serving artifact; returns a calibrated QuantizedModel on
-    `device`."""
+    `device`. The epilogues' accumulation mode comes from config.F16 (bf16
+    under F16), as in the JAX package: the artifact does not record it."""
     from ursonet_torch.models.quant import QuantizedModel
     with open(path, 'rb') as f:
         tree = msgpack_restore(f.read())

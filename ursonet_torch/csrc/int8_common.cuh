@@ -28,9 +28,28 @@
 // y * f32(1 / s_out), so inv_s_out is that f32 reciprocal. The file is
 // built with -fmad=false, so the one FMA is the explicit one. rintf
 // rounds half to even, as jnp.round and torch.round.
+//
+// The bf16 mode (`Epilogue::bf16`, the JAX package's F16) is what XLA
+// compiles Int8Ops(acc_dtype=bfloat16) into: each bf16 operation done in
+// f32 and rounded to bf16 right after it, no FMA. With
+// bf(v) = f32(bf16_rn(v)):
+//   a = bf(f32(acc))       s32 -> f32 -> bf16, two roundings (a single
+//                          __int2bfloat16_rn differs above 2^24)
+//   s = bf(a * bf(alpha)) + bf(beta),  y = bf(s)
+//   f32, f32_relu  y, max(y, 0), stored as bf16
+//   q8_relu        clip(rint(max(y, 0) * inv_s_out), 0, 127)
+//   q8             clip(rint(s * inv_s_out), -127, 127): the sum is not
+//                  rounded (XLA drops the bf16 round trip of a value that
+//                  is only widened again)
+//   join           z = bf(y + bf(f32(res) * bf(res_scale))),
+//                  clip(rint(max(z, 0) * inv_s_out), 0, 127)
+// Products of two bf16 values are exact in f32, so each bf() is the one
+// rounding XLA makes there. No native bf16 arithmetic is used: a bf16
+// add or FMA rounds once where XLA rounds twice.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,7 +69,8 @@ struct Epilogue {
   float inv_s_out;
   const int8_t* res;    // [M, N], join only
   float res_scale;
-  void* out;            // [M, N]: int32, float or int8 by mode
+  void* out;            // [M, N]: int32, float (bf16) or int8 by mode
+  int bf16;             // 1: the bf16 accumulation mode
 };
 
 template <int BM_, int BN_, int WM_, int WN_>
@@ -137,6 +157,56 @@ __device__ __forceinline__ int8_t saturate_s8(float q, float lo) {
   return static_cast<int8_t>(__float2int_rn(fminf(fmaxf(q, lo), 127.f)));
 }
 
+// f32(bf16_rn(v)): one rounding to bf16 (to nearest, ties to even),
+// the value kept in f32.
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// bf_round of two values by one packed conversion (cvt.rn.bf16x2.f32),
+// each widened back by a shift or a mask of its half.
+__device__ __forceinline__ void bf_round2(float& v0, float& v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const uint32_t p = *reinterpret_cast<const uint32_t*>(&h);
+  v0 = __uint_as_float(p << 16);
+  v1 = __uint_as_float(p & 0xffff0000u);
+}
+
+// Two values already rounded to bf16 as a bf16 pair, `lo` in the low
+// half: their high halves, by one byte permute.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// The bf16 mode's s = bf(bf(f32(acc)) * alpha) + beta, for alpha and
+// beta already rounded to bf16; y = bf_round(s).
+__device__ __forceinline__ float bf16_sum(int acc, float alpha, float beta) {
+  return __fadd_rn(bf_round(__fmul_rn(bf_round(__int2float_rn(acc)), alpha)),
+                   beta);
+}
+
+// bf16_sum of two accumulators, each rounding of the pair by one packed
+// conversion.
+__device__ __forceinline__ void bf16_sum2(int acc0, int acc1, float alpha0,
+                                          float beta0, float alpha1,
+                                          float beta1, float& s0, float& s1) {
+  float a0 = __int2float_rn(acc0), a1 = __int2float_rn(acc1);
+  bf_round2(a0, a1);
+  a0 = __fmul_rn(a0, alpha0);
+  a1 = __fmul_rn(a1, alpha1);
+  bf_round2(a0, a1);
+  s0 = __fadd_rn(a0, beta0);
+  s1 = __fadd_rn(a1, beta1);
+}
+
+// The bf16 mode's q8_relu on one accumulator (alpha, beta unrounded).
+__device__ __forceinline__ int8_t requant_relu_bf16(int acc, float alpha,
+                                                    float beta,
+                                                    float inv_s_out) {
+  const float y = bf_round(bf16_sum(acc, bf_round(alpha), bf_round(beta)));
+  return saturate_s8(rintf(__fmul_rn(fmaxf(y, 0.f), inv_s_out)), 0.f);
+}
+
 // The q8_relu epilogue on one accumulator.
 __device__ __forceinline__ int8_t requant_relu(int acc, float alpha,
                                                float beta, float inv_s_out) {
@@ -155,10 +225,40 @@ __device__ __forceinline__ int8_t requant_join(int acc, float alpha,
   return saturate_s8(rintf(__fmul_rn(z, inv_s_out)), 0.f);
 }
 
+// The bf16 mode of epilogue_store.
+__device__ __forceinline__ void epilogue_store_bf16(const Epilogue& e,
+                                                    int64_t idx, int n,
+                                                    int acc) {
+  const float s = bf16_sum(acc, bf_round(__ldg(e.alpha + n)),
+                           bf_round(__ldg(e.beta + n)));
+  const float y = bf_round(s);
+  if (e.mode == kF32 || e.mode == kF32Relu) {
+    // exact: y is a bf16 value
+    static_cast<__nv_bfloat16*>(e.out)[idx] =
+        __float2bfloat16_rn(e.mode == kF32 ? y : fmaxf(y, 0.f));
+  } else if (e.mode == kQ8Relu) {
+    static_cast<int8_t*>(e.out)[idx] =
+        saturate_s8(rintf(__fmul_rn(fmaxf(y, 0.f), e.inv_s_out)), 0.f);
+  } else if (e.mode == kQ8) {
+    static_cast<int8_t*>(e.out)[idx] =
+        saturate_s8(rintf(__fmul_rn(s, e.inv_s_out)), -127.f);
+  } else {  // kJoin
+    const float r = bf_round(__fmul_rn(
+        __int2float_rn(static_cast<int>(e.res[idx])), bf_round(e.res_scale)));
+    const float z = fmaxf(bf_round(__fadd_rn(y, r)), 0.f);
+    static_cast<int8_t*>(e.out)[idx] =
+        saturate_s8(rintf(__fmul_rn(z, e.inv_s_out)), 0.f);
+  }
+}
+
 __device__ __forceinline__ void epilogue_store(const Epilogue& e,
                                                int64_t idx, int n, int acc) {
   if (e.mode == kS32) {
     static_cast<int32_t*>(e.out)[idx] = acc;
+    return;
+  }
+  if (e.bf16) {
+    epilogue_store_bf16(e, idx, n, acc);
     return;
   }
   const float y = __fmaf_rn(__int2float_rn(acc), __ldg(e.alpha + n),

@@ -140,14 +140,15 @@ extern "C" int ursonet_conv_s8(const void* X, const void* Wt, int B, int H,
                                int W, int C, int N, int KH, int KW,
                                int stride, int pad_t, int pad_b, int pad_l,
                                int pad_r, int vec_x, int vec_w, int mode,
-                               const void* alpha, const void* beta,
+                               int bf16, const void* alpha, const void* beta,
                                float inv_s_out, const void* res,
                                float res_scale, void* out, int tile,
                                int device, void* stream) {
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out};
+                    static_cast<const int8_t*>(res), res_scale, out,
+                    bf16 != 0 ? 1 : 0};
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || KH <= 0 ||
       KW <= 0 || stride <= 0 || pad_t < 0 || pad_b < 0 || pad_l < 0 ||
       pad_r < 0 || X == nullptr || Wt == nullptr || !epilogue_ok(ep)) {
@@ -180,7 +181,7 @@ extern "C" int ursonet_conv_s8(const void* X, const void* Wt, int B, int H,
 extern "C" int ursonet_conv_s8_tma(const void* X, const void* Wt, int B,
                                    int H, int W, int C, int N, int KH, int KW,
                                    int stride, int pad_t, int pad_b,
-                                   int pad_l, int pad_r, int mode,
+                                   int pad_l, int pad_r, int mode, int bf16,
                                    const void* alpha, const void* beta,
                                    float inv_s_out, const void* res,
                                    float res_scale, void* out, int bn,
@@ -189,7 +190,8 @@ extern "C" int ursonet_conv_s8_tma(const void* X, const void* Wt, int B,
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out};
+                    static_cast<const int8_t*>(res), res_scale, out,
+                    bf16 != 0 ? 1 : 0};
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || N <= 0 ||
       KH <= 0 || KW <= 0 || stride <= 0 || pad_t < 0 || pad_b < 0 ||
       pad_l < 0 || pad_r < 0 || X == nullptr || Wt == nullptr ||
@@ -217,7 +219,8 @@ extern "C" int ursonet_conv_s8_tma(const void* X, const void* Wt, int B,
   if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   p.items = static_cast<int>(items);
   p.stages = stages, p.bufs = bufs, p.resident = resident;
-  p.mode = mode, p.out_bytes = tma::out_bytes_of(mode);
+  p.mode = mode, p.bf16 = ep.bf16;
+  p.out_bytes = tma::out_bytes_of(mode, p.bf16);
   p.alpha = ep.alpha, p.beta = ep.beta;
   p.inv_s_out = inv_s_out, p.res_scale = res_scale;
   p.X = static_cast<const int8_t*>(X);

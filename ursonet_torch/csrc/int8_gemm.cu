@@ -77,14 +77,15 @@ cudaError_t launch(const int8_t* A, const int8_t* Bt, int M, int N, int K,
 
 extern "C" int ursonet_gemm_s8(const void* A, const void* Bt, int M, int N,
                                int K, int vec_a, int vec_b, int mode,
-                               const void* alpha, const void* beta,
+                               int bf16, const void* alpha, const void* beta,
                                float inv_s_out, const void* res,
                                float res_scale, void* out, int tile,
                                int device, void* stream) {
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out};
+                    static_cast<const int8_t*>(res), res_scale, out,
+                    bf16 != 0 ? 1 : 0};
   if (M <= 0 || N <= 0 || K <= 0 || A == nullptr || Bt == nullptr ||
       !epilogue_ok(ep)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -104,8 +105,9 @@ extern "C" int ursonet_gemm_s8(const void* A, const void* Bt, int M, int N,
 }
 
 extern "C" int ursonet_gemm_s8_tma(const void* A, const void* Bt, int M,
-                                   int N, int K, int mode, const void* alpha,
-                                   const void* beta, float inv_s_out,
+                                   int N, int K, int mode, int bf16,
+                                   const void* alpha, const void* beta,
+                                   float inv_s_out,
                                    const void* res, float res_scale,
                                    void* out, int bn, int stages, int bufs,
                                    int resident, int splits, void* partial,
@@ -114,7 +116,8 @@ extern "C" int ursonet_gemm_s8_tma(const void* A, const void* Bt, int M,
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out};
+                    static_cast<const int8_t*>(res), res_scale, out,
+                    bf16 != 0 ? 1 : 0};
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || A == nullptr ||
       Bt == nullptr || !epilogue_ok(ep) || bn <= 0 ||
       (splits > 1 && (partial == nullptr || counters == nullptr))) {
@@ -132,7 +135,8 @@ extern "C" int ursonet_gemm_s8_tma(const void* A, const void* Bt, int M,
   if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   p.items = static_cast<int>(items);
   p.stages = stages, p.bufs = bufs, p.resident = resident;
-  p.mode = mode, p.out_bytes = tma::out_bytes_of(mode);
+  p.mode = mode, p.bf16 = ep.bf16;
+  p.out_bytes = tma::out_bytes_of(mode, p.bf16);
   p.alpha = ep.alpha, p.beta = ep.beta;
   p.inv_s_out = inv_s_out, p.res_scale = res_scale;
   p.partial = static_cast<int32_t*>(partial);

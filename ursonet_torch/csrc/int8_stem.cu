@@ -16,7 +16,8 @@
 //   conv = sum over (ky, kx, c) q[r - 2 + ky, s - 2 + kx, c] * W[ky, kx, c, n]
 //          (pads (2, 1), (2, 1), the padding filled per mode)
 //   y    = clip(rint(max(fma(f32(conv), alpha[n], beta[n]), 0) * inv_s_out),
-//               0, 127)                         (q8_relu of int8_common.cuh)
+//               0, 127)                         (q8_relu of int8_common.cuh;
+//          in the bf16 mode (`bf16`, F16) its bf16 form, requant_relu_bf16)
 //   out  = 3x3/2 SAME max-pool of y             [B, ceil(H2/2), ceil(W2/2), 64]
 // Input modes:
 //   calibrated  q = clip(rint((f32(x) - mean[c]) * inv_s_in), -127, 127),
@@ -81,7 +82,11 @@
 //            over the conv the output needs.
 //   Epilogue q8_relu of each accumulator (one FMA, one multiply, a min
 //            at 127 and a saturating conversion: the bits of
-//            requant_relu) into a conv tile in shared memory that keeps
+//            requant_relu; in the bf16 mode, a template flag of the
+//            kernel, three roundings to bf16, a multiply and an add in
+//            place of the FMA: requant_relu_bf16, with alpha and beta
+//            rounded once as they are staged) into a conv tile in
+//            shared memory that keeps
 //            each value in a 16-bit lane, 0 outside the image; then the
 //            3x3/2 pool, 8 channels a thread, as 3-way maxima of 16-bit
 //            lanes (__vimax3_s16x2, one DPX instruction on Hopper, where
@@ -127,6 +132,7 @@ struct StemArgs {
   const float* alpha;
   const float* beta;
   float inv_s_out;
+  int bf16;            // 1: the bf16 accumulation mode of the epilogue
   int8_t* out;
   int tiles;
 };
@@ -254,10 +260,13 @@ __global__ void __launch_bounds__(THREADS) stem_s8_kernel(StemArgs p) {
           const int n = j * 8 + 2 * t;
           int lo = 0, hi = 0;
           if (inside) {
-            lo = requant_relu(acc[i][j][2 * h], __ldg(p.alpha + n),
-                              __ldg(p.beta + n), p.inv_s_out);
-            hi = requant_relu(acc[i][j][2 * h + 1], __ldg(p.alpha + n + 1),
-                              __ldg(p.beta + n + 1), p.inv_s_out);
+            const int a0 = acc[i][j][2 * h], a1 = acc[i][j][2 * h + 1];
+            const float al0 = __ldg(p.alpha + n), al1 = __ldg(p.alpha + n + 1);
+            const float be0 = __ldg(p.beta + n), be1 = __ldg(p.beta + n + 1);
+            lo = p.bf16 ? requant_relu_bf16(a0, al0, be0, p.inv_s_out)
+                        : requant_relu(a0, al0, be0, p.inv_s_out);
+            hi = p.bf16 ? requant_relu_bf16(a1, al1, be1, p.inv_s_out)
+                        : requant_relu(a1, al1, be1, p.inv_s_out);
           }
           *reinterpret_cast<uint16_t*>(qs + m * QROW + n) =
               static_cast<uint16_t>((lo & 0xff) | ((hi & 0xff) << 8));
@@ -408,8 +417,10 @@ __device__ __forceinline__ uint32_t requant_pair_relu16(float x0, float x1) {
   return d;
 }
 
-// q8_relu of one chunk's accumulators into the conv tile; 0 outside the
-// image, nothing for the padding rows.
+// q8_relu of one chunk's accumulators into the conv tile (its bf16 form
+// when BF16, with `ab` already rounded to bf16); 0 outside the image,
+// nothing for the padding rows.
+template <bool BF16>
 __device__ __forceinline__ void epilogue(const StemArgs& p,
                                          const StemTile& tl,
                                          const int (&acc)[32], int chunk,
@@ -432,10 +443,15 @@ __device__ __forceinline__ void epilogue(const StemArgs& p,
     for (int j = 0; j < 8; ++j) {
       uint32_t o = 0;
       if (inside) {
-        const float y0 = __fmaf_rn(__int2float_rn(acc[4 * j + 2 * h]),
-                                   abj[j].x, abj[j].y);
-        const float y1 = __fmaf_rn(__int2float_rn(acc[4 * j + 2 * h + 1]),
-                                   abj[j].z, abj[j].w);
+        const int a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+        float y0, y1;
+        if (BF16) {
+          bf16_sum2(a0, a1, abj[j].x, abj[j].y, abj[j].z, abj[j].w, y0, y1);
+          bf_round2(y0, y1);
+        } else {
+          y0 = __fmaf_rn(__int2float_rn(a0), abj[j].x, abj[j].y);
+          y1 = __fmaf_rn(__int2float_rn(a1), abj[j].z, abj[j].w);
+        }
         o = requant_pair_relu16(__fmul_rn(y0, p.inv_s_out),
                                 __fmul_rn(y1, p.inv_s_out));
       }
@@ -444,6 +460,7 @@ __device__ __forceinline__ void epilogue(const StemArgs& p,
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads, 1)
 stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
                    const StemArgs p) {
@@ -486,8 +503,10 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
     *reinterpret_cast<int4*>(ws + (c >> 3) * (N * 128) + n * 128 +
                              (((c & 7) ^ (n & 7)) << 4)) = v;
   }
-  for (int i = tid; i < N; i += kThreads)
-    ab[i] = make_float2(__ldg(p.alpha + i), __ldg(p.beta + i));
+  for (int i = tid; i < N; i += kThreads) {
+    const float a = __ldg(p.alpha + i), b = __ldg(p.beta + i);
+    ab[i] = BF16 ? make_float2(bf_round(a), bf_round(b)) : make_float2(a, b);
+  }
   for (int i = tid; i < kTabBytes; i += kThreads) {
     const int c = i >> 8;
     qtab[i] = static_cast<int8_t>(
@@ -557,17 +576,17 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
     fence_registers(acc0);
     load_a(xs, wg + kWgs, warp, lane, a);
     issue(acc1, a, ws_addr);
-    epilogue(p, tl, acc0, wg, warp, lane, ab, qs);
+    epilogue<BF16>(p, tl, acc0, wg, warp, lane, ab, qs);
     __syncwarp();
     wgmma_wait<0>();
     fence_registers(acc1);
     load_a(xs, wg + 2 * kWgs, warp, lane, a);
     issue(acc0, a, ws_addr);
-    epilogue(p, tl, acc1, wg + kWgs, warp, lane, ab, qs);
+    epilogue<BF16>(p, tl, acc1, wg + kWgs, warp, lane, ab, qs);
     __syncwarp();
     wgmma_wait<0>();
     fence_registers(acc0);
-    epilogue(p, tl, acc0, wg + 2 * kWgs, warp, lane, ab, qs);
+    epilogue<BF16>(p, tl, acc0, wg + 2 * kWgs, warp, lane, ab, qs);
     // the stage was written through the generic proxy; the next TMA load
     // into it writes through the async one
     fence_proxy_async();
@@ -625,7 +644,7 @@ namespace {
 bool stem_args(const void* x, const void* wt, int B, int H2, int W2,
                int mode, const float* mean12, float inv_s_in,
                const void* alpha, const void* beta, float inv_s_out,
-               void* out, ursonet_int8::StemArgs* a) {
+               int bf16, void* out, ursonet_int8::StemArgs* a) {
   using namespace ursonet_int8;
   if (B <= 0 || H2 <= 0 || W2 <= 0 || x == nullptr || wt == nullptr ||
       mean12 == nullptr || alpha == nullptr || beta == nullptr ||
@@ -654,6 +673,7 @@ bool stem_args(const void* x, const void* wt, int B, int H2, int W2,
   a->alpha = static_cast<const float*>(alpha);
   a->beta = static_cast<const float*>(beta);
   a->inv_s_out = inv_s_out;
+  a->bf16 = bf16 != 0 ? 1 : 0;
   a->out = static_cast<int8_t*>(out);
   const long long tiles = static_cast<long long>(B) * a->tiles_y * a->tiles_x;
   if (tiles > 0x7fffffffLL) return false;
@@ -666,12 +686,12 @@ bool stem_args(const void* x, const void* wt, int B, int H2, int W2,
 extern "C" int ursonet_stem_s8(const void* x, const void* wt, int B, int H2,
                                int W2, int mode, const float* mean12,
                                float inv_s_in, const void* alpha,
-                               const void* beta, float inv_s_out, void* out,
-                               int device, void* stream) {
+                               const void* beta, float inv_s_out, int bf16,
+                               void* out, int device, void* stream) {
   using namespace ursonet_int8;
   StemArgs a;
   if (!stem_args(x, wt, B, H2, W2, mode, mean12, inv_s_in, alpha, beta,
-                 inv_s_out, out, &a)) {
+                 inv_s_out, bf16, out, &a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -691,12 +711,12 @@ extern "C" int ursonet_stem_s8_tma(const void* x, const void* wt, int B,
                                    int H2, int W2, int mode,
                                    const float* mean12, float inv_s_in,
                                    const void* alpha, const void* beta,
-                                   float inv_s_out, void* out, int device,
-                                   void* stream) {
+                                   float inv_s_out, int bf16, void* out,
+                                   int device, void* stream) {
   using namespace ursonet_int8;
   StemArgs a;
   if (!stem_args(x, wt, B, H2, W2, mode, mean12, inv_s_in, alpha, beta,
-                 inv_s_out, out, &a) ||
+                 inv_s_out, bf16, out, &a) ||
       W2 % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(wt) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16) {
@@ -713,14 +733,15 @@ extern "C" int ursonet_stem_s8_tma(const void* x, const void* wt, int B,
                                 B, row, row * H2, tma_stem::kBoxWords, IR)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = cudaFuncSetAttribute(tma_stem::stem_s8_tma_kernel,
+  const auto kernel = a.bf16 ? tma_stem::stem_s8_tma_kernel<true>
+                             : tma_stem::stem_s8_tma_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              tma_stem::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = a.tiles < sms ? a.tiles : sms;
-  tma_stem::stem_s8_tma_kernel<<<grid, tma_stem::kThreads,
-                                 tma_stem::kSmemBytes,
-                                 static_cast<cudaStream_t>(stream)>>>(map, a);
+  kernel<<<grid, tma_stem::kThreads, tma_stem::kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(map, a);
   return static_cast<int>(cudaGetLastError());
 }
 

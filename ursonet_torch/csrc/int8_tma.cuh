@@ -21,7 +21,9 @@
 // zero fill), so ragged M, N and K need no special case.
 //
 // Epilogue. Each consumer warpgroup applies the epilogue of
-// int8_common.cuh to its accumulators in registers and writes the
+// int8_common.cuh (in the f32 or the bf16 mode, a template flag of the
+// kernel: the two modes are separate instantiations) to its
+// accumulators in registers and writes the
 // results into its half of an output buffer in shared memory, in boxes
 // of [64 rows][128 B] (64 B when BN = 64 int8) swizzled so the fragment
 // stores hit distinct banks; one thread then issues TMA stores: whole
@@ -63,7 +65,7 @@ struct Params {
   int n_tiles, items;   // items = m_tiles * n_tiles * splits
   int ksteps, splits;   // stages of K in all; splits divides ksteps
   int stages, bufs, resident;
-  int mode, out_bytes;
+  int mode, bf16, out_bytes;  // bf16: the accumulation mode
   const float* alpha;
   const float* beta;
   float inv_s_out, res_scale;
@@ -73,8 +75,11 @@ struct Params {
   ConvGeom g;
 };
 
-__host__ __device__ constexpr int out_bytes_of(int mode) {
-  return (mode == kS32 || mode == kF32 || mode == kF32Relu) ? 4 : 1;
+// Bytes of an output element: f32 and f32_relu write bf16 in the bf16
+// mode.
+__host__ __device__ constexpr int out_bytes_of(int mode, int bf16) {
+  return mode == kS32 ? 4
+         : (mode == kF32 || mode == kF32Relu) ? (bf16 ? 2 : 4) : 1;
 }
 
 // Bytes of one box row of the output buffer.
@@ -138,7 +143,8 @@ __device__ __forceinline__ uint32_t requant_pair(float x0, float x1) {
 
 // Applies the epilogue MODE to a warpgroup's accumulators and writes the
 // results into its half of the output buffer (`join`: over the residual
-// that waits there). `ab2` holds (alpha, beta) per tile column. Loads
+// that waits there), in the bf16 mode when BF16. `ab2` holds (alpha,
+// beta) per tile column (rounded to bf16 in the bf16 mode). Loads
 // are batched ahead of the stores in groups of 4 column blocks: the
 // stores may alias them for all the compiler knows.
 //
@@ -149,13 +155,14 @@ __device__ __forceinline__ uint32_t requant_pair(float x0, float x1) {
 // and a low part LJ known at compile time, so the offset is
 // r * INNER + ((x0 ^ CJ) + LJ) + constants, with x0 = the thread's own
 // chunk bit XOR the row's swizzle, and its low bytes.
-template <int MODE, int BN>
+template <int MODE, int BN, bool BF16>
 __device__ __forceinline__ void epilogue_to_smem(const Params& p,
                                                  const int (&acc)[BN / 2],
                                                  uint8_t* half,
                                                  const float2* ab2, int warp,
                                                  int lane) {
-  constexpr int OB = out_bytes_of(MODE);
+  constexpr int OB = out_bytes_of(MODE, BF16);
+  const float res_scale = BF16 ? bf_round(p.res_scale) : p.res_scale;
   constexpr int INNER = inner_bytes(BN, OB);
   constexpr int G = 4;
   constexpr int kRowH = 8 * INNER;   // from row r to row r + 8
@@ -193,26 +200,48 @@ __device__ __forceinline__ void epilogue_to_smem(const Params& p,
           *reinterpret_cast<int2*>(out) = make_int2(a0, a1);
           continue;
         }
-        float y0 = __fmaf_rn(__int2float_rn(a0), ab[g].x, ab[g].y);
-        float y1 = __fmaf_rn(__int2float_rn(a1), ab[g].z, ab[g].w);
+        // s: the sum before the bf16 mode's last rounding (q8 uses it)
+        float s0, s1, y0, y1;
+        if (BF16) {
+          bf16_sum2(a0, a1, ab[g].x, ab[g].y, ab[g].z, ab[g].w, s0, s1);
+          y0 = s0;
+          y1 = s1;
+          bf_round2(y0, y1);
+        } else {
+          s0 = y0 = __fmaf_rn(__int2float_rn(a0), ab[g].x, ab[g].y);
+          s1 = y1 = __fmaf_rn(__int2float_rn(a1), ab[g].z, ab[g].w);
+        }
         if (MODE == kF32 || MODE == kF32Relu) {
           if (MODE == kF32Relu) {
             y0 = fmaxf(y0, 0.f);
             y1 = fmaxf(y1, 0.f);
           }
-          *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
+          if (BF16) {  // y0 and y1 are bf16 values: their high halves
+            *reinterpret_cast<uint32_t*>(out) = bf16_pair(y0, y1);
+          } else {
+            *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
+          }
           continue;
         }
         uint32_t o;
         if (MODE == kQ8) {
-          o = requant_pair(__fmul_rn(y0, p.inv_s_out),
-                           __fmul_rn(y1, p.inv_s_out));
+          o = requant_pair(__fmul_rn(s0, p.inv_s_out),
+                           __fmul_rn(s1, p.inv_s_out));
         } else {
           if (MODE == kJoin) {  // the residual product and the sum each rounded
-            y0 = __fadd_rn(y0, __fmul_rn(s8_to_float(rr[g][h] & 0xffu),
-                                         p.res_scale));
-            y1 = __fadd_rn(y1, __fmul_rn(s8_to_float(rr[g][h] >> 8),
-                                         p.res_scale));
+            const float r0 =
+                __fmul_rn(s8_to_float(rr[g][h] & 0xffu), res_scale);
+            const float r1 = __fmul_rn(s8_to_float(rr[g][h] >> 8), res_scale);
+            if (BF16) {
+              float z0 = r0, z1 = r1;
+              bf_round2(z0, z1);
+              y0 = __fadd_rn(y0, z0);
+              y1 = __fadd_rn(y1, z1);
+              bf_round2(y0, y1);
+            } else {
+              y0 = __fadd_rn(y0, r0);
+              y1 = __fadd_rn(y1, r1);
+            }
           }
           o = requant_pair_relu(__fmul_rn(fmaxf(y0, 0.f), p.inv_s_out),
                                 __fmul_rn(fmaxf(y1, 0.f), p.inv_s_out));
@@ -223,7 +252,7 @@ __device__ __forceinline__ void epilogue_to_smem(const Params& p,
   }
 }
 
-template <int BN, bool kConv>
+template <int BN, bool kConv, bool kBf16>
 __global__ void __launch_bounds__(kThreadsTma, 1)
 tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_b,
@@ -498,9 +527,13 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
       if (p.mode != kS32 && n0 != ab_n0) {
         for (int i = tid; i < BN; i += 128) {
           const bool in = n0 + i < p.N;
-          ab[i] = in ? make_float2(__ldg(p.alpha + n0 + i),
-                                   __ldg(p.beta + n0 + i))
-                     : make_float2(0.f, 0.f);
+          float a = in ? __ldg(p.alpha + n0 + i) : 0.f;
+          float be = in ? __ldg(p.beta + n0 + i) : 0.f;
+          if (kBf16) {
+            a = bf_round(a);
+            be = bf_round(be);
+          }
+          ab[i] = make_float2(a, be);
         }
         ab_n0 = n0;
         sync = true;
@@ -523,24 +556,25 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
       switch (p.mode) {
         case kS32:
           if constexpr (BN <= 128)
-            epilogue_to_smem<kS32, BN>(p, acc, half, ab, warp, lane);
+            epilogue_to_smem<kS32, BN, kBf16>(p, acc, half, ab, warp, lane);
           break;
         case kF32:
           if constexpr (BN <= 128)
-            epilogue_to_smem<kF32, BN>(p, acc, half, ab, warp, lane);
+            epilogue_to_smem<kF32, BN, kBf16>(p, acc, half, ab, warp, lane);
           break;
         case kF32Relu:
           if constexpr (BN <= 128)
-            epilogue_to_smem<kF32Relu, BN>(p, acc, half, ab, warp, lane);
+            epilogue_to_smem<kF32Relu, BN, kBf16>(p, acc, half, ab, warp,
+                                                  lane);
           break;
         case kQ8Relu:
-          epilogue_to_smem<kQ8Relu, BN>(p, acc, half, ab, warp, lane);
+          epilogue_to_smem<kQ8Relu, BN, kBf16>(p, acc, half, ab, warp, lane);
           break;
         case kQ8:
-          epilogue_to_smem<kQ8, BN>(p, acc, half, ab, warp, lane);
+          epilogue_to_smem<kQ8, BN, kBf16>(p, acc, half, ab, warp, lane);
           break;
         default:
-          epilogue_to_smem<kJoin, BN>(p, acc, half, ab, warp, lane);
+          epilogue_to_smem<kJoin, BN, kBf16>(p, acc, half, ab, warp, lane);
       }
       fence_proxy_async();
       named_barrier(1 + c, 128);
@@ -575,7 +609,7 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
 }
 
 // Launches the route. `a` is null for the conv (A is gathered from p.X).
-template <int BN, bool kConv>
+template <int BN, bool kConv, bool kBf16>
 cudaError_t launch(const int8_t* a, const int8_t* bt, const int8_t* res,
                    void* out, Params p, int grid, cudaStream_t stream) {
   const long long smem = smem_bytes(BN, p.out_bytes, p.stages, p.bufs,
@@ -599,24 +633,36 @@ cudaError_t launch(const int8_t* a, const int8_t* bt, const int8_t* res,
                                           inner, 64));
   if (!ok) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      tma_s8_kernel<BN, kConv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      tma_s8_kernel<BN, kConv, kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  tma_s8_kernel<BN, kConv><<<grid, kThreadsTma, smem, stream>>>(
+  tma_s8_kernel<BN, kConv, kBf16><<<grid, kThreadsTma, smem, stream>>>(
       map_a, map_b, map_out, map_res, p);
   return cudaGetLastError();
+}
+
+template <bool kConv, bool kBf16>
+cudaError_t launch_bn_mode(int bn, const int8_t* a, const int8_t* bt,
+                           const int8_t* res, void* out, const Params& p,
+                           int grid, cudaStream_t stream) {
+  switch (bn) {
+    case 64: return launch<64, kConv, kBf16>(a, bt, res, out, p, grid, stream);
+    case 128:
+      return launch<128, kConv, kBf16>(a, bt, res, out, p, grid, stream);
+    case 256:
+      return launch<256, kConv, kBf16>(a, bt, res, out, p, grid, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <bool kConv>
 cudaError_t launch_bn(int bn, const int8_t* a, const int8_t* bt,
                       const int8_t* res, void* out, const Params& p, int grid,
                       cudaStream_t stream) {
-  switch (bn) {
-    case 64: return launch<64, kConv>(a, bt, res, out, p, grid, stream);
-    case 128: return launch<128, kConv>(a, bt, res, out, p, grid, stream);
-    case 256: return launch<256, kConv>(a, bt, res, out, p, grid, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return p.bf16 ? launch_bn_mode<kConv, true>(bn, a, bt, res, out, p, grid,
+                                               stream)
+                : launch_bn_mode<kConv, false>(bn, a, bt, res, out, p, grid,
+                                                stream);
 }
 
 }  // namespace tma

@@ -8,7 +8,9 @@
 `predict_molded` is the one forward entry point: after `quantize()` or
 `load_serving_artifact()` it serves the int8 model, and under
 INT8_U8_INPUT it ships the batch as uint8 pixels, rint(molded + mean)
-clipped to 0..255; otherwise it runs the float model in eval mode. Under
+clipped to 0..255; otherwise it runs the float model in eval mode, in
+bf16 under F16 with its head outputs widened to f32 (`bench.py`'s
+BENCH_QUANT=0 forward). Under
 QUANT_HOST_S2D every batch the int8 model sees, served or calibrated, is
 packed space-to-depth on the host first (`_host_s2d_maybe`), so the
 device reads [B,H/2,W/2,12] pixels straight into the fused stem kernel.
@@ -34,11 +36,13 @@ from ursonet_torch.ops.image import resize_geometry
 
 
 def mold_image(image, config) -> np.ndarray:
-    """Mean-subtract and cast to f32 (F16 is not ported)."""
+    """Mean-subtract and cast: to float16 under F16, as the JAX package
+    molds (the model then computes in bf16), else to f32."""
+    dtype = np.float16 if getattr(config, 'F16', False) else np.float32
     mean = np.asarray(config.MEAN_PIXEL)
     if image.shape[-1] == 3:
-        return image.astype(np.float32) - mean.astype(np.float32)
-    return image.astype(np.float32) - np.mean(mean).astype(np.float32)
+        return image.astype(dtype) - mean.astype(dtype)
+    return image.astype(dtype) - np.mean(mean).astype(dtype)
 
 
 def compose_image_meta(image_id, original_image_shape, image_shape, window,
@@ -134,6 +138,8 @@ class ServingEngine:
             else torch.from_numpy(np.ascontiguousarray(molded))
         x = x.to(self.device, torch.float32).permute(0, 3, 1, 2)
         with torch.no_grad():
+            # the model casts to its compute dtype (bf16 under F16) and
+            # returns f32 head outputs
             return self.model(x)
 
     def mold_inputs(self, images: Sequence[np.ndarray]):

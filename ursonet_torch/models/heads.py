@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ursonet_torch.models.resnet import Linear
+
 
 class PoseHead(nn.Module):
 
@@ -28,11 +30,11 @@ class PoseHead(nn.Module):
         self.dense = []
         for i in range(nr_dense_layers):
             name = f"{prefix}_dense_{i}"
-            self.add_module(name, nn.Linear(in_features, branch_size))
+            self.add_module(name, Linear(in_features, branch_size))
             self.dense.append(name)
             in_features = branch_size
         self.final_name = final_name
-        self.add_module(final_name, nn.Linear(in_features, final_features))
+        self.add_module(final_name, Linear(in_features, final_features))
         self.final_activation = final_activation
 
     def forward(self, x):

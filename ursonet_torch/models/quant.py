@@ -32,13 +32,24 @@ QUANT_HOST_S2D and on the device otherwise; a float molded batch, like
 the 7x7 stem, takes input quantize -> `conv_s8` -> maxpool. Both give
 the same bits.
 
-Not ported (NotImplementedError): bias_correct, shard_over, the bf16
-stem, s8_join, F16 (bf16 epilogues) and the ResNet-18/34 twin.
+Under F16 (`acc_dtype` bfloat16, as the JAX package sets it from the
+config) every epilogue runs in the kernels' bf16 mode
+(`ops/int8_cuda.py`), the dequantize and the float final denses in
+bf16, and the head outputs are widened to f32; the float twin, the
+calibration and the input quantize stay f32, as in the JAX package.
+
+`bias_correct` measures each site's per-channel mean error against the
+float twin on the calibration batch and corrects the int8 biases one
+site at a time in graph order, as the JAX package does.
+
+Not ported (NotImplementedError): shard_over, the bf16 stem, s8_join
+and the ResNet-18/34 twin.
 
 Usage:
     qm = QuantizedModel.from_variables(config, params, batch_stats)
     qm.calibrate(molded_images)            # one representative batch
     qm.smooth(0.5)                         # optional
+    qm.bias_correct(molded_images)         # optional
     outputs = qm(images)                   # int8 forward
 """
 
@@ -160,14 +171,24 @@ def _mean_for(mean_pixel, channels: int) -> np.ndarray:
     return np.tile(mean, 4) if channels == 4 * mean.shape[0] else mean
 
 
+def _capture_mean(capture, site, y):
+    """Record the per-channel mean of the pre-activation `y` (over every
+    axis but the last) when `capture` is a dict (bias_correct)."""
+    if capture is not None:
+        y = y.to(torch.float32)
+        capture[site] = torch.mean(y, dim=tuple(range(y.dim() - 1)))
+
+
 class F32Ops:
     """Float twin of the model on folded params: conv -> +bias -> ReLU;
     dense likewise. `flat` holds device tensors: conv kernels as OIHW,
-    dense kernels as [in, out]."""
+    dense kernels as [in, out]. When `capture` is a dict, conv and dense
+    record their per-channel output mean there (bias_correct)."""
 
     def __init__(self, flat, mean_pixel=None):
         self.flat = flat
         self.mean_pixel = mean_pixel
+        self.capture: Optional[Dict[str, torch.Tensor]] = None
 
     def _mold_maybe(self, x):
         """uint8 input = raw pixels: subtract the mean here (the serving
@@ -187,11 +208,15 @@ class F32Ops:
         xc = _nchw(x)
         if pt or pb or pl or pr:
             xc = F.pad(xc, (pl, pr, pt, pb))
-        return _nhwc(F.conv2d(xc, w, stride=stride)) + b
+        y = _nhwc(F.conv2d(xc, w, stride=stride)) + b
+        _capture_mean(self.capture, site, y)
+        return y
 
     def dense(self, x, site):
         w, b = self.flat[site]
-        return x @ w + b
+        y = x @ w + b
+        _capture_mean(self.capture, site, y)
+        return y
 
     def dense_final(self, x, site):
         return self.dense(x, site)
@@ -302,17 +327,29 @@ class _PendingStem:
 class Int8Ops:
     """int8 serving phase. Activations travel as _QT (int8 + step);
     convs and denses resolve in their consumer's fused epilogue. The
-    final float denses (dense_final) run as plain f32 matmuls.
+    final float denses (dense_final) run as plain matmuls.
 
     q: {site: (w8 in the kernels' layout, sw f32 [N] tensor, bias f32 [N]
     tensor)}; ffinal: {site: (w [in,out] f32, b)} for the float finals;
     alphas: a dict shared across calls that caches sw * f32(s_in) per
-    (site, s_in). plain=True computes the products with the kernels'
+    (site, s_in). acc_dtype: the epilogues' accumulation mode, f32 or
+    bf16 (F16: the kernels' bf16 mode, and the dequantize and the float
+    finals in bf16). plain=True computes the products with the kernels'
     plain versions (float64 accumulation) on any device. fused_stem: the
-    stem kernel is in s2d form, so a uint8 batch takes `stem_s8`."""
+    stem kernel is in s2d form, so a uint8 batch takes `stem_s8`.
+
+    When `capture` is a dict (bias_correct), every product resolves to
+    its s32 accumulator; the per-channel mean of its pre-activation sum
+    (`int8_cuda.epilogue_sum`: under F16 the sum before its bf16
+    rounding, which XLA drops where the JAX package widens the bf16
+    pre-activation for the mean) is recorded, and the consumer's epilogue
+    is applied to the same accumulator by the plain epilogue, which gives
+    the fused kernel's bits. The fused stem is not taken then: a uint8
+    batch is quantized as a molded one is."""
 
     def __init__(self, q, ffinal, act_scales, mean_pixel=None,
-                 alphas=None, plain=False, fused_stem=False):
+                 alphas=None, plain=False, fused_stem=False,
+                 acc_dtype=torch.float32):
         self.q = q
         self.ffinal = ffinal
         self.mean_pixel = mean_pixel
@@ -324,6 +361,8 @@ class Int8Ops:
         self._conv = int8_cuda.conv_s8_torch if plain else int8_cuda.conv_s8
         self._stem = int8_cuda.stem_s8_torch if plain else int8_cuda.stem_s8
         self.fused_stem = fused_stem
+        self.acc_dtype = acc_dtype
+        self.capture: Optional[Dict[str, torch.Tensor]] = None
 
     def _step(self, site):
         return self.scales[site] / 127.0
@@ -348,12 +387,32 @@ class Int8Ops:
                                 ).to(dev).contiguous()
         return self.alphas[key]
 
+    def _product(self, p: _Pending, epilogue, kw):
+        """The pending product through `epilogue`: a GEMM for a dense or
+        an unpadded 1x1 conv, else a conv."""
+        x, w8 = p.x, self.q[p.site][0]
+        kw = dict(kw, acc_dtype=self.acc_dtype)
+        if p.padding is None:  # dense
+            return self._gemm(x.arr, w8, epilogue, **kw)
+        kh, kwd = w8.shape[0], w8.shape[1]
+        arr = x.arr
+        pads = _pads(p.padding, arr.shape[1], arr.shape[2], kh, kwd, p.stride)
+        if kh == 1 and kwd == 1 and pads == ((0, 0), (0, 0)):
+            # 1x1 conv = GEMM over the (strided) pixels
+            if p.stride > 1:
+                arr = arr[:, ::p.stride, ::p.stride, :].contiguous()
+            bsz, h, w, c = arr.shape
+            if 'res' in kw:
+                kw['res'] = kw['res'].reshape(-1, kw['res'].shape[-1])
+            return self._gemm(arr.reshape(-1, c), w8.reshape(c, -1),
+                              epilogue, **kw).reshape(bsz, h, w, -1)
+        return self._conv(arr, w8, p.stride, pads, epilogue, **kw)
+
     def _run(self, p: _Pending, epilogue, out_site=None, res=None):
         """Resolve a pending product with `epilogue`; the int8 modes
         requantize onto `out_site`'s step."""
-        x = p.x
-        w8, _, b = self.q[p.site]
-        alpha = self._alpha(p.site, x.scale, x.arr.device)
+        _, _, b = self.q[p.site]
+        alpha = self._alpha(p.site, p.x.scale, p.x.arr.device)
         kw = dict(alpha=alpha, beta=b)
         step = None
         if out_site is not None:
@@ -361,28 +420,19 @@ class Int8Ops:
             kw['inv_s_out'] = self._inv(step)
         if res is not None:
             kw.update(res=res.arr, res_scale=float(np.float32(res.scale)))
-        if p.padding is None:  # dense
-            out = self._gemm(x.arr, w8, epilogue, **kw)
+        if self.capture is None:
+            out = self._product(p, epilogue, kw)
         else:
-            kh, kwd = w8.shape[0], w8.shape[1]
-            arr = x.arr
-            pads = _pads(p.padding, arr.shape[1], arr.shape[2], kh, kwd,
-                         p.stride)
-            if kh == 1 and kwd == 1 and pads == ((0, 0), (0, 0)):
-                # 1x1 conv = GEMM over the (strided) pixels
-                if p.stride > 1:
-                    arr = arr[:, ::p.stride, ::p.stride, :].contiguous()
-                bsz, h, w, c = arr.shape
-                if res is not None:
-                    kw['res'] = kw['res'].reshape(-1, kw['res'].shape[-1])
-                out = self._gemm(arr.reshape(-1, c), w8.reshape(c, -1),
-                                 epilogue, **kw).reshape(bsz, h, w, -1)
-            else:
-                out = self._conv(arr, w8, p.stride, pads, epilogue, **kw)
+            acc = self._product(p, 's32', {})
+            _capture_mean(self.capture, p.site, int8_cuda.epilogue_sum(
+                acc, alpha, b, self.acc_dtype))
+            out = int8_cuda.epilogue_torch(acc, epilogue,
+                                           acc_dtype=self.acc_dtype, **kw)
         return _QT(out, step) if step is not None else out
 
     def input(self, x):
-        if self.fused_stem and x.dtype == torch.uint8:
+        if self.fused_stem and x.dtype == torch.uint8 \
+                and self.capture is None:
             return _U8(x)
         return self._q8(F32Ops._mold_maybe(self, x), 'input')
 
@@ -398,16 +448,24 @@ class Int8Ops:
         out = self._stem(
             x, w8, self._alpha(p.site, s_in, x.device), b,
             inv_s_out=self._inv(step), mode='calibrated',
-            mean=_mean_for(self.mean_pixel, 12), inv_s_in=self._inv(s_in))
+            mean=_mean_for(self.mean_pixel, 12), inv_s_in=self._inv(s_in),
+            acc_dtype=self.acc_dtype)
         return _QT(out, step)
 
     def dense(self, x, site):
         return _Pending(x, site)
 
     def dense_final(self, x, site):
-        """Float final dense (accuracy-critical, compute-trivial)."""
+        """Float final dense (accuracy-critical, compute-trivial). Under
+        F16 a bf16 product (f32 accumulation, rounded to bf16) plus the
+        bf16 bias, as XLA computes `x @ bf16(w) + bf16(b)` for the JAX
+        package; its f32 result is not rounded again."""
         x = self._float(x)
         w, b = self.ffinal[site]
+        if self.acc_dtype == torch.bfloat16:
+            dt = torch.bfloat16
+            return (x.to(dt) @ w.to(dt)).to(torch.float32) \
+                + b.to(dt).to(torch.float32)
         return x @ w + b
 
     def _float(self, x):
@@ -442,11 +500,22 @@ class Int8Ops:
         return _QT(int8_cuda.maxpool_s8(x.arr), x.scale)
 
     def dequant(self, x):
-        return x.arr.to(torch.float32) * torch.tensor(
-            np.float32(x.scale), device=x.arr.device)
+        """int8 -> float: f32(x) * f32(step), or under F16
+        bf16(bf16(x) * bf16(step))."""
+        scale = torch.tensor(np.float32(x.scale), device=x.arr.device)
+        if self.acc_dtype == torch.bfloat16:
+            return (x.arr.to(torch.float32) * int8_cuda.bf(scale)) \
+                .to(torch.bfloat16)
+        return x.arr.to(torch.float32) * scale
 
     def flatten(self, x, site):
-        # x: the pending bottleneck conv
+        # x: the pending bottleneck conv. Under F16 its bf16 output is
+        # requantized after the reshape: XLA keeps that bf16 rounding
+        # (the q8 epilogue's unrounded sum is what it computes where the
+        # widening follows the sum directly, at the shortcut requant).
+        if self.acc_dtype == torch.bfloat16:
+            y = self._run(x, 'f32')
+            return self._q8(y.reshape(y.shape[0], -1), site)
         y = self._run(x, 'q8', site)
         return _QT(y.arr.reshape(y.arr.shape[0], -1), y.scale)
 
@@ -692,8 +761,7 @@ def twin_forward(ops, images, mcfg: dict) -> Dict[str, torch.Tensor]:
 # --------------------------------------------------------------------------
 
 _UNPORTED_KNOBS = (('QUANT_BF16_STEM', 'the bf16 stem'),
-                   ('QUANT_S8_JOIN', 'integer residual joins'),
-                   ('F16', 'bf16 epilogues (F16)'))
+                   ('QUANT_S8_JOIN', 'integer residual joins'))
 
 
 class QuantizedModel:
@@ -701,7 +769,8 @@ class QuantizedModel:
 
     from_variables() folds BN and flattens the weights; calibrate() runs
     the float twin once to set the activation scales; __call__ is the
-    int8 forward. float_twin() is the f32 reference twin."""
+    int8 forward, with bf16 epilogues under config.F16 (`acc_dtype`).
+    float_twin() is the f32 reference twin."""
 
     def __init__(self, config, flat_params, device='cuda'):
         self.device = resolve_device(device)
@@ -751,7 +820,11 @@ class QuantizedModel:
         # additive int8-path bias corrections (from an artifact); applied
         # to the int8 weights only, never to the float twin
         self.bias_delta: Dict[str, np.ndarray] = {}
+        # the epilogues' accumulation mode, as the JAX package sets it
+        self.acc_dtype = torch.bfloat16 if getattr(config, 'F16', False) \
+            else torch.float32
         self._flat_dev = None
+        self._q_base = None
         self._q_dev = None
         self._alphas: dict = {}
 
@@ -767,11 +840,48 @@ class QuantizedModel:
         raise NotImplementedError('data-parallel int8 serving is not ported')
 
     def bias_correct(self, images, passes: int = 1):
-        raise NotImplementedError('bias_correct is not ported (artifacts '
-                                  'that carry bias_delta serve it)')
+        """Calibration-set bias correction (DFQ-style, arXiv:1906.04721),
+        as the JAX package's: per conv/dense output channel, the mean of
+        the int8 path's pre-activation minus the float twin's on
+        `images` is subtracted from the int8 bias (`bias_delta`; the
+        float twin keeps its biases). Sites are corrected one at a time
+        in graph order, re-measuring after each update (Gauss-Seidel: a
+        correction only moves the sites downstream of it); `passes`
+        sweeps. One int8 forward of `images` per quantized site and pass.
+        Returns {site: max |delta|}."""
+        if self.act_scales is None:
+            raise RuntimeError('calibrate() before bias_correct()')
+        x = self._images(images)
+        fsites = float_sites(self._mcfg)
+        with no_tf32(), torch.no_grad():
+            fops = F32Ops(self._flat_f32(), self._mcfg['mean_pixel'])
+            fops.capture = {}
+            twin_forward(fops, x, self._mcfg)
+        fmeans = {k: v.cpu().numpy() for k, v in fops.capture.items()}
+
+        def qmeans():
+            self._q_dev = None  # the biases with the current deltas
+            ops = self._int8_ops()
+            ops.capture = {}
+            with no_tf32(), torch.no_grad():
+                twin_forward(ops, x, self._mcfg)
+            return ops.capture
+
+        for _ in range(max(1, passes)):
+            means = qmeans()
+            sites = [s for s in means if s not in fsites]
+            for i, site in enumerate(sites):
+                err = means[site].cpu().numpy() - fmeans[site]
+                self.bias_delta[site] = np.asarray(
+                    self.bias_delta.get(site, 0.0) - err, np.float32)
+                if i + 1 < len(sites):  # re-measure downstream sites
+                    means = qmeans()
+        self._q_dev = None
+        return {k: float(np.abs(v).max()) for k, v in self.bias_delta.items()}
 
     def _reset(self):
         self._flat_dev = None
+        self._q_base = None
         self._q_dev = None
         self._alphas = {}
 
@@ -892,23 +1002,39 @@ class QuantizedModel:
 
     def _prepared_q(self):
         """Device int8 weight tree {site: (w8 in the kernels' layout, sw,
-        bias + bias_delta)}; the float sites keep their f32 kernels."""
-        if self._q_dev is None:
+        bias + bias_delta)}; the float sites keep their f32 kernels. The
+        weights are quantized once (`_q_base`); a change of bias_delta
+        rebuilds the biases only."""
+        if self._q_base is None:
             fsites = float_sites(self._mcfg)
-            q = {}
+            base = {}
             for site, (w, b) in self.flat.items():
                 if site in fsites:
                     continue
                 w8, sw = quantize_weight(w)
-                b = np.asarray(b, np.float32)
+                base[site] = (int8_cuda.kernel_layout(w8).to(self.device),
+                              torch.from_numpy(sw).to(self.device),
+                              np.asarray(b, np.float32))
+            self._q_base = base
+        if self._q_dev is None:
+            q = {}
+            for site, (w8, sw, b) in self._q_base.items():
                 if site in self.bias_delta:
                     b = b + np.asarray(self.bias_delta[site], np.float32)
-                q[site] = (int8_cuda.kernel_layout(w8).to(self.device),
-                           torch.from_numpy(sw).to(self.device),
-                           torch.from_numpy(np.ascontiguousarray(b))
+                q[site] = (w8, sw, torch.from_numpy(np.ascontiguousarray(b))
                            .to(self.device))
             self._q_dev = q
         return self._q_dev
+
+    def _int8_ops(self, plain: bool = False) -> Int8Ops:
+        flat_dev = self._flat_f32()
+        ffinal = {s: flat_dev[s] for s in float_sites(self._mcfg)
+                  if s in flat_dev}
+        return Int8Ops(self._prepared_q(), ffinal, self.act_scales,
+                       mean_pixel=self._mcfg['mean_pixel'],
+                       alphas=self._alphas, plain=plain,
+                       fused_stem=self._mcfg['stem_s2d'],
+                       acc_dtype=self.acc_dtype)
 
     def __call__(self, images, plain: bool = False):
         """int8 forward of a molded (float) or raw (uint8) [B,H,W,3]
@@ -917,12 +1043,6 @@ class QuantizedModel:
         reference the kernels are held against."""
         if self.act_scales is None:
             raise RuntimeError('calibrate() before inference')
-        flat_dev = self._flat_f32()
-        ffinal = {s: flat_dev[s] for s in float_sites(self._mcfg)
-                  if s in flat_dev}
-        ops = Int8Ops(self._prepared_q(), ffinal, self.act_scales,
-                      mean_pixel=self._mcfg['mean_pixel'],
-                      alphas=self._alphas, plain=plain,
-                      fused_stem=self._mcfg['stem_s2d'])
+        ops = self._int8_ops(plain)
         with no_tf32(), torch.no_grad():
             return twin_forward(ops, self._images(images), self._mcfg)

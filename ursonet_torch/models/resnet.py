@@ -19,6 +19,11 @@ Semantics kept from the JAX package:
   * `stem_s2d` (STEM_SPACE_TO_DEPTH): the stem as its exact
     space-to-depth rewrite, a 4×4/1 conv with (2,1) pads over the 2×2
     packed input (`space_to_depth2`, `stem_kernel_to_s2d`).
+  * bf16 compute (F16), as Flax's `dtype=bfloat16` runs op by op: the
+    parameters stay f32 and are cast to bf16 where a bf16 input meets
+    them (`Conv2d`, `Linear`: the product rounded to bf16, then the bf16
+    bias added and rounded); batch norm normalizes in f32 with its f32
+    statistics and returns bf16 (`FrozenBN`, as flax's `_normalize`).
 """
 
 from __future__ import annotations
@@ -89,6 +94,27 @@ def stem_kernel_to_s2d(kernel) -> np.ndarray:
     return out
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in its input's dtype: a bf16 input meets
+    the f32 weight and bias cast to bf16, the bias added after the bf16
+    product (Flax's Conv with dtype=bfloat16)."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        return y + self.bias.to(x.dtype)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """nn.Linear that computes in its input's dtype, as Conv2d."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
 class FrozenBN(nn.Module):
     """Batch norm with frozen statistics (TRAIN_BN=False): running mean
     and variance are buffers that are always used and never updated; the
@@ -106,6 +132,9 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
+        # a bf16 input is normalized in f32 with the f32 statistics and
+        # parameters and comes back as bf16 (mixed-type batch norm), as
+        # flax's _normalize does under dtype=bfloat16
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             momentum=0.0, eps=BN_EPS)
@@ -123,15 +152,15 @@ class BottleneckBlock(nn.Module):
         self.cname = f"res{stage}{block}_branch"
         self.bname = f"bn{stage}{block}_branch"
         c, b = self.cname, self.bname
-        self.add_module(c + '2a', nn.Conv2d(in_ch, f1, 1, strides))
+        self.add_module(c + '2a', Conv2d(in_ch, f1, 1, strides))
         self.add_module(b + '2a', FrozenBN(f1, train_bn))
-        self.add_module(c + '2b', nn.Conv2d(f1, f2, 3, 1, padding=1))
+        self.add_module(c + '2b', Conv2d(f1, f2, 3, 1, padding=1))
         self.add_module(b + '2b', FrozenBN(f2, train_bn))
-        self.add_module(c + '2c', nn.Conv2d(f2, f3, 1, 1))
+        self.add_module(c + '2c', Conv2d(f2, f3, 1, 1))
         self.add_module(b + '2c', FrozenBN(f3, train_bn))
         self.conv_shortcut = conv_shortcut
         if conv_shortcut:
-            self.add_module(c + '1', nn.Conv2d(in_ch, f3, 1, strides))
+            self.add_module(c + '1', Conv2d(in_ch, f3, 1, strides))
             self.add_module(b + '1', FrozenBN(f3, train_bn))
 
     def forward(self, x):
@@ -155,8 +184,8 @@ class ResNetBackbone(nn.Module):
                 f"backbone {architecture!r}: this port has resnet50; "
                 "resnet18/34/101 come in a later slice")
         self.stem_s2d = stem_s2d
-        self.conv1 = nn.Conv2d(12, 64, 4, 1) if stem_s2d \
-            else nn.Conv2d(3, 64, 7, 2, padding=3)
+        self.conv1 = Conv2d(12, 64, 4, 1) if stem_s2d \
+            else Conv2d(3, 64, 7, 2, padding=3)
         self.bn_conv1 = FrozenBN(64, train_bn)
         self.blocks = []
         in_ch = 64

@@ -2,7 +2,13 @@
 `ursonet_tpu/models/ursonet.py` (`UrsoNetModule`, `build_model`):
 backbone C5 → stride-2 3×3 bottleneck conv ('bottleneck_layer', Flax
 'SAME' padding) → NHWC row-major flatten → location and orientation
-heads. Returns a dict of raw head outputs.
+heads. Returns a dict of raw head outputs, in f32.
+
+Under F16 (`dtype` bfloat16) the forward computes in bf16 with f32
+parameters, as the JAX package's `UrsoNetModule(dtype=bfloat16)`: the
+images are cast to bf16 first, every conv and dense runs in bf16 (batch
+norm in f32 on its statistics, `models/resnet.py`), and the head outputs
+are widened to f32. The train step does not take it yet.
 """
 
 from __future__ import annotations
@@ -15,7 +21,8 @@ from torch import nn
 
 from ursonet_torch.device import resolve_device
 from ursonet_torch.models.heads import PoseHead
-from ursonet_torch.models.resnet import FrozenBN, ResNetBackbone, pad_same
+from ursonet_torch.models.resnet import Conv2d, FrozenBN, ResNetBackbone, \
+    pad_same
 
 
 def _c6_hw(h: int, w: int) -> tuple[int, int]:
@@ -26,17 +33,19 @@ def _c6_hw(h: int, w: int) -> tuple[int, int]:
 
 
 class UrsoNetModule(nn.Module):
-    """images [N,3,H,W] f32 -> {'loc', 'ori'}."""
+    """images [N,3,H,W] f32 -> {'loc', 'ori'} f32, computed in `dtype`."""
 
     def __init__(self, image_hw, backbone: str = 'resnet50',
                  bottleneck_width: int = 128, branch_size: int = 1024,
                  nr_dense_layers: int = 1, regress_loc: bool = True,
                  regress_ori: bool = True,
                  orientation_param: str = 'quaternion', loc_bins: int = 16,
-                 ori_bins: int = 32, train_bn=False, stem_s2d: bool = False):
+                 ori_bins: int = 32, train_bn=False, stem_s2d: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.backbone = ResNetBackbone(backbone, train_bn, stem_s2d)
-        self.bottleneck_layer = nn.Conv2d(2048, bottleneck_width, 3, 2)
+        self.bottleneck_layer = Conv2d(2048, bottleneck_width, 3, 2)
         h6, w6 = _c6_hw(*image_hw)
         feats = bottleneck_width * h6 * w6
         if regress_loc:
@@ -56,12 +65,13 @@ class UrsoNetModule(nn.Module):
                                  *ori, train_bn)
 
     def forward(self, images) -> Dict[str, torch.Tensor]:
-        c5 = self.backbone(images)
+        c5 = self.backbone(images.to(self.dtype))
         c6 = self.bottleneck_layer(pad_same(c5, 3, 2))
         # NHWC row-major flatten, as the Keras Reshape the dense kernels
         # were laid out for
         feats = c6.permute(0, 2, 3, 1).reshape(c6.shape[0], -1)
-        return {'loc': self.loc_head(feats), 'ori': self.ori_head(feats)}
+        return {'loc': self.loc_head(feats).to(torch.float32),
+                'ori': self.ori_head(feats).to(torch.float32)}
 
 
 @torch.no_grad()
@@ -89,8 +99,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(config, device="cuda",
                 generator: Optional[torch.Generator] = None) -> UrsoNetModule:
     """Build the model for `config` on `device`, with weights drawn from
-    `generator` (default: a CPU generator seeded with config.SEED).
-    Validates the %64 image-shape contract."""
+    `generator` (default: a CPU generator seeded with config.SEED),
+    computing in bf16 under config.F16. Validates the %64 image-shape
+    contract."""
     dev = resolve_device(device)
     h, w = int(config.IMAGE_SHAPE[0]), int(config.IMAGE_SHAPE[1])
     if h % 64 or w % 64:
@@ -100,9 +111,6 @@ def build_model(config, device="cuda",
     if config.REGRESS_KEYPOINTS:
         raise NotImplementedError(
             "REGRESS_KEYPOINTS: the keypoint head is ported in a later slice")
-    if config.F16:
-        raise NotImplementedError("F16: bf16 compute is ported in a later "
-                                  "slice")
     with torch.device('meta'):
         model = UrsoNetModule(
             (h, w), backbone=config.BACKBONE,
@@ -113,7 +121,8 @@ def build_model(config, device="cuda",
             orientation_param=config.ORIENTATION_PARAM,
             loc_bins=config.LOC_BINS_PER_DIM, ori_bins=config.ORI_BINS_PER_DIM,
             train_bn=config.TRAIN_BN,
-            stem_s2d=bool(getattr(config, 'STEM_SPACE_TO_DEPTH', False)))
+            stem_s2d=bool(getattr(config, 'STEM_SPACE_TO_DEPTH', False)),
+            dtype=torch.bfloat16 if config.F16 else torch.float32)
     model.to_empty(device='cpu')
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.SEED))

@@ -19,7 +19,8 @@ They are the Hopper ports of the Pallas TPU kernels
 `tools/probe_pallas_stem.py::_stem_kernel` (stem_s8). The int8 serving
 path (`models/quant.py`) reaches these three on the card.
 
-Epilogues, with y = fma(f32(acc), alpha[n], beta[n]) (one rounding):
+Epilogues, in the f32 accumulation mode (acc_dtype=torch.float32),
+with y = fma(f32(acc), alpha[n], beta[n]) (one rounding):
 
     s32       acc (int32)
     f32       y
@@ -35,6 +36,26 @@ acc * alpha + beta into an FMA, adds the dequantized residual with its
 product and sum rounded separately, and turns the division by a
 constant step into a multiply by `inv_s_out` = f32(1 / step). The
 probes' pre-scaled form is inv_s_out = 1.
+
+The bf16 accumulation mode (acc_dtype=torch.bfloat16, the JAX package's
+F16) is what XLA compiles Int8Ops(acc_dtype=bfloat16) into: every bf16
+operation computed in f32 and rounded to bf16 (RNE) right after it, no
+FMA. With bf(v) = f32(bf16(v)):
+
+    a = bf(f32(acc))          (s32 -> f32 -> bf16: two roundings)
+    s = bf(a * bf(alpha[n])) + bf(beta[n])
+    y = bf(s)
+    f32       y                                                   (bf16)
+    f32_relu  max(y, 0)                                           (bf16)
+    q8_relu   clip(rint(max(y, 0) * inv_s_out), 0, 127)
+    q8        clip(rint(s * inv_s_out), -127, 127)
+    join      clip(rint(max(bf(y + bf(f32(res) * bf(res_scale))), 0)
+                        * inv_s_out), 0, 127)
+
+q8 multiplies the unrounded sum s: XLA drops the bf16 round trip of a
+value whose only use is its widening back to f32 (excess precision),
+which is the case where Int8Ops requantizes a shortcut conv. The multiply
+by inv_s_out stays in f32 as in the f32 mode.
 
 Layouts the kernels take: `a` and `x` contiguous; the weights
 output-channel-major, i.e. `b` is the [K,N] view `wt.t()` of a
@@ -89,12 +110,22 @@ from ursonet_torch.ops import cuda_build
 
 EPILOGUES = {"s32": 0, "f32": 1, "f32_relu": 2, "q8_relu": 3, "q8": 4,
              "join": 5}
-OUT_DTYPES = {"s32": torch.int32, "f32": torch.float32,
-              "f32_relu": torch.float32, "q8_relu": torch.int8,
-              "q8": torch.int8, "join": torch.int8}
+# The accumulation modes, by their names in `calls`: the f32 epilogue
+# and the bf16 one (F16).
+ACC_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+ACC_DTYPES = tuple(ACC_NAMES)
+_OUT_F32 = {"s32": torch.int32, "f32": torch.float32,
+            "f32_relu": torch.float32, "q8_relu": torch.int8,
+            "q8": torch.int8, "join": torch.int8}
+# {acc_dtype: {epilogue: output dtype}}: f32 and f32_relu write bf16 in
+# the bf16 mode
+OUT_DTYPES = {torch.float32: _OUT_F32,
+              torch.bfloat16: dict(_OUT_F32, f32=torch.bfloat16,
+                                   f32_relu=torch.bfloat16)}
 # Kernel launches since the last reset_counts(), by kernel name.
 launches = {"gemm_s8": 0, "conv_s8": 0, "stem_s8": 0}
-# None, or a list that each launch appends (name, shapes, epilogue) to.
+# None, or a list that each launch appends (name, shapes, epilogue,
+# route, accumulation mode 'f32' or 'bf16') to.
 calls = None
 
 
@@ -105,11 +136,11 @@ def reset_counts() -> None:
 
 def _bind_gemm(lib) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ursonet_gemm_s8.argtypes = [P, P, I, I, I, I, I, I, P, P, Fl, P, Fl,
-                                    P, I, I, P]
+    lib.ursonet_gemm_s8.argtypes = [P, P, I, I, I, I, I, I, I, P, P, Fl, P,
+                                    Fl, P, I, I, P]
     lib.ursonet_gemm_s8.restype = I
-    lib.ursonet_gemm_s8_tma.argtypes = [P, P, I, I, I, I, P, P, Fl, P, Fl, P,
-                                        I, I, I, I, I, P, P, I, I, P]
+    lib.ursonet_gemm_s8_tma.argtypes = [P, P, I, I, I, I, I, P, P, Fl, P, Fl,
+                                        P, I, I, I, I, I, P, P, I, I, P]
     lib.ursonet_gemm_s8_tma.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
@@ -117,12 +148,12 @@ def _bind_gemm(lib) -> None:
 
 def _bind_conv(lib) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ursonet_conv_s8.argtypes = [P, P] + [I] * 14 + [I, P, P, Fl, P, Fl,
-                                                        P, I, I, P]
+    lib.ursonet_conv_s8.argtypes = [P, P] + [I] * 14 + [I, I, P, P, Fl, P,
+                                                        Fl, P, I, I, P]
     lib.ursonet_conv_s8.restype = I
-    lib.ursonet_conv_s8_tma.argtypes = [P, P] + [I] * 12 + [I, P, P, Fl, P,
-                                                            Fl, P, I, I, I, I,
-                                                            I, I, P]
+    lib.ursonet_conv_s8_tma.argtypes = [P, P] + [I] * 12 + [I, I, P, P, Fl,
+                                                            P, Fl, P, I, I, I,
+                                                            I, I, I, P]
     lib.ursonet_conv_s8_tma.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
@@ -131,7 +162,7 @@ def _bind_conv(lib) -> None:
 def _bind_stem(lib) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.ursonet_stem_s8, lib.ursonet_stem_s8_tma):
-        fn.argtypes = [P, P, I, I, I, I, P, Fl, P, P, Fl, P, I, P]
+        fn.argtypes = [P, P, I, I, I, I, P, Fl, P, P, Fl, I, P, I, P]
         fn.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
@@ -167,8 +198,9 @@ def tile_for(m: int, n: int) -> int:
 # the sizes)
 
 ROUTES = ("tma", "ragged")
-OUT_BYTES = {"s32": 4, "f32": 4, "f32_relu": 4, "q8_relu": 1, "q8": 1,
-             "join": 1}
+# {acc_dtype: {epilogue: bytes an output element}}
+OUT_BYTES = {acc: {ep: dt.itemsize for ep, dt in eps.items()}
+             for acc, eps in OUT_DTYPES.items()}
 SM_COUNT = 132            # H100 SXM; the wrappers ask the device
 SMEM_LIMIT = 232448       # 227 KB a block on sm_90
 TILE_M = 128              # rows of an output tile, 64 per warpgroup
@@ -184,11 +216,13 @@ _DEPTHS_JOIN = ((4, 3), (3, 3), (2, 3))
 
 
 def gemm_route(m: int, k: int, n: int, epilogue: str,
-               aligned: bool = True) -> str:
+               aligned: bool = True, acc_dtype=torch.float32) -> str:
     """'tma' when TMA can address the operands of an [m,k] @ [k,n]
-    product (global strides are multiples of 16 bytes), else 'ragged'.
+    product (global strides are multiples of 16 bytes; the output's
+    element size depends on the accumulation mode), else 'ragged'.
     `aligned`: every pointer is 16-byte aligned."""
-    ok = aligned and k % 16 == 0 and (n * OUT_BYTES[epilogue]) % 16 == 0 \
+    ok = aligned and k % 16 == 0 \
+        and (n * OUT_BYTES[acc_dtype][epilogue]) % 16 == 0 \
         and (epilogue != "join" or n % 16 == 0)
     return "tma" if ok else "ragged"
 
@@ -267,14 +301,16 @@ def split_k(m: int, tiles: int, ksteps: int, epilogue: str,
 
 @functools.lru_cache(maxsize=4096)
 def hopper_plan(m: int, k: int, n: int, epilogue: str,
-                sms: int = SM_COUNT, split: bool = True) -> dict:
+                sms: int = SM_COUNT, split: bool = True,
+                acc_dtype=torch.float32) -> dict:
     """Launch configuration of the TMA route for an [m,k] @ [k,n] product
     (a conv: k = KH * KW * C, and `split` False: its kernel does not split
     K): tile width `bn` (256 for wide int8 outputs of many rows, 128, or
     64 for narrow N and for few rows whose 64-wide tiles fit one wave of
     blocks), K `ksteps`, `splits`, `resident` weights, `stages`, `bufs`,
-    `grid` and `smem` bytes."""
-    ob = OUT_BYTES[epilogue]
+    `grid` and `smem` bytes. The output buffers hold elements of
+    OUT_BYTES[acc_dtype][epilogue] bytes."""
+    ob = OUT_BYTES[acc_dtype][epilogue]
     if m <= SPLIT_K_MAX_M:      # few rows: more tiles, in one wave
         bn = 64 if n < 128 or -(-m // TILE_M) * -(-n // 64) <= sms else 128
     elif n >= 256 and ob == 1:
@@ -331,42 +367,74 @@ def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
     return torch.where(up, other, r)
 
 
+def bf(x: torch.Tensor) -> torch.Tensor:
+    """x widened to f32 first (exact for an integer-valued accumulator
+    below 2^24; above it this is the first rounding), then rounded to
+    bf16 (RNE) and widened back: f32(bf16(f32(x))), what the bf16 mode
+    rounds at each step. Never rounds a wider value straight to bf16."""
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def _check_acc(acc_dtype) -> None:
+    if acc_dtype not in ACC_DTYPES:
+        raise ValueError(f"unknown accumulation mode {acc_dtype!r} "
+                         f"{ACC_DTYPES}")
+
+
+def epilogue_sum(acc: torch.Tensor, alpha, beta,
+                 acc_dtype=torch.float32) -> torch.Tensor:
+    """The epilogues' pre-activation sum s, f32: fma(f32(acc), alpha,
+    beta) in the f32 mode (y = s), bf(bf(acc) * bf(alpha)) + bf(beta)
+    in the bf16 mode (y = bf(s))."""
+    if acc_dtype == torch.bfloat16:
+        return bf(bf(acc) * bf(alpha)) + bf(beta)
+    return fma_f32(acc.to(torch.float32), alpha, beta)
+
+
 def epilogue_torch(acc: torch.Tensor, epilogue: str, alpha=None, beta=None,
-                   inv_s_out=1.0, res=None, res_scale=1.0) -> torch.Tensor:
+                   inv_s_out=1.0, res=None, res_scale=1.0,
+                   acc_dtype=torch.float32) -> torch.Tensor:
     """The epilogue on an exact accumulator (integer-valued, any dtype
-    that holds it exactly, the output channel last)."""
+    that holds it exactly, the output channel last), in the accumulation
+    mode `acc_dtype` (f32 or bf16)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
+    _check_acc(acc_dtype)
     if epilogue == "s32":
         return acc.to(torch.int32)
     dev = acc.device
-    y = fma_f32(acc.to(torch.float32), alpha, beta)
+    s = epilogue_sum(acc, alpha, beta, acc_dtype)
+    y = bf(s) if acc_dtype == torch.bfloat16 else s
+    out = OUT_DTYPES[acc_dtype][epilogue]
     if epilogue == "f32":
-        return y
+        return y.to(out)
     if epilogue == "f32_relu":
-        return torch.clamp_min(y, 0.0)
+        return torch.clamp_min(y, 0.0).to(out)
     inv = _f32(inv_s_out, dev)
     if epilogue == "q8":
-        return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
+        return torch.clamp(torch.round(s * inv), -127, 127).to(torch.int8)
     if epilogue == "join":
-        y = torch.clamp_min(y + res.to(torch.float32) * _f32(res_scale, dev),
-                            0.0)
-    else:
-        y = torch.clamp_min(y, 0.0)
+        r = res.to(torch.float32)
+        if acc_dtype == torch.bfloat16:
+            y = bf(y + bf(r * bf(_f32(res_scale, dev))))
+        else:
+            y = y + r * _f32(res_scale, dev)
+    y = torch.clamp_min(y, 0.0)
     return torch.clamp(torch.round(y * inv), 0, 127).to(torch.int8)
 
 
 def gemm_s8_torch(a, b, epilogue="s32", alpha=None, beta=None,
-                  inv_s_out=1.0, res=None, res_scale=1.0) -> torch.Tensor:
+                  inv_s_out=1.0, res=None, res_scale=1.0,
+                  acc_dtype=torch.float32) -> torch.Tensor:
     """Plain version of gemm_s8: float64 accumulation, then the epilogue."""
     acc = a.to(torch.float64) @ b.to(torch.float64)
     return epilogue_torch(acc, epilogue, alpha, beta, inv_s_out, res,
-                          res_scale)
+                          res_scale, acc_dtype)
 
 
 def conv_s8_torch(x, w, stride=1, padding=((0, 0), (0, 0)), epilogue="s32",
                   alpha=None, beta=None, inv_s_out=1.0, res=None,
-                  res_scale=1.0) -> torch.Tensor:
+                  res_scale=1.0, acc_dtype=torch.float32) -> torch.Tensor:
     """Plain version of conv_s8: float64 convolution (cuDNN off on the
     card: its algorithms may transform the operands, the native
     im2col + GEMM does not), then the epilogue."""
@@ -376,7 +444,7 @@ def conv_s8_torch(x, w, stride=1, padding=((0, 0), (0, 0)), epilogue="s32",
     with torch.backends.cudnn.flags(enabled=False):
         acc = F.conv2d(xd, wd, stride=stride).permute(0, 2, 3, 1)
     return epilogue_torch(acc.contiguous(), epilogue, alpha, beta,
-                          inv_s_out, res, res_scale)
+                          inv_s_out, res, res_scale, acc_dtype)
 
 
 def pool_pads(n: int) -> tuple[int, int]:
@@ -422,16 +490,18 @@ def stem_input_s8(x: torch.Tensor, mode: str, mean, inv_s_in: float):
 
 
 def stem_s8_torch(x, w, alpha, beta, inv_s_out=1.0, mode="calibrated",
-                  mean=(0.0,) * 12, inv_s_in=1.0) -> torch.Tensor:
+                  mean=(0.0,) * 12, inv_s_in=1.0,
+                  acc_dtype=torch.float32) -> torch.Tensor:
     """Plain version of stem_s8, as the unfused composition: input
-    quantize, the padding written out, conv_s8_torch with the q8_relu
-    epilogue, maxpool_s8."""
+    quantize (f32 in both modes), the padding written out, conv_s8_torch
+    with the q8_relu epilogue in the accumulation mode `acc_dtype`,
+    maxpool_s8."""
     q, fill = stem_input_s8(x, mode, mean, inv_s_in)
     b, h, wd, c = q.shape
     xp = fill.expand(b, h + 3, wd + 3, c).contiguous()
     xp[:, 2:h + 2, 2:wd + 2] = q
     y = conv_s8_torch(xp, w, 1, ((0, 0), (0, 0)), "q8_relu", alpha, beta,
-                      inv_s_out)
+                      inv_s_out, acc_dtype=acc_dtype)
     return maxpool_s8(y)
 
 
@@ -489,12 +559,15 @@ def _sms(dev) -> int:
 
 def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
             alpha=None, beta=None, inv_s_out: float = 1.0, res=None,
-            res_scale: float = 1.0, route=None) -> torch.Tensor:
-    """out[M,N] = epilogue(a[M,K] s8 @ b[K,N] s8). `route`: None picks by
-    shape (`gemm_route`), or one of ROUTES."""
+            res_scale: float = 1.0, route=None,
+            acc_dtype=torch.float32) -> torch.Tensor:
+    """out[M,N] = epilogue(a[M,K] s8 @ b[K,N] s8) in the accumulation
+    mode `acc_dtype`. `route`: None picks by shape (`gemm_route`), or one
+    of ROUTES."""
+    _check_acc(acc_dtype)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gemm_s8_torch(a, b, epilogue, alpha, beta, inv_s_out, res,
-                             res_scale)
+                             res_scale, acc_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     if a.dim() != 2 or a.dtype != torch.int8 or not a.is_contiguous():
@@ -510,13 +583,16 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
     if m == 0 or k == 0 or n == 0:
         raise ValueError(f"empty product {m}x{k} @ {k}x{n}")
     _check_epilogue(a.device, m, n, epilogue, alpha, beta, res)
-    out = torch.empty((m, n), dtype=OUT_DTYPES[epilogue], device=a.device)
+    out = torch.empty((m, n), dtype=OUT_DTYPES[acc_dtype][epilogue],
+                      device=a.device)
     lib = cuda_build.load("int8_gemm", _bind_gemm)
     route = _pick_route("gemm_s8", route, gemm_route(
-        m, k, n, epilogue, _aligned(a, b, out, res)))
+        m, k, n, epilogue, _aligned(a, b, out, res), acc_dtype))
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    bf16 = int(acc_dtype == torch.bfloat16)
     if route == "tma":
-        plan = hopper_plan(m, k, n, epilogue, _sms(a.device))
+        plan = hopper_plan(m, k, n, epilogue, _sms(a.device),
+                           acc_dtype=acc_dtype)
         partial = counters = None
         if plan["splits"] > 1:
             partial = torch.empty((plan["splits"], m, n), dtype=torch.int32,
@@ -524,7 +600,7 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
             counters = torch.zeros(2 * plan["m_tiles"] * plan["n_tiles"],
                                    dtype=torch.int32, device=a.device)
         rc = lib.ursonet_gemm_s8_tma(
-            a.data_ptr(), b.data_ptr(), m, n, k, EPILOGUES[epilogue],
+            a.data_ptr(), b.data_ptr(), m, n, k, EPILOGUES[epilogue], bf16,
             _ptr(alpha), _ptr(beta), float(inv_s_out), _ptr(res),
             float(res_scale), out.data_ptr(), plan["bn"], plan["stages"],
             plan["bufs"], int(plan["resident"]), plan["splits"],
@@ -535,14 +611,14 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
             a.data_ptr(), b.data_ptr(), m, n, k,
             int(k % 16 == 0 and a.data_ptr() % 16 == 0),
             int(k % 16 == 0 and b.data_ptr() % 16 == 0),
-            EPILOGUES[epilogue], _ptr(alpha), _ptr(beta), float(inv_s_out),
-            _ptr(res), float(res_scale), out.data_ptr(), tile_for(m, n),
-            a.device.index, stream)
+            EPILOGUES[epilogue], bf16, _ptr(alpha), _ptr(beta),
+            float(inv_s_out), _ptr(res), float(res_scale), out.data_ptr(),
+            tile_for(m, n), a.device.index, stream)
     _raise_if(rc, lib, "gemm_s8")
     launches["gemm_s8"] += 1
     if calls is not None:
         calls.append(("gemm_s8", dict(m=m, k=k, n=n, epilogue=epilogue,
-                                      route=route)))
+                                      route=route, acc=ACC_NAMES[acc_dtype])))
     return out
 
 
@@ -554,14 +630,17 @@ def conv_out_hw(h, w, kh, kw, stride, padding):
 def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             padding=((0, 0), (0, 0)), epilogue: str = "s32", alpha=None,
             beta=None, inv_s_out: float = 1.0, res=None,
-            res_scale: float = 1.0, route=None) -> torch.Tensor:
-    """out[B,OH,OW,N] = epilogue(conv(x NHWC s8, w HWIO s8)), explicit
-    ((top, bottom), (left, right)) zero pads. `route`: None picks by shape
-    (`conv_route`), or one of ROUTES."""
+            res_scale: float = 1.0, route=None,
+            acc_dtype=torch.float32) -> torch.Tensor:
+    """out[B,OH,OW,N] = epilogue(conv(x NHWC s8, w HWIO s8)) in the
+    accumulation mode `acc_dtype`, explicit ((top, bottom), (left,
+    right)) zero pads. `route`: None picks by shape (`conv_route`), or
+    one of ROUTES."""
     (pt, pb), (pl, pr) = padding
+    _check_acc(acc_dtype)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return conv_s8_torch(x, w, stride, padding, epilogue, alpha, beta,
-                             inv_s_out, res, res_scale)
+                             inv_s_out, res, res_scale, acc_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dim() != 4 or x.dtype != torch.int8 or not x.is_contiguous():
@@ -582,19 +661,21 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
         raise ValueError(f"empty output for {h}x{wd} and a {kh}x{kw} kernel")
     m = bsz * oh * ow
     _check_epilogue(x.device, m, n, epilogue, alpha, beta, res)
-    out = torch.empty((bsz, oh, ow, n), dtype=OUT_DTYPES[epilogue],
-                      device=x.device)
+    out = torch.empty((bsz, oh, ow, n),
+                      dtype=OUT_DTYPES[acc_dtype][epilogue], device=x.device)
     lib = cuda_build.load("int8_conv", _bind_conv)
     route = _pick_route("conv_s8", route, conv_route(
         c, n, kh * kw, bsz * (h + pt + pb) * (wd + pl + pr) * c,
         _aligned(x, w, out, res)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    bf16 = int(acc_dtype == torch.bfloat16)
     if route == "tma":
         plan = hopper_plan(m, kh * kw * c, n, epilogue, _sms(x.device),
-                           split=False)
+                           split=False, acc_dtype=acc_dtype)
         rc = lib.ursonet_conv_s8_tma(
             x.data_ptr(), w.data_ptr(), bsz, h, wd, c, n, kh, kw, stride,
-            pt, pb, pl, pr, EPILOGUES[epilogue], _ptr(alpha), _ptr(beta),
+            pt, pb, pl, pr, EPILOGUES[epilogue], bf16, _ptr(alpha),
+            _ptr(beta),
             float(inv_s_out), _ptr(res), float(res_scale), out.data_ptr(),
             plan["bn"], plan["stages"], plan["bufs"], int(plan["resident"]),
             plan["grid"], x.device.index, stream)
@@ -604,33 +685,37 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             x.data_ptr(), w.data_ptr(), bsz, h, wd, c, n, kh, kw, stride,
             pt, pb, pl, pr, int(vec and x.data_ptr() % 16 == 0),
             int((kh * kw * c) % 16 == 0 and w.data_ptr() % 16 == 0),
-            EPILOGUES[epilogue], _ptr(alpha), _ptr(beta), float(inv_s_out),
-            _ptr(res), float(res_scale), out.data_ptr(), tile_for(m, n),
-            x.device.index, stream)
+            EPILOGUES[epilogue], bf16, _ptr(alpha), _ptr(beta),
+            float(inv_s_out), _ptr(res), float(res_scale), out.data_ptr(),
+            tile_for(m, n), x.device.index, stream)
     _raise_if(rc, lib, "conv_s8")
     launches["conv_s8"] += 1
     if calls is not None:
         calls.append(("conv_s8", dict(b=bsz, h=h, w=wd, c=c, kh=kh, kw=kw,
                                       n=n, stride=stride, padding=padding,
-                                      epilogue=epilogue, route=route)))
+                                      epilogue=epilogue, route=route,
+                                      acc=ACC_NAMES[acc_dtype])))
     return out
 
 
 def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
             beta: torch.Tensor, inv_s_out: float = 1.0,
             mode: str = "calibrated", mean=(0.0,) * 12,
-            inv_s_in: float = 1.0, route=None) -> torch.Tensor:
+            inv_s_in: float = 1.0, route=None,
+            acc_dtype=torch.float32) -> torch.Tensor:
     """The fused int8 stem in one launch: out[B,ceil(H2/2),ceil(W2/2),64]
     s8 = maxpool3x3/2_SAME(q8_relu(conv4x4/1(quantize(x)))) for
     space-to-depth u8 pixels x [B,H2,W2,12] and the s2d stem kernel w
     [4,4,12,64] s8 (HWIO view, `kernel_layout`), pads (2,1),(2,1). `mode`
     picks the input quantize and the padding value (`stem_input_s8`);
-    the epilogue is q8_relu with alpha, beta and inv_s_out. The 64-wide
-    conv output stays in shared memory. `route`: None picks by shape
-    (`stem_route`), or one of ROUTES."""
+    the epilogue is q8_relu with alpha, beta and inv_s_out in the
+    accumulation mode `acc_dtype`. The 64-wide conv output stays in
+    shared memory. `route`: None picks by shape (`stem_route`), or one of
+    ROUTES."""
+    _check_acc(acc_dtype)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return stem_s8_torch(x, w, alpha, beta, inv_s_out, mode, mean,
-                             inv_s_in)
+                             inv_s_in, acc_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if mode not in STEM_MODES:
@@ -660,11 +745,11 @@ def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
     rc = launch(
         x.data_ptr(), w.data_ptr(), bsz, h2, w2, STEM_MODES[mode],
         mean.ctypes.data, float(inv_s_in), alpha.data_ptr(), beta.data_ptr(),
-        float(inv_s_out), out.data_ptr(), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        float(inv_s_out), int(acc_dtype == torch.bfloat16), out.data_ptr(),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_if(rc, lib, "stem_s8")
     launches["stem_s8"] += 1
     if calls is not None:
         calls.append(("stem_s8", dict(b=bsz, h2=h2, w2=w2, mode=mode,
-                                      route=route)))
+                                      route=route, acc=ACC_NAMES[acc_dtype])))
     return out

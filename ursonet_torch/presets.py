@@ -4,8 +4,8 @@
 `benchmark_config(n)` returns a fresh `Config` with `update()` applied
 for the five benchmark configurations of BASELINE.md. The port trains
 configuration 3; the others build but reach code paths a later slice
-ports (sim2real, CLR, keypoints, bf16). `serving_config(batch)` is the
-flagship int8 serving configuration that `bench.py` times.
+ports (sim2real, CLR, keypoints, bf16 training). `serving_config(batch)`
+is the flagship int8 serving configuration that `bench.py` times (F16).
 """
 
 from __future__ import annotations
@@ -94,13 +94,15 @@ def benchmark_config(n: int) -> Config:
 SERVING_VARIANTS = ('base', 's2d', 'host_s2d')
 
 
-def serving_config(batch: int = 128, variant: str = 'base') -> Config:
+def serving_config(batch: int = 128, variant: str = 'base',
+                   f16: bool = True) -> Config:
     """The flagship int8 PTQ serving configuration: the one `bench.py`
     times and `tools/make_gate_artifact.py::flagship_gate_config` builds
     the committed artifact for. ResNet-50, bottleneck 128, one 1024-wide
     dense per head, location regression, 24³-bin orientation
     classification (int8 `ori_final` 1024→13824 with a ReLU), pad64 at
-    512×640, uint8 input, every QUANT_* knob at its default.
+    512×640, uint8 input, F16 (bf16 epilogues; the bf16 float forward),
+    every QUANT_* knob at its default.
 
     `variant` picks the stem as `tools/ab_serving.py` does: 'base' (the
     7×7/2 stem), 's2d' (QUANT_STEM_S2D: the exact 4×4/1 rewrite, the
@@ -108,9 +110,8 @@ def serving_config(batch: int = 128, variant: str = 'base') -> Config:
     QUANT_HOST_S2D: the host packs them). Under the last two a uint8
     batch runs the fused stem kernel.
 
-    One deviation: F16 is False. Under F16 the JAX package runs the int8
-    epilogues in bf16; the port serves the f32 epilogue, the other mode
-    of the same artifact (F16 is not recorded in it)."""
+    `f16=False` gives the f32-epilogue mode of the same artifact (F16 is
+    not recorded in it): the int8 epilogues in f32 with one FMA."""
     if variant not in SERVING_VARIANTS:
         raise ValueError(f"unknown serving variant {variant!r} "
                          f"{SERVING_VARIANTS}")
@@ -130,6 +131,6 @@ def serving_config(batch: int = 128, variant: str = 'base') -> Config:
     cfg.IMAGE_MAX_DIM = 640
     cfg.IMAGES_PER_GPU = batch
     cfg.INT8_U8_INPUT = True
-    cfg.F16 = False
+    cfg.F16 = bool(f16)
     cfg.update()
     return cfg

@@ -46,6 +46,10 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
     if config.TRAIN_BN is not False:
         raise NotImplementedError("TRAIN_BN other than False is ported in "
                                   "a later slice")
+    if config.F16:
+        raise NotImplementedError("F16: the bf16 train step (bf16 batches "
+                                  "and the warp under them) is ported in a "
+                                  "later slice")
     if trainable is None:
         trainable = {n: True for n, _ in model.named_parameters()}
     params = []
