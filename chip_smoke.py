@@ -26,14 +26,33 @@ Phases, in order; any failure exits non-zero:
               (ResNet-50, 512×640, batch 32) for 5 steps on one seeded
               random batch, then one validation step; losses must be
               finite and fall; the warp kernel must have been launched.
-  5. artifact the committed flagship int8 artifact served on its golden
+  5. bf16     bf16 training (F16) at full width, 5 steps + 1 validation
+     train    step each, losses finite and falling, the warp kernel
+              launched: (a) the F16 flagship recipe (benchmark_config(3)
+              with F16, batch 32), its step time beside phase 4's;
+              (b) benchmark_config(5) (ResNet-101, the 3-keypoint head,
+              F16, REMAT, batch 16), its validation outputs decoded by
+              the keypoint SVD (the decoded ground-truth keypoints give
+              back the poses) and ESA-scored; its gradients under each
+              REMAT policy equal to those without (REMAT_CARD_REL); the
+              same model and batch under 'narrow' and without REMAT:
+              REMAT's peak memory must be below the latter's;
+              (c) config 5 served int8 under F16 (calibrate, smooth(0.5),
+              bias_correct(passes=1)) at batch 16: gemm_s8 and conv_s8
+              launched on their TMA routes, each distinct call and the
+              served batch equal to the plain version bit for bit,
+              each head within the random-init gate of the float twin,
+              detect() returning k1/k2; (d) released_config('speed')
+              (ResNet-101, 960×960, 32³ bins): one bf16 forward at
+              batch 4, finite heads.
+  6. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
               twin, both int8 kernels launched; drift against the TPU
               goldens and decoded poses printed; its stem rewritten to
               space-to-depth form in memory and served through stem_s8
               gives the same bits.
-  6. serve    int8 serving of serving_config() at full width and batch
+  7. serve    int8 serving of serving_config() at full width and batch
               (128 × 512×640, seeded random weights; calibrate on 8
               images, smooth(0.5), bias_correct(passes=1), as bench.py)
               through ServingEngine.predict_molded, in the `base` and the
@@ -45,11 +64,11 @@ Phases, in order; any failure exits non-zero:
               `host_s2d` bit for bit under F16; every GEMM, every 3x3
               conv and the fused stem of the served model must have
               taken the TMA + wgmma route.
-  7. probes   the four kernel-probe entry points at their own shapes
+  8. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
               and stem probes run each kernel on both routes.
-  8. numbers  train step and serving time per variant and mode, memory,
+  9. numbers  train step and serving time per variant and mode, memory,
               the bf16 float forward at batch 128 (bench.py's
               BENCH_QUANT=0), and each kernel's time in both modes at the
               main paths' shapes beside its plain version,
@@ -79,9 +98,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ursonet_torch import evaluate, presets, se3
+from ursonet_torch import evaluate, presets, se3, se3t
 from ursonet_torch.config import Config
-from ursonet_torch.data.loader import make_device_preprocess
+from ursonet_torch.data.loader import keypoint_scale, make_device_preprocess
 from ursonet_torch.data.urso import Camera
 from ursonet_torch.engine import ServingEngine
 from ursonet_torch.models import quant
@@ -105,6 +124,14 @@ BF16_FLOP_PER_S = 989e12
 ACC_NAMES = int8_cuda.ACC_NAMES
 ACC_DTYPES = {v: k for k, v in ACC_NAMES.items()}
 FLAGSHIP_BATCH = 32
+CONFIG5_BATCH = presets.benchmark_config(5).BATCH_SIZE
+SPEED_BATCH = 4      # released_config('speed')'s bf16 forward
+# Each REMAT policy's gradients on the card against those without REMAT
+# (remat_grad_rel), relative L2. Measured 0 for every policy at config
+# 5's full width, and 0 between two runs without REMAT (NVIDIA H100 80GB
+# HBM3, 700 W): cuDNN takes the same algorithms in the recompute and runs
+# them deterministically, so the bound is exact.
+REMAT_CARD_REL = 0.0
 STEPS = 5            # train steps of the main path, then 1 validation step
 SERVE_ITERS = 10     # timed serving calls, after 2 warm-up calls
 # What this script measured while gemm_s8 and conv_s8 had only their
@@ -251,9 +278,18 @@ def random_poses(n, rng):
     return loc.astype(np.float32), q.astype(np.float32)
 
 
+def keypoints_of(q, loc, scale: float):
+    """The pose as two virtual keypoints, K1 = R·(s·e3) + loc and
+    K2 = R·(s·e2) + loc (`ursonet_tpu/data/urso.py:122-135`), float32."""
+    R = se3t.quat2SO3(torch.from_numpy(np.asarray(q, np.float64))).numpy()
+    return ((R[:, :, 2] * scale + loc).astype(np.float32),
+            (R[:, :, 1] * scale + loc).astype(np.float32))
+
+
 def make_raw_batch(cfg, seed: int) -> dict:
     """A raw batch as the host loader hands it over: uint8 images at the
-    network shape, random_poses and the image meta."""
+    network shape, random_poses, their keypoints (URSO's 3 m) and the
+    image meta."""
     rng = np.random.RandomState(seed)
     b = cfg.BATCH_SIZE
     h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
@@ -264,13 +300,16 @@ def make_raw_batch(cfg, seed: int) -> dict:
         cfg.IMAGE_MIN_SCALE, cfg.IMAGE_RESIZE_MODE)
     meta = np.array([[i, cam.height, cam.width, 3, oh, ow, 3, *window, scale]
                      for i in range(b)], np.float32)
+    k1, k2 = keypoints_of(q, loc, keypoint_scale('Urso'))
     return {'images_u8': rng.randint(0, 256, (b, h, w, 3), np.uint8),
-            'location': loc, 'quaternion': q, 'image_meta': meta}
+            'location': loc, 'quaternion': q, 'gt_k1': k1, 'gt_k2': k2,
+            'image_meta': meta}
 
 
-def flagship_config() -> Config:
+def flagship_config(f16: bool = False) -> Config:
     cfg = presets.benchmark_config(3)
     cfg.IMAGES_PER_GPU = FLAGSHIP_BATCH
+    cfg.F16 = f16
     cfg.update()
     return cfg
 
@@ -287,9 +326,10 @@ def small_serving_config(variant: str = 'base') -> Config:
     return cfg
 
 
-def small_config() -> Config:
-    """The flagship recipe at a size the CPU runs in seconds."""
-    cfg = presets.benchmark_config(3)
+def small_config(n: int = 3) -> Config:
+    """benchmark_config(n) (3: the flagship recipe, 5: ResNet-101 with
+    keypoints, F16 and REMAT) at a size the CPU runs in seconds."""
+    cfg = presets.benchmark_config(n)
     cfg.IMAGE_RESIZE_MODE = 'square'
     cfg.IMAGE_MIN_DIM = cfg.IMAGE_MAX_DIM = 64
     cfg.BRANCH_SIZE = 32
@@ -307,7 +347,8 @@ def small_config() -> Config:
 def run_main_path(cfg, device, seed: int = 0, steps: int = 5) -> dict:
     """`steps` train steps on one raw batch, each with the same draws (so
     the loss is taken on the same preprocessed batch), then one
-    validation step. Returns the losses and the step fns."""
+    validation step. Returns the losses, the step fn, the model, the
+    preprocess and the raw batch."""
     model = build_model(cfg, device, torch.Generator().manual_seed(seed))
     pre = make_device_preprocess(cfg, device=device)
     step = make_train_step(model, cfg, make_optimizer(cfg),
@@ -321,7 +362,37 @@ def run_main_path(cfg, device, seed: int = 0, steps: int = 5) -> dict:
         metrics.append({k: float(v) for k, v in m.items()})
     val = {k: float(v) for k, v in
            eval_step(raw, torch.Generator().manual_seed(seed + 2)).items()}
-    return {'train': metrics, 'val': val, 'step': step, 'raw': raw}
+    return {'train': metrics, 'val': val, 'step': step, 'raw': raw,
+            'model': model, 'pre': pre}
+
+
+def decode_keypoint_validation(res, cfg, seed: int) -> dict:
+    """The keypoint model of `res` in eval on the validation step's batch
+    (the same draws), decoded by the keypoint SVD and ESA-scored against
+    the pose its ground-truth keypoints decode to. The raw batch's
+    keypoints must decode back to its poses (the SVD on the device)."""
+    raw, pre, model = res['raw'], res['pre'], res['model']
+    gen = torch.Generator().manual_seed(seed + 2)
+    with torch.no_grad():
+        batch = pre(raw, pre.draw(gen, len(raw['images_u8'])))
+        out = model.eval()(batch['images'])
+    loc, q = evaluate.decode_results(out, cfg)
+    loc_gt, q_gt = evaluate.decode_results(
+        {'loc': batch['gt_loc'], 'k1': batch['gt_k1'],
+         'k2': batch['gt_k2']}, cfg)
+    dev = batch['gt_loc'].device
+    _, q_raw = evaluate.decode_results(
+        {'loc': torch.from_numpy(raw['location']).to(dev),
+         'k1': torch.from_numpy(raw['gt_k1']).to(dev),
+         'k2': torch.from_numpy(raw['gt_k2']).to(dev)}, cfg)
+    dots = np.abs(np.sum(q_raw * raw['quaternion'], axis=1))
+    if not dots.min() > 1 - 1e-5:
+        raise RuntimeError("the keypoint decode did not give back the poses "
+                           f"of the raw batch: |<q, q_raw>| min {dots.min()}")
+    scores = evaluate.esa_scores(loc, q, loc_gt, q_gt)
+    if not np.isfinite(scores['esa']).all():
+        raise RuntimeError("non-finite ESA scores of the keypoint model")
+    return {'scores': scores, 'min_dot': float(dots.min())}
 
 
 def check_main_path(res) -> None:
@@ -793,6 +864,125 @@ def serve_flagship(dev, seed: int, variant: str = 'base',
             'calls': calls, 'peak': peak, 'out': out}
 
 
+def serve_keypoints(dev, seed: int) -> dict:
+    """benchmark_config(5) served int8 under F16 at its batch of 16, as
+    serve_flagship serves the flagship: seeded random weights, calibrate
+    on 8 images, smooth(0.5), bias_correct(passes=1); one served batch
+    through predict_molded must launch gemm_s8 and conv_s8 in the bf16
+    mode on their TMA routes; every distinct call of that batch, on fresh
+    operands, and the served batch itself must equal the plain version
+    bit for bit; every head must stay within the random-init gate of the
+    float twin; detect() must return loc, k1 and k2 per image."""
+    cfg = presets.benchmark_config(5)
+    tag = 'config5 bf16'
+    rng = np.random.RandomState(seed)
+    h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+    images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
+    engine = ServingEngine(cfg, dev,
+                           generator=torch.Generator().manual_seed(seed))
+    t0 = time.perf_counter()
+    qm = engine.quantize()
+    qm.calibrate(images[:8])
+    qm.smooth(0.5)
+    deltas = qm.bias_correct(images[:8], passes=1)
+    torch.cuda.synchronize()
+    log(f"serve [{tag}] quantize + calibrate (8 images) + smooth(0.5) + "
+        f"bias_correct(passes=1): {time.perf_counter() - t0:.1f} s, "
+        f"{len(deltas)} sites")
+    int8_cuda.reset_counts()
+    int8_cuda.calls = []
+    out = engine.predict_molded(images)
+    torch.cuda.synchronize()
+    launches, calls = dict(int8_cuda.launches), int8_cuda.calls
+    int8_cuda.calls = None
+    log(f"serve [{tag}] launches per batch of {cfg.BATCH_SIZE}: {launches}")
+    for k in ('loc', 'k1', 'k2'):
+        if tuple(out[k].shape) != (cfg.BATCH_SIZE, 3) \
+                or not torch.isfinite(out[k]).all():
+            raise RuntimeError(f"serve [{tag}] {k}: {tuple(out[k].shape)}, "
+                               f"finite {bool(torch.isfinite(out[k]).all())}")
+    if min(launches['gemm_s8'], launches['conv_s8']) < 1:
+        raise RuntimeError(f"serve [{tag}] missed an int8 kernel: {launches}")
+    check_served_routes(tag, calls)
+    modes = Counter(a['acc'] for _, a in calls)
+    if set(modes) != {'bf16'}:
+        raise RuntimeError(f"serve [{tag}]: launches in modes {modes}")
+    check_served_calls(tag, calls, dev, rng)
+    plain = qm(images, plain=True)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for k in out:
+        diff = int((out[k] != plain[k]).sum())
+        err = float((out[k] - plain[k]).abs().max())
+        max_err = max(max_err, err)
+        log(f"serve [{tag}] {k}: kernel path vs plain path on the served "
+            f"batch: {diff} of {out[k].numel()} values differ, max abs {err}")
+        if diff:
+            raise RuntimeError(f"serve [{tag}] {k}: the kernel path differs "
+                               "from the plain path")
+    flt = qm.float_twin(images[:8])
+    rels = {k: rel(out[k][:8], flt[k]) for k in flt}
+    log(f"serve [{tag}] int8 vs float twin on 8 images (random weights, "
+        f"gate {quant.RANDOM_INIT_GATE_REL}): "
+        + ", ".join(f"{k} rel {v:.4f}" for k, v in rels.items()))
+    if max(rels.values()) >= quant.RANDOM_INIT_GATE_REL:
+        raise RuntimeError(f"serve [{tag}]: int8 vs float twin {rels} over "
+                           "the random-init gate")
+    res = engine.detect(list(images))
+    if any(set(r) != {'loc', 'k1', 'k2'} for r in res):
+        raise RuntimeError(f"serve [{tag}] detect: {[set(r) for r in res]}")
+    loc, q = evaluate.decode_results(out, cfg)
+    if not (np.isfinite(loc).all() and np.isfinite(q).all()):
+        raise RuntimeError(f"serve [{tag}]: non-finite decoded poses")
+    return {'launches': launches, 'calls': calls, 'max_abs_err': max_err}
+
+
+def check_served_calls(tag, calls, dev, rng) -> None:
+    """Every distinct GEMM and conv call of a served batch on fresh
+    operands of its shapes, against its plain version: any differing
+    element raises."""
+    groups = sorted({(name, tuple(sorted(a.items()))) for name, a in calls
+                     if name in ('gemm_s8', 'conv_s8')})
+    for name, items in groups:
+        fn, plain, *_ = _int8_call(name, dict(items), dev, rng)
+        _must_equal(f"serve [{tag}] {name} "
+                    f"[{' '.join(f'{k}={v}' for k, v in items)}]",
+                    fn(), plain())
+        del fn, plain
+    torch.cuda.empty_cache()
+    log(f"serve [{tag}] {len(groups)} distinct int8 calls of the served "
+        "batch on fresh operands: each equals its plain version (0 "
+        "differing elements)")
+
+
+def speed_forward(dev, seed: int) -> dict:
+    """released_config('speed') (ResNet-101, bottleneck 528, 32³ bins,
+    960×960, F16): one bf16 forward of SPEED_BATCH uniform [0, 1) images
+    in eval; the heads must be finite, [B,3] and [B,32768]."""
+    cfg = presets.released_config('speed')
+    cfg.IMAGES_PER_GPU = SPEED_BATCH
+    cfg.update()
+    model = build_model(cfg, dev, torch.Generator().manual_seed(seed)).eval()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+    x = torch.rand((cfg.BATCH_SIZE, 3, h, w), generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = {'loc': (cfg.BATCH_SIZE, 3),
+            'ori': (cfg.BATCH_SIZE, cfg.ORI_BINS_PER_DIM ** 3)}
+    for k, shape in want.items():
+        v = out[k]
+        if tuple(v.shape) != shape or v.dtype != torch.float32 \
+                or not torch.isfinite(v).all():
+            raise RuntimeError(f"speed forward {k}: {tuple(v.shape)} {v.dtype}"
+                               f", finite {bool(torch.isfinite(v).all())}")
+    return {'ms': ms, 'shapes': {k: tuple(v.shape) for k, v in out.items()}}
+
+
 def check_served_routes(variant, calls) -> None:
     """Every GEMM, every 3x3 conv and the fused stem of a served batch
     must have taken the TMA + wgmma route; only the C = 3 stem conv of
@@ -1174,10 +1364,12 @@ def time_mma_rate(kind, route, dev, card, mnk=(1024, 1024, 512),
 
 
 def check_warp(dev, rng, K) -> float:
-    """The warp kernel against its plain version: nearest exact,
+    """The warp kernel against its plain version at the batches of the
+    flagship and of config 5 and at a ragged size: nearest exact,
     bilinear within 1e-3; RGB and gray. Returns the max abs error."""
     max_err = 0.0
-    for b, c, h, w in [(FLAGSHIP_BATCH, 3, 512, 640), (3, 3, 100, 130)]:
+    for b, c, h, w in [(FLAGSHIP_BATCH, 3, 512, 640),
+                       (CONFIG5_BATCH, 3, 512, 640), (3, 3, 100, 130)]:
         imgs = torch.from_numpy(
             (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
         Ms = torch.from_numpy(homographies(b, K, rng)).to(dev)
@@ -1209,6 +1401,81 @@ def check_warp(dev, rng, K) -> float:
     return max_err
 
 
+def step_peak(res, seed) -> int:
+    """Peak device memory allocated during one train step of `res`, its
+    parameters and optimizer state included."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res['step'](res['raw'], torch.Generator().manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def remat_grad_rel(res, seed, remat) -> dict:
+    """Per REMAT policy, the largest relative L2 difference over the
+    parameters between the gradients of one forward of `res`'s model
+    (the sum of the heads' mean squares, on the validation draws' batch)
+    with and without the policy. Under False the second run without
+    REMAT: the card's own run-to-run floor. The model is left under the
+    policy `remat`."""
+    raw, pre, model = res['raw'], res['pre'], res['model']
+    with torch.no_grad():
+        x = pre(raw, pre.draw(torch.Generator().manual_seed(seed + 2),
+                              len(raw['images_u8'])))['images']
+    params = list(model.parameters())
+
+    def grads(policy):
+        model.backbone.set_remat(policy)
+        out = model(x)
+        loss = sum((v ** 2).mean() for v in out.values())
+        return torch.autograd.grad(loss, params)
+    ref = grads(False)
+    rels = {}
+    for policy in (False, True, 'narrow', 'dots'):
+        got = grads(policy)
+        rels[str(policy)] = max(
+            float((g - g0).norm() / g0.norm()) if float(g0.norm()) > 0
+            else (0.0 if not g.any() else float('inf'))
+            for g, g0 in zip(got, ref))
+        del got
+    model.backbone.set_remat(remat)
+    return rels
+
+
+def bf16_train(dev, cfg, tag, seed, card) -> dict:
+    """Phase 5's train path for `cfg` (F16): STEPS steps + 1 validation
+    step with the warp's count read around them, then the step time
+    (time_train) and the peak memory of one step. Returns the run."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    warp_cuda.reset_counts()
+    res = run_main_path(cfg, dev, seed, STEPS)
+    torch.cuda.synchronize()
+    launches = dict(warp_cuda.launches)
+    peak_run = torch.cuda.max_memory_allocated()
+    log(f"train [{tag}] losses: "
+        + " ".join(f"{m['loss']:.6f}" for m in res['train']))
+    log(f"train [{tag}] step 0 metrics: {res['train'][0]}")
+    log(f"train [{tag}] step {STEPS - 1} metrics: {res['train'][-1]}")
+    log(f"train [{tag}] validation metrics: {res['val']}")
+    log(f"train [{tag}] launches: {launches}")
+    check_main_path(res)
+    if launches['warp_homography'] < 1:
+        raise RuntimeError(f"train [{tag}] never launched warp_homography")
+    res['launches'] = launches
+    res['ms'] = time_train(res, seed)
+    res['peak_step'] = step_peak(res, seed)
+    b = cfg.BATCH_SIZE
+    log(f"train [{tag}] step: median {res['ms']:.3f} ms over 10 steps after "
+        f"2 warm-up, {b / res['ms'] * 1e3:.2f} imgs/s, batch {b} "
+        f"{cfg.IMAGE_SHAPE[0]}x{cfg.IMAGE_SHAPE[1]} {card}")
+    log(f"train [{tag}] peak memory allocated: {peak_run} bytes "
+        f"({peak_run / 2**30:.2f} GiB) over the {STEPS} + 1 steps, "
+        f"{res['peak_step']} bytes ({res['peak_step'] / 2**30:.2f} GiB) in "
+        f"one step {card}")
+    return res
+
+
 def time_train(res, seed) -> float:
     """Median train-step time over 10 steps after 2 warm-up steps."""
     step, raw = res['step'], res['raw']
@@ -1234,6 +1501,7 @@ def main(argv=None) -> int:
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path cannot run",
@@ -1306,11 +1574,64 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # 5. the committed artifact, under F16 and in the f32-epilogue mode
+    # 5. bf16 train: (a) the F16 flagship recipe
+    t5 = time.perf_counter()
+    warp_by_path = {'train_f32': launches['warp_homography']}
+    res = bf16_train(dev, flagship_config(f16=True), 'F16 flagship',
+                     args.seed, card)
+    warp_by_path['train_f16'] = res['launches']['warp_homography']
+    log(f"train [F16 flagship] step {res['ms']:.3f} ms vs the f32 step "
+        f"{train_ms:.3f} ms (phase 4) in this run, batch {FLAGSHIP_BATCH} "
+        f"{card}")
+    del res
+    # (b) benchmark_config(5): ResNet-101, keypoints, F16, REMAT
+    cfg5 = presets.benchmark_config(5)
+    res = bf16_train(dev, cfg5, 'config5 REMAT', args.seed, card)
+    warp_by_path['train_config5'] = res['launches']['warp_homography']
+    dec = decode_keypoint_validation(res, cfg5, args.seed)
+    sc = dec['scores']
+    log(f"train [config5] validation decoded by the keypoint SVD: mean ESA "
+        f"{sc['mean_esa']:.4f}, mean loc err {sc['mean_loc_err']:.3f} m, mean "
+        f"ori err {sc['mean_ori_err_deg']:.2f} deg (random weights); raw "
+        f"keypoints decode back to their poses, |<q, q_raw>| >= "
+        f"{dec['min_dot']:.9f}")
+    rels = remat_grad_rel(res, args.seed, cfg5.REMAT)
+    log(f"train [config5] gradients of one bf16 forward under each REMAT "
+        f"policy vs without REMAT, largest relative L2 over the parameters "
+        f"(False: a second run without; tol {REMAT_CARD_REL}): {rels}")
+    if not max(rels.values()) <= REMAT_CARD_REL:
+        raise RuntimeError(f"REMAT changed the gradients: {rels}")
+    ms, peak = {True: res['ms']}, {True: res['peak_step']}
+    for policy in ('narrow', False):
+        res['model'].backbone.set_remat(policy)
+        ms[policy] = time_train(res, args.seed)
+        peak[policy] = step_peak(res, args.seed)
+    for policy in (True, 'narrow', False):
+        log(f"train [config5 REMAT={policy}] step: median "
+            f"{ms[policy]:.3f} ms, peak {peak[policy]} bytes "
+            f"({peak[policy] / 2**30:.2f} GiB) in one step, batch "
+            f"{cfg5.BATCH_SIZE} {card}")
+    if not peak[True] < peak[False]:
+        raise RuntimeError("REMAT did not lower the peak memory: "
+                           f"{peak[True]} vs {peak[False]} bytes")
+    del res
+    torch.cuda.empty_cache()
+    # (c) config 5 served int8 under F16
+    served5 = serve_keypoints(dev, args.seed)
+    torch.cuda.empty_cache()
+    # (d) released_config('speed'): one bf16 forward
+    fwd = speed_forward(dev, args.seed)
+    log(f"released speed forward [bf16] batch {SPEED_BATCH} 960x960: heads "
+        f"{fwd['shapes']}, finite, {fwd['ms']:.1f} ms host wall (first call)"
+        f" {card}")
+    torch.cuda.empty_cache()
+    log(f"bf16 train phase: {time.perf_counter() - t5:.1f} s")
+
+    # 6. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
         serve_artifact(dev, f16)
 
-    # 6. serving path at full width and batch: F16 (bench.py's mode) and
+    # 7. serving path at full width and batch: F16 (bench.py's mode) and
     # the f32-epilogue mode, in the base and host_s2d variants
     int8_launches, calls, serve_ms, stem_call = {}, {}, {}, {}
     for f16 in (True, False):
@@ -1365,7 +1686,7 @@ def main(argv=None) -> int:
             f" ms vs f32 epilogues {serve_ms[variant, 'f32']:.3f} ms per batch "
             f"in this run {card}")
 
-    # 7. the kernel-probe entry points at their own shapes
+    # 8. the kernel-probe entry points at their own shapes
     fused_block.reset_counts()
     mma_rate.reset_counts()
     int8_cuda.calls = []
@@ -1385,7 +1706,7 @@ def main(argv=None) -> int:
     if min(probe_launches.values()) < 1:
         raise RuntimeError(f"a probe missed its kernel: {probe_launches}")
 
-    # 8. numbers per kernel
+    # 9. numbers per kernel
     b, c, h, w = FLAGSHIP_BATCH, 3, 512, 640
     imgs = torch.from_numpy(
         (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
@@ -1443,7 +1764,16 @@ def main(argv=None) -> int:
                 "source": f"ursonet_torch/csrc/{source}",
                 "replaces": replaces,
                 "launches": int8_launches[name, mode],
-                "max_abs_err": int8_err,
+                **({"launches_by_path": {
+                    "serve_base": int8_launches[name, mode],
+                    "serve_config5": served5['launches'][name]},
+                    "max_abs_err_by_path": {
+                    "checks": int8_err,
+                    "serve_config5": served5['max_abs_err']}}
+                   if mode == 'bf16' and name in served5['launches']
+                   else {}),
+                "max_abs_err": max(int8_err, served5['max_abs_err'])
+                if mode == 'bf16' else int8_err,
                 **{k: int8[mode][name][k] for k in keys},
                 "routes": dict(int8[mode][name]['routes'])})
         int8_rows.append({
@@ -1457,7 +1787,8 @@ def main(argv=None) -> int:
         "name": "warp_homography", "route": "cuda",
         "source": "ursonet_torch/csrc/warp.cu",
         "replaces": "ursonet_tpu/ops/warp_pallas.py:56",
-        "launches": launches['warp_homography'], "max_abs_err": warp_err,
+        "launches": sum(warp_by_path.values()),
+        "launches_by_path": warp_by_path, "max_abs_err": warp_err,
         **{k: on_path[k] for k in keys},
     }] + int8_rows + [{
         "name": "stem_s8_ragged", "route": "cuda", "kernel_route": "ragged",
@@ -1486,6 +1817,8 @@ def main(argv=None) -> int:
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
+        "the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

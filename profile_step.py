@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the flagship train step, or of int8 serving, goes
-on the card.
+"""Where the time of a train step, or of int8 serving, goes on the card.
 
-    python3 profile_step.py [--serve [--variant base host_s2d]
+    python3 profile_step.py [--config {3,5}] [--f16]
+                            [--serve [--variant base host_s2d]
                              [--f32-epilogues]] [--steps 3] [--seed 0]
                             [--trace PATH]
 
-Without --serve: builds benchmark_config(3) at full width (ResNet-50,
-512×640, batch 32) as chip_smoke.py does, runs 3 warm-up steps, then
-traces --steps train steps. With --serve: quantizes serving_config()
+Without --serve: builds benchmark_config(--config) at full width as
+chip_smoke.py does (3: the flagship recipe, ResNet-50, 512×640, batch
+32, f32 unless --f16; 5: ResNet-101, the 3-keypoint head, F16, REMAT,
+batch 16), runs 3 warm-up steps, then traces --steps train steps. With
+--serve: quantizes serving_config()
 (batch 128, F16: the bf16 epilogues, or the f32 ones with
 --f32-epilogues; seeded random weights, calibrate + smooth(0.5)) as
 chip_smoke.py does, serves 3 warm-up batches of device-resident uint8
@@ -194,6 +196,10 @@ def main(argv=None) -> int:
                     help='with --serve: the serving variants to profile')
     ap.add_argument('--f32-epilogues', action='store_true',
                     help='with --serve: the f32-epilogue mode, not F16')
+    ap.add_argument('--config', type=int, choices=(3, 5), default=3,
+                    help='the benchmark configuration to train')
+    ap.add_argument('--f16', action='store_true',
+                    help='train in bf16 (F16; config 5 always is)')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -209,12 +215,18 @@ def main(argv=None) -> int:
             profile_serving(variant, args, smi)
             torch.cuda.empty_cache()
         return 0
-    res = cs.run_main_path(cs.flagship_config(), 'cuda', args.seed, steps=3)
+    if args.config == 3:
+        cfg = cs.flagship_config(f16=args.f16)
+    else:
+        cfg = presets.benchmark_config(5)
+    res = cs.run_main_path(cfg, 'cuda', args.seed, steps=3)
     step, raw = res['step'], res['raw']
     gen = torch.Generator()
     prof, wall_ms = traced(
         lambda i: step(raw, gen.manual_seed(args.seed + 10 + i)), args.steps)
-    print(f"card: {smi}; {args.steps} traced train steps, host wall "
+    print(f"card: {smi}; config {args.config} "
+          f"{'bf16' if cfg.F16 else 'f32'}, batch {cfg.BATCH_SIZE}, REMAT "
+          f"{cfg.REMAT}: {args.steps} traced train steps, host wall "
           f"{wall_ms:.3f} ms")
     report(prof, args.steps, 'step', args.trace)
     return 0

@@ -188,10 +188,12 @@ def test_preprocess_without_augmentation_and_unported_modes():
     np.testing.assert_allclose(out['images'][:, :, 0, 0].numpy(),
                                np.tile(200 - tcfg.MEAN_PIXEL, (2, 1)),
                                rtol=1e-6)
-    for knob in ('SIM2REAL_AUG', 'REGRESS_KEYPOINTS'):
-        _, cfg = small_configs(**{knob: True})
-        with pytest.raises(NotImplementedError):
-            tloader.make_device_preprocess(cfg, device='cpu')
+    _, cfg = small_configs(SIM2REAL_AUG=True)
+    with pytest.raises(NotImplementedError):
+        tloader.make_device_preprocess(cfg, device='cpu')
+    # keypoint mode is ported (tests/test_torch_keypoints.py)
+    _, cfg = small_configs(REGRESS_KEYPOINTS=True)
+    assert tloader.make_device_preprocess(cfg, device='cpu').kp_scale == 3.0
 
 
 def test_ori_grid_and_pmf_match_jax_at_24_bins():

@@ -621,3 +621,84 @@ def test_mma_rate_rejects_what_it_does_not_take(cuda_device):
         mr.mma_rate(a, b, 1, 'bf16')                       # int8 operands
     with pytest.raises(ValueError):
         mr.mma_rate(a[:, :48].contiguous(), b[:48], 1, 's8')   # K % 32
+
+
+# --------------------------------------------------------------------------
+# bf16 training, REMAT and the keypoint head on the card
+
+# Each gradient within chip_smoke.REMAT_CARD_REL (exact: see there) of
+# its no-REMAT value, the bound chip_smoke.py holds config 5 to at full
+# width.
+REMAT_CARD_REL = chip_smoke.REMAT_CARD_REL
+
+
+@pytest.mark.parametrize('n', [3, 5])
+def test_f16_train_step_on_card_loss_falls(cuda_device, n):
+    """The F16 flagship recipe (3) and config 5 (ResNet-101, keypoints,
+    REMAT) at a small size: 3 steps on one batch, the loss falls, the
+    warp kernel runs, the parameters stay f32."""
+    cfg = chip_smoke.small_config(n)
+    cfg.F16 = True
+    cfg.update()
+    before = wc.launches['warp_homography']
+    res = chip_smoke.run_main_path(cfg, cuda_device, seed=0, steps=3)
+    chip_smoke.check_main_path(res)
+    assert wc.launches['warp_homography'] > before
+    assert all(p.dtype == torch.float32 and p.is_cuda
+               for p in res['model'].parameters())
+    if n == 5:
+        chip_smoke.decode_keypoint_validation(res, cfg, 0)
+
+
+@pytest.mark.parametrize('remat', [True, 'narrow', 'dots'])
+def test_remat_gradients_on_card_match_no_remat(cuda_device, remat):
+    from ursonet_torch.models.ursonet import build_model
+    cfg = chip_smoke.small_config(5)
+    model = build_model(cfg, cuda_device, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 3, 64, 64).astype(np.float32) * 50).to(cuda_device)
+
+    def grads(policy):
+        model.backbone.set_remat(policy)
+        out = model(x)
+        loss = sum((v ** 2).mean() for v in out.values())
+        return torch.autograd.grad(loss, list(model.parameters()))
+    plain, checked = grads(False), grads(remat)
+    for g0, g in zip(plain, checked):
+        assert g.dtype == torch.float32
+        assert float((g - g0).norm()) <= REMAT_CARD_REL * float(g0.norm())
+
+
+def test_keypoint_decode_on_card_matches_cpu(cuda_device):
+    from ursonet_torch import evaluate
+    rng = np.random.RandomState(3)
+    loc = np.stack([rng.uniform(-3, 3, 256), rng.uniform(-3, 3, 256),
+                    rng.uniform(5, 40, 256)], 1).astype(np.float32)
+    q = rng.randn(256, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    k1, k2 = chip_smoke.keypoints_of(q, loc, 3.0)
+    out = {'loc': loc, 'k1': k1 + rng.randn(256, 3).astype(np.float32),
+           'k2': k2 + rng.randn(256, 3).astype(np.float32)}
+    cfg = chip_smoke.small_config(5)
+    on_cpu = evaluate.decode_results(
+        {k: torch.from_numpy(v) for k, v in out.items()}, cfg)
+    on_card = evaluate.decode_results(
+        {k: torch.from_numpy(v).to(cuda_device) for k, v in out.items()}, cfg)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_detect_keypoints_on_card(cuda_device, int8):
+    from ursonet_torch.engine import ServingEngine
+    cfg = chip_smoke.small_config(5)
+    eng = ServingEngine(cfg, cuda_device,
+                        generator=torch.Generator().manual_seed(0))
+    imgs = list(np.random.RandomState(0).randint(
+        0, 256, (2, 64, 64, 3)).astype(np.uint8))
+    if int8:
+        eng.quantize(imgs)
+    for r in eng.detect(imgs):
+        assert set(r) == {'loc', 'k1', 'k2'}
+        assert all(np.isfinite(v).all() and v.shape == (3,)
+                   for v in r.values())

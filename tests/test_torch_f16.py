@@ -49,6 +49,7 @@ from ursonet_torch.engine import ServingEngine
 from ursonet_torch.models import quant as tq
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops import int8_cuda as ic
+from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.step import make_train_step
 from test_torch_model import jax_variables
 from torch_parity import rel_l2, small_configs
@@ -541,7 +542,9 @@ def test_bf16_float_block_rounds_where_jax_does():
 def test_engine_serves_the_bf16_float_forward_and_train_refuses_f16():
     """ServingEngine.predict_molded under F16 (no int8 model) runs the
     bf16 forward and returns f32; mold_image casts to float16 as the JAX
-    package's; the F16 train step is not ported and says so."""
+    package's. The F16 train step, which refused F16 until the bf16 step
+    was ported, now takes it (held against JAX in
+    tests/test_torch_bf16_train.py): one step keeps the parameters f32."""
     _, tcfg = small_configs(F16=True)
     eng = ServingEngine(tcfg, 'cpu', generator=torch.Generator().manual_seed(0))
     molded, _, _ = eng.mold_inputs(list(_images(4)))
@@ -553,5 +556,12 @@ def test_engine_serves_the_bf16_float_forward_and_train_refuses_f16():
     for k in ('loc', 'ori'):
         assert out[k].dtype == torch.float32 and torch.isfinite(out[k]).all()
         torch.testing.assert_close(out[k], ref[k], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match='F16'):
-        make_train_step(eng.model, tcfg, None, device='cpu')
+    step = make_train_step(eng.model, tcfg, make_optimizer(tcfg),
+                           device='cpu')
+    grid = torch.full((2, tcfg.ORI_BINS_PER_DIM ** 3),
+                      1.0 / tcfg.ORI_BINS_PER_DIM ** 3)
+    metrics = step({'images': torch.from_numpy(
+                        molded.astype(np.float32)).permute(0, 3, 1, 2),
+                    'gt_loc': torch.ones(2, 3), 'gt_ori': grid})
+    assert np.isfinite(float(metrics['loss']))
+    assert all(p.dtype == torch.float32 for p in eng.model.parameters())

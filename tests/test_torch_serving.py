@@ -198,8 +198,10 @@ def test_decode_results_refuses_what_it_cannot_decode():
     out = {'loc': torch.zeros(1, 64), 'ori': torch.zeros(1, 216)}
     with pytest.raises(ValueError):
         teval.decode_results(out, tcfg)
+    # keypoint heads decode (tests/test_torch_keypoints.py), from their
+    # keypoint outputs only
     _, tcfg = small_configs(REGRESS_KEYPOINTS=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):
         teval.decode_results(out, tcfg)
 
 

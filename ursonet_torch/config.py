@@ -4,8 +4,8 @@ Same knob names and derived-field semantics as the JAX package, so one
 configuration reads the same in both: attributes are set after
 construction and `update()` recomputes the derived fields
 (BATCH_SIZE, IMAGE_SHAPE, IMAGE_META_SIZE). Knobs that only steered the
-TPU build (mesh shape, Pallas switch, remat, host loader) are left out;
-a later slice adds the ones it needs. numpy only.
+TPU build (mesh shape, Pallas switch, host loader) are left out; a later
+slice adds the ones it needs. numpy only.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ class Config:
     IMAGES_PER_GPU = 2
 
     # --- model ----------------------------------------------------------------
-    BACKBONE = "resnet101"          # this port builds resnet50 so far
+    BACKBONE = "resnet101"          # resnet50 | resnet101
     BOTTLENECK_WIDTH = 128
     BRANCH_SIZE = 1024
     NR_DENSE_LAYERS = 1
@@ -63,6 +63,21 @@ class Config:
 
     # --- precision -----------------------------------------------------------------
     F16 = False
+
+    # Recompute residual blocks in the backward pass
+    # (torch.utils.checkpoint): trades FLOPs for activation memory.
+    #   False      no recompute
+    #   True/'all' the whole block is recomputed (nothing saved inside it)
+    #   'narrow'   the narrow f1/f2-wide part runs outside the recompute;
+    #              the backward re-runs the 1x1 expansion, its BN, the
+    #              shortcut and the join, never the 3x3 conv. It keeps four
+    #              f1-wide tensors a block: the 2a and 2b ReLU outputs (all
+    #              the JAX policy saves) and the 2a and 2b conv outputs,
+    #              which the BN affine gradients read
+    #   'dots'     the JAX package's checkpoint_dots policy, which for a
+    #              conv net degenerates to 'all'
+    # Gradients are identical across policies.
+    REMAT = False
 
     # --- int8 PTQ serving (models/quant.py) -------------------------------------------
     # INT8_U8_INPUT ships served batches as raw uint8 pixels and folds the

@@ -167,7 +167,8 @@ class ServingEngine:
         return np.stack(molded), np.stack(metas), np.stack(windows)
 
     def detect(self, images: Sequence[np.ndarray]) -> List[dict]:
-        """Per-image raw head outputs for a batch of BATCH_SIZE images."""
+        """Per-image raw head outputs for a batch of BATCH_SIZE images:
+        {'loc', 'ori'}, or {'loc', 'k1', 'k2'} for a keypoint model."""
         cfg = self.config
         if len(images) != cfg.BATCH_SIZE:
             raise ValueError(f'len(images) must equal BATCH_SIZE '
@@ -175,7 +176,5 @@ class ServingEngine:
         molded, _, _ = self.mold_inputs(images)
         outputs = {k: v.cpu().numpy()
                    for k, v in self.predict_molded(molded).items()}
-        if cfg.REGRESS_KEYPOINTS:
-            raise NotImplementedError('keypoint heads are not ported')
-        return [{'loc': outputs['loc'][i], 'ori': outputs['ori'][i]}
+        return [{k: v[i] for k, v in outputs.items()}
                 for i in range(len(images))]

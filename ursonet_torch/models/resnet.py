@@ -1,6 +1,6 @@
-"""ResNet-50 backbone on [N,C,H,W] tensors, the counterpart of
+"""ResNet-50/101 backbones on [N,C,H,W] tensors, the counterpart of
 `ursonet_tpu/models/resnet.py` (`FrozenAwareBN`, `BottleneckBlock`,
-`ResNetBackbone`).
+`_remat_wrap`, `ResNetBackbone`).
 
 Module names are the reference's Keras layer names ('conv1', 'bn_conv1',
 'res3a' > 'res3a_branch2a', 'bn3a_branch2a', ...), so a JAX parameter
@@ -24,6 +24,12 @@ Semantics kept from the JAX package:
     them (`Conv2d`, `Linear`: the product rounded to bf16, then the bf16
     bias added and rounded); batch norm normalizes in f32 with its f32
     statistics and returns bf16 (`FrozenBN`, as flax's `_normalize`).
+    Under autograd the casts are differentiable, so the gradients of
+    the f32 parameters come back in f32.
+  * REMAT: each residual block is one checkpoint
+    (`torch.utils.checkpoint`, non-reentrant) under the JAX package's
+    policies (`_remat_wrap`); outside autograd (eval, no_grad) blocks run
+    plainly.
 """
 
 from __future__ import annotations
@@ -32,9 +38,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # Keras BatchNormalization default
 BN_EPS = 1e-3
+
+# stage-4 identity blocks after res4a (`ursonet_tpu/models/resnet.py:311`)
+STAGE4_BLOCKS = {'resnet50': 5, 'resnet101': 22}
+
+
+def check_remat(remat):
+    """The REMAT policy (false: none), or ValueError for an unknown one."""
+    if remat and remat not in (True, 'all', 'narrow', 'dots'):
+        raise ValueError(f'unknown REMAT policy {remat!r}')
+    return remat
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -142,12 +159,23 @@ class FrozenBN(nn.Module):
 
 class BottleneckBlock(nn.Module):
     """Bottleneck residual block: identity block, or conv block when
-    `conv_shortcut` (a 1×1/s conv + BN on the shortcut)."""
+    `conv_shortcut` (a 1×1/s conv + BN on the shortcut).
+
+    `remat` (config.REMAT) makes the block a checkpoint under autograd:
+    True, 'all' and 'dots' recompute all of it in the backward pass;
+    'narrow' runs the narrow part (2a, 2b and their BN and ReLU) outside
+    the checkpoint and recomputes only the rest: the 1×1 expansion, its
+    BN, the shortcut and the join. The 3×3 conv is never recomputed under
+    'narrow'. Autograd then keeps four f1-wide tensors of the narrow part:
+    the two ReLU outputs (the JAX policy's `res_narrow1`/`res_narrow2`)
+    and the 2a and 2b conv outputs, which the BN affine gradients read.
+    The JAX policy saves only the two ReLU outputs."""
 
     def __init__(self, in_ch: int, filters, stage: int, block: str,
                  strides: int = 1, conv_shortcut: bool = False,
-                 train_bn=False):
+                 train_bn=False, remat=False):
         super().__init__()
+        self.remat = check_remat(remat)
         f1, f2, f3 = filters
         self.cname = f"res{stage}{block}_branch"
         self.bname = f"bn{stage}{block}_branch"
@@ -163,26 +191,43 @@ class BottleneckBlock(nn.Module):
             self.add_module(c + '1', Conv2d(in_ch, f3, 1, strides))
             self.add_module(b + '1', FrozenBN(f3, train_bn))
 
-    def forward(self, x):
+    def _narrow(self, x):
         m = self._modules
         c, b = self.cname, self.bname
         y = F.relu(m[b + '2a'](m[c + '2a'](x)), inplace=True)
-        y = F.relu(m[b + '2b'](m[c + '2b'](y)), inplace=True)
+        return F.relu(m[b + '2b'](m[c + '2b'](y)), inplace=True)
+
+    def _expand(self, y, x):
+        m = self._modules
+        c, b = self.cname, self.bname
         y = m[b + '2c'](m[c + '2c'](y))
         sc = m[b + '1'](m[c + '1'](x)) if self.conv_shortcut else x
         return F.relu(y + sc, inplace=True)
 
+    def _block(self, x):
+        return self._expand(self._narrow(x), x)
+
+    def forward(self, x):
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._block(x)
+        if self.remat == 'narrow':
+            return checkpoint(self._expand, self._narrow(x), x,
+                              use_reentrant=False)
+        return checkpoint(self._block, x, use_reentrant=False)
+
 
 class ResNetBackbone(nn.Module):
-    """ResNet-50 feature extractor; returns C5 [N,2048,H/32,W/32]."""
+    """ResNet-50/101 feature extractor; returns C5 [N,2048,H/32,W/32].
+    ResNet-101 differs only in stage 4: res4a, then 22 identity blocks
+    res4b ... res4w."""
 
     def __init__(self, architecture: str = 'resnet50', train_bn=False,
-                 stem_s2d: bool = False):
+                 stem_s2d: bool = False, remat=False):
         super().__init__()
-        if architecture != 'resnet50':
+        if architecture not in STAGE4_BLOCKS:
             raise NotImplementedError(
-                f"backbone {architecture!r}: this port has resnet50; "
-                "resnet18/34/101 come in a later slice")
+                f"backbone {architecture!r}: this port has resnet50 and "
+                "resnet101; resnet18/34 come in a later slice")
         self.stem_s2d = stem_s2d
         self.conv1 = Conv2d(12, 64, 4, 1) if stem_s2d \
             else Conv2d(3, 64, 7, 2, padding=3)
@@ -195,7 +240,7 @@ class ResNetBackbone(nn.Module):
             name = f'res{stage}{block}'
             self.add_module(name, BottleneckBlock(
                 in_ch, filters, stage, block, strides, conv_shortcut,
-                train_bn))
+                train_bn, remat))
             self.blocks.append(name)
             in_ch = filters[2]
 
@@ -206,8 +251,8 @@ class ResNetBackbone(nn.Module):
         for b in 'bcd':
             blk((128, 128, 512), 3, b)
         blk((256, 256, 1024), 4, 'a', 2, True)
-        for b in 'bcdef':
-            blk((256, 256, 1024), 4, b)
+        for i in range(STAGE4_BLOCKS[architecture]):
+            blk((256, 256, 1024), 4, chr(98 + i))
         blk((512, 512, 2048), 5, 'a', 2, True)
         blk((512, 512, 2048), 5, 'b')
         blk((512, 512, 2048), 5, 'c')
@@ -220,3 +265,9 @@ class ResNetBackbone(nn.Module):
         for name in self.blocks:
             y = self._modules[name](y)
         return y
+
+    def set_remat(self, remat) -> None:
+        """Switch every residual block to the REMAT policy `remat`."""
+        check_remat(remat)
+        for name in self.blocks:
+            self._modules[name].remat = remat

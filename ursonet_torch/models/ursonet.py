@@ -2,13 +2,16 @@
 `ursonet_tpu/models/ursonet.py` (`UrsoNetModule`, `build_model`):
 backbone C5 → stride-2 3×3 bottleneck conv ('bottleneck_layer', Flax
 'SAME' padding) → NHWC row-major flatten → location and orientation
-heads. Returns a dict of raw head outputs, in f32.
+heads, or in keypoint mode (REGRESS_KEYPOINTS) the keypoint head alone,
+under the module name 'loc_head'. Returns a dict of raw head outputs, in
+f32: {'loc', 'ori'}, or {'loc': k1, 'k1': k2, 'k2': k3} in keypoint mode
+(the JAX package's names, shifted by one on purpose).
 
 Under F16 (`dtype` bfloat16) the forward computes in bf16 with f32
 parameters, as the JAX package's `UrsoNetModule(dtype=bfloat16)`: the
 images are cast to bf16 first, every conv and dense runs in bf16 (batch
 norm in f32 on its statistics, `models/resnet.py`), and the head outputs
-are widened to f32. The train step does not take it yet.
+are widened to f32, under autograd too (the bf16 train step).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from torch import nn
 
 from ursonet_torch.device import resolve_device
-from ursonet_torch.models.heads import PoseHead
+from ursonet_torch.models.heads import KeypointHead, PoseHead
 from ursonet_torch.models.resnet import Conv2d, FrozenBN, ResNetBackbone, \
     pad_same
 
@@ -33,7 +36,8 @@ def _c6_hw(h: int, w: int) -> tuple[int, int]:
 
 
 class UrsoNetModule(nn.Module):
-    """images [N,3,H,W] f32 -> {'loc', 'ori'} f32, computed in `dtype`."""
+    """images [N,3,H,W] f32 -> {'loc', 'ori'} (or {'loc', 'k1', 'k2'})
+    f32, computed in `dtype`."""
 
     def __init__(self, image_hw, backbone: str = 'resnet50',
                  bottleneck_width: int = 128, branch_size: int = 1024,
@@ -41,13 +45,19 @@ class UrsoNetModule(nn.Module):
                  regress_ori: bool = True,
                  orientation_param: str = 'quaternion', loc_bins: int = 16,
                  ori_bins: int = 32, train_bn=False, stem_s2d: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 regress_keypoints: bool = False, remat=False):
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNetBackbone(backbone, train_bn, stem_s2d)
+        self.regress_keypoints = regress_keypoints
+        self.backbone = ResNetBackbone(backbone, train_bn, stem_s2d, remat)
         self.bottleneck_layer = Conv2d(2048, bottleneck_width, 3, 2)
         h6, w6 = _c6_hw(*image_hw)
         feats = bottleneck_width * h6 * w6
+        if regress_keypoints:
+            self.loc_head = KeypointHead(feats, nr_dense_layers, branch_size,
+                                         train_bn)
+            return
         if regress_loc:
             loc_feats, loc_act = 3, 'linear'
         else:
@@ -70,6 +80,10 @@ class UrsoNetModule(nn.Module):
         # NHWC row-major flatten, as the Keras Reshape the dense kernels
         # were laid out for
         feats = c6.permute(0, 2, 3, 1).reshape(c6.shape[0], -1)
+        if self.regress_keypoints:
+            k1, k2, k3 = self.loc_head(feats)
+            return {'loc': k1.to(torch.float32), 'k1': k2.to(torch.float32),
+                    'k2': k3.to(torch.float32)}
         return {'loc': self.loc_head(feats).to(torch.float32),
                 'ori': self.ori_head(feats).to(torch.float32)}
 
@@ -100,7 +114,8 @@ def build_model(config, device="cuda",
                 generator: Optional[torch.Generator] = None) -> UrsoNetModule:
     """Build the model for `config` on `device`, with weights drawn from
     `generator` (default: a CPU generator seeded with config.SEED),
-    computing in bf16 under config.F16. Validates the %64 image-shape
+    computing in bf16 under config.F16, its residual blocks recomputed in
+    the backward pass under config.REMAT. Validates the %64 image-shape
     contract."""
     dev = resolve_device(device)
     h, w = int(config.IMAGE_SHAPE[0]), int(config.IMAGE_SHAPE[1])
@@ -108,9 +123,6 @@ def build_model(config, device="cuda",
         raise ValueError(
             "Image size must be dividable by 2 at least 6 times; got "
             f"{h}x{w}. Use 256, 320, 384, 448, 512, ...")
-    if config.REGRESS_KEYPOINTS:
-        raise NotImplementedError(
-            "REGRESS_KEYPOINTS: the keypoint head is ported in a later slice")
     with torch.device('meta'):
         model = UrsoNetModule(
             (h, w), backbone=config.BACKBONE,
@@ -122,7 +134,9 @@ def build_model(config, device="cuda",
             loc_bins=config.LOC_BINS_PER_DIM, ori_bins=config.ORI_BINS_PER_DIM,
             train_bn=config.TRAIN_BN,
             stem_s2d=bool(getattr(config, 'STEM_SPACE_TO_DEPTH', False)),
-            dtype=torch.bfloat16 if config.F16 else torch.float32)
+            dtype=torch.bfloat16 if config.F16 else torch.float32,
+            regress_keypoints=config.REGRESS_KEYPOINTS,
+            remat=config.REMAT)
     model.to_empty(device='cpu')
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.SEED))

@@ -3,9 +3,12 @@
 
 `benchmark_config(n)` returns a fresh `Config` with `update()` applied
 for the five benchmark configurations of BASELINE.md. The port trains
-configuration 3; the others build but reach code paths a later slice
-ports (sim2real, CLR, keypoints, bf16 training). `serving_config(batch)`
-is the flagship int8 serving configuration that `bench.py` times (F16).
+configurations 3 (also under F16) and 5 (ResNet-101, F16, keypoints,
+REMAT); 1, 2 and 4 build but reach code paths a later slice ports (the
+image resampler, ResNet-18, sim2real and CLR). `released_config(name)`
+matches the released reference weights (their h5 files are not in the
+repo). `serving_config(batch)` is the flagship int8 serving
+configuration that `bench.py` times (F16).
 """
 
 from __future__ import annotations
@@ -86,9 +89,35 @@ def benchmark_config(n: int) -> Config:
         cfg.REGRESS_KEYPOINTS = True
         cfg.F16 = True
         cfg.IMAGES_PER_GPU = 16
+        cfg.REMAT = True
         cfg.IMAGE_RESIZE_MODE = 'pad64'
         return _apply(cfg, 0.5, _URSO_WH)
     raise ValueError(f"unknown benchmark config {n} (1-5)")
+
+
+def released_config(name: str) -> Config:
+    """The configurations of the released reference weights
+    ('soyuz_hard', 'dragon_hard', 'speed'): square resize, batch 1."""
+    cfg = Config()
+    cfg.NAME = name
+    cfg.IMAGE_RESIZE_MODE = 'square'
+    cfg.IMAGES_PER_GPU = 1
+    if name in ('soyuz_hard', 'dragon_hard'):
+        cfg.BACKBONE = 'resnet50'
+        cfg.BOTTLENECK_WIDTH = 128
+        cfg.REGRESS_LOC = True
+        cfg.REGRESS_ORI = False
+        cfg.ORI_BINS_PER_DIM = 24
+        return _apply(cfg, 0.5, _URSO_WH)
+    if name == 'speed':
+        cfg.BACKBONE = 'resnet101'
+        cfg.BOTTLENECK_WIDTH = 528
+        cfg.REGRESS_LOC = True
+        cfg.REGRESS_ORI = False
+        cfg.ORI_BINS_PER_DIM = 32
+        cfg.F16 = True
+        return _apply(cfg, 0.5, _SPEED_WH)
+    raise ValueError(f"unknown released model {name}")
 
 
 SERVING_VARIANTS = ('base', 's2d', 'host_s2d')

@@ -1,6 +1,7 @@
 """Batched, branchless tensor versions of the SE(3) math: the counterpart
 of `ursonet_tpu/se3jax.py` for the subset the training step and the
-pose decode need.
+pose decode need, and the batched rotation of `ursonet_tpu/se3.py`'s
+`pose_3Dto3D` (`kabsch_rotation`).
 
 Same conventions as `ursonet_torch.se3`. Every function takes tensors with
 arbitrary leading batch dimensions; the Shepperd case selection runs as
@@ -153,3 +154,17 @@ def quat_weighted_avg_power(Q, W, iters: int = 30):
         v = torch.einsum('...ij,...j->...i', A, v)
         v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return v
+
+
+def kabsch_rotation(P1, P2):
+    """The rotation of the JAX package's `se3.pose_3Dto3D(P1, P2)` (its
+    centroid branch, the one the keypoint decode takes) for a batch: P1 (3, N) or (..., 3, N), P2 (..., 3, N) of corresponding
+    points as columns -> R (..., 3, 3), with the reflection fix
+    diag(1, 1, det(U)·det(V))."""
+    C1 = P1.mean(dim=-1, keepdim=True)
+    C2 = P2.mean(dim=-1, keepdim=True)
+    H = (P1 - C1) @ (P2 - C2).transpose(-1, -2)
+    U, _, Vh = torch.linalg.svd(H)
+    d = torch.linalg.det(U) * torch.linalg.det(Vh)
+    U = torch.cat([U[..., :2], U[..., 2:] * d[..., None, None]], dim=-1)
+    return U @ Vh

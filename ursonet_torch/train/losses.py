@@ -6,10 +6,13 @@ with the reference's quirks kept:
   * one_minus_dot_loss: 1 − |⟨q, q̂⟩| for quaternion regression.
   * rel_loss: ‖Y−Ŷ‖_F / ‖Y‖_F over the whole [B,3] batch tensor, not per
     row.
+  * keypoint mode: mean squared error of the three keypoints, named
+    'loc_loss', 'k2_loss' and 'k3_loss' (against gt_loc, gt_k1, gt_k2).
   * l2_regularization: WEIGHT_DECAY · mean(w²) per tensor, summed over
     the trainable parameters that are not batch norm.
 
-All losses compute in float32.
+All losses compute in float32 (under F16 on the head outputs the model
+has widened to f32, as the JAX step takes them).
 """
 
 from __future__ import annotations
@@ -65,21 +68,24 @@ def l2_regularization(model, weight_decay: float, trainable=None):
 
 def compute_losses(outputs, batch, config):
     """Weighted total and the unweighted named parts for one batch."""
-    if config.REGRESS_KEYPOINTS:
-        raise NotImplementedError(
-            "REGRESS_KEYPOINTS: keypoint losses are ported in a later slice")
     if config.LEARNABLE_LOSS_WEIGHTS:
         raise NotImplementedError(
             "LEARNABLE_LOSS_WEIGHTS is ported in a later slice")
     parts = {}
-    if config.REGRESS_LOC:
-        parts['loc_loss'] = rel_loss(batch['gt_loc'], outputs['loc'])
+    if config.REGRESS_KEYPOINTS:
+        parts['loc_loss'] = mse_loss(batch['gt_loc'], outputs['loc'])
+        parts['k2_loss'] = mse_loss(batch['gt_k1'], outputs['k1'])
+        parts['k3_loss'] = mse_loss(batch['gt_k2'], outputs['k2'])
     else:
-        parts['loc_loss'] = softmax_loss(batch['gt_loc'], outputs['loc'])
-    if config.REGRESS_ORI:
-        parts['ori_loss'] = one_minus_dot_loss(batch['gt_ori'], outputs['ori'])
-    else:
-        parts['ori_loss'] = softmax_loss(batch['gt_ori'], outputs['ori'])
+        if config.REGRESS_LOC:
+            parts['loc_loss'] = rel_loss(batch['gt_loc'], outputs['loc'])
+        else:
+            parts['loc_loss'] = softmax_loss(batch['gt_loc'], outputs['loc'])
+        if config.REGRESS_ORI:
+            parts['ori_loss'] = one_minus_dot_loss(batch['gt_ori'],
+                                                   outputs['ori'])
+        else:
+            parts['ori_loss'] = softmax_loss(batch['gt_ori'], outputs['ori'])
     total = sum(value * config.LOSS_WEIGHTS.get(name, 1.0)
                 for name, value in parts.items())
     return total, parts

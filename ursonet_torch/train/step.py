@@ -6,8 +6,15 @@ One call of the train step runs, in order: the on-device preprocess
 mold), the forward pass, the losses and the L2 term, the backward pass
 over the trainable parameters, the global-norm clip and the Keras SGD
 update. It updates the model's parameters in place and returns the
-metrics dict {'loc_loss', 'ori_loss', 'loss', 'l2_reg'} as 0-d tensors
-on the device (reading them synchronises with the card).
+metrics dict (the loss parts of `losses.compute_losses`, 'loss' and
+'l2_reg') as 0-d tensors on the device (reading them synchronises with
+the card).
+
+Under F16 the forward and its backward compute in bf16 (the model's
+casts, `models/resnet.py`), while the parameters, their gradients, the
+losses, the L2 term, the clip and the update stay f32, as in the JAX
+step. There is no loss scaling: the JAX step has none, and bf16 keeps
+f32's exponent range.
 """
 
 from __future__ import annotations
@@ -46,10 +53,6 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
     if config.TRAIN_BN is not False:
         raise NotImplementedError("TRAIN_BN other than False is ported in "
                                   "a later slice")
-    if config.F16:
-        raise NotImplementedError("F16: the bf16 train step (bf16 batches "
-                                  "and the warp under them) is ported in a "
-                                  "later slice")
     if trainable is None:
         trainable = {n: True for n, _ in model.named_parameters()}
     params = []
