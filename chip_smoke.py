@@ -5,7 +5,10 @@
 
 Phases, in order; any failure exits non-zero:
   1. device   the card's name, power limit and the software versions;
-              no CUDA device -> exit 1 at once.
+              no CUDA device -> exit 1 at once. One line each for the
+              facts later slices need: whether h5py and torchvision
+              import, and whether native/host_loader.cpp compiles and
+              links against libjpeg and libpng (into a temporary dir).
   2. build    nvcc builds every kernel of the port from the checkout, one
               nvcc per source, all at once; ptxas's registers and spills
               and, per kernel, its count of wgmma (IGMMA, HGMMA), TMA
@@ -45,14 +48,36 @@ Phases, in order; any failure exits non-zero:
               detect() returning k1/k2; (d) released_config('speed')
               (ResNet-101, 960×960, 32³ bins): one bf16 forward at
               batch 4, finite heads.
-  6. artifact the committed flagship int8 artifact served on its golden
+  6. engine   UrsoNet as a user trains it, benchmark_config(3) at full
+              width, batch 32, rotation augmentation, in a temporary
+              model dir: (a) make_urso_dataset writes 96 train, 32 val and
+              32 test PNG frames at the URSO camera's 1280x960 (seconds,
+              decode time per PNG row filter, resize time a frame);
+              (b) UrsoNet.train, 2 epochs of 4 steps + 1 validation step,
+              device-resident: losses finite, metrics.jsonl, 2 snapshots
+              and state_latest.msgpack; (c) a fresh engine's resume_state
+              gives params, batch_stats and velocity bit for bit, the
+              step and epoch, and trains a third epoch; (d) a fourth
+              epoch of 12 steps streamed from disk by data_generator +
+              Prefetcher, the host loader's images/s alone, the epochs'
+              imgs/s side by side;
+              the warp launched over (b)-(d); (e) quantize on 8
+              training frames, detect on the 32 test frames at 1280x960
+              (resampled on the host), gemm_s8 and conv_s8 on their TMA
+              routes, each distinct call and the served batch equal to
+              the plain version bit for bit, the ESA against the
+              frames' own labels (finite, not gated: 24 steps of
+              training); (f) save_quantized ->
+              load_quantized serves the same bits; (g) check_train_memory's
+              estimate beside the measured peak.
+  7. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
               twin, both int8 kernels launched; drift against the TPU
               goldens and decoded poses printed; its stem rewritten to
               space-to-depth form in memory and served through stem_s8
               gives the same bits.
-  7. serve    int8 serving of serving_config() at full width and batch
+  8. serve    int8 serving of serving_config() at full width and batch
               (128 × 512×640, seeded random weights; calibrate on 8
               images, smooth(0.5), bias_correct(passes=1), as bench.py)
               through ServingEngine.predict_molded, in the `base` and the
@@ -64,11 +89,11 @@ Phases, in order; any failure exits non-zero:
               `host_s2d` bit for bit under F16; every GEMM, every 3x3
               conv and the fused stem of the served model must have
               taken the TMA + wgmma route.
-  8. probes   the four kernel-probe entry points at their own shapes
+  9. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
               and stem probes run each kernel on both routes.
-  9. numbers  train step and serving time per variant and mode, memory,
+ 10. numbers  train step and serving time per variant and mode, memory,
               the bf16 float forward at batch 128 (bench.py's
               BENCH_QUANT=0), and each kernel's time in both modes at the
               main paths' shapes beside its plain version,
@@ -85,12 +110,14 @@ The second-to-last line is the kernels JSON, the last line
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -99,20 +126,24 @@ import torch
 import torch.nn.functional as F
 
 from ursonet_torch import evaluate, presets, se3, se3t
+from ursonet_torch.checkpoint.quant_store import save_quantized
 from ursonet_torch.config import Config
+from ursonet_torch.data import loader, png
 from ursonet_torch.data.loader import keypoint_scale, make_device_preprocess
-from ursonet_torch.data.urso import Camera
-from ursonet_torch.engine import ServingEngine
+from ursonet_torch.data.synthetic import make_urso_dataset
+from ursonet_torch.data.urso import Camera, Urso
+from ursonet_torch.engine import ServingEngine, UrsoNet
 from ursonet_torch.models import quant
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops import augment, cuda_build, int8_cuda, warp_cuda
-from ursonet_torch.ops.image import resize_geometry
+from ursonet_torch.ops.image import resize_geometry, resize_image
 from ursonet_torch.probes import fused_block, int4_mma, int8_mma, mma_rate
 from ursonet_torch.probes import stem as stem_probe
 from ursonet_torch.probes.timing import sm_clock_mhz
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import make_eval_step, make_train_step
+from ursonet_torch.utils.memory import check_train_memory
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the
 # tensor cores, dense int8 tensor-core rate.
@@ -144,14 +175,45 @@ EARLIER_KERNEL_MS = {'gemm_s8': 55.416, 'gemm_s8_q8_relu': 8.215,
                      'conv_s8': 24.875}
 EARLIER_CARD = "[NVIDIA H100 80GB HBM3, 700.00 W]"
 
-DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
-                    'data')
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(ROOT, 'tests', 'data')
 ARTIFACT = os.path.join(DATA, 'gate_int8.msgpack')
 GOLDEN = os.path.join(DATA, 'gate_golden.npz')
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def machine_facts() -> dict:
+    """What the later slices depend on and the port does not need yet:
+    whether h5py and torchvision import, and whether the JAX package's
+    native host loader (`native/host_loader.cpp`) compiles and links
+    against libjpeg, libpng and zlib. The library goes to a temporary
+    directory, never into native/."""
+    facts = {}
+    for mod in ('h5py', 'torchvision'):
+        try:
+            importlib.import_module(mod)
+            facts[mod] = 'imports'
+        except ImportError as e:
+            facts[mod] = f'does not import ({e})'
+    src = os.path.join(ROOT, 'native', 'host_loader.cpp')
+    with tempfile.TemporaryDirectory() as d:
+        cmd = ['g++', '-O3', '-shared', '-fPIC', '-std=c++17', src, '-o',
+               os.path.join(d, 'libursonet_host.so'), '-ljpeg', '-lpng',
+               '-lz', '-lpthread']
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=300)
+            lines = r.stderr.strip().splitlines()
+            err = next((ln for ln in lines if 'error' in ln),
+                       lines[-1] if lines else '')
+            facts['native_loader'] = ('compiles and links' if r.returncode
+                                      == 0 else f'fails: {err}')
+        except FileNotFoundError:
+            facts['native_loader'] = 'fails: no g++'
+    return facts
 
 
 # Instructions counted per kernel in a build's SASS: what a design
@@ -1494,6 +1556,271 @@ def time_train(res, seed) -> float:
 
 
 # --------------------------------------------------------------------------
+# phase 6: the engine
+
+# Frames of the engine phase at the URSO camera's 1280×960, and its
+# schedule: ENGINE_STEPS train steps + 1 validation step an epoch.
+ENGINE_FRAMES = {'train': 96, 'val': 32, 'test': 32}
+ENGINE_WH = (1280, 960)
+ENGINE_STEPS = 4
+ENGINE_CALIB = 8     # training frames the int8 model is calibrated on
+ENGINE_LOADER_BATCHES = 3    # batches the host loader is timed over alone
+# Steps of the streamed epoch: more than the prefetch queue holds (8),
+# so that the epoch runs at the loader's pace and not from a queue that
+# filled while the last epoch's checkpoints were written.
+ENGINE_STREAM_STEPS = 12
+
+
+def engine_config(cfg) -> Config:
+    cfg.STEPS_PER_EPOCH = ENGINE_STEPS
+    cfg.VALIDATION_STEPS = 1
+    cfg.update()
+    return cfg
+
+
+def _records(run_dir) -> list:
+    with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_epochs(tag, records, epochs) -> None:
+    if [r['epoch'] for r in records] != list(epochs):
+        raise RuntimeError(f"engine {tag}: metrics.jsonl epochs "
+                           f"{[r['epoch'] for r in records]}")
+    for r in records:
+        bad = {k: v for k, v in r.items() if not np.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"engine {tag}: non-finite metrics {bad}")
+
+
+def _same_tensors(tag, a: dict, b: dict) -> None:
+    if a.keys() != b.keys():
+        raise RuntimeError(f"engine {tag}: different names")
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    if diff:
+        raise RuntimeError(f"engine {tag}: {len(diff)} tensors differ, "
+                           f"first {diff[0]}")
+
+
+def png_filter_times(frame) -> dict:
+    """Decode time of `frame` written with each PNG row filter (ms), each
+    decode checked against the frame."""
+    out = {}
+    for ft in range(5):
+        data = png.encode_png(frame, ft)
+        t0 = time.perf_counter()
+        back = png.decode_png(data)
+        out[ft] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(back, frame):
+            raise RuntimeError(f"PNG filter {ft} did not round-trip")
+    return out
+
+
+def run_engine(cfg, device, root, seed: int = 0, frames=None, wh=ENGINE_WH,
+               card: str = '') -> dict:
+    """The engine phase: `make_urso_dataset` frames on disk, then
+    UrsoNet.train as a user calls it: (b) 2 epochs device-resident,
+    (c) a fresh engine resumes the run bit for bit and trains a third,
+    (d) a fourth epoch, of ENGINE_STREAM_STEPS steps, streamed from disk
+    (data_generator + Prefetcher), (e) quantize on training frames and detect the test
+    frames, the served batch and each distinct int8 call held against
+    the plain version, decoded and ESA-scored against their own labels,
+    (f) the int8 artifact
+    saved and served again, (g) the memory estimate. Fails on any
+    check; returns the numbers."""
+    frames = frames or ENGINE_FRAMES
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    # (a) data
+    d = os.path.join(root, 'urso')
+    t0 = time.perf_counter()
+    make_urso_dataset(d, subsets=tuple(frames), n_per_subset=frames,
+                      width=wh[0], height=wh[1], seed=seed)
+    out['data_s'] = time.perf_counter() - t0
+    ds = {}
+    for subset in frames:
+        ds[subset] = Urso()
+        ds[subset].load_dataset(d, cfg, subset)
+    n_frames = sum(frames.values())
+    log(f"engine (a) make_urso_dataset: {n_frames} frames "
+        f"({', '.join(f'{k} {v}' for k, v in frames.items())}) at "
+        f"{wh[0]}x{wh[1]} in {out['data_s']:.1f} s "
+        f"({out['data_s'] / n_frames * 1e3:.1f} ms a frame, host)")
+    frame = ds['train'].load_image(0)
+    t = png_filter_times(frame)
+    log(f"engine (a) PNG decode of one {wh[0]}x{wh[1]} frame by row filter "
+        f"(host ms): " + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        resize_image(frame, min_dim=cfg.IMAGE_MIN_DIM,
+                     min_scale=cfg.IMAGE_MIN_SCALE, max_dim=cfg.IMAGE_MAX_DIM,
+                     mode=cfg.IMAGE_RESIZE_MODE)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out['resize_ms'] = statistics.median(times)
+    log(f"engine (a) resize_image {wh[0]}x{wh[1]} -> "
+        f"{cfg.IMAGE_SHAPE[1]}x{cfg.IMAGE_SHAPE[0]}: median "
+        f"{out['resize_ms']:.2f} ms a frame over 5 (host, "
+        f"{torch.get_num_threads()} threads)")
+
+    # (b) train, device-resident
+    model_dir = os.path.join(root, 'logs')
+    if not loader.use_resident(ds['train'], cfg):
+        raise RuntimeError("engine: the training frames should be resident "
+                           f"(DATA_ON_DEVICE={cfg.DATA_ON_DEVICE!r})")
+    eng = UrsoNet('training', cfg, model_dir, device=dev)
+    eng.initialize(seed)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    warp_cuda.reset_counts()
+    lines = []
+    eng.train(ds['train'], ds['val'], cfg.LEARNING_RATE, 2,
+              log_fn=lines.append)
+    sync()
+    out['peak'] = torch.cuda.max_memory_allocated() if cuda else 0
+    for line in lines:
+        log(f"engine (b) {line}")
+    records = _records(eng.log_dir)
+    _check_epochs('(b)', records, range(2))
+    snaps = sorted(f for f in os.listdir(eng.log_dir)
+                   if f.startswith('weights_'))
+    if len(snaps) != 2 or not os.path.exists(
+            os.path.join(eng.log_dir, 'state_latest.msgpack')):
+        raise RuntimeError(f"engine (b): run dir holds {snaps}")
+    out['resident_imgs_per_s'] = [r['imgs_per_s'] for r in records]
+
+    # (c) resume
+    eng2 = UrsoNet('training', cfg, model_dir, device=dev)
+    if not eng2.resume_state(eng.log_dir):
+        raise RuntimeError("engine (c): no state_latest to resume")
+    _same_tensors('(c) params and batch_stats', eng2.model.state_dict(),
+                  eng.model.state_dict())
+    _same_tensors('(c) velocity', eng2.velocity, eng.velocity)
+    if (eng2.step, eng2.epoch) != (eng.step, eng.epoch):
+        raise RuntimeError(f"engine (c): step/epoch {eng2.step}/{eng2.epoch}"
+                           f" vs {eng.step}/{eng.epoch}")
+    log(f"engine (c) resumed {eng.log_dir}: params, batch_stats and velocity "
+        f"bit for bit, step {eng2.step}, epoch {eng2.epoch}")
+    del eng
+    lines = []
+    eng2.train(ds['train'], ds['val'], cfg.LEARNING_RATE, 3,
+               log_fn=lines.append)
+    for line in lines:
+        log(f"engine (c) {line}")
+
+    # (d) streaming from disk
+    gen = loader.data_generator(ds['train'], cfg, shuffle=True,
+                                batch_size=cfg.BATCH_SIZE, seed=seed)
+    next(gen)
+    t0 = time.perf_counter()
+    for _ in range(ENGINE_LOADER_BATCHES):
+        next(gen)
+    out['loader_imgs_per_s'] = ENGINE_LOADER_BATCHES * cfg.BATCH_SIZE / (
+        time.perf_counter() - t0)
+    cfg.DATA_ON_DEVICE = False
+    cfg.STEPS_PER_EPOCH = ENGINE_STREAM_STEPS
+    lines = []
+    try:
+        eng2.train(ds['train'], ds['val'], cfg.LEARNING_RATE, 4,
+                   log_fn=lines.append)
+    finally:
+        cfg.DATA_ON_DEVICE = 'auto'
+        cfg.STEPS_PER_EPOCH = ENGINE_STEPS
+    sync()
+    out['warp_launches'] = warp_cuda.launches['warp_homography']
+    for line in lines:
+        log(f"engine (d) {line}")
+    records = _records(eng2.log_dir)
+    _check_epochs('(d)', records, range(4))
+    out['streaming_imgs_per_s'] = records[3]['imgs_per_s']
+    log(f"engine (d) host loader alone (decode PNG + resize, one thread, "
+        f"{ENGINE_LOADER_BATCHES} batches): {out['loader_imgs_per_s']:.2f} "
+        f"images/s; epoch streamed ({ENGINE_STREAM_STEPS} steps, from "
+        f"empty prefetch queues) {out['streaming_imgs_per_s']} imgs/s vs "
+        f"resident {out['resident_imgs_per_s']} imgs/s (epochs 0-1, "
+        f"{ENGINE_STEPS} steps, the first with warm-up) {card}")
+    log(f"engine (b)-(d) warp launches: {out['warp_launches']}")
+    if cuda and out['warp_launches'] < 1:
+        raise RuntimeError("engine: the train path never launched the warp")
+
+    # (e) serve the labelled test frames
+    calib = [ds['train'].load_image(i)
+             for i in range(min(ENGINE_CALIB, len(ds['train'].image_ids)))]
+    t0 = time.perf_counter()
+    qm = eng2.quantize(calib)
+    log(f"engine (e) quantize on {len(calib)} training frames: "
+        f"{time.perf_counter() - t0:.1f} s")
+    test = [ds['test'].load_image(i) for i in range(cfg.BATCH_SIZE)]
+    int8_cuda.reset_counts()
+    int8_cuda.calls = []
+    t0 = time.perf_counter()
+    res = eng2.detect(test)
+    sync()
+    out['detect_ms'] = (time.perf_counter() - t0) * 1e3
+    out['int8_launches'] = dict(int8_cuda.launches)
+    calls, int8_cuda.calls = int8_cuda.calls, None
+    log(f"engine (e) detect on {len(test)} {wh[0]}x{wh[1]} frames: "
+        f"{out['detect_ms']:.1f} ms host wall (resize, mold, int8 forward), "
+        f"launches {out['int8_launches']}")
+    if cuda:
+        if min(out['int8_launches']['gemm_s8'],
+               out['int8_launches']['conv_s8']) < 1:
+            raise RuntimeError(f"engine (e): {out['int8_launches']}")
+        check_served_routes('engine', calls)
+        check_served_calls('engine', calls, dev, np.random.RandomState(seed))
+    # the served batch against the plain version, bit for bit
+    molded = eng2.mold_inputs(test)[0]
+    served = {k: torch.from_numpy(np.stack([r[k] for r in res]))
+              for k in res[0]}
+    plain = qm(eng2.serving.served_batch(molded), plain=True)
+    out['max_abs_err'] = 0.0
+    for k, v in served.items():
+        p = plain[k].cpu()
+        diff = int((v != p).sum())
+        err = float((v - p).abs().max())
+        out['max_abs_err'] = max(out['max_abs_err'], err)
+        log(f"engine (e) {k}: detect's outputs vs the plain path on the "
+            f"served batch: {diff} of {v.numel()} values differ, max abs "
+            f"{err}")
+        if diff:
+            raise RuntimeError(f"engine (e) {k}: the kernel path differs "
+                               "from the plain path")
+    loc, q = evaluate.decode_results(served, cfg)
+    loc_gt = np.stack([ds['test'].load_location(i) for i in
+                       range(cfg.BATCH_SIZE)]).astype(np.float64)
+    q_gt = np.stack([ds['test'].load_quaternion(i) for i in
+                     range(cfg.BATCH_SIZE)]).astype(np.float64)
+    out['scores'] = evaluate.esa_scores(loc, q, loc_gt, q_gt)
+    sc = out['scores']
+    log(f"engine (e) ESA against the test frames' labels: mean ESA "
+        f"{sc['mean_esa']:.4f}, mean loc err {sc['mean_loc_err']:.3f} m, "
+        f"mean ori err {sc['mean_ori_err_deg']:.2f} deg (finite only: "
+        f"{eng2.step} train steps)")
+    if not np.isfinite(sc['esa']).all():
+        raise RuntimeError("engine (e): non-finite ESA scores")
+
+    # (f) the artifact
+    path = os.path.join(root, 'int8.msgpack')
+    save_quantized(path, qm)
+    loaded = ServingEngine(cfg, dev)
+    loaded.load_serving_artifact(path)
+    want, got = eng2.predict_molded(molded), loaded.predict_molded(molded)
+    _same_tensors('(f) artifact outputs', got, want)
+    log(f"engine (f) save_quantized -> load_quantized ({os.path.getsize(path)}"
+        " bytes) serves the same bits as the model in memory")
+
+    # (g) memory
+    out['estimate_gb'] = check_train_memory(cfg, dev, log)
+    log(f"engine (g) check_train_memory estimate {out['estimate_gb']:.2f} GB "
+        f"vs measured peak {out['peak']} bytes ({out['peak'] / 1e9:.2f} GB) "
+        f"over (b) {card}")
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1518,6 +1845,8 @@ def main(argv=None) -> int:
     log(f"nvidia-smi: {smi}")
     log(f"versions: python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda}")
+    for name, fact in machine_facts().items():
+        log(f"fact: {name} {fact}")
     # Convolutions in TF32 (cuDNN's default), dense matmuls in full f32.
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1627,11 +1956,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"bf16 train phase: {time.perf_counter() - t5:.1f} s")
 
-    # 6. the committed artifact, under F16 and in the f32-epilogue mode
+    # 6. the engine: benchmark_config(3) from 1280x960 frames on disk
+    t6 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        eng = run_engine(engine_config(flagship_config()), dev, root,
+                         args.seed, card=card)
+    warp_by_path['engine'] = eng['warp_launches']
+    torch.cuda.empty_cache()
+    log(f"engine phase: {time.perf_counter() - t6:.1f} s")
+
+    # 7. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
         serve_artifact(dev, f16)
 
-    # 7. serving path at full width and batch: F16 (bench.py's mode) and
+    # 8. serving path at full width and batch: F16 (bench.py's mode) and
     # the f32-epilogue mode, in the base and host_s2d variants
     int8_launches, calls, serve_ms, stem_call = {}, {}, {}, {}
     for f16 in (True, False):
@@ -1686,7 +2024,7 @@ def main(argv=None) -> int:
             f" ms vs f32 epilogues {serve_ms[variant, 'f32']:.3f} ms per batch "
             f"in this run {card}")
 
-    # 8. the kernel-probe entry points at their own shapes
+    # 9. the kernel-probe entry points at their own shapes
     fused_block.reset_counts()
     mma_rate.reset_counts()
     int8_cuda.calls = []
@@ -1706,7 +2044,7 @@ def main(argv=None) -> int:
     if min(probe_launches.values()) < 1:
         raise RuntimeError(f"a probe missed its kernel: {probe_launches}")
 
-    # 9. numbers per kernel
+    # 10. numbers per kernel
     b, c, h, w = FLAGSHIP_BATCH, 3, 512, 640
     imgs = torch.from_numpy(
         (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
@@ -1763,7 +2101,9 @@ def main(argv=None) -> int:
                 "name": name + sfx, "route": "cuda", "acc": mode,
                 "source": f"ursonet_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": int8_launches[name, mode],
+                "launches": int8_launches[name, mode] + (
+                    eng['int8_launches'].get(name, 0) if mode == 'f32'
+                    else 0),
                 **({"launches_by_path": {
                     "serve_base": int8_launches[name, mode],
                     "serve_config5": served5['launches'][name]},
@@ -1772,8 +2112,18 @@ def main(argv=None) -> int:
                     "serve_config5": served5['max_abs_err']}}
                    if mode == 'bf16' and name in served5['launches']
                    else {}),
-                "max_abs_err": max(int8_err, served5['max_abs_err'])
-                if mode == 'bf16' else int8_err,
+                # the engine serves benchmark_config(3): f32 epilogues
+                **({"launches_by_path": {
+                    "serve_base": int8_launches[name, mode],
+                    "engine": eng['int8_launches'][name]},
+                    "max_abs_err_by_path": {
+                    "checks": int8_err, "engine": eng['max_abs_err']}}
+                   if mode == 'f32' and name in eng['int8_launches']
+                   else {}),
+                "max_abs_err": (
+                    max(int8_err, served5['max_abs_err']) if mode == 'bf16'
+                    else max(int8_err, eng['max_abs_err'])
+                    if name in eng['int8_launches'] else int8_err),
                 **{k: int8[mode][name][k] for k in keys},
                 "routes": dict(int8[mode][name]['routes'])})
         int8_rows.append({

@@ -702,3 +702,67 @@ def test_detect_keypoints_on_card(cuda_device, int8):
         assert set(r) == {'loc', 'k1', 'k2'}
         assert all(np.isfinite(v).all() and v.shape == (3,)
                    for v in r.values())
+
+
+# --------------------------------------------------------------------------
+# the training engine on the card
+
+
+@pytest.fixture(scope='module')
+def urso_frames(tmp_path_factory):
+    from ursonet_torch.data.synthetic import make_urso_dataset
+    d = str(tmp_path_factory.mktemp('urso'))
+    make_urso_dataset(d, n_per_subset=6, width=96, height=72)
+    return d
+
+
+def _engine_datasets(d, cfg):
+    from ursonet_torch.data.urso import Urso
+    out = []
+    for subset in ('train', 'val'):
+        ds = Urso()
+        ds.load_dataset(d, cfg, subset)
+        out.append(ds)
+    return out
+
+
+@pytest.mark.parametrize('resident', [True, False])
+def test_engine_trains_an_epoch_on_card(cuda_device, urso_frames, tmp_path,
+                                        resident):
+    """One UrsoNet.train epoch of the small flagship recipe on the card,
+    device-resident or streamed from disk: finite losses, the warp
+    launched, the resident data and the weights on the card."""
+    from ursonet_torch.engine import UrsoNet
+    cfg = chip_smoke.engine_config(chip_smoke.small_config())
+    cfg.DATA_ON_DEVICE = resident
+    train_ds, val_ds = _engine_datasets(urso_frames, cfg)
+    eng = UrsoNet('training', cfg, str(tmp_path), device=cuda_device)
+    before = wc.launches['warp_homography']
+    logs = []
+    means = eng.train(train_ds, val_ds, cfg.LEARNING_RATE, 1,
+                      log_fn=logs.append)
+    assert wc.launches['warp_homography'] > before
+    assert all(np.isfinite(v) for v in means.values())
+    assert logs[0].startswith('data: device-resident') == resident
+    assert all(p.is_cuda for p in eng.model.parameters())
+    assert all(v.is_cuda for v in eng.velocity.values())
+
+
+def test_engine_resumes_on_card(cuda_device, urso_frames, tmp_path):
+    """resume_state on the card: weights, velocity, step and epoch bit for
+    bit, and the resumed engine trains on."""
+    from ursonet_torch.engine import UrsoNet
+    cfg = chip_smoke.engine_config(chip_smoke.small_config())
+    train_ds, val_ds = _engine_datasets(urso_frames, cfg)
+    eng = UrsoNet('training', cfg, str(tmp_path), device=cuda_device)
+    eng.train(train_ds, val_ds, cfg.LEARNING_RATE, 1, log_fn=lambda *a: None)
+    eng2 = UrsoNet('training', cfg, str(tmp_path), device=cuda_device)
+    assert eng2.resume_state(eng.log_dir)
+    assert (eng2.step, eng2.epoch) == (eng.step, 1)
+    for a, b in ((eng2.model.state_dict(), eng.model.state_dict()),
+                 (eng2.velocity, eng.velocity)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].is_cuda and torch.equal(a[k], b[k]), k
+    eng2.train(train_ds, val_ds, cfg.LEARNING_RATE, 2, log_fn=lambda *a: None)
+    assert eng2.epoch == 2

@@ -62,6 +62,19 @@ def test_import_pulls_in_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_the_checks_cover_the_data_and_engine_modules():
+    """The engine's modules are among those the two checks above import
+    and parse."""
+    names = set(_module_names())
+    for m in ('ursonet_torch.data.png', 'ursonet_torch.data.dataset',
+              'ursonet_torch.data.urso', 'ursonet_torch.data.synthetic',
+              'ursonet_torch.data.loader', 'ursonet_torch.checkpoint.msgpack',
+              'ursonet_torch.checkpoint.store', 'ursonet_torch.utils.memory',
+              'ursonet_torch.engine'):
+        assert m in names, m
+    assert ROOT / 'ursonet_torch' / 'data' / 'png.py' in _port_sources()
+
+
 def test_sources_import_no_jax():
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text())):

@@ -270,8 +270,25 @@ def test_detect_matches_predict_molded(serving_pair):
     assert windows.tolist() == [[0, 0, 64, 64]] * 2
     with pytest.raises(ValueError):
         eng.detect(imgs[:1])
-    with pytest.raises(NotImplementedError):
-        eng.detect([np.zeros((32, 32, 3), np.uint8)] * 2)   # needs a resize
+    # frames below the network resolution are resampled as the JAX
+    # package's resize_image resamples them (exact at scale 2)
+    from ursonet_tpu.ops import image as jimage
+    small = [rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+             for _ in range(tcfg.BATCH_SIZE)]
+    molded, metas, windows = eng.mold_inputs(small)
+    for i, im in enumerate(small):
+        want, window, scale, _, _ = jimage.resize_image(
+            im, min_dim=64, max_dim=64, mode='square')
+        assert scale == 2 and tuple(windows[i]) == tuple(window)
+        np.testing.assert_array_equal(
+            molded[i], jimage.mold_image(want.astype(np.float32), tcfg))
+        np.testing.assert_array_equal(metas[i], jimage.compose_image_meta(
+            0, im.shape, want.shape, window, scale))
+    res = eng.detect(small)
+    want = eng.predict_molded(molded)
+    for i, r in enumerate(res):
+        for k in ('loc', 'ori'):
+            np.testing.assert_array_equal(r[k], want[k][i].numpy())
 
 
 def test_detect_pads_pad64_images(serving_pair):

@@ -13,13 +13,17 @@ name for name:
   batch_stats <bn path>/bn/mean, bn/var  <bn path>.running_mean, .running_var
 
 (the synthetic 'bn' level of the JAX `FrozenAwareBN` wrapper is dropped).
-Batch-norm layers are the ones whose Keras name starts with 'bn'.
+Batch-norm layers are the ones whose Keras name starts with 'bn'. The
+Kendall log-variances map as they are: params/loss_log_vars/<loss> <->
+loss_log_vars.<loss>, 0-d.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+LOG_VARS = 'loss_log_vars'
 
 
 def _flatten(tree, prefix=()):
@@ -53,6 +57,10 @@ def params_from_jax(tree) -> dict:
         for path, a in _flatten(tree.get(section) or {}):
             *mods, leaf = path
             mods = [m for m in mods if m != 'bn']
+            if mods == [LOG_VARS]:
+                sd[f'{LOG_VARS}.{leaf}'] = torch.from_numpy(
+                    np.array(a, np.float32))
+                continue
             if leaf not in names:
                 raise KeyError(f"unknown leaf {'/'.join(path)}")
             a = _to_torch_layout(leaf, np.asarray(a, np.float32))
@@ -68,6 +76,9 @@ def params_to_jax_layout(state_dict) -> dict:
     for key, t in state_dict.items():
         *mods, leaf = key.split('.')
         a = t.detach().cpu().numpy().copy()     # no view of live weights
+        if mods == [LOG_VARS]:
+            out['params'].setdefault(LOG_VARS, {})[leaf] = a
+            continue
         is_bn = bool(mods) and mods[-1].startswith('bn')
         if leaf in ('running_mean', 'running_var'):
             section, name = 'batch_stats', leaf[len('running_'):]

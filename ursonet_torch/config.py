@@ -4,11 +4,15 @@ Same knob names and derived-field semantics as the JAX package, so one
 configuration reads the same in both: attributes are set after
 construction and `update()` recomputes the derived fields
 (BATCH_SIZE, IMAGE_SHAPE, IMAGE_META_SIZE). Knobs that only steered the
-TPU build (mesh shape, Pallas switch, host loader) are left out; a later
-slice adds the ones it needs. numpy only.
+TPU build (mesh shape, Pallas switch) are left out; a later slice adds
+the ones it needs. A configuration written by `write_to_file` in either
+package reads back in the other through `from_dict`. numpy only.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -21,6 +25,10 @@ class Config:
     # --- batch ---------------------------------------------------------------
     GPU_COUNT = 1
     IMAGES_PER_GPU = 2
+
+    # --- training schedule (UrsoNet.train) ----------------------------------
+    STEPS_PER_EPOCH = 1000
+    VALIDATION_STEPS = 50
 
     # --- model ----------------------------------------------------------------
     BACKBONE = "resnet101"          # resnet50 | resnet101
@@ -60,6 +68,18 @@ class Config:
     SIM2REAL_AUG = False
     ROT_IMAGE_AUG = False           # in-plane roll warp
     WARP_INTERPOLATION = 'nearest'  # nearest | bilinear
+    # The host only decodes, resizes and batches uint8 frames; the
+    # augmentation and the mold run on the device. False (the host-parity
+    # generator) raises in data/loader.py: a later slice ports it.
+    AUGMENT_ON_DEVICE = True
+    # The JAX package's native C++ batch loader. Read, and the port's
+    # loader says once that it takes the Python path (data/loader.py).
+    NATIVE_LOADER = True
+    # Keep small datasets resident on the device: one bulk upload, then
+    # each batch is an index gather on the card. True | False | 'auto'
+    # ('auto' sizes the dataset against DATA_ON_DEVICE_MAX_MB).
+    DATA_ON_DEVICE = 'auto'
+    DATA_ON_DEVICE_MAX_MB = 1024
 
     # --- precision -----------------------------------------------------------------
     F16 = False
@@ -112,6 +132,13 @@ class Config:
     TRAIN_BN = False
 
     SEED = 0
+    # Per-step scalar logging to metrics.jsonl every N steps (0 = per
+    # epoch only).
+    LOG_EVERY_STEPS = 0
+    CHECKPOINT_FORMAT = 'msgpack'   # msgpack ('orbax' is not ported)
+    # Keep only the newest N per-epoch weight snapshots (0 = keep all);
+    # state_latest.msgpack always remains.
+    CHECKPOINT_KEEP = 0
 
     def update(self):
         """Recompute derived fields."""
@@ -131,6 +158,43 @@ class Config:
 
     def __init__(self):
         self.update()
+
+    # -- introspection ------------------------------------------------------
+
+    def display(self):
+        """Print all configuration values."""
+        print("\nConfigurations:")
+        for a in dir(self):
+            if not a.startswith("__") and not callable(getattr(self, a)):
+                print("{:30} {}".format(a, getattr(self, a)))
+        print("\n")
+
+    def to_dict(self) -> dict:
+        """Every non-callable attribute but the numpy arrays
+        (MEAN_PIXEL, IMAGE_SHAPE), as the JAX package writes them."""
+        d = {}
+        for a in dir(self):
+            v = getattr(self, a)
+            if a.startswith("__") or callable(v) or isinstance(v, np.ndarray):
+                continue
+            d[a] = v
+        return d
+
+    def write_to_file(self, filepath):
+        """Persist as JSON."""
+        directory = os.path.dirname(filepath)
+        if directory:
+            os.makedirs(directory, exist_ok=True)
+        with open(filepath, 'w+') as f:
+            f.write(json.dumps(self.to_dict(), default=str))
+
+    @classmethod
+    def from_dict(cls, d):
+        cfg = cls()
+        for k, v in d.items():
+            setattr(cfg, k, v)
+        cfg.update()
+        return cfg
 
     def head_input_features(self) -> int:
         """Flattened feature count after the stride-2 bottleneck conv."""

@@ -1,1 +1,2 @@
-"""Camera and the on-device preprocess."""
+"""The URSO adapter, the PNG codec, synthetic frames, the host loader
+and the on-device preprocess."""

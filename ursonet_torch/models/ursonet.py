@@ -26,6 +26,7 @@ from ursonet_torch.device import resolve_device
 from ursonet_torch.models.heads import KeypointHead, PoseHead
 from ursonet_torch.models.resnet import Conv2d, FrozenBN, ResNetBackbone, \
     pad_same
+from ursonet_torch.train.state import add_loss_log_vars
 
 
 def _c6_hw(h: int, w: int) -> tuple[int, int]:
@@ -115,8 +116,9 @@ def build_model(config, device="cuda",
     """Build the model for `config` on `device`, with weights drawn from
     `generator` (default: a CPU generator seeded with config.SEED),
     computing in bf16 under config.F16, its residual blocks recomputed in
-    the backward pass under config.REMAT. Validates the %64 image-shape
-    contract."""
+    the backward pass under config.REMAT, with zero Kendall
+    log-variances (`loss_log_vars`) under LEARNABLE_LOSS_WEIGHTS.
+    Validates the %64 image-shape contract."""
     dev = resolve_device(device)
     h, w = int(config.IMAGE_SHAPE[0]), int(config.IMAGE_SHAPE[1])
     if h % 64 or w % 64:
@@ -141,4 +143,5 @@ def build_model(config, device="cuda",
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.SEED))
     init_weights(model, generator)
+    add_loss_log_vars(model, config)
     return model.to(dev)

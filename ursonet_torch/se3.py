@@ -85,3 +85,43 @@ def quat_mult(a, b):
         -a[0] * b[0] - a[1] * b[1] - a[2] * b[2] + a[3] * b[3],
     ])
     return c / np.linalg.norm(c)
+
+
+def quat2SO3(q):
+    """Scalar-last JPL quaternion -> rotation matrix."""
+    x, y, z, w = np.asarray(q, dtype=np.float64).reshape(4)
+    return np.array([
+        [1 - 2 * y * y - 2 * z * z, 2 * (x * y + z * w), 2 * (x * z - y * w)],
+        [2 * (x * y - z * w), 1 - 2 * x * x - 2 * z * z, 2 * (y * z + x * w)],
+        [2 * (x * z + y * w), 2 * (y * z - x * w), 1 - 2 * x * x - 2 * y * y],
+    ])
+
+
+def quat2angleaxis(q):
+    """Quaternion -> (axis, angle in radians)."""
+    q = np.asarray(q, dtype=np.float64).reshape(4)
+    theta = 2.0 * np.arccos(np.clip(q[3], -1.0, 1.0))
+    if abs(q[3]) >= 1.0:
+        return np.array([0.0, 0.0, 1.0]), theta
+    return q[:3] / np.sin(theta / 2.0), theta
+
+
+def quat2euler(q):
+    """Scalar-last quaternion -> Euler (pitch, yaw, roll) in degrees,
+    with the reference's pole-singularity handling."""
+    x, y, z, w = np.asarray(q, dtype=np.float64).reshape(4)
+    sqx, sqy, sqz = x * x, y * y, z * z
+    test = x * z + y * w
+    if test > 0.499:  # north-pole singularity
+        pitch, yaw, roll = 2.0 * np.arctan2(x, w), -np.pi / 2, 0.0
+    elif test < -0.499:  # south-pole singularity
+        pitch, yaw, roll = -2.0 * np.arctan2(x, w), np.pi / 2, 0.0
+    else:
+        pitch = np.arctan2(2 * (y * z - x * w), 1 - 2 * sqx - 2 * sqy)
+        yaw = np.arcsin(np.clip(-2 * (x * z + y * w), -1.0, 1.0))
+        roll = np.arctan2(2 * (x * y - z * w), 1 - 2 * sqy - 2 * sqz)
+    if pitch > np.pi:
+        pitch = 2 * np.pi - pitch
+    if pitch < -np.pi:
+        pitch = 2 * np.pi + pitch
+    return pitch / _DEG, yaw / _DEG, roll / _DEG

@@ -9,7 +9,11 @@ with the reference's quirks kept:
   * keypoint mode: mean squared error of the three keypoints, named
     'loc_loss', 'k2_loss' and 'k3_loss' (against gt_loc, gt_k1, gt_k2).
   * l2_regularization: WEIGHT_DECAY · mean(w²) per tensor, summed over
-    the trainable parameters that are not batch norm.
+    the trainable parameters that are not batch norm, nor the Kendall
+    log-variances.
+  * LEARNABLE_LOSS_WEIGHTS: learnable log-variances sₖ, one a loss part
+    (the model's `loss_log_vars`, train/state.py), weight the total as
+    Σ exp(−sₖ)·wₖ·Lₖ + sₖ.
 
 All losses compute in float32 (under F16 on the head outputs the model
 has widened to f32, as the JAX step takes them).
@@ -21,6 +25,14 @@ import torch
 import torch.nn.functional as F
 
 from ursonet_torch.models.resnet import FrozenBN
+
+LOG_VARS = 'loss_log_vars'
+
+
+def log_vars_of(model):
+    """The model's Kendall log-variances {loss name: 0-d parameter}, or
+    None."""
+    return getattr(model, LOG_VARS, None)
 
 
 def softmax_loss(y_gt, y_pred):
@@ -49,7 +61,7 @@ def regularized_params(model, trainable=None):
     """(name, parameter) pairs the L2 term covers: every parameter outside
     batch norm whose `trainable` flag (name -> bool) is set."""
     for mod_name, mod in model.named_modules():
-        if isinstance(mod, FrozenBN):
+        if isinstance(mod, FrozenBN) or mod_name == LOG_VARS:
             continue
         for leaf, p in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{leaf}" if mod_name else leaf
@@ -66,11 +78,10 @@ def l2_regularization(model, weight_decay: float, trainable=None):
     return weight_decay * torch.stack(terms).sum()
 
 
-def compute_losses(outputs, batch, config):
-    """Weighted total and the unweighted named parts for one batch."""
-    if config.LEARNABLE_LOSS_WEIGHTS:
-        raise NotImplementedError(
-            "LEARNABLE_LOSS_WEIGHTS is ported in a later slice")
+def compute_losses(outputs, batch, config, log_vars=None):
+    """Weighted total and the unweighted named parts for one batch.
+    log_vars: {loss name: learnable log-variance s}, each part it names
+    weighted as exp(−s)·w·L + s."""
     parts = {}
     if config.REGRESS_KEYPOINTS:
         parts['loc_loss'] = mse_loss(batch['gt_loc'], outputs['loc'])
@@ -86,6 +97,12 @@ def compute_losses(outputs, batch, config):
                                                    outputs['ori'])
         else:
             parts['ori_loss'] = softmax_loss(batch['gt_ori'], outputs['ori'])
-    total = sum(value * config.LOSS_WEIGHTS.get(name, 1.0)
-                for name, value in parts.items())
+    total = 0.0
+    for name, value in parts.items():
+        w = config.LOSS_WEIGHTS.get(name, 1.0)
+        if log_vars is not None and name in log_vars:
+            s = log_vars[name].float()
+            total = total + torch.exp(-s) * w * value + s
+        else:
+            total = total + value * w
     return total, parts

@@ -15,6 +15,13 @@ casts, `models/resnet.py`), while the parameters, their gradients, the
 losses, the L2 term, the clip and the update stay f32, as in the JAX
 step. There is no loss scaling: the JAX step has none, and bf16 keeps
 f32's exponent range.
+
+The resident steps (`make_resident_train_step`,
+`make_resident_eval_step`) take their batch from a dataset loaded onto
+the device (`data/loader.py::load_dataset_resident`) by an index gather
+on the device: no host-to-device copy per step. Under
+LEARNABLE_LOSS_WEIGHTS the model's `loss_log_vars` weight the losses
+(`losses.compute_losses`) and train with the other parameters.
 """
 
 from __future__ import annotations
@@ -66,7 +73,8 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
             batch = _model_batch(batch, preprocess, generator, dev)
         model.train()
         outputs = model(batch['images'])
-        total, parts = L.compute_losses(outputs, batch, config)
+        total, parts = L.compute_losses(outputs, batch, config,
+                                        L.log_vars_of(model))
         reg = L.l2_regularization(model, config.WEIGHT_DECAY, trainable)
         loss = total + reg
         grads = list(torch.autograd.grad(loss, params))
@@ -91,9 +99,65 @@ def make_eval_step(model, config, preprocess: Optional[Callable] = None,
         batch = _model_batch(batch, preprocess, generator, dev)
         model.eval()
         outputs = model(batch['images'])
-        total, parts = L.compute_losses(outputs, batch, config)
+        total, parts = L.compute_losses(outputs, batch, config,
+                                        L.log_vars_of(model))
         metrics = dict(parts)
         metrics['loss'] = total
         return metrics
 
     return step
+
+
+def _positions(i: int, steps: int, bsz: int, n_images: int,
+               arange: torch.Tensor) -> torch.Tensor:
+    """Dataset positions of the i-th batch of an epoch: B consecutive
+    positions, wrapping around (also for a dataset smaller than B)."""
+    return ((i % steps) * bsz + arange) % n_images
+
+
+def make_resident_train_step(model, config, tx, n_images: int,
+                             trainable: Optional[dict] = None,
+                             preprocess: Optional[Callable] = None,
+                             device="cuda"):
+    """Train step over a device-resident dataset. Returns
+    fn(data, perm, i, generator=None) -> (i + 1, metrics): `data` is
+    {field: [N, ...] tensor on the device}, `perm` a permutation of N on
+    the device (one an epoch, `torch.randperm(n, generator=...,
+    device=...)`), `i` the step in the epoch; the batch is `data`
+    gathered at perm[((i mod steps)·B + arange(B)) mod N], and the
+    augmentation draws come from `generator`."""
+    dev = resolve_device(device)
+    step = make_train_step(model, config, tx, trainable, preprocess, dev)
+    bsz = int(config.BATCH_SIZE)
+    steps = max(n_images // bsz, 1)
+    arange = torch.arange(bsz, device=dev)
+
+    def resident_step(data, perm, i: int,
+                      generator: Optional[torch.Generator] = None):
+        idx = perm.index_select(0, _positions(i, steps, bsz, n_images,
+                                              arange))
+        batch = {k: v.index_select(0, idx) for k, v in data.items()}
+        return i + 1, step(batch, generator)
+
+    return resident_step
+
+
+def make_resident_eval_step(model, config, n_images: int,
+                            preprocess: Optional[Callable] = None,
+                            device="cuda"):
+    """Validation twin of make_resident_train_step: the i-th batch is
+    `data` at ((i mod steps)·B + arange(B)) mod N, in order. Returns
+    fn(data, i, generator=None) -> (i + 1, metrics)."""
+    dev = resolve_device(device)
+    step = make_eval_step(model, config, preprocess, dev)
+    bsz = int(config.BATCH_SIZE)
+    steps = max(n_images // bsz, 1)
+    arange = torch.arange(bsz, device=dev)
+
+    def resident_step(data, i: int,
+                      generator: Optional[torch.Generator] = None):
+        pos = _positions(i, steps, bsz, n_images, arange)
+        batch = {k: v.index_select(0, pos) for k, v in data.items()}
+        return i + 1, step(batch, generator)
+
+    return resident_step
