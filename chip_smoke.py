@@ -70,14 +70,28 @@ Phases, in order; any failure exits non-zero:
               training); (f) save_quantized ->
               load_quantized serves the same bits; (g) check_train_memory's
               estimate beside the measured peak.
-  7. artifact the committed flagship int8 artifact served on its golden
+  7. cli      the README's quick start through the port's command line
+              (`ursonet_torch.pose_estimator.main`) on phase 6's 1280x960
+              PNG frames at the flagship's flags (ResNet-50, 24³ bins,
+              bottleneck 128, --image_scale 0.5, rotation augmentation):
+              train (1 epoch of 4 steps, batch 32, the warp launched);
+              evaluate in float; evaluate --int8 on the `base` stem and
+              with --f16 and the s2d / host-s2d knobs (gemm_s8, conv_s8
+              and there stem_s8 launched on their TMA routes, the raw
+              heads and the summary equal to those of the same served
+              batches through the plain version); export (h5 and the
+              int8 artifact), then evaluate --weights <h5>: the raw heads
+              of --weights last bit for bit; test (10 overlays) and test
+              --image. Each command's seconds and launches, evaluate's
+              images/s, the h5 file's bytes and write / read seconds.
+  8. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
               twin, both int8 kernels launched; drift against the TPU
               goldens and decoded poses printed; its stem rewritten to
               space-to-depth form in memory and served through stem_s8
               gives the same bits.
-  8. serve    int8 serving of serving_config() at full width and batch
+  9. serve    int8 serving of serving_config() at full width and batch
               (128 × 512×640, seeded random weights; calibrate on 8
               images, smooth(0.5), bias_correct(passes=1), as bench.py)
               through ServingEngine.predict_molded, in the `base` and the
@@ -89,11 +103,11 @@ Phases, in order; any failure exits non-zero:
               `host_s2d` bit for bit under F16; every GEMM, every 3x3
               conv and the fused stem of the served model must have
               taken the TMA + wgmma route.
-  9. probes   the four kernel-probe entry points at their own shapes
+ 10. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
               and stem probes run each kernel on both routes.
- 10. numbers  train step and serving time per variant and mode, memory,
+ 11. numbers  train step and serving time per variant and mode, memory,
               the bf16 float forward at batch 128 (bench.py's
               BENCH_QUANT=0), and each kernel's time in both modes at the
               main paths' shapes beside its plain version,
@@ -126,6 +140,7 @@ import torch
 import torch.nn.functional as F
 
 from ursonet_torch import evaluate, presets, se3, se3t
+from ursonet_torch.checkpoint import store
 from ursonet_torch.checkpoint.quant_store import save_quantized
 from ursonet_torch.config import Config
 from ursonet_torch.data import loader, png
@@ -1821,6 +1836,250 @@ def run_engine(cfg, device, root, seed: int = 0, frames=None, wh=ENGINE_WH,
 
 
 # --------------------------------------------------------------------------
+# phase 7: the command line
+
+# The flagship's flags (benchmark_config(3): ResNet-50, branch 1024,
+# 24³ orientation bins, bottleneck 128, 512×640, rotation augmentation).
+CLI_FLAGS = ['--backbone', 'resnet50', '--bottleneck', '128',
+             '--branch_size', '1024', '--ori_resolution', '24',
+             '--classify_ori', '--regress_loc', '--rot_aug',
+             '--rot_image_aug', '--image_scale', '0.5']
+# bench.py's serving knobs beside the default `base` stem
+CLI_S2D = ['--f16', '--set', 'QUANT_STEM_S2D=True', '--set',
+           'QUANT_HOST_S2D=True']
+CLI_TRAIN_STEPS = 4
+CLI_EVAL_BATCH = 16   # the 32 test frames in two chunks
+CLI_OVERLAYS = 10     # `test` draws 10 frames
+
+
+class _Recorder:
+    """While open, records what the evaluation loop served and returned
+    (`evaluate._batched_forward`: engine, dataset, ids, raw heads;
+    `evaluate.evaluate`: the summary, its seconds and the int8 calls of
+    its served batches, not those of calibration) and times the h5
+    bridge's writes and reads; restores the functions on close."""
+
+    def __init__(self):
+        from ursonet_torch.checkpoint import h5_import
+        self.targets = [(evaluate, '_batched_forward'),
+                        (evaluate, 'evaluate'),
+                        (h5_import, 'save_keras_h5'),
+                        (h5_import, 'load_keras_h5')]
+        self.served, self.summaries, self.h5_s = [], [], {}
+        self.eval_s, self.calls = None, []
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.targets]
+        fwd, ev, save, load = self.saved
+
+        def batched_forward(engine, dataset, ids):
+            out = fwd(engine, dataset, ids)
+            self.served.append({'engine': engine, 'dataset': dataset,
+                                'ids': list(ids), 'outputs': out})
+            return out
+
+        def evaluate_(*a, **kw):
+            int8_cuda.calls = []
+            t0 = time.perf_counter()
+            try:
+                self.summaries.append(ev(*a, **kw))
+            finally:
+                self.calls, int8_cuda.calls = int8_cuda.calls, None
+            self.eval_s = time.perf_counter() - t0
+            return self.summaries[-1]
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.h5_s[name] = time.perf_counter() - t0
+                return out
+            return run
+
+        for (m, n), fn in zip(self.targets, (
+                batched_forward, evaluate_, timed('write', save),
+                timed('read', load))):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.targets, self.saved):
+            setattr(m, n, fn)
+
+
+class _PlainServing:
+    """An engine's int8 model served through its plain version."""
+
+    def __init__(self, engine):
+        self.config = engine.config
+        self.serving = engine.serving
+
+    def mold_inputs(self, images):
+        return self.serving.mold_inputs(images)
+
+    def predict_molded(self, molded):
+        return self.serving.qmodel(self.serving.served_batch(molded),
+                                   plain=True)
+
+
+def _same_heads(tag, got: dict, want: dict) -> None:
+    if got.keys() != want.keys():
+        raise RuntimeError(f"cli {tag}: heads {sorted(got)} vs "
+                           f"{sorted(want)}")
+    for k in want:
+        if got[k].shape != want[k].shape:
+            raise RuntimeError(f"cli {tag} {k}: {got[k].shape} vs "
+                               f"{want[k].shape}")
+        diff = int((got[k] != want[k]).sum())
+        if diff:
+            raise RuntimeError(f"cli {tag} {k}: {diff} of {want[k].size} "
+                               "raw head values differ")
+
+
+def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
+            train_batch: int = FLAGSHIP_BATCH, eval_batch: int = CLI_EVAL_BATCH,
+            steps: int = CLI_TRAIN_STEPS, card: str = '') -> dict:
+    """The README's quick start through `ursonet_torch.pose_estimator.main`
+    on the URSO frames under `root/urso`: train; evaluate in float;
+    evaluate --int8 on the `base` stem and with the s2d knobs under F16,
+    each run's raw heads and summary equal to those of the same served
+    batches through the plain version; export (h5 and the int8
+    artifact); evaluate from the exported h5, equal to the float run bit
+    for bit; test (overlays) and test --image. Each command must return
+    0; every launch counter is set to 0 before a command and read after
+    it. Returns the launches by kernel row, the seconds and rates."""
+    from ursonet_torch import pose_estimator
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out_dir = os.path.join(root, 'cli_out')
+    logs = os.path.join(root, 'cli_logs')
+    common = ['--dataset', 'urso', '--data_dir', root, '--logs', logs,
+              '--out_dir', out_dir, '--models_dir',
+              os.path.join(root, 'models'), '--seed', str(seed)] + list(flags)
+    res = {'seconds': {}, 'launches': {}, 'rows': Counter(),
+           'imgs_per_s': {}}
+
+    def cli(tag, *argv):
+        warp_cuda.reset_counts()
+        int8_cuda.reset_counts()
+        t0 = time.perf_counter()
+        with _Recorder() as rec:
+            rc = pose_estimator.main(list(argv) + common, device=dev)
+        sync()
+        res['seconds'][tag] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"cli {tag}: exit code {rc}")
+        launches = {**warp_cuda.launches, **int8_cuda.launches}
+        res['launches'][tag] = launches
+        log(f"cli [{tag}] {' '.join(argv)}: exit 0 in "
+            f"{res['seconds'][tag]:.1f} s (host wall, model build and "
+            f"weight load included), launches {launches} {card}")
+        return rec, rec.calls, launches
+
+    # 1. train
+    _, _, launches = cli('train', 'train', '--weights', 'none', '--epochs',
+                         '1', '--steps_per_epoch', str(steps),
+                         '--batch_size', str(train_batch))
+    records = _records(os.path.dirname(store.find_last(logs)))
+    _check_epochs('cli train', records, range(1))
+    log(f"cli [train] metrics.jsonl: {records[0]}")
+    if cuda and launches['warp_homography'] < 1:
+        raise RuntimeError("cli train never launched the warp")
+    res['rows']['warp_homography'] += launches['warp_homography']
+
+    # 2. evaluate: float, then int8 on the base stem and with the s2d
+    # knobs under F16, each against the plain version
+    evals = {}
+    for tag, extra in (('evaluate', []), ('evaluate int8', ['--int8']),
+                       ('evaluate int8 s2d f16', ['--int8'] + CLI_S2D)):
+        rec, calls, launches = cli(tag, 'evaluate', '--weights', 'last',
+                                   '--eval_batch', str(eval_batch), *extra)
+        (served,), (summary,) = rec.served, rec.summaries
+        n = len(served['ids'])
+        evals[tag] = {'outputs': served['outputs'], 'summary': summary}
+        for name in ('ori_err.csv', 'loc_err.csv', 'dists_err.csv'):
+            with open(os.path.join(out_dir, name)) as f:
+                if len(f.read().splitlines()) != n + 1:
+                    raise RuntimeError(f"cli {tag}: {name} lacks rows")
+        res['imgs_per_s'][tag] = n / rec.eval_s
+        log(f"cli [{tag}] summary {summary}; {n} frames in "
+            f"{rec.eval_s:.2f} s, {res['imgs_per_s'][tag]:.2f} images/s "
+            f"through evaluate() (PNG decode, resize, mold, forward, decode, "
+            f"CSVs; host wall), {n / res['seconds'][tag]:.2f} over the whole "
+            f"command {card}")
+        if not extra:
+            continue
+        want = ['gemm_s8', 'conv_s8'] + (['stem_s8'] if '--f16' in extra
+                                         else [])
+        if cuda:
+            missed = [k for k in want if launches[k] < 1]
+            if missed:
+                raise RuntimeError(f"cli {tag}: {missed} never launched")
+            check_served_routes(f'cli {tag}', calls)
+        mode = '' if '--f16' in extra else '_f32acc'
+        for k in want:
+            res['rows'][k + mode] += launches[k]
+        # the same served batches through the plain version
+        with _Recorder() as plain:
+            evaluate.evaluate(_PlainServing(served['engine']),
+                              served['dataset'],
+                              out_dir=os.path.join(root, 'cli_plain'),
+                              log_fn=lambda *a: None)
+        _same_heads(tag, served['outputs'], plain.served[0]['outputs'])
+        if plain.summaries[0] != summary:
+            raise RuntimeError(f"cli {tag}: summary {summary} vs the plain "
+                               f"version's {plain.summaries[0]}")
+        log(f"cli [{tag}] the raw heads of its {n} frames equal the plain "
+            "version's on the same served batches (0 differing values), "
+            "and so does the summary")
+        del served, plain, rec
+
+    # 3. export, then evaluate from the exported h5
+    rec, _, launches = cli('export', 'export', '--weights', 'last',
+                           '--int8', '--eval_batch', str(eval_batch))
+    if cuda and min(launches['gemm_s8'], launches['conv_s8']) < 1:
+        raise RuntimeError(f"cli export --int8: launches {launches}")
+    for k in ('gemm_s8', 'conv_s8'):     # calibration, bias_correct
+        res['rows'][k + '_f32acc'] += launches[k]
+    h5 = os.path.join(out_dir, 'urso_weights.h5')
+    artifact = os.path.join(out_dir, 'urso_int8.msgpack')
+    if not (os.path.exists(h5) and os.path.exists(artifact)):
+        raise RuntimeError(f"cli export wrote {os.listdir(out_dir)}")
+    res['h5_bytes'] = os.path.getsize(h5)
+    res['h5_write_s'] = rec.h5_s['write']
+    rec, _, _ = cli('evaluate h5', 'evaluate', '--weights', h5,
+                    '--eval_batch', str(eval_batch))
+    res['h5_read_s'] = rec.h5_s['read']
+    _same_heads('evaluate h5', rec.served[0]['outputs'],
+                evals['evaluate']['outputs'])
+    if rec.summaries[0] != evals['evaluate']['summary']:
+        raise RuntimeError(f"cli evaluate h5: summary {rec.summaries[0]} vs "
+                           f"--weights last's {evals['evaluate']['summary']}")
+    del rec
+    log(f"cli [export] h5 of {res['h5_bytes']} bytes written in "
+        f"{res['h5_write_s']:.2f} s and read in {res['h5_read_s']:.2f} s "
+        f"(the port's HDF5 codec, host), int8 artifact "
+        f"{os.path.getsize(artifact)} bytes; evaluate --weights <h5> gives "
+        f"--weights last's raw heads bit for bit and its summary {card}")
+
+    # 4. test: overlays of 10 frames, then of one
+    cli('test', 'test', '--weights', 'last', '--eval_batch', str(eval_batch))
+    overlays = sorted(os.listdir(os.path.join(out_dir, 'overlays')))
+    if len(overlays) != CLI_OVERLAYS:
+        raise RuntimeError(f"cli test: {len(overlays)} overlays")
+    with open(os.path.join(out_dir, 'overlays', overlays[0]), 'rb') as f:
+        shape = png.decode_png(f.read()).shape
+    cli('test image', 'test', '--weights', 'last', '--image',
+        os.path.join(root, 'urso', '0_rgb.png'))
+    if not os.path.exists(os.path.join(out_dir, 'single_image_pose.png')):
+        raise RuntimeError("cli test --image wrote no overlay")
+    log(f"cli [test] {len(overlays)} overlays of {shape}, and "
+        "single_image_pose.png")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1961,15 +2220,22 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as root:
         eng = run_engine(engine_config(flagship_config()), dev, root,
                          args.seed, card=card)
-    warp_by_path['engine'] = eng['warp_launches']
-    torch.cuda.empty_cache()
-    log(f"engine phase: {time.perf_counter() - t6:.1f} s")
+        warp_by_path['engine'] = eng['warp_launches']
+        torch.cuda.empty_cache()
+        log(f"engine phase: {time.perf_counter() - t6:.1f} s")
 
-    # 7. the committed artifact, under F16 and in the f32-epilogue mode
+        # 7. the command line on the engine phase's frames
+        t7 = time.perf_counter()
+        cli = run_cli(root, dev, args.seed, card=card)
+    torch.cuda.empty_cache()
+    log(f"cli phase: {time.perf_counter() - t7:.1f} s; seconds by command "
+        f"{ {k: round(v, 1) for k, v in cli['seconds'].items()} } {card}")
+
+    # 8. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
         serve_artifact(dev, f16)
 
-    # 8. serving path at full width and batch: F16 (bench.py's mode) and
+    # 9. serving path at full width and batch: F16 (bench.py's mode) and
     # the f32-epilogue mode, in the base and host_s2d variants
     int8_launches, calls, serve_ms, stem_call = {}, {}, {}, {}
     for f16 in (True, False):
@@ -2024,7 +2290,7 @@ def main(argv=None) -> int:
             f" ms vs f32 epilogues {serve_ms[variant, 'f32']:.3f} ms per batch "
             f"in this run {card}")
 
-    # 9. the kernel-probe entry points at their own shapes
+    # 10. the kernel-probe entry points at their own shapes
     fused_block.reset_counts()
     mma_rate.reset_counts()
     int8_cuda.calls = []
@@ -2044,7 +2310,7 @@ def main(argv=None) -> int:
     if min(probe_launches.values()) < 1:
         raise RuntimeError(f"a probe missed its kernel: {probe_launches}")
 
-    # 10. numbers per kernel
+    # 11. numbers per kernel
     b, c, h, w = FLAGSHIP_BATCH, 3, 512, 640
     imgs = torch.from_numpy(
         (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
@@ -2164,6 +2430,14 @@ def main(argv=None) -> int:
         "max_abs_err": rate_err[kind, route],
         **{k: rates[kind, route][k] for k in timed_keys},
     } for kind in mma_rate.KINDS for route in mma_rate.ROUTES]
+    # the command line's launches (phase 7), counted per command; a row
+    # without paths had only its serving path's ('serve')
+    for row in kernels:
+        n = cli['rows'].get(row['name'], 0)
+        if n:
+            row.setdefault('launches_by_path', {'serve': row['launches']})
+            row['launches_by_path']['cli'] = n
+            row['launches'] += n
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

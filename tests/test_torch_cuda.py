@@ -766,3 +766,36 @@ def test_engine_resumes_on_card(cuda_device, urso_frames, tmp_path):
             assert a[k].is_cuda and torch.equal(a[k], b[k]), k
     eng2.train(train_ds, val_ds, cfg.LEARNING_RATE, 2, log_fn=lambda *a: None)
     assert eng2.epoch == 2
+
+
+# --------------------------------------------------------------------------
+# Keras h5 weights on the card
+
+
+def test_h5_round_trip_of_the_flagship_on_card(cuda_device, tmp_path):
+    """A full-width flagship (benchmark_config(3)) state_dict written by
+    the port's HDF5 codec and loaded back onto the card: every tensor bit
+    for bit, and the same forward bit for bit."""
+    from ursonet_torch import presets
+    from ursonet_torch.engine import UrsoNet
+    cfg = presets.benchmark_config(3)
+    cfg.IMAGES_PER_GPU = 2
+    cfg.update()
+    src = UrsoNet('inference', cfg, str(tmp_path), device=cuda_device)
+    src.initialize(seed=3)
+    path = str(tmp_path / 'flagship.h5')
+    from ursonet_torch.checkpoint.h5_import import save_keras_h5
+    save_keras_h5(path, src.model.state_dict())
+    dst = UrsoNet('inference', cfg, str(tmp_path), device=cuda_device)
+    dst.initialize(seed=4)
+    dst.load_weights(path)
+    a, b = src.model.state_dict(), dst.model.state_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        assert b[k].is_cuda and torch.equal(a[k], b[k]), k
+    h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, h, w, 3)
+                         .astype(np.float32) * 100)
+    want, got = src.predict_molded(x), dst.predict_molded(x)
+    for k in want:
+        assert got[k].is_cuda and torch.equal(got[k], want[k]), k

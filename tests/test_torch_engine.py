@@ -198,8 +198,10 @@ def test_engine_refuses_what_is_not_ported(tmp_path, monkeypatch):
         UrsoNet('training', cfg, str(tmp_path), device='cpu')
     _, cfg = small_configs()
     engine = UrsoNet('inference', cfg, str(tmp_path), device='cpu')
-    with pytest.raises(NotImplementedError, match='h5'):
-        engine.load_weights(str(tmp_path / 'w.h5'))
+    # Keras h5 files load through checkpoint/h5_import.py
+    # (tests/test_torch_h5_import.py); orbax weight dirs are not ported
+    with pytest.raises(NotImplementedError, match='orbax'):
+        engine.load_weights(str(tmp_path / 'w.orbax'))
     with pytest.raises(RuntimeError, match='training mode'):
         engine.train(None, None, None, 1)
     with pytest.raises(ValueError):

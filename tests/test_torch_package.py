@@ -29,7 +29,7 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'ursonet_tpu', 'pandas', 'PIL',
-             'cv2', 'msgpack', 'tools')
+             'cv2', 'msgpack', 'tools', 'h5py', 'matplotlib')
 
 
 def _port_sources():
@@ -63,14 +63,17 @@ def test_import_pulls_in_no_jax():
 
 
 def test_the_checks_cover_the_data_and_engine_modules():
-    """The engine's modules are among those the two checks above import
-    and parse."""
+    """The engine's and the command line's modules are among those the
+    two checks above import and parse."""
     names = set(_module_names())
     for m in ('ursonet_torch.data.png', 'ursonet_torch.data.dataset',
               'ursonet_torch.data.urso', 'ursonet_torch.data.synthetic',
               'ursonet_torch.data.loader', 'ursonet_torch.checkpoint.msgpack',
               'ursonet_torch.checkpoint.store', 'ursonet_torch.utils.memory',
-              'ursonet_torch.engine'):
+              'ursonet_torch.engine', 'ursonet_torch.checkpoint.hdf5',
+              'ursonet_torch.checkpoint.h5_import', 'ursonet_torch.ops.gmm',
+              'ursonet_torch.ops.viz', 'ursonet_torch.evaluate',
+              'ursonet_torch.pose_estimator'):
         assert m in names, m
     assert ROOT / 'ursonet_torch' / 'data' / 'png.py' in _port_sources()
 

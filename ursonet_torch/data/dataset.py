@@ -76,3 +76,6 @@ class Dataset:
 
     def load_location_encoded(self, image_id):
         return self.image_info[image_id]["location_map"]
+
+    def load_orientation_encoded(self, image_id):
+        return self.image_info[image_id]["ori_map"]

@@ -47,7 +47,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ursonet_torch.checkpoint import store
+from ursonet_torch.checkpoint import h5_import, store
 from ursonet_torch.checkpoint.convert import params_to_jax_layout
 from ursonet_torch.checkpoint.quant_store import load_quantized
 from ursonet_torch.data import loader
@@ -254,24 +254,26 @@ class UrsoNet:
 
     def load_weights(self, path: str, exclude: Sequence[str] = (),
                      verbose: bool = False):
-        """Load a msgpack weight snapshot of either package by layer name,
+        """Load a msgpack weight snapshot of either package, or a Keras
+        h5 weight file (`checkpoint/h5_import.py`), by layer name,
         skipping layers that fully match a regex of `exclude` and tensors
         of another shape; the optimizer state starts afresh. A snapshot
         of a run dir continues that run's epochs."""
-        if path.endswith('.h5'):
-            raise NotImplementedError(
-                f'{path}: the Keras h5 bridge comes with the h5 slice '
-                '(ROADMAP §1)')
         if path.endswith('.orbax'):
             raise NotImplementedError(
                 f'{path}: the orbax store is not ported (ROADMAP §1)')
         if self.model is None:
             self.initialize()
-        merged, loaded, skipped = store.merge_params(
-            self.model.state_dict(), store.load_weights_file(path), exclude)
+        if path.endswith('.h5'):
+            merged, _ = h5_import.load_keras_h5(
+                path, self.model.state_dict(), exclude, verbose)
+        else:
+            merged, loaded, skipped = store.merge_params(
+                self.model.state_dict(), store.load_weights_file(path),
+                exclude)
+            if verbose:
+                print(f"loaded {len(loaded)} layers, skipped {skipped}")
         self.model.load_state_dict(merged)
-        if verbose:
-            print(f"loaded {len(loaded)} layers, skipped {skipped}")
         self._drop_qmodel()
         self._reset_optimizer()
         self.set_log_dir(path)

@@ -125,3 +125,17 @@ def quat2euler(q):
     if pitch < -np.pi:
         pitch = 2 * np.pi + pitch
     return pitch / _DEG, yaw / _DEG, roll / _DEG
+
+
+def quat_weighted_avg(Q, W):
+    """Weighted quaternion average (Markley et al. 2007): the eigenvector
+    of the largest eigenvalue of A = sum_i w_i q_i q_i^T, unit length,
+    and A^-1 (a pseudo-inverse: A is rank-deficient when the weights
+    sit on one quaternion) as the uncertainty."""
+    Q = np.asarray(Q, dtype=np.float64)
+    W = np.asarray(W, dtype=np.float64).reshape(-1)
+    A = (Q * W[:, None]).T @ Q
+    _, v = np.linalg.eigh(A)
+    q_avg = v[:, -1]
+    q_avg = q_avg / np.linalg.norm(q_avg)
+    return q_avg, np.linalg.pinv(A)
