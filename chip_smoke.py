@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
   1. device   the card's name, power limit and the software versions;
               no CUDA device -> exit 1 at once. One line each for the
               facts later slices need: whether h5py and torchvision
-              import, and whether native/host_loader.cpp compiles and
-              links against libjpeg and libpng (into a temporary dir).
+              import, whether native/host_loader.cpp compiles and links
+              against libjpeg and libpng (into a temporary dir), the g++
+              version, whether zlib.h is there and where libnvjpeg is.
   2. build    nvcc builds every kernel of the port from the checkout, one
               nvcc per source, all at once; ptxas's registers and spills
               and, per kernel, its count of wgmma (IGMMA, HGMMA), TMA
@@ -84,14 +85,37 @@ Phases, in order; any failure exits non-zero:
               of --weights last bit for bit; test (10 overlays) and test
               --image. Each command's seconds and launches, evaluate's
               images/s, the h5 file's bytes and write / read seconds.
-  8. artifact the committed flagship int8 artifact served on its golden
+  8. speed    benchmark config 4 (SPEED, sim2real, cyclical LR) from
+              JPEG frames: (a) make_speed_dataset writes 32 train_no_val,
+              8 val, 8 test and 8 real_test gray frames at SPEED's
+              1920x1200 through the port's JPEG encoder (one frame's
+              encode and decode ms); (b) UrsoNet.train trains
+              benchmark_config(4) at full width (ResNet-50, bottleneck
+              128, 16^3 bins, batch 4, 640x960; CLR over 3-update half
+              cycles) 2 epochs of 4 steps + 1 validation step in each
+              sim2real order: finite losses, every update's learning rate
+              the cyclical schedule's, the first train batch's
+              channels equal after the preprocess, the gray warp
+              launched; (c) the command line's
+              `train --dataset speed --sim2real --clr --rot_aug
+              --rot_image_aug` (4 steps): warp_cuda_gray launched, one of
+              its calls at full shape equal to the plain version; (d)
+              `evaluate --dataset speed` (finite ESA) and `submit` in
+              float and --int8 (16 rows, test then real_test, each
+              sorted; under --int8 gemm_s8 and conv_s8 on their TMA
+              routes in the f32-epilogue mode, each distinct call and
+              the raw heads of both served sets equal to the plain
+              version bit for bit); (e) an
+              Adam + CLR run resumed bit for bit (params, mu, nu, nu_max,
+              count), then one more epoch on the schedule.
+  9. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
               twin, both int8 kernels launched; drift against the TPU
               goldens and decoded poses printed; its stem rewritten to
               space-to-depth form in memory and served through stem_s8
               gives the same bits.
-  9. serve    int8 serving of serving_config() at full width and batch
+ 10. serve    int8 serving of serving_config() at full width and batch
               (128 × 512×640, seeded random weights; calibrate on 8
               images, smooth(0.5), bias_correct(passes=1), as bench.py)
               through ServingEngine.predict_molded, in the `base` and the
@@ -103,14 +127,15 @@ Phases, in order; any failure exits non-zero:
               `host_s2d` bit for bit under F16; every GEMM, every 3x3
               conv and the fused stem of the served model must have
               taken the TMA + wgmma route.
- 10. probes   the four kernel-probe entry points at their own shapes
+ 11. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
               and stem probes run each kernel on both routes.
- 11. numbers  train step and serving time per variant and mode, memory,
+ 12. numbers  train step and serving time per variant and mode, memory,
               the bf16 float forward at batch 128 (bench.py's
               BENCH_QUANT=0), and each kernel's time in both modes at the
-              main paths' shapes beside its plain version,
+              main paths' shapes beside its plain version (the warp's
+              gray route at config 4's batch too),
               the library call and the card's bound (the stem and the
               rate loops on both routes, with the SM clock read while
               they run; the block beside its unfused route, with the SM
@@ -172,6 +197,8 @@ ACC_DTYPES = {v: k for k, v in ACC_NAMES.items()}
 FLAGSHIP_BATCH = 32
 CONFIG5_BATCH = presets.benchmark_config(5).BATCH_SIZE
 SPEED_BATCH = 4      # released_config('speed')'s bf16 forward
+# benchmark_config(4)'s training batch: 4 frames of SPEED at 640x960
+SPEED_TRAIN_SHAPE = (4, 640, 960)
 # Each REMAT policy's gradients on the card against those without REMAT
 # (remat_grad_rel), relative L2. Measured 0 for every policy at config
 # 5's full width, and 0 between two runs without REMAT (NVIDIA H100 80GB
@@ -228,6 +255,38 @@ def machine_facts() -> dict:
                                       == 0 else f'fails: {err}')
         except FileNotFoundError:
             facts['native_loader'] = 'fails: no g++'
+    facts.update(host_toolchain_facts())
+    return facts
+
+
+def host_toolchain_facts() -> dict:
+    """What a parallel host decoder could build on: the g++ version (it
+    builds the port's JPEG codec), whether zlib.h preprocesses, and where
+    a libnvjpeg is (the CUDA toolkit's lib dirs, then the loader's
+    search)."""
+    import ctypes.util
+    facts = {}
+    try:
+        r = subprocess.run(['g++', '--version'], capture_output=True,
+                           text=True, timeout=60)
+        facts['g++'] = (r.stdout.splitlines() or ['?'])[0]
+        r = subprocess.run(['g++', '-E', '-x', 'c++', '-'],
+                           input='#include <zlib.h>\n', capture_output=True,
+                           text=True, timeout=60)
+        facts['zlib.h'] = 'found' if r.returncode == 0 else \
+            'not found: ' + (r.stderr.strip().splitlines() or ['?'])[0]
+    except FileNotFoundError:
+        facts['g++'] = 'not found'
+    from torch.utils.cpp_extension import CUDA_HOME
+    libs = []
+    for d in ('lib64', 'lib', 'targets/x86_64-linux/lib'):
+        path = os.path.join(CUDA_HOME or '/usr/local/cuda', d)
+        if os.path.isdir(path):
+            libs += sorted(os.path.join(path, f) for f in os.listdir(path)
+                           if f.startswith('libnvjpeg'))
+    found = ctypes.util.find_library('nvjpeg')
+    facts['libnvjpeg'] = ', '.join(libs) if libs else (
+        f'found by the loader: {found}' if found else 'not found')
     return facts
 
 
@@ -321,13 +380,20 @@ def log_bf16_instances(builds) -> None:
 # inputs
 
 
-def net_intrinsics(cfg) -> np.ndarray:
-    """URSO K scaled to the network resolution of `cfg`."""
-    cam = Camera()
+def net_intrinsics(cfg, cam=None) -> np.ndarray:
+    """The camera's K (URSO's by default) scaled to the network
+    resolution of `cfg`."""
+    cam = cam or Camera()
     _, window, scale = resize_geometry(
         cam.height, cam.width, cfg.IMAGE_MIN_DIM, cfg.IMAGE_MAX_DIM,
         cfg.IMAGE_MIN_SCALE, cfg.IMAGE_RESIZE_MODE)
     return augment.scaled_intrinsics(cam.K, window, scale)
+
+
+def speed_intrinsics() -> np.ndarray:
+    """SPEED's K at config 4's network resolution."""
+    from ursonet_torch.data.speed import Camera as SpeedCamera
+    return net_intrinsics(presets.benchmark_config(4), SpeedCamera())
 
 
 def homographies(n, K, rng) -> np.ndarray:
@@ -1124,17 +1190,19 @@ def grid_from_homography(Ms, h, w):
     return torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], dim=-1)
 
 
-def time_warp(imgs, Ms, interp) -> dict:
+def time_warp(imgs, Ms, interp, gray: bool = False) -> dict:
     """Kernel, plain version and F.grid_sample on the same inputs, and the
     card's bound for the work: each input byte read once, each output
     byte written once; ~20 flops per pixel for the coordinate and, for
-    bilinear, ~11 per pixel and channel."""
+    bilinear, ~11 per pixel and channel. `gray`: through the gray route's
+    wrapper (`warp_cuda_gray`, one channel in and out)."""
     b, c, h, w = imgs.shape
     plain = (augment.warp_nearest_torch if interp == 'nearest'
              else augment.warp_bilinear_torch)
+    kernel = warp_cuda.warp_cuda_gray if gray else warp_cuda.warp_cuda
     grid = grid_from_homography(Ms, h, w)
     out = {
-        'ms': cuda_ms(lambda: warp_cuda.warp_cuda(imgs, Ms, interp), 50),
+        'ms': cuda_ms(lambda: kernel(imgs, Ms, interp), 50),
         'plain_ms': cuda_ms(lambda: plain(imgs, Ms), 10),
         'library_ms': cuda_ms(lambda: F.grid_sample(
             imgs, grid, mode=interp, padding_mode='zeros',
@@ -1442,14 +1510,18 @@ def time_mma_rate(kind, route, dev, card, mnk=(1024, 1024, 512),
 
 def check_warp(dev, rng, K) -> float:
     """The warp kernel against its plain version at the batches of the
-    flagship and of config 5 and at a ragged size: nearest exact,
-    bilinear within 1e-3; RGB and gray. Returns the max abs error."""
+    flagship, of config 5 and of config 4 (SPEED's 640x960 with its
+    camera) and at a ragged size: nearest exact, bilinear within 1e-3;
+    RGB and gray. Returns the max abs error."""
     max_err = 0.0
-    for b, c, h, w in [(FLAGSHIP_BATCH, 3, 512, 640),
-                       (CONFIG5_BATCH, 3, 512, 640), (3, 3, 100, 130)]:
+    for (b, c, h, w), Kb in [((FLAGSHIP_BATCH, 3, 512, 640), K),
+                             ((CONFIG5_BATCH, 3, 512, 640), K),
+                             ((SPEED_TRAIN_SHAPE[0], 3) + SPEED_TRAIN_SHAPE[1:],
+                              speed_intrinsics()),
+                             ((3, 3, 100, 130), K)]:
         imgs = torch.from_numpy(
             (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
-        Ms = torch.from_numpy(homographies(b, K, rng)).to(dev)
+        Ms = torch.from_numpy(homographies(b, Kb, rng)).to(dev)
         for interp in ('nearest', 'bilinear'):
             plain = (augment.warp_nearest_torch if interp == 'nearest'
                      else augment.warp_bilinear_torch)
@@ -1922,18 +1994,23 @@ class _PlainServing:
                                    plain=True)
 
 
-def _same_heads(tag, got: dict, want: dict) -> None:
+def _same_heads(tag, got: dict, want: dict) -> float:
+    """Raises unless every raw head equals `want`'s; returns the largest
+    absolute difference (0.0)."""
     if got.keys() != want.keys():
         raise RuntimeError(f"cli {tag}: heads {sorted(got)} vs "
                            f"{sorted(want)}")
+    err = 0.0
     for k in want:
         if got[k].shape != want[k].shape:
             raise RuntimeError(f"cli {tag} {k}: {got[k].shape} vs "
                                f"{want[k].shape}")
         diff = int((got[k] != want[k]).sum())
+        err = max(err, float(np.abs(got[k] - want[k]).max()))
         if diff:
             raise RuntimeError(f"cli {tag} {k}: {diff} of {want[k].size} "
-                               "raw head values differ")
+                               f"raw head values differ, max abs {err}")
+    return err
 
 
 def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
@@ -2076,6 +2153,389 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
         raise RuntimeError("cli test --image wrote no overlay")
     log(f"cli [test] {len(overlays)} overlays of {shape}, and "
         "single_image_pose.png")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 8: SPEED, benchmark config 4
+
+# Gray SPEED frames at the camera's 1920x1200, written by the port's JPEG
+# encoder; the engine runs 2 epochs of SPEED_STEPS steps + 1 validation
+# step in each sim2real order.
+SPEED_FRAMES = {'train_no_val': 32, 'val': 8, 'test': 8, 'real_test': 8}
+SPEED_WH = (1920, 1200)
+SPEED_STEPS = 4
+# CLR's step size on the card (the preset's is 4000): the learning rate
+# rises for 3 updates and falls for 3, so 8 updates cross a peak and a
+# trough of the cycle.
+SPEED_CLR_STEP = 3
+# config 4 through the command line: ResNet-50, bottleneck 128, 16^3
+# bins, 640x960 (--image_scale 0.5), sim2real, CLR, rotations
+SPEED_CLI_FLAGS = ['--backbone', 'resnet50', '--bottleneck', '128',
+                   '--branch_size', '1024', '--ori_resolution', '16',
+                   '--classify_ori', '--regress_loc', '--image_scale', '0.5',
+                   '--sim2real', '--clr', '--rot_aug', '--rot_image_aug']
+SPEED_EVAL_BATCH = 8
+
+
+def speed_config(cfg=None, per_image_order: bool = False,
+                 optimizer: str = 'SGD') -> Config:
+    """benchmark_config(4) (or `cfg`) with the phase's schedule: sim2real
+    in the given order, `optimizer`, CLR over SPEED_CLR_STEP updates."""
+    cfg = cfg or presets.benchmark_config(4)
+    cfg.SIM2REAL_AUG = True
+    cfg.CLR = True
+    cfg.SIM2REAL_PER_IMAGE_ORDER = per_image_order
+    cfg.OPTIMIZER = optimizer
+    cfg.CLR_STEP_SIZE = SPEED_CLR_STEP
+    cfg.STEPS_PER_EPOCH = SPEED_STEPS
+    cfg.VALIDATION_STEPS = 1
+    cfg.update()
+    return cfg
+
+
+def clr_numpy(count: int, base: float, top: float, step: int) -> float:
+    """The triangular cyclical learning rate, float64."""
+    cycle = np.floor(1 + count / (2 * step))
+    x = abs(count / step - 2 * cycle + 1)
+    return base + (top - base) * max(0.0, 1 - x)
+
+
+def _record_lrs(eng) -> list:
+    """The learning rate of every update the engine's optimizer makes
+    from now on."""
+    lrs, step = [], eng.tx.step
+
+    def recorded(params, grads):
+        step(params, grads)
+        lrs.append(eng.tx.last_lr)
+    eng.tx.step = recorded
+    return lrs
+
+
+def _check_clr(tag, cfg, lrs, first: int = 0) -> None:
+    want = [clr_numpy(first + i, cfg.BASE_LEARNING_RATE,
+                      cfg.MAX_LEARNING_RATE, cfg.CLR_STEP_SIZE)
+            for i in range(len(lrs))]
+    if not lrs or not np.allclose(lrs, want, rtol=1e-6, atol=0):
+        raise RuntimeError(f"speed {tag}: learning rates {lrs} vs the "
+                           f"cyclical schedule's {want}")
+
+
+class _GrayWarps:
+    """While open, keeps the first call of the gray warp (inputs and
+    output) that the rotation makes."""
+
+    def __enter__(self):
+        self.saved = augment.warp_cuda_gray
+        self.first = None
+
+        def recorded(images, Ms, interpolation='nearest'):
+            out = self.saved(images, Ms, interpolation)
+            if self.first is None:
+                self.first = (images[:, :1].clone(), Ms.clone(),
+                              interpolation, out[:, :1].clone())
+            return out
+        augment.warp_cuda_gray = recorded
+        return self
+
+    def __exit__(self, *exc):
+        augment.warp_cuda_gray = self.saved
+
+
+class _Preprocessed:
+    """While open, keeps the pixels (images plus the mean pixel) of the
+    first batch a `DevicePreprocess` returns."""
+
+    def __enter__(self):
+        self.saved = loader.DevicePreprocess.__call__
+        self.first = None
+
+        def recorded(pre, raw, draws=None):
+            batch = self.saved(pre, raw, draws)
+            if self.first is None:
+                self.first = (batch['images'] + pre.mean_pixel).detach()
+            return batch
+        loader.DevicePreprocess.__call__ = recorded
+        return self
+
+    def __exit__(self, *exc):
+        loader.DevicePreprocess.__call__ = self.saved
+
+
+def _check_gray_warp(tag, first) -> None:
+    """The recorded gray warp call at its full shape against the plain
+    version: nearest exactly, bilinear within 1e-3."""
+    if first is None:
+        raise RuntimeError(f"speed {tag}: the gray warp was never called")
+    images, Ms, interp, got = first
+    plain = (augment.warp_nearest_torch if interp == 'nearest'
+             else augment.warp_bilinear_torch)
+    ref = plain(images, Ms)
+    err = float((got - ref).abs().max())
+    if (interp == 'nearest' and err != 0) or err > 1e-3:
+        raise RuntimeError(f"speed {tag}: gray warp {tuple(images.shape)} "
+                           f"{interp} differs from the plain version by {err}")
+    log(f"speed {tag}: one gray warp call at {tuple(images.shape)} {interp} "
+        f"against the plain version: max_abs_err={err}")
+
+
+def _speed_datasets(root, cfg, subsets):
+    from ursonet_torch.data.speed import Speed
+    out = {}
+    for subset in subsets:
+        out[subset] = Speed()
+        out[subset].load_dataset(root, cfg, subset)
+    return out
+
+
+def _submission_rows(out_dir, ds) -> list:
+    """The rows of the one submission in `out_dir`, checked: test frames
+    then real_test frames, each sorted by name, unit quaternions."""
+    import csv as csv_mod
+    files = [f for f in os.listdir(out_dir) if f.startswith('submission_')]
+    if len(files) != 1:
+        raise RuntimeError(f"speed submit: {files} in {out_dir}")
+    with open(os.path.join(out_dir, files[0]), newline='') as f:
+        rows = list(csv_mod.reader(f))
+    want = [sorted(os.path.basename(i['path']) for i in ds[s].image_info)
+            for s in ('test', 'real_test')]
+    if [r[0] for r in rows] != want[0] + want[1]:
+        raise RuntimeError(f"speed submit: rows {[r[0] for r in rows]}")
+    vals = np.array([r[1:] for r in rows], np.float64)
+    if vals.shape[1] != 7 or not np.isfinite(vals).all() or not np.allclose(
+            np.linalg.norm(vals[:, :4], axis=1), 1.0, atol=1e-5):
+        raise RuntimeError(f"speed submit: values {vals}")
+    return rows
+
+
+def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
+              cfg_fn=None, cli_flags=SPEED_CLI_FLAGS, train_batch: int = 4,
+              eval_batch: int = SPEED_EVAL_BATCH, steps: int = SPEED_STEPS,
+              card: str = '') -> dict:
+    """The SPEED phase: (a) `make_speed_dataset` writes gray JPEG frames;
+    (b) `UrsoNet.train` trains config 4 (`speed_config`) 2 epochs in each
+    sim2real order, each update's learning rate the cyclical schedule's,
+    the first preprocessed train batch gray; (c) the command line trains
+    config 4 (the gray warp launched, one call equal to the plain
+    version); (d) `evaluate` on val (finite ESA) and `submit` in float and
+    --int8 (gemm_s8 and conv_s8 on their TMA routes, each distinct call
+    and the served raw heads equal to the plain version); (e) an Adam +
+    CLR run resumed bit for bit, then trained on. `cfg_fn(per_image_order,
+    optimizer)` makes the engine's configs (default `speed_config`).
+    Every launch counter is set to 0 before each part and read after it.
+    Returns the launches by kernel row, seconds, timings and the int8
+    submit's largest difference from the plain version (`max_abs_err`)."""
+    from ursonet_torch import pose_estimator, submission
+    from ursonet_torch.data import jpeg
+    from ursonet_torch.data.synthetic import make_speed_dataset
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg_fn = cfg_fn or (lambda order, opt: speed_config(
+        per_image_order=order, optimizer=opt))
+    frames = frames or SPEED_FRAMES
+    res = {'seconds': {}, 'rows': Counter(), 'launches': {}}
+    data = os.path.join(root, 'speed')
+
+    def part(tag):
+        sync()
+        warp_cuda.reset_counts()
+        int8_cuda.reset_counts()
+        res['seconds'][tag] = time.perf_counter()
+
+    def done(tag):
+        sync()
+        res['seconds'][tag] = time.perf_counter() - res['seconds'][tag]
+        launches = {**warp_cuda.launches, **int8_cuda.launches}
+        res['launches'][tag] = launches
+        for k in ('warp_homography', 'warp_homography_gray'):
+            res['rows'][k] += launches[k]
+        log(f"speed [{tag}] {res['seconds'][tag]:.1f} s (host wall), "
+            f"launches {launches} {card}")
+        return launches
+
+    # (a) frames
+    part('frames')
+    make_speed_dataset(data, n_per_subset=frames, width=wh[0],
+                       height=wh[1], seed=seed)
+    done('frames')
+    path = os.path.join(data, 'images', 'train', 'img000000.jpg')
+    with open(path, 'rb') as f:
+        blob = f.read()
+    t0 = time.perf_counter()
+    gray = jpeg.decode_jpeg(blob)
+    res['decode_ms'] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    jpeg.encode_jpeg(gray)
+    res['encode_ms'] = (time.perf_counter() - t0) * 1e3
+    if gray.shape != (wh[1], wh[0]):
+        raise RuntimeError(f"speed (a): frame of {gray.shape}")
+    log(f"speed (a) {sum(frames.values())} gray JPEG frames at {wh[0]}x{wh[1]} "
+        f"in {res['seconds']['frames']:.1f} s; one frame ({len(blob)} bytes): "
+        f"decode {res['decode_ms']:.1f} ms, encode {res['encode_ms']:.1f} ms "
+        "(the port's codec, one host thread)")
+
+    # (b) the engine trains config 4 in each sim2real order
+    for order in (False, True):
+        tag = f"engine per_image_order={order}"
+        cfg = cfg_fn(order, 'SGD')
+        ds = _speed_datasets(data, cfg, ('train_no_val', 'val'))
+        part(tag)
+        eng = UrsoNet('training', cfg,
+                      os.path.join(root, f'speed_logs_{int(order)}'),
+                      device=dev)
+        eng.initialize(seed)
+        lrs = _record_lrs(eng)
+        lines = []
+        with _Preprocessed() as pre:
+            eng.train(ds['train_no_val'], ds['val'], cfg.LEARNING_RATE, 2,
+                      log_fn=lines.append)
+        launches = done(tag)
+        for line in lines:
+            log(f"speed (b) [{tag}] {line}")
+        _check_epochs(f'speed (b) {tag}', _records(eng.log_dir), range(2))
+        _check_clr(f'(b) {tag}', cfg, lrs)
+        log(f"speed (b) [{tag}] learning rates {lrs} = the cyclical "
+            f"schedule's (base {cfg.BASE_LEARNING_RATE}, max "
+            f"{cfg.MAX_LEARNING_RATE}, step {cfg.CLR_STEP_SIZE})")
+        if cuda and launches['warp_homography_gray'] < 1:
+            raise RuntimeError(f"speed (b) {tag}: the gray warp never ran")
+        # the first batch it trained on, preprocessed: three equal channels
+        pix = pre.first
+        spread = float((pix - pix[:, :1]).abs().max())
+        if spread > 1e-3:
+            raise RuntimeError(f"speed (b) {tag}: channels differ by {spread}")
+        log(f"speed (b) [{tag}] first preprocessed train batch "
+            f"{tuple(pix.shape)}: the three channels agree within {spread} "
+            "(the mean pixel's rounding)")
+        del eng, pre, pix
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c)-(d) the command line
+    logs = os.path.join(root, 'speed_cli_logs')
+    common = ['--dataset', 'speed', '--data_dir', root, '--logs', logs,
+              '--models_dir', os.path.join(root, 'models'), '--seed',
+              str(seed)] + list(cli_flags)
+
+    def cli(tag, *argv, out_dir=None):
+        out_dir = out_dir or os.path.join(root, 'speed_out')
+        os.makedirs(out_dir, exist_ok=True)
+        part(tag)
+        rc = pose_estimator.main(list(argv) + common + ['--out_dir', out_dir],
+                                 device=dev)
+        if rc != 0:
+            raise RuntimeError(f"speed cli {tag}: exit code {rc}")
+        return done(tag)
+
+    with _GrayWarps() as warps:
+        launches = cli('cli train', 'train', '--weights', 'none', '--epochs',
+                       '1', '--steps_per_epoch', str(steps), '--batch_size',
+                       str(train_batch), '--set', 'VALIDATION_STEPS=1')
+    _check_epochs('speed (c)', _records(os.path.dirname(
+        store.find_last(logs))), range(1))
+    if cuda and launches['warp_homography_gray'] < 1:
+        raise RuntimeError("speed (c): the CLI's training never launched "
+                           "the gray warp")
+    _check_gray_warp('(c)', warps.first)
+
+    with _Recorder() as rec:
+        cli('cli evaluate', 'evaluate', '--weights', 'last', '--eval_batch',
+            str(eval_batch))
+    (summary,) = rec.summaries
+    if not all(np.isfinite(v) for v in summary.values()):
+        raise RuntimeError(f"speed (d) evaluate: summary {summary}")
+    res['evaluate'] = summary
+    log(f"speed (d) evaluate on val: {summary}")
+
+    cfg = cfg_fn(False, 'SGD')
+    ds = _speed_datasets(data, cfg, ('test', 'real_test'))
+    served = []
+    run = submission.test_and_submit
+
+    def recorded(*a, **kw):
+        int8_cuda.calls = []
+        try:
+            return run(*a, **kw)
+        finally:
+            served.append(int8_cuda.calls)
+            int8_cuda.calls = None
+    submission.test_and_submit = recorded
+    try:
+        for tag, extra in (('cli submit', []), ('cli submit int8',
+                                                ['--int8'])):
+            out_dir = os.path.join(root, tag.replace(' ', '_'))
+            with _Recorder() as rec:
+                launches = cli(tag, 'submit', '--weights', 'last',
+                               '--eval_batch', str(eval_batch), *extra,
+                               out_dir=out_dir)
+            rows = _submission_rows(out_dir, ds)
+            log(f"speed (d) [{tag}] {len(rows)} rows, test then real_test, "
+                f"each sorted; first {rows[0]}")
+            if not extra:
+                continue
+            calls = served[-1]
+            if cuda:
+                if min(launches['gemm_s8'], launches['conv_s8']) < 1:
+                    raise RuntimeError(f"speed {tag}: launches {launches}")
+                check_served_routes(f'speed {tag}', calls)
+                modes = Counter(a['acc'] for _, a in calls)
+                if set(modes) != {'f32'}:
+                    raise RuntimeError(f"speed {tag}: launches in modes "
+                                       f"{modes}")
+                check_served_calls(f'speed {tag}', calls, dev,
+                                   np.random.RandomState(seed))
+            for k in ('gemm_s8', 'conv_s8'):
+                res['rows'][k + '_f32acc'] += launches[k]
+            # the served batches of both test sets through the plain version
+            if len(rec.served) != 2:
+                raise RuntimeError(f"speed {tag}: {len(rec.served)} served "
+                                   "sets, not test and real_test")
+            res['max_abs_err'] = 0.0
+            for batch in rec.served:
+                plain = evaluate._batched_forward(
+                    _PlainServing(batch['engine']), batch['dataset'],
+                    batch['ids'])
+                res['max_abs_err'] = max(res['max_abs_err'], _same_heads(
+                    f'speed {tag}', batch['outputs'], plain))
+            log(f"speed (d) [{tag}] the raw heads of its {len(rows)} frames "
+                f"({len(rec.served)} served sets) equal the plain version's "
+                f"on the same served batches: max abs "
+                f"{res['max_abs_err']}")
+            del rec, batch, plain
+    finally:
+        submission.test_and_submit = run
+
+    # (e) Adam + CLR: a run, its resume bit for bit, one more epoch
+    cfg = cfg_fn(False, 'ADAM')
+    cfg.STEPS_PER_EPOCH = 2
+    ds = _speed_datasets(data, cfg, ('train_no_val', 'val'))
+    part('adam')
+    model_dir = os.path.join(root, 'speed_adam')
+    eng = UrsoNet('training', cfg, model_dir, device=dev)
+    eng.initialize(seed)
+    eng.train(ds['train_no_val'], ds['val'], cfg.LEARNING_RATE, 1,
+              log_fn=lambda *a: None)
+    eng2 = UrsoNet('training', cfg, model_dir, device=dev)
+    if not eng2.resume_state(eng.log_dir):
+        raise RuntimeError("speed (e): no state to resume")
+    _same_tensors('speed (e) params', eng2.model.state_dict(),
+                  eng.model.state_dict())
+    for slot in ('mu', 'nu', 'nu_max'):
+        _same_tensors(f'speed (e) {slot}', eng2.slots[slot], eng.slots[slot])
+    if (eng2.tx.count, eng2.step, eng2.epoch) != (eng.tx.count, eng.step, 1):
+        raise RuntimeError(f"speed (e): count/step/epoch {eng2.tx.count}/"
+                           f"{eng2.step}/{eng2.epoch}")
+    lrs = _record_lrs(eng2)
+    eng2.train(ds['train_no_val'], ds['val'], cfg.LEARNING_RATE, 2,
+               log_fn=lambda *a: None)
+    done('adam')
+    _check_epochs('speed (e)', _records(eng.log_dir), range(2))
+    _check_clr('(e)', cfg, lrs, first=eng.tx.count)
+    log(f"speed (e) Adam + CLR resumed bit for bit (params, mu, nu, nu_max, "
+        f"count {eng.tx.count}); the next epoch's learning rates {lrs}")
+    del eng, eng2
     return res
 
 
@@ -2227,15 +2687,23 @@ def main(argv=None) -> int:
         # 7. the command line on the engine phase's frames
         t7 = time.perf_counter()
         cli = run_cli(root, dev, args.seed, card=card)
-    torch.cuda.empty_cache()
-    log(f"cli phase: {time.perf_counter() - t7:.1f} s; seconds by command "
-        f"{ {k: round(v, 1) for k, v in cli['seconds'].items()} } {card}")
+        torch.cuda.empty_cache()
+        log(f"cli phase: {time.perf_counter() - t7:.1f} s; seconds by "
+            f"command { {k: round(v, 1) for k, v in cli['seconds'].items()} }"
+            f" {card}")
 
-    # 8. the committed artifact, under F16 and in the f32-epilogue mode
+        # 8. SPEED: benchmark config 4 from JPEG frames
+        t8 = time.perf_counter()
+        speed = run_speed(root, dev, args.seed, card=card)
+    torch.cuda.empty_cache()
+    log(f"speed phase: {time.perf_counter() - t8:.1f} s; seconds by part "
+        f"{ {k: round(v, 1) for k, v in speed['seconds'].items()} } {card}")
+
+    # 9. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
         serve_artifact(dev, f16)
 
-    # 9. serving path at full width and batch: F16 (bench.py's mode) and
+    # 10. serving path at full width and batch: F16 (bench.py's mode) and
     # the f32-epilogue mode, in the base and host_s2d variants
     int8_launches, calls, serve_ms, stem_call = {}, {}, {}, {}
     for f16 in (True, False):
@@ -2290,7 +2758,7 @@ def main(argv=None) -> int:
             f" ms vs f32 epilogues {serve_ms[variant, 'f32']:.3f} ms per batch "
             f"in this run {card}")
 
-    # 10. the kernel-probe entry points at their own shapes
+    # 11. the kernel-probe entry points at their own shapes
     fused_block.reset_counts()
     mma_rate.reset_counts()
     int8_cuda.calls = []
@@ -2310,7 +2778,7 @@ def main(argv=None) -> int:
     if min(probe_launches.values()) < 1:
         raise RuntimeError(f"a probe missed its kernel: {probe_launches}")
 
-    # 11. numbers per kernel
+    # 12. numbers per kernel
     b, c, h, w = FLAGSHIP_BATCH, 3, 512, 640
     imgs = torch.from_numpy(
         (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
@@ -2323,6 +2791,16 @@ def main(argv=None) -> int:
             f"({tw['bound_by']}: {tw['bytes']} B at 3.35 TB/s, {tw['flops']} "
             f"flop at 67 TFLOP/s) {card}")
     on_path = timed[cfg.WARP_INTERPOLATION]
+    # the gray route at config 4's batch, one channel, nearest
+    b4, h4, w4 = SPEED_TRAIN_SHAPE
+    imgs = torch.from_numpy(
+        (rng.rand(b4, 1, h4, w4) * 255).astype(np.float32)).to(dev)
+    Ms = torch.from_numpy(homographies(b4, speed_intrinsics(), rng)).to(dev)
+    gray = time_warp(imgs, Ms, 'nearest', gray=True)
+    log(f"warp_homography gray nearest {b4}x1x{h4}x{w4}: kernel "
+        f"{gray['ms']:.4f} ms, plain {gray['plain_ms']:.4f} ms, "
+        f"F.grid_sample {gray['library_ms']:.4f} ms on one channel, bound "
+        f"{gray['bound_ms']:.4f} ms ({gray['bound_by']}) {card}")
     del imgs, Ms
     int8, stem = {}, {}
     for mode in ('bf16', 'f32'):
@@ -2403,9 +2881,14 @@ def main(argv=None) -> int:
         "name": "warp_homography", "route": "cuda",
         "source": "ursonet_torch/csrc/warp.cu",
         "replaces": "ursonet_tpu/ops/warp_pallas.py:56",
-        "launches": sum(warp_by_path.values()),
-        "launches_by_path": warp_by_path, "max_abs_err": warp_err,
+        "launches": sum(warp_by_path.values()) + speed['rows'][
+            'warp_homography'],
+        "launches_by_path": {**warp_by_path,
+                             'speed': speed['rows']['warp_homography']},
+        "launches_gray": {'speed': speed['rows']['warp_homography_gray']},
+        "max_abs_err": warp_err,
         **{k: on_path[k] for k in keys},
+        "gray": {k: gray[k] for k in keys},
     }] + int8_rows + [{
         "name": "stem_s8_ragged", "route": "cuda", "kernel_route": "ragged",
         "acc": "bf16", "source": "ursonet_torch/csrc/int8_stem.cu",
@@ -2438,6 +2921,20 @@ def main(argv=None) -> int:
             row.setdefault('launches_by_path', {'serve': row['launches']})
             row['launches_by_path']['cli'] = n
             row['launches'] += n
+        # the SPEED phase's int8 launches (submit --int8) and its served
+        # batches against the plain version; the warp's are in its row
+        # already
+        n = speed['rows'].get(row['name'], 0) \
+            if row['name'] != 'warp_homography' else 0
+        if n:
+            row.setdefault('launches_by_path', {'serve': row['launches']})
+            row['launches_by_path']['speed'] = n
+            row['launches'] += n
+            row.setdefault('max_abs_err_by_path',
+                           {'checks': row['max_abs_err']})
+            row['max_abs_err_by_path']['speed'] = speed['max_abs_err']
+            row['max_abs_err'] = max(row['max_abs_err'],
+                                     speed['max_abs_err'])
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

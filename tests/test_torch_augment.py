@@ -188,9 +188,11 @@ def test_preprocess_without_augmentation_and_unported_modes():
     np.testing.assert_allclose(out['images'][:, :, 0, 0].numpy(),
                                np.tile(200 - tcfg.MEAN_PIXEL, (2, 1)),
                                rtol=1e-6)
+    # sim2real is ported (tests/test_torch_sim2real.py): it builds and
+    # draws
     _, cfg = small_configs(SIM2REAL_AUG=True)
-    with pytest.raises(NotImplementedError):
-        tloader.make_device_preprocess(cfg, device='cpu')
+    pre = tloader.make_device_preprocess(cfg, device='cpu')
+    assert pre.sim2real and 'sim2real' in pre.draw(torch.Generator(), 2)
     # keypoint mode is ported (tests/test_torch_keypoints.py)
     _, cfg = small_configs(REGRESS_KEYPOINTS=True)
     assert tloader.make_device_preprocess(cfg, device='cpu').kp_scale == 3.0

@@ -16,7 +16,8 @@ from ursonet_tpu.checkpoint import quant_store as jqs
 from ursonet_torch.checkpoint import msgpack as tmsgpack
 from ursonet_torch.checkpoint.quant_store import save_quantized
 from ursonet_torch.engine import UrsoNet
-from torch_parity import rel_l2, small_configs
+# run_dir is a fixture
+from torch_parity import rel_l2, run_dir, small_configs  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -38,18 +39,18 @@ def _trees_equal(a, b, path=''):
 
 
 @pytest.mark.parametrize('f16', [False, True])
-def test_save_quantized_serves_the_same_bits_in_jax(tmp_path, f16):
+def test_save_quantized_serves_the_same_bits_in_jax(run_dir, f16):
     """The port's calibrated, smoothed and bias-corrected int8 model saved
     by save_quantized, read back by the JAX package's load_quantized."""
     jcfg, tcfg = small_configs(F16=f16)
-    engine = UrsoNet('inference', tcfg, str(tmp_path), device='cpu')
+    engine = UrsoNet('inference', tcfg, str(run_dir), device='cpu')
     engine.initialize(seed=5)
     rng = np.random.RandomState(0)
     calib = list(rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8))
     qm = engine.quantize(calib)
     qm.smooth(0.5)
     qm.bias_correct(np.stack(calib), passes=1)
-    path = str(tmp_path / 'int8.msgpack')
+    path = str(run_dir / 'int8.msgpack')
     save_quantized(path, qm, float_dtype=np.float16)
     jqm = jqs.load_quantized(path, jcfg)
     assert jqm.act_scales == {k: np.float32(v) for k, v in

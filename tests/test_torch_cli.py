@@ -12,6 +12,7 @@ last` (the same f32 weights through the port's HDF5 writer and reader).
 
 import glob
 import os
+import shutil
 import subprocess
 import sys
 
@@ -30,11 +31,10 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Knobs of the JAX package's Config the port's does not carry: the mesh
-# (one card), the Pallas warp switch, CLR's schedule, int8 training
-# activations, inner-width pruning, the decoupled-orientation and NaN
-# debug switches (ROADMAP.md §1 items 5, 6, 8, 9).
-JAX_ONLY = {'BASE_LEARNING_RATE', 'CLR_STEP_SIZE', 'DEBUG_NANS',
-            'DECOUPLE_ORIENTATION', 'INNER_WIDTH_MULT', 'MAX_LEARNING_RATE',
+# (one card), the Pallas warp switch, int8 training activations,
+# inner-width pruning, the decoupled-orientation and NaN debug switches
+# (ROADMAP.md §1 items 5, 7, 9, 11).
+JAX_ONLY = {'DEBUG_NANS', 'DECOUPLE_ORIENTATION', 'INNER_WIDTH_MULT',
             'MESH_DATA', 'MESH_MODEL', 'PALLAS_WARP', 'TRAIN_ACT_Q8'}
 
 FLAGSHIP = ['--bottleneck', '128', '--ori_resolution', '24',
@@ -83,7 +83,7 @@ def _value(v):
     ['test', '--dataset', 'x', '--weights', 'none', '--regress_ori',
      '--ori_param', 'euler_angles', '--square_image', '--image_scale', '0.1',
      '--classify_loc', '--loc_weight', '0.5', '--int8_float_finals'],
-    # SPEED's frame size (its adapter is not ported; the Config is)
+    # SPEED's frame size
     ['export', '--dataset', 'speed', '--weights', 'none', '--image_scale',
      '0.5', '--backbone', 'resnet101'],
 ])
@@ -122,8 +122,9 @@ def env(tmp_path_factory):
     make_urso_dataset(str(root / 'datasets' / 'tiny'),
                       n_per_subset={'train': 4, 'val': 2, 'test': 5},
                       width=128, height=96, seed=1)
-    return {'data': str(root / 'datasets'), 'logs': str(root / 'logs'),
-            'out': str(root / 'out'), 'models': str(root / 'models')}
+    yield {'data': str(root / 'datasets'), 'logs': str(root / 'logs'),
+           'out': str(root / 'out'), 'models': str(root / 'models')}
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _args(env, command, *extra):
@@ -203,7 +204,6 @@ def test_quick_start_on_the_cpu(env, capsys):
 
 
 @pytest.mark.parametrize('extra,item', [
-    (['submit', '--weights', 'none'], 'submit'),
     (['test', '--weights', 'none', '--video', 'v.mp4'], 'video'),
     (['train', '--weights', 'none', '--host_augment'], 'host-parity'),
     (['train', '--weights', 'none', '--mesh_data', '2'], 'parallelism'),
@@ -216,11 +216,25 @@ def test_what_is_not_ported_raises(env, extra, item):
 
 
 def test_speed_dataset_raises(env):
+    """--dataset speed loads SPEED's subsets (it raised before the SPEED
+    adapter was ported): the labelled ones with PMFs, the unlabelled
+    ones with the bin map only; `submit` without --dataset speed exits
+    as the JAX CLI does."""
+    from ursonet_torch.data.speed import Speed
+    from ursonet_torch.data.synthetic import make_speed_dataset
+    make_speed_dataset(os.path.join(env['data'], 'speed'), n_per_subset=2,
+                       width=64, height=40)
     args = tcli.build_parser().parse_args(
-        ['evaluate', '--dataset', 'speed', '--weights', 'none'])
+        ['evaluate', '--dataset', 'speed', '--weights', 'none',
+         '--data_dir', env['data'], '--ori_resolution', '6'])
     cfg = tcli.make_config(args)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md.*SPEED'):
-        tcli.load_datasets(args, cfg, ('test',))
+    val, test = tcli.load_datasets(args, cfg, ('val', 'test'))
+    assert isinstance(val, Speed) and isinstance(test, Speed)
+    assert len(val.image_ids) == len(test.image_ids) == 2
+    assert len(val.image_info[0]['ori_map']) == 6 ** 3
+    assert 'quaternion' not in test.image_info[0]
+    with pytest.raises(SystemExit, match='--dataset speed'):
+        tcli.main(_args(env, 'submit', '--weights', 'none'), device='cpu')
 
 
 def test_the_card_or_nothing(env, monkeypatch):

@@ -799,3 +799,71 @@ def test_h5_round_trip_of_the_flagship_on_card(cuda_device, tmp_path):
     want, got = src.predict_molded(x), dst.predict_molded(x)
     for k in want:
         assert got[k].is_cuda and torch.equal(got[k], want[k]), k
+
+
+# --------------------------------------------------------------------------
+# SPEED: the gray route of the warp at config 4's shape, the JPEG codec
+
+
+@pytest.mark.parametrize('interp', ['nearest', 'bilinear'])
+def test_gray_warp_at_config4_shape_matches_plain(cuda_device, interp):
+    """warp_cuda_gray on a broadcast gray batch (what sim2real hands the
+    rotation) at benchmark_config(4)'s 4x640x960 with SPEED's camera:
+    nearest exactly, bilinear within 1e-3; one gray launch."""
+    b, h, w = chip_smoke.SPEED_TRAIN_SHAPE
+    rng = np.random.RandomState(4)
+    one = torch.from_numpy(
+        (rng.rand(b, 1, h, w) * 255).astype(np.float32)).to(cuda_device)
+    Ms = torch.from_numpy(chip_smoke.homographies(
+        b, chip_smoke.speed_intrinsics(), rng)).to(cuda_device)
+    plain = augment.warp_nearest_torch if interp == 'nearest' \
+        else augment.warp_bilinear_torch
+    before = dict(wc.launches)
+    got = wc.warp_cuda_gray(one.expand(b, 3, h, w), Ms, interp)
+    torch.cuda.synchronize()
+    assert wc.launches['warp_homography_gray'] == \
+        before['warp_homography_gray'] + 1
+    assert got.shape == (b, 3, h, w)
+    ref = plain(one, Ms)
+    tol = 0.0 if interp == 'nearest' else 1e-3
+    assert (got - ref).abs().max().item() <= tol
+
+
+# sha256 of PIL's pixels of tests/data/jpeg_*.jpg (written by PIL: a gray
+# frame at quality 75; an RGB 4:2:0 frame at quality 90 with a restart
+# interval of 2 MCUs)
+JPEG_GOLDEN = {
+    'gray': ('ac4428b960b5aff10ddfaaba47148d0caa365676e755a69dac02ade8617972e9',
+             (23, 37)),
+    'rgb420': ('309654dc1a5db44b1cf057107c21a495ad384863e45ef05ad443d403917125c0',
+               (37, 23, 3)),
+}
+# sha256 of the codec's file for JPEG_PATTERN at quality 75 (as built
+# with g++ where PIL decodes it to the same pixels as PIL's own file)
+JPEG_PATTERN_SHA = \
+    'dfca1139df9790a537b3cb6b0d62a3e8034f3abf09a54ae9471ecab1c64ff8c6'
+
+
+def _jpeg_pattern():
+    y, x = np.mgrid[0:40, 0:56]
+    return ((x * 7 + y * 13 + (x * y) % 17) % 256).astype(np.uint8)
+
+
+@pytest.mark.parametrize('name', sorted(JPEG_GOLDEN))
+def test_jpeg_codec_on_the_cards_host(name):
+    """The codec built with the card machine's g++ decodes to PIL's
+    pixels and encodes the bytes it encodes elsewhere (that machine has
+    no PIL)."""
+    import hashlib
+    import os
+
+    from ursonet_torch.data import jpeg
+    path = os.path.join(os.path.dirname(__file__), 'data',
+                        f'jpeg_{name}.jpg')
+    with open(path, 'rb') as f:
+        px = jpeg.decode_jpeg(f.read())
+    sha, shape = JPEG_GOLDEN[name]
+    assert px.shape == shape
+    assert hashlib.sha256(px.tobytes()).hexdigest() == sha
+    assert hashlib.sha256(jpeg.encode_jpeg(_jpeg_pattern())).hexdigest() \
+        == JPEG_PATTERN_SHA

@@ -162,9 +162,14 @@ def test_load_image_rgb(tmp_path):
                                   np.repeat(gray[..., None], 3, axis=2))
     np.testing.assert_array_equal(load_image_rgb(str(tmp_path / 'a.png')),
                                   rgba[..., :3])
+    # JPEG frames decode through the port's codec as PIL decodes them
     Image.fromarray(rgba[..., :3]).save(str(tmp_path / 'f.jpg'))
-    with pytest.raises(NotImplementedError, match='native-loader'):
-        load_image_rgb(str(tmp_path / 'f.jpg'))
+    np.testing.assert_array_equal(load_image_rgb(str(tmp_path / 'f.jpg')),
+                                  np.asarray(Image.open(tmp_path / 'f.jpg')))
+    with open(tmp_path / 'x.bin', 'wb') as f:
+        f.write(b'neither')
+    with pytest.raises(ValueError, match='neither PNG nor JPEG'):
+        load_image_rgb(str(tmp_path / 'x.bin'))
 
 
 # --------------------------------------------------------------------------

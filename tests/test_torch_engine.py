@@ -34,7 +34,8 @@ from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.step import make_eval_step, \
     make_resident_eval_step, make_resident_train_step, make_train_step
-from torch_parity import small_configs
+# run_dir is a fixture
+from torch_parity import run_dir, small_configs  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -70,13 +71,13 @@ def _trees_equal(a, b, path=''):
 # the port's engine alone
 
 
-def test_train_checkpoint_resume_detect(urso_dir, tmp_path):
+def test_train_checkpoint_resume_detect(urso_dir, run_dir):
     """The counterpart of tests/test_engine.py's engine test: two epochs
     on the resident path with the rotation augmentation, snapshots,
     metrics, config dump, find_last, load_weights, exact resume, and
     detect on raw 96×72 frames (resampled to 64×64)."""
     _, cfg = small_configs(**ENGINE_KW)
-    model_dir = str(tmp_path / 'logs')
+    model_dir = str(run_dir / 'logs')
     train_ds = _load(Urso, urso_dir, cfg, 'train')
     val_ds = _load(Urso, urso_dir, cfg, 'val')
     logs = []
@@ -137,7 +138,7 @@ def test_train_checkpoint_resume_detect(urso_dir, tmp_path):
             np.testing.assert_array_equal(r[k], want[k][i].numpy())
 
 
-def test_resume_continues_the_draws(urso_dir, tmp_path, monkeypatch):
+def test_resume_continues_the_draws(urso_dir, run_dir, monkeypatch):
     """Each step's rotation draws are keyed by the step, the validation's
     by the epoch and the resident permutation by the epoch: three epochs
     in one train() call and two, a resume in a fresh engine and a third
@@ -155,14 +156,14 @@ def test_resume_continues_the_draws(urso_dir, tmp_path, monkeypatch):
 
     monkeypatch.setattr(tloader.DevicePreprocess, 'draw', record)
     quiet = dict(log_fn=lambda *a: None)
-    one = UrsoNet('training', cfg, str(tmp_path / 'one'), device='cpu')
+    one = UrsoNet('training', cfg, str(run_dir / 'one'), device='cpu')
     one.initialize()
     one.train(train_ds, val_ds, None, epochs=3, **quiet)
     continuous, drawn[:] = list(drawn), []
-    two = UrsoNet('training', cfg, str(tmp_path / 'two'), device='cpu')
+    two = UrsoNet('training', cfg, str(run_dir / 'two'), device='cpu')
     two.initialize()
     two.train(train_ds, val_ds, None, epochs=2, **quiet)
-    resumed = UrsoNet('training', cfg, str(tmp_path / 'two'), device='cpu')
+    resumed = UrsoNet('training', cfg, str(run_dir / 'two'), device='cpu')
     assert resumed.resume_state(two.log_dir)
     resumed.train(train_ds, val_ds, None, epochs=3, **quiet)
     # 3 epochs of 2 train steps and 1 validation step
@@ -176,10 +177,10 @@ def test_resume_continues_the_draws(urso_dir, tmp_path, monkeypatch):
                                    atol=0)
 
 
-def test_checkpoint_keep_prunes_by_parsed_epoch(urso_dir, tmp_path):
+def test_checkpoint_keep_prunes_by_parsed_epoch(urso_dir, run_dir):
     _, cfg = small_configs(STEPS_PER_EPOCH=1, VALIDATION_STEPS=1,
                            CHECKPOINT_KEEP=2, ROT_AUG=False)
-    engine = UrsoNet('training', cfg, str(tmp_path / 'logs'), device='cpu')
+    engine = UrsoNet('training', cfg, str(run_dir / 'logs'), device='cpu')
     stray = engine.checkpoint_path.replace('*epoch*', 'best')
     os.makedirs(os.path.dirname(stray))
     open(stray, 'w').close()
@@ -259,7 +260,7 @@ def test_resident_step_matches_streaming(urso_dir):
             {k: float(v) for k, v in want.items()}
 
 
-def test_merge_params_matches_jax(urso_dir, tmp_path):
+def test_merge_params_matches_jax(urso_dir, run_dir):
     """Layer exclusion and shape-mismatch skips as the JAX package's
     merge_params, and the counterpart of tests/test_engine.py's partial
     load: excluded heads keep their fresh values, the backbone loads,
@@ -280,11 +281,11 @@ def test_merge_params_matches_jax(urso_dir, tmp_path):
     assert 'ori_final' in skipped and 'loc_final' in skipped
     assert 'res2a_branch2a' in loaded and 'bn5a_branch2a' in skipped
 
-    engine = UrsoNet('training', tcfg, str(tmp_path / 'a'), device='cpu')
+    engine = UrsoNet('training', tcfg, str(run_dir / 'a'), device='cpu')
     engine.initialize(seed=1)
-    wpath = str(tmp_path / 'w.msgpack')
+    wpath = str(run_dir / 'w.msgpack')
     engine.save_weights(wpath)
-    engine2 = UrsoNet('training', tcfg, str(tmp_path / 'b'), device='cpu')
+    engine2 = UrsoNet('training', tcfg, str(run_dir / 'b'), device='cpu')
     engine2.initialize(seed=2)
     fresh = engine2.model.ori_head.ori_final.weight.clone()
     engine2.load_weights(wpath, exclude=[r'ori_.*', r'loc_.*'])

@@ -15,6 +15,7 @@ Tolerances:
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -134,7 +135,8 @@ def runs(urso_dir, tmp_path_factory):
     teng2.load_weights(jstore.find_last(str(root / 'jax')))
     out['port_loaded'] = {**params_to_jax_layout(teng2.model.state_dict()),
                           'epoch': teng2.epoch}
-    return out
+    yield out
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_engine_trajectory_matches_jax(runs):

@@ -12,19 +12,20 @@ import numpy as np
 import torch
 
 import chip_smoke
-from torch_parity import small_configs
+# run_dir is a fixture
+from torch_parity import run_dir, small_configs  # noqa: F401
 
 torch.set_num_threads(1)
 
 
-def test_chip_smoke_engine_phase_on_cpu(tmp_path):
+def test_chip_smoke_engine_phase_on_cpu(run_dir):
     """chip_smoke.py's engine phase (a)-(g) at the small size on the CPU:
     resident epochs, exact resume, a streamed epoch, the served batch
     equal to the plain version exactly, finite ESA, the artifact served
     again bit for bit."""
     _, cfg = small_configs()
     out = chip_smoke.run_engine(chip_smoke.engine_config(cfg), 'cpu',
-                                str(tmp_path), frames={'train': 8, 'val': 4,
+                                str(run_dir), frames={'train': 8, 'val': 4,
                                                        'test': 4},
                                 wh=(96, 72))
     assert len(out['resident_imgs_per_s']) == 2

@@ -73,7 +73,9 @@ def test_the_checks_cover_the_data_and_engine_modules():
               'ursonet_torch.engine', 'ursonet_torch.checkpoint.hdf5',
               'ursonet_torch.checkpoint.h5_import', 'ursonet_torch.ops.gmm',
               'ursonet_torch.ops.viz', 'ursonet_torch.evaluate',
-              'ursonet_torch.pose_estimator'):
+              'ursonet_torch.pose_estimator', 'ursonet_torch.data.jpeg',
+              'ursonet_torch.data.speed', 'ursonet_torch.submission',
+              'ursonet_torch.split_dataset'):
         assert m in names, m
     assert ROOT / 'ursonet_torch' / 'data' / 'png.py' in _port_sources()
 

@@ -2,6 +2,8 @@
 PyTorch port (ursonet_torch) against the JAX package (ursonet_tpu) on the
 same inputs, made with numpy from a seed."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,15 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def run_dir(tmp_path):
+    """`tmp_path`, removed after the test: an engine run writes a
+    ResNet-50 checkpoint (and its optimizer slots) every epoch, hundreds
+    of MB a test, and pytest keeps the last runs' directories."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def small_configs(mode='square', dim=64, **overrides):

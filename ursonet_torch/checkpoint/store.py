@@ -12,14 +12,24 @@ JAX package's own msgpack layout (`checkpoint/msgpack.py`), so each
 package loads and resumes the other's:
 
   weights  {'params': tree, 'batch_stats': tree}
-  state    {'step', 'epoch', 'params', 'batch_stats',
-            'opt_state': {'0': {}, '1': {'count', 'velocity': tree}}}
+  state    {'step', 'epoch', 'params', 'batch_stats', 'opt_state'}
 
 with the trees in the JAX layout (`checkpoint/convert.py`). 'opt_state'
-is flax's `to_state_dict` of the JAX optimizer chain: the global-norm
-clip (no state), then `KerasSGDState(velocity, count)`, whose velocity
-is `KerasSGD.velocity` (v <- m·v - lr·g) for every parameter, zero for
-those that never trained.
+is flax's `to_state_dict` of the JAX optimizer chain, the global-norm
+clip (no state) then the optimizer (`train/optim.py`):
+
+  SGD         {'0': {}, '1': {'count', 'velocity': tree}}
+  ADAM        {'0': {}, '1': {'0': {'count', 'mu', 'nu', 'nu_max'}, '1': {}}}
+  ADAM + CLR  {'0': {}, '1': {'count', 'hyperparams': {'learning_rate'},
+                               'hyperparams_states': {'learning_rate':
+                                                      {'count'}},
+                               'inner_state': <ADAM's '1'>}}
+
+(optax.amsgrad is scale_by_amsgrad then a scale by the learning rate,
+which has no state; under CLR it sits in inject_hyperparams, which keeps
+the last learning rate it used). A slot holds a tensor for every
+parameter, zero for those that never trained; every count is the
+optimizer's update count.
 """
 
 from __future__ import annotations
@@ -141,36 +151,62 @@ def load_weights_file(path: str) -> Dict[str, torch.Tensor]:
 
 
 def velocity_tree(model, velocity: Dict[str, torch.Tensor]) -> dict:
-    """The velocity of every parameter of `model` in the JAX params
+    """One optimizer slot of every parameter of `model` in the JAX params
     layout: `velocity[name]` where the optimizer has one, else zeros."""
     sd = {n: velocity[n] if n in velocity else torch.zeros_like(p)
           for n, p in model.named_parameters()}
     return params_to_jax_layout(sd)['params']
 
 
-def save_state(path: str, model, velocity: Dict[str, torch.Tensor],
-               step: int, epoch: int) -> None:
-    """Atomic full train-state snapshot for an exact resume: weights,
-    the optimizer's velocity by parameter name and its update count."""
+def opt_state_tree(model, tx, slots: Dict[str, Dict[str, torch.Tensor]]
+                   ) -> dict:
+    """The JAX package's opt_state of `tx` (`train/optim.py`) with the
+    slots `slots` ({slot: {parameter name: tensor}})."""
+    count = np.asarray(tx.count, np.int32)
+    trees = {s: velocity_tree(model, slots.get(s, {})) for s in tx.SLOTS}
+    if 'velocity' in trees:
+        return {'0': {}, '1': {'count': count, 'velocity': trees['velocity']}}
+    inner = {'0': {'count': count, **trees}, '1': {}}
+    if not callable(tx.learning_rate):
+        return {'0': {}, '1': inner}
+    return {'0': {}, '1': {
+        'count': count,
+        'hyperparams': {'learning_rate': np.asarray(
+            tx.lr_at(max(tx.count - 1, 0)), np.float32)},
+        'hyperparams_states': {'learning_rate': {'count': count}},
+        'inner_state': inner}}
+
+
+def _slots_of(opt_state: dict):
+    """(count, {slot: JAX params tree}) of an opt_state tree."""
+    node = opt_state['1']
+    if 'velocity' in node:
+        return int(node['count']), {'velocity': node['velocity']}
+    node = node.get('inner_state', node)['0']
+    return int(node['count']), {s: node[s] for s in ('mu', 'nu', 'nu_max')}
+
+
+def save_state(path: str, model, tx,
+               slots: Dict[str, Dict[str, torch.Tensor]], step: int,
+               epoch: int) -> None:
+    """Atomic full train-state snapshot for an exact resume: weights, the
+    optimizer's slots by parameter name and its update count."""
     tree = params_to_jax_layout(model.state_dict())
-    tree.update({
-        'step': int(step), 'epoch': int(epoch),
-        'opt_state': {'0': {}, '1': {
-            'count': np.asarray(step, np.int32),
-            'velocity': velocity_tree(model, velocity)}},
-    })
+    tree.update({'step': int(step), 'epoch': int(epoch),
+                 'opt_state': opt_state_tree(model, tx, slots)})
     _atomic_write(path, msgpack_serialize(tree))
 
 
 def load_state(path: str) -> dict:
-    """A train-state snapshot (of either package): {'state_dict',
-    'velocity' (by parameter name), 'step', 'epoch'}, tensors f32 on the
-    CPU."""
+    """A train-state snapshot (of either package): {'state_dict', 'slots'
+    ({slot: {parameter name: tensor}}), 'count' (the optimizer's update
+    count), 'step', 'epoch'}, tensors f32 on the CPU."""
     tree = _read(path)
-    velocity = params_from_jax(
-        {'params': tree['opt_state']['1']['velocity']})
-    return {'state_dict': params_from_jax(tree), 'velocity': velocity,
-            'step': int(tree['step']), 'epoch': int(tree['epoch'])}
+    count, trees = _slots_of(tree['opt_state'])
+    slots = {s: params_from_jax({'params': t}) for s, t in trees.items()}
+    return {'state_dict': params_from_jax(tree), 'slots': slots,
+            'count': count, 'step': int(tree['step']),
+            'epoch': int(tree['epoch'])}
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,13 @@ class Config:
     # --- optimisation -------------------------------------------------------------
     LEARNING_RATE = 0.001
     LEARNING_MOMENTUM = 0.9
-    CLR = False                     # cyclical LR: a later slice
-    OPTIMIZER = 'SGD'               # SGD | ADAM
+    # cyclical LR (triangular, per update): BASE_LEARNING_RATE up to
+    # MAX_LEARNING_RATE and back over 2 * CLR_STEP_SIZE updates
+    CLR = False
+    MAX_LEARNING_RATE = 0.0005
+    BASE_LEARNING_RATE = 0.0001
+    CLR_STEP_SIZE = 4000
+    OPTIMIZER = 'SGD'               # SGD | ADAM (amsgrad)
     WEIGHT_DECAY = 0.0001
     GRADIENT_CLIP_NORM = 5.0
 
@@ -65,7 +70,10 @@ class Config:
 
     # --- augmentation ----------------------------------------------------------------
     ROT_AUG = True                  # camera-rotation homography warp
-    SIM2REAL_AUG = False
+    SIM2REAL_AUG = False            # gray + noise/blur/brightness/dropout
+    # one sim2real op order per image (imgaug's random_order) instead of
+    # one per batch; the magnitudes are per image either way
+    SIM2REAL_PER_IMAGE_ORDER = False
     ROT_IMAGE_AUG = False           # in-plane roll warp
     WARP_INTERPOLATION = 'nearest'  # nearest | bilinear
     # The host only decodes, resizes and batches uint8 frames; the

@@ -2,15 +2,15 @@
 an in-memory image index whose entries carry the pose in every
 parameterization and the precomputed soft-assignment maps.
 
-`load_image_rgb` decodes PNG frames with the port's own codec
-(`data/png.py`); a JPEG frame raises NotImplementedError until the
-native-loader slice brings a JPEG decoder.
+`load_image_rgb` decodes PNG and baseline JPEG frames with the port's
+own codecs (`data/png.py`, `data/jpeg.py`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ursonet_torch.data.jpeg import decode_jpeg
 from ursonet_torch.data.png import SIGNATURE, decode_png
 
 _JPEG_SOI = b'\xff\xd8'
@@ -24,9 +24,10 @@ def load_image_rgb(path: str) -> np.ndarray:
     if data.startswith(SIGNATURE):
         arr = decode_png(data)
     elif data.startswith(_JPEG_SOI):
-        raise NotImplementedError(
-            f'{path}: JPEG frames are decoded by the native-loader slice '
-            '(ROADMAP §1); the port reads PNG only')
+        try:
+            arr = decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f'{path}: {e}') from None
     else:
         raise ValueError(f'{path}: neither PNG nor JPEG')
     if arr.ndim == 2:

@@ -9,8 +9,10 @@ background thread by `Prefetcher`. A dataset small enough
 (`load_dataset_resident`) and batched there by an index gather
 (`train/step.py::make_resident_train_step`).
 
-On the device the preprocess runs the rotation augmentation (homography
-warp in the CUDA kernel, pose update), re-encodes the orientation PMF
+On the device the preprocess runs sim2real (gray, then noise, blur,
+brightness, contrast and coarse dropout in a random order), the rotation
+augmentation (homography warp in the CUDA kernel, on one channel after
+sim2real; pose update), re-encodes the orientation PMF
 from the rotated quaternion and subtracts the mean pixel. In keypoint
 mode (REGRESS_KEYPOINTS) it passes the raw keypoint targets through, or
 recomputes them from the rotated pose. The images stay f32 into the
@@ -60,8 +62,11 @@ class DevicePreprocess:
     'image_meta', 'gt_loc', 'gt_ori'} ({'gt_loc', 'gt_k1', 'gt_k2'} in
     keypoint mode).
 
-    `draw(generator, b)` makes the random draws of one batch;
-    `__call__(raw, draws)` is deterministic given them.
+    `draw(generator, b)` makes the random draws of one batch: the
+    rotation's (`augment.draw_rotation`) with, under SIM2REAL_AUG, the
+    sim2real draws under 'sim2real' (drawn first, as the JAX package
+    splits its key for sim2real first); `__call__(raw, draws)` is
+    deterministic given them.
     """
 
     def __init__(self, config, camera, dev: torch.device,
@@ -70,12 +75,13 @@ class DevicePreprocess:
         self.device = dev
         self.kp_scale = keypoint_scale(dataset_name)
         self.rot = bool(config.ROT_AUG or config.ROT_IMAGE_AUG)
+        self.sim2real = bool(config.SIM2REAL_AUG)
         self.interpolation = config.WARP_INTERPOLATION
         self.mean_pixel = torch.as_tensor(
             np.asarray(config.MEAN_PIXEL), dtype=torch.float32,
             device=dev).view(1, -1, 1, 1)
         # Static resize geometry of the camera's frames.
-        _, window, scale = resize_geometry(
+        self.shape, window, scale = resize_geometry(
             camera.height, camera.width, min_dim=config.IMAGE_MIN_DIM,
             max_dim=config.IMAGE_MAX_DIM, min_scale=config.IMAGE_MIN_SCALE,
             mode=config.IMAGE_RESIZE_MODE)
@@ -88,28 +94,40 @@ class DevicePreprocess:
             self.ori_grid_mask = torch.as_tensor(grid.mask, device=dev)
 
     def draw(self, generator: torch.Generator, b: int):
-        """Random draws for a batch of `b` (None when nothing is random)."""
-        if not self.rot:
+        """Random draws for a batch of `b` (None when nothing is random).
+        Sim2real's noise field has the network shape of the camera's
+        frames, the shape the raw batches hold."""
+        if not (self.rot or self.sim2real):
             return None
         if generator is None:
-            raise ValueError("rotation augmentation needs a torch.Generator")
-        return aug.draw_rotation(generator, b, 20.0)
+            raise ValueError("augmentation needs a torch.Generator")
+        draws = {}
+        if self.sim2real:
+            draws['sim2real'] = aug.draw_sim2real(
+                generator, b, *self.shape,
+                bool(getattr(self.config, 'SIM2REAL_PER_IMAGE_ORDER', False)))
+        if self.rot:
+            draws.update(aug.draw_rotation(generator, b, 20.0))
+        return draws
 
     def __call__(self, raw, draws=None):
         cfg = self.config
         dev = self.device
+        if (self.rot or self.sim2real) and draws is None:
+            raise ValueError("augmentation needs draws "
+                             "(DevicePreprocess.draw)")
         images = as_tensor(raw['images_u8'], dev)          # [B,H,W,C] u8
         images = images.permute(0, 3, 1, 2).contiguous().to(torch.float32)
         locs = as_tensor(raw['location'], dev, torch.float32)
         quats = as_tensor(raw['quaternion'], dev, torch.float32)
 
+        if self.sim2real:
+            images = aug.sim2real_apply(images, draws['sim2real'])
         if self.rot:
-            if draws is None:
-                raise ValueError("rotation augmentation needs draws "
-                                 "(DevicePreprocess.draw)")
             images, locs, quats = aug.rotation_augment_apply(
                 images, locs, quats, self.K_net, draws, cfg.ROT_AUG,
-                cfg.ROT_IMAGE_AUG, self.interpolation)
+                cfg.ROT_IMAGE_AUG, self.interpolation,
+                grayscale=self.sim2real)
 
         batch = {'images': images - self.mean_pixel,
                  'image_meta': as_tensor(raw['image_meta'], dev,
@@ -147,14 +165,11 @@ class DevicePreprocess:
 def make_device_preprocess(config, camera=None, device="cuda",
                            dataset_name: str = 'Urso'):
     """Build the on-device preprocess for `config` and the camera whose
-    frames the raw batches hold (URSO's by default). `dataset_name` sets
+    frames the raw batches hold (URSO's by default; SPEED's for SPEED
+    frames: the rotation's intrinsics come from it). `dataset_name` sets
     the keypoint scale (`keypoint_scale`), as the JAX package's
     `dataset.name` does."""
     dev = resolve_device(device)
-    if config.SIM2REAL_AUG:
-        raise NotImplementedError(
-            "SIM2REAL_AUG: the sim2real pipeline (and the grayscale warp "
-            "path it feeds) is ported in a later slice")
     if (config.ROT_AUG or config.ROT_IMAGE_AUG) and not (
             config.REGRESS_LOC and config.ORIENTATION_PARAM == 'quaternion'):
         raise ValueError("rotation augmentation needs REGRESS_LOC and "

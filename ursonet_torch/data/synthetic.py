@@ -1,5 +1,6 @@
-"""Synthetic URSO-layout datasets, the counterpart of
-`ursonet_tpu/data/synthetic.py::make_urso_dataset`.
+"""Synthetic URSO- and SPEED-layout datasets, the counterpart of
+`ursonet_tpu/data/synthetic.py` (`make_urso_dataset`,
+`make_speed_dataset`).
 
 Renders a wireframe "spacecraft" (a cube with an antenna and a nose) at
 random poses and writes
@@ -10,17 +11,21 @@ with the JAX package's random draws, file names, CSV headers and label
 convention, so both packages' adapters read the same labels from a dir
 either wrote. The body is drawn by a numpy rasterizer (thick segments as
 capsules, a filled disc) with the JAX package's vertices, colours and
-thicknesses; its pixels need not match cv2's. Frames are written by the
-port's PNG encoder. The SPEED generator waits for a JPEG encoder.
+thicknesses; its pixels need not match cv2's. URSO frames are written
+by the port's PNG encoder, SPEED's gray frames by its JPEG encoder
+(`data/jpeg.py`, PIL's coefficients at quality 75); SPEED's JSON
+annotations are the JAX package's bytes for the same seed.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 
 from ursonet_torch import se3
+from ursonet_torch.data.jpeg import encode_jpeg
 from ursonet_torch.data.png import write_png
 
 _CUBE = np.array([
@@ -135,4 +140,43 @@ def make_urso_dataset(dataset_dir, subsets=('train', 'val', 'test'),
             f.write("x,y,z,q1,q2,q3,q4\n")
             for row in rows:
                 f.write(",".join(repr(float(v)) for v in row) + "\n")
+    return dataset_dir
+
+
+def make_speed_dataset(dataset_dir, subsets=('train_no_val', 'val', 'test',
+                                             'real_test'),
+                       n_per_subset=8, width=320, height=200, seed=0):
+    """Create a synthetic SPEED-layout dataset: gray JPEG frames under
+    images/{train,test,real_test} and `{subset}.json` annotations with
+    scalar-first quaternions (none for the unlabelled test subsets).
+    n_per_subset: an int, or a dict by subset."""
+    os.makedirs(dataset_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    fx = fy = width * 1.5
+    K = np.array([[fx, 0, width / 2], [0, fy, height / 2], [0, 0, 1.0]])
+    idx = 0
+    for subset in subsets:
+        subdir = 'train' if subset in ('train_no_val', 'val') else subset
+        img_dir = os.path.join(dataset_dir, 'images', subdir)
+        os.makedirs(img_dir, exist_ok=True)
+        n = n_per_subset if isinstance(n_per_subset, int) \
+            else n_per_subset[subset]
+        qs, locs = _random_poses(rng, n, depth_range=(8.0, 20.0))
+        anns = []
+        for i in range(n):
+            img = _render_pose(qs[i], locs[i], width, height, K)
+            gray = (0.2126 * img[..., 0] + 0.7152 * img[..., 1] +
+                    0.0722 * img[..., 2]).astype(np.uint8)
+            name = f"img{idx:06d}.jpg"
+            with open(os.path.join(img_dir, name), 'wb') as f:
+                f.write(encode_jpeg(gray))
+            ann = {"filename": name}
+            if subset not in ('test', 'real_test'):
+                x, y, z, w = qs[i]
+                ann["q_vbs2tango"] = [float(w), float(x), float(y), float(z)]
+                ann["r_Vo2To_vbs_true"] = [float(v) for v in locs[i]]
+            anns.append(ann)
+            idx += 1
+        with open(os.path.join(dataset_dir, subset + '.json'), 'w') as f:
+            json.dump(anns, f)
     return dataset_dir

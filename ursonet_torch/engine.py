@@ -5,7 +5,7 @@ with checkpoints and exact resume (`UrsoNet`), and serving
     ds = Urso(); ds.load_dataset(d, cfg, 'train')
     net = UrsoNet('training', cfg, model_dir)   # device='cuda' by default
     net.train(ds, val_ds, learning_rate, epochs, layers='all')
-    net.resume_state(run_dir)                   # weights, velocity, step
+    net.resume_state(run_dir)                   # weights, optimizer, step
     net.quantize(calib_images); net.detect(images)
 
 `UrsoNet.train` runs the epoch loop: the on-device preprocess with the
@@ -191,7 +191,7 @@ class ServingEngine:
 
 class UrsoNet:
     """Training engine of one configuration on one device (default the
-    card): the model, its Keras SGD state, the step and epoch counters
+    card): the model, its optimizer state, the step and epoch counters
     and the run dir. Serves through a `ServingEngine` that shares the
     model."""
 
@@ -211,9 +211,9 @@ class UrsoNet:
         self.step = 0
         self.model = None
         self.tx = make_optimizer(config)
-        # the optimizer's velocity by parameter name (the tensors the
-        # train step updates in place)
-        self.velocity = {}
+        # the optimizer's slots by name and parameter name (the tensors
+        # the train step updates in place)
+        self.slots = {}
         self.serving = None
         self.set_log_dir()
 
@@ -243,9 +243,14 @@ class UrsoNet:
         self.serving = None
         return self.model
 
+    @property
+    def velocity(self) -> dict:
+        """The SGD velocity by parameter name (empty under Adam)."""
+        return self.slots.get('velocity', {})
+
     def _reset_optimizer(self):
-        self.velocity = {}
-        self.tx.velocity = None
+        self.slots = {}
+        self.tx.reset()
 
     def _drop_qmodel(self):
         """A quantized model derives from the weights it was made from."""
@@ -284,8 +289,9 @@ class UrsoNet:
 
     def resume_state(self, run_dir: Optional[str] = None) -> bool:
         """Exact resume from `state_latest.msgpack` in `run_dir` (default
-        the current run dir), written by either package: weights,
-        velocity, step and epoch. Returns False when there is none."""
+        the current run dir), written by either package: weights, the
+        optimizer's slots and update count, step and epoch. Returns False
+        when there is none."""
         run_dir = run_dir or self.log_dir
         if os.path.exists(os.path.join(run_dir, 'state_latest.orbax')):
             raise NotImplementedError(
@@ -300,8 +306,15 @@ class UrsoNet:
         self._drop_qmodel()
         self._reset_optimizer()
         params = dict(self.model.named_parameters())
-        self.velocity = {n: v.to(self.device) for n, v in
-                         tree['velocity'].items() if n in params}
+        if set(tree['slots']) != set(self.tx.SLOTS):
+            raise ValueError(
+                f'{path}: the state holds the slots {sorted(tree["slots"])} '
+                f'but OPTIMIZER={self.config.OPTIMIZER!r} keeps '
+                f'{sorted(self.tx.SLOTS)}')
+        self.slots = {s: {n: v.to(self.device) for n, v in vals.items()
+                          if n in params}
+                      for s, vals in tree['slots'].items()}
+        self.tx.count = tree['count']
         self.step = tree['step']
         self.epoch = tree['epoch']
         self.log_dir = run_dir
@@ -309,14 +322,17 @@ class UrsoNet:
             run_dir, os.path.basename(self.checkpoint_path))
         return True
 
-    def _bind_velocity(self, names):
-        """Hand the optimizer the velocity of the parameters `names` (in
-        the train step's order), zeros where there is none yet."""
+    def _bind_slots(self, names):
+        """Hand the optimizer the slots of the parameters `names` (in the
+        train step's order), zeros where there are none yet."""
         params = dict(self.model.named_parameters())
-        for n in names:
-            if n not in self.velocity:
-                self.velocity[n] = torch.zeros_like(params[n])
-        self.tx.velocity = [self.velocity[n] for n in names]
+        for s in self.tx.SLOTS:
+            slot = self.slots.setdefault(s, {})
+            for n in names:
+                if n not in slot:
+                    slot[n] = torch.zeros_like(params[n])
+        self.tx.state = {s: [self.slots[s][n] for n in names]
+                         for s in self.tx.SLOTS}
 
     # -- training -------------------------------------------------------------
 
@@ -339,8 +355,8 @@ class UrsoNet:
         check_train_memory(cfg, dev, log_fn)
 
         mask = trainable_mask(self.model, layers)
-        self._bind_velocity([n for n, _ in self.model.named_parameters()
-                             if mask[n]])
+        self._bind_slots([n for n, _ in self.model.named_parameters()
+                          if mask[n]])
         pre = loader.make_device_preprocess(
             cfg, train_dataset.camera, dev, train_dataset.name)
         resident = loader.use_resident(train_dataset, cfg)
@@ -437,7 +453,7 @@ class UrsoNet:
                                           or 0))
                 store.save_state(
                     os.path.join(self.log_dir, 'state_latest.msgpack'),
-                    self.model, self.velocity, self.step, epoch + 1)
+                    self.model, self.tx, self.slots, self.step, epoch + 1)
                 self.epoch = epoch + 1
                 last_means = means
         finally:

@@ -1,14 +1,22 @@
-"""Batched on-device rotation augmentation, the counterpart of the device
-half of `ursonet_tpu/ops/augment.py`.
+"""Batched on-device augmentation, the counterpart of the device half of
+`ursonet_tpu/ops/augment.py`: the rotation augmentation and sim2real.
 
 A random camera rotation R becomes the homography M = K·R·K⁻¹ at network
 resolution (K already scaled to it, `scaled_intrinsics`), applied with
 cv2 WARP_INVERSE_MAP semantics by the CUDA warp kernel
 (`ops/warp_cuda.py`); the pose follows as t' = t·Rᵀ, q' = q_R ⊗ q.
 
-The augmentation is split in two so that the randomness is explicit:
-`draw_rotation` takes a `torch.Generator` and returns the draws,
-`rotation_augment_apply` is deterministic given them.
+Sim2real (the reference's imgaug pipeline, net.py:390-406) converts the
+batch to gray, then, for a random half of the images, applies additive
+Gaussian noise, a Gaussian blur, a brightness offset, a contrast gain and
+coarse dropout in a random order, clips to [0, 255] and broadcasts the
+gray channel back to three. It is plain PyTorch, as the JAX package
+computes it in XLA and not in Pallas.
+
+Each augmentation is split in two so that the randomness is explicit:
+`draw_rotation` / `draw_sim2real` take a `torch.Generator` and return
+the draws, `rotation_augment_apply` / `sim2real_apply` are deterministic
+given them.
 
 `warp_nearest_torch` / `warp_bilinear_torch` are the plain tensor-indexing
 versions of the kernel (counterparts of `warp_nearest_jax` /
@@ -22,7 +30,7 @@ import numpy as np
 import torch
 
 from ursonet_torch import se3t
-from ursonet_torch.ops.warp_cuda import warp_cuda
+from ursonet_torch.ops.warp_cuda import warp_cuda, warp_cuda_gray
 
 
 def _warp_coords(Ms, h, w):
@@ -92,11 +100,14 @@ def draw_rotation(generator: torch.Generator, b: int,
 
 
 def rotation_augment_apply(images, locs, quats, K, draws, rot_aug=True,
-                           rot_image_aug=False, interpolation='nearest'):
+                           rot_image_aug=False, interpolation='nearest',
+                           grayscale=False):
     """Apply the drawn rotations: images [B,C,H,W] f32, locs [B,3]
     camera-frame, quats [B,4], K [3,3] intrinsics at the images'
     resolution. Samples whose dice selects a disabled mode pass through
-    unchanged. Returns (images', locs', quats')."""
+    unchanged. `grayscale`: the channels are equal (after sim2real), so
+    only channel 0 is warped (`warp_cuda_gray`) and broadcast. Returns
+    (images', locs', quats')."""
     dev = images.device
     b = images.shape[0]
     dice = draws["dice"].to(dev, torch.float32)
@@ -115,7 +126,8 @@ def rotation_augment_apply(images, locs, quats, K, draws, rot_aug=True,
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
     M = (K @ R @ torch.linalg.inv_ex(K).inverse).contiguous()
 
-    warped = warp_cuda(images, M, interpolation)
+    warp = warp_cuda_gray if grayscale else warp_cuda
+    warped = warp(images, M, interpolation)
     identity = ~(use_cam | use_roll)
     images_out = torch.where(identity[:, None, None, None], images, warped)
 
@@ -124,6 +136,154 @@ def rotation_augment_apply(images, locs, quats, K, draws, rot_aug=True,
     locs_out = torch.where(identity[:, None], locs, locs_out)
     quats_out = torch.where(identity[:, None], quats, quats_out)
     return images_out, locs_out, quats_out
+
+
+# --------------------------------------------------------------------------
+# sim2real
+#
+# The ops run batched on one gray channel [B,1,H,W]: every imgaug op of the
+# reference's sequential is per_channel=False after the grayscale step.
+# Each op's magnitudes are drawn once per image and op, whatever its
+# position in the order (the JAX package draws op j's from op_keys[j] in
+# the per-image mode and op perm[i]'s from op_keys[i] in the shared one;
+# either way one draw per op).
+
+SIM2REAL_OPS = ('noise', 'blur', 'add', 'mul', 'dropout')
+
+
+def draw_sim2real(generator: torch.Generator, b: int, h: int, w: int,
+                  per_image_order: bool = False) -> dict:
+    """The random draws of one sim2real batch, on the generator's device:
+    'apply' [B] bool (the pipeline runs on about half the images), 'order'
+    [5] (one op order for the batch) or [B,5] (one per image), indices
+    into SIM2REAL_OPS, and per image: 'noise' [B,1,H,W] standard normals,
+    'sigma' [B] in [0, 1.5) (blur), 'add' [B] in [-20, 20), 'mul' [B] in
+    [0.5, 2), and the dropout's 'p' [B] (0 or 0.03), cell size fraction
+    'size' [B] in [0.02, 0.1) and hash 'salt' [B] in [0, 2^30)."""
+    dev = generator.device
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=generator, device=dev)
+
+    if per_image_order:
+        order = torch.argsort(rand(b, 5), dim=1)
+    else:
+        order = torch.randperm(5, generator=generator, device=dev)
+    return {
+        'apply': rand(b) < 0.5,
+        'order': order,
+        'noise': torch.randn(b, 1, h, w, generator=generator, device=dev),
+        'sigma': rand(b) * 1.5,
+        'add': rand(b) * 40.0 - 20.0,
+        'mul': rand(b) * 1.5 + 0.5,
+        'p': torch.where(rand(b) < 0.5, 0.03, 0.0),
+        'size': rand(b) * 0.08 + 0.02,
+        'salt': torch.randint(0, 2 ** 30, (b,), generator=generator,
+                              device=dev),
+    }
+
+
+def _per_image(v):
+    return v.reshape(-1, 1, 1, 1)
+
+
+def _op_noise(x, d):
+    # AdditiveGaussianNoise(scale=0.01*255)
+    return x + d['noise'] * (0.01 * 255.0)
+
+
+def _op_blur(x, d):
+    # GaussianBlur(sigma in [0, 1.5)), depthwise separable over 9 zero-
+    # padded taps summed left to right, as the JAX package sums them
+    h, w = x.shape[2:]
+    sigma = _per_image(d['sigma'].to(torch.float32))
+    taps = torch.arange(-4, 5, dtype=torch.float32, device=x.device)
+    s = torch.clamp(sigma, min=1e-3)
+    k = torch.exp(-0.5 * (taps / s) ** 2)              # [B,1,1,9]
+    k = k / torch.sum(k, dim=-1, keepdim=True)
+    p = torch.nn.functional.pad(x, (0, 0, 4, 4))
+    out = p[:, :, 0:h] * k[..., 0:1]
+    for i in range(1, 9):
+        out = out + p[:, :, i:i + h] * k[..., i:i + 1]
+    p = torch.nn.functional.pad(out, (4, 4, 0, 0))
+    out = p[..., 0:w] * k[..., 0:1]
+    for i in range(1, 9):
+        out = out + p[..., i:i + w] * k[..., i:i + 1]
+    return torch.where(sigma < 1e-3, x, out)
+
+
+def _op_add(x, d):
+    return x + _per_image(d['add'].to(torch.float32))
+
+
+def _op_mul(x, d):
+    return x * _per_image(d['mul'].to(torch.float32))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for int64 tensors a in [0, 2^32) and a constant
+    c < 2^32, by 16-bit halves of a (the full product overflows int64)."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def hash_uniform(*ints):
+    """The JAX package's stateless per-element uniform in [0, 1): an
+    xorshift-multiply mix of int32 inputs in uint32 arithmetic (int64
+    tensors here), converted to f32 with rounding to nearest."""
+    h = torch.full((), 0x9E3779B9, dtype=torch.int64, device=ints[0].device)
+    for v in ints:
+        h = h ^ _mul32(v.to(torch.int64) & _M32, 0x85EBCA6B)
+        h = _mul32(h ^ (h >> 13), 0xC2B2AE35)
+        h = h ^ (h >> 16)
+    return h.to(torch.float32) / 4294967296.0
+
+
+def _op_dropout(x, d):
+    # CoarseDropout(p in {0, 0.03}, size_percent in [0.02, 0.1)): a
+    # per-cell uniform from a hash of the cell coordinates
+    h, w = x.shape[2:]
+    block = 1.0 / _per_image(d['size'].to(torch.float32))
+    iy = torch.arange(h, dtype=torch.float32, device=x.device).view(1, 1, h, 1)
+    ix = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, 1, w)
+    cy = torch.floor(iy / block).to(torch.int32)
+    cx = torch.floor(ix / block).to(torch.int32)
+    salt = _per_image(d['salt'].to(torch.int32))
+    cell = hash_uniform(cy * 65537 + cx, salt + 0 * cy)
+    p = _per_image(d['p'].to(torch.float32))
+    return torch.where(cell < p, torch.zeros((), device=x.device), x)
+
+
+_OPS = (_op_noise, _op_blur, _op_add, _op_mul, _op_dropout)
+
+
+def sim2real_apply(images, draws):
+    """Apply the drawn sim2real pipeline: images [B,3,H,W] f32 in [0,255]
+    -> [B,3,H,W] with three equal channels (a broadcast view of one).
+    A [5] order runs op order[i] at step i on the whole batch; a [B,5]
+    order runs, at step t, every op on the batch and keeps for image i
+    the output of op order[i, t], as the JAX package does."""
+    if draws['noise'].shape[2:] != images.shape[2:]:
+        raise ValueError(f"sim2real draws for {tuple(draws['noise'].shape)} "
+                         f"images, given {tuple(images.shape)}")
+    gray = (0.2126 * images[:, 0:1] + 0.7152 * images[:, 1:2]
+            + 0.0722 * images[:, 2:3])
+    order = draws['order'].to(images.device)
+    x = gray
+    if order.dim() == 1:
+        for i in order.tolist():
+            x = _OPS[i](x, draws)
+    else:
+        for t in range(order.shape[1]):
+            outs = torch.stack([op(x, draws) for op in _OPS])   # [5,B,1,H,W]
+            pick = order[:, t].view(1, -1, 1, 1, 1).expand(1, *x.shape)
+            x = torch.gather(outs, 0, pick)[0]
+    x = torch.clamp(x, 0.0, 255.0)
+    out = torch.where(_per_image(draws['apply'].to(images.device)), x, gray)
+    return out.expand(images.shape)
 
 
 def scaled_intrinsics(K_original, window, scale) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (`ursonet_torch/csrc/*.cu`).
+"""Build and load the port's CUDA kernels (`ursonet_torch/csrc/*.cu`)
+and its host library (`csrc/jpeg.cpp`, the JPEG codec).
 
 Each source is compiled with `nvcc` for sm_90a into its own shared
 library with a plain C interface, at first use, into `.torch_ext/` at
@@ -6,6 +7,8 @@ the root of the checkout, and loaded with ctypes. The library name
 carries a hash of the source, of every header in `csrc/` and of the
 flags, so an edited source or header is rebuilt. `build_all()` starts
 one `nvcc` per source at once and waits for all of them.
+
+The host sources are built the same way with `g++`.
 
 Flags: `-fmad=false` keeps nvcc from contracting a multiply and an add
 into an FMA, so the kernels' float arithmetic rounds exactly where their
@@ -28,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 SOURCES = ("warp", "int8_gemm", "int8_conv", "int8_stem", "int8_block",
            "mma_rate")
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+HOST_SOURCES = ("jpeg",)
 
 _libs: dict = {}
 
@@ -43,9 +48,22 @@ def _nvcc() -> str:
                        "(set CUDA_HOME to the CUDA toolkit)")
 
 
+def _gxx() -> str:
+    for c in ("g++", "c++"):
+        path = shutil.which(c)
+        if path:
+            return path
+    raise RuntimeError("g++ not found: the host library cannot be built")
+
+
 def library_path(name: str) -> Path:
-    """Where the build of csrc/<name>.cu lives (hash of source, headers
-    and flags in the name)."""
+    """Where the build of csrc/<name>.cu (or, for a host source,
+    csrc/<name>.cpp) lives (hash of source, headers and flags in the
+    name)."""
+    if name in HOST_SOURCES:
+        h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+        h.update(" ".join(GXX_FLAGS).encode())
+        return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
@@ -58,9 +76,14 @@ def _start(name: str):
     if lib.exists():
         return lib, None, None, None
     BUILD_DIR.mkdir(exist_ok=True)
+    # a name of this process's own: concurrent builders (test workers)
+    # each rename a whole library into place
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    if name in HOST_SOURCES:
+        cmd = [_gxx(), *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+    else:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return lib, tmp, cmd, proc
@@ -71,8 +94,8 @@ def _finish(lib, tmp, cmd, proc) -> str:
         return "cached build"
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{out}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                           f"({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)
     return out
 
@@ -101,8 +124,9 @@ def build_all() -> dict:
 
 
 def load(name: str, bind) -> ctypes.CDLL:
-    """Build if needed and load csrc/<name>.cu's library once per
-    process; `bind(lib)` sets the argument and return types."""
+    """Build if needed and load csrc/<name>.cu's (or, for a host source,
+    csrc/<name>.cpp's) library once per process; `bind(lib)` sets the
+    argument and return types."""
     if name not in _libs:
         path, _ = build(name)
         lib = ctypes.CDLL(str(path))

@@ -11,7 +11,8 @@ PyTorch versions in `ursonet_torch/ops/augment.py`.
 
 The kernel is built and loaded by `ops/cuda_build.py` (nvcc for sm_90a
 at first use, ctypes). Each launch adds one to
-`launches["warp_homography"]`.
+`launches["warp_homography"]`; a launch of the gray route
+(`warp_cuda_gray`) adds one to `launches["warp_homography_gray"]` too.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ursonet_torch.ops import cuda_build
 INTERPOLATIONS = {"nearest": 0, "bilinear": 1}
 
 # Kernel launches since the last reset_counts(), by kernel name.
-launches = {"warp_homography": 0}
+launches = {"warp_homography": 0, "warp_homography_gray": 0}
 
 
 def reset_counts() -> None:
@@ -105,10 +106,14 @@ def warp_cuda(images: torch.Tensor, Ms: torch.Tensor,
 def warp_cuda_gray(images: torch.Tensor, Ms: torch.Tensor,
                    interpolation: str = "nearest") -> torch.Tensor:
     """Grayscale-replicated batches: warp channel 0, broadcast to all C
-    channels (a view of one [B,1,H,W] result)."""
+    channels (a view of one [B,1,H,W] result). `images` may itself be a
+    broadcast view of one channel."""
     _check_device(images)
     if images.device.type == "cpu":
         out = _plain(interpolation)(images[:, :1], Ms)
     else:
-        out = _launch(images, Ms, interpolation, 1)
+        src = images if images.is_contiguous() else \
+            images[:, :1].contiguous()
+        out = _launch(src, Ms, interpolation, 1)
+        launches["warp_homography_gray"] += 1
     return out.expand(images.shape)

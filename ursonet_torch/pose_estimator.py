@@ -7,13 +7,16 @@ one NVIDIA card.
         --weights <source> [flags]
 
 Commands:
-  train      train on an URSO-style dataset (`UrsoNet.train`)
+  train      train on an URSO or SPEED dataset (`UrsoNet.train`; SPEED
+             trains on train_no_val and validates on val)
   test       spot-check 10 random test images (axes overlays under
              --out_dir/overlays), or one --image
-  evaluate   full test-set metrics and the CSVs (`evaluate.evaluate`)
+  evaluate   full test-set metrics and the CSVs (`evaluate.evaluate`;
+             SPEED's labelled set is val)
   export     Keras-h5 weights; with --int8 also the calibrated int8
              serving artifact
-  submit     not ported: it needs the SPEED adapter and a JPEG decoder
+  submit     the ESA challenge CSV of SPEED's test and real_test frames
+             (`submission.test_and_submit`; --dataset speed only)
 
 Weights: a snapshot path or a Keras .h5 file, 'last', 'none' (random
 init), 'imagenet' / 'coco' / the released model names ('soyuz_hard',
@@ -22,8 +25,8 @@ init), 'imagenet' / 'coco' / the released model names ('soyuz_hard',
 
 Everything runs on the card: without CUDA the command fails at once.
 Flags of paths the port does not have yet raise NotImplementedError
-naming their ROADMAP.md item: --dataset speed, --host_augment,
---mesh_data / --mesh_model above 1, --video and submit.
+naming their ROADMAP.md item: --host_augment, --mesh_data /
+--mesh_model above 1, and --video.
 """
 
 from __future__ import annotations
@@ -173,9 +176,9 @@ def make_config(args):
             f", got '{args.ori_param}'")
     if args.mesh_data > 1 or args.mesh_model > 1:
         raise _not_ported('a device mesh (--mesh_data / --mesh_model > 1)',
-                          '§1 item 10 (parallelism)')
+                          '§1 item 9 (parallelism)')
     if args.host_augment:
-        raise _not_ported('--host_augment', '§1 item 5 (the host-parity '
+        raise _not_ported('--host_augment', '§1 item 6 (the host-parity '
                           'generator)')
 
     config = Config()
@@ -304,19 +307,23 @@ def resolve_and_load_weights(engine, args):
 
 
 def load_datasets(args, config, subsets):
-    """The URSO subsets `subsets` of --data_dir/--dataset."""
+    """The subsets `subsets` of --data_dir/--dataset: SPEED's for
+    --dataset speed, else URSO's."""
+    from ursonet_torch.data.speed import Speed
     from ursonet_torch.data.urso import Urso
 
-    if args.dataset == 'speed':
-        raise _not_ported('--dataset speed', '§1 item 1 (the SPEED '
-                          'adapter and JPEG frames)')
     dataset_dir = os.path.join(args.data_dir, args.dataset)
     out = []
     for subset in subsets:
-        ds = Urso()
+        ds = Speed() if args.dataset == 'speed' else Urso()
         ds.load_dataset(dataset_dir, config, subset)
         out.append(ds)
     return out
+
+
+def _labelled_subset(args) -> str:
+    """The labelled subset that test, evaluate and export read."""
+    return 'val' if args.dataset == 'speed' else 'test'
 
 
 def _padded_ids(ids, n):
@@ -400,9 +407,10 @@ def _export(engine, args, config):
     save_keras_h5(h5_path, engine.model.state_dict())
     print(f"Keras-h5 weights written to {h5_path}")
     if args.int8:
-        (dataset,) = load_datasets(args, config, ('test',))
+        subset = _labelled_subset(args)
+        (dataset,) = load_datasets(args, config, (subset,))
         if not len(dataset.image_ids):
-            raise SystemExit("export --int8: no images in the 'test' "
+            raise SystemExit(f"export --int8: no images in the '{subset}' "
                              "subset to calibrate on")
         images = [dataset.load_image(i) for i in
                   _padded_ids(list(dataset.image_ids), config.BATCH_SIZE)]
@@ -430,8 +438,9 @@ def _test_image(engine, args, config, dataset):
     print(f"loc: {locs[0]}  quaternion (scalar-last): {qs[0]}")
     os.makedirs(args.out_dir, exist_ok=True)
     out_png = os.path.join(args.out_dir, 'single_image_pose.png')
-    viz.save_axes_overlay(image, dataset.camera.K, locs[0], qs[0],
-                          path=out_png, frame='unreal')
+    viz.save_axes_overlay(
+        image, dataset.camera.K, locs[0], qs[0], path=out_png,
+        frame='camera' if args.dataset == 'speed' else 'unreal')
     print(f"overlay saved to {out_png}")
 
 
@@ -447,13 +456,11 @@ def main(argv=None, device='cuda'):
     print("Command: ", args.command)
     print("Dataset: ", args.dataset)
     print("Logs: ", args.logs)
-    if args.command == 'submit':
-        raise _not_ported('submit', '§1 item 1 (submit: the SPEED adapter '
-                          'and a JPEG decoder)')
     if args.command == 'test' and args.video and not args.image:
-        raise _not_ported('test --video', '§1 item 2 (test --video: a '
+        raise _not_ported('test --video', '§1 item 10 (test --video: a '
                           'video codec)')
-    if args.command not in ('train', 'test', 'evaluate', 'export'):
+    if args.command not in ('train', 'test', 'evaluate', 'export',
+                            'submit'):
         print("wrong command")
         return 2
 
@@ -473,7 +480,9 @@ def main(argv=None, device='cuda'):
     if args.command == 'export':
         _export(engine, args, config)
     elif args.command == 'train':
-        train_ds, val_ds = load_datasets(args, config, ('train', 'val'))
+        train_ds, val_ds = load_datasets(
+            args, config, ('train_no_val', 'val') if args.dataset == 'speed'
+            else ('train', 'val'))
         n = len(train_ds.image_ids)
         if args.steps_per_epoch is None:
             # the reference's clamp; an explicit --steps_per_epoch wins
@@ -482,7 +491,7 @@ def main(argv=None, device='cuda'):
         engine.train(train_ds, val_ds, config.LEARNING_RATE,
                      epochs=config.EPOCHS, layers='all')
     elif args.command == 'test':
-        (dataset,) = load_datasets(args, config, ('test',))
+        (dataset,) = load_datasets(args, config, (_labelled_subset(args),))
         calibrate_int8(engine, args, dataset, config)
         if args.image:
             _test_image(engine, args, config, dataset)
@@ -491,11 +500,19 @@ def main(argv=None, device='cuda'):
                 engine, dataset, 10,
                 out_dir=os.path.join(args.out_dir, 'overlays'),
                 multimodal=args.multimodal)
-    else:
-        (dataset,) = load_datasets(args, config, ('test',))
+    elif args.command == 'evaluate':
+        (dataset,) = load_datasets(args, config, (_labelled_subset(args),))
         calibrate_int8(engine, args, dataset, config)
         evaluate.evaluate(engine, dataset, out_dir=args.out_dir,
                           multimodal=args.multimodal)
+    else:
+        from ursonet_torch.submission import test_and_submit
+        if args.dataset != 'speed':
+            raise SystemExit("submit requires --dataset speed")
+        real_ds, virtual_ds = load_datasets(args, config,
+                                            ('real_test', 'test'))
+        calibrate_int8(engine, args, virtual_ds, config)
+        test_and_submit(engine, virtual_ds, real_ds, out_dir=args.out_dir)
     return 0
 
 
