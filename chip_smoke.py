@@ -16,7 +16,15 @@ Phases, in order; any failure exits non-zero:
               (UTMALDG, UTMASTG) and ldmatrix (LDSM) instructions; one
               line each for the bf16-epilogue instantiations.
   3. kernels  each kernel against its plain PyTorch version on the card:
-              the warp at the train path's shapes, conv_s8 and gemm_s8 at
+              the warp's unfused mode at the train paths' shapes; its fused
+              mode (warp_mold: warp, identity select and mold) against the
+              plain chain at the flagship's 32x512x640 u8 batch, config 4's
+              4x1x640x960 gray plane, a ragged 3x100x130 that TMA cannot
+              address and ragged 3x100x112 u8 and 3x100x100 gray that it
+              can (partial tiles on the box path), both interpolations,
+              with every third image, none and all left as they are
+              (nearest 0 differing elements, bilinear 1e-3);
+              conv_s8 and gemm_s8 at
               the serving path's shapes in every epilogue, in both
               accumulation modes (f32, bf16) and on both of their routes
               (TMA + wgmma, and mma.sync), and at C5's depth with
@@ -29,9 +37,15 @@ Phases, in order; any failure exits non-zero:
   4. train    the train step of benchmark_config(3) at full width
               (ResNet-50, 512×640, batch 32) for 5 steps on one seeded
               random batch, then one validation step; losses must be
-              finite and fall; the warp kernel must have been launched.
+              finite and fall; the fused warp (warp_mold) must have been
+              launched, and its first call equals the plain chain on the
+              same inputs (as on every train path of phases 4-8). The
+              calibrated check_train_memory estimate beside the peak of one
+              step, here (also at batch 16, which no factor was fitted on)
+              and for the F16 flagship and config 5 with and without REMAT
+              in phase 5: outside ±25% the run fails.
   5. bf16     bf16 training (F16) at full width, 5 steps + 1 validation
-     train    step each, losses finite and falling, the warp kernel
+     train    step each, losses finite and falling, the fused warp
               launched: (a) the F16 flagship recipe (benchmark_config(3)
               with F16, batch 32), its step time beside phase 4's;
               (b) benchmark_config(5) (ResNet-101, the 3-keypoint head,
@@ -62,7 +76,7 @@ Phases, in order; any failure exits non-zero:
               epoch of 12 steps streamed from disk by data_generator +
               Prefetcher, the host loader's images/s alone, the epochs'
               imgs/s side by side;
-              the warp launched over (b)-(d); (e) quantize on 8
+              the fused warp launched over (b)-(d); (e) quantize on 8
               training frames, detect on the 32 test frames at 1280x960
               (resampled on the host), gemm_s8 and conv_s8 on their TMA
               routes, each distinct call and the served batch equal to
@@ -75,7 +89,8 @@ Phases, in order; any failure exits non-zero:
               (`ursonet_torch.pose_estimator.main`) on phase 6's 1280x960
               PNG frames at the flagship's flags (ResNet-50, 24³ bins,
               bottleneck 128, --image_scale 0.5, rotation augmentation):
-              train (1 epoch of 4 steps, batch 32, the warp launched);
+              train (1 epoch of 4 steps, batch 32, the fused warp
+              launched);
               evaluate in float; evaluate --int8 on the `base` stem and
               with --f16 and the s2d / host-s2d knobs (gemm_s8, conv_s8
               and there stem_s8 launched on their TMA routes, the raw
@@ -95,11 +110,10 @@ Phases, in order; any failure exits non-zero:
               cycles) 2 epochs of 4 steps + 1 validation step in each
               sim2real order: finite losses, every update's learning rate
               the cyclical schedule's, the first train batch's
-              channels equal after the preprocess, the gray warp
-              launched; (c) the command line's
+              channels equal after the preprocess, the fused warp launched
+              on the gray plane; (c) the command line's
               `train --dataset speed --sim2real --clr --rot_aug
-              --rot_image_aug` (4 steps): warp_cuda_gray launched, one of
-              its calls at full shape equal to the plain version; (d)
+              --rot_image_aug` (4 steps): the fused gray warp launched; (d)
               `evaluate --dataset speed` (finite ESA) and `submit` in
               float and --int8 (16 rows, test then real_test, each
               sorted; under --int8 gemm_s8 and conv_s8 on their TMA
@@ -134,8 +148,14 @@ Phases, in order; any failure exits non-zero:
  12. numbers  train step and serving time per variant and mode, memory,
               the bf16 float forward at batch 128 (bench.py's
               BENCH_QUANT=0), and each kernel's time in both modes at the
-              main paths' shapes beside its plain version (the warp's
-              gray route at config 4's batch too),
+              main paths' shapes beside its plain version (the fused warp
+              at the flagship's u8 batch and config 4's gray plane, both
+              interpolations, on M and identity flags drawn as each
+              configuration's preprocess draws them: device time from a
+              CUDA graph of 20 launches, averaged over 8 drawn batches,
+              beside the host pace of back-to-back calls, the unfused
+              chain it replaced, the unfused mode and F.grid_sample timed
+              the same two ways, the share of tiles on the global path),
               the library call and the card's bound (the stem and the
               rate loops on both routes, with the SM clock read while
               they run; the block beside its unfused route, with the SM
@@ -183,7 +203,9 @@ from ursonet_torch.probes.timing import sm_clock_mhz
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import make_eval_step, make_train_step
-from ursonet_torch.utils.memory import check_train_memory
+from ursonet_torch.utils import memory
+from ursonet_torch.utils.memory import (check_train_memory,
+                                        estimate_train_hbm_gb)
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the
 # tensor cores, dense int8 tensor-core rate.
@@ -1190,32 +1212,199 @@ def grid_from_homography(Ms, h, w):
     return torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], dim=-1)
 
 
-def time_warp(imgs, Ms, interp, gray: bool = False) -> dict:
-    """Kernel, plain version and F.grid_sample on the same inputs, and the
-    card's bound for the work: each input byte read once, each output
-    byte written once; ~20 flops per pixel for the coordinate and, for
-    bilinear, ~11 per pixel and channel. `gray`: through the gray route's
-    wrapper (`warp_cuda_gray`, one channel in and out)."""
-    b, c, h, w = imgs.shape
-    plain = (augment.warp_nearest_torch if interp == 'nearest'
-             else augment.warp_bilinear_torch)
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() call, apart from the host's pace: n calls
+    captured in a CUDA graph (after 2 warm-up calls on a side stream),
+    the graph replayed `reps` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def both_ways(fn, iters: int = 50) -> dict:
+    """fn's device time (graph_ms) and its host pace: the mean of `iters`
+    back-to-back calls between two events (cuda_ms), which a call's host
+    work (checks, allocation, the launch) bounds from below as much as
+    its device time."""
+    return {'ms': graph_ms(fn), 'host_ms': cuda_ms(fn, iters)}
+
+
+def _bound(ops, nbytes, rate) -> dict:
+    """The card's least time for `ops` operations at `rate` and `nbytes`
+    bytes at HBM_BYTES_PER_S, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return {'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def _chain(src, Ms, identity, mean, interp):
+    """The unfused chain the fused kernel replaced, on the card: the cast
+    to f32 NCHW (or the gray plane broadcast), the warp kernel in its
+    unfused mode, torch.where, the mold."""
+    if src.dtype == torch.uint8:
+        images = src.permute(0, 3, 1, 2).contiguous().to(torch.float32)
+        warped = warp_cuda.warp_cuda(images, Ms, interp)
+    else:
+        images = src.expand(src.shape[0], 3, *src.shape[2:])
+        warped = warp_cuda.warp_cuda_gray(images, Ms, interp)
+    return torch.where(identity[:, None, None, None], images, warped) - mean
+
+
+def fused_inputs(dev, rng, b, h, w, K, gray: bool):
+    """A u8 batch [B,H,W,3] (or a f32 gray plane [B,1,H,W]), homographies
+    (half camera rotations, half rolls) and identity flags (every third
+    image), on the card."""
+    if gray:
+        src = (rng.rand(b, 1, h, w) * 255).astype(np.float32)
+    else:
+        src = rng.randint(0, 256, (b, h, w, 3), np.uint8)
+    Ms = homographies(b, K, rng)
+    ident = np.arange(b) % 3 == 1
+    return (torch.from_numpy(src).to(dev), torch.from_numpy(Ms).to(dev),
+            torch.from_numpy(ident).to(dev))
+
+
+def drawn_inputs(dev, rng, seed, cfg, b, h, w, K, gray, n_draws):
+    """The traffic a train path of `cfg` sends the fused kernel: a random
+    u8 batch [B,H,W,3] (or f32 gray plane [B,1,H,W]) and `n_draws` pairs
+    (M, identity flags) drawn as its preprocess draws them
+    (draw_rotation, rotation_update under cfg's ROT_AUG and
+    ROT_IMAGE_AUG), on the card."""
+    if gray:
+        src = (rng.rand(b, 1, h, w) * 255).astype(np.float32)
+    else:
+        src = rng.randint(0, 256, (b, h, w, 3), np.uint8)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    locs = torch.zeros(b, 3, device=dev)
+    quats = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev).expand(b, 4)
+    draws = []
+    for _ in range(n_draws):
+        M, ident, _, _ = augment.rotation_update(
+            locs, quats, K, augment.draw_rotation(gen, b, 20.0),
+            cfg.ROT_AUG, cfg.ROT_IMAGE_AUG)
+        draws.append((M, ident))
+    return torch.from_numpy(src).to(dev), draws
+
+
+def tile_stats(src, Ms, ident, mean, interp) -> tuple:
+    """(tiles on the global path, tiles) of one fused launch."""
+    stats = torch.zeros(2, dtype=torch.int32, device=src.device)
+    warp_cuda.warp_mold(src, Ms, ident, mean, interp, stats=stats)
+    torch.cuda.synchronize()
+    return int(stats[0]), int(stats[1])
+
+
+# draws of (M, identity) the fused kernel is timed over, per shape
+FUSED_TIMED_DRAWS = 8
+
+
+def time_fused(src, draws, mean, interp) -> dict:
+    """The fused kernel (device time and host pace), its plain version,
+    the unfused chain it replaced (both ways) and, for the unfused mode,
+    the unfused kernel and F.grid_sample (both ways), on the same inputs,
+    with the card's bounds: the fused function's bytes (source read once,
+    f32 [B,3,H,W] written once, M and the flags) and the unfused mode's
+    (f32 planes in and out); ~20 flops a pixel for the coordinate and ~11
+    a pixel and channel for bilinear, for the images warped. The device
+    times of the kernel and the chain are the means over `draws` (each
+    (M, identity) of one batch); `ms_min`/`ms_max` the kernel's spread
+    over them; the global-path and identity shares are over all draws;
+    the host paces, the plain version and the unfused mode are read on
+    the first draw."""
+    gray = src.dtype == torch.float32
+    b = src.shape[0]
+    h, w = (src.shape[2], src.shape[3]) if gray else (src.shape[1],
+                                                      src.shape[2])
+    c_src = 1 if gray else 3
+    mean_t = torch.from_numpy(np.asarray(mean, np.float32)).to(
+        src.device).view(1, 3, 1, 1)
+    n_ident = sum(int(ident.sum()) for _, ident in draws)
+    warped = len(draws) * b - n_ident
+    flops = (20 * h * w + (11 * 3 * h * w if interp == 'bilinear' else 0)) \
+        * warped / len(draws)
+    per_draw = [graph_ms(lambda: warp_cuda.warp_mold(src, Ms, ident, mean,
+                                                     interp))
+                for Ms, ident in draws]
+    chain = [graph_ms(lambda: _chain(src, Ms, ident, mean_t, interp))
+             for Ms, ident in draws]
+    tiles = [tile_stats(src, Ms, ident, mean, interp) for Ms, ident in draws]
+    Ms, ident = draws[0]
+    out = {'ms': statistics.mean(per_draw), 'ms_min': min(per_draw),
+           'ms_max': max(per_draw),
+           'host_ms': cuda_ms(lambda: warp_cuda.warp_mold(
+               src, Ms, ident, mean, interp), 50),
+           'plain_ms': cuda_ms(lambda: augment.warp_mold_torch(
+               src, Ms, ident, mean, interp), 5),
+           'library_ms': None,
+           'bytes': b * h * w * c_src * src.element_size()
+           + 4 * b * 3 * h * w + 4 * 9 * b + b,
+           'global_share': sum(g for g, _ in tiles) / sum(t for _, t in tiles),
+           'identity_share': n_ident / (len(draws) * b),
+           'draws': len(draws),
+           'chain_ms': statistics.mean(chain),
+           'chain_host_ms': cuda_ms(lambda: _chain(src, Ms, ident, mean_t,
+                                                   interp), 50)}
+    out.update(_bound(flops, out['bytes'], F32_FLOP_PER_S))
+    # the unfused mode on the f32 planes the chain warps
+    planes = src if gray else src.permute(0, 3, 1, 2).contiguous().to(
+        torch.float32)
     kernel = warp_cuda.warp_cuda_gray if gray else warp_cuda.warp_cuda
     grid = grid_from_homography(Ms, h, w)
-    out = {
-        'ms': cuda_ms(lambda: kernel(imgs, Ms, interp), 50),
-        'plain_ms': cuda_ms(lambda: plain(imgs, Ms), 10),
-        'library_ms': cuda_ms(lambda: F.grid_sample(
-            imgs, grid, mode=interp, padding_mode='zeros',
-            align_corners=True), 20),
-        'bytes': 2 * 4 * b * c * h * w + 4 * 9 * b,
-        'flops': 20 * b * h * w + (11 * b * c * h * w
-                                   if interp == 'bilinear' else 0),
-    }
-    t_bytes = out['bytes'] / HBM_BYTES_PER_S * 1e3
-    t_ops = out['flops'] / F32_FLOP_PER_S * 1e3
-    out['bound_ms'] = max(t_bytes, t_ops)
-    out['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+    plain = (augment.warp_nearest_torch if interp == 'nearest'
+             else augment.warp_bilinear_torch)
+    unfused = {**both_ways(lambda: kernel(planes, Ms, interp)),
+               'plain_ms': cuda_ms(lambda: plain(planes, Ms), 5),
+               'bytes': 2 * 4 * b * c_src * h * w + 4 * 9 * b}
+    unfused.update(_bound(20 * b * h * w + (11 * b * c_src * h * w
+                                            if interp == 'bilinear' else 0),
+                          unfused['bytes'], F32_FLOP_PER_S))
+    lib = both_ways(lambda: F.grid_sample(planes, grid, mode=interp,
+                                          padding_mode='zeros',
+                                          align_corners=True))
+    unfused['library_ms'], unfused['library_host_ms'] = lib['ms'], \
+        lib['host_ms']
+    out['unfused'] = unfused
     return out
+
+
+def log_fused(tag, t, card) -> None:
+    u = t['unfused']
+    log(f"warp_mold {tag}: kernel {t['ms']:.4f} ms device (mean over "
+        f"{t['draws']} drawn batches, {t['ms_min']:.4f}-{t['ms_max']:.4f}; "
+        f"each a CUDA graph of 20 launches), host pace {t['host_ms']:.4f} "
+        f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B "
+        f"at 3.35 TB/s; {t['bound_ms'] / t['ms']:.3f} of it); plain "
+        f"{t['plain_ms']:.4f} ms; the unfused chain (cast + warp + where + "
+        f"mold) {t['chain_ms']:.4f} ms device, {t['chain_host_ms']:.4f} ms "
+        f"host pace; images left as they are {t['identity_share']:.4f}; "
+        f"tiles on the global path {t['global_share']:.6f} {card}")
+    log(f"warp_homography (unfused mode) {tag}, first draw: kernel "
+        f"{u['ms']:.4f} ms device, {u['host_ms']:.4f} ms host pace; plain "
+        f"{u['plain_ms']:.4f} ms; F.grid_sample "
+        f"{u['library_ms']:.4f} ms device, {u['library_host_ms']:.4f} ms host"
+        f" pace; bound {u['bound_ms']:.4f} ms ({u['bound_by']}) {card}")
 
 
 def _int8_call(name, a, dev, rng):
@@ -1381,12 +1570,6 @@ def time_float_forward(dev, seed: int, card) -> dict:
     return {'median_ms': ms, 'all_ms': times, 'rel_f32': rels}
 
 
-def _bound(ops, nbytes, rate) -> dict:
-    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {'bound_ms': max(t_ops, t_bytes),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
-
-
 def time_block(dev, card, batch=128, h=128, w=160) -> dict:
     """block_s8 at the probe's shape: the kernel, equal to its plain
     version and to the unfused route at this full shape (0 differing
@@ -1550,6 +1733,125 @@ def check_warp(dev, rng, K) -> float:
     return max_err
 
 
+def _fused_err(tag, got, ref, interp) -> float:
+    """Nearest: 0 differing elements; bilinear within 1e-3. Returns the
+    max abs error."""
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    n = int((got != ref).sum())
+    if interp == 'nearest':
+        ok = n == 0
+        log(f"check {tag}: differing elements {n} (tol 0)")
+    else:
+        ok = err <= 1e-3
+        log(f"check {tag}: max_abs_err={err} (tol 1e-3)")
+    if not ok:
+        raise RuntimeError(f"warp_mold disagrees with the plain chain: {tag}")
+    return err
+
+
+def ragged_intrinsics(h, w) -> np.ndarray:
+    """A camera centred on a small h x w image (focal 65 px), so that its
+    rotations keep the source in view and the partial tiles at the right
+    and bottom edges sample it."""
+    return np.array([[65.0, 0, w / 2], [0, 65.0, h / 2], [0, 0, 1]])
+
+
+def check_fused_warp(dev, rng, K, mean) -> float:
+    """The fused kernel (warp_mold) against its plain version, the chain,
+    at the flagship's 32x512x640 u8 batch and config 4's 4x1x640x960 gray
+    plane (SPEED's camera), both interpolations, with every third image
+    left as it is (identity), then with none and all; at a ragged size
+    whose u8 rows TMA cannot address (every tile on the global path); and
+    at ragged sizes TMA addresses (u8 rows of 336 bytes, f32 rows of 400),
+    whose partial tiles load their boxes by TMA with its zero fill past
+    the edges. Without identity images a TMA-addressable source must put
+    some tiles on the box path. Returns the max abs error."""
+    max_err = 0.0
+    for (b, h, w), Kb, gray in [
+            ((FLAGSHIP_BATCH, 512, 640), K, False),
+            (SPEED_TRAIN_SHAPE, speed_intrinsics(), True),
+            ((3, 100, 130), K, False),
+            ((3, 100, 112), ragged_intrinsics(100, 112), False),
+            ((3, 100, 100), ragged_intrinsics(100, 100), True)]:
+        src, Ms, ident = fused_inputs(dev, rng, b, h, w, Kb, gray)
+        boxed = warp_cuda.tma_addressable(src)
+        for interp in ('nearest', 'bilinear'):
+            for flags in ('mixed', 'none', 'all'):
+                idf = {'mixed': ident, 'none': torch.zeros_like(ident),
+                       'all': torch.ones_like(ident)}[flags]
+                stats = torch.zeros(2, dtype=torch.int32, device=dev)
+                got = warp_cuda.warp_mold(src, Ms, idf, mean, interp,
+                                          stats=stats)
+                torch.cuda.synchronize()
+                n_global, tiles = int(stats[0]), int(stats[1])
+                if flags == 'none' and (n_global < tiles) != boxed:
+                    raise RuntimeError(
+                        f"warp_mold {b}x{h}x{w}: {n_global} of {tiles} tiles"
+                        f" on the global path, TMA-addressable {boxed}")
+                ref = augment.warp_mold_torch(src, Ms, idf, mean, interp)
+                tag = (f"warp_mold {interp} {'gray' if gray else 'u8'} "
+                       f"{b}x{h}x{w} identity {flags}, tiles on the global "
+                       f"path {n_global}/{tiles}")
+                max_err = max(max_err, _fused_err(tag, got, ref, interp))
+    return max_err
+
+
+class _FusedWarps:
+    """While open, keeps the first call of the fused warp (its inputs and
+    output) that the preprocess makes."""
+
+    def __enter__(self):
+        self.saved = warp_cuda.warp_mold
+        self.first = None
+
+        def recorded(src, Ms, identity, mean, interpolation='nearest',
+                     **kw):
+            out = self.saved(src, Ms, identity, mean, interpolation, **kw)
+            if self.first is None:
+                self.first = (src.clone(), Ms.clone(), identity.clone(),
+                              np.array(mean, np.float32), interpolation,
+                              out.clone())
+            return out
+        warp_cuda.warp_mold = recorded
+        return self
+
+    def __exit__(self, *exc):
+        warp_cuda.warp_mold = self.saved
+
+
+def check_fused_call(tag, first, cuda: bool = True) -> float:
+    """The first recorded warp_mold call of a train path, at its full
+    shape, against the plain chain on the same inputs. On the card a path
+    that made no call fails; on the CPU (a configuration without rotation)
+    there is nothing to check."""
+    if first is None:
+        if not cuda:
+            return 0.0
+        raise RuntimeError(f"{tag}: the preprocess never called warp_mold")
+    src, Ms, ident, mean, interp, got = first
+    ref = augment.warp_mold_torch(src, Ms, ident, mean, interp)
+    return _fused_err(f"{tag}: first warp_mold call {tuple(src.shape)} "
+                      f"{src.dtype} identity {int(ident.sum())}/{len(ident)}",
+                      got, ref, interp)
+
+
+def check_memory(tag, cfg, peak, card) -> float:
+    """check_train_memory's calibrated estimate beside the measured peak
+    of one train step; outside ±25% of it the run fails. Returns the
+    estimate / peak."""
+    est = check_train_memory(cfg, 'cuda', log)
+    ratio = est * 1e9 / peak
+    log(f"memory [{tag}] calibrated estimate {est:.3f} GB "
+        f"(structure {estimate_train_hbm_gb(cfg):.3f} GB x "
+        f"{memory.EAGER_FACTORS[memory.eager_mode(cfg)]}) vs measured peak "
+        f"{peak / 1e9:.3f} GB: {ratio:.3f} (tol 0.75-1.25) {card}")
+    if not 0.75 <= ratio <= 1.25:
+        raise RuntimeError(f"memory [{tag}]: the calibrated estimate is "
+                           f"{ratio:.3f} of the peak")
+    return ratio
+
+
 def step_peak(res, seed) -> int:
     """Peak device memory allocated during one train step of `res`, its
     parameters and optimizer state included."""
@@ -1598,7 +1900,8 @@ def bf16_train(dev, cfg, tag, seed, card) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     warp_cuda.reset_counts()
-    res = run_main_path(cfg, dev, seed, STEPS)
+    with _FusedWarps() as fused:
+        res = run_main_path(cfg, dev, seed, STEPS)
     torch.cuda.synchronize()
     launches = dict(warp_cuda.launches)
     peak_run = torch.cuda.max_memory_allocated()
@@ -1609,8 +1912,10 @@ def bf16_train(dev, cfg, tag, seed, card) -> dict:
     log(f"train [{tag}] validation metrics: {res['val']}")
     log(f"train [{tag}] launches: {launches}")
     check_main_path(res)
-    if launches['warp_homography'] < 1:
-        raise RuntimeError(f"train [{tag}] never launched warp_homography")
+    if launches['warp_mold'] < 1:
+        raise RuntimeError(f"train [{tag}] never launched warp_mold")
+    res['fused_err'] = check_fused_call(f"train [{tag}]", fused.first)
+    del fused
     res['launches'] = launches
     res['ms'] = time_train(res, seed)
     res['peak_step'] = step_peak(res, seed)
@@ -1764,9 +2069,12 @@ def run_engine(cfg, device, root, seed: int = 0, frames=None, wh=ENGINE_WH,
         torch.cuda.reset_peak_memory_stats()
     warp_cuda.reset_counts()
     lines = []
-    eng.train(ds['train'], ds['val'], cfg.LEARNING_RATE, 2,
-              log_fn=lines.append)
+    with _FusedWarps() as fused:
+        eng.train(ds['train'], ds['val'], cfg.LEARNING_RATE, 2,
+                  log_fn=lines.append)
     sync()
+    out['fused_err'] = check_fused_call('engine (b)', fused.first, cuda)
+    del fused
     out['peak'] = torch.cuda.max_memory_allocated() if cuda else 0
     for line in lines:
         log(f"engine (b) {line}")
@@ -1818,6 +2126,7 @@ def run_engine(cfg, device, root, seed: int = 0, frames=None, wh=ENGINE_WH,
         cfg.STEPS_PER_EPOCH = ENGINE_STEPS
     sync()
     out['warp_launches'] = warp_cuda.launches['warp_homography']
+    out['warp_mold_launches'] = warp_cuda.launches['warp_mold']
     for line in lines:
         log(f"engine (d) {line}")
     records = _records(eng2.log_dir)
@@ -1829,9 +2138,10 @@ def run_engine(cfg, device, root, seed: int = 0, frames=None, wh=ENGINE_WH,
         f"empty prefetch queues) {out['streaming_imgs_per_s']} imgs/s vs "
         f"resident {out['resident_imgs_per_s']} imgs/s (epochs 0-1, "
         f"{ENGINE_STEPS} steps, the first with warm-up) {card}")
-    log(f"engine (b)-(d) warp launches: {out['warp_launches']}")
-    if cuda and out['warp_launches'] < 1:
-        raise RuntimeError("engine: the train path never launched the warp")
+    log(f"engine (b)-(d) warp launches: {out['warp_launches']}, fused "
+        f"(warp_mold) {out['warp_mold_launches']}")
+    if cuda and out['warp_mold_launches'] < 1:
+        raise RuntimeError("engine: the train path never launched warp_mold")
 
     # (e) serve the labelled test frames
     calib = [ds['train'].load_image(i)
@@ -2055,15 +2365,19 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
         return rec, rec.calls, launches
 
     # 1. train
-    _, _, launches = cli('train', 'train', '--weights', 'none', '--epochs',
-                         '1', '--steps_per_epoch', str(steps),
-                         '--batch_size', str(train_batch))
+    with _FusedWarps() as fused:
+        _, _, launches = cli('train', 'train', '--weights', 'none',
+                             '--epochs', '1', '--steps_per_epoch',
+                             str(steps), '--batch_size', str(train_batch))
+    res['fused_err'] = check_fused_call('cli train', fused.first, cuda)
+    del fused
     records = _records(os.path.dirname(store.find_last(logs)))
     _check_epochs('cli train', records, range(1))
     log(f"cli [train] metrics.jsonl: {records[0]}")
-    if cuda and launches['warp_homography'] < 1:
-        raise RuntimeError("cli train never launched the warp")
-    res['rows']['warp_homography'] += launches['warp_homography']
+    if cuda and launches['warp_mold'] < 1:
+        raise RuntimeError("cli train never launched warp_mold")
+    for k in ('warp_homography', 'warp_mold'):
+        res['rows'][k] += launches[k]
 
     # 2. evaluate: float, then int8 on the base stem and with the s2d
     # knobs under F16, each against the plain version
@@ -2222,27 +2536,6 @@ def _check_clr(tag, cfg, lrs, first: int = 0) -> None:
                            f"cyclical schedule's {want}")
 
 
-class _GrayWarps:
-    """While open, keeps the first call of the gray warp (inputs and
-    output) that the rotation makes."""
-
-    def __enter__(self):
-        self.saved = augment.warp_cuda_gray
-        self.first = None
-
-        def recorded(images, Ms, interpolation='nearest'):
-            out = self.saved(images, Ms, interpolation)
-            if self.first is None:
-                self.first = (images[:, :1].clone(), Ms.clone(),
-                              interpolation, out[:, :1].clone())
-            return out
-        augment.warp_cuda_gray = recorded
-        return self
-
-    def __exit__(self, *exc):
-        augment.warp_cuda_gray = self.saved
-
-
 class _Preprocessed:
     """While open, keeps the pixels (images plus the mean pixel) of the
     first batch a `DevicePreprocess` returns."""
@@ -2261,23 +2554,6 @@ class _Preprocessed:
 
     def __exit__(self, *exc):
         loader.DevicePreprocess.__call__ = self.saved
-
-
-def _check_gray_warp(tag, first) -> None:
-    """The recorded gray warp call at its full shape against the plain
-    version: nearest exactly, bilinear within 1e-3."""
-    if first is None:
-        raise RuntimeError(f"speed {tag}: the gray warp was never called")
-    images, Ms, interp, got = first
-    plain = (augment.warp_nearest_torch if interp == 'nearest'
-             else augment.warp_bilinear_torch)
-    ref = plain(images, Ms)
-    err = float((got - ref).abs().max())
-    if (interp == 'nearest' and err != 0) or err > 1e-3:
-        raise RuntimeError(f"speed {tag}: gray warp {tuple(images.shape)} "
-                           f"{interp} differs from the plain version by {err}")
-    log(f"speed {tag}: one gray warp call at {tuple(images.shape)} {interp} "
-        f"against the plain version: max_abs_err={err}")
 
 
 def _speed_datasets(root, cfg, subsets):
@@ -2335,8 +2611,13 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
     cfg_fn = cfg_fn or (lambda order, opt: speed_config(
         per_image_order=order, optimizer=opt))
     frames = frames or SPEED_FRAMES
-    res = {'seconds': {}, 'rows': Counter(), 'launches': {}}
+    res = {'seconds': {}, 'rows': Counter(), 'launches': {},
+           'fused_err': 0.0}
     data = os.path.join(root, 'speed')
+
+    def fused_call(tag, first):
+        res['fused_err'] = max(res['fused_err'], check_fused_call(
+            f'speed {tag}', first, cuda))
 
     def part(tag):
         sync()
@@ -2349,7 +2630,7 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
         res['seconds'][tag] = time.perf_counter() - res['seconds'][tag]
         launches = {**warp_cuda.launches, **int8_cuda.launches}
         res['launches'][tag] = launches
-        for k in ('warp_homography', 'warp_homography_gray'):
+        for k in ('warp_homography', 'warp_homography_gray', 'warp_mold'):
             res['rows'][k] += launches[k]
         log(f"speed [{tag}] {res['seconds'][tag]:.1f} s (host wall), "
             f"launches {launches} {card}")
@@ -2388,10 +2669,12 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
         eng.initialize(seed)
         lrs = _record_lrs(eng)
         lines = []
-        with _Preprocessed() as pre:
+        with _Preprocessed() as pre, _FusedWarps() as fused:
             eng.train(ds['train_no_val'], ds['val'], cfg.LEARNING_RATE, 2,
                       log_fn=lines.append)
         launches = done(tag)
+        fused_call(f'(b) {tag}', fused.first)
+        del fused
         for line in lines:
             log(f"speed (b) [{tag}] {line}")
         _check_epochs(f'speed (b) {tag}', _records(eng.log_dir), range(2))
@@ -2399,8 +2682,10 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
         log(f"speed (b) [{tag}] learning rates {lrs} = the cyclical "
             f"schedule's (base {cfg.BASE_LEARNING_RATE}, max "
             f"{cfg.MAX_LEARNING_RATE}, step {cfg.CLR_STEP_SIZE})")
-        if cuda and launches['warp_homography_gray'] < 1:
-            raise RuntimeError(f"speed (b) {tag}: the gray warp never ran")
+        if cuda and min(launches['warp_homography_gray'],
+                        launches['warp_mold']) < 1:
+            raise RuntimeError(f"speed (b) {tag}: the fused gray warp never "
+                               f"ran: {launches}")
         # the first batch it trained on, preprocessed: three equal channels
         pix = pre.first
         spread = float((pix - pix[:, :1]).abs().max())
@@ -2429,16 +2714,18 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
             raise RuntimeError(f"speed cli {tag}: exit code {rc}")
         return done(tag)
 
-    with _GrayWarps() as warps:
+    with _FusedWarps() as fused:
         launches = cli('cli train', 'train', '--weights', 'none', '--epochs',
                        '1', '--steps_per_epoch', str(steps), '--batch_size',
                        str(train_batch), '--set', 'VALIDATION_STEPS=1')
     _check_epochs('speed (c)', _records(os.path.dirname(
         store.find_last(logs))), range(1))
-    if cuda and launches['warp_homography_gray'] < 1:
+    if cuda and min(launches['warp_homography_gray'],
+                    launches['warp_mold']) < 1:
         raise RuntimeError("speed (c): the CLI's training never launched "
-                           "the gray warp")
-    _check_gray_warp('(c)', warps.first)
+                           f"the fused gray warp: {launches}")
+    fused_call('(c)', fused.first)
+    del fused
 
     with _Recorder() as rec:
         cli('cli evaluate', 'evaluate', '--weights', 'last', '--eval_batch',
@@ -2515,8 +2802,11 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
     model_dir = os.path.join(root, 'speed_adam')
     eng = UrsoNet('training', cfg, model_dir, device=dev)
     eng.initialize(seed)
-    eng.train(ds['train_no_val'], ds['val'], cfg.LEARNING_RATE, 1,
-              log_fn=lambda *a: None)
+    with _FusedWarps() as fused:
+        eng.train(ds['train_no_val'], ds['val'], cfg.LEARNING_RATE, 1,
+                  log_fn=lambda *a: None)
+    fused_call('(e) adam', fused.first)
+    del fused
     eng2 = UrsoNet('training', cfg, model_dir, device=dev)
     if not eng2.resume_state(eng.log_dir):
         raise RuntimeError("speed (e): no state to resume")
@@ -2590,6 +2880,7 @@ def main(argv=None) -> int:
     K = net_intrinsics(cfg)
     rng = np.random.RandomState(args.seed)
     warp_err = check_warp(dev, rng, K)
+    fused_err = check_fused_warp(dev, rng, K, cfg.MEAN_PIXEL)
     t0 = time.perf_counter()
     int8_err = check_int8_kernels(dev, rng)
     stem_err = check_stem_kernel(dev, rng)
@@ -2600,7 +2891,8 @@ def main(argv=None) -> int:
     # 4. train path
     torch.cuda.reset_peak_memory_stats()
     warp_cuda.reset_counts()
-    res = run_main_path(cfg, dev, args.seed, STEPS)
+    with _FusedWarps() as fused:
+        res = run_main_path(cfg, dev, args.seed, STEPS)
     torch.cuda.synchronize()
     launches = dict(warp_cuda.launches)
     log("train losses: " + " ".join(f"{m['loss']:.6f}" for m in res['train']))
@@ -2609,10 +2901,25 @@ def main(argv=None) -> int:
     log(f"validation metrics: {res['val']}")
     log(f"launches on the train path: {launches}")
     check_main_path(res)
-    if launches['warp_homography'] < 1:
-        raise RuntimeError("the train path never launched warp_homography")
+    if launches['warp_mold'] < 1:
+        raise RuntimeError("the train path never launched warp_mold")
+    fused_err = max(fused_err, check_fused_call('train', fused.first))
+    del fused
     peak = torch.cuda.max_memory_allocated()
     train_ms = time_train(res, args.seed)
+    mem = {'f32 flagship': check_memory('f32 flagship', cfg,
+                                        step_peak(res, args.seed), card)}
+    # a holdout no factor was fitted on: the same step at half the batch
+    half = FLAGSHIP_BATCH // 2
+    cfg_half = flagship_config()
+    cfg_half.IMAGES_PER_GPU = half
+    cfg_half.update()
+    res_half = {**res, 'raw': {k: v[:half] for k, v in res['raw'].items()}}
+    res_half['step'](res_half['raw'], torch.Generator().manual_seed(0))
+    mem[f'f32 flagship batch {half} (holdout)'] = check_memory(
+        f'f32 flagship batch {half} (holdout)', cfg_half,
+        step_peak(res_half, args.seed), card)
+    del res_half
     log(f"train step: median {train_ms:.3f} ms over 10 steps after 2 "
         f"warm-up, {FLAGSHIP_BATCH / train_ms * 1e3:.2f} imgs/s, batch "
         f"{FLAGSHIP_BATCH} 512x640 {card} (the same code in an earlier run: "
@@ -2625,9 +2932,14 @@ def main(argv=None) -> int:
     # 5. bf16 train: (a) the F16 flagship recipe
     t5 = time.perf_counter()
     warp_by_path = {'train_f32': launches['warp_homography']}
-    res = bf16_train(dev, flagship_config(f16=True), 'F16 flagship',
-                     args.seed, card)
+    mold_by_path = {'train_f32': launches['warp_mold']}
+    cfg16 = flagship_config(f16=True)
+    res = bf16_train(dev, cfg16, 'F16 flagship', args.seed, card)
     warp_by_path['train_f16'] = res['launches']['warp_homography']
+    mold_by_path['train_f16'] = res['launches']['warp_mold']
+    fused_err = max(fused_err, res['fused_err'])
+    mem['F16 flagship'] = check_memory('F16 flagship', cfg16,
+                                       res['peak_step'], card)
     log(f"train [F16 flagship] step {res['ms']:.3f} ms vs the f32 step "
         f"{train_ms:.3f} ms (phase 4) in this run, batch {FLAGSHIP_BATCH} "
         f"{card}")
@@ -2636,6 +2948,8 @@ def main(argv=None) -> int:
     cfg5 = presets.benchmark_config(5)
     res = bf16_train(dev, cfg5, 'config5 REMAT', args.seed, card)
     warp_by_path['train_config5'] = res['launches']['warp_homography']
+    mold_by_path['train_config5'] = res['launches']['warp_mold']
+    fused_err = max(fused_err, res['fused_err'])
     dec = decode_keypoint_validation(res, cfg5, args.seed)
     sc = dec['scores']
     log(f"train [config5] validation decoded by the keypoint SVD: mean ESA "
@@ -2662,6 +2976,12 @@ def main(argv=None) -> int:
     if not peak[True] < peak[False]:
         raise RuntimeError("REMAT did not lower the peak memory: "
                            f"{peak[True]} vs {peak[False]} bytes")
+    mem['config5 REMAT'] = check_memory('config5 REMAT', cfg5, peak[True],
+                                        card)
+    cfg5_plain = presets.benchmark_config(5)
+    cfg5_plain.REMAT = False
+    mem['config5 no REMAT'] = check_memory('config5 no REMAT', cfg5_plain,
+                                           peak[False], card)
     del res
     torch.cuda.empty_cache()
     # (c) config 5 served int8 under F16
@@ -2681,12 +3001,15 @@ def main(argv=None) -> int:
         eng = run_engine(engine_config(flagship_config()), dev, root,
                          args.seed, card=card)
         warp_by_path['engine'] = eng['warp_launches']
+        mold_by_path['engine'] = eng['warp_mold_launches']
+        fused_err = max(fused_err, eng['fused_err'])
         torch.cuda.empty_cache()
         log(f"engine phase: {time.perf_counter() - t6:.1f} s")
 
         # 7. the command line on the engine phase's frames
         t7 = time.perf_counter()
         cli = run_cli(root, dev, args.seed, card=card)
+        fused_err = max(fused_err, cli['fused_err'])
         torch.cuda.empty_cache()
         log(f"cli phase: {time.perf_counter() - t7:.1f} s; seconds by "
             f"command { {k: round(v, 1) for k, v in cli['seconds'].items()} }"
@@ -2695,6 +3018,7 @@ def main(argv=None) -> int:
         # 8. SPEED: benchmark config 4 from JPEG frames
         t8 = time.perf_counter()
         speed = run_speed(root, dev, args.seed, card=card)
+        fused_err = max(fused_err, speed['fused_err'])
     torch.cuda.empty_cache()
     log(f"speed phase: {time.perf_counter() - t8:.1f} s; seconds by part "
         f"{ {k: round(v, 1) for k, v in speed['seconds'].items()} } {card}")
@@ -2779,29 +3103,30 @@ def main(argv=None) -> int:
         raise RuntimeError(f"a probe missed its kernel: {probe_launches}")
 
     # 12. numbers per kernel
-    b, c, h, w = FLAGSHIP_BATCH, 3, 512, 640
-    imgs = torch.from_numpy(
-        (rng.rand(b, c, h, w) * 255).astype(np.float32)).to(dev)
-    Ms = torch.from_numpy(homographies(b, K, rng)).to(dev)
-    timed = {i: time_warp(imgs, Ms, i) for i in ('nearest', 'bilinear')}
-    for interp, tw in timed.items():
-        log(f"warp_homography {interp} {b}x{c}x{h}x{w}: kernel {tw['ms']:.4f}"
-            f" ms, plain {tw['plain_ms']:.4f} ms, F.grid_sample "
-            f"{tw['library_ms']:.4f} ms, bound {tw['bound_ms']:.4f} ms "
-            f"({tw['bound_by']}: {tw['bytes']} B at 3.35 TB/s, {tw['flops']} "
-            f"flop at 67 TFLOP/s) {card}")
-    on_path = timed[cfg.WARP_INTERPOLATION]
-    # the gray route at config 4's batch, one channel, nearest
-    b4, h4, w4 = SPEED_TRAIN_SHAPE
-    imgs = torch.from_numpy(
-        (rng.rand(b4, 1, h4, w4) * 255).astype(np.float32)).to(dev)
-    Ms = torch.from_numpy(homographies(b4, speed_intrinsics(), rng)).to(dev)
-    gray = time_warp(imgs, Ms, 'nearest', gray=True)
-    log(f"warp_homography gray nearest {b4}x1x{h4}x{w4}: kernel "
-        f"{gray['ms']:.4f} ms, plain {gray['plain_ms']:.4f} ms, "
-        f"F.grid_sample {gray['library_ms']:.4f} ms on one channel, bound "
-        f"{gray['bound_ms']:.4f} ms ({gray['bound_by']}) {card}")
-    del imgs, Ms
+    # the fused warp on the traffic its train paths send: the flagship's
+    # 32x512x640 u8 batch under benchmark_config(3) (camera rotations and
+    # rolls, no image left as it is) and config 4's 4x1x640x960 gray plane
+    # under benchmark_config(4) (camera rotations only: about half the
+    # images left as they are), both interpolations; beside it the
+    # unfused mode (kernel, F.grid_sample)
+    fused_t = {}
+    cfg4 = presets.benchmark_config(4)
+    for name, (b, h, w), Kb, cfg_n, gray in (
+            ('flagship', (FLAGSHIP_BATCH, 512, 640), K, cfg, False),
+            ('gray', SPEED_TRAIN_SHAPE, speed_intrinsics(), cfg4, True)):
+        src, draws = drawn_inputs(dev, rng, args.seed, cfg_n, b, h, w, Kb,
+                                  gray, FUSED_TIMED_DRAWS)
+        for interp in ('nearest', 'bilinear'):
+            t = time_fused(src, draws, cfg_n.MEAN_PIXEL, interp)
+            fused_t[name, interp] = t
+            log_fused(f"{interp} {'gray' if gray else 'u8'} {b}x{h}x{w} "
+                      f"(benchmark_config({3 if name == 'flagship' else 4}) "
+                      f"draws)", t, card)
+        del src, draws
+    torch.cuda.empty_cache()
+    on_path = fused_t['flagship', cfg.WARP_INTERPOLATION]
+    gray = fused_t['gray', cfg4.WARP_INTERPOLATION]
+    log(f"memory: calibrated estimate / measured peak {mem}")
     int8, stem = {}, {}
     for mode in ('bf16', 'f32'):
         int8[mode] = time_int8_kernels(calls[mode], dev, rng, card)
@@ -2877,6 +3202,18 @@ def main(argv=None) -> int:
             "launches": int8_launches['stem_s8', mode],
             "max_abs_err": stem_err,
             **{k: stem[mode]['tma'][k] for k in timed_keys}})
+    # The warp's row: the fused mode (warp_mold) at the flagship's u8 batch
+    # on its interpolation and its configuration's drawn M and identity
+    # flags, device time by CUDA graph (the mean over the draws,
+    # `ms_min`/`ms_max` its spread), `host_ms` the pace
+    # of back-to-back calls, `chain_ms` the unfused chain it replaced;
+    # `gray` the same at config 4's plane; `unfused` the unfused mode at
+    # the flagship's planes with F.grid_sample as its library call. No one
+    # PyTorch call computes the fused function: library_ms null.
+    fused_keys = keys + ('host_ms', 'ms_min', 'ms_max', 'draws',
+                         'chain_ms', 'chain_host_ms', 'global_share',
+                         'identity_share')
+    unfused_keys = keys + ('host_ms', 'library_host_ms')
     kernels = [{
         "name": "warp_homography", "route": "cuda",
         "source": "ursonet_torch/csrc/warp.cu",
@@ -2885,10 +3222,16 @@ def main(argv=None) -> int:
             'warp_homography'],
         "launches_by_path": {**warp_by_path,
                              'speed': speed['rows']['warp_homography']},
+        "launches_fused_by_path": {**mold_by_path,
+                                   'speed': speed['rows']['warp_mold']},
         "launches_gray": {'speed': speed['rows']['warp_homography_gray']},
-        "max_abs_err": warp_err,
-        **{k: on_path[k] for k in keys},
-        "gray": {k: gray[k] for k in keys},
+        "max_abs_err": max(warp_err, fused_err),
+        "max_abs_err_by_path": {"unfused checks": warp_err,
+                                "fused checks and train paths": fused_err},
+        **{k: on_path[k] for k in fused_keys},
+        "gray": {k: gray[k] for k in fused_keys},
+        "unfused": {k: on_path['unfused'][k] for k in unfused_keys},
+        "gray_unfused": {k: gray['unfused'][k] for k in unfused_keys},
     }] + int8_rows + [{
         "name": "stem_s8_ragged", "route": "cuda", "kernel_route": "ragged",
         "acc": "bf16", "source": "ursonet_torch/csrc/int8_stem.cu",
@@ -2935,6 +3278,7 @@ def main(argv=None) -> int:
             row['max_abs_err_by_path']['speed'] = speed['max_abs_err']
             row['max_abs_err'] = max(row['max_abs_err'],
                                      speed['max_abs_err'])
+    kernels[0]['launches_fused_by_path']['cli'] = cli['rows']['warp_mold']
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

@@ -11,7 +11,9 @@ differently (the homographies agree to ~1e-7 relative), which moves
 source coordinates by up to ~2e-5 px, 5.4e-3 on [0,255] noise with the
 small-image K used there. Locations and quaternions within 1e-5; PMFs
 within 1e-6 abs; the orientation grid's mask exactly and its quaternions
-within 1e-6."""
+within 1e-6. The preprocess's fused warp (`warp_cuda.warp_mold`, on the
+CPU its plain version) equals the unfused chain it replaced bit for
+bit, with and without sim2real."""
 
 import types
 
@@ -229,3 +231,114 @@ def test_camera_and_resize_geometry():
         out, w2, s2 = resize_geometry(960, 1280, lo, hi, 0, mode)
         assert out == img.shape[:2]
         assert tuple(w2) == tuple(window) and s2 == scale
+
+
+def test_rotation_update_is_the_pose_half_of_apply():
+    """rotation_update gives rotation_augment_apply's poses bit for bit,
+    and its identity flags are the samples apply leaves unchanged."""
+    rng = np.random.RandomState(2)
+    b, h, w = 8, 32, 48
+    imgs = torch.from_numpy((rng.rand(b, 3, h, w) * 255).astype(np.float32))
+    locs = torch.from_numpy(rng.uniform(1, 9, (b, 3)).astype(np.float32))
+    quats = torch.from_numpy(unit_quats(rng, b))
+    K = np.array([[30.0, 0, 24], [0, 30.0, 16], [0, 0, 1]], np.float32)
+    draws = taug.draw_rotation(torch.Generator().manual_seed(4), b)
+    for rot_aug, rot_image_aug in ((True, True), (True, False),
+                                   (False, True), (False, False)):
+        M, identity, l2, q2 = taug.rotation_update(locs, quats, K, draws,
+                                                   rot_aug, rot_image_aug)
+        im, l1, q1 = taug.rotation_augment_apply(imgs, locs, quats, K, draws,
+                                                 rot_aug, rot_image_aug)
+        assert torch.equal(l1, l2) and torch.equal(q1, q2)
+        assert M.shape == (b, 3, 3) and M.is_contiguous()
+        dice = draws['dice']
+        want = ~(((dice > 0.5) & rot_aug) | ((dice <= 0.5) & rot_image_aug))
+        assert torch.equal(identity, want)
+        assert torch.equal(im[identity], imgs[identity])
+
+
+def _unfused_preprocess_images(pre, raw, draws):
+    """The preprocess's images as the chain computed them before the
+    fused kernel: cast to f32 NCHW, sim2real, the rotation (warp, then
+    torch.where), the mold."""
+    cfg = pre.config
+    images = torch.from_numpy(raw['images_u8']).permute(0, 3, 1, 2) \
+        .contiguous().to(torch.float32)
+    if pre.sim2real:
+        images = taug.sim2real_apply(images, draws['sim2real'])
+    images, _, _ = taug.rotation_augment_apply(
+        images, torch.from_numpy(raw['location']),
+        torch.from_numpy(raw['quaternion']), pre.K_net, draws, cfg.ROT_AUG,
+        cfg.ROT_IMAGE_AUG, pre.interpolation, grayscale=pre.sim2real)
+    return images - pre.mean_pixel
+
+
+@pytest.mark.parametrize('sim2real', [False, True])
+@pytest.mark.parametrize('interp', ['nearest', 'bilinear'])
+def test_device_preprocess_equals_the_unfused_chain(interp, sim2real):
+    """Bit for bit; the nearest cases roll the images the dice leaves to
+    the roll, the bilinear cases leave them as they are (identity)."""
+    _, tcfg = small_configs(mode='pad64', dim=128, ROT_AUG=True,
+                            ROT_IMAGE_AUG=interp == 'nearest',
+                            WARP_INTERPOLATION=interp,
+                            SIM2REAL_AUG=sim2real, IMAGES_PER_GPU=6)
+    pre = tloader.make_device_preprocess(tcfg, device='cpu')
+    rng = np.random.RandomState(3)
+    b = tcfg.BATCH_SIZE
+    h, w = pre.shape
+    raw = {'images_u8': rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+           'location': rng.uniform(1, 30, (b, 3)).astype(np.float32),
+           'quaternion': unit_quats(rng, b),
+           'image_meta': np.zeros((b, 12), np.float32)}
+    draws = pre.draw(torch.Generator().manual_seed(6), b)
+    assert (draws['dice'] > 0.5).any() and (draws['dice'] <= 0.5).any()
+    got = pre(raw, draws)['images']
+    want = _unfused_preprocess_images(pre, raw, draws)
+    assert got.shape == (b, 3, h, w) and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('interp', ['nearest', 'bilinear'])
+def test_device_preprocess_with_sim2real_matches_jax(interp):
+    """Sim2real on, then the fused gray warp and mold, at the URSO shape
+    of test_device_preprocess_matches_jax, against the JAX package.
+    Nearest in the bound of tests/test_torch_sim2real.py's preprocess
+    test; bilinear at the augmentation's 1e-2: the two packages round M
+    differently (~2e-5 px), and sim2real's contrast gain (up to 2x) and
+    dropout edges steepen the gray plane (measured 2.9e-3)."""
+    from test_torch_sim2real import _jax_sim2real_draws
+    jcfg, tcfg = small_configs(mode='pad64', dim=128, ROT_AUG=True,
+                               ROT_IMAGE_AUG=True, WARP_INTERPOLATION=interp,
+                               SIM2REAL_AUG=True, IMAGES_PER_GPU=6)
+    grid = jenc.build_ori_grid(jcfg.ORI_BINS_PER_DIM)
+    ds = types.SimpleNamespace(camera=JaxCamera(), name='Urso',
+                               ori_histogram_map=grid.quat,
+                               ori_output_mask=grid.mask)
+    rng = np.random.RandomState(12)
+    b = jcfg.BATCH_SIZE
+    h, w = int(jcfg.IMAGE_SHAPE[0]), int(jcfg.IMAGE_SHAPE[1])
+    raw = {
+        'images_u8': rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+        'location': np.stack([rng.uniform(5, 40, b), rng.uniform(-3, 3, b),
+                              rng.uniform(-3, 3, b)], 1).astype(np.float32),
+        'quaternion': unit_quats(rng, b),
+        'image_meta': np.zeros((b, 12), np.float32),
+    }
+    key = jax.random.PRNGKey(13)
+    ref = jloader.make_device_preprocess(jcfg, ds)(
+        key, {k: jnp.asarray(v) for k, v in raw.items()})
+    # the preprocess splits its key for sim2real, then for the rotation
+    key2, sub = jax.random.split(key)
+    draws = _to_torch(_jax_rotation_draws(jax.random.split(key2)[1], b))
+    draws['sim2real'] = _jax_sim2real_draws(sub, b, h, w, False)
+    got = tloader.make_device_preprocess(tcfg, device='cpu')(raw, draws)
+    diff = np.abs(got['images'].numpy().transpose(0, 2, 3, 1)
+                  - np.asarray(ref['images']))
+    if interp == 'nearest':
+        assert (diff > 1e-3).mean() <= 1e-3
+    else:
+        assert diff.max() <= 1e-2
+    np.testing.assert_allclose(got['gt_loc'].numpy(), np.asarray(ref['gt_loc']),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got['gt_ori'].numpy(), np.asarray(ref['gt_ori']),
+                               rtol=0, atol=1e-6)

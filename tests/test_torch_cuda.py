@@ -17,6 +17,7 @@ from ursonet_torch.ops import warp_cuda as wc
 from ursonet_torch.probes import fused_block as fb
 from ursonet_torch.probes import mma_rate as mr
 from torch_parity import cuda_device  # noqa: F401  (fixture)
+import test_torch_warp_tiles as tile_mirror
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +67,224 @@ def test_small_main_path_launches_the_kernel(cuda_device):
                                    seed=0, steps=3)
     chip_smoke.check_main_path(res)
     assert wc.launches['warp_homography'] == 3 + 1   # 3 train + 1 validation
+
+
+# --------------------------------------------------------------------------
+# the fused mode: warp, identity select and mold from the u8 batch or the
+# gray plane (warp_cuda.warp_mold) against its plain version, the chain
+
+MEAN = np.float32([123.7, 116.8, 103.9])
+# (batch, height, width, source, camera): the flagship's u8 batch, config
+# 4's gray plane at SPEED's 640x960, a ragged shape whose rows TMA cannot
+# address (u8 rows of 390 bytes, f32 rows of 520), and ragged shapes whose
+# rows it can (u8 rows of 336 bytes, f32 rows of 400) under a camera
+# centred on them, so that their partial tiles load boxes by TMA
+FUSED_CASES = {
+    'flagship_rgb': (chip_smoke.FLAGSHIP_BATCH, 512, 640, 'rgb', 'urso'),
+    'config4_gray': (chip_smoke.SPEED_TRAIN_SHAPE + ('gray', 'speed')),
+    'odd_rgb': (3, 100, 130, 'rgb', 'urso'),
+    'odd_gray': (3, 100, 130, 'gray', 'urso'),
+    'ragged_tma_rgb': (3, 100, 112, 'rgb', 'ragged'),
+    'ragged_tma_gray': (3, 100, 100, 'gray', 'ragged'),
+}
+IDENTITY = {'mixed': lambda b: torch.arange(b) % 3 == 1,
+            'all': lambda b: torch.ones(b, dtype=torch.bool),
+            'none': lambda b: torch.zeros(b, dtype=torch.bool)}
+
+
+def _fused_inputs(dev, b, h, w, source, camera, seed):
+    rng = np.random.RandomState(seed)
+    if source == 'rgb':
+        src = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3), np.uint8))
+    else:
+        src = torch.from_numpy((rng.rand(b, 1, h, w) * 255).astype(np.float32))
+    K = {'speed': chip_smoke.speed_intrinsics,
+         'ragged': lambda: chip_smoke.ragged_intrinsics(h, w),
+         'urso': lambda: chip_smoke.net_intrinsics(
+             chip_smoke.flagship_config())}[camera]()
+    Ms = torch.from_numpy(chip_smoke.homographies(b, K, rng))
+    return src.to(dev), Ms.to(dev)
+
+
+def _fused_check(got, ref, interp):
+    """Nearest: 0 differing elements; bilinear: today's bound, 1e-3."""
+    if interp == 'nearest':
+        assert int((got != ref).sum()) == 0
+    else:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-3,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize('identity', sorted(IDENTITY))
+@pytest.mark.parametrize('interp', ['nearest', 'bilinear'])
+@pytest.mark.parametrize('case', sorted(FUSED_CASES))
+def test_fused_kernel_matches_plain_chain(cuda_device, case, interp,
+                                          identity):
+    b, h, w, source, camera = FUSED_CASES[case]
+    src, Ms = _fused_inputs(cuda_device, b, h, w, source, camera, seed=11)
+    ident = IDENTITY[identity](b).to(cuda_device)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    before = dict(wc.launches)
+    got = wc.warp_mold(src, Ms, ident, MEAN, interp, stats=stats)
+    torch.cuda.synchronize()
+    assert wc.launches['warp_mold'] == before['warp_mold'] + 1
+    assert wc.launches['warp_homography'] == before['warp_homography'] + 1
+    assert wc.launches['warp_homography_gray'] == \
+        before['warp_homography_gray'] + (source == 'gray')
+    ref = augment.warp_mold_torch(src, Ms, ident, MEAN, interp)
+    assert got.shape == (b, 3, h, w) and got.is_contiguous()
+    _fused_check(got, ref, interp)
+    tiles = b * -(-h // wc.TILE) * -(-w // wc.TILE)
+    assert int(stats[1]) == tiles
+    if not wc.tma_addressable(src):
+        assert int(stats[0]) == tiles        # every tile on the global path
+        return
+    # the tiles the numpy mirror of the kernel's plan puts on the global
+    # path, over the images that are warped; and some partial tile (the
+    # last row or column) of a warped image on the box path
+    epp = 3 if source == 'rgb' else 1
+    kinds = [tile_mirror.plan_tiles(M, h, w, epp)[0]
+             for M, i in zip(Ms.cpu().numpy(), ident.cpu()) if not i]
+    assert int(stats[0]) == sum(int((k == tile_mirror.GLOBAL).sum())
+                                for k in kinds)
+    if kinds and (h % wc.TILE or w % wc.TILE):
+        assert any((k[-1] == tile_mirror.BOXED).any()
+                   or (k[:, -1] == tile_mirror.BOXED).any() for k in kinds)
+
+
+@pytest.mark.parametrize('interp', ['nearest', 'bilinear'])
+def test_fused_kernel_global_path_matches_plain(cuda_device, interp):
+    """Homographies whose boxes cannot fit (a horizon across the image, a
+    10x zoom out, a zero denominator, NaN) beside ordinary ones: the tiles
+    they flag read global memory, inside the same launch, and the result
+    is the plain chain's."""
+    from ursonet_torch import se3
+    K = chip_smoke.net_intrinsics(chip_smoke.flagship_config())
+    Kinv = np.linalg.inv(K)
+    zero_den = np.zeros((3, 3))
+    zero_den[0, 0] = 1.0
+    Ms = np.stack([K @ se3.euler2SO3_left(80.0, 0.0, 0.0) @ Kinv,
+                   np.diag([10.0, 10.0, 1.0]),
+                   zero_den, np.full((3, 3), np.nan),
+                   K @ se3.euler2SO3_left(3.0, -4.0, 40.0) @ Kinv,
+                   np.eye(3)]).astype(np.float32)
+    b, h, w = len(Ms), 512, 640
+    rng = np.random.RandomState(12)
+    src = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3), np.uint8)) \
+        .to(cuda_device)
+    Ms = torch.from_numpy(Ms).to(cuda_device)
+    ident = torch.zeros(b, dtype=torch.bool, device=cuda_device)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got = wc.warp_mold(src, Ms, ident, MEAN, interp, stats=stats)
+    torch.cuda.synchronize()
+    ref = augment.warp_mold_torch(src, Ms, ident, MEAN, interp)
+    _fused_check(got, ref, interp)
+    assert 0 < int(stats[0]) < int(stats[1])
+
+
+def test_fused_kernel_unaligned_source_takes_the_global_path(cuda_device):
+    """A contiguous u8 batch at an address TMA cannot take (not 16-byte
+    aligned) is read from global memory by every tile, and is right."""
+    b, h, w = 4, 64, 96
+    rng = np.random.RandomState(13)
+    buf = torch.from_numpy(rng.randint(0, 256, b * h * w * 3 + 1, np.uint8))
+    src = buf.to(cuda_device)[1:].view(b, h, w, 3)
+    assert src.is_contiguous() and not wc.tma_addressable(src)
+    K = np.array([[60.0, 0, 48], [0, 60.0, 32], [0, 0, 1]])
+    Ms = torch.from_numpy(chip_smoke.homographies(b, K, rng)).to(cuda_device)
+    ident = torch.tensor([False, True, False, False], device=cuda_device)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    for interp in ('nearest', 'bilinear'):
+        stats.zero_()
+        got = wc.warp_mold(src, Ms, ident, MEAN, interp, stats=stats)
+        torch.cuda.synchronize()
+        _fused_check(got, augment.warp_mold_torch(src, Ms, ident, MEAN,
+                                                  interp), interp)
+        assert int(stats[0]) == int(stats[1]) == b * 2 * 3
+
+
+def test_fused_kernel_back_to_back_and_on_another_stream(cuda_device):
+    """Launches of both sources and both interpolations back to back, then
+    on a side stream: the same bits as one at a time (the cached tensor
+    maps and launch sizes are per pointer and shape)."""
+    cases = [FUSED_CASES['odd_rgb'], FUSED_CASES['odd_gray'],
+             (2, 64, 96, 'rgb', 'urso'), (2, 64, 96, 'gray', 'urso')]
+    inputs = [_fused_inputs(cuda_device, *c, seed=14 + i)
+              for i, c in enumerate(cases)]
+    ident = {b: IDENTITY['mixed'](b).to(cuda_device) for b in (2, 3)}
+    want = [augment.warp_mold_torch(src, Ms, ident[len(src)], MEAN, interp)
+            for src, Ms in inputs for interp in ('nearest', 'bilinear')]
+    got = [wc.warp_mold(src, Ms, ident[len(src)], MEAN, interp)
+           for src, Ms in inputs for interp in ('nearest', 'bilinear')]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = [wc.warp_mold(src, Ms, ident[len(src)], MEAN, interp)
+                 for src, Ms in inputs for interp in ('nearest', 'bilinear')]
+    torch.cuda.synchronize()
+    for i, (g, a, r) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a)
+        _fused_check(g, r, ('nearest', 'bilinear')[i % 2])
+
+
+def test_fused_kernel_rejects_what_it_does_not_take(cuda_device):
+    src, Ms = _fused_inputs(cuda_device, 2, 32, 48, 'rgb', 'urso', seed=15)
+    ident = torch.zeros(2, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):                    # f32 NHWC
+        wc.warp_mold(src.float(), Ms, ident, MEAN)
+    with pytest.raises(ValueError):                    # u8 NCHW
+        wc.warp_mold(src.permute(0, 3, 1, 2).contiguous(), Ms, ident, MEAN)
+    with pytest.raises(ValueError):                    # strided rows
+        wc.warp_mold(src[:, :, ::2], Ms[:, :, :], ident, MEAN)
+    with pytest.raises(ValueError):                    # f64 gray plane
+        wc.warp_mold(src[..., :1].permute(0, 3, 1, 2).double().contiguous(),
+                     Ms, ident, MEAN)
+    with pytest.raises(ValueError):                    # M on the CPU
+        wc.warp_mold(src, Ms.cpu(), ident, MEAN)
+    with pytest.raises(ValueError):                    # identity on the CPU
+        wc.warp_mold(src, Ms, ident.cpu(), MEAN)
+    with pytest.raises(ValueError):                    # identity not bool
+        wc.warp_mold(src, Ms, ident.int(), MEAN)
+    with pytest.raises(ValueError):
+        wc.warp_mold(src, Ms, ident, MEAN, stats=torch.zeros(2))
+
+
+def test_small_main_path_launches_the_fused_kernel(cuda_device):
+    """The preprocess on the card runs the fused kernel once a step from
+    the u8 batch, and no other warp launch."""
+    wc.reset_counts()
+    res = chip_smoke.run_main_path(chip_smoke.small_config(), cuda_device,
+                                   seed=0, steps=3)
+    chip_smoke.check_main_path(res)
+    assert wc.launches['warp_mold'] == wc.launches['warp_homography'] == 4
+    assert wc.launches['warp_homography_gray'] == 0
+
+
+@pytest.mark.parametrize('interp', ['nearest', 'bilinear'])
+def test_sim2real_preprocess_launches_the_fused_gray_kernel(cuda_device,
+                                                            interp):
+    """With sim2real the preprocess hands the gray plane to the fused
+    kernel (one gray launch); that call equals the plain chain on the
+    same inputs (chip_smoke's recorder and check)."""
+    cfg = chip_smoke.small_config()
+    cfg.SIM2REAL_AUG = True
+    cfg.WARP_INTERPOLATION = interp
+    cfg.update()
+    raw = chip_smoke.make_raw_batch(cfg, 3)
+    pre = chip_smoke.make_device_preprocess(cfg, device=cuda_device)
+    draws = pre.draw(torch.Generator(cuda_device).manual_seed(4),
+                     len(raw['images_u8']))
+    wc.reset_counts()
+    with chip_smoke._FusedWarps() as fused:
+        batch = pre(raw, draws)
+    torch.cuda.synchronize()
+    assert wc.launches['warp_mold'] == wc.launches['warp_homography_gray'] \
+        == wc.launches['warp_homography'] == 1
+    src = fused.first[0]
+    assert src.dtype == torch.float32 and src.shape[1] == 1
+    assert chip_smoke.check_fused_call('sim2real', fused.first) <= (
+        0.0 if interp == 'nearest' else 1e-3)
+    assert torch.equal(batch['images'], fused.first[-1])
 
 
 # --------------------------------------------------------------------------

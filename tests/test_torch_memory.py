@@ -1,0 +1,88 @@
+"""The port's train-memory estimate (`ursonet_torch/utils/memory.py`):
+its structural estimate equals the JAX package's exactly for every
+benchmark configuration and mode, and its calibrated estimate (the
+structure times the eager step's factor per mode) reproduces the peaks
+the factors were calibrated on, within the ±25% that chip_smoke.py holds
+each train configuration to on the card."""
+
+import pytest
+
+from ursonet_tpu import presets as jpresets
+from ursonet_tpu.utils import memory as jmemory
+from ursonet_torch import presets as tpresets
+from ursonet_torch.utils import memory as tmemory
+
+# peaks of one eager train step on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py phases 4-6), bytes, with the overrides of the
+# configuration: the flagship in f32 and F16, config 5 with and without
+# REMAT, the engine's config 3
+PEAKS = [
+    (3, {'IMAGES_PER_GPU': 32}, 17.57 * 2 ** 30),
+    (3, {'IMAGES_PER_GPU': 32, 'F16': True}, 9.51 * 2 ** 30),
+    (5, {}, 3.32 * 2 ** 30),
+    (5, {'REMAT': False}, 7.13 * 2 ** 30),
+    (3, {'IMAGES_PER_GPU': 32}, 19.02e9),
+]
+
+
+def _both(n, **overrides):
+    cfgs = []
+    for presets in (jpresets, tpresets):
+        cfg = presets.benchmark_config(n)
+        for k, v in overrides.items():
+            setattr(cfg, k, v)
+        cfg.update()
+        cfgs.append(cfg)
+    return cfgs
+
+
+@pytest.mark.parametrize('overrides', [{}, {'F16': True}, {'REMAT': True},
+                                       {'F16': True, 'REMAT': 'narrow'},
+                                       {'IMAGES_PER_GPU': 7}])
+@pytest.mark.parametrize('n', [1, 2, 3, 4, 5])
+def test_structural_estimate_equals_jax(n, overrides):
+    jcfg, tcfg = _both(n, **overrides)
+    assert tmemory.estimate_train_hbm_gb(tcfg) == \
+        jmemory.estimate_train_hbm_gb(jcfg)
+
+
+@pytest.mark.parametrize('n,overrides,peak', PEAKS)
+def test_calibrated_estimate_within_a_quarter_of_the_peaks(n, overrides,
+                                                           peak):
+    _, cfg = _both(n, **overrides)
+    est = tmemory.calibrated_train_gb(cfg)
+    mode = tmemory.eager_mode(cfg)
+    assert est == tmemory.EAGER_FACTORS[mode] * \
+        tmemory.estimate_train_hbm_gb(cfg)
+    assert abs(est * 1e9 / peak - 1) <= 0.25
+    # on the CPU there is no card to warn about; the figure is returned
+    warnings = []
+    assert tmemory.check_train_memory(cfg, 'cpu', warnings.append) == est
+    assert warnings == []
+
+
+def test_eager_modes():
+    _, cfg = _both(3)
+    assert tmemory.eager_mode(cfg) == 'f32'
+    cfg.F16 = True
+    assert tmemory.eager_mode(cfg) == 'f16'
+    cfg.REMAT = 'narrow'
+    assert tmemory.eager_mode(cfg) == 'remat'
+    cfg.F16 = False
+    assert tmemory.eager_mode(cfg) == 'remat'
+
+
+def test_f32_remat_is_said_to_be_uncalibrated():
+    """No f32 step under REMAT was measured: its figure borrows the F16
+    REMAT factor, and check_train_memory says so; the measured modes say
+    nothing on the CPU."""
+    _, cfg = _both(3, REMAT=True)
+    assert not tmemory.calibrated(cfg)
+    notes = []
+    est = tmemory.check_train_memory(cfg, 'cpu', notes.append)
+    assert est == tmemory.EAGER_FACTORS['remat'] * \
+        tmemory.estimate_train_hbm_gb(cfg)
+    assert len(notes) == 1 and 'uncalibrated' in notes[0]
+    for overrides in ({}, {'F16': True}, {'F16': True, 'REMAT': True}):
+        _, cfg = _both(3, **overrides)
+        assert tmemory.calibrated(cfg)

@@ -11,9 +11,12 @@ background thread by `Prefetcher`. A dataset small enough
 
 On the device the preprocess runs sim2real (gray, then noise, blur,
 brightness, contrast and coarse dropout in a random order), the rotation
-augmentation (homography warp in the CUDA kernel, on one channel after
-sim2real; pose update), re-encodes the orientation PMF
-from the rotated quaternion and subtracts the mean pixel. In keypoint
+augmentation (pose update; the homography warp, the select of the
+images left unrotated and the mean-pixel subtraction as one launch of
+the CUDA kernel `warp_cuda.warp_mold`, from the raw u8 batch or, after
+sim2real, from the one gray plane) and re-encodes the orientation PMF
+from the rotated quaternion. Without rotation the cast and the mold
+are plain PyTorch. In keypoint
 mode (REGRESS_KEYPOINTS) it passes the raw keypoint targets through, or
 recomputes them from the rotated pose. The images stay f32 into the
 warp under F16 too (the model casts them to bf16), as in the JAX
@@ -41,6 +44,7 @@ from ursonet_torch.device import resolve_device
 from ursonet_torch.ops import augment as aug
 from ursonet_torch.ops import encoders
 from ursonet_torch.ops import image as imops
+from ursonet_torch.ops import warp_cuda
 from ursonet_torch.ops.image import resize_geometry
 
 
@@ -77,9 +81,9 @@ class DevicePreprocess:
         self.rot = bool(config.ROT_AUG or config.ROT_IMAGE_AUG)
         self.sim2real = bool(config.SIM2REAL_AUG)
         self.interpolation = config.WARP_INTERPOLATION
-        self.mean_pixel = torch.as_tensor(
-            np.asarray(config.MEAN_PIXEL), dtype=torch.float32,
-            device=dev).view(1, -1, 1, 1)
+        self.mean = np.asarray(config.MEAN_PIXEL, np.float32)
+        self.mean_pixel = torch.as_tensor(self.mean,
+                                          device=dev).view(1, -1, 1, 1)
         # Static resize geometry of the camera's frames.
         self.shape, window, scale = resize_geometry(
             camera.height, camera.width, min_dim=config.IMAGE_MIN_DIM,
@@ -116,20 +120,27 @@ class DevicePreprocess:
         if (self.rot or self.sim2real) and draws is None:
             raise ValueError("augmentation needs draws "
                              "(DevicePreprocess.draw)")
-        images = as_tensor(raw['images_u8'], dev)          # [B,H,W,C] u8
-        images = images.permute(0, 3, 1, 2).contiguous().to(torch.float32)
+        src = as_tensor(raw['images_u8'], dev).contiguous()  # [B,H,W,C] u8
         locs = as_tensor(raw['location'], dev, torch.float32)
         quats = as_tensor(raw['quaternion'], dev, torch.float32)
 
         if self.sim2real:
-            images = aug.sim2real_apply(images, draws['sim2real'])
+            images = src.permute(0, 3, 1, 2).contiguous().to(torch.float32)
+            # the gray plane [B,1,H,W] of the broadcast result
+            src = aug.sim2real_apply(images, draws['sim2real'])[:, :1]
         if self.rot:
-            images, locs, quats = aug.rotation_augment_apply(
-                images, locs, quats, self.K_net, draws, cfg.ROT_AUG,
-                cfg.ROT_IMAGE_AUG, self.interpolation,
-                grayscale=self.sim2real)
+            # warp, identity select and mold in one launch on the card
+            M, identity, locs, quats = aug.rotation_update(
+                locs, quats, self.K_net, draws, cfg.ROT_AUG,
+                cfg.ROT_IMAGE_AUG)
+            images = warp_cuda.warp_mold(src, M, identity, self.mean,
+                                         self.interpolation)
+        else:
+            if not self.sim2real:
+                src = src.permute(0, 3, 1, 2).contiguous().to(torch.float32)
+            images = src - self.mean_pixel
 
-        batch = {'images': images - self.mean_pixel,
+        batch = {'images': images,
                  'image_meta': as_tensor(raw['image_meta'], dev,
                                          torch.float32)}
         if cfg.REGRESS_KEYPOINTS:

@@ -16,7 +16,11 @@ computes it in XLA and not in Pallas.
 Each augmentation is split in two so that the randomness is explicit:
 `draw_rotation` / `draw_sim2real` take a `torch.Generator` and return
 the draws, `rotation_augment_apply` / `sim2real_apply` are deterministic
-given them.
+given them. `rotation_update` gives the rotation's homographies, its
+identity flags and the pose update without touching the images: the
+device preprocess hands the first two to the fused kernel
+(`warp_cuda.warp_mold`: warp, identity select and mold in one launch),
+whose plain version is `warp_mold_torch`.
 
 `warp_nearest_torch` / `warp_bilinear_torch` are the plain tensor-indexing
 versions of the kernel (counterparts of `warp_nearest_jax` /
@@ -99,17 +103,15 @@ def draw_rotation(generator: torch.Generator, b: int,
     return {"dice": dice, "pyr_cam": pyr_cam, "roll": roll}
 
 
-def rotation_augment_apply(images, locs, quats, K, draws, rot_aug=True,
-                           rot_image_aug=False, interpolation='nearest',
-                           grayscale=False):
-    """Apply the drawn rotations: images [B,C,H,W] f32, locs [B,3]
-    camera-frame, quats [B,4], K [3,3] intrinsics at the images'
-    resolution. Samples whose dice selects a disabled mode pass through
-    unchanged. `grayscale`: the channels are equal (after sim2real), so
-    only channel 0 is warped (`warp_cuda_gray`) and broadcast. Returns
-    (images', locs', quats')."""
-    dev = images.device
-    b = images.shape[0]
+def rotation_update(locs, quats, K, draws, rot_aug=True,
+                    rot_image_aug=False):
+    """The drawn rotations without the images: locs [B,3] camera-frame,
+    quats [B,4], K [3,3] intrinsics at the images' resolution. Samples
+    whose dice selects a disabled mode keep their pose. Returns (M [B,3,3]
+    dst←src homographies, identity [B] bool: the samples left as they are,
+    locs', quats')."""
+    dev = locs.device
+    b = locs.shape[0]
     dice = draws["dice"].to(dev, torch.float32)
     pyr_cam = draws["pyr_cam"].to(dev, torch.float32)
     roll = draws["roll"].to(dev, torch.float32)
@@ -125,17 +127,53 @@ def rotation_augment_apply(images, locs, quats, K, draws, rot_aug=True,
     R = se3t.euler2SO3_left(pyr[:, 0], pyr[:, 1], pyr[:, 2])  # [B,3,3]
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
     M = (K @ R @ torch.linalg.inv_ex(K).inverse).contiguous()
-
-    warp = warp_cuda_gray if grayscale else warp_cuda
-    warped = warp(images, M, interpolation)
     identity = ~(use_cam | use_roll)
-    images_out = torch.where(identity[:, None, None, None], images, warped)
 
     locs_out = torch.einsum('bi,bji->bj', locs, R)     # t·Rᵀ rows
     quats_out = se3t.quat_mult(se3t.SO32quat(R), quats)
     locs_out = torch.where(identity[:, None], locs, locs_out)
     quats_out = torch.where(identity[:, None], quats, quats_out)
+    return M, identity, locs_out, quats_out
+
+
+def rotation_augment_apply(images, locs, quats, K, draws, rot_aug=True,
+                           rot_image_aug=False, interpolation='nearest',
+                           grayscale=False):
+    """Apply the drawn rotations: images [B,C,H,W] f32, the rest as
+    `rotation_update`. `grayscale`: the channels are equal (after
+    sim2real), so only channel 0 is warped (`warp_cuda_gray`) and
+    broadcast. Returns (images', locs', quats'). The preprocess runs the
+    warp, the select and its mold as one `warp_mold` instead."""
+    M, identity, locs_out, quats_out = rotation_update(
+        locs, quats, K, draws, rot_aug, rot_image_aug)
+    warp = warp_cuda_gray if grayscale else warp_cuda
+    warped = warp(images, M, interpolation)
+    images_out = torch.where(identity[:, None, None, None], images, warped)
     return images_out, locs_out, quats_out
+
+
+def warp_mold_torch(src, Ms, identity, mean, interpolation='nearest'):
+    """The plain version of the fused preprocess kernel
+    (`warp_cuda.warp_mold`), the chain it replaces written out: the cast
+    to f32 NCHW, the warp, the identity select, the mold. src: u8
+    [B,H,W,3] (RGB) or a f32 gray plane [B,1,H,W] (every channel samples
+    it); Ms [B,3,3] f32; identity [B] bool; mean: 3 values, taken as f32.
+    Returns f32 [B,3,H,W]."""
+    if interpolation not in ('nearest', 'bilinear'):
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    warp = warp_nearest_torch if interpolation == 'nearest' \
+        else warp_bilinear_torch
+    if src.dtype == torch.uint8:
+        images = src.permute(0, 3, 1, 2).contiguous().to(torch.float32)
+        warped = warp(images, Ms)
+    else:
+        images = src.expand(src.shape[0], 3, *src.shape[2:])
+        warped = warp(src, Ms).expand(images.shape)
+    images = torch.where(identity.to(images.device)[:, None, None, None],
+                         images, warped)
+    mean = torch.as_tensor(np.asarray(mean, np.float32),
+                           device=images.device).view(1, 3, 1, 1)
+    return images - mean
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,8 @@
 """Pre-flight estimate of a train step's device memory, the counterpart
-of `ursonet_tpu/utils/memory.py` with the same structural estimate:
+of `ursonet_tpu/utils/memory.py`.
+
+`estimate_train_hbm_gb` is the JAX package's structural estimate, kept
+equal to it:
 
   * saved forward activations (every residual block's ReLU outputs kept
     for the backward), in the compute dtype (a 0.15 share of them under
@@ -7,17 +10,33 @@ of `ursonet_tpu/utils/memory.py` with the same structural estimate:
   * parameters, gradients and optimizer slots (f32);
   * the input batch.
 
-It is a lower bound on what the step holds. `check_train_memory` warns
-when it passes 60% of the card's memory
-(`torch.cuda.get_device_properties(dev).total_memory`); on the CPU there
-is no device memory to compare with.
+It counts what XLA's fused step holds. The eager PyTorch step holds
+more (autograd keeps every op's saved inputs, cuDNN its workspaces), so
+`calibrated_train_gb` multiplies it by a factor per mode,
+`EAGER_FACTORS`, the ratio of the measured peak
+(`torch.cuda.max_memory_allocated` over one train step) to the estimate
+on an NVIDIA H100 80GB HBM3 at a 700 W power limit (`chip_smoke.py`
+phases 4-6, which print both for each configuration):
 
-The eager PyTorch step holds more than this structure counts: for
-benchmark_config(3) at batch 32 on an H100 80GB HBM3 at 700 W
-(chip_smoke.py's engine phase) the estimate is 10.41 GB and the measured peak
-(`torch.cuda.max_memory_allocated`) 19.02 GB, 1.83 times as much. So the
-warning fires only once the real step is near the card's memory; the
-factor is not calibrated for the eager step (PERF.md §7).
+  * 'f32'   1.82: the flagship (`benchmark_config(3)`, batch 32) peaks at
+            17.57 GiB = 18.87 GB against 10.41 GB (1.81), the engine's
+            config 3 at 19.02 GB (1.83);
+  * 'f16'   1.76: the F16 flagship at 9.51 GiB = 10.21 GB against 5.66
+            GB (1.80), `benchmark_config(5)` without REMAT (batch 16) at
+            7.13 GiB = 7.66 GB against 4.48 GB (1.71);
+  * 'remat' 2.69: config 5 with REMAT at 3.32 GiB = 3.56 GB against
+            1.33 GB (the structure keeps 0.15 of the activations; the
+            eager checkpoints keep more).
+
+An f32 step under REMAT was never measured: it borrows the 'remat'
+factor, and `check_train_memory` says that its figure is uncalibrated.
+The factors were fitted on the peaks above, so those peaks can show only
+drift; `chip_smoke.py` phase 4 also holds the flagship's step at half
+its batch (16), which no factor was fitted on, to ±25% of its peak.
+
+`check_train_memory` warns when the calibrated figure passes 60% of the
+card's memory (`torch.cuda.get_device_properties(dev).total_memory`);
+on the CPU there is no device memory to compare with.
 """
 
 from __future__ import annotations
@@ -105,17 +124,48 @@ def estimate_train_hbm_gb(config) -> float:
     return 1.25 * (acts + param_bytes + batch_bytes) / 1e9
 
 
+# Measured peak / structural estimate of the eager step, per mode (the
+# module's docstring gives the runs).
+EAGER_FACTORS = {'f32': 1.82, 'f16': 1.76, 'remat': 2.69}
+
+
+def eager_mode(config) -> str:
+    """The key of `EAGER_FACTORS` for `config`: 'remat' under REMAT,
+    else 'f16' under F16, else 'f32'."""
+    if getattr(config, 'REMAT', False):
+        return 'remat'
+    return 'f16' if getattr(config, 'F16', False) else 'f32'
+
+
+def calibrated_train_gb(config) -> float:
+    """The structural estimate times the eager step's factor for the
+    config's mode: the expected peak (GB) of one eager train step."""
+    return EAGER_FACTORS[eager_mode(config)] * estimate_train_hbm_gb(config)
+
+
+def calibrated(config) -> bool:
+    """Whether a measured peak stands behind `config`'s factor: all modes
+    but f32 under REMAT."""
+    return not (getattr(config, 'REMAT', False)
+                and not getattr(config, 'F16', False))
+
+
 def check_train_memory(config, device="cuda", log_fn=print) -> float:
-    """Warn when the estimate passes 60% of the memory of `device` (a
-    CUDA device; nothing to compare with on the CPU). Returns the
-    estimate in GB."""
-    est = estimate_train_hbm_gb(config)
+    """Warn when the calibrated estimate passes 60% of the memory of
+    `device` (a CUDA device; nothing to compare with on the CPU), and say
+    so where the mode is not calibrated. Returns the calibrated estimate
+    in GB."""
+    est = calibrated_train_gb(config)
+    if not calibrated(config):
+        log_fn(f"NOTE: the training memory estimate {est:.1f} GB is "
+               "uncalibrated: no f32 step under REMAT was measured, so it "
+               "takes the F16 REMAT factor.")
     dev = torch.device(device)
     if dev.type == 'cuda':
         total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
         if est > 0.6 * total_gb:
-            log_fn(f"WARNING: estimated training memory >= {est:.1f} GB "
-                   f"(lower bound) against {total_gb:.1f} GB on "
+            log_fn(f"WARNING: estimated training memory {est:.1f} GB "
+                   f"against {total_gb:.1f} GB on "
                    f"{torch.cuda.get_device_name(dev)}; consider REMAT=True "
                    "or a smaller batch or image scale.")
     return est
