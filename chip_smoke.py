@@ -72,10 +72,13 @@ Phases, in order; any failure exits non-zero:
               device-resident: losses finite, metrics.jsonl, 2 snapshots
               and state_latest.msgpack; (c) a fresh engine's resume_state
               gives params, batch_stats and velocity bit for bit, the
-              step and epoch, and trains a third epoch; (d) a fourth
-              epoch of 12 steps streamed from disk by data_generator +
-              Prefetcher, the host loader's images/s alone, the epochs'
-              imgs/s side by side;
+              step and epoch, and trains a third epoch; (d) the host
+              loader's images/s alone on the native route (threaded C++,
+              csrc/host_loader.cpp) and on the Python path, beside
+              os.cpu_count(); a fourth epoch of 12 steps streamed from
+              disk by data_generator + Prefetcher through the native
+              route, its first two batches equal to load_batch_plain bit
+              for bit, the epochs' imgs/s side by side;
               the fused warp launched over (b)-(d); (e) quantize on 8
               training frames, detect on the 32 test frames at 1280x960
               (resampled on the host), gemm_s8 and conv_s8 on their TMA
@@ -104,7 +107,9 @@ Phases, in order; any failure exits non-zero:
               JPEG frames: (a) make_speed_dataset writes 32 train_no_val,
               8 val, 8 test and 8 real_test gray frames at SPEED's
               1920x1200 through the port's JPEG encoder (one frame's
-              encode and decode ms); (b) UrsoNet.train trains
+              encode and decode ms), and one batch of them through the
+              native loader equals load_batch_plain; (b) UrsoNet.train
+              trains
               benchmark_config(4) at full width (ResNet-50, bottleneck
               128, 16^3 bins, batch 4, 640x960; CLR over 3-update half
               cycles) 2 epochs of 4 steps + 1 validation step in each
@@ -122,7 +127,21 @@ Phases, in order; any failure exits non-zero:
               version bit for bit); (e) an
               Adam + CLR run resumed bit for bit (params, mu, nu, nu_max,
               count), then one more epoch on the schedule.
-  9. artifact the committed flagship int8 artifact served on its golden
+  8b. config2 benchmark config 2 (ResNet-18, bottleneck 32, location and
+              quaternion regression, 512x640, batch 1) on phase 6's
+              frames through the command line (phase 7's run_cli with
+              CONFIG2_FLAGS): train 8 steps streamed through the native
+              loader (its first batches equal to load_batch_plain),
+              evaluate in float, --int8 with f32 epilogues and with --f16
+              and the s2d / host-s2d knobs (gemm_s8, conv_s8 and there
+              stem_s8 launched, their routes printed, each distinct
+              served call on fresh operands and the raw heads equal to
+              the plain version), export and evaluate the h5 (bit for bit),
+              test; each command's seconds and evaluate's images/s at
+              batch 1; a ResNet-18 step's peak memory beside
+              check_train_memory's estimate; one ResNet-34 train step and
+              one int8 served batch equal to the plain version.
+ 9. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
               twin, both int8 kernels launched; drift against the TPU
@@ -177,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -188,7 +208,7 @@ from ursonet_torch import evaluate, presets, se3, se3t
 from ursonet_torch.checkpoint import store
 from ursonet_torch.checkpoint.quant_store import save_quantized
 from ursonet_torch.config import Config
-from ursonet_torch.data import loader, png
+from ursonet_torch.data import loader, native_loader, png
 from ursonet_torch.data.loader import keypoint_scale, make_device_preprocess
 from ursonet_torch.data.synthetic import make_urso_dataset
 from ursonet_torch.data.urso import Camera, Urso
@@ -1820,6 +1840,50 @@ class _FusedWarps:
         warp_cuda.warp_mold = self.saved
 
 
+class _NativeBatches:
+    """While open, counts the batches the native loader fills
+    (`native_loader.load_batch`, from any thread) and keeps the first
+    `keep` calls' arguments and batches."""
+
+    keep = 2
+
+    def __enter__(self):
+        self.saved = native_loader.load_batch
+        self.count, self.first = 0, []
+        lock = threading.Lock()
+
+        def recorded(paths, *geom, **kw):
+            out = self.saved(paths, *geom, **kw)
+            with lock:
+                self.count += 1
+                if len(self.first) < self.keep:
+                    self.first.append((list(paths), geom, out.copy()))
+            return out
+        native_loader.load_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        native_loader.load_batch = self.saved
+
+
+def check_native_batches(tag, rec) -> None:
+    """The recorded native batches against `load_batch_plain` (numpy on
+    the port's Python codecs) on the same files: any differing value
+    raises."""
+    if len(rec.first) < rec.keep:
+        raise RuntimeError(f"{tag}: {rec.count} native batches, "
+                           f"{rec.keep} expected")
+    for paths, geom, got in rec.first:
+        want = native_loader.load_batch_plain(paths, *geom)
+        diff = int((got != want).sum())
+        if diff:
+            raise RuntimeError(f"{tag}: a native batch differs from "
+                               f"load_batch_plain in {diff} values")
+    log(f"{tag}: {rec.count} native batches; the first {len(rec.first)} "
+        f"({tuple(rec.first[0][2].shape)}) equal load_batch_plain bit for "
+        "bit")
+
+
 def check_fused_call(tag, first, cuda: bool = True) -> float:
     """The first recorded warp_mold call of a train path, at its full
     shape, against the plain chain on the same inputs. On the card a path
@@ -2106,21 +2170,32 @@ def run_engine(cfg, device, root, seed: int = 0, frames=None, wh=ENGINE_WH,
     for line in lines:
         log(f"engine (c) {line}")
 
-    # (d) streaming from disk
-    gen = loader.data_generator(ds['train'], cfg, shuffle=True,
-                                batch_size=cfg.BATCH_SIZE, seed=seed)
-    next(gen)
-    t0 = time.perf_counter()
-    for _ in range(ENGINE_LOADER_BATCHES):
-        next(gen)
-    out['loader_imgs_per_s'] = ENGINE_LOADER_BATCHES * cfg.BATCH_SIZE / (
-        time.perf_counter() - t0)
+    # (d) streaming from disk: the host loader alone on each route, then
+    # an epoch streamed through the native route
+    out['cpu_count'] = os.cpu_count()
+    out['loader_imgs_per_s'] = {}
+    try:
+        for route, native in (('native', True), ('python', False)):
+            cfg.NATIVE_LOADER = native
+            gen = loader.data_generator(ds['train'], cfg, shuffle=True,
+                                        batch_size=cfg.BATCH_SIZE, seed=seed)
+            next(gen)
+            t0 = time.perf_counter()
+            for _ in range(ENGINE_LOADER_BATCHES):
+                next(gen)
+            out['loader_imgs_per_s'][route] = (
+                ENGINE_LOADER_BATCHES * cfg.BATCH_SIZE
+                / (time.perf_counter() - t0))
+            gen.close()
+    finally:
+        cfg.NATIVE_LOADER = True
     cfg.DATA_ON_DEVICE = False
     cfg.STEPS_PER_EPOCH = ENGINE_STREAM_STEPS
     lines = []
     try:
-        eng2.train(ds['train'], ds['val'], cfg.LEARNING_RATE, 4,
-                   log_fn=lines.append)
+        with _NativeBatches() as native:
+            eng2.train(ds['train'], ds['val'], cfg.LEARNING_RATE, 4,
+                       log_fn=lines.append)
     finally:
         cfg.DATA_ON_DEVICE = 'auto'
         cfg.STEPS_PER_EPOCH = ENGINE_STEPS
@@ -2129,15 +2204,20 @@ def run_engine(cfg, device, root, seed: int = 0, frames=None, wh=ENGINE_WH,
     out['warp_mold_launches'] = warp_cuda.launches['warp_mold']
     for line in lines:
         log(f"engine (d) {line}")
+    check_native_batches('engine (d) streamed epoch', native)
     records = _records(eng2.log_dir)
     _check_epochs('(d)', records, range(4))
     out['streaming_imgs_per_s'] = records[3]['imgs_per_s']
-    log(f"engine (d) host loader alone (decode PNG + resize, one thread, "
-        f"{ENGINE_LOADER_BATCHES} batches): {out['loader_imgs_per_s']:.2f} "
-        f"images/s; epoch streamed ({ENGINE_STREAM_STEPS} steps, from "
-        f"empty prefetch queues) {out['streaming_imgs_per_s']} imgs/s vs "
-        f"resident {out['resident_imgs_per_s']} imgs/s (epochs 0-1, "
-        f"{ENGINE_STEPS} steps, the first with warm-up) {card}")
+    rates = out['loader_imgs_per_s']
+    log(f"engine (d) host loader alone (decode PNG + resize + batch, "
+        f"{ENGINE_LOADER_BATCHES} batches of {cfg.BATCH_SIZE}, "
+        f"os.cpu_count() {out['cpu_count']}): native route (threads "
+        f"min(batch, cpus)) {rates['native']:.2f} images/s, Python path "
+        f"(NATIVE_LOADER False, one thread) {rates['python']:.2f} images/s; "
+        f"epoch streamed through the native route ({ENGINE_STREAM_STEPS} "
+        f"steps, from empty prefetch queues) {out['streaming_imgs_per_s']} "
+        f"imgs/s vs resident {out['resident_imgs_per_s']} imgs/s (epochs "
+        f"0-1, {ENGINE_STEPS} steps, the first with warm-up) {card}")
     log(f"engine (b)-(d) warp launches: {out['warp_launches']}, fused "
         f"(warp_mold) {out['warp_mold_launches']}")
     if cuda and out['warp_mold_launches'] < 1:
@@ -2325,22 +2405,26 @@ def _same_heads(tag, got: dict, want: dict) -> float:
 
 def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
             train_batch: int = FLAGSHIP_BATCH, eval_batch: int = CLI_EVAL_BATCH,
-            steps: int = CLI_TRAIN_STEPS, card: str = '') -> dict:
+            steps: int = CLI_TRAIN_STEPS, card: str = '', name: str = 'cli',
+            served_calls: bool = False) -> dict:
     """The README's quick start through `ursonet_torch.pose_estimator.main`
     on the URSO frames under `root/urso`: train; evaluate in float;
     evaluate --int8 on the `base` stem and with the s2d knobs under F16,
     each run's raw heads and summary equal to those of the same served
-    batches through the plain version; export (h5 and the int8
-    artifact); evaluate from the exported h5, equal to the float run bit
-    for bit; test (overlays) and test --image. Each command must return
-    0; every launch counter is set to 0 before a command and read after
-    it. Returns the launches by kernel row, the seconds and rates."""
+    batches through the plain version (and with `served_calls`, each
+    distinct int8 call of them on fresh operands: check_served_calls);
+    export (h5 and the int8 artifact); evaluate from the exported h5,
+    equal to the float run bit for bit; test (overlays) and test --image.
+    Each command must return 0; every launch counter is set to 0 before a
+    command and read after it. `name` tags the log lines and names the
+    run's directories under `root`. Returns the launches by kernel row,
+    the seconds and rates."""
     from ursonet_torch import pose_estimator
     dev = torch.device(device)
     cuda = dev.type == 'cuda'
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    out_dir = os.path.join(root, 'cli_out')
-    logs = os.path.join(root, 'cli_logs')
+    out_dir = os.path.join(root, f'{name}_out')
+    logs = os.path.join(root, f'{name}_logs')
     common = ['--dataset', 'urso', '--data_dir', root, '--logs', logs,
               '--out_dir', out_dir, '--models_dir',
               os.path.join(root, 'models'), '--seed', str(seed)] + list(flags)
@@ -2356,10 +2440,10 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
         sync()
         res['seconds'][tag] = time.perf_counter() - t0
         if rc != 0:
-            raise RuntimeError(f"cli {tag}: exit code {rc}")
+            raise RuntimeError(f"{name} {tag}: exit code {rc}")
         launches = {**warp_cuda.launches, **int8_cuda.launches}
         res['launches'][tag] = launches
-        log(f"cli [{tag}] {' '.join(argv)}: exit 0 in "
+        log(f"{name} [{tag}] {' '.join(argv)}: exit 0 in "
             f"{res['seconds'][tag]:.1f} s (host wall, model build and "
             f"weight load included), launches {launches} {card}")
         return rec, rec.calls, launches
@@ -2369,13 +2453,13 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
         _, _, launches = cli('train', 'train', '--weights', 'none',
                              '--epochs', '1', '--steps_per_epoch',
                              str(steps), '--batch_size', str(train_batch))
-    res['fused_err'] = check_fused_call('cli train', fused.first, cuda)
+    res['fused_err'] = check_fused_call(f'{name} train', fused.first, cuda)
     del fused
     records = _records(os.path.dirname(store.find_last(logs)))
-    _check_epochs('cli train', records, range(1))
-    log(f"cli [train] metrics.jsonl: {records[0]}")
+    _check_epochs(f'{name} train', records, range(1))
+    log(f"{name} [train] metrics.jsonl: {records[0]}")
     if cuda and launches['warp_mold'] < 1:
-        raise RuntimeError("cli train never launched warp_mold")
+        raise RuntimeError(f"{name} train never launched warp_mold")
     for k in ('warp_homography', 'warp_mold'):
         res['rows'][k] += launches[k]
 
@@ -2389,12 +2473,12 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
         (served,), (summary,) = rec.served, rec.summaries
         n = len(served['ids'])
         evals[tag] = {'outputs': served['outputs'], 'summary': summary}
-        for name in ('ori_err.csv', 'loc_err.csv', 'dists_err.csv'):
-            with open(os.path.join(out_dir, name)) as f:
+        for csv in ('ori_err.csv', 'loc_err.csv', 'dists_err.csv'):
+            with open(os.path.join(out_dir, csv)) as f:
                 if len(f.read().splitlines()) != n + 1:
-                    raise RuntimeError(f"cli {tag}: {name} lacks rows")
+                    raise RuntimeError(f"{name} {tag}: {csv} lacks rows")
         res['imgs_per_s'][tag] = n / rec.eval_s
-        log(f"cli [{tag}] summary {summary}; {n} frames in "
+        log(f"{name} [{tag}] summary {summary}; {n} frames in "
             f"{rec.eval_s:.2f} s, {res['imgs_per_s'][tag]:.2f} images/s "
             f"through evaluate() (PNG decode, resize, mold, forward, decode, "
             f"CSVs; host wall), {n / res['seconds'][tag]:.2f} over the whole "
@@ -2406,8 +2490,11 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
         if cuda:
             missed = [k for k in want if launches[k] < 1]
             if missed:
-                raise RuntimeError(f"cli {tag}: {missed} never launched")
-            check_served_routes(f'cli {tag}', calls)
+                raise RuntimeError(f"{name} {tag}: {missed} never launched")
+            check_served_routes(f'{name} {tag}', calls)
+            if served_calls:
+                check_served_calls(f'{name} {tag}', calls, dev,
+                                   np.random.RandomState(seed))
         mode = '' if '--f16' in extra else '_f32acc'
         for k in want:
             res['rows'][k + mode] += launches[k]
@@ -2415,28 +2502,33 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
         with _Recorder() as plain:
             evaluate.evaluate(_PlainServing(served['engine']),
                               served['dataset'],
-                              out_dir=os.path.join(root, 'cli_plain'),
+                              out_dir=os.path.join(root, f'{name}_plain'),
                               log_fn=lambda *a: None)
         _same_heads(tag, served['outputs'], plain.served[0]['outputs'])
         if plain.summaries[0] != summary:
-            raise RuntimeError(f"cli {tag}: summary {summary} vs the plain "
+            raise RuntimeError(f"{name} {tag}: summary {summary} vs the plain "
                                f"version's {plain.summaries[0]}")
-        log(f"cli [{tag}] the raw heads of its {n} frames equal the plain "
+        log(f"{name} [{tag}] the raw heads of its {n} frames equal the plain "
             "version's on the same served batches (0 differing values), "
             "and so does the summary")
         del served, plain, rec
 
-    # 3. export, then evaluate from the exported h5
+    # 3. export, then evaluate from the exported h5. export --int8 runs
+    # int8 products only in bias_correct's capture passes, which the CLI
+    # runs by default for a classification head (apply_ptq_refinements)
     rec, _, launches = cli('export', 'export', '--weights', 'last',
                            '--int8', '--eval_batch', str(eval_batch))
-    if cuda and min(launches['gemm_s8'], launches['conv_s8']) < 1:
-        raise RuntimeError(f"cli export --int8: launches {launches}")
+    args = pose_estimator.build_parser().parse_args(
+        ['export', '--weights', 'last'] + common)
+    refined = not (args.regress_ori and args.regress_loc)
+    if cuda and refined and min(launches['gemm_s8'], launches['conv_s8']) < 1:
+        raise RuntimeError(f"{name} export --int8: launches {launches}")
     for k in ('gemm_s8', 'conv_s8'):     # calibration, bias_correct
         res['rows'][k + '_f32acc'] += launches[k]
     h5 = os.path.join(out_dir, 'urso_weights.h5')
     artifact = os.path.join(out_dir, 'urso_int8.msgpack')
     if not (os.path.exists(h5) and os.path.exists(artifact)):
-        raise RuntimeError(f"cli export wrote {os.listdir(out_dir)}")
+        raise RuntimeError(f"{name} export wrote {os.listdir(out_dir)}")
     res['h5_bytes'] = os.path.getsize(h5)
     res['h5_write_s'] = rec.h5_s['write']
     rec, _, _ = cli('evaluate h5', 'evaluate', '--weights', h5,
@@ -2445,10 +2537,10 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
     _same_heads('evaluate h5', rec.served[0]['outputs'],
                 evals['evaluate']['outputs'])
     if rec.summaries[0] != evals['evaluate']['summary']:
-        raise RuntimeError(f"cli evaluate h5: summary {rec.summaries[0]} vs "
+        raise RuntimeError(f"{name} evaluate h5: summary {rec.summaries[0]} vs "
                            f"--weights last's {evals['evaluate']['summary']}")
     del rec
-    log(f"cli [export] h5 of {res['h5_bytes']} bytes written in "
+    log(f"{name} [export] h5 of {res['h5_bytes']} bytes written in "
         f"{res['h5_write_s']:.2f} s and read in {res['h5_read_s']:.2f} s "
         f"(the port's HDF5 codec, host), int8 artifact "
         f"{os.path.getsize(artifact)} bytes; evaluate --weights <h5> gives "
@@ -2457,15 +2549,15 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
     # 4. test: overlays of 10 frames, then of one
     cli('test', 'test', '--weights', 'last', '--eval_batch', str(eval_batch))
     overlays = sorted(os.listdir(os.path.join(out_dir, 'overlays')))
-    if len(overlays) != CLI_OVERLAYS:
-        raise RuntimeError(f"cli test: {len(overlays)} overlays")
+    if len(overlays) != min(CLI_OVERLAYS, n):     # n: the test frames
+        raise RuntimeError(f"{name} test: {len(overlays)} overlays")
     with open(os.path.join(out_dir, 'overlays', overlays[0]), 'rb') as f:
         shape = png.decode_png(f.read()).shape
     cli('test image', 'test', '--weights', 'last', '--image',
         os.path.join(root, 'urso', '0_rgb.png'))
     if not os.path.exists(os.path.join(out_dir, 'single_image_pose.png')):
-        raise RuntimeError("cli test --image wrote no overlay")
-    log(f"cli [test] {len(overlays)} overlays of {shape}, and "
+        raise RuntimeError(f"{name} test --image wrote no overlay")
+    log(f"{name} [test] {len(overlays)} overlays of {shape}, and "
         "single_image_pose.png")
     return res
 
@@ -2656,6 +2748,24 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
         f"in {res['seconds']['frames']:.1f} s; one frame ({len(blob)} bytes): "
         f"decode {res['decode_ms']:.1f} ms, encode {res['encode_ms']:.1f} ms "
         "(the port's codec, one host thread)")
+    # one batch of frames through the native loader at config 4's geometry
+    cfg = cfg_fn(False, 'SGD')
+    ds = _speed_datasets(data, cfg, ('train_no_val',))['train_no_val']
+    g = loader.native_geometry(ds, cfg)
+    paths = [ds.image_info[i]['path']
+             for i in range(min(cfg.BATCH_SIZE, len(ds.image_ids)))]
+    geom = (g['out_h'], g['out_w'], g['content_h'], g['content_w'],
+            g['top'], g['left'])
+    t0 = time.perf_counter()
+    got = native_loader.load_batch(paths, *geom)
+    res['native_batch_ms'] = (time.perf_counter() - t0) * 1e3
+    diff = int((got != native_loader.load_batch_plain(paths, *geom)).sum())
+    if diff:
+        raise RuntimeError(f"speed (a): the native JPEG batch differs from "
+                           f"load_batch_plain in {diff} values")
+    log(f"speed (a) native loader: {len(paths)} gray {wh[0]}x{wh[1]} JPEGs "
+        f"-> {tuple(got.shape)} in {res['native_batch_ms']:.1f} ms (host), "
+        "equal to load_batch_plain bit for bit")
 
     # (b) the engine trains config 4 in each sim2real order
     for order in (False, True):
@@ -2827,6 +2937,124 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
         f"count {eng.tx.count}); the next epoch's learning rates {lrs}")
     del eng, eng2
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 8b: benchmark config 2 (ResNet-18, quaternion regression, batch 1)
+
+# benchmark_config(2)'s flags (ResNet-18, bottleneck 32, location and
+# quaternion regression, 512x640, the default rotation augmentation),
+# streamed from disk (DATA_ON_DEVICE False) so that the training frames go
+# through the native loader.
+CONFIG2_FLAGS = ['--backbone', 'resnet18', '--bottleneck', '32',
+                 '--regress_loc', '--regress_ori', '--ori_param',
+                 'quaternion', '--ori_resolution', '32', '--rot_aug',
+                 '--image_scale', '0.5', '--set', 'DATA_ON_DEVICE=False']
+CONFIG2_STEPS = 8
+
+
+def config2(backbone: str = 'resnet18') -> Config:
+    """benchmark_config(2), on `backbone`."""
+    cfg = presets.benchmark_config(2)
+    cfg.BACKBONE = backbone
+    cfg.update()
+    return cfg
+
+
+def run_config2(root, device, seed: int = 0, flags=CONFIG2_FLAGS,
+                steps: int = CONFIG2_STEPS, cfg_fn=config2,
+                card: str = '') -> dict:
+    """Benchmark config 2 on the URSO frames under `root/urso`: (a) the
+    command line (`run_cli` at batch 1: train `steps` steps streamed
+    through the native loader, its first batches equal to
+    load_batch_plain; evaluate in float, --int8 with f32 epilogues and
+    with --f16 and the s2d knobs, each distinct served int8 call and the
+    raw heads equal to the plain version; export and evaluate the h5;
+    test); (b) one ResNet-18 train step of `cfg_fn('resnet18')`, its
+    peak memory beside check_train_memory's estimate; (c) one ResNet-34
+    train step and one int8 served batch (f32 epilogues: gemm_s8 and
+    conv_s8 launched, each distinct call and the batch equal to the
+    plain version). Returns the launches by kernel row, seconds and
+    rates."""
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    # (a) the command line
+    with _NativeBatches() as native:
+        out['cli'] = run_cli(root, dev, seed, flags=flags, train_batch=1,
+                             eval_batch=1, steps=steps, card=card,
+                             name='config2', served_calls=True)
+    if native.count < steps:
+        raise RuntimeError(f"config2 train: {native.count} native batches "
+                           f"for {steps} steps")
+    check_native_batches('config2 train', native)
+    rows = Counter(out['cli']['rows'])
+
+    # (b) a ResNet-18 step: peak memory beside the estimate, counted from
+    # what earlier phases still hold when the model is built
+    cfg = cfg_fn('resnet18')
+    sync()
+    held = torch.cuda.memory_allocated() if cuda else 0
+    res = run_main_path(cfg, dev, seed, steps=1)
+    for m in res['train'] + [res['val']]:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"config2 resnet18 step: metrics {m}")
+    out['peak'] = step_peak(res, seed) - held if cuda else 0
+    out['estimate_gb'] = check_train_memory(cfg, dev, log)
+    log(f"config2 (b) resnet18 train step at batch {cfg.BATCH_SIZE} "
+        f"{cfg.IMAGE_SHAPE[0]}x{cfg.IMAGE_SHAPE[1]}: loss "
+        f"{res['train'][0]['loss']:.6f}; check_train_memory estimate "
+        f"{out['estimate_gb']:.3f} GB (structure "
+        f"{estimate_train_hbm_gb(cfg):.3f} GB x "
+        f"{memory.EAGER_FACTORS[memory.eager_mode(cfg)]}) vs measured peak "
+        f"{out['peak']} bytes ({out['peak'] / 1e9:.3f} GB) in one step, "
+        f"above the {held} bytes held before the model was built {card}")
+    del res
+
+    # (c) ResNet-34: a train step and an int8 served batch
+    cfg = cfg_fn('resnet34')
+    warp_cuda.reset_counts()
+    res = run_main_path(cfg, dev, seed, steps=1)
+    sync()
+    for m in res['train'] + [res['val']]:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"config2 resnet34 step: metrics {m}")
+    rows['warp_mold'] += warp_cuda.launches['warp_mold']
+    rows['warp_homography'] += warp_cuda.launches['warp_homography']
+    log(f"config2 (c) resnet34 train step: loss "
+        f"{res['train'][0]['loss']:.6f}, validation {res['val']}")
+    rng = np.random.RandomState(seed)
+    h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+    images = rng.randint(0, 256, (cfg.BATCH_SIZE, h, w, 3), np.uint8)
+    engine = ServingEngine(cfg, dev, model=res['model'])
+    qm = engine.quantize()
+    qm.calibrate(images)
+    int8_cuda.reset_counts()
+    int8_cuda.calls = []
+    served = engine.predict_molded(images)
+    sync()
+    launches, calls = dict(int8_cuda.launches), int8_cuda.calls
+    int8_cuda.calls = None
+    log(f"config2 (c) resnet34 int8 served batch of {cfg.BATCH_SIZE}: "
+        f"launches {launches}")
+    if cuda:
+        if min(launches['gemm_s8'], launches['conv_s8']) < 1:
+            raise RuntimeError(f"config2 resnet34 serve: {launches}")
+        check_served_routes('config2 resnet34', calls)
+        check_served_calls('config2 resnet34', calls, dev, rng)
+    for k in ('gemm_s8', 'conv_s8'):
+        rows[k + '_f32acc'] += launches[k]
+    plain = qm(images, plain=True)
+    for k, v in served.items():
+        diff = int((v != plain[k]).sum())
+        if diff or not torch.isfinite(v).all():
+            raise RuntimeError(f"config2 resnet34 serve {k}: {diff} values "
+                               "differ from the plain version")
+    log("config2 (c) resnet34 served heads equal the plain version's (0 "
+        "differing values)")
+    out['rows'] = rows
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3019,9 +3247,21 @@ def main(argv=None) -> int:
         t8 = time.perf_counter()
         speed = run_speed(root, dev, args.seed, card=card)
         fused_err = max(fused_err, speed['fused_err'])
+        torch.cuda.empty_cache()
+        log(f"speed phase: {time.perf_counter() - t8:.1f} s; seconds by "
+            f"part { {k: round(v, 1) for k, v in speed['seconds'].items()} }"
+            f" {card}")
+
+        # 8b. benchmark config 2 on the engine phase's frames
+        t8 = time.perf_counter()
+        c2 = run_config2(root, dev, args.seed, card=card)
+        fused_err = max(fused_err, c2['cli']['fused_err'])
     torch.cuda.empty_cache()
-    log(f"speed phase: {time.perf_counter() - t8:.1f} s; seconds by part "
-        f"{ {k: round(v, 1) for k, v in speed['seconds'].items()} } {card}")
+    log(f"config2 phase: {time.perf_counter() - t8:.1f} s; seconds by "
+        f"command { {k: round(v, 1) for k, v in c2['cli']['seconds'].items()} }"
+        f"; evaluate images/s at batch 1 "
+        f"{ {k: round(v, 2) for k, v in c2['cli']['imgs_per_s'].items()} } "
+        f"{card}")
 
     # 9. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
@@ -3278,7 +3518,14 @@ def main(argv=None) -> int:
             row['max_abs_err_by_path']['speed'] = speed['max_abs_err']
             row['max_abs_err'] = max(row['max_abs_err'],
                                      speed['max_abs_err'])
+        # benchmark config 2's launches (phase 8b)
+        n = c2['rows'].get(row['name'], 0)
+        if n:
+            row.setdefault('launches_by_path', {'serve': row['launches']})
+            row['launches_by_path']['config2'] = n
+            row['launches'] += n
     kernels[0]['launches_fused_by_path']['cli'] = cli['rows']['warp_mold']
+    kernels[0]['launches_fused_by_path']['config2'] = c2['rows']['warp_mold']
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

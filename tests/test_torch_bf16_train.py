@@ -109,7 +109,9 @@ def test_resnet101_layout(r101):
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
     for (_, a), (_, b) in zip(flat_a, flat_b):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match='resnet18'):
+    # the bottleneck backbone takes no shallow depth: make_backbone
+    # dispatches resnet18/34 to ResNetShallowBackbone
+    with pytest.raises(ValueError, match='resnet18'):
         tresnet.ResNetBackbone('resnet18')
 
 

@@ -1086,3 +1086,92 @@ def test_jpeg_codec_on_the_cards_host(name):
     assert hashlib.sha256(px.tobytes()).hexdigest() == sha
     assert hashlib.sha256(jpeg.encode_jpeg(_jpeg_pattern())).hexdigest() \
         == JPEG_PATTERN_SHA
+
+
+# --------------------------------------------------------------------------
+# benchmark config 2 (ResNet-18 at 512x640, batch 1): the int8 kernels at
+# the basic blocks' and the heads' shapes, and the native batch loader on
+# the card's host
+
+# conv: (b, h, w, c, n, stride, padding, epilogue) of the served model
+CONFIG2_CONVS = [
+    (1, 128, 160, 64, 64, 1, ((1, 1), (1, 1)), 'q8_relu'),    # stage1 conv1
+    (1, 128, 160, 64, 64, 1, ((1, 1), (1, 1)), 'join'),       # stage1 conv2
+    (1, 128, 160, 64, 128, 2, ((1, 1), (1, 1)), 'q8_relu'),   # stage2_unit1
+    (1, 32, 40, 256, 256, 1, ((1, 1), (1, 1)), 'join'),       # stage3 conv2
+    (1, 16, 20, 512, 32, 2, ((0, 1), (0, 1)), 'q8'),          # bottleneck
+]
+# gemm: (m, k, n, epilogue): the 1x1 shortcuts and the heads at batch 1
+CONFIG2_GEMMS = [
+    (128 * 160, 64, 64, 'q8'),        # stage1_unit1_sc (stride 1)
+    (64 * 80, 64, 128, 'q8'),         # stage2_unit1_sc over strided pixels
+    (8 * 10, 256, 512, 'q8'),         # stage4_unit1_sc
+    (1, 32 * 8 * 10, 1024, 'f32_relu'),   # loc/ori dense_0 at batch 1
+    (1, 32 * 8 * 10, 1024, 'q8_relu'),
+]
+
+
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
+@pytest.mark.parametrize('geom', CONFIG2_CONVS)
+def test_conv_s8_at_config2_shapes_matches_plain(cuda_device, geom, acc):
+    b, h, w, c, n, stride, padding, epilogue = geom
+    rng = np.random.RandomState(h + c + n)
+    x = chip_smoke.s8(rng, (b, h, w, c), cuda_device)
+    wt = ic.kernel_layout(rng.randint(-128, 128, (3, 3, c, n))
+                          .astype(np.int8)).to(cuda_device)
+    oh, ow = ic.conv_out_hw(h, w, 3, 3, stride, padding)
+    kw = chip_smoke.epilogue_args(cuda_device, rng, (b, oh, ow, n), 9 * c,
+                                  epilogue)
+    kw['acc_dtype'] = acc
+    want = ic.conv_s8_torch(x, wt, stride, padding, epilogue, **kw)
+    assert ic.conv_route(c, n) == 'tma'
+    for route in ('tma', 'ragged'):
+        got = ic.conv_s8(x, wt, stride, padding, epilogue, route=route, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), route
+
+
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
+@pytest.mark.parametrize('m,k,n,epilogue', CONFIG2_GEMMS)
+def test_gemm_s8_at_config2_shapes_matches_plain(cuda_device, m, k, n,
+                                                 epilogue, acc):
+    """The shortcuts and, at batch 1 (one row: split over K), the heads,
+    on both routes."""
+    rng = np.random.RandomState(m + k + n)
+    a = chip_smoke.s8(rng, (m, k), cuda_device)
+    b = ic.kernel_layout(rng.randint(-128, 128, (k, n)).astype(np.int8)) \
+        .to(cuda_device)
+    kw = chip_smoke.epilogue_args(cuda_device, rng, (m, n), k, epilogue)
+    kw['acc_dtype'] = acc
+    want = ic.gemm_s8_torch(a, b, epilogue, **kw)
+    assert ic.gemm_route(m, k, n, epilogue, acc_dtype=acc) == 'tma'
+    for route in ('tma', 'ragged'):
+        got = ic.gemm_s8(a, b, epilogue, route=route, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), route
+
+
+@pytest.mark.parametrize('nthreads', [1, 8])
+def test_native_loader_on_the_cards_host(tmp_path, nthreads):
+    """The batch loader built with the card machine's g++ and zlib gives
+    load_batch_plain's batch: PNG frames in every row filter and color
+    type and the committed JPEGs, resized and placed."""
+    import os
+
+    from ursonet_torch.data import native_loader, png
+    rng = np.random.RandomState(nthreads)
+    paths = []
+    for i, shape in enumerate([(96, 128, 3), (60, 80), (50, 70, 4),
+                               (96, 128, 3), (48, 64, 3)]):
+        path = str(tmp_path / f'{i}.png')
+        with open(path, 'wb') as f:
+            f.write(png.encode_png(
+                rng.randint(0, 256, shape).astype(np.uint8), i))
+        paths.append(path)
+    paths += [os.path.join(os.path.dirname(__file__), 'data', name)
+              for name in ('jpeg_gray.jpg', 'jpeg_rgb420.jpg',
+                           'fixture_gray_speed_crop.jpg')]
+    for geom in ((64, 64, 48, 64, 8, 0), (128, 192, 120, 160, 4, 16)):
+        got = native_loader.load_batch(paths, *geom, nthreads=nthreads)
+        np.testing.assert_array_equal(
+            got, native_loader.load_batch_plain(paths, *geom))

@@ -86,3 +86,17 @@ def test_f32_remat_is_said_to_be_uncalibrated():
     for overrides in ({}, {'F16': True}, {'F16': True, 'REMAT': True}):
         _, cfg = _both(3, **overrides)
         assert tmemory.calibrated(cfg)
+
+
+@pytest.mark.parametrize('arch', ['resnet18', 'resnet34'])
+def test_shallow_backbones_are_said_to_be_uncalibrated(arch):
+    """The factors were fitted on bottleneck backbones: a ResNet-18/34
+    estimate says so, in every mode."""
+    for overrides in ({}, {'F16': True}, {'REMAT': True}):
+        _, cfg = _both(2, BACKBONE=arch, **overrides)
+        assert not tmemory.calibrated(cfg)
+        notes = []
+        est = tmemory.check_train_memory(cfg, 'cpu', notes.append)
+        assert est == tmemory.calibrated_train_gb(cfg)
+        assert len(notes) == 1 and 'uncalibrated' in notes[0] \
+            and arch in notes[0]

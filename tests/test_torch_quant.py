@@ -222,9 +222,6 @@ def test_requires_calibration_and_refuses_unported(jax_qm):
     _, cfg = small_configs(QUANT_STEM_S2D=True, QUANT_HOST_S2D=True)
     mcfg = tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')._mcfg
     assert mcfg['stem_s2d'] and mcfg['host_s2d']
-    _, cfg = small_configs(BACKBONE='resnet18')
-    with pytest.raises(NotImplementedError):
-        tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')
 
 
 def test_groups_and_float_sites_match_jax(jax_qm):

@@ -13,17 +13,27 @@ name for name:
   batch_stats <bn path>/bn/mean, bn/var  <bn path>.running_mean, .running_var
 
 (the synthetic 'bn' level of the JAX `FrozenAwareBN` wrapper is dropped).
-Batch-norm layers are the ones whose Keras name starts with 'bn'. The
+Batch-norm layers are the ones whose Keras name starts with 'bn'
+('bn_conv1', 'bn2a_branch2a') and the basic blocks' 'stage{S}_unit{U}_bn2'
+(`is_bn_layer`). The
 Kendall log-variances map as they are: params/loss_log_vars/<loss> <->
 loss_log_vars.<loss>, 0-d.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 LOG_VARS = 'loss_log_vars'
+_BN_LAYER = re.compile(r'bn.*|stage\d+_unit\d+_bn2')
+
+
+def is_bn_layer(name: str) -> bool:
+    """Whether a Keras layer name is a batch norm's."""
+    return bool(_BN_LAYER.fullmatch(name))
 
 
 def _flatten(tree, prefix=()):
@@ -79,7 +89,7 @@ def params_to_jax_layout(state_dict) -> dict:
         if mods == [LOG_VARS]:
             out['params'].setdefault(LOG_VARS, {})[leaf] = a
             continue
-        is_bn = bool(mods) and mods[-1].startswith('bn')
+        is_bn = bool(mods) and is_bn_layer(mods[-1])
         if leaf in ('running_mean', 'running_var'):
             section, name = 'batch_stats', leaf[len('running_'):]
         elif is_bn:

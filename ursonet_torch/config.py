@@ -31,7 +31,7 @@ class Config:
     VALIDATION_STEPS = 50
 
     # --- model ----------------------------------------------------------------
-    BACKBONE = "resnet101"          # resnet50 | resnet101
+    BACKBONE = "resnet101"          # resnet18/34/50/101
     BOTTLENECK_WIDTH = 128
     BRANCH_SIZE = 1024
     NR_DENSE_LAYERS = 1

@@ -1,10 +1,15 @@
 """Input pipeline, the counterpart of `ursonet_tpu/data/loader.py` in
 its on-device mode (AUGMENT_ON_DEVICE).
 
-The host side reads frames from disk, decodes them (`data/png.py`),
-resizes them to the network shape and batches them as uint8 with the
-raw pose and the image meta: `data_generator` (raw mode), run in a
-background thread by `Prefetcher`. A dataset small enough
+The host side reads frames from disk, decodes them, resizes them to the
+network shape and batches them as uint8 with the raw pose and the image
+meta: `data_generator` (raw mode), run in a background thread by
+`Prefetcher`. Under NATIVE_LOADER (the default) with a fixed geometry
+(IMAGE_RESIZE_MODE none, square or pad64) one call of the native loader
+(`data/native_loader.py`, threaded C++) decodes, resizes and places a
+whole batch, as the JAX package's native route does; otherwise each
+frame is decoded by `data/png.py` or `data/jpeg.py` and resized by
+`ops/image.resize_image` in Python. A dataset small enough
 (`use_resident`) is instead loaded once onto the device
 (`load_dataset_resident`) and batched there by an index gather
 (`train/step.py::make_resident_train_step`).
@@ -23,8 +28,8 @@ warp under F16 too (the model casts them to bf16), as in the JAX
 package.
 
 Not ported yet: the host-parity generator (`raw=False`: per-image
-augmentation on the host with cv2's warpPerspective and GaussianBlur),
-the native C++ batch loader, and multi-host batch slices.
+augmentation on the host with cv2's warpPerspective and GaussianBlur)
+and multi-host batch slices.
 """
 
 from __future__ import annotations
@@ -32,7 +37,6 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-import warnings
 from typing import Iterator, Optional
 
 import numpy as np
@@ -238,11 +242,13 @@ def data_generator(dataset, config, shuffle=True, batch_size=1,
 
     The ids are shuffled by `np.random.RandomState(seed)` at the start
     of every pass, as the JAX package's generator shuffles them, so both
-    yield the same batches. A frame that fails to load is logged and
-    skipped; the sixth failure raises. raw=None follows
-    AUGMENT_ON_DEVICE; raw=False (the host-parity generator) and
-    `batch_slice` (multi-host input sharding) are not ported and raise
-    here, when the generator is made.
+    yield the same ids. Under NATIVE_LOADER with a fixed geometry
+    (`native_geometry`) each batch is one call of the native loader;
+    a batch that fails is logged and skipped. Otherwise a frame that
+    fails to load is logged and skipped. Either way the sixth failure
+    raises. raw=None follows AUGMENT_ON_DEVICE; raw=False (the
+    host-parity generator) and `batch_slice` (multi-host input sharding)
+    are not ported and raise here, when the generator is made.
     """
     if raw is None:
         raw = bool(getattr(config, 'AUGMENT_ON_DEVICE', True))
@@ -255,30 +261,86 @@ def data_generator(dataset, config, shuffle=True, batch_size=1,
         raise NotImplementedError(
             'batch_slice: multi-host input sharding comes with the '
             'parallel slice (ROADMAP §1)')
-    if getattr(config, 'NATIVE_LOADER', True):
-        _say_python_path()
+    geom = native_geometry(dataset, config)
+    if geom is not None:
+        return _native_batches(dataset, config, shuffle, batch_size, seed,
+                               geom)
     return _raw_batches(dataset, config, shuffle, batch_size, seed)
 
 
-def _say_python_path():
-    # one warning location: Python's default filter shows it once
-    warnings.warn('NATIVE_LOADER: the native C++ batch loader is not '
-                  'ported; the loader decodes and resizes in Python')
+def native_geometry(dataset, config) -> Optional[dict]:
+    """Where the native loader puts a frame of `dataset`'s camera, from
+    one probe frame through `resize_image` (as the JAX package's native
+    route probes it): out_h, out_w, content_h, content_w, top, left and
+    the meta's window and scale. None when NATIVE_LOADER is off or the
+    resize mode is not a fixed geometry (crop draws its offset)."""
+    if not (getattr(config, 'NATIVE_LOADER', True)
+            and config.IMAGE_RESIZE_MODE in ('none', 'square', 'pad64')):
+        return None
+    probe = np.zeros((dataset.camera.height, dataset.camera.width, 3),
+                     np.uint8)
+    resized, window, scale, _, _ = imops.resize_image(
+        probe, min_dim=config.IMAGE_MIN_DIM, min_scale=config.IMAGE_MIN_SCALE,
+        max_dim=config.IMAGE_MAX_DIM, mode=config.IMAGE_RESIZE_MODE)
+    return {'out_h': resized.shape[0], 'out_w': resized.shape[1],
+            'content_h': int(window[2] - window[0]),
+            'content_w': int(window[3] - window[1]),
+            'top': int(window[0]), 'left': int(window[1]),
+            'meta_window': window, 'scale': scale}
+
+
+def _id_stream(dataset, shuffle, seed):
+    """The ids in the order both routes draw them, as the JAX package's
+    generator does: pass after pass, reshuffled by
+    `np.random.RandomState(seed)` at the start of each pass."""
+    rng = np.random.RandomState(seed)
+    image_ids = np.copy(dataset.image_ids)
+    image_index = -1
+    while True:
+        image_index = (image_index + 1) % len(image_ids)
+        if shuffle and image_index == 0:
+            rng.shuffle(image_ids)
+        yield int(image_ids[image_index])
+
+
+def _native_batches(dataset, config, shuffle, batch_size, seed, g):
+    from ursonet_torch.data import native_loader
+    stream = _id_stream(dataset, shuffle, seed)
+    error_count = 0
+    orig_shape = (dataset.camera.height, dataset.camera.width, 3)
+    while True:
+        try:
+            ids = [next(stream) for _ in range(batch_size)]
+            paths = [dataset.image_info[i]['path'] for i in ids]
+            batch = {'images_u8': native_loader.load_batch(
+                paths, g['out_h'], g['out_w'], g['content_h'],
+                g['content_w'], g['top'], g['left'])}
+            samples = [_raw_pose_fields(dataset, config, i) for i in ids]
+            for k in samples[0]:
+                batch[k] = np.stack([s[k] for s in samples])
+            batch['image_meta'] = np.stack([
+                imops.compose_image_meta(i, orig_shape,
+                                         (g['out_h'], g['out_w'], 3),
+                                         g['meta_window'], g['scale'])
+                for i in ids])
+            yield batch
+        except (GeneratorExit, KeyboardInterrupt):
+            raise
+        except Exception:
+            logging.exception("Error in native batch load")
+            error_count += 1
+            if error_count > 5:
+                raise
 
 
 def _raw_batches(dataset, config, shuffle, batch_size, seed):
-    rng = np.random.RandomState(seed)
-    image_ids = np.copy(dataset.image_ids)
+    stream = _id_stream(dataset, shuffle, seed)
     b = 0
-    image_index = -1
     error_count = 0
     batch = {}
     while True:
+        image_id = next(stream)
         try:
-            image_index = (image_index + 1) % len(image_ids)
-            if shuffle and image_index == 0:
-                rng.shuffle(image_ids)
-            image_id = int(image_ids[image_index])
             sample = _load_raw(dataset, config, image_id)
             if not batch:
                 batch = {k: np.zeros((batch_size,) + np.shape(v),

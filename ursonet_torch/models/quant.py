@@ -42,8 +42,14 @@ calibration and the input quantize stay f32, as in the JAX package.
 float twin on the calibration batch and corrects the int8 biases one
 site at a time in graph order, as the JAX package does.
 
-Not ported (NotImplementedError): shard_over, the bf16 stem, s8_join
-and the ResNet-18/34 twin.
+ResNet-18/34 (`_basic_backbone`): the 'conv0' stem, and per basic block
+the 1x1/s shortcut 'sc' requantized onto 'sc/out' (a GEMM over the
+strided pixels), conv1 (3x3/s, (1,1) pads) with ReLU + requantize, and
+conv2 (3x3/1) resolved in the residual join's epilogue on `conv_s8`.
+QUANT_STEM_S2D rewrites 'conv0' as it rewrites 'conv1'.
+
+Not ported (NotImplementedError): shard_over, the bf16 stem and
+s8_join.
 
 Usage:
     qm = QuantizedModel.from_variables(config, params, batch_stats)
@@ -64,8 +70,8 @@ import torch.nn.functional as F
 
 from ursonet_torch.device import resolve_device
 from ursonet_torch.models.folding import _bn_name_for, fold_bn
-from ursonet_torch.models.resnet import same_pads, space_to_depth2, \
-    stem_kernel_to_s2d
+from ursonet_torch.models.resnet import SHALLOW_REPS, same_pads, \
+    space_to_depth2, stem_kernel_to_s2d
 from ursonet_torch.ops import int8_cuda
 
 # Accuracy-gate thresholds of the JAX package (bench.py, test_quant.py):
@@ -595,7 +601,7 @@ def migration_groups(mcfg) -> list:
                 stream_cons.append(('bottleneck_layer', 'conv'))
             grp(stream_acts, stream_prod, stream_cons)
     else:
-        reps = [2, 2, 2, 2] if arch == 'resnet18' else [3, 4, 6, 3]
+        reps = SHALLOW_REPS[arch]
         grp(['conv0/out'], ['conv0'],
             [('stage1_unit1_conv1', 'conv'), ('stage1_unit1_sc', 'conv')])
         for stage, rep in enumerate(reps):
@@ -693,6 +699,27 @@ def _bottleneck_backbone(ops, x, mcfg):
     return y
 
 
+def _basic_backbone(ops, x, mcfg):
+    """ResNet-18/34: the 'conv0' stem, then basic blocks (single BN
+    folded into conv1; conv2 joins the shortcut raw, the join's sum
+    requantized onto '<base>/out')."""
+    y = _stem(ops, x, mcfg, 'conv0')
+    y = ops.relu(y, 'conv0/out')
+    y = ops.maxpool(y)
+    reps = SHALLOW_REPS[mcfg['backbone']]
+    for stage, rep in enumerate(reps):
+        for blk in range(rep):
+            base = f'stage{stage + 1}_unit{blk + 1}_'
+            strides = 2 if (blk == 0 and stage > 0) else 1
+            sc = ops.requant(ops.conv(y, base + 'sc', strides, 'VALID'),
+                             base + 'sc/out') if blk == 0 else y
+            r = ops.conv(y, base + 'conv1', strides, [(1, 1), (1, 1)])
+            r = ops.relu(r, base + 'conv1/out')
+            r = ops.conv(r, base + 'conv2', 1, [(1, 1), (1, 1)])
+            y = ops.join(r, sc, base + '/out')
+    return y
+
+
 def _l2norm(x):
     """tf.nn.l2_normalize semantics."""
     x = x.to(torch.float32)
@@ -704,7 +731,10 @@ def twin_forward(ops, images, mcfg: dict) -> Dict[str, torch.Tensor]:
     """The graph shared by all phases; `mcfg` is the model-config
     snapshot (QuantizedModel._mcfg)."""
     x = ops.input(images)
-    y = _bottleneck_backbone(ops, x, mcfg)
+    if mcfg['backbone'] in SHALLOW_REPS:
+        y = _basic_backbone(ops, x, mcfg)
+    else:
+        y = _bottleneck_backbone(ops, x, mcfg)
     y = ops.conv(y, 'bottleneck_layer', 2, 'SAME')
     feats = ops.flatten(y, 'bottleneck/out')
 
@@ -778,12 +808,8 @@ class QuantizedModel:
             if getattr(config, knob, False):
                 raise NotImplementedError(
                     f'{knob}: {what} is not ported to the int8 path')
-        if config.BACKBONE not in ('resnet50', 'resnet101'):
-            raise NotImplementedError(
-                f'backbone {config.BACKBONE!r}: the ResNet-18/34 twin is not '
-                'ported')
         self.flat = flat_params
-        stem = 'conv1'
+        stem = 'conv0' if config.BACKBONE in SHALLOW_REPS else 'conv1'
         if (getattr(config, 'QUANT_STEM_S2D', False)
                 and self.flat[stem][0].shape[0] == 7):
             # the 7x7/2 stem rewritten exactly into its (4,4,12,O)/1

@@ -1,10 +1,13 @@
-"""ResNet-50/101 backbones on [N,C,H,W] tensors, the counterpart of
-`ursonet_tpu/models/resnet.py` (`FrozenAwareBN`, `BottleneckBlock`,
-`_remat_wrap`, `ResNetBackbone`).
+"""ResNet-18/34/50/101 backbones on [N,C,H,W] tensors, the counterpart
+of `ursonet_tpu/models/resnet.py` (`FrozenAwareBN`, `BottleneckBlock`,
+`BasicBlock`, `_remat_wrap`, `ResNetBackbone`, `ResNetShallowBackbone`,
+`make_backbone`).
 
 Module names are the reference's Keras layer names ('conv1', 'bn_conv1',
-'res3a' > 'res3a_branch2a', 'bn3a_branch2a', ...), so a JAX parameter
-tree converts name for name (`checkpoint/convert.py`).
+'res3a' > 'res3a_branch2a', 'bn3a_branch2a', ...; for ResNet-18/34
+'conv0', 'bn_conv0', 'stage2_unit1' > 'stage2_unit1_conv1',
+'stage2_unit1_bn2', ...), so a JAX parameter tree converts name for name
+(`checkpoint/convert.py`).
 
 Semantics kept from the JAX package:
   * Batch norm with Keras' epsilon 1e-3. TRAIN_BN=False (the only mode
@@ -16,6 +19,11 @@ Semantics kept from the JAX package:
     3×3/2 bottleneck conv of `models/ursonet.py`.
   * Conv-block shortcuts and the '2a' convs are 1×1 with the block's
     stride, VALID.
+  * The basic block (ResNet-18/34) keeps the reference's single batch
+    norm: it follows conv1 and is named '<base>bn2'; conv2's output goes
+    to the join raw. Its convs (3×3 with (1,1) pads, the 1×1/s 'sc'
+    shortcut of a stage's first block) and the 'conv0' stem have no
+    bias.
   * `stem_s2d` (STEM_SPACE_TO_DEPTH): the stem as its exact
     space-to-depth rewrite, a 4×4/1 conv with (2,1) pads over the 2×2
     packed input (`space_to_depth2`, `stem_kernel_to_s2d`).
@@ -45,6 +53,8 @@ BN_EPS = 1e-3
 
 # stage-4 identity blocks after res4a (`ursonet_tpu/models/resnet.py:311`)
 STAGE4_BLOCKS = {'resnet50': 5, 'resnet101': 22}
+# basic blocks per stage (`ursonet_tpu/models/resnet.py:341`)
+SHALLOW_REPS = {'resnet18': (2, 2, 2, 2), 'resnet34': (3, 4, 6, 3)}
 
 
 def check_remat(remat):
@@ -120,6 +130,8 @@ class Conv2d(nn.Conv2d):
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.bias is None:
+            return y
         return y + self.bias.to(x.dtype)[:, None, None]
 
 
@@ -216,7 +228,70 @@ class BottleneckBlock(nn.Module):
         return checkpoint(self._block, x, use_reentrant=False)
 
 
-class ResNetBackbone(nn.Module):
+class BasicBlock(nn.Module):
+    """Basic residual block of ResNet-18/34 (the reference's single-BN
+    structure): conv1 (3×3/s) -> '<base>bn2' -> ReLU -> conv2 (3×3/1),
+    joined raw with the shortcut (a 1×1/s conv 'sc' for cut 'post', the
+    input for 'pre'), then ReLU.
+
+    `remat` (config.REMAT) makes the whole block one checkpoint under
+    autograd for every policy: the JAX policies differ only by what they
+    save inside a bottleneck block ('narrow' names the bottleneck's
+    narrow activations, which a basic block does not have)."""
+
+    def __init__(self, in_ch: int, filters: int, stage: int, block: int,
+                 strides: int = 1, cut: str = 'pre', train_bn=False,
+                 remat=False):
+        super().__init__()
+        self.remat = check_remat(remat)
+        self.base = f"stage{stage + 1}_unit{block + 1}_"
+        b = self.base
+        self.cut = cut
+        if cut == 'post':
+            self.add_module(b + 'sc', Conv2d(in_ch, filters, 1, strides,
+                                             bias=False))
+        self.add_module(b + 'conv1', Conv2d(in_ch, filters, 3, strides,
+                                            padding=1, bias=False))
+        self.add_module(b + 'bn2', FrozenBN(filters, train_bn))
+        self.add_module(b + 'conv2', Conv2d(filters, filters, 3, 1,
+                                            padding=1, bias=False))
+
+    def _block(self, x):
+        m, b = self._modules, self.base
+        sc = m[b + 'sc'](x) if self.cut == 'post' else x
+        y = F.relu(m[b + 'bn2'](m[b + 'conv1'](x)), inplace=True)
+        return F.relu(m[b + 'conv2'](y) + sc, inplace=True)
+
+    def forward(self, x):
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._block(x)
+        return checkpoint(self._block, x, use_reentrant=False)
+
+
+class _Backbone(nn.Module):
+    """The stem (`<stem>` conv, 'bn_<stem>', ReLU, the 3×3/2 maxpool with
+    Flax's SAME pads) and the residual blocks in `blocks`, in order."""
+
+    stem = 'conv1'
+
+    def forward(self, x):
+        if self.stem_s2d:
+            x = F.pad(_space_to_depth2_nchw(x), (2, 1, 2, 1))
+        conv, bn = self._modules[self.stem], self._modules['bn_' + self.stem]
+        y = F.relu(bn(conv(x)), inplace=True)
+        y = F.max_pool2d(pad_same(y, 3, 2, float('-inf')), 3, 2)
+        for name in self.blocks:
+            y = self._modules[name](y)
+        return y
+
+    def set_remat(self, remat) -> None:
+        """Switch every residual block to the REMAT policy `remat`."""
+        check_remat(remat)
+        for name in self.blocks:
+            self._modules[name].remat = remat
+
+
+class ResNetBackbone(_Backbone):
     """ResNet-50/101 feature extractor; returns C5 [N,2048,H/32,W/32].
     ResNet-101 differs only in stage 4: res4a, then 22 identity blocks
     res4b ... res4w."""
@@ -225,9 +300,7 @@ class ResNetBackbone(nn.Module):
                  stem_s2d: bool = False, remat=False):
         super().__init__()
         if architecture not in STAGE4_BLOCKS:
-            raise NotImplementedError(
-                f"backbone {architecture!r}: this port has resnet50 and "
-                "resnet101; resnet18/34 come in a later slice")
+            raise ValueError(f"unsupported backbone {architecture}")
         self.stem_s2d = stem_s2d
         self.conv1 = Conv2d(12, 64, 4, 1) if stem_s2d \
             else Conv2d(3, 64, 7, 2, padding=3)
@@ -257,17 +330,62 @@ class ResNetBackbone(nn.Module):
         blk((512, 512, 2048), 5, 'b')
         blk((512, 512, 2048), 5, 'c')
 
-    def forward(self, x):
-        if self.stem_s2d:
-            x = F.pad(_space_to_depth2_nchw(x), (2, 1, 2, 1))
-        y = F.relu(self.bn_conv1(self.conv1(x)), inplace=True)
-        y = F.max_pool2d(pad_same(y, 3, 2, float('-inf')), 3, 2)
-        for name in self.blocks:
-            y = self._modules[name](y)
-        return y
 
-    def set_remat(self, remat) -> None:
-        """Switch every residual block to the REMAT policy `remat`."""
-        check_remat(remat)
-        for name in self.blocks:
-            self._modules[name].remat = remat
+class ResNetShallowBackbone(_Backbone):
+    """ResNet-18/34 feature extractor; returns C5 [N,512,H/32,W/32]: the
+    'conv0' stem (7×7/2, or its s2d form, no bias), 'bn_conv0', ReLU, the
+    3×3/2 maxpool, then four stages of basic blocks 'stage{S}_unit{U}'
+    (64·2^stage wide; a stage's first block has the 1×1 'sc' shortcut,
+    stride 2 from the second stage on)."""
+
+    stem = 'conv0'
+
+    def __init__(self, architecture: str = 'resnet18', train_bn=False,
+                 stem_s2d: bool = False, remat=False):
+        super().__init__()
+        if architecture not in SHALLOW_REPS:
+            raise ValueError(f"unsupported backbone {architecture}")
+        self.stem_s2d = stem_s2d
+        self.conv0 = Conv2d(12, 64, 4, 1, bias=False) if stem_s2d \
+            else Conv2d(3, 64, 7, 2, padding=3, bias=False)
+        self.bn_conv0 = FrozenBN(64, train_bn)
+        self.blocks = []
+        in_ch = 64
+        for stage, reps in enumerate(SHALLOW_REPS[architecture]):
+            filters = 64 * 2 ** stage
+            for block in range(reps):
+                strides = 2 if block == 0 and stage > 0 else 1
+                name = f'stage{stage + 1}_unit{block + 1}'
+                self.add_module(name, BasicBlock(
+                    in_ch, filters, stage, block, strides,
+                    'post' if block == 0 else 'pre', train_bn, remat))
+                self.blocks.append(name)
+                in_ch = filters
+
+
+# C5 channels of each backbone
+C5_CHANNELS = {'resnet18': 512, 'resnet34': 512, 'resnet50': 2048,
+               'resnet101': 2048}
+
+
+def make_backbone(architecture: str, train_bn=False, stem_s2d: bool = False,
+                  remat=False, inner_mult: float = 1.0) -> nn.Module:
+    """The backbone of `architecture` (resnet18/34/50/101), as the JAX
+    package's `make_backbone` dispatches. `inner_mult`
+    (INNER_WIDTH_MULT) scales a bottleneck's inner widths in the JAX
+    package; a basic block has none, so anything but 1 raises there, and
+    the port has no scaled bottleneck either."""
+    if architecture in STAGE4_BLOCKS:
+        if inner_mult != 1.0:
+            raise NotImplementedError(
+                'INNER_WIDTH_MULT: the reduced-width bottleneck variant is '
+                'not ported')
+        return ResNetBackbone(architecture, train_bn, stem_s2d, remat)
+    if architecture in SHALLOW_REPS:
+        if inner_mult != 1.0:
+            raise ValueError('INNER_WIDTH_MULT applies to bottleneck '
+                             'backbones (resnet50/101) only: basic blocks '
+                             'have no inner channel space distinct from '
+                             'the residual stream')
+        return ResNetShallowBackbone(architecture, train_bn, stem_s2d, remat)
+    raise ValueError(f"unsupported backbone {architecture}")

@@ -24,8 +24,8 @@ from torch import nn
 
 from ursonet_torch.device import resolve_device
 from ursonet_torch.models.heads import KeypointHead, PoseHead
-from ursonet_torch.models.resnet import Conv2d, FrozenBN, ResNetBackbone, \
-    pad_same
+from ursonet_torch.models.resnet import C5_CHANNELS, Conv2d, FrozenBN, \
+    make_backbone, pad_same
 from ursonet_torch.train.state import add_loss_log_vars
 
 
@@ -47,12 +47,15 @@ class UrsoNetModule(nn.Module):
                  orientation_param: str = 'quaternion', loc_bins: int = 16,
                  ori_bins: int = 32, train_bn=False, stem_s2d: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 regress_keypoints: bool = False, remat=False):
+                 regress_keypoints: bool = False, remat=False,
+                 inner_mult: float = 1.0):
         super().__init__()
         self.dtype = dtype
         self.regress_keypoints = regress_keypoints
-        self.backbone = ResNetBackbone(backbone, train_bn, stem_s2d, remat)
-        self.bottleneck_layer = Conv2d(2048, bottleneck_width, 3, 2)
+        self.backbone = make_backbone(backbone, train_bn, stem_s2d, remat,
+                                      inner_mult)
+        self.bottleneck_layer = Conv2d(C5_CHANNELS[backbone],
+                                       bottleneck_width, 3, 2)
         h6, w6 = _c6_hw(*image_hw)
         feats = bottleneck_width * h6 * w6
         if regress_keypoints:
@@ -103,7 +106,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             std = math.sqrt(1.0 / fan_in) / .87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, FrozenBN):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
@@ -138,7 +142,8 @@ def build_model(config, device="cuda",
             stem_s2d=bool(getattr(config, 'STEM_SPACE_TO_DEPTH', False)),
             dtype=torch.bfloat16 if config.F16 else torch.float32,
             regress_keypoints=config.REGRESS_KEYPOINTS,
-            remat=config.REMAT)
+            remat=config.REMAT,
+            inner_mult=float(getattr(config, 'INNER_WIDTH_MULT', 1.0)))
     model.to_empty(device='cpu')
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.SEED))

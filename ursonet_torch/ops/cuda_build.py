@@ -1,14 +1,20 @@
 """Build and load the port's CUDA kernels (`ursonet_torch/csrc/*.cu`)
-and its host library (`csrc/jpeg.cpp`, the JPEG codec).
+and its host libraries (`csrc/jpeg.cpp`, the JPEG codec, and
+`csrc/host_loader.cpp`, the threaded batch loader).
 
 Each source is compiled with `nvcc` for sm_90a into its own shared
 library with a plain C interface, at first use, into `.torch_ext/` at
 the root of the checkout, and loaded with ctypes. The library name
-carries a hash of the source, of every header in `csrc/` and of the
+carries a hash of the source, of every header it includes from `csrc/`
+(directly or through another header) and of the compile and link
 flags, so an edited source or header is rebuilt. `build_all()` starts
 one `nvcc` per source at once and waits for all of them.
 
-The host sources are built the same way with `g++`.
+The host sources are built the same way with `g++`, each with its own
+link flags (`HOST_LINK`: zlib and threads for the loader).
+`-ffp-contract=off` keeps g++ from contracting a multiply and an add
+into an FMA on a machine whose default target has one, so the loader's
+float resize rounds as its numpy version does.
 
 Flags: `-fmad=false` keeps nvcc from contracting a multiply and an add
 into an FMA, so the kernels' float arithmetic rounds exactly where their
@@ -20,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,8 +38,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 SOURCES = ("warp", "int8_gemm", "int8_conv", "int8_stem", "int8_block",
            "mma_rate")
-GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
-HOST_SOURCES = ("jpeg",)
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
+# host source -> its link flags
+HOST_LINK = {"jpeg": (), "host_loader": ("-lz", "-pthread")}
+HOST_SOURCES = tuple(HOST_LINK)
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs: dict = {}
 
@@ -56,18 +66,39 @@ def _gxx() -> str:
     raise RuntimeError("g++ not found: the host library cannot be built")
 
 
+def source_path(name: str) -> Path:
+    """csrc/<name>.cpp for a host source, else csrc/<name>.cu."""
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def local_headers(path: Path) -> list:
+    """The headers of `csrc/` that `path` includes with quotes, directly
+    or through another of them, sorted by name."""
+    seen, todo = set(), [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            header = CSRC / inc
+            if header not in seen:
+                seen.add(header)
+                todo.append(header)
+    return sorted(seen)
+
+
+def _command_flags(name: str) -> tuple:
+    if name in HOST_SOURCES:
+        return GXX_FLAGS + HOST_LINK[name]
+    return NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
     """Where the build of csrc/<name>.cu (or, for a host source,
-    csrc/<name>.cpp) lives (hash of source, headers and flags in the
-    name)."""
-    if name in HOST_SOURCES:
-        h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
-        h.update(" ".join(GXX_FLAGS).encode())
-        return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    csrc/<name>.cpp) lives: the name hashes the source, the headers it
+    includes and the compile and link flags."""
+    src = source_path(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_command_flags(name)).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -80,10 +111,12 @@ def _start(name: str):
     # each rename a whole library into place
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     if name in HOST_SOURCES:
-        cmd = [_gxx(), *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+        # link flags after the source, where the linker resolves them
+        cmd = [_gxx(), *GXX_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(source_path(name)), *HOST_LINK[name]]
     else:
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+               str(source_path(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return lib, tmp, cmd, proc
@@ -101,8 +134,8 @@ def _finish(lib, tmp, cmd, proc) -> str:
 
 
 def build(name: str) -> tuple[Path, str]:
-    """Compile csrc/<name>.cu unless an identical build exists. Returns
-    (library path, compiler output)."""
+    """Compile csrc/<name>.cu (or .cpp) unless an identical build exists.
+    Returns (library path, compiler output)."""
     lib, tmp, cmd, proc = _start(name)
     return lib, _finish(lib, tmp, cmd, proc)
 

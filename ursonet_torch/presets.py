@@ -3,9 +3,9 @@
 
 `benchmark_config(n)` returns a fresh `Config` with `update()` applied
 for the five benchmark configurations of BASELINE.md. The port trains
-configurations 3 (also under F16), 4 (SPEED, sim2real, cyclical LR) and
-5 (ResNet-101, F16, keypoints, REMAT); 1 serves; 2 builds but reaches
-code the port does not have yet (ResNet-18). `released_config(name)`
+configurations 2 (ResNet-18, quaternion regression, batch 1), 3 (also
+under F16), 4 (SPEED, sim2real, cyclical LR) and 5 (ResNet-101, F16,
+keypoints, REMAT), and serves 1 and 2. `released_config(name)`
 matches the released reference weights (their h5 files are not in the
 repo). `serving_config(batch)` is the flagship int8 serving
 configuration that `bench.py` times (F16).

@@ -30,6 +30,10 @@ phases 4-6, which print both for each configuration):
 
 An f32 step under REMAT was never measured: it borrows the 'remat'
 factor, and `check_train_memory` says that its figure is uncalibrated.
+It says the same of a ResNet-18/34 figure: every factor was fitted on
+bottleneck backbones (ResNet-50/101), and a basic block keeps other
+tensors for its backward (`chip_smoke.py` prints config 2's estimate
+beside its measured peak, PERF.md).
 The factors were fitted on the peaks above, so those peaks can show only
 drift; `chip_smoke.py` phase 4 also holds the flagship's step at half
 its batch (16), which no factor was fitted on, to ±25% of its peak.
@@ -143,11 +147,22 @@ def calibrated_train_gb(config) -> float:
     return EAGER_FACTORS[eager_mode(config)] * estimate_train_hbm_gb(config)
 
 
+def calibration_gap(config):
+    """Why no measured peak stands behind `config`'s factor, or None:
+    an f32 step under REMAT, or a ResNet-18/34 backbone."""
+    if config.BACKBONE in ('resnet18', 'resnet34'):
+        return (f"the eager factors were fitted on ResNet-50/101 steps "
+                f"only, not on a {config.BACKBONE} one")
+    if getattr(config, 'REMAT', False) and not getattr(config, 'F16', False):
+        return ("no f32 step under REMAT was measured, so it takes the F16 "
+                "REMAT factor")
+    return None
+
+
 def calibrated(config) -> bool:
     """Whether a measured peak stands behind `config`'s factor: all modes
-    but f32 under REMAT."""
-    return not (getattr(config, 'REMAT', False)
-                and not getattr(config, 'F16', False))
+    of ResNet-50/101 but f32 under REMAT."""
+    return calibration_gap(config) is None
 
 
 def check_train_memory(config, device="cuda", log_fn=print) -> float:
@@ -156,10 +171,10 @@ def check_train_memory(config, device="cuda", log_fn=print) -> float:
     so where the mode is not calibrated. Returns the calibrated estimate
     in GB."""
     est = calibrated_train_gb(config)
-    if not calibrated(config):
+    gap = calibration_gap(config)
+    if gap:
         log_fn(f"NOTE: the training memory estimate {est:.1f} GB is "
-               "uncalibrated: no f32 step under REMAT was measured, so it "
-               "takes the F16 REMAT factor.")
+               f"uncalibrated: {gap}.")
     dev = torch.device(device)
     if dev.type == 'cuda':
         total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
