@@ -141,6 +141,27 @@ Phases, in order; any failure exits non-zero:
               batch 1; a ResNet-18 step's peak memory beside
               check_train_memory's estimate; one ResNet-34 train step and
               one int8 served batch equal to the plain version.
+  8c. trainbn the reference's other train modes, on phase 6's frames:
+              (a) the flagship (benchmark_config(3), batch 32) under
+              TRAIN_BN=None, f32 and F16: 5 steps + 1 validation step,
+              losses finite and falling, every batch norm's running
+              statistics moved, the fused warp launched and its first call
+              equal to the plain chain, the step time beside phase 4/5's
+              frozen-BN step of this run, one step's peak beside
+              check_train_memory's (uncalibrated) estimate, not gated;
+              (b) config 5 (ResNet-101, keypoints, F16, batch 16) under
+              TRAIN_BN=None: one step with REMAT and one without from the
+              same weights and batch, the running statistics equal bit
+              for bit; (c) config 2 under TRAIN_BN=True at batch 1: the
+              head BNs at one value per channel, finite; (d) (a)'s f32
+              model quantized on 8 frames and served at batch 32: gemm_s8
+              and conv_s8 on their TMA routes, each distinct call and the
+              served heads equal to the plain version bit for bit; (e) the
+              command line's `train --host_augment` at the flagship's
+              flags (4 steps, batch 32): finite losses, the warp launched
+              0 times, the host-parity generator's images/s alone beside
+              the step's and the epoch's; (f) DEBUG_NANS: a NaN in a
+              batch raises FloatingPointError naming the step.
  9. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
@@ -188,6 +209,7 @@ The second-to-last line is the kernels JSON, the last line
 from __future__ import annotations
 
 import argparse
+import copy
 import importlib
 import json
 import os
@@ -214,6 +236,7 @@ from ursonet_torch.data.synthetic import make_urso_dataset
 from ursonet_torch.data.urso import Camera, Urso
 from ursonet_torch.engine import ServingEngine, UrsoNet
 from ursonet_torch.models import quant
+from ursonet_torch.models.resnet import FrozenBN
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops import augment, cuda_build, int8_cuda, warp_cuda
 from ursonet_torch.ops.image import resize_geometry, resize_image
@@ -3058,6 +3081,328 @@ def run_config2(root, device, seed: int = 0, flags=CONFIG2_FLAGS,
 
 
 # --------------------------------------------------------------------------
+# phase 8c: batch-statistics BN (TRAIN_BN None / True), the host-parity
+# generator (--host_augment) and DEBUG_NANS
+
+TRAINBN_CALIB = 8     # frames the TRAIN_BN=None model is quantized on
+HOST_STEPS = 4        # train --host_augment steps, at the flagship's batch
+HOST_LOADER_BATCHES = 2   # host-parity batches timed alone
+
+
+def with_train_bn(cfg, train_bn=None) -> Config:
+    cfg.TRAIN_BN = train_bn
+    cfg.update()
+    return cfg
+
+
+def bn_layers(model) -> dict:
+    """{module name: FrozenBN} of a model."""
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, FrozenBN)}
+
+
+def running_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(('running_mean', 'running_var'))}
+
+
+def check_stats_trained(tag, model) -> int:
+    """Every batch norm's running statistics finite and moved from the
+    initialization (mean 0, variance 1); returns the layer count."""
+    layers = bn_layers(model)
+    for name, m in layers.items():
+        if not (torch.isfinite(m.running_mean).all()
+                and torch.isfinite(m.running_var).all()):
+            raise RuntimeError(f"{tag}: {name}'s running statistics are not "
+                               "finite")
+        if bool((m.running_var == 1).all()) and not m.running_mean.any():
+            raise RuntimeError(f"{tag}: {name}'s running statistics never "
+                               "moved")
+    return len(layers)
+
+
+def trainbn_path(dev, cfg, tag, seed, card, ref_ms=None) -> dict:
+    """(a) `cfg` under TRAIN_BN=None: STEPS steps + 1 validation step
+    with the launch counts read around them (losses finite and falling,
+    the fused warp launched, its first call equal to the plain chain),
+    every BN's running statistics moved; on the card the step time beside
+    `ref_ms` (phase 4/5's step of this run) and one step's peak, counted
+    above what the process held before the model was built, beside
+    check_train_memory's estimate (uncalibrated: printed, not gated)."""
+    cuda = dev.type == 'cuda'
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+    # what earlier phases (and the f32 model kept for (d)) still hold
+    held = torch.cuda.memory_allocated() if cuda else 0
+    warp_cuda.reset_counts()
+    with _FusedWarps() as fused:
+        res = run_main_path(cfg, dev, seed, STEPS)
+    if cuda:
+        torch.cuda.synchronize()
+    res['launches'] = dict(warp_cuda.launches)
+    log(f"trainbn [{tag}] losses: "
+        + " ".join(f"{m['loss']:.6f}" for m in res['train'])
+        + f"; validation {res['val']['loss']:.6f}; launches "
+        f"{res['launches']}")
+    check_main_path(res)
+    if cuda and res['launches']['warp_mold'] < 1:
+        raise RuntimeError(f"trainbn [{tag}] never launched warp_mold")
+    res['fused_err'] = check_fused_call(f"trainbn [{tag}]", fused.first, cuda)
+    del fused
+    n = check_stats_trained(f"trainbn [{tag}]", res['model'])
+    log(f"trainbn [{tag}] the running statistics of all {n} batch norms "
+        "moved and are finite")
+    res['ms'] = res['peak'] = None
+    res['estimate_gb'] = check_train_memory(cfg, dev, log)
+    if cuda:
+        res['ms'] = time_train(res, seed)
+        res['peak'] = step_peak(res, seed) - held
+        b = cfg.BATCH_SIZE
+        ref = f" vs {ref_ms:.3f} ms with frozen BN in this run" \
+            if ref_ms else ""
+        log(f"trainbn [{tag}] step: median {res['ms']:.3f} ms over 10 steps "
+            f"after 2 warm-up, {b / res['ms'] * 1e3:.2f} imgs/s{ref}, batch "
+            f"{b} {cfg.IMAGE_SHAPE[0]}x{cfg.IMAGE_SHAPE[1]} {card}")
+        log(f"trainbn [{tag}] peak memory in one step {res['peak']} bytes "
+            f"({res['peak'] / 2**30:.2f} GiB) above the {held} bytes held "
+            f"before the model was built, vs check_train_memory's "
+            f"uncalibrated estimate {res['estimate_gb']:.3f} GB: "
+            f"{res['estimate_gb'] * 1e9 / res['peak']:.3f} {card}")
+    return res
+
+
+def remat_stats_equal(dev, cfg, seed) -> dict:
+    """(b) `cfg` (config 5) under TRAIN_BN=None: one train step with
+    REMAT and one without, each on a fresh model from the same seed, on
+    the same raw batch and draws; the running statistics must be equal
+    bit for bit (a recomputed block must not update twice). Returns the
+    warp's launches and the tensor count."""
+    raw = make_raw_batch(cfg, seed)
+    stats, launches = {}, Counter()
+    for remat in (cfg.REMAT or True, False):
+        c = copy.copy(cfg)
+        c.REMAT = remat
+        model = build_model(c, dev, torch.Generator().manual_seed(seed))
+        step = make_train_step(model, c, make_optimizer(c),
+                               preprocess=make_device_preprocess(
+                                   c, device=dev), device=dev)
+        warp_cuda.reset_counts()
+        m = step(raw, torch.Generator().manual_seed(seed + 1))
+        launches.update(warp_cuda.launches)
+        if not np.isfinite(float(m['loss'])):
+            raise RuntimeError(f"trainbn [config5 REMAT={remat}]: loss "
+                               f"{float(m['loss'])}")
+        stats[remat] = running_stats(model)
+        del model, step
+    a, b = stats.values()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ:
+        raise RuntimeError(f"trainbn [config5]: REMAT changed the running "
+                           f"statistics of {len(differ)} tensors: "
+                           f"{differ[:4]}")
+    return {'launches': launches, 'tensors': len(a)}
+
+
+def run_trainbn(root, device, seed: int = 0, card: str = '',
+                cfg_fn=flagship_config, cfg5=None, cfg2=None,
+                flags=CLI_FLAGS, train_batch: int = FLAGSHIP_BATCH,
+                host_steps: int = HOST_STEPS, ref_ms=None) -> dict:
+    """Phase 8c on the URSO frames under `root/urso`:
+    (a) `cfg_fn(f16)` under TRAIN_BN=None, f32 and F16 (trainbn_path);
+    (b) config 5 under TRAIN_BN=None, REMAT against none
+    (remat_stats_equal); (c) `cfg2` (config 2, batch 1) under
+    TRAIN_BN=True: one step with the head BNs at one value per channel,
+    finite; (d) (a)'s f32 model quantized on TRAINBN_CALIB frames and
+    served: gemm_s8 and conv_s8 on their TMA routes, each distinct call
+    and the served batch equal to the plain version bit for bit; (e) the
+    command line's `train --host_augment` at `flags` (`host_steps` steps
+    at `train_batch`): finite losses, warp_mold launched 0 times, the
+    host-parity generator's images/s alone beside the step's; (f)
+    DEBUG_NANS raising FloatingPointError on a NaN batch. Returns the
+    launches by kernel row, step times, peaks and rates."""
+    from ursonet_torch import pose_estimator
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ref_ms = ref_ms or {}
+    out = {'rows': Counter(), 'fused_err': 0.0}
+    rows = out['rows']
+
+    # (a) the flagship, f32 and F16
+    for f16 in (False, True):
+        mode = 'f16' if f16 else 'f32'
+        res = trainbn_path(dev, with_train_bn(cfg_fn(f16)), f'{mode} flagship',
+                           seed, card, ref_ms.get(mode))
+        out[mode] = {k: res[k] for k in ('ms', 'peak', 'estimate_gb')}
+        out['fused_err'] = max(out['fused_err'], res['fused_err'])
+        for k in ('warp_homography', 'warp_mold'):
+            rows[k] += res['launches'][k]
+        if not f16:
+            model32, cfg32 = res['model'], with_train_bn(cfg_fn(False))
+        del res
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) config 5: the running statistics with and without REMAT
+    cfg5 = with_train_bn(cfg5 or presets.benchmark_config(5))
+    b = remat_stats_equal(dev, cfg5, seed)
+    for k in ('warp_homography', 'warp_mold'):
+        rows[k] += b['launches'][k]
+    if cuda and b['launches']['warp_mold'] < 2:
+        raise RuntimeError(f"trainbn [config5] warp launches {b['launches']}")
+    log(f"trainbn [config5 REMAT={cfg5.REMAT or True} vs none] one step each "
+        f"from the same weights and batch: the {b['tensors']} running "
+        "statistics tensors equal bit for bit")
+
+    # (c) config 2 under TRAIN_BN=True at batch 1
+    cfg2 = with_train_bn(cfg2 or presets.benchmark_config(2), True)
+    warp_cuda.reset_counts()
+    res = run_main_path(cfg2, dev, seed, steps=2)
+    sync()
+    for k in ('warp_homography', 'warp_mold'):
+        rows[k] += warp_cuda.launches[k]
+    for m in res['train'] + [res['val']]:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"trainbn [config2 TRAIN_BN=True]: {m}")
+    heads = {n: m for n, m in bn_layers(res['model']).items()
+             if '_head.' in n}
+    if sorted(n.split('.')[-1] for n in heads) != ['loc_bn_0', 'ori_bn_0']:
+        raise RuntimeError(f"trainbn [config2]: head BNs {sorted(heads)}")
+    check_stats_trained('trainbn [config2 TRAIN_BN=True]', res['model'])
+    log(f"trainbn [config2 TRAIN_BN=True] batch {cfg2.BATCH_SIZE}: losses "
+        + " ".join(f"{m['loss']:.6f}" for m in res['train'])
+        + f", validation {res['val']['loss']:.6f}; head BNs "
+        + ", ".join(f"{n} running_var[:3] {m.running_var[:3].tolist()}"
+                    for n, m in heads.items()) + " (finite)")
+    del res
+
+    # (d) the TRAIN_BN=None model quantized and served
+    rng = np.random.RandomState(seed)
+    images = make_raw_batch(cfg32, seed + 5)['images_u8']
+    engine = ServingEngine(cfg32, dev, model=model32)
+    engine.quantize(list(images[:TRAINBN_CALIB]))
+    molded, _, _ = engine.mold_inputs(list(images))
+    int8_cuda.reset_counts()
+    int8_cuda.calls = []
+    served = engine.predict_molded(molded)
+    sync()
+    launches, calls = dict(int8_cuda.launches), int8_cuda.calls
+    int8_cuda.calls = None
+    log(f"trainbn [serve] TRAIN_BN=None model quantized on {TRAINBN_CALIB} "
+        f"frames, served batch of {len(images)}: launches {launches}")
+    if cuda:
+        if min(launches['gemm_s8'], launches['conv_s8']) < 1:
+            raise RuntimeError(f"trainbn serve: launches {launches}")
+        check_served_routes('trainbn serve', calls)
+        check_served_calls('trainbn serve', calls, dev, rng)
+    mode = ACC_NAMES[engine.qmodel.acc_dtype]
+    sfx = '' if mode == 'bf16' else '_f32acc'
+    for k in ('gemm_s8', 'conv_s8'):
+        rows[k + sfx] += launches[k]
+    rows[C2_REQUANT + sfx] += sum(1 for n, a in calls if n == 'gemm_s8'
+                                  and a.get('epilogue') == 'q8_relu')
+    plain = engine.qmodel(engine.served_batch(molded), plain=True)
+    for k, v in served.items():
+        diff = int((v != plain[k]).sum())
+        if diff or not torch.isfinite(v).all():
+            raise RuntimeError(f"trainbn serve {k}: {diff} values differ "
+                               "from the plain version")
+    log("trainbn [serve] the served heads equal the plain version's (0 "
+        "differing values)")
+    del engine, model32, served, plain
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (e) train --host_augment through the command line
+    logs = os.path.join(root, 'trainbn_logs')
+    argv = (['train', '--dataset', 'urso', '--data_dir', root, '--logs',
+             logs, '--out_dir', os.path.join(root, 'trainbn_out'),
+             '--models_dir', os.path.join(root, 'models'), '--weights',
+             'none', '--epochs', '1', '--steps_per_epoch', str(host_steps),
+             '--batch_size', str(train_batch), '--seed', str(seed),
+             '--host_augment', '--set', 'VALIDATION_STEPS=1']
+            + list(flags))
+    warp_cuda.reset_counts()
+    t0 = time.perf_counter()
+    rc = pose_estimator.main(argv, device=dev)
+    sync()
+    seconds = time.perf_counter() - t0
+    warps = dict(warp_cuda.launches)
+    if rc != 0:
+        raise RuntimeError(f"trainbn train --host_augment: exit code {rc}")
+    if any(warps.values()):
+        raise RuntimeError(f"trainbn train --host_augment launched the warp: "
+                           f"{warps}")
+    records = _records(os.path.dirname(store.find_last(logs)))
+    _check_epochs('trainbn train --host_augment', records, range(1))
+    out['host_epoch_ips'] = records[0]['imgs_per_s']
+    log(f"trainbn [train --host_augment] exit 0 in {seconds:.1f} s (host "
+        f"wall), warp launches {warps}; metrics.jsonl {records[0]} {card}")
+    # the generator alone, and the step alone on its batches
+    cfg = pose_estimator.make_config(
+        pose_estimator.build_parser().parse_args(argv))
+    ds = Urso()
+    ds.load_dataset(os.path.join(root, 'urso'), cfg, 'train')
+    gen = loader.data_generator(ds, cfg, batch_size=cfg.BATCH_SIZE, seed=seed)
+    t0 = time.perf_counter()
+    batches = [next(gen) for _ in range(HOST_LOADER_BATCHES)]
+    out['host_loader_ips'] = (HOST_LOADER_BATCHES * cfg.BATCH_SIZE
+                              / (time.perf_counter() - t0))
+    model = build_model(cfg, dev, torch.Generator().manual_seed(seed))
+    step = make_train_step(model, cfg, make_optimizer(cfg), device=dev)
+    mb = loader.molded_to_device(batches[0], dev)
+    times = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        m = step(mb)
+        float(m['loss'])
+        times.append(time.perf_counter() - t0)
+    out['host_step_ips'] = cfg.BATCH_SIZE / statistics.median(times[1:])
+    oh, ow = (int(v) for v in batches[0]['image_meta'][0][1:3])
+    log(f"trainbn [host_augment] the host-parity generator alone "
+        f"{out['host_loader_ips']:.2f} images/s ({HOST_LOADER_BATCHES} "
+        f"batches of {cfg.BATCH_SIZE} from {ow}x{oh} PNGs: decode, camera "
+        f"rotation or roll at the "
+        f"frame's resolution, resize, mold; one thread) vs the train step "
+        f"alone on its batches {out['host_step_ips']:.2f} images/s (host "
+        f"wall, median of 3 after 1) vs the epoch "
+        f"{out['host_epoch_ips']:.2f} imgs/s {card}")
+    del model, step, mb, batches
+
+    # (f) DEBUG_NANS: a NaN in the second batch's images
+    cfg = with_train_bn(cfg_fn(False))
+    cfg.AUGMENT_ON_DEVICE = False
+    cfg.DEBUG_NANS = True
+    cfg.IMAGES_PER_GPU = 2
+    cfg.STEPS_PER_EPOCH = 2
+    cfg.update()
+    real, seen = loader._load_parity, []
+
+    def poisoned(*a):
+        sample = real(*a)
+        seen.append(a[2])
+        if len(seen) == cfg.BATCH_SIZE + 1:
+            sample['images'][5, 7, 1] = np.nan
+        return sample
+    loader._load_parity = poisoned
+    try:
+        eng = UrsoNet('training', cfg, os.path.join(root, 'trainbn_nans'),
+                      device=dev)
+        eng.train(ds, None, None, epochs=1, log_fn=lambda *a: None)
+    except FloatingPointError as e:
+        log(f"trainbn [DEBUG_NANS] raised FloatingPointError: "
+            f"{str(e)[:160]}")
+        if 'train step 1' not in str(e):
+            raise RuntimeError(f"DEBUG_NANS named another step: {e}")
+    else:
+        raise RuntimeError("DEBUG_NANS did not raise on a NaN batch")
+    finally:
+        loader._load_parity = real
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -3171,6 +3516,7 @@ def main(argv=None) -> int:
     log(f"train [F16 flagship] step {res['ms']:.3f} ms vs the f32 step "
         f"{train_ms:.3f} ms (phase 4) in this run, batch {FLAGSHIP_BATCH} "
         f"{card}")
+    f16_ms = res['ms']
     del res
     # (b) benchmark_config(5): ResNet-101, keypoints, F16, REMAT
     cfg5 = presets.benchmark_config(5)
@@ -3256,12 +3602,27 @@ def main(argv=None) -> int:
         t8 = time.perf_counter()
         c2 = run_config2(root, dev, args.seed, card=card)
         fused_err = max(fused_err, c2['cli']['fused_err'])
+        torch.cuda.empty_cache()
+        log(f"config2 phase: {time.perf_counter() - t8:.1f} s; seconds by "
+            f"command "
+            f"{ {k: round(v, 1) for k, v in c2['cli']['seconds'].items()} }"
+            f"; evaluate images/s at batch 1 "
+            f"{ {k: round(v, 2) for k, v in c2['cli']['imgs_per_s'].items()} }"
+            f" {card}")
+
+        # 8c. batch-statistics BN, the host-parity generator, DEBUG_NANS
+        t8 = time.perf_counter()
+        tb = run_trainbn(root, dev, args.seed, card=card,
+                         ref_ms={'f32': train_ms, 'f16': f16_ms})
+        fused_err = max(fused_err, tb['fused_err'])
     torch.cuda.empty_cache()
-    log(f"config2 phase: {time.perf_counter() - t8:.1f} s; seconds by "
-        f"command { {k: round(v, 1) for k, v in c2['cli']['seconds'].items()} }"
-        f"; evaluate images/s at batch 1 "
-        f"{ {k: round(v, 2) for k, v in c2['cli']['imgs_per_s'].items()} } "
-        f"{card}")
+    log(f"trainbn phase: {time.perf_counter() - t8:.1f} s; TRAIN_BN=None "
+        f"step f32 {tb['f32']['ms']:.3f} ms (frozen {train_ms:.3f}), F16 "
+        f"{tb['f16']['ms']:.3f} ms (frozen {f16_ms:.3f}); peaks "
+        f"{tb['f32']['peak']} / {tb['f16']['peak']} bytes; --host_augment: "
+        f"generator {tb['host_loader_ips']:.2f} images/s, step "
+        f"{tb['host_step_ips']:.2f} images/s, epoch "
+        f"{tb['host_epoch_ips']:.2f} imgs/s {card}")
 
     # 9. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
@@ -3518,14 +3879,20 @@ def main(argv=None) -> int:
             row['max_abs_err_by_path']['speed'] = speed['max_abs_err']
             row['max_abs_err'] = max(row['max_abs_err'],
                                      speed['max_abs_err'])
-        # benchmark config 2's launches (phase 8b)
-        n = c2['rows'].get(row['name'], 0)
-        if n:
-            row.setdefault('launches_by_path', {'serve': row['launches']})
-            row['launches_by_path']['config2'] = n
-            row['launches'] += n
+        # benchmark config 2's launches (phase 8b) and the TRAIN_BN
+        # paths' (phase 8c)
+        for path, got in (('config2', c2['rows']), ('trainbn', tb['rows'])):
+            n = got.get(row['name'], 0)
+            if n:
+                row.setdefault('launches_by_path',
+                               {'serve': row['launches']})
+                row['launches_by_path'][path] = n
+                row['launches'] += n
     kernels[0]['launches_fused_by_path']['cli'] = cli['rows']['warp_mold']
     kernels[0]['launches_fused_by_path']['config2'] = c2['rows']['warp_mold']
+    kernels[0]['launches_fused_by_path']['trainbn'] = tb['rows']['warp_mold']
+    # train --host_augment warps on the host: checked to launch none
+    kernels[0]['launches_fused_by_path']['host_augment'] = 0
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

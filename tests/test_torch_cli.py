@@ -11,6 +11,7 @@ last` (the same f32 weights through the port's HDF5 writer and reader).
 """
 
 import glob
+import json
 import os
 import shutil
 import subprocess
@@ -23,6 +24,7 @@ import torch
 import pose_estimator as jcli
 from ursonet_torch import pose_estimator as tcli
 from ursonet_torch.checkpoint import hdf5
+from ursonet_torch.data import loader as tloader
 from ursonet_torch.data.png import decode_png
 from ursonet_torch.data.synthetic import make_urso_dataset
 
@@ -32,10 +34,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Knobs of the JAX package's Config the port's does not carry: the mesh
 # (one card), the Pallas warp switch, int8 training activations,
-# inner-width pruning, the decoupled-orientation and NaN debug switches
-# (ROADMAP.md §1 items 5, 7, 9, 11).
-JAX_ONLY = {'DEBUG_NANS', 'DECOUPLE_ORIENTATION', 'INNER_WIDTH_MULT',
-            'MESH_DATA', 'MESH_MODEL', 'PALLAS_WARP', 'TRAIN_ACT_Q8'}
+# inner-width pruning and the decoupled-orientation switch (ROADMAP.md §1
+# items 7, 9, 11).
+JAX_ONLY = {'DECOUPLE_ORIENTATION', 'INNER_WIDTH_MULT', 'MESH_DATA',
+            'MESH_MODEL', 'PALLAS_WARP', 'TRAIN_ACT_Q8'}
 
 FLAGSHIP = ['--bottleneck', '128', '--ori_resolution', '24',
             '--classify_ori', '--regress_loc', '--rot_aug',
@@ -205,7 +207,6 @@ def test_quick_start_on_the_cpu(env, capsys):
 
 @pytest.mark.parametrize('extra,item', [
     (['test', '--weights', 'none', '--video', 'v.mp4'], 'video'),
-    (['train', '--weights', 'none', '--host_augment'], 'host-parity'),
     (['train', '--weights', 'none', '--mesh_data', '2'], 'parallelism'),
     (['evaluate', '--weights', 'none', '--mesh_model', '2'], 'parallelism'),
 ])
@@ -213,6 +214,31 @@ def test_what_is_not_ported_raises(env, extra, item):
     with pytest.raises(NotImplementedError, match='ROADMAP.md') as e:
         tcli.main(_args(env, *extra), device='cpu')
     assert item in str(e.value)
+
+
+def test_host_augment_trains(env, tmp_path, monkeypatch, capsys):
+    """`train --host_augment` (it raised before the host-parity generator
+    was ported): the host-parity generator feeds the steps, no device
+    preprocess is made, the losses are finite."""
+    def no_preprocess(*a, **k):
+        raise AssertionError('a device preprocess under --host_augment')
+    monkeypatch.setattr(tloader, 'make_device_preprocess', no_preprocess)
+    loads = []
+    real = tloader.load_image_gt
+    monkeypatch.setattr(tloader, 'load_image_gt',
+                        lambda *a: loads.append(a[2]) or real(*a))
+    logs = str(tmp_path / 'logs')
+    rc = tcli.main(_args(env, 'train', '--weights', 'none', '--host_augment',
+                         '--epochs', '1', '--steps_per_epoch', '2',
+                         '--batch_size', '2', '--logs', logs, '--set',
+                         'VALIDATION_STEPS=1'), device='cpu')
+    assert rc == 0
+    assert len(loads) >= 6          # 2 train steps + 1 validation step
+    runs = glob.glob(os.path.join(logs, 'tiny*'))
+    with open(os.path.join(runs[0], 'metrics.jsonl')) as f:
+        record = json.loads(f.read().splitlines()[-1])
+    assert np.isfinite(record['loss']) and np.isfinite(record['val_loss'])
+    capsys.readouterr()
 
 
 def test_speed_dataset_raises(env):

@@ -1175,3 +1175,46 @@ def test_native_loader_on_the_cards_host(tmp_path, nthreads):
         got = native_loader.load_batch(paths, *geom, nthreads=nthreads)
         np.testing.assert_array_equal(
             got, native_loader.load_batch_plain(paths, *geom))
+
+
+# --------------------------------------------------------------------------
+# batch-statistics batch norm (TRAIN_BN None / True) on the card
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shape', [(8, 16, 12, 10), (1, 16)],
+                         ids=['conv', 'one_value'])
+def test_batch_stats_bn_matches_the_cpu(cuda_device, shape, dtype):
+    """The same FrozenBN under TRAIN_BN=None on the card and on the CPU:
+    the output (cuDNN's mixed-type batch norm; at one value per channel
+    the bias), the pending statistics and the committed running ones."""
+    from ursonet_torch.models.resnet import FrozenBN
+    rng = np.random.RandomState(3)
+    c = shape[1]
+    x = torch.from_numpy((rng.randn(*shape) * 3 + 1).astype(np.float32))
+    bns = []
+    for dev in ('cpu', cuda_device):
+        bn = FrozenBN(c, None).to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+            bn.bias.copy_(torch.from_numpy(rng.randn(c) * 0.1))
+        bns.append(bn)
+    bns[1].load_state_dict(bns[0].state_dict())
+    xs = [x.to(dtype).clone().requires_grad_(True),
+          x.to(cuda_device, dtype).requires_grad_(True)]
+    ys = [bn(xi) for bn, xi in zip(bns, xs)]
+    for y, xi in zip(ys, xs):
+        y.float().square().sum().backward()
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert ys[1].dtype == dtype and torch.isfinite(ys[1].float()).all()
+    torch.testing.assert_close(ys[1].float().cpu(), ys[0].float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(xs[1].grad.float().cpu(), xs[0].grad.float(),
+                               rtol=tol, atol=tol)
+    for a, b in zip(bns[0].pending, bns[1].pending):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=1e-6)
+    assert bns[0].commit() and bns[1].commit()
+    for k in ('running_mean', 'running_var'):
+        torch.testing.assert_close(getattr(bns[1], k).cpu(),
+                                   getattr(bns[0], k), rtol=1e-6, atol=1e-6)

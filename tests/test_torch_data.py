@@ -389,13 +389,24 @@ def test_data_generator_matches_jax(jax_dir):
 
 
 def test_data_generator_refuses_what_is_not_ported(jax_dir):
-    _, tcfg = small_configs()
-    _, tds = _adapters(jax_dir, 'train')
-    with pytest.raises(NotImplementedError, match='host-parity'):
-        tloader.data_generator(tds, tcfg, raw=False)
+    """raw=False, and raw=None under AUGMENT_ON_DEVICE False, run the
+    host-parity generator (they raised before it was ported; its parity
+    tests are in tests/test_torch_host_augment.py): here its first batch
+    equals the JAX generator's. Multi-host batch slices still raise."""
+    jcfg, tcfg = small_configs()
+    jds, tds = _adapters(jax_dir, 'train')
+    want = next(jloader.data_generator(jds, jcfg, batch_size=3, seed=2,
+                                       raw=False))
+    got = next(tloader.data_generator(tds, tcfg, batch_size=3, seed=2,
+                                      raw=False))
     tcfg.AUGMENT_ON_DEVICE = False
-    with pytest.raises(NotImplementedError, match='host-parity'):
-        tloader.data_generator(tds, tcfg)
+    by_knob = next(tloader.data_generator(tds, tcfg, batch_size=3, seed=2))
+    for batch in (got, by_knob):
+        assert batch.keys() == want.keys()
+        for k in want:
+            assert batch[k].dtype == want[k].dtype, k
+            np.testing.assert_allclose(batch[k], want[k], rtol=0, atol=1e-6,
+                                       err_msg=k)
     with pytest.raises(NotImplementedError, match='parallel'):
         tloader.data_generator(tds, small_configs()[1], batch_slice=(0, 1))
 

@@ -121,8 +121,24 @@ def test_frozen_bn_uses_running_stats_and_trains_affine():
     y.sum().backward()
     assert bn.weight.grad is not None and bn.bias.grad is not None
     assert {n for n, _ in bn.named_parameters()} == {'weight', 'bias'}
-    with pytest.raises(NotImplementedError):
-        FrozenBN(4, train_bn=None)
+    # TRAIN_BN=None: the batch's statistics in training, held back from
+    # the running ones until commit(); the running ones in eval
+    bn2 = FrozenBN(4, train_bn=None)
+    bn2.load_state_dict(bn.state_dict())
+    y2 = bn2.train()(x)
+    mean = x.mean((0, 2, 3), keepdim=True)
+    var = x.var((0, 2, 3), unbiased=False, keepdim=True)
+    torch.testing.assert_close(y2, (x - mean) / torch.sqrt(var + 1e-3),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(bn2.running_mean, torch.tensor([1.0, 2, 3, 4]))
+    assert bn2.commit()
+    torch.testing.assert_close(bn2.running_mean, 0.99 * bn.running_mean
+                               + 0.01 * mean.flatten())
+    torch.testing.assert_close(bn2.eval()(x), (
+        x - bn2.running_mean.view(1, 4, 1, 1)) / torch.sqrt(
+            bn2.running_var.view(1, 4, 1, 1) + 1e-3))
+    with pytest.raises(ValueError, match='TRAIN_BN'):
+        FrozenBN(4, train_bn='yes')
 
 
 def test_flagship_model_shapes_and_names():

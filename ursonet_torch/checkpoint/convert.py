@@ -14,8 +14,9 @@ name for name:
 
 (the synthetic 'bn' level of the JAX `FrozenAwareBN` wrapper is dropped).
 Batch-norm layers are the ones whose Keras name starts with 'bn'
-('bn_conv1', 'bn2a_branch2a') and the basic blocks' 'stage{S}_unit{U}_bn2'
-(`is_bn_layer`). The
+('bn_conv1', 'bn2a_branch2a'), the basic blocks' 'stage{S}_unit{U}_bn2'
+and, under TRAIN_BN=True, the heads' '{loc,ori}_bn_{i}' (`is_bn_layer`).
+The
 Kendall log-variances map as they are: params/loss_log_vars/<loss> <->
 loss_log_vars.<loss>, 0-d.
 """
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 LOG_VARS = 'loss_log_vars'
-_BN_LAYER = re.compile(r'bn.*|stage\d+_unit\d+_bn2')
+_BN_LAYER = re.compile(r'bn.*|stage\d+_unit\d+_bn2|(loc|ori)_bn_\d+')
 
 
 def is_bn_layer(name: str) -> bool:

@@ -77,8 +77,10 @@ class Config:
     ROT_IMAGE_AUG = False           # in-plane roll warp
     WARP_INTERPOLATION = 'nearest'  # nearest | bilinear
     # The host only decodes, resizes and batches uint8 frames; the
-    # augmentation and the mold run on the device. False (the host-parity
-    # generator) raises in data/loader.py: a later slice ports it.
+    # augmentation and the mold run on the device. False: the host-parity
+    # generator (the reference's per-image augmentation at the frame's own
+    # resolution, then the resize and the mold, all on the host;
+    # data/loader.py::load_image_gt).
     AUGMENT_ON_DEVICE = True
     # The JAX package's native C++ batch loader. Read, and the port's
     # loader says once that it takes the Python path (data/loader.py).
@@ -137,6 +139,9 @@ class Config:
 
     # --- batch norm ------------------------------------------------------------------
     #  None: train BN layers   False: freeze (use running stats)   True: don't use
+    #  (None and True normalize with batch statistics in training and
+    #  update the running ones; True also puts a BN after every hidden head
+    #  dense, and int8 PTQ refuses it)
     TRAIN_BN = False
 
     SEED = 0
@@ -147,6 +152,10 @@ class Config:
     # Keep only the newest N per-epoch weight snapshots (0 = keep all);
     # state_latest.msgpack always remains.
     CHECKPOINT_KEEP = 0
+    # Raise FloatingPointError at the first step whose losses, metrics or
+    # updated weights hold a NaN (the JAX package's jax_debug_nans); costs
+    # a host sync a step.
+    DEBUG_NANS = False
 
     def update(self):
         """Recompute derived fields."""

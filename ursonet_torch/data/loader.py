@@ -27,9 +27,15 @@ recomputes them from the rotated pose. The images stay f32 into the
 warp under F16 too (the model casts them to bf16), as in the JAX
 package.
 
-Not ported yet: the host-parity generator (`raw=False`: per-image
-augmentation on the host with cv2's warpPerspective and GaussianBlur)
-and multi-host batch slices.
+The host-parity generator (`raw=False`, AUGMENT_ON_DEVICE False) is the
+reference's data path instead: per frame at its own resolution,
+sim2real, then the camera rotation or roll (`load_image_gt`: numpy draws
+from one `RandomState`, the port's numpy versions of cv2's
+warpPerspective and GaussianBlur), the resize and the mold on the host;
+it yields molded [B,H,W,3] batches (float16 under F16), which
+`molded_to_device` hands to a step made without a preprocess.
+
+Not ported yet: multi-host batch slices.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ import numpy as np
 import torch
 
 from ursonet_torch import se3t
-from ursonet_torch.data.urso import Camera
+from ursonet_torch.data.urso import Camera, encode_as_keypoints
 from ursonet_torch.device import resolve_device
 from ursonet_torch.ops import augment as aug
 from ursonet_torch.ops import encoders
@@ -234,38 +240,145 @@ def _load_raw(dataset, config, image_id) -> dict:
     return sample
 
 
+def load_image_gt(dataset, config, image_id, rng):
+    """One host-parity sample, the reference's per-frame load and
+    augmentation (the JAX package's `load_image_gt`): the frame, then
+    under SIM2REAL_AUG `augment.sim2real_host`, then under ROT_AUG /
+    ROT_IMAGE_AUG one dice (`rng.rand(1)`) picks the camera rotation
+    (above 0.5) or the roll, warped at the frame's resolution with the
+    pose (and the keypoints, at scale 1, or the orientation PMF) updated;
+    then the resize to the network shape. Returns (image, image_meta,
+    loc, ori) or (image, image_meta, loc, k1, k2) in keypoint mode."""
+    image = dataset.load_image(image_id)
+
+    if config.REGRESS_LOC:
+        loc = np.asarray(dataset.load_location(image_id), np.float64)
+    else:
+        loc = dataset.load_location_encoded(image_id)
+
+    k1 = k2 = None
+    if config.REGRESS_KEYPOINTS:
+        keypoints = dataset.load_keypoints(image_id)
+        k1, k2 = keypoints[0], keypoints[1]
+
+    if config.REGRESS_KEYPOINTS or config.REGRESS_ORI:
+        if config.ORIENTATION_PARAM == 'quaternion':
+            ori = np.asarray(dataset.load_quaternion(image_id), np.float64)
+        elif config.ORIENTATION_PARAM == 'euler_angles':
+            ori = np.asarray(dataset.load_euler_angles(image_id), np.float64)
+        elif config.ORIENTATION_PARAM == 'angle_axis':
+            ori = np.asarray(dataset.load_angle_axis(image_id), np.float64)
+    else:
+        ori = dataset.load_orientation_encoded(image_id)
+
+    if config.SIM2REAL_AUG:
+        image = aug.sim2real_host(image, rng)
+
+    if config.ROT_AUG or config.ROT_IMAGE_AUG:
+        if not (config.REGRESS_LOC
+                and config.ORIENTATION_PARAM == 'quaternion'):
+            raise ValueError("rotation augmentation needs REGRESS_LOC and "
+                             "quaternion orientations")
+        dice = rng.rand(1)[0]
+        pose_ori = config.REGRESS_KEYPOINTS or config.REGRESS_ORI
+        q = ori if pose_ori else dataset.load_quaternion(image_id)
+        K = dataset.camera.K
+        if config.ROT_AUG and dice > 0.5:
+            image, loc, q = aug.rotate_cam(image, loc, q, K, 20, rng)
+        elif config.ROT_IMAGE_AUG and dice <= 0.5:
+            image, loc, q = aug.rotate_image(image, loc, q, K, rng)
+        else:
+            q = None
+        if q is not None and pose_ori:
+            ori = q
+            k1, k2 = encode_as_keypoints(ori, loc)
+            k1, k2 = k1[0], k2[0]
+        elif q is not None:
+            ori = encoders.encode_ori_fast(q, config.BETA,
+                                           dataset.ori_histogram_map,
+                                           dataset.ori_output_mask)
+
+    original_shape = image.shape
+    image, window, scale, _, _ = imops.resize_image(
+        image, min_dim=config.IMAGE_MIN_DIM, min_scale=config.IMAGE_MIN_SCALE,
+        max_dim=config.IMAGE_MAX_DIM, mode=config.IMAGE_RESIZE_MODE)
+    image_meta = imops.compose_image_meta(image_id, original_shape,
+                                          image.shape, window, scale)
+    if config.REGRESS_KEYPOINTS:
+        return image, image_meta, loc, np.asarray(k1).reshape(3), \
+            np.asarray(k2).reshape(3)
+    return image, image_meta, loc, ori
+
+
+def _load_parity(dataset, config, image_id, rng, dtype) -> dict:
+    """One host-parity sample as batch fields: the molded image and the
+    targets in `dtype` (float16 under F16), the meta as it is."""
+    out = load_image_gt(dataset, config, image_id, rng)
+    image, meta, loc = out[:3]
+    sample = {'images': imops.mold_image(image.astype(dtype), config),
+              'image_meta': meta, 'gt_loc': np.asarray(loc, dtype)}
+    if config.REGRESS_KEYPOINTS:
+        sample['gt_k1'] = np.asarray(out[3], dtype)
+        sample['gt_k2'] = np.asarray(out[4], dtype)
+    else:
+        sample['gt_ori'] = np.asarray(out[3], dtype)
+    return sample
+
+
 def data_generator(dataset, config, shuffle=True, batch_size=1,
                    seed: Optional[int] = None, raw: Optional[bool] = None,
                    batch_slice=None) -> Iterator[dict]:
-    """Infinite generator of raw batches (numpy): {'images_u8' [B,H,W,3],
-    'image_meta', 'location', 'quaternion', ...}.
+    """Infinite batch generator (numpy). raw=None follows
+    AUGMENT_ON_DEVICE. raw=True yields raw batches: {'images_u8'
+    [B,H,W,3], 'image_meta', 'location', 'quaternion', ...}; raw=False
+    (the host-parity generator) yields augmented, molded batches:
+    {'images' [B,H,W,3], 'image_meta', 'gt_loc', 'gt_ori'} (or 'gt_k1',
+    'gt_k2' for 'gt_ori' in keypoint mode), float16 under F16.
 
     The ids are shuffled by `np.random.RandomState(seed)` at the start
     of every pass, as the JAX package's generator shuffles them, so both
-    yield the same ids. Under NATIVE_LOADER with a fixed geometry
-    (`native_geometry`) each batch is one call of the native loader;
-    a batch that fails is logged and skipped. Otherwise a frame that
-    fails to load is logged and skipped. Either way the sixth failure
-    raises. raw=None follows AUGMENT_ON_DEVICE; raw=False (the
-    host-parity generator) and `batch_slice` (multi-host input sharding)
-    are not ported and raise here, when the generator is made.
+    yield the same ids. The host-parity augmentation draws from a second
+    stream, `np.random.RandomState(seed + 104729)` (the JAX package's
+    stream of the first batch row), sample after sample: a new generator
+    restarts it. Under NATIVE_LOADER with a fixed geometry
+    (`native_geometry`) each raw batch is one call of the native loader;
+    a batch that fails is logged and skipped. Otherwise (and always for
+    raw=False, as in the JAX package) a frame that fails to load is
+    logged and skipped. Either way the sixth failure raises.
+    `batch_slice` (multi-host input sharding) is not ported and raises
+    here, when the generator is made.
     """
     if raw is None:
         raw = bool(getattr(config, 'AUGMENT_ON_DEVICE', True))
-    if not raw:
-        raise NotImplementedError(
-            'raw=False: the host-parity generator (per-image augmentation '
-            'with ports of cv2 warpPerspective and GaussianBlur) is a later '
-            'slice (ROADMAP §1); use AUGMENT_ON_DEVICE')
     if batch_slice is not None:
         raise NotImplementedError(
             'batch_slice: multi-host input sharding comes with the '
             'parallel slice (ROADMAP §1)')
+    if not raw:
+        aug_rng = np.random.RandomState(
+            None if seed is None else seed + 104729)
+        dtype = np.float16 if config.F16 else np.float32
+        return _batches(dataset, shuffle, batch_size, seed,
+                        lambda i: _load_parity(dataset, config, i, aug_rng,
+                                               dtype))
     geom = native_geometry(dataset, config)
     if geom is not None:
         return _native_batches(dataset, config, shuffle, batch_size, seed,
                                geom)
-    return _raw_batches(dataset, config, shuffle, batch_size, seed)
+    return _batches(dataset, shuffle, batch_size, seed,
+                    lambda i: _load_raw(dataset, config, i))
+
+
+def molded_to_device(batch, dev: torch.device) -> dict:
+    """The model batch of a host-parity batch: every field on `dev` in
+    f32 but the molded images, which go [B,H,W,3] -> [B,3,H,W] in their
+    own dtype (float16 under F16: the model casts them to its compute
+    dtype, as the JAX model casts the float16 batch to bfloat16)."""
+    out = {k: as_tensor(v, dev, torch.float32)
+           for k, v in batch.items() if k != 'images'}
+    out['images'] = as_tensor(batch['images'], dev).permute(
+        0, 3, 1, 2).contiguous()
+    return out
 
 
 def native_geometry(dataset, config) -> Optional[dict]:
@@ -333,7 +446,8 @@ def _native_batches(dataset, config, shuffle, batch_size, seed, g):
                 raise
 
 
-def _raw_batches(dataset, config, shuffle, batch_size, seed):
+def _batches(dataset, shuffle, batch_size, seed, load):
+    """Batches of the samples `load(image_id)` makes, frame by frame."""
     stream = _id_stream(dataset, shuffle, seed)
     b = 0
     error_count = 0
@@ -341,7 +455,7 @@ def _raw_batches(dataset, config, shuffle, batch_size, seed):
     while True:
         image_id = next(stream)
         try:
-            sample = _load_raw(dataset, config, image_id)
+            sample = load(image_id)
             if not batch:
                 batch = {k: np.zeros((batch_size,) + np.shape(v),
                                      dtype=np.asarray(v).dtype)

@@ -10,11 +10,16 @@ with checkpoints and exact resume (`UrsoNet`), and serving
 
 `UrsoNet.train` runs the epoch loop: the on-device preprocess with the
 warp kernel, batches from a device-resident dataset (`use_resident`) or
-streamed from disk by `data_generator` in a `Prefetcher` thread, metric
+streamed from disk by `data_generator` in a `Prefetcher` thread (under
+AUGMENT_ON_DEVICE False the host-parity generator's augmented, molded
+batches, and no device preprocess), metric
 sums kept on the device and read once an epoch, validation, and per
-epoch `metrics.jsonl`, a config dump, a weight snapshot and
-`state_latest.msgpack` in the run dir (`checkpoint/store.py`, the JAX
-package's layout: each package loads and resumes the other's files).
+epoch `metrics.jsonl`, a config dump, a weight snapshot (with the
+batch norms' running statistics, which train under TRAIN_BN None / True)
+and `state_latest.msgpack` in the run dir (`checkpoint/store.py`, the
+JAX package's layout: each package loads and resumes the other's
+files). Under DEBUG_NANS each step's metrics and weights are read for a
+NaN (`train/step.py::check_nans`, the counterpart of jax_debug_nans).
 
     engine = ServingEngine(config)              # float model, seeded weights
     engine.quantize(calib_images)               # or load_serving_artifact()
@@ -59,7 +64,7 @@ from ursonet_torch.ops.image import compose_image_meta, mold_image, \
     resize_image
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
-from ursonet_torch.train.step import make_eval_step, \
+from ursonet_torch.train.step import check_nans, make_eval_step, \
     make_resident_eval_step, make_resident_train_step, make_train_step
 from ursonet_torch.utils.memory import check_train_memory
 
@@ -357,7 +362,10 @@ class UrsoNet:
         mask = trainable_mask(self.model, layers)
         self._bind_slots([n for n, _ in self.model.named_parameters()
                           if mask[n]])
-        pre = loader.make_device_preprocess(
+        # AUGMENT_ON_DEVICE False: the host-parity generator augments and
+        # molds on the host, and the steps take its batches as they are
+        host = not getattr(cfg, 'AUGMENT_ON_DEVICE', True)
+        pre = None if host else loader.make_device_preprocess(
             cfg, train_dataset.camera, dev, train_dataset.name)
         resident = loader.use_resident(train_dataset, cfg)
         train_gen = val_gen = res_train = res_val = None
@@ -400,6 +408,12 @@ class UrsoNet:
         draw_seed = cfg.SEED + (1 << 20)
         draws = torch.Generator(device=dev)
         perms = torch.Generator(device=dev)
+        debug_nans = bool(getattr(cfg, 'DEBUG_NANS', False))
+
+        def batch_of(gen):
+            batch = next(gen)
+            return loader.molded_to_device(batch, dev) if host else batch
+
         last_means = {}
         try:
             for epoch in range(self.epoch, epochs):
@@ -414,7 +428,10 @@ class UrsoNet:
                     if resident:
                         i, metrics = train_step(res_train, perm, i, draws)
                     else:
-                        metrics = train_step(next(train_gen), draws)
+                        metrics = train_step(batch_of(train_gen), draws)
+                    if debug_nans:
+                        check_nans(f'train step {self.step}', metrics,
+                                   self.model)
                     self.step += 1
                     n += 1
                     sums = metrics if sums is None else \
@@ -434,7 +451,10 @@ class UrsoNet:
                         if res_val is not None:
                             iv, m = eval_step(res_val, iv, draws)
                         else:
-                            m = eval_step(next(val_gen), draws)
+                            m = eval_step(batch_of(val_gen), draws)
+                        if debug_nans:
+                            check_nans(f'validation step {vn} of epoch '
+                                       f'{epoch}', m)
                         vn += 1
                         vsums = m if vsums is None else \
                             {k: vsums[k] + v for k, v in m.items()}

@@ -2,8 +2,9 @@
 `ursonet_tpu/models/folding.py`), on nested dicts of numpy arrays in the
 JAX package's layout (`checkpoint/convert.py::params_to_jax_layout`).
 
-Folds frozen BatchNorm (running statistics, TRAIN_BN=False) into the
-preceding convolution:
+Folds BatchNorm's running statistics (frozen under TRAIN_BN=False, or
+as trained under TRAIN_BN=None: eval normalizes with them either way)
+into the preceding convolution:
 
     W' = W · γ/√(σ²+ε)   (per output channel)
     b' = β + (b − μ) · γ/√(σ²+ε)

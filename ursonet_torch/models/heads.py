@@ -1,11 +1,13 @@
 """Heads on the flattened bottleneck features, the counterparts of
 `ursonet_tpu/models/heads.py::PoseHead` and `KeypointHead`.
 
-Both start with NR_DENSE_LAYERS × (Dense(BRANCH_SIZE) + ReLU). PoseHead
+Both start with NR_DENSE_LAYERS × (Dense(BRANCH_SIZE) [+ BN under
+TRAIN_BN=True] + ReLU). PoseHead
 then has one final Dense: linear (location regression), ReLU
 (soft-classification logits) or L2-normalized (quaternion regression).
 KeypointHead has three linear Dense(3) finals, k1/k2/k3. Layer names are
-the Keras ones: '{prefix}_dense_{i}' and the final layers' own names.
+the Keras ones: '{prefix}_dense_{i}', '{prefix}_bn_{i}' and the final
+layers' own names.
 Under F16 they compute in bf16 like the backbone (`Linear`).
 """
 
@@ -15,29 +17,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ursonet_torch.models.resnet import Linear
+from ursonet_torch.models.resnet import FrozenBN, Linear
 
 
 class _DenseStack(nn.Module):
-    """The hidden '{prefix}_dense_{i}' layers, each Dense + ReLU."""
+    """The hidden '{prefix}_dense_{i}' layers, each Dense, then under a
+    truthy TRAIN_BN (True; None is falsy here, as in the JAX heads) the
+    batch norm '{prefix}_bn_{i}', then ReLU."""
 
     def __init__(self, prefix: str, in_features: int, nr_dense_layers: int,
                  branch_size: int, train_bn=False):
         super().__init__()
-        if train_bn:
-            raise NotImplementedError(
-                "TRAIN_BN: head batch norm is ported in a later slice")
         self.dense = []
         for i in range(nr_dense_layers):
-            name = f"{prefix}_dense_{i}"
-            self.add_module(name, Linear(in_features, branch_size))
-            self.dense.append(name)
+            layers = [f"{prefix}_dense_{i}"]
+            self.add_module(layers[0], Linear(in_features, branch_size))
+            if train_bn:
+                layers.append(f"{prefix}_bn_{i}")
+                self.add_module(layers[1], FrozenBN(branch_size, train_bn))
+            self.dense.append(layers)
             in_features = branch_size
         self.out_features = in_features
 
     def hidden(self, x):
-        for name in self.dense:
-            x = F.relu(self._modules[name](x), inplace=True)
+        for layers in self.dense:
+            for name in layers:
+                x = self._modules[name](x)
+            x = F.relu(x, inplace=True)
         return x
 
 

@@ -104,7 +104,10 @@ def flatten_folded(params, batch_stats, config) -> Dict[str, tuple]:
     """Fold BN and flatten the param tree (JAX layout, numpy) into
     per-site (kernel, bias). Head sites get a 'loc_head/' / 'ori_head/'
     prefix; backbone conv names are unique already. The BN shift becomes
-    part of the site bias."""
+    part of the site bias. As the JAX gate reads it, TRAIN_BN=None (a
+    model whose running statistics trained) folds and serves; True (a BN
+    after each hidden head dense, which the twin graph has no site for)
+    raises."""
     if getattr(config, 'TRAIN_BN', False):
         raise NotImplementedError(
             'int8 PTQ supports the TRAIN_BN=False default only')

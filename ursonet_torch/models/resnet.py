@@ -10,9 +10,14 @@ Module names are the reference's Keras layer names ('conv1', 'bn_conv1',
 (`checkpoint/convert.py`).
 
 Semantics kept from the JAX package:
-  * Batch norm with Keras' epsilon 1e-3. TRAIN_BN=False (the only mode
-    this slice ports) always normalizes with the running statistics and
-    never updates them; the affine weight and bias still train.
+  * Batch norm with Keras' epsilon 1e-3 and momentum 0.99 (`FrozenBN`,
+    the counterpart of `FrozenAwareBN`). TRAIN_BN=False always
+    normalizes with the running statistics and never updates them; the
+    affine weight and bias still train. TRAIN_BN=None and True normalize
+    with the batch's statistics in training (`module.train()`) and with
+    the running ones in eval; the running update waits as the layer's
+    `pending` statistics until the train step commits it
+    (`commit_batch_stats`), once a step, after the backward pass.
   * Stem: explicit (3,3) zero pad, then a VALID 7×7/2 conv.
   * Flax 'SAME' at stride 2 pads (0,1) on even sizes, not (1,1): the
     3×3/2 maxpool gets that padding explicitly (with -inf), as does the
@@ -48,8 +53,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-# Keras BatchNormalization default
+# Keras BatchNormalization defaults
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 # stage-4 identity blocks after res4a (`ursonet_tpu/models/resnet.py:311`)
 STAGE4_BLOCKS = {'resnet50': 5, 'resnet101': 22}
@@ -145,28 +151,96 @@ class Linear(nn.Linear):
 
 
 class FrozenBN(nn.Module):
-    """Batch norm with frozen statistics (TRAIN_BN=False): running mean
-    and variance are buffers that are always used and never updated; the
-    affine weight and bias are trainable parameters."""
+    """Batch norm under the reference's TRAIN_BN semantics, the
+    counterpart of the JAX package's `FrozenAwareBN` (Flax
+    `nn.BatchNorm`):
+
+      False  running statistics always, never updated (frozen);
+      None   batch statistics in training, running statistics in eval;
+      True   as None (the reference also puts a BN after every hidden
+             head dense then, `models/heads.py`).
+
+    The affine weight and bias are parameters, the running mean and
+    variance buffers. A bf16 input is normalized in f32 and comes back as
+    bf16 (mixed-type batch norm), as flax's `_normalize` does under
+    dtype=bfloat16.
+
+    In training with batch statistics the output is F.batch_norm's over
+    the batch (its gradient runs through the statistics), and the
+    statistics Flax's `_compute_stats` computes are kept, without
+    gradient, as `pending` = (mean, var): reduced in f32, the biased
+    E[x²] − E[x]² clipped at 0. They reach the running statistics only
+    through `commit`: F.batch_norm's own update would use the unbiased
+    variance, and a block recomputed under REMAT (torch.utils.checkpoint)
+    would update twice, where a recompute only rewrites `pending` with
+    the same values. At one value per channel (a head BN at batch 1)
+    F.batch_norm refuses; Flax's formula gives the bias there, and runs
+    as written."""
 
     def __init__(self, num_features: int, train_bn=False):
         super().__init__()
-        if train_bn is not False:
-            raise NotImplementedError(
-                f"TRAIN_BN={train_bn!r}: batch-statistics BN is ported in a "
-                "later slice; this slice ports TRAIN_BN=False")
+        if train_bn not in (False, None, True):
+            raise ValueError(f"TRAIN_BN must be False, None or True, got "
+                             f"{train_bn!r}")
+        self.train_bn = train_bn
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.pending = None
 
     def forward(self, x):
-        # a bf16 input is normalized in f32 with the f32 statistics and
-        # parameters and comes back as bf16 (mixed-type batch norm), as
-        # flax's _normalize does under dtype=bfloat16
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            momentum=0.0, eps=BN_EPS)
+        if self.train_bn is False or not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                momentum=0.0, eps=BN_EPS)
+        dims = [0] + list(range(2, x.dim()))
+        if x.numel() == x.shape[1]:
+            # one value per channel: (x - mean) is 0, the output the bias
+            xf = x.float()
+            mean, var = _fast_stats(xf, dims)
+            self.pending = (mean.detach(), var.detach())
+            shape = [1, -1] + [1] * (x.dim() - 2)
+            mul = torch.rsqrt(var + BN_EPS) * self.weight
+            y = (xf - mean.view(shape)) * mul.view(shape) \
+                + self.bias.view(shape)
+            return y.to(x.dtype)
+        with torch.no_grad():
+            self.pending = _fast_stats(x.float(), dims)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=BN_EPS)
+
+    @torch.no_grad()
+    def commit(self) -> bool:
+        """Fold `pending` into the running statistics, r <- 0.99·r +
+        (1 − 0.99)·s as Flax updates batch_stats, and clear it. False when
+        nothing was pending."""
+        if self.pending is None:
+            return False
+        mean, var = self.pending
+        self.running_mean.copy_(self.running_mean * BN_MOMENTUM
+                                + mean * (1 - BN_MOMENTUM))
+        self.running_var.copy_(self.running_var * BN_MOMENTUM
+                               + var * (1 - BN_MOMENTUM))
+        self.pending = None
+        return True
+
+
+def _fast_stats(x, dims):
+    """Flax's fast batch statistics of f32 `x` over `dims`: the mean and
+    max(E[x²] − E[x]², 0), the biased variance."""
+    mean = x.mean(dims)
+    var = torch.clamp(torch.square(x).mean(dims) - torch.square(mean),
+                      min=0.0)
+    return mean, var
+
+
+def commit_batch_stats(model: nn.Module) -> int:
+    """Commit every batch norm's pending statistics once (`FrozenBN.
+    commit`), the running update of one train step; returns how many
+    layers it updated."""
+    return sum(m.commit() for m in model.modules()
+               if isinstance(m, FrozenBN))
 
 
 class BottleneckBlock(nn.Module):

@@ -22,6 +22,13 @@ device preprocess hands the first two to the fused kernel
 (`warp_cuda.warp_mold`: warp, identity select and mold in one launch),
 whose plain version is `warp_mold_torch`.
 
+The host-parity versions (`rotate_cam`, `rotate_image`, `sim2real_host`:
+the JAX package's host functions, the reference's per-image augmentation)
+run on one uint8 frame at its own resolution with numpy draws from a
+`np.random.RandomState`, in the JAX package's order, and the port's own
+numpy versions of cv2's warpPerspective and GaussianBlur
+(`ops/cv_host.py`).
+
 `warp_nearest_torch` / `warp_bilinear_torch` are the plain tensor-indexing
 versions of the kernel (counterparts of `warp_nearest_jax` /
 `warp_bilinear_jax`): the CPU path and the yardstick the kernel is held
@@ -33,7 +40,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ursonet_torch import se3t
+from ursonet_torch import se3, se3t
+from ursonet_torch.ops import cv_host
 from ursonet_torch.ops.warp_cuda import warp_cuda, warp_cuda_gray
 
 
@@ -332,3 +340,81 @@ def scaled_intrinsics(K_original, window, scale) -> np.ndarray:
     y1, x1, _, _ = window
     S = np.array([[scale, 0, x1], [0, scale, y1], [0, 0, 1.0]])
     return S @ K
+
+
+# --------------------------------------------------------------------------
+# host parity: one frame at its own resolution, numpy draws
+
+
+def rotate_cam(image, t, q, K, magnitude, rng):
+    """Random camera rotation of one frame: pitch, yaw and roll each
+    (rand − 0.5)·magnitude degrees (`rng.rand(3)`), as the homography
+    warp and the pose update of `_warp_host`."""
+    pyr_change = (rng.rand(3) - 0.5) * magnitude
+    return _warp_host(image, t, q, K, pyr_change)
+
+
+def rotate_image(image, t, q, K, rng):
+    """Random in-plane roll of one frame, (rand − 0.5)·170 degrees
+    (`rng.rand(1)`)."""
+    change = (rng.rand(1) - 0.5) * 170
+    return _warp_host(image, t, q, K, np.array([0.0, 0.0, change[0]]))
+
+
+def _warp_host(image, t, q, K, pyr_change):
+    """Warp `image` by M = K·R·K⁻¹ (inverse map, nearest, zero border:
+    `cv_host.warp_perspective_inverse`) and rotate the pose: t' = t·Rᵀ,
+    q' = q_R ⊗ q. Returns (image', t', q') in float64."""
+    R_change = se3.euler2SO3_left(pyr_change[0], pyr_change[1],
+                                  pyr_change[2])
+    K = np.asarray(K, np.float64)
+    M = K @ R_change @ np.linalg.inv(K)
+    warped = cv_host.warp_perspective_inverse(image, M)
+    t_new = np.asarray(t, np.float64) @ R_change.T
+    q_new = se3.quat_mult(se3.SO32quat(R_change), q)
+    return warped, t_new, q_new
+
+
+def sim2real_host(image, rng):
+    """The reference's sim2real on one uint8 frame [H,W,3]: Rec.709 gray
+    in float32 on three channels; with probability 1/2 (`rng.rand(1)`)
+    the five ops in the order `rng.permutation(5)`, each drawing its own
+    magnitudes; clipped to [0, 255] and truncated to uint8."""
+    img = image.astype(np.float32)
+    gray = 0.2126 * img[..., 0] + 0.7152 * img[..., 1] + 0.0722 * img[..., 2]
+    img = np.repeat(gray[..., None], 3, axis=2)
+    if rng.rand(1)[0] > 0.5:
+        order = rng.permutation(5)
+        for k in order:
+            img = _sim2real_op_host(SIM2REAL_OPS[k], img, rng)
+    return np.clip(img, 0, 255).astype(image.dtype)
+
+
+def _sim2real_op_host(name, img, rng):
+    """One sim2real op on a float32 [H,W,3] frame, its draws from `rng`."""
+    if name == 'noise':
+        return img + rng.randn(*img.shape[:2], 1).astype(np.float32) \
+            * (0.01 * 255)
+    if name == 'blur':
+        sigma = rng.rand(1)[0] * 1.5
+        if sigma < 1e-3:
+            return img
+        return cv_host.gaussian_blur(img, sigma)
+    if name == 'add':
+        return img + rng.uniform(-20, 20)
+    if name == 'mul':
+        return img * rng.uniform(0.5, 2.0)
+    if name == 'dropout':
+        p = float(rng.choice([0.0, 0.03]))
+        if p == 0.0:
+            return img
+        sp = rng.uniform(0.02, 0.1)
+        h, w = img.shape[:2]
+        mh, mw = max(1, int(h * sp)), max(1, int(w * sp))
+        mask = (rng.rand(mh, mw) < p)
+        mask = np.repeat(np.repeat(mask, -(-h // mh), 0), -(-w // mw),
+                         1)[:h, :w]
+        out = img.copy()
+        out[mask] = 0
+        return out
+    raise ValueError(name)

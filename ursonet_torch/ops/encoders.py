@@ -1,6 +1,6 @@
 """Orientation and location soft-assignment encoders, the counterpart
 of `ursonet_tpu/ops/encoders.py` (`build_ori_grid`, `ori_variance`,
-`encode_ori_pmf`, `encode_ori`, `build_loc_grid`,
+`encode_ori_pmf`, `encode_ori`, `encode_ori_fast`, `build_loc_grid`,
 `encode_loc_pmf`, `encode_loc`).
 
 SO(3) is quantized as an ORI_BINS_PER_DIM³ Euler-angle grid over
@@ -99,6 +99,16 @@ def encode_ori(oris, nr_bins_per_dim, beta, min_lim, max_lim):
     encoded = encode_ori_pmf(oris, grid.quat, grid.mask, beta,
                              nr_bins_per_dim).astype(np.float32)
     return encoded, grid.quat, grid.mask
+
+
+def encode_ori_fast(oris, beta, H_quat, Redundant_flags):
+    """Re-encode one or more quaternions with a prebuilt grid (the bin
+    quaternions and redundancy mask a dataset adapter keeps), as the
+    host-parity generator does after a rotation; float32 in, PMFs out."""
+    nr_bins_per_dim = round(len(H_quat) ** (1.0 / 3))
+    return encode_ori_pmf(np.asarray(oris, dtype=np.float32),
+                          np.asarray(H_quat), np.asarray(Redundant_flags),
+                          beta, nr_bins_per_dim)
 
 
 class LocGrid(NamedTuple):

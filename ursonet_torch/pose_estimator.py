@@ -25,8 +25,9 @@ init), 'imagenet' / 'coco' / the released model names ('soyuz_hard',
 
 Everything runs on the card: without CUDA the command fails at once.
 Flags of paths the port does not have yet raise NotImplementedError
-naming their ROADMAP.md item: --host_augment, --mesh_data /
---mesh_model above 1, and --video.
+naming their ROADMAP.md item: --mesh_data / --mesh_model above 1, and
+--video. `--host_augment` trains from the host-parity generator
+(AUGMENT_ON_DEVICE False).
 """
 
 from __future__ import annotations
@@ -113,8 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='keep only the newest N per-epoch snapshots '
                         '(0 = keep all, reference behavior)')
     p.add_argument('--host_augment', action='store_true',
-                   help='per-image augmentation on the host (parity mode; '
-                        'not ported)')
+                   help='run augmentation per-image on host (parity mode) '
+                        'instead of batched on device')
     p.add_argument('--out_dir', default='.',
                    help='where eval CSVs / overlays / artifacts go')
     p.add_argument('--eval_batch', default=1, type=int,
@@ -177,9 +178,6 @@ def make_config(args):
     if args.mesh_data > 1 or args.mesh_model > 1:
         raise _not_ported('a device mesh (--mesh_data / --mesh_model > 1)',
                           '§1 item 9 (parallelism)')
-    if args.host_augment:
-        raise _not_ported('--host_augment', '§1 item 6 (the host-parity '
-                          'generator)')
 
     config = Config()
     config.ORIENTATION_PARAM = args.ori_param

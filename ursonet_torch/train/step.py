@@ -32,6 +32,7 @@ import torch
 
 from ursonet_torch.data.loader import as_tensor
 from ursonet_torch.device import check_on, resolve_device
+from ursonet_torch.models.resnet import commit_batch_stats
 from ursonet_torch.train import losses as L
 
 
@@ -52,14 +53,17 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
     `train.state.trainable_mask` (default: everything trains). Frozen
     parameters get requires_grad False, so autograd computes no gradient
     for them, and they are left out of the L2 term and the update.
+    Under TRAIN_BN None or True the batch norms normalize with the
+    batch's statistics, and each one's running statistics take the
+    step's update once, after the backward pass (`commit_batch_stats`):
+    every batch norm's, also where `trainable` freezes its parameters, as
+    the JAX step makes all of batch_stats mutable.
     preprocess: `data.loader.make_device_preprocess(...)`; its draws come
     from `generator`.
     """
     dev = resolve_device(device)
     check_on(model, dev)
-    if config.TRAIN_BN is not False:
-        raise NotImplementedError("TRAIN_BN other than False is ported in "
-                                  "a later slice")
+    update_bn = config.TRAIN_BN is None or config.TRAIN_BN is True
     if trainable is None:
         trainable = {n: True for n, _ in model.named_parameters()}
     params = []
@@ -79,6 +83,8 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
         loss = total + reg
         grads = list(torch.autograd.grad(loss, params))
         tx.step(params, grads)
+        if update_bn:
+            commit_batch_stats(model)
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics['loss'] = loss.detach()
         metrics['l2_reg'] = reg.detach()
@@ -90,7 +96,8 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
 def make_eval_step(model, config, preprocess: Optional[Callable] = None,
                    device="cuda"):
     """Validation step fn(batch, generator=None) -> metrics: forward and
-    losses, no update (the preprocess augments, as in the JAX package)."""
+    losses in eval mode (batch norm on its running statistics), no
+    update (the preprocess augments, as in the JAX package)."""
     dev = resolve_device(device)
     check_on(model, dev)
 
@@ -106,6 +113,22 @@ def make_eval_step(model, config, preprocess: Optional[Callable] = None,
         return metrics
 
     return step
+
+
+def check_nans(where: str, metrics: dict, model=None) -> None:
+    """DEBUG_NANS, the counterpart of the JAX package's jax_debug_nans:
+    raise FloatingPointError naming `where` and the tensors when the
+    step's metrics, or `model`'s parameters and buffers after its update,
+    hold a NaN. One host sync."""
+    named = list(metrics.items())
+    if model is not None:
+        named += list(model.named_parameters()) + list(model.named_buffers())
+    flags = torch.stack([torch.isnan(v).any() for _, v in named]).tolist()
+    bad = [name for (name, _), f in zip(named, flags) if f]
+    if bad:
+        raise FloatingPointError(
+            f"NaN at {where} (DEBUG_NANS) in {len(bad)} tensors: "
+            + ", ".join(bad[:8]) + (", ..." if len(bad) > 8 else ""))
 
 
 def _positions(i: int, steps: int, bsz: int, n_images: int,

@@ -33,7 +33,10 @@ factor, and `check_train_memory` says that its figure is uncalibrated.
 It says the same of a ResNet-18/34 figure: every factor was fitted on
 bottleneck backbones (ResNet-50/101), and a basic block keeps other
 tensors for its backward (`chip_smoke.py` prints config 2's estimate
-beside its measured peak, PERF.md).
+beside its measured peak, PERF.md); and of a step with batch-statistics
+BN (TRAIN_BN None or True): every factor was fitted on frozen-BN steps,
+and BN's training backward keeps its own tensors (`chip_smoke.py`
+phase 8c prints the flagship's estimate beside its peak).
 The factors were fitted on the peaks above, so those peaks can show only
 drift; `chip_smoke.py` phase 4 also holds the flagship's step at half
 its batch (16), which no factor was fitted on, to ±25% of its peak.
@@ -149,7 +152,11 @@ def calibrated_train_gb(config) -> float:
 
 def calibration_gap(config):
     """Why no measured peak stands behind `config`'s factor, or None:
-    an f32 step under REMAT, or a ResNet-18/34 backbone."""
+    an f32 step under REMAT, a ResNet-18/34 backbone, or batch-statistics
+    BN."""
+    if getattr(config, 'TRAIN_BN', False) is not False:
+        return (f"the eager factors were fitted on frozen-BN steps "
+                f"(TRAIN_BN=False), not on TRAIN_BN={config.TRAIN_BN!r}")
     if config.BACKBONE in ('resnet18', 'resnet34'):
         return (f"the eager factors were fitted on ResNet-50/101 steps "
                 f"only, not on a {config.BACKBONE} one")
@@ -161,7 +168,7 @@ def calibration_gap(config):
 
 def calibrated(config) -> bool:
     """Whether a measured peak stands behind `config`'s factor: all modes
-    of ResNet-50/101 but f32 under REMAT."""
+    of ResNet-50/101 with frozen BN but f32 under REMAT."""
     return calibration_gap(config) is None
 
 
