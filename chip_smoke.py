@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero:
               with every third image, none and all left as they are
               (nearest 0 differing elements, bilinear 1e-3);
               conv_s8 and gemm_s8 at
-              the serving path's shapes in every epilogue, in both
+              the serving path's shapes in every epilogue (the joins over
+              int8 and float residuals), in both
               accumulation modes (f32, bf16) and on both of their routes
               (TMA + wgmma, and mma.sync), and at C5's depth with
               accumulators above 2^24, stem_s8 in both input modes and
@@ -162,6 +163,29 @@ Phases, in order; any failure exits non-zero:
               0 times, the host-parity generator's images/s alone beside
               the step's and the epoch's; (f) DEBUG_NANS: a NaN in a
               batch raises FloatingPointError naming the step.
+  8d. knobs   serving under the knobs bench.py reads, the flagship at
+              full width (512x640, batch 128, seeded random weights, each
+              model calibrated on 8 images and smoothed): QUANT_S8_JOIN
+              (base F16 with the one bias_correct, host_s2d, base with f32
+              epilogues: join_s8 on gemm_s8), the float residual join
+              (the shortcut requant sites dropped: bf16 and f32
+              residuals; under QUANT_S8_JOIN f32_sum), QUANT_BF16_STEM
+              (base, s2d: no stem kernel), QUANT_FLOAT_CLS_FINAL and
+              QUANT_FLOAT_REG_HEAD, beside the default F16 base and
+              host_s2d batches; config 2 (ResNet-18, batch 1) under
+              QUANT_S8_JOIN (join_s8 on conv_s8) and the head knobs; the
+              flagship pruned by `python -m ursonet_torch.prune_inner` to
+              INNER_WIDTH_MULT 0.5 (every call on the TMA route) and 0.6
+              (the 40- and 152-wide ones on mma.sync), served; two F16
+              train steps at 0.5 from the pruned weights (batch 32,
+              warp_mold launched, its first call equal to the plain
+              chain). For every served batch: every call on the route its
+              shapes give it, each distinct gemm_s8 / conv_s8 / stem_s8
+              call not seen before on fresh operands and 8 images served
+              whole equal to the plain version bit for bit, within the
+              random-init gate of the float twin; the batch's median of
+              10 beside the default F16 base of the same run, and the
+              joins launched by epilogue and residual type.
  9. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
@@ -552,12 +576,15 @@ def small_config(n: int = 3) -> Config:
 # main path
 
 
-def run_main_path(cfg, device, seed: int = 0, steps: int = 5) -> dict:
+def run_main_path(cfg, device, seed: int = 0, steps: int = 5,
+                  model=None) -> dict:
     """`steps` train steps on one raw batch, each with the same draws (so
     the loss is taken on the same preprocessed batch), then one
-    validation step. Returns the losses, the step fn, the model, the
-    preprocess and the raw batch."""
-    model = build_model(cfg, device, torch.Generator().manual_seed(seed))
+    validation step, of `model` (else one built from `seed`). Returns
+    the losses, the step fn, the model, the preprocess and the raw
+    batch."""
+    if model is None:
+        model = build_model(cfg, device, torch.Generator().manual_seed(seed))
     pre = make_device_preprocess(cfg, device=device)
     step = make_train_step(model, cfg, make_optimizer(cfg),
                            trainable=trainable_mask(model, 'all'),
@@ -648,23 +675,68 @@ def gemm_cases(m, batch=128):
                     ('ori_final', (batch, 1024, 13824))]
 
 
+def _device_gen(rng, dev):
+    """A generator on the card seeded from `rng`, or None on the CPU."""
+    dev = torch.device(dev)
+    if dev.type != 'cuda':
+        return None
+    return torch.Generator(device=dev).manual_seed(int(rng.randint(2**31)))
+
+
 def s8(rng, shape, dev):
+    """Random int8 operands drawn from `rng`: on the card by a generator
+    seeded from it (host draws of the served shapes took seconds)."""
+    g = _device_gen(rng, dev)
+    if g is not None:
+        return torch.randint(-128, 128, shape, dtype=torch.int8,
+                             device=dev, generator=g)
     return torch.from_numpy(
         rng.randint(-128, 128, shape).astype(np.int8)).to(dev)
 
 
-def epilogue_args(dev, rng, out_shape, k, epilogue) -> dict:
+def join_res(dev, rng, out_shape, epilogue, res='s8') -> dict:
+    """A join's residual of type `res` ('s8', 'f32' or 'bf16') and its
+    res_scale, as Int8Ops passes them: an int8 shortcut at a step of
+    0.0123 (`join`) or at a ratio of 0.61 to the output step (`join_s8`),
+    a float shortcut at about ±2 taken as it is (`join`) or at the
+    reciprocal output step (`join_s8`)."""
+    if res == 's8':
+        return dict(res=s8(rng, out_shape, dev),
+                    res_scale=0.0123 if epilogue == 'join' else 0.61)
+    g = _device_gen(rng, dev)
+    if g is not None:
+        v = torch.rand(out_shape, device=dev, generator=g) * 4 - 2
+    else:
+        v = torch.from_numpy(rng.uniform(-2, 2, out_shape)
+                             .astype(np.float32))
+    dt = {'f32': torch.float32, 'bf16': torch.bfloat16}[res]
+    return dict(res=v.to(dt).to(dev),
+                res_scale=1.0 if epilogue == 'join'
+                else float(np.float32(1) / np.float32(3.0 / 127)))
+
+
+def join_residuals(epilogue, acc_dtype) -> tuple:
+    """The residual types Int8Ops gives `epilogue` in a mode: an int8
+    shortcut, or a float one (`join`: the 'f32' epilogue's type; join_s8:
+    'f32_sum', f32); ('s8',) for the others, which take none."""
+    if epilogue == 'join':
+        return ('s8', ACC_NAMES[acc_dtype])
+    return ('s8', 'f32') if epilogue == 'join_s8' else ('s8',)
+
+
+def epilogue_args(dev, rng, out_shape, k, epilogue, res='s8') -> dict:
     """Epilogue operands that put y = acc * alpha + beta at about ±3 for
     random s8 operands of depth k, and the requantized values across
-    -127..127, so rounding and clipping are both exercised."""
+    -127..127, so rounding and clipping are both exercised; the joins'
+    residual of type `res` (`join_res`)."""
     n = out_shape[-1]
     alpha = rng.uniform(0.5, 1.5, n) * 3.0 / (np.sqrt(k) * 128 * 128 / 3)
     kw = dict(alpha=torch.from_numpy(alpha.astype(np.float32)).to(dev),
               beta=torch.from_numpy(
                   rng.uniform(-1, 1, n).astype(np.float32)).to(dev),
               inv_s_out=float(np.float32(1) / np.float32(3.0 / 127)))
-    if epilogue == 'join':
-        kw.update(res=s8(rng, out_shape, dev), res_scale=0.0123)
+    if epilogue in int8_cuda.JOINS:
+        kw.update(join_res(dev, rng, out_shape, epilogue, res))
     return kw
 
 
@@ -696,7 +768,7 @@ def big_acc_cases(dev, rng, kind, m=1317, batch=2):
 
     def args(ep, acc):
         return {k_: v for k_, v in dict(kw, acc_dtype=acc).items()
-                if ep == 'join' or k_ not in ('res', 'res_scale')}
+                if ep in int8_cuda.JOINS or k_ not in ('res', 'res_scale')}
     if kind == 'gemm':
         return [(lambda ep, acc, route: int8_cuda.gemm_s8(
                     a, w, ep, route=route, **args(ep, acc)),
@@ -726,7 +798,8 @@ def stem_args(dev, rng, mode) -> dict:
 
 def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=1317) -> float:
     """conv_s8 and gemm_s8 against their plain versions (float64
-    accumulation) in every epilogue, in both accumulation modes (f32 and
+    accumulation) in every epilogue (the joins over each residual type
+    `join_residuals` gives them), in both accumulation modes (f32 and
     bf16) and on both routes: the route the wrapper picks for the shape
     (TMA + wgmma for all but the C = 3 stem) and, where that is not it,
     the mma.sync route forced. `gemm_m` rows for the 1x1 shapes: ragged,
@@ -753,12 +826,13 @@ def check_int8_kernels(dev, rng, conv_batch=8, gemm_m=1317) -> float:
         routes = sorted({picked, 'ragged'}, reverse=True)
         for ep in int8_cuda.EPILOGUES:
             for mode in int8_cuda.ACC_DTYPES:
-                args = dict(epilogue_args(dev, rng, out_shape, k, ep),
-                            acc_dtype=mode)
-                want = int8_cuda.epilogue_torch(acc, ep, **args)
-                for route in routes:
-                    compare(f"{name} {ep} {ACC_NAMES[mode]} [{route}]",
-                            launch(ep, route, args), want)
+                for res in join_residuals(ep, mode):
+                    args = dict(epilogue_args(dev, rng, out_shape, k, ep,
+                                              res), acc_dtype=mode)
+                    want = int8_cuda.epilogue_torch(acc, ep, **args)
+                    for route in routes:
+                        compare(f"{name} {ep} {ACC_NAMES[mode]} res {res} "
+                                f"[{route}]", launch(ep, route, args), want)
         return '+'.join(routes)
 
     for name, (b, h, w, c, kh, kw, n, st, pads) in conv_cases(conv_batch):
@@ -1453,38 +1527,43 @@ def log_fused(tag, t, card) -> None:
 def _int8_call(name, a, dev, rng):
     """Fresh operands for one recorded GEMM or conv call: (kernel fn,
     plain fn, library fn or None, operations, bytes), in the call's
-    accumulation mode. The bytes count each input once (activations,
-    weights, epilogue vectors, residual) and each output once (bf16 for
-    the f32 epilogues of the bf16 mode)."""
+    accumulation mode and, for a join, on a residual of the call's type.
+    The bytes count each input once (activations, weights, epilogue
+    vectors, residual) and each output once (bf16 for the f32 epilogues
+    of the bf16 mode)."""
     ep = a['epilogue']
     acc = ACC_DTYPES[a['acc']]
     ob = int8_cuda.OUT_BYTES[acc][ep]
+    res = a.get('res', 's8')
+    rb = {'s8': 1, 'bf16': 2, 'f32': 4}[res] if ep in int8_cuda.JOINS \
+        else 0
     if name == 'gemm_s8':
         m, k, n = a['m'], a['k'], a['n']
         x = s8(rng, (m, k), dev)
         wt = int8_cuda.kernel_layout(
             rng.randint(-128, 128, (k, n)).astype(np.int8)).to(dev)
-        kw = dict(epilogue_args(dev, rng, (m, n), k, ep), acc_dtype=acc)
+        kw = dict(epilogue_args(dev, rng, (m, n), k, ep, res),
+                  acc_dtype=acc)
         ops = 2 * m * n * k
         nbytes = m * k + k * n + m * n * ob
         return (lambda: int8_cuda.gemm_s8(x, wt, ep, **kw),
                 lambda: int8_cuda.gemm_s8_torch(x, wt, ep, **kw),
                 lambda: torch._int_mm(x, wt),
-                ops, nbytes + 8 * n + (m * n if ep == 'join' else 0))
+                ops, nbytes + 8 * n + m * n * rb)
     b, h, w, c = a['b'], a['h'], a['w'], a['c']
     kh, kw_, n, st, pads = a['kh'], a['kw'], a['n'], a['stride'], a['padding']
     oh, ow = int8_cuda.conv_out_hw(h, w, kh, kw_, st, pads)
     x = s8(rng, (b, h, w, c), dev)
     wt = int8_cuda.kernel_layout(
         rng.randint(-128, 128, (kh, kw_, c, n)).astype(np.int8)).to(dev)
-    kw = dict(epilogue_args(dev, rng, (b, oh, ow, n), kh * kw_ * c, ep),
+    kw = dict(epilogue_args(dev, rng, (b, oh, ow, n), kh * kw_ * c, ep, res),
               acc_dtype=acc)
     m = b * oh * ow
     ops = 2 * m * n * kh * kw_ * c
     nbytes = b * h * w * c + kh * kw_ * c * n + m * n * ob
     return (lambda: int8_cuda.conv_s8(x, wt, st, pads, ep, **kw),
             lambda: int8_cuda.conv_s8_torch(x, wt, st, pads, ep, **kw),
-            None, ops, nbytes + 8 * n + (m * n if ep == 'join' else 0))
+            None, ops, nbytes + 8 * n + m * n * rb)
 
 
 # The 1x1 convs whose ReLU + requantize runs in gemm_s8's epilogue: what
@@ -1543,15 +1622,16 @@ def time_int8_kernels(calls, dev, rng, card) -> dict:
     return tot
 
 
-def time_serving(engine, images, dev) -> dict:
+def time_serving(engine, images, dev, iters: int = SERVE_ITERS,
+                 host: bool = True) -> dict:
     """Median int8 forward time of a device-resident batch (packed on
-    the host first under host_s2d) over SERVE_ITERS calls after 2 warm-up
-    calls (CUDA events), and the host wall time of predict_molded from
-    host uint8 (reindex and copy included)."""
+    the host first under host_s2d) over `iters` calls after 2 warm-up
+    calls (CUDA events), and (`host`) the host wall time of
+    predict_molded from host uint8 (reindex and copy included)."""
     x = torch.from_numpy(engine._host_s2d_maybe(images)).to(dev)
     qm = engine.qmodel
     times = []
-    for i in range(2 + SERVE_ITERS):
+    for i in range(2 + iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1560,14 +1640,16 @@ def time_serving(engine, images, dev) -> dict:
         torch.cuda.synchronize()
         if i >= 2:
             times.append(start.elapsed_time(end))
-    host = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        engine.predict_molded(images)
-        torch.cuda.synchronize()
-        host.append((time.perf_counter() - t0) * 1e3)
-    return {'median_ms': statistics.median(times), 'all_ms': times,
-            'host_ms': statistics.median(host)}
+    out = {'median_ms': statistics.median(times), 'all_ms': times}
+    if host:
+        wall = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.predict_molded(images)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        out['host_ms'] = statistics.median(wall)
+    return out
 
 
 def time_float_forward(dev, seed: int, card) -> dict:
@@ -3405,6 +3487,319 @@ def run_trainbn(root, device, seed: int = 0, card: str = '',
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# phase 8d: serving under the knobs bench.py reads
+
+
+KNOB_CALIB = 8        # images each knob's model is calibrated on
+KNOB_PLAIN = 8        # images of a served batch held whole against plain
+PRUNE_MULTS = (0.5, 0.6)
+KNOB_TRAIN_STEPS = 2  # F16 fine-tuning steps of the pruned flagship
+# The served configurations of phase 8d beside the default F16 `base`
+# and `host_s2d` batches: (tag, stem variant, F16, serving_config knobs,
+# shortcut requant sites dropped, bias_correct). bias_correct runs once,
+# under QUANT_S8_JOIN, whose capture pass keeps the default joins as the
+# JAX package's does.
+KNOB_CASES = (
+    ('s8_join base', 'base', True, dict(s8_join=True), False, True),
+    ('s8_join host_s2d', 'host_s2d', True, dict(s8_join=True), False, False),
+    ('s8_join base f32', 'base', False, dict(s8_join=True), False, False),
+    ('float residual', 'base', True, {}, True, False),
+    ('float residual f32', 'base', False, {}, True, False),
+    ('s8_join float residual', 'base', True, dict(s8_join=True), True,
+     False),
+    ('bf16_stem base', 'base', True, dict(bf16_stem=True), False, False),
+    ('bf16_stem s2d', 's2d', True, dict(bf16_stem=True), False, False),
+    ('float_cls_final', 'base', True, dict(float_cls_final=True), False,
+     False),
+    ('float_reg_head', 'base', True, dict(float_reg_head=True), False,
+     False))
+
+
+def knob_serving_config(batch, variant='base', f16=True, inner_mult=1.0,
+                        s8_join=False, bf16_stem=False,
+                        float_cls_final=False,
+                        float_reg_head=False) -> Config:
+    """serving_config() under the knobs bench.py reads, and the head
+    knobs QUANT_FLOAT_CLS_FINAL / QUANT_FLOAT_REG_HEAD."""
+    cfg = presets.serving_config(batch, variant, f16, inner_mult, s8_join,
+                                 bf16_stem)
+    cfg.QUANT_FLOAT_CLS_FINAL = float_cls_final
+    cfg.QUANT_FLOAT_REG_HEAD = float_reg_head
+    cfg.update()
+    return cfg
+
+
+def _stem_call(a, dev, rng):
+    """Fresh operands for one recorded stem_s8 call: (kernel fn, plain
+    fn)."""
+    x, w = stem_operands(dev, rng, a['b'], a['h2'], a['w2'])
+    kw = dict(stem_args(dev, rng, a['mode']), acc_dtype=ACC_DTYPES[a['acc']])
+    return (lambda: int8_cuda.stem_s8(x, w, **kw),
+            lambda: int8_cuda.stem_s8_torch(x, w, **kw))
+
+
+def check_new_calls(tag, calls, dev, rng, seen: set) -> Counter:
+    """Each distinct gemm_s8 / conv_s8 / stem_s8 call of a served batch
+    not in `seen`, on fresh operands of its shapes and residual type,
+    against its plain version: any differing element raises. Adds them
+    to `seen`; returns the checked calls by (kernel row, epilogue,
+    residual)."""
+    done = Counter()
+    for name, items in sorted({(n, tuple(sorted(a.items())))
+                               for n, a in calls} - seen):
+        a = dict(items)
+        if name == 'stem_s8':
+            fn, plain = _stem_call(a, dev, rng)
+        else:
+            fn, plain, *_ = _int8_call(name, a, dev, rng)
+        _must_equal(f"knobs [{tag}] {name} "
+                    f"[{' '.join(f'{k}={v}' for k, v in items)}]",
+                    fn(), plain())
+        del fn, plain
+        seen.add((name, items))
+        row = name + ('' if a['acc'] == 'bf16' else '_f32acc')
+        done[row, a.get('epilogue', 'q8_relu'), a.get('res', '-')] += 1
+    return done
+
+
+def _aligned_route(name, a) -> str:
+    """The route a served call must take, from its shapes alone: TMA
+    where K (C for a conv) and N are multiples of 16, else the mma.sync
+    one."""
+    if name == 'stem_s8':
+        return 'tma'
+    k = a['k'] if name == 'gemm_s8' else a['c']
+    return 'tma' if k % 16 == 0 and a['n'] % 16 == 0 else 'ragged'
+
+
+def serve_knob(engine, tag, images, dev, rng, seen, drop_sc=False,
+               bias_correct=False, iters=SERVE_ITERS) -> dict:
+    """One configuration of phase 8d: quantize the engine's float model,
+    calibrate on KNOB_CALIB images and smooth(0.5) (and bias_correct
+    under `bias_correct`); `drop_sc` removes the shortcut requant sites
+    from the scales, as an artifact calibrated before they existed. Then
+    one served batch through predict_molded: finite heads of their
+    shapes, every call on the route its shapes give it, the calls not
+    seen before on fresh operands and KNOB_PLAIN images served whole
+    equal to the plain version, within the random-init gate of the float
+    twin; on the card the batch's median time."""
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = engine.config
+    qm = engine.quantize()
+    xc = engine._host_s2d_maybe(images[:KNOB_CALIB])
+    qm.calibrate(xc)
+    qm.smooth(0.5)
+    if drop_sc:
+        qm.act_scales = {k: v for k, v in qm.act_scales.items()
+                         if not k.endswith(('branch1/out', 'sc/out'))}
+    if bias_correct:
+        deltas = qm.bias_correct(xc, passes=1)
+        if not all(np.isfinite(v).all() for v in qm.bias_delta.values()):
+            raise RuntimeError(f"knobs [{tag}]: non-finite bias deltas")
+        log(f"knobs [{tag}] bias_correct(passes=1): {len(deltas)} sites, "
+            f"largest |delta| {max(deltas.values()):.4f}")
+    int8_cuda.reset_counts()
+    int8_cuda.calls = []
+    out = engine.predict_molded(images)
+    sync()
+    launches, calls = dict(int8_cuda.launches), int8_cuda.calls
+    joins = dict(int8_cuda.join_launches)
+    int8_cuda.calls = None
+    b = len(images)
+    for k, v in out.items():
+        if v.shape[0] != b or not torch.isfinite(v).all():
+            raise RuntimeError(f"knobs [{tag}] {k}: {tuple(v.shape)}, finite "
+                               f"{bool(torch.isfinite(v).all())}")
+    # the kernels count and record their launches (on the CPU the
+    # wrappers run the plain versions, uncounted)
+    routes = Counter((n, a['route']) for n, a in calls)
+    wrong = [(n, a) for n, a in calls if a['route'] != _aligned_route(n, a)
+             and not (n == 'conv_s8' and a['c'] == 3)]
+    if wrong:
+        raise RuntimeError(f"knobs [{tag}]: calls off their route {wrong[:3]}")
+    modes = {a['acc'] for _, a in calls}
+    if cuda and modes != {'bf16' if cfg.F16 else 'f32'}:
+        raise RuntimeError(f"knobs [{tag}]: launches in modes {modes}")
+    checked = check_new_calls(tag, calls, dev, rng, seen)
+    x = engine.served_batch(images[:KNOB_PLAIN])
+    got, plain = qm(x), qm(x, plain=True)
+    sync()
+    for k in got:
+        if not torch.equal(got[k], plain[k]):
+            diff = int((got[k] != plain[k]).sum())
+            raise RuntimeError(f"knobs [{tag}] {k}: {diff} values differ "
+                               "from the plain version")
+    flt = qm.float_twin(xc)
+    rels = {k: rel(out[k][:KNOB_CALIB], flt[k]) for k in flt}
+    if max(rels.values()) >= quant.RANDOM_INIT_GATE_REL:
+        raise RuntimeError(f"knobs [{tag}]: int8 vs float twin {rels} over "
+                           "the random-init gate")
+    res = {'launches': launches, 'joins': joins, 'routes': routes,
+           'checked': checked, 'calls': calls, 'rels': rels}
+    if cuda:
+        res['ms'] = time_serving(engine, images, dev, iters,
+                                 host=False)['median_ms']
+    log(f"knobs [{tag}] launches {launches}, joins "
+        f"{ {'/'.join(k): v for k, v in joins.items()} }, routes "
+        + ", ".join(f"{n} {r} x{c}" for (n, r), c in sorted(routes.items()))
+        + f"; {sum(checked.values())} new distinct calls and "
+        f"{len(got['loc'])} images served whole equal to the plain version; "
+        f"vs float twin "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rels.items())
+        + (f"; median {res['ms']:.3f} ms a batch of {b}" if cuda else ""))
+    return res
+
+
+def prune_weights(model, root, mult) -> str:
+    """`model`'s weights through `python -m ursonet_torch.prune_inner`
+    at `mult`; returns the pruned weights file."""
+    src = os.path.join(root, 'flagship_weights.msgpack')
+    if not os.path.exists(src):
+        store.save_weights_file(src, model.state_dict())
+    dst = os.path.join(root, f'pruned_{mult}.msgpack')
+    run = subprocess.run([sys.executable, '-m', 'ursonet_torch.prune_inner',
+                          src, dst, '--mult', str(mult)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise RuntimeError(f"prune_inner --mult {mult}: {run.stderr}")
+    for line in run.stdout.strip().splitlines():
+        log(f"knobs [prune {mult}] {line}")
+    return dst
+
+
+def run_knobs(root, device, seed: int = 0, card: str = '',
+              batch: int = 128, cfg_fn=knob_serving_config,
+              cfg2_fn=config2, train_cfg_fn=flagship_config,
+              iters: int = SERVE_ITERS) -> dict:
+    """Phase 8d. The flagship served under each knob of KNOB_CASES at
+    `batch` (`cfg_fn(batch, variant, f16, **knobs)`), its default F16
+    `base` and `host_s2d` batches beside them, on one seeded float
+    model; config 2 (`cfg2_fn`, batch 1) under QUANT_S8_JOIN and the
+    head knobs; the flagship pruned by `python -m
+    ursonet_torch.prune_inner` to each of PRUNE_MULTS and served (at 0.6
+    the 40- and 152-wide convs take the mma.sync route); two F16 train
+    steps of the flagship recipe (`train_cfg_fn(True)`) at
+    INNER_WIDTH_MULT=0.5 from the pruned weights, through warp_mold.
+    Returns the launches by kernel row, the joins, the batch times."""
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    rng = np.random.RandomState(seed)
+    seen: set = set()
+    out = {'rows': Counter(), 'joins': Counter(), 'checked': Counter(),
+           'ms': {}, 'fused_err': 0.0}
+
+    def add(tag, res, f16=True):
+        sfx = '' if f16 else '_f32acc'
+        for k in ('gemm_s8', 'conv_s8', 'stem_s8'):
+            out['rows'][k + sfx] += res['launches'][k]
+        out['rows'][C2_REQUANT + sfx] += sum(
+            1 for n, a in res['calls']
+            if n == 'gemm_s8' and a['epilogue'] == 'q8_relu')
+        for (k, ep, r), n in res['joins'].items():
+            out['joins'][k + sfx, ep, r] += n
+        out['checked'].update(res['checked'])
+        if 'ms' in res:
+            out['ms'][tag] = res['ms']
+
+    cfg0 = cfg_fn(batch)
+    h, w = int(cfg0.IMAGE_SHAPE[0]), int(cfg0.IMAGE_SHAPE[1])
+    images = rng.randint(0, 256, (batch, h, w, 3), np.uint8)
+    model = ServingEngine(cfg0, dev, generator=torch.Generator()
+                          .manual_seed(seed)).model
+    for variant in ('base', 'host_s2d'):
+        engine = ServingEngine(cfg_fn(batch, variant), dev, model=model)
+        add(f'default {variant}', serve_knob(engine, f'default {variant}',
+                                              images, dev, rng, seen,
+                                              iters=iters))
+    for tag, variant, f16, knobs, drop_sc, bc in KNOB_CASES:
+        engine = ServingEngine(cfg_fn(batch, variant, f16, **knobs), dev,
+                               model=model)
+        add(tag, serve_knob(engine, tag, images, dev, rng, seen, drop_sc,
+                            bc, iters), f16)
+        del engine
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # config 2 (ResNet-18, batch 1): the basic blocks' joins on conv_s8
+    for tag, knob in (('config2 s8_join', 'QUANT_S8_JOIN'),
+                      ('config2 float_reg_head', 'QUANT_FLOAT_REG_HEAD'),
+                      ('config2 float_cls_final', 'QUANT_FLOAT_CLS_FINAL')):
+        cfg2 = cfg2_fn()
+        setattr(cfg2, knob, True)
+        cfg2.update()
+        x2 = rng.randint(0, 256, (max(KNOB_CALIB, cfg2.BATCH_SIZE),
+                                  int(cfg2.IMAGE_SHAPE[0]),
+                                  int(cfg2.IMAGE_SHAPE[1]), 3), np.uint8)
+        engine = ServingEngine(cfg2, dev, generator=torch.Generator()
+                               .manual_seed(seed))
+        res = serve_knob(engine, tag, x2[:cfg2.BATCH_SIZE], dev, rng, seen,
+                         iters=iters)
+        add(tag, res, cfg2.F16)
+        if cuda and knob == 'QUANT_S8_JOIN' and not any(
+                k[:2] == ('conv_s8', 'join_s8') for k in res['joins']):
+            raise RuntimeError(f"knobs [{tag}]: conv_s8 ran no join_s8: "
+                               f"{res['joins']}")
+
+    # the pruned flagship, served and fine-tuned
+    pruned = {}
+    for mult in PRUNE_MULTS:
+        pruned[mult] = prune_weights(model, root, mult)
+        cfg = cfg_fn(batch, inner_mult=mult)
+        pmodel = build_model(cfg, dev)
+        pmodel.load_state_dict(
+            {k: v.to(dev) for k, v in
+             store.load_weights_file(pruned[mult]).items()})
+        engine = ServingEngine(cfg, dev, model=pmodel)
+        res = serve_knob(engine, f'pruned {mult}', images, dev, rng, seen,
+                         iters=iters)
+        add(f'pruned {mult}', res)
+        # the mma.sync route, but for the C = 3 stem conv of `base`
+        ragged = sum(1 for n, a in res['calls'] if a['route'] == 'ragged'
+                     and not (n == 'conv_s8' and a['c'] == 3))
+        if cuda and (ragged > 0) != (mult == 0.6):
+            raise RuntimeError(f"knobs [pruned {mult}]: {ragged} ragged "
+                               "launches")
+        del engine, pmodel
+        if cuda:
+            torch.cuda.empty_cache()
+    cfg_t = train_cfg_fn(True)
+    cfg_t.INNER_WIDTH_MULT = 0.5
+    cfg_t.update()
+    tmodel = build_model(cfg_t, dev)
+    tmodel.load_state_dict({k: v.to(dev) for k, v in
+                            store.load_weights_file(pruned[0.5]).items()})
+    warp_cuda.reset_counts()
+    with _FusedWarps() as fused:
+        res = run_main_path(cfg_t, dev, seed, KNOB_TRAIN_STEPS, model=tmodel)
+    losses = [m['loss'] for m in res['train']] + [res['val']['loss']]
+    out['warp_mold'] = warp_cuda.launches['warp_mold']
+    if not np.isfinite(losses).all() or (cuda and out['warp_mold'] < 1):
+        raise RuntimeError(f"knobs [pruned 0.5 train]: losses {losses}, "
+                           f"warp_mold x{out['warp_mold']}")
+    if cuda:
+        out['fused_err'] = check_fused_call('knobs [pruned 0.5 train]',
+                                            fused.first)
+    log(f"knobs [pruned 0.5 train] F16 batch {cfg_t.BATCH_SIZE}: losses "
+        + " ".join(f"{v:.6f}" for v in losses[:-1])
+        + f", validation {losses[-1]:.6f}; warp_mold x{out['warp_mold']}")
+    del res, tmodel, fused
+    if cuda:
+        torch.cuda.empty_cache()
+        base = out['ms']['default base']
+        for tag, ms in out['ms'].items():
+            if not tag.startswith('config2'):   # batch 1, another model
+                log(f"knobs [{tag}] served batch median {ms:.3f} ms vs the "
+                    f"default F16 base {base:.3f} ms ({ms / base - 1:+.1%}) "
+                    f"in this run {card}")
+    log(f"knobs: joins launched by (kernel, epilogue, residual) "
+        f"{ {'/'.join(k): v for k, v in sorted(out['joins'].items())} }; "
+        f"calls checked on fresh operands "
+        f"{ {'/'.join(k): v for k, v in sorted(out['checked'].items())} }")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -3615,14 +4010,21 @@ def main(argv=None) -> int:
         tb = run_trainbn(root, dev, args.seed, card=card,
                          ref_ms={'f32': train_ms, 'f16': f16_ms})
         fused_err = max(fused_err, tb['fused_err'])
+        torch.cuda.empty_cache()
+        log(f"trainbn phase: {time.perf_counter() - t8:.1f} s; TRAIN_BN=None "
+            f"step f32 {tb['f32']['ms']:.3f} ms (frozen {train_ms:.3f}), F16 "
+            f"{tb['f16']['ms']:.3f} ms (frozen {f16_ms:.3f}); peaks "
+            f"{tb['f32']['peak']} / {tb['f16']['peak']} bytes; "
+            f"--host_augment: generator {tb['host_loader_ips']:.2f} "
+            f"images/s, step {tb['host_step_ips']:.2f} images/s, epoch "
+            f"{tb['host_epoch_ips']:.2f} imgs/s {card}")
+
+        # 8d. the serving knobs bench.py reads, and the pruned flagship
+        t8 = time.perf_counter()
+        kn = run_knobs(root, dev, args.seed, card=card)
+        fused_err = max(fused_err, kn['fused_err'])
     torch.cuda.empty_cache()
-    log(f"trainbn phase: {time.perf_counter() - t8:.1f} s; TRAIN_BN=None "
-        f"step f32 {tb['f32']['ms']:.3f} ms (frozen {train_ms:.3f}), F16 "
-        f"{tb['f16']['ms']:.3f} ms (frozen {f16_ms:.3f}); peaks "
-        f"{tb['f32']['peak']} / {tb['f16']['peak']} bytes; --host_augment: "
-        f"generator {tb['host_loader_ips']:.2f} images/s, step "
-        f"{tb['host_step_ips']:.2f} images/s, epoch "
-        f"{tb['host_epoch_ips']:.2f} imgs/s {card}")
+    log(f"knobs phase: {time.perf_counter() - t8:.1f} s {card}")
 
     # 9. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
@@ -3881,7 +4283,8 @@ def main(argv=None) -> int:
                                      speed['max_abs_err'])
         # benchmark config 2's launches (phase 8b) and the TRAIN_BN
         # paths' (phase 8c)
-        for path, got in (('config2', c2['rows']), ('trainbn', tb['rows'])):
+        for path, got in (('config2', c2['rows']), ('trainbn', tb['rows']),
+                          ('knobs', kn['rows'])):
             n = got.get(row['name'], 0)
             if n:
                 row.setdefault('launches_by_path',
@@ -3891,6 +4294,20 @@ def main(argv=None) -> int:
     kernels[0]['launches_fused_by_path']['cli'] = cli['rows']['warp_mold']
     kernels[0]['launches_fused_by_path']['config2'] = c2['rows']['warp_mold']
     kernels[0]['launches_fused_by_path']['trainbn'] = tb['rows']['warp_mold']
+    kernels[0]['launches_fused_by_path']['knobs'] = kn['warp_mold']
+    # phase 8d's joins by mode and residual type, and its checks of them
+    # (every distinct call on fresh operands: any difference raised)
+    new_modes = int8_cuda.JOINS + ('f32_sum',)
+    for row in kernels:
+        joins = {f"{ep}/{res}": n for (k, ep, res), n in kn['joins'].items()
+                 if k == row['name']}
+        if joins:
+            row['launches_by_join'] = {'knobs': joins}
+        checked = {f"{ep}/{res}": 0.0
+                   for (k, ep, res), n in kn['checked'].items()
+                   if k == row['name'] and ep in new_modes}
+        if checked:
+            row['max_abs_err_by_mode'] = checked
     # train --host_augment warps on the host: checked to launch none
     kernels[0]['launches_fused_by_path']['host_augment'] = 0
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "

@@ -33,11 +33,10 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Knobs of the JAX package's Config the port's does not carry: the mesh
-# (one card), the Pallas warp switch, int8 training activations,
-# inner-width pruning and the decoupled-orientation switch (ROADMAP.md §1
-# items 7, 9, 11).
-JAX_ONLY = {'DECOUPLE_ORIENTATION', 'INNER_WIDTH_MULT', 'MESH_DATA',
-            'MESH_MODEL', 'PALLAS_WARP', 'TRAIN_ACT_Q8'}
+# (one card), the Pallas warp switch, int8 training activations and the
+# decoupled-orientation switch (ROADMAP.md §1 items 9, 11).
+JAX_ONLY = {'DECOUPLE_ORIENTATION', 'MESH_DATA', 'MESH_MODEL', 'PALLAS_WARP',
+            'TRAIN_ACT_Q8'}
 
 FLAGSHIP = ['--bottleneck', '128', '--ori_resolution', '24',
             '--classify_ori', '--regress_loc', '--rot_aug',

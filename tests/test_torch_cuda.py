@@ -392,6 +392,101 @@ def test_int8_kernels_above_2_24_match_plain(cuda_device, kind, acc):
                 assert torch.equal(got, want), (name, ep, route)
 
 
+# The joins' residuals: an int8 shortcut, and the float shortcut of an
+# artifact without the shortcut requant sites ('float': the 'f32'
+# epilogue's f32, or bf16 in the bf16 mode, for `join`; join_s8 takes
+# 'f32_sum', f32 in both modes).
+JOIN_RES = [('join', 's8'), ('join', 'float'), ('join_s8', 's8'),
+            ('join_s8', 'f32')]
+PADS = ((1, 1), (1, 1))
+
+
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
+@pytest.mark.parametrize('epilogue,res', JOIN_RES)
+@pytest.mark.parametrize('kind,shape', [
+    # the pruned flagship's 2c joins: K = 40 and 152 (ragged), 304 (TMA)
+    ('gemm', (1500, 40, 256)), ('gemm', (700, 152, 1024)),
+    ('gemm', (2085, 304, 2048)),
+    # C2's 2c join; resident weights beside which the f32 residual's
+    # slots leave room for fewer stages
+    ('gemm', (40960 + 37, 64, 256)), ('gemm', (5000, 128, 512)),
+    # basic-block conv2 joins: C = N = 40 (ragged), a tile's worth of
+    # rows past a batch boundary, C2 of ResNet-18
+    ('conv', (2, 9, 11, 40, 3, 3, 40, 1, PADS)),
+    ('conv', (3, 7, 5, 32, 3, 3, 80, 1, PADS)),
+    ('conv', (4, 16, 20, 64, 3, 3, 64, 1, PADS))])
+def test_joins_match_plain(cuda_device, kind, shape, epilogue, res, acc):
+    """join and join_s8 over int8 and float residuals, in both
+    accumulation modes, on the route the wrapper picks and on the
+    mma.sync one: bit-exact, counted by residual type."""
+    rng = np.random.RandomState(sum(shape[:7]))
+    rname = ('bf16' if acc == torch.bfloat16 else 'f32') \
+        if res == 'float' else res
+    if kind == 'gemm':
+        m, k, n = shape
+        a = chip_smoke.s8(rng, (m, k), cuda_device)
+        w = ic.kernel_layout(rng.randint(-128, 128, (k, n))
+                             .astype(np.int8)).to(cuda_device)
+        kw = chip_smoke.epilogue_args(cuda_device, rng, (m, n), k, epilogue,
+                                      rname)
+        picked = ic.gemm_route(m, k, n, epilogue, acc_dtype=acc)
+        assert picked == ('tma' if k % 16 == 0 else 'ragged')
+
+        def launch(route):
+            return ic.gemm_s8(a, w, epilogue, route=route, acc_dtype=acc,
+                              **kw)
+        want = ic.gemm_s8_torch(a, w, epilogue, acc_dtype=acc, **kw)
+        rb = kw['res'].element_size() if rname != 's8' else 0
+        plan = ic.hopper_plan(m, k, n, epilogue, ic._sms(cuda_device),
+                              acc_dtype=acc, res_bytes=rb)
+        if (m, k, n) == (5000, 128, 512) and rb:
+            s8_plan = ic.hopper_plan(m, k, n, epilogue, ic._sms(cuda_device),
+                                     acc_dtype=acc)
+            assert plan['resident'] and s8_plan['resident']
+            assert (plan['stages'], plan['bufs']) \
+                < (s8_plan['stages'], s8_plan['bufs'])
+    else:
+        b, h, wd, c, kh, kw_, n, stride, pads = shape
+        x = chip_smoke.s8(rng, (b, h, wd, c), cuda_device)
+        w = ic.kernel_layout(rng.randint(-128, 128, (kh, kw_, c, n))
+                             .astype(np.int8)).to(cuda_device)
+        oh, ow = ic.conv_out_hw(h, wd, kh, kw_, stride, pads)
+        kw = chip_smoke.epilogue_args(cuda_device, rng, (b, oh, ow, n),
+                                      kh * kw_ * c, epilogue, rname)
+        picked = ic.conv_route(c, n)
+        assert picked == ('tma' if c % 16 == 0 and n % 16 == 0
+                          else 'ragged')
+
+        def launch(route):
+            return ic.conv_s8(x, w, stride, pads, epilogue, route=route,
+                              acc_dtype=acc, **kw)
+        want = ic.conv_s8_torch(x, w, stride, pads, epilogue, acc_dtype=acc,
+                                **kw)
+    name = 'gemm_s8' if kind == 'gemm' else 'conv_s8'
+    for route in _routes(picked):
+        ic.reset_counts()
+        got = launch(route)
+        torch.cuda.synchronize()
+        assert ic.join_launches == {(name, epilogue, rname): 1}
+        assert got.dtype == torch.int8 and got.shape == want.shape
+        assert torch.equal(got, want), route
+
+
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shape', [(1317, 64, 256), (700, 40, 136)])
+def test_f32_sum_matches_plain(cuda_device, shape, acc):
+    """f32_sum (the float shortcut join_s8 takes) on both routes: the
+    bf16 mode's sum before its last rounding, as f32, bit-exact."""
+    m, k, n = shape
+    a, b, kw = _gemm_operands(cuda_device, m, k, n, 'f32_sum')
+    want = ic.gemm_s8_torch(a, b, 'f32_sum', acc_dtype=acc, **kw)
+    assert want.dtype == torch.float32
+    for route in _routes(ic.gemm_route(m, k, n, 'f32_sum', acc_dtype=acc)):
+        got = ic.gemm_s8(a, b, 'f32_sum', route=route, acc_dtype=acc, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), route
+
+
 def _gemm_operands(dev, m, k, n, epilogue, seed=0):
     rng = np.random.RandomState(seed)
     a = chip_smoke.s8(rng, (m, k), dev)
@@ -555,6 +650,54 @@ def test_small_int8_serve_bias_corrected_on_the_card(cuda_device, f16):
     assert set(report) == set(qm.flat) - tq.float_sites(qm._mcfg)
     assert all(np.isfinite(v).all() for v in qm.bias_delta.values())
     out = eng.predict_molded(imgs)
+    plain = qm(imgs, plain=True)
+    flt = qm.float_twin(imgs)
+    for k in out:
+        torch.testing.assert_close(out[k], plain[k], rtol=0, atol=0)
+        assert chip_smoke.rel(out[k], flt[k]) < tq.RANDOM_INIT_GATE_REL
+
+
+def _knob_serving_config(**knobs):
+    """chip_smoke.small_serving_config() under serving knobs."""
+    cfg = chip_smoke.small_serving_config()
+    for k, v in knobs.items():
+        setattr(cfg, k, v)
+    cfg.update()
+    return cfg
+
+
+@pytest.mark.parametrize('knobs', [
+    dict(INNER_WIDTH_MULT=0.6), dict(INNER_WIDTH_MULT=0.6, F16=False),
+    dict(QUANT_FLOAT_CLS_FINAL=True), dict(QUANT_FLOAT_REG_HEAD=True),
+    dict(QUANT_S8_JOIN=True), dict(QUANT_BF16_STEM=True),
+    dict(QUANT_S8_JOIN=True, QUANT_BF16_STEM=True, F16=False)],
+    ids=lambda k: ','.join(f'{n}={v}' for n, v in k.items()))
+def test_small_serve_under_the_knobs_equals_plain(cuda_device, knobs):
+    """The small flagship served on the card under a serving knob: the
+    pruned width at 0.6 (its 40- and 152-wide products on the mma.sync
+    route, the rest on TMA), the float head knobs, the integer joins,
+    the bf16 stem: the served heads equal the plain path's bit for bit,
+    within the random-init gate of the float twin."""
+    from ursonet_torch.engine import ServingEngine
+    from ursonet_torch.models import quant as tq
+    cfg = _knob_serving_config(**knobs)
+    eng = ServingEngine(cfg, cuda_device,
+                        generator=torch.Generator().manual_seed(2))
+    rng = np.random.RandomState(2)
+    imgs = rng.randint(0, 256, (cfg.BATCH_SIZE, 64, 64, 3)).astype(np.uint8)
+    qm = eng.quantize(list(imgs))
+    qm.smooth(0.5)
+    ic.reset_counts()
+    ic.calls = []
+    out = eng.predict_molded(imgs)
+    torch.cuda.synchronize()
+    calls, ic.calls = ic.calls, None
+    routes = {a['route'] for n, a in calls
+              if not (n == 'conv_s8' and a['c'] == 3)}
+    assert routes == ({'tma', 'ragged'} if 'INNER_WIDTH_MULT' in knobs
+                      else {'tma'})
+    if cfg.QUANT_S8_JOIN:
+        assert {k[1] for k in ic.join_launches} == {'join_s8'}
     plain = qm(imgs, plain=True)
     flt = qm.float_twin(imgs)
     for k in out:

@@ -246,17 +246,22 @@ def test_plan_of_each_served_gemm(shape, want):
 
 
 def test_every_depth_of_the_tables_is_one_some_plan_takes():
-    """_DEPTHS and _DEPTHS_JOIN hold no entry that no shape can reach."""
-    taken = {'join': set(), 'other': set()}
+    """_DEPTHS, _DEPTHS_JOIN and _DEPTHS_JOIN_FLOAT (the joins over a
+    bf16 or f32 residual) hold no entry that no shape can reach."""
+    taken = {'join': set(), 'other': set(), 'float': set()}
     for ep in EPILOGUES:
         for m in (128, 5000):
-            for k in (64, 256, 1024, 4096, 16384):
+            for k in (64, 128, 256, 1024, 4096, 16384):
                 for n in (64, 128, 256, 512, 2048):
                     plan = ic.hopper_plan(m, k, n, ep)
-                    taken['join' if ep == 'join' else 'other'].add(
+                    taken['join' if ep in ic.JOINS else 'other'].add(
                         (plan['stages'], plan['bufs']))
+                    for rb in (2, 4) if ep in ic.JOINS else ():
+                        plan = ic.hopper_plan(m, k, n, ep, res_bytes=rb)
+                        taken['float'].add((plan['stages'], plan['bufs']))
     assert taken['join'] == set(ic._DEPTHS_JOIN)
     assert taken['other'] == set(ic._DEPTHS)
+    assert taken['float'] == set(ic._DEPTHS_JOIN_FLOAT)
 
 
 # --------------------------------------------------------------------------

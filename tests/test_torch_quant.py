@@ -209,10 +209,12 @@ def test_requires_calibration_and_refuses_unported(jax_qm):
         qm.bias_correct(_images(0))
     with pytest.raises(NotImplementedError):
         qm.shard_over(None)
-    for knob in ('QUANT_S8_JOIN', 'QUANT_BF16_STEM'):
+    # the serving knobs are served (tests/test_torch_serving_knobs.py)
+    for knob, key in (('QUANT_S8_JOIN', 's8_join'),
+                      ('QUANT_BF16_STEM', 'bf16_stem')):
         _, cfg = small_configs(**{knob: True})
-        with pytest.raises(NotImplementedError, match=knob):
-            tq.QuantizedModel(cfg, jax_qm['flat0'], device='cpu')
+        assert tq.QuantizedModel(cfg, jax_qm['flat0'],
+                                 device='cpu')._mcfg[key]
     # F16 is served: the bf16 epilogues (tests/test_torch_f16.py)
     assert qm.acc_dtype == torch.float32
     _, cfg = small_configs(F16=True)

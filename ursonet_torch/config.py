@@ -37,6 +37,13 @@ class Config:
     NR_DENSE_LAYERS = 1
     # the stem as its exact space-to-depth rewrite (4×4/1 over 12 channels)
     STEM_SPACE_TO_DEPTH = False
+    # The reduced-FLOP variant of the bottleneck backbones (ResNet-50/101):
+    # every block's inner widths (f1, f2) scaled by this factor, rounded
+    # to a multiple of 8 (models/resnet.py::scale_inner). Stream widths and
+    # layer names stay, so a flagship checkpoint prunes into it by channel
+    # selection (`python -m ursonet_torch.prune_inner`). ResNet-18/34 take
+    # 1.0 only.
+    INNER_WIDTH_MULT = 1.0
 
     # --- input resizing ---------------------------------------------------------
     IMAGE_RESIZE_MODE = "pad64"     # none | square | pad64 | crop
@@ -117,9 +124,13 @@ class Config:
     # (needs even H and W); QUANT_HOST_S2D also ships served and
     # calibration batches already packed ([B,H/2,W/2,12], a numpy
     # reindex on the host). Under either a uint8 batch runs the fused
-    # stem kernel (ops/int8_cuda.py::stem_s8). QUANT_FLOAT_* are read,
-    # checked against artifacts and served; QUANT_BF16_STEM and
-    # QUANT_S8_JOIN raise NotImplementedError.
+    # stem kernel (ops/int8_cuda.py::stem_s8). QUANT_BF16_STEM molds the
+    # pixels into bf16 and runs the stem conv in float over them (neither
+    # the fused stem nor the input quantize runs); QUANT_S8_JOIN rounds
+    # both operands of each residual join onto the output grid and joins
+    # them as integers (gemm_s8 / conv_s8's join_s8 epilogue);
+    # QUANT_FLOAT_* run the classification finals or the metric heads in
+    # float. All are recorded in and checked against the int8 artifact.
     INT8_U8_INPUT = True
     QUANT_STEM_S2D = False
     QUANT_HOST_S2D = False

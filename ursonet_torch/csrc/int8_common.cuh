@@ -21,6 +21,15 @@
 //   q8        clip(rint(y * inv_s_out), -127, 127)
 //   join      clip(rint(max(y + f32(res) * res_scale, 0) * inv_s_out), 0, 127)
 //             (the residual product and the sum each rounded)
+//   join_s8   clip(rint(y * inv_s_out) + rint(f32(res) * res_scale), 0, 127)
+//             (the JAX package's QUANT_S8_JOIN: both operands rounded onto
+//             the output grid, the sum of two integers exact)
+//   f32_sum   y, as f32 (the same as f32 in this mode)
+// The joins' residual `res` is int8, f32 or bf16 (`res_type`): a
+// requantized shortcut, or the float output of an unrequantized one (an
+// artifact calibrated before the shortcut requant sites existed), which
+// `join` adds with res_scale 1 and join_s8 rounds with res_scale
+// 1 / s_out.
 // This is the arithmetic XLA compiles the JAX package's Int8Ops into
 // (measured on the CPU against the whole model): it contracts
 // acc * alpha + beta into an FMA but adds the dequantized residual
@@ -43,6 +52,11 @@
 //                  is only widened again)
 //   join           z = bf(y + bf(f32(res) * bf(res_scale))),
 //                  clip(rint(max(z, 0) * inv_s_out), 0, 127)
+//   join_s8        clip(rint(s * inv_s_out) + rint(f32(res) * res_scale),
+//                  0, 127): s unrounded as in q8, res_scale not rounded
+//                  (JAX multiplies the f32 residual by a Python float)
+//   f32_sum        s, as f32: the shortcut that join_s8 takes as a float
+//                  residual, whose bf16 rounding XLA drops as in q8
 // Products of two bf16 values are exact in f32, so each bf() is the one
 // rounding XLA makes there. No native bf16 arithmetic is used: a bf16
 // add or FMA rounds once where XLA rounds twice.
@@ -60,18 +74,39 @@ constexpr int BK = 64;
 constexpr int LDS = BK + 16;  // shared-memory row stride in bytes
 
 enum Mode { kS32 = 0, kF32 = 1, kF32Relu = 2, kQ8Relu = 3, kQ8 = 4,
-            kJoin = 5, kModes = 6 };
+            kJoin = 5, kJoinS8 = 6, kF32Sum = 7, kModes = 8 };
+
+// The element type of a join's residual.
+enum ResType { kResS8 = 0, kResF32 = 1, kResBf16 = 2, kResTypes = 3 };
+
+__host__ __device__ constexpr bool is_join(int mode) {
+  return mode == kJoin || mode == kJoinS8;
+}
+
+__host__ __device__ constexpr int res_type_bytes(int res_type) {
+  return res_type == kResF32 ? 4 : res_type == kResBf16 ? 2 : 1;
+}
 
 struct Epilogue {
   int mode;
   const float* alpha;   // [N]
   const float* beta;    // [N]
   float inv_s_out;
-  const int8_t* res;    // [M, N], join only
+  const void* res;      // [M, N] of res_type, the joins only
+  int res_type;
   float res_scale;
   void* out;            // [M, N]: int32, float (bf16) or int8 by mode
   int bf16;             // 1: the bf16 accumulation mode
 };
+
+// f32(res[idx]), exact for each residual type.
+__device__ __forceinline__ float load_res(const Epilogue& e, int64_t idx) {
+  if (e.res_type == kResF32)
+    return __ldg(static_cast<const float*>(e.res) + idx);
+  if (e.res_type == kResBf16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(e.res)[idx]);
+  return __int2float_rn(static_cast<const int8_t*>(e.res)[idx]);
+}
 
 template <int BM_, int BN_, int WM_, int WN_>
 struct Tile {
@@ -214,18 +249,29 @@ __device__ __forceinline__ int8_t requant_relu(int acc, float alpha,
   return saturate_s8(rintf(__fmul_rn(fmaxf(y, 0.f), inv_s_out)), 0.f);
 }
 
-// The join epilogue on one accumulator and its residual.
+// The join epilogue on one accumulator and its residual f32(res).
 __device__ __forceinline__ int8_t requant_join(int acc, float alpha,
-                                               float beta, int res,
+                                               float beta, float res,
                                                float res_scale,
                                                float inv_s_out) {
   const float y = __fmaf_rn(__int2float_rn(acc), alpha, beta);
-  const float r = __fmul_rn(__int2float_rn(res), res_scale);
+  const float r = __fmul_rn(res, res_scale);
   const float z = fmaxf(__fadd_rn(y, r), 0.f);
   return saturate_s8(rintf(__fmul_rn(z, inv_s_out)), 0.f);
 }
 
-// The bf16 mode of epilogue_store.
+// join_s8 on the sum s (y in the f32 mode) and the residual f32(res):
+// two integers on the output grid, added exactly, clipped.
+__device__ __forceinline__ int8_t join_s8_of(float s, float res,
+                                             float res_scale,
+                                             float inv_s_out) {
+  return saturate_s8(__fadd_rn(rintf(__fmul_rn(s, inv_s_out)),
+                               rintf(__fmul_rn(res, res_scale))),
+                     0.f);
+}
+
+// The bf16 mode of epilogue_store (the modes but those of epilogue_extra;
+// the join's residual is int8).
 __device__ __forceinline__ void epilogue_store_bf16(const Epilogue& e,
                                                     int64_t idx, int n,
                                                     int acc) {
@@ -243,14 +289,17 @@ __device__ __forceinline__ void epilogue_store_bf16(const Epilogue& e,
     static_cast<int8_t*>(e.out)[idx] =
         saturate_s8(rintf(__fmul_rn(s, e.inv_s_out)), -127.f);
   } else {  // kJoin
-    const float r = bf_round(__fmul_rn(
-        __int2float_rn(static_cast<int>(e.res[idx])), bf_round(e.res_scale)));
+    const int res = static_cast<const int8_t*>(e.res)[idx];
+    const float r =
+        bf_round(__fmul_rn(__int2float_rn(res), bf_round(e.res_scale)));
     const float z = fmaxf(bf_round(__fadd_rn(y, r)), 0.f);
     static_cast<int8_t*>(e.out)[idx] =
         saturate_s8(rintf(__fmul_rn(z, e.inv_s_out)), 0.f);
   }
 }
 
+// The epilogue of one accumulator in the modes that were there before
+// epilogue_extra's; the join's residual is int8.
 __device__ __forceinline__ void epilogue_store(const Epilogue& e,
                                                int64_t idx, int n, int acc) {
   if (e.mode == kS32) {
@@ -274,13 +323,50 @@ __device__ __forceinline__ void epilogue_store(const Epilogue& e,
     static_cast<int8_t*>(e.out)[idx] =
         saturate_s8(rintf(__fmul_rn(y, e.inv_s_out)), -127.f);
   } else {  // kJoin
-    static_cast<int8_t*>(e.out)[idx] =
-        requant_join(acc, __ldg(e.alpha + n), __ldg(e.beta + n),
-                     static_cast<int>(e.res[idx]), e.res_scale, e.inv_s_out);
+    static_cast<int8_t*>(e.out)[idx] = requant_join(
+        acc, __ldg(e.alpha + n), __ldg(e.beta + n),
+        __int2float_rn(static_cast<const int8_t*>(e.res)[idx]), e.res_scale,
+        e.inv_s_out);
   }
 }
 
-template <class T>
+// The modes added beside them, in both accumulation modes: f32_sum,
+// join_s8 (any residual type) and `join` over a float residual. Kernels
+// take them in instantiations of their own (extra_mode), so that the
+// per-element code of the others stays as it was.
+__device__ __forceinline__ void epilogue_extra(const Epilogue& e,
+                                               int64_t idx, int n, int acc) {
+  const float alpha = __ldg(e.alpha + n), beta = __ldg(e.beta + n);
+  float s, y;
+  if (e.bf16) {
+    s = bf16_sum(acc, bf_round(alpha), bf_round(beta));
+    y = bf_round(s);
+  } else {
+    s = y = __fmaf_rn(__int2float_rn(acc), alpha, beta);
+  }
+  if (e.mode == kF32Sum) {
+    static_cast<float*>(e.out)[idx] = s;
+  } else if (e.mode == kJoinS8) {
+    static_cast<int8_t*>(e.out)[idx] =
+        join_s8_of(s, load_res(e, idx), e.res_scale, e.inv_s_out);
+  } else if (e.bf16) {  // kJoin
+    const float r =
+        bf_round(__fmul_rn(load_res(e, idx), bf_round(e.res_scale)));
+    const float z = fmaxf(bf_round(__fadd_rn(y, r)), 0.f);
+    static_cast<int8_t*>(e.out)[idx] =
+        saturate_s8(rintf(__fmul_rn(z, e.inv_s_out)), 0.f);
+  } else {
+    static_cast<int8_t*>(e.out)[idx] = requant_join(
+        acc, alpha, beta, load_res(e, idx), e.res_scale, e.inv_s_out);
+  }
+}
+
+__host__ __device__ constexpr bool extra_mode(int mode, int res_type) {
+  return mode == kJoinS8 || mode == kF32Sum ||
+         (mode == kJoin && res_type != kResS8);
+}
+
+template <class T, bool kExtra>
 __device__ __forceinline__ void store_tile(const Epilogue& e, int M, int N,
                                            int m0, int n0, int wm0, int wn0,
                                            int lane,
@@ -295,8 +381,12 @@ __device__ __forceinline__ void store_tile(const Epilogue& e, int M, int N,
         const int row = m0 + wm0 + i * 16 + g + ((r & 2) ? 8 : 0);
         const int col = n0 + wn0 + j * 8 + t2 + (r & 1);
         if (row < M && col < N) {
-          epilogue_store(e, static_cast<int64_t>(row) * N + col, col,
-                         acc[i][j][r]);
+          const int64_t idx = static_cast<int64_t>(row) * N + col;
+          if (kExtra) {
+            epilogue_extra(e, idx, col, acc[i][j][r]);
+          } else {
+            epilogue_store(e, idx, col, acc[i][j][r]);
+          }
         }
       }
 }
@@ -353,21 +443,24 @@ __device__ __forceinline__ void mainloop(const FetchA& fetch_a,
   }
 }
 
-// Writes the block's tile through the epilogue.
-template <class T>
+// Writes the block's tile through the epilogue (epilogue_extra's modes
+// under kExtra).
+template <class T, bool kExtra>
 __device__ __forceinline__ void finish(const Epilogue& e, int M, int N,
                                        int m0, int n0,
                                        const int (&acc)[T::MT][T::NT][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  store_tile<T>(e, M, N, m0, n0, (warp % T::WARPS_M) * T::WM,
-                (warp / T::WARPS_M) * T::WN, lane, acc);
+  store_tile<T, kExtra>(e, M, N, m0, n0, (warp % T::WARPS_M) * T::WM,
+                        (warp / T::WARPS_M) * T::WN, lane, acc);
 }
 
 inline bool epilogue_ok(const Epilogue& e) {
   if (e.mode < 0 || e.mode >= kModes || e.out == nullptr) return false;
   if (e.mode != kS32 && (e.alpha == nullptr || e.beta == nullptr))
     return false;
-  if (e.mode == kJoin && e.res == nullptr) return false;
+  if (is_join(e.mode) && (e.res == nullptr || e.res_type < 0 ||
+                          e.res_type >= kResTypes))
+    return false;
   return true;
 }
 

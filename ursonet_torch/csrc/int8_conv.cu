@@ -52,7 +52,7 @@ struct Geom {
   int H, W, C, OH, OW, KH, KW, stride, pad_t, pad_l, Ktot;
 };
 
-template <class T>
+template <class T, bool kExtra>
 __global__ void __launch_bounds__(kThreads)
 conv_s8_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
                Geom g, int M, int N, int vec_x, int vec_w, int n_tiles,
@@ -118,7 +118,7 @@ conv_s8_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ Wt,
   };
   int acc[T::MT][T::NT][4];
   mainloop<T>(fetch_a, Wt, N, g.Ktot, n0, vec_w != 0, As, Bs, acc);
-  finish<T>(ep, M, N, m0, n0, acc);
+  finish<T, kExtra>(ep, M, N, m0, n0, acc);
 }
 
 template <class T>
@@ -128,8 +128,15 @@ cudaError_t launch(const int8_t* X, const int8_t* Wt, const Geom& g, int M,
   const long long n_tiles = (N + T::BN - 1) / T::BN;
   const long long blocks = (M + T::BM - 1) / T::BM * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  conv_s8_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      X, Wt, g, M, N, vec_x, vec_w, static_cast<int>(n_tiles), ep);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  // the modes of epilogue_extra in an instantiation of their own
+  if (extra_mode(ep.mode, ep.res_type)) {
+    conv_s8_kernel<T, true><<<nb, kThreads, 0, stream>>>(
+        X, Wt, g, M, N, vec_x, vec_w, static_cast<int>(n_tiles), ep);
+  } else {
+    conv_s8_kernel<T, false><<<nb, kThreads, 0, stream>>>(
+        X, Wt, g, M, N, vec_x, vec_w, static_cast<int>(n_tiles), ep);
+  }
   return cudaGetLastError();
 }
 
@@ -141,14 +148,13 @@ extern "C" int ursonet_conv_s8(const void* X, const void* Wt, int B, int H,
                                int stride, int pad_t, int pad_b, int pad_l,
                                int pad_r, int vec_x, int vec_w, int mode,
                                int bf16, const void* alpha, const void* beta,
-                               float inv_s_out, const void* res,
+                               float inv_s_out, const void* res, int res_type,
                                float res_scale, void* out, int tile,
                                int device, void* stream) {
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out,
-                    bf16 != 0 ? 1 : 0};
+                    res, res_type, res_scale, out, bf16 != 0 ? 1 : 0};
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || N <= 0 || KH <= 0 ||
       KW <= 0 || stride <= 0 || pad_t < 0 || pad_b < 0 || pad_l < 0 ||
       pad_r < 0 || X == nullptr || Wt == nullptr || !epilogue_ok(ep)) {
@@ -184,14 +190,13 @@ extern "C" int ursonet_conv_s8_tma(const void* X, const void* Wt, int B,
                                    int pad_l, int pad_r, int mode, int bf16,
                                    const void* alpha, const void* beta,
                                    float inv_s_out, const void* res,
-                                   float res_scale, void* out, int bn,
-                                   int stages, int bufs, int resident,
+                                   int res_type, float res_scale, void* out,
+                                   int bn, int stages, int bufs, int resident,
                                    int grid, int device, void* stream) {
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out,
-                    bf16 != 0 ? 1 : 0};
+                    res, res_type, res_scale, out, bf16 != 0 ? 1 : 0};
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 != 0 || N <= 0 ||
       KH <= 0 || KW <= 0 || stride <= 0 || pad_t < 0 || pad_b < 0 ||
       pad_l < 0 || pad_r < 0 || X == nullptr || Wt == nullptr ||
@@ -223,6 +228,9 @@ extern "C" int ursonet_conv_s8_tma(const void* X, const void* Wt, int B,
   p.out_bytes = tma::out_bytes_of(mode, p.bf16);
   p.alpha = ep.alpha, p.beta = ep.beta;
   p.inv_s_out = inv_s_out, p.res_scale = res_scale;
+  p.res_type = res_type;
+  p.res_bytes =
+      is_join(mode) && res_type != kResS8 ? res_type_bytes(res_type) : 0;
   p.X = static_cast<const int8_t*>(X);
   p.g = tma::ConvGeom{H, W, C, static_cast<int>(oh), static_cast<int>(ow), KH,
                       KW, stride, pad_t, pad_l};

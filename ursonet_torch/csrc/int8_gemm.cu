@@ -42,7 +42,7 @@
 namespace ursonet_int8 {
 namespace {
 
-template <class T>
+template <class T, bool kExtra>
 __global__ void __launch_bounds__(kThreads)
 gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
                int M, int N, int K, int vec_a, int vec_b, int n_tiles,
@@ -57,7 +57,7 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
   };
   int acc[T::MT][T::NT][4];
   mainloop<T>(fetch_a, Bt, N, K, n0, vec_b != 0, As, Bs, acc);
-  finish<T>(ep, M, N, m0, n0, acc);
+  finish<T, kExtra>(ep, M, N, m0, n0, acc);
 }
 
 template <class T>
@@ -67,8 +67,15 @@ cudaError_t launch(const int8_t* A, const int8_t* Bt, int M, int N, int K,
   const long long n_tiles = (N + T::BN - 1) / T::BN;
   const long long blocks = (M + T::BM - 1) / T::BM * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  gemm_s8_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      A, Bt, M, N, K, vec_a, vec_b, static_cast<int>(n_tiles), ep);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  // the modes of epilogue_extra in an instantiation of their own
+  if (extra_mode(ep.mode, ep.res_type)) {
+    gemm_s8_kernel<T, true><<<nb, kThreads, 0, stream>>>(
+        A, Bt, M, N, K, vec_a, vec_b, static_cast<int>(n_tiles), ep);
+  } else {
+    gemm_s8_kernel<T, false><<<nb, kThreads, 0, stream>>>(
+        A, Bt, M, N, K, vec_a, vec_b, static_cast<int>(n_tiles), ep);
+  }
   return cudaGetLastError();
 }
 
@@ -78,14 +85,13 @@ cudaError_t launch(const int8_t* A, const int8_t* Bt, int M, int N, int K,
 extern "C" int ursonet_gemm_s8(const void* A, const void* Bt, int M, int N,
                                int K, int vec_a, int vec_b, int mode,
                                int bf16, const void* alpha, const void* beta,
-                               float inv_s_out, const void* res,
+                               float inv_s_out, const void* res, int res_type,
                                float res_scale, void* out, int tile,
                                int device, void* stream) {
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out,
-                    bf16 != 0 ? 1 : 0};
+                    res, res_type, res_scale, out, bf16 != 0 ? 1 : 0};
   if (M <= 0 || N <= 0 || K <= 0 || A == nullptr || Bt == nullptr ||
       !epilogue_ok(ep)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -107,17 +113,16 @@ extern "C" int ursonet_gemm_s8(const void* A, const void* Bt, int M, int N,
 extern "C" int ursonet_gemm_s8_tma(const void* A, const void* Bt, int M,
                                    int N, int K, int mode, int bf16,
                                    const void* alpha, const void* beta,
-                                   float inv_s_out,
-                                   const void* res, float res_scale,
-                                   void* out, int bn, int stages, int bufs,
+                                   float inv_s_out, const void* res,
+                                   int res_type, float res_scale, void* out,
+                                   int bn, int stages, int bufs,
                                    int resident, int splits, void* partial,
                                    void* counters, int grid, int device,
                                    void* stream) {
   using namespace ursonet_int8;
   const Epilogue ep{mode, static_cast<const float*>(alpha),
                     static_cast<const float*>(beta), inv_s_out,
-                    static_cast<const int8_t*>(res), res_scale, out,
-                    bf16 != 0 ? 1 : 0};
+                    res, res_type, res_scale, out, bf16 != 0 ? 1 : 0};
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || A == nullptr ||
       Bt == nullptr || !epilogue_ok(ep) || bn <= 0 ||
       (splits > 1 && (partial == nullptr || counters == nullptr))) {
@@ -139,6 +144,9 @@ extern "C" int ursonet_gemm_s8_tma(const void* A, const void* Bt, int M,
   p.out_bytes = tma::out_bytes_of(mode, p.bf16);
   p.alpha = ep.alpha, p.beta = ep.beta;
   p.inv_s_out = inv_s_out, p.res_scale = res_scale;
+  p.res_type = res_type;
+  p.res_bytes =
+      is_join(mode) && res_type != kResS8 ? res_type_bytes(res_type) : 0;
   p.partial = static_cast<int32_t*>(partial);
   p.counters = static_cast<int*>(counters);
   err = tma::launch_bn<false>(bn, static_cast<const int8_t*>(A),

@@ -30,10 +30,12 @@
 // 128-byte lines whatever the output type, clipped to M and N by the
 // hardware. alpha and beta of the tile's columns are staged in shared
 // memory once per n-tile. `bufs` output buffers rotate, so a tile's
-// store overlaps the next tile's products. In `join` mode the producer
-// TMA-loads the residual tile into the same buffer beforehand
-// (res_full / res_empty mbarriers) and the epilogue transforms it in
-// place.
+// store overlaps the next tile's products. In the join modes (`join`,
+// `join_s8`) the producer TMA-loads the residual tile beforehand
+// (res_full / res_empty mbarriers): an int8 one into the output buffer,
+// which the epilogue transforms in place, a float one (f32 or bf16) into
+// a slot of its own beside each buffer, in boxes of [64 rows][128 B]
+// like the output's, which the epilogue reads.
 //
 // Split K (`splits` > 1, for outputs of few rows): each item multiplies
 // ksteps / splits stages and writes its s32 partial sums to `partial`;
@@ -66,6 +68,8 @@ struct Params {
   int ksteps, splits;   // stages of K in all; splits divides ksteps
   int stages, bufs, resident;
   int mode, bf16, out_bytes;  // bf16: the accumulation mode
+  int res_type;         // the joins: ResType of the residual
+  int res_bytes;        // bytes of a float residual's element, else 0
   const float* alpha;
   const float* beta;
   float inv_s_out, res_scale;
@@ -76,9 +80,9 @@ struct Params {
 };
 
 // Bytes of an output element: f32 and f32_relu write bf16 in the bf16
-// mode.
+// mode, f32_sum f32 in both.
 __host__ __device__ constexpr int out_bytes_of(int mode, int bf16) {
-  return mode == kS32 ? 4
+  return (mode == kS32 || mode == kF32Sum) ? 4
          : (mode == kF32 || mode == kF32Relu) ? (bf16 ? 2 : 4) : 1;
 }
 
@@ -88,14 +92,17 @@ __host__ __device__ constexpr int inner_bytes(int bn, int out_bytes) {
 }
 
 // Dynamic shared memory of a launch: alignment slack, ring, resident Bt,
-// output buffers, alpha / beta of both warpgroups, barriers and flags.
+// output buffers and the float residual's slots, alpha / beta of both
+// warpgroups, barriers and flags.
 inline long long smem_bytes(int bn, int out_bytes, int stages, int bufs,
-                            int resident, int ksteps, int n_tiles) {
+                            int resident, int ksteps, int n_tiles,
+                            int res_bytes) {
   const long long stage = kAStage + (resident ? 0 : bn * kBK);
   const long long bres =
       resident ? static_cast<long long>(ksteps) * n_tiles * bn * kBK : 0;
   return 1024 + stages * stage + bres +
-         static_cast<long long>(bufs) * kBM * bn * out_bytes + 16 * bn + 256;
+         static_cast<long long>(bufs) * kBM * bn * (out_bytes + res_bytes) +
+         16 * bn + 256;
 }
 
 // Layout of an output box in shared memory: byte `b` of row `r` lies at
@@ -142,9 +149,10 @@ __device__ __forceinline__ uint32_t requant_pair(float x0, float x1) {
 }
 
 // Applies the epilogue MODE to a warpgroup's accumulators and writes the
-// results into its half of the output buffer (`join`: over the residual
-// that waits there), in the bf16 mode when BF16. `ab2` holds (alpha,
-// beta) per tile column (rounded to bf16 in the bf16 mode). Loads
+// results into its half of the output buffer (`join`, `join_s8`: over
+// the int8 residual that waits there, or reading the float residual of
+// type RT from its slot `rhalf`), in the bf16 mode when BF16. `ab2` holds
+// (alpha, beta) per tile column (rounded to bf16 in the bf16 mode). Loads
 // are batched ahead of the stores in groups of 4 column blocks: the
 // stores may alias them for all the compiler knows.
 //
@@ -154,27 +162,41 @@ __device__ __forceinline__ uint32_t requant_pair(float x0, float x1) {
 // is the same for h = 0 and 1, and 8j * OB splits into a chunk part CJ
 // and a low part LJ known at compile time, so the offset is
 // r * INNER + ((x0 ^ CJ) + LJ) + constants, with x0 = the thread's own
-// chunk bit XOR the row's swizzle, and its low bytes.
-template <int MODE, int BN, bool BF16>
+// chunk bit XOR the row's swizzle, and its low bytes. The float
+// residual's slot has the same layout with RB-byte elements.
+template <int MODE, int BN, bool BF16, int RT = kResS8>
 __device__ __forceinline__ void epilogue_to_smem(const Params& p,
                                                  const int (&acc)[BN / 2],
                                                  uint8_t* half,
+                                                 const uint8_t* rhalf,
                                                  const float2* ab2, int warp,
                                                  int lane) {
   constexpr int OB = out_bytes_of(MODE, BF16);
-  const float res_scale = BF16 ? bf_round(p.res_scale) : p.res_scale;
+  constexpr bool JOIN = is_join(MODE);
+  constexpr bool RES_FLOAT = JOIN && RT != kResS8;
+  constexpr int RB = res_type_bytes(RT);
+  // join's residual product takes res_scale rounded to bf16 in the bf16
+  // mode; join_s8's is an f32 product in both modes
+  const float res_scale =
+      (BF16 && MODE == kJoin) ? bf_round(p.res_scale) : p.res_scale;
   constexpr int INNER = inner_bytes(BN, OB);
+  constexpr int RINNER = inner_bytes(BN, RB);
   constexpr int G = 4;
-  constexpr int kRowH = 8 * INNER;   // from row r to row r + 8
+  constexpr int kRowH = 8 * INNER;    // from row r to row r + 8
+  constexpr int kRRowH = 8 * RINNER;
   const int r = warp * 16 + (lane >> 2), q2 = (lane & 3) * 2;
-  const int tb = q2 * OB;
+  const int tb = q2 * OB, rtb = q2 * RB;
   const int rc = INNER == 128 ? (r & 7) : ((r >> 1) & 3);
+  const int rrc = RINNER == 128 ? (r & 7) : ((r >> 1) & 3);
   const int x0 = (((tb >> 4) ^ rc) << 4) | (tb & 15);
+  const int rx0 = (((rtb >> 4) ^ rrc) << 4) | (rtb & 15);
   uint8_t* row0 = half + r * INNER;
+  const uint8_t* rrow0 = rhalf + r * RINNER;
 #pragma unroll
   for (int j0 = 0; j0 < BN / 8; j0 += G) {
     float4 ab[G];
     uint32_t rr[G][2];
+    float2 rf[G][2];
     uint8_t* dst[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -183,9 +205,26 @@ __device__ __forceinline__ void epilogue_to_smem(const Params& p,
       dst[g] = row0 + box * (64 * INNER) + ((x0 ^ cj) + lj);
       if (MODE != kS32)
         ab[g] = *reinterpret_cast<const float4*>(ab2 + 8 * (j0 + g) + q2);
-      if (MODE == kJoin) {
+      if (JOIN && !RES_FLOAT) {
         rr[g][0] = *reinterpret_cast<const uint16_t*>(dst[g]);
         rr[g][1] = *reinterpret_cast<const uint16_t*>(dst[g] + kRowH);
+      }
+      if (RES_FLOAT) {
+        const int rjb = 8 * (j0 + g) * RB;
+        const int rbox = rjb / RINNER, rcj = (rjb % RINNER) & ~15;
+        const uint8_t* src =
+            rrow0 + rbox * (64 * RINNER) + ((rx0 ^ rcj) + (rjb & 15));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (RT == kResF32) {
+            rf[g][h] = *reinterpret_cast<const float2*>(src + h * kRRowH);
+          } else {  // a bf16 pair, the first column in the low half
+            const uint32_t v =
+                *reinterpret_cast<const uint32_t*>(src + h * kRRowH);
+            rf[g][h] = make_float2(__uint_as_float(v << 16),
+                                   __uint_as_float(v & 0xffff0000u));
+          }
+        }
       }
     }
 #pragma unroll
@@ -200,7 +239,8 @@ __device__ __forceinline__ void epilogue_to_smem(const Params& p,
           *reinterpret_cast<int2*>(out) = make_int2(a0, a1);
           continue;
         }
-        // s: the sum before the bf16 mode's last rounding (q8 uses it)
+        // s: the sum before the bf16 mode's last rounding (q8, join_s8
+        // and f32_sum use it)
         float s0, s1, y0, y1;
         if (BF16) {
           bf16_sum2(a0, a1, ab[g].x, ab[g].y, ab[g].z, ab[g].w, s0, s1);
@@ -210,6 +250,10 @@ __device__ __forceinline__ void epilogue_to_smem(const Params& p,
         } else {
           s0 = y0 = __fmaf_rn(__int2float_rn(a0), ab[g].x, ab[g].y);
           s1 = y1 = __fmaf_rn(__int2float_rn(a1), ab[g].z, ab[g].w);
+        }
+        if (MODE == kF32Sum) {
+          *reinterpret_cast<float2*>(out) = make_float2(s0, s1);
+          continue;
         }
         if (MODE == kF32 || MODE == kF32Relu) {
           if (MODE == kF32Relu) {
@@ -223,15 +267,30 @@ __device__ __forceinline__ void epilogue_to_smem(const Params& p,
           }
           continue;
         }
+        // f32(res) of the pair
+        float v0 = 0.f, v1 = 0.f;
+        if (RES_FLOAT) {
+          v0 = rf[g][h].x;
+          v1 = rf[g][h].y;
+        } else if (JOIN) {
+          v0 = s8_to_float(rr[g][h] & 0xffu);
+          v1 = s8_to_float(rr[g][h] >> 8);
+        }
         uint32_t o;
         if (MODE == kQ8) {
           o = requant_pair(__fmul_rn(s0, p.inv_s_out),
                            __fmul_rn(s1, p.inv_s_out));
+        } else if (MODE == kJoinS8) {
+          // two integers on the output grid, added exactly
+          o = requant_pair_relu(
+              __fadd_rn(rintf(__fmul_rn(s0, p.inv_s_out)),
+                        rintf(__fmul_rn(v0, res_scale))),
+              __fadd_rn(rintf(__fmul_rn(s1, p.inv_s_out)),
+                        rintf(__fmul_rn(v1, res_scale))));
         } else {
           if (MODE == kJoin) {  // the residual product and the sum each rounded
-            const float r0 =
-                __fmul_rn(s8_to_float(rr[g][h] & 0xffu), res_scale);
-            const float r1 = __fmul_rn(s8_to_float(rr[g][h] >> 8), res_scale);
+            const float r0 = __fmul_rn(v0, res_scale);
+            const float r1 = __fmul_rn(v1, res_scale);
             if (BF16) {
               float z0 = r0, z1 = r1;
               bf_round2(z0, z1);
@@ -252,7 +311,38 @@ __device__ __forceinline__ void epilogue_to_smem(const Params& p,
   }
 }
 
-template <int BN, bool kConv, bool kBf16>
+// The join modes' epilogue on the residual type of this launch: a float
+// residual (f32 beside 64-wide tiles, bf16 beside tiles up to 128 wide:
+// what the host's plan allows) or an int8 one.
+template <int MODE, int BN, bool BF16>
+__device__ __forceinline__ void join_to_smem(const Params& p,
+                                             const int (&acc)[BN / 2],
+                                             uint8_t* half,
+                                             const uint8_t* rhalf,
+                                             const float2* ab2, int warp,
+                                             int lane) {
+  if constexpr (BN == 64) {
+    if (p.res_type == kResF32) {
+      epilogue_to_smem<MODE, BN, BF16, kResF32>(p, acc, half, rhalf, ab2,
+                                                warp, lane);
+      return;
+    }
+  }
+  if constexpr (BN <= 128) {
+    if (p.res_type == kResBf16) {
+      epilogue_to_smem<MODE, BN, BF16, kResBf16>(p, acc, half, rhalf, ab2,
+                                                 warp, lane);
+      return;
+    }
+  }
+  epilogue_to_smem<MODE, BN, BF16, kResS8>(p, acc, half, rhalf, ab2, warp,
+                                           lane);
+}
+
+// kExtra: the instantiation of the modes extra_mode names (join_s8,
+// f32_sum, and `join` over a float residual); the others compile without
+// them, so their kernels keep the code, and the speed, they had without.
+template <int BN, bool kConv, bool kBf16, bool kExtra>
 __global__ void __launch_bounds__(kThreadsTma, 1)
 tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
               const __grid_constant__ CUtensorMap map_b,
@@ -265,10 +355,12 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
   const int stage_bytes = kAStage + (p.resident ? 0 : BN * kBK);
   const int bres_bytes = p.resident ? p.ksteps * p.n_tiles * BN * kBK : 0;
   const int buf_bytes = kBM * BN * p.out_bytes;
+  const int slot_bytes = kBM * BN * p.res_bytes;   // a float residual's
   uint8_t* ring = sm;
   uint8_t* bres = ring + p.stages * stage_bytes;
   uint8_t* bufs = bres + bres_bytes;
-  float* ab_all = reinterpret_cast<float*>(bufs + p.bufs * buf_bytes);
+  uint8_t* slots = bufs + p.bufs * buf_bytes;
+  float* ab_all = reinterpret_cast<float*>(slots + p.bufs * slot_bytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ab_all + 4 * BN);
   const uint32_t full = smem_u32(bars), empty = full + 8 * kMaxStages;
   const uint32_t res_full = empty + 8 * kMaxStages;
@@ -323,15 +415,22 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
       const int tile = item / p.splits, split = item - tile * p.splits;
       const int mt = tile / p.n_tiles, nt = tile - mt * p.n_tiles;
       const int m0 = mt * kBM, n0 = nt * BN;
-      if (tid == 0 && p.mode == kJoin) {
+      if (tid == 0 && (kExtra ? is_join(p.mode) : p.mode == kJoin)) {
+        // an int8 residual into the output buffer, a float one into its
+        // slot, in boxes of 64 rows of INNER1 (int8) or 128 bytes
         const int b = it % p.bufs;
+        const bool flt = kExtra && p.res_bytes != 0;
+        const int rb = flt ? p.res_bytes : 1;
+        const int inner = flt ? 128 : INNER1;
         mbar_wait(res_empty + 8 * b, ((it / p.bufs) & 1) ^ 1);
-        mbar_arrive_expect_tx(res_full + 8 * b, kBM * BN);
-        const uint32_t dst = smem_u32(bufs) + b * buf_bytes;
+        mbar_arrive_expect_tx(res_full + 8 * b, kBM * BN * rb);
+        const uint32_t dst = flt ? smem_u32(slots) + b * slot_bytes
+                                 : smem_u32(bufs) + b * buf_bytes;
         for (int c = 0; c < 2; ++c)
-          for (int box = 0; box < BN / INNER1; ++box)
-            tma_load_2d(dst + c * (64 * BN) + box * (64 * INNER1), &map_res,
-                        res_full + 8 * b, n0 + box * INNER1, m0 + 64 * c);
+          for (int box = 0; box < BN * rb / inner; ++box)
+            tma_load_2d(dst + c * (64 * BN * rb) + box * (64 * inner),
+                        &map_res, res_full + 8 * b, n0 * rb + box * inner,
+                        m0 + 64 * c);
       }
       // conv: per row, the offset of its top-left tap and the set of
       // taps that lie inside the image (bit ky * KW + kx); the rows of a
@@ -539,7 +638,8 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
         sync = true;
       }
       const int b = it % p.bufs;
-      if (p.mode == kJoin) {
+      const bool join = kExtra ? is_join(p.mode) : p.mode == kJoin;
+      if (join) {
         mbar_wait(res_full + 8 * b, (it / p.bufs) & 1);
         __syncwarp();
       } else {
@@ -553,28 +653,52 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
       }
       if (sync) named_barrier(1 + c, 128);
       uint8_t* half = bufs + b * buf_bytes + c * (64 * BN * p.out_bytes);
-      switch (p.mode) {
-        case kS32:
-          if constexpr (BN <= 128)
-            epilogue_to_smem<kS32, BN, kBf16>(p, acc, half, ab, warp, lane);
-          break;
-        case kF32:
-          if constexpr (BN <= 128)
-            epilogue_to_smem<kF32, BN, kBf16>(p, acc, half, ab, warp, lane);
-          break;
-        case kF32Relu:
-          if constexpr (BN <= 128)
-            epilogue_to_smem<kF32Relu, BN, kBf16>(p, acc, half, ab, warp,
-                                                  lane);
-          break;
-        case kQ8Relu:
-          epilogue_to_smem<kQ8Relu, BN, kBf16>(p, acc, half, ab, warp, lane);
-          break;
-        case kQ8:
-          epilogue_to_smem<kQ8, BN, kBf16>(p, acc, half, ab, warp, lane);
-          break;
-        default:
-          epilogue_to_smem<kJoin, BN, kBf16>(p, acc, half, ab, warp, lane);
+      const uint8_t* rhalf =
+          slots + b * slot_bytes + c * (64 * BN * p.res_bytes);
+      if constexpr (kExtra) {
+        switch (p.mode) {
+          case kF32Sum:
+            if constexpr (BN <= 128)
+              epilogue_to_smem<kF32Sum, BN, kBf16>(p, acc, half, rhalf, ab,
+                                                   warp, lane);
+            break;
+          case kJoinS8:
+            join_to_smem<kJoinS8, BN, kBf16>(p, acc, half, rhalf, ab, warp,
+                                             lane);
+            break;
+          default:  // kJoin over a float residual
+            join_to_smem<kJoin, BN, kBf16>(p, acc, half, rhalf, ab, warp,
+                                           lane);
+        }
+      } else {
+        switch (p.mode) {
+          case kS32:
+            if constexpr (BN <= 128)
+              epilogue_to_smem<kS32, BN, kBf16>(p, acc, half, rhalf, ab,
+                                                warp, lane);
+            break;
+          case kF32:
+            if constexpr (BN <= 128)
+              epilogue_to_smem<kF32, BN, kBf16>(p, acc, half, rhalf, ab,
+                                                warp, lane);
+            break;
+          case kF32Relu:
+            if constexpr (BN <= 128)
+              epilogue_to_smem<kF32Relu, BN, kBf16>(p, acc, half, rhalf, ab,
+                                                    warp, lane);
+            break;
+          case kQ8Relu:
+            epilogue_to_smem<kQ8Relu, BN, kBf16>(p, acc, half, rhalf, ab,
+                                                 warp, lane);
+            break;
+          case kQ8:
+            epilogue_to_smem<kQ8, BN, kBf16>(p, acc, half, rhalf, ab, warp,
+                                             lane);
+            break;
+          default:  // kJoin over an int8 residual
+            epilogue_to_smem<kJoin, BN, kBf16>(p, acc, half, rhalf, ab, warp,
+                                               lane);
+        }
       }
       fence_proxy_async();
       named_barrier(1 + c, 128);
@@ -589,7 +713,7 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
           }
         }
         bulk_commit();
-        if (p.mode == kJoin) {
+        if (join) {
           // hand the buffers whose stores have read them back to the
           // producer: this one at once if it is the only one, else the
           // previous tile's
@@ -609,15 +733,24 @@ tma_s8_kernel(const __grid_constant__ CUtensorMap map_a,
 }
 
 // Launches the route. `a` is null for the conv (A is gathered from p.X).
-template <int BN, bool kConv, bool kBf16>
-cudaError_t launch(const int8_t* a, const int8_t* bt, const int8_t* res,
+template <int BN, bool kConv, bool kBf16, bool kExtra>
+cudaError_t launch(const int8_t* a, const int8_t* bt, const void* res,
                    void* out, Params p, int grid, cudaStream_t stream) {
-  const long long smem = smem_bytes(BN, p.out_bytes, p.stages, p.bufs,
-                                    p.resident, p.ksteps, p.n_tiles);
+  const long long smem =
+      smem_bytes(BN, p.out_bytes, p.stages, p.bufs, p.resident, p.ksteps,
+                 p.n_tiles, p.res_bytes);
+  // a float residual: f32 beside 64-wide tiles, bf16 beside tiles up to
+  // 128 wide (join_to_smem instantiates no other)
+  const bool res_ok =
+      !is_join(p.mode) ||
+      (p.res_type == kResS8 && p.res_bytes == 0) ||
+      (p.res_type == kResF32 && p.res_bytes == 4 && BN == 64) ||
+      (p.res_type == kResBf16 && p.res_bytes == 2 && BN <= 128);
   if (smem > kSmemLimit || p.stages < 1 || p.stages > kMaxStages ||
       p.bufs < 1 || p.bufs > kMaxBufs || p.splits < 1 ||
-      p.ksteps % p.splits != 0 || grid < 1 ||
-      (BN > 128 && p.out_bytes != 1) || (p.splits > 1 && p.mode == kJoin)) {
+      p.ksteps % p.splits != 0 || grid < 1 || !res_ok ||
+      (BN > 128 && p.out_bytes != 1) ||
+      (p.splits > 1 && is_join(p.mode))) {
     return cudaErrorInvalidValue;
   }
   const int ob = p.out_bytes, inner = inner_bytes(BN, ob);
@@ -627,42 +760,56 @@ cudaError_t launch(const int8_t* a, const int8_t* bt, const int8_t* res,
             hopper::make_byte_map(&map_out, out, N * ob, M, N * ob, inner, 64);
   ok = ok && (kConv ? hopper::make_byte_map(&map_a, bt, K, N, K, kBK, BN)
                     : hopper::make_byte_map(&map_a, a, K, M, K, kBK, kBM));
-  ok = ok && (p.mode == kJoin
-                  ? hopper::make_byte_map(&map_res, res, N, M, N, inner, 64)
+  const uint64_t rb = p.res_bytes ? p.res_bytes : 1;
+  const int rinner = p.res_bytes ? 128 : inner_bytes(BN, 1);
+  ok = ok && (is_join(p.mode)
+                  ? hopper::make_byte_map(&map_res, res, N * rb, M, N * rb,
+                                          rinner, 64)
                   : hopper::make_byte_map(&map_res, out, N * ob, M, N * ob,
                                           inner, 64));
   if (!ok) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      tma_s8_kernel<BN, kConv, kBf16>,
+      tma_s8_kernel<BN, kConv, kBf16, kExtra>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  tma_s8_kernel<BN, kConv, kBf16><<<grid, kThreadsTma, smem, stream>>>(
-      map_a, map_b, map_out, map_res, p);
+  tma_s8_kernel<BN, kConv, kBf16, kExtra>
+      <<<grid, kThreadsTma, smem, stream>>>(map_a, map_b, map_out, map_res,
+                                            p);
   return cudaGetLastError();
 }
 
-template <bool kConv, bool kBf16>
+template <bool kConv, bool kBf16, bool kExtra>
 cudaError_t launch_bn_mode(int bn, const int8_t* a, const int8_t* bt,
-                           const int8_t* res, void* out, const Params& p,
+                           const void* res, void* out, const Params& p,
                            int grid, cudaStream_t stream) {
   switch (bn) {
-    case 64: return launch<64, kConv, kBf16>(a, bt, res, out, p, grid, stream);
+    case 64:
+      return launch<64, kConv, kBf16, kExtra>(a, bt, res, out, p, grid,
+                                              stream);
     case 128:
-      return launch<128, kConv, kBf16>(a, bt, res, out, p, grid, stream);
+      return launch<128, kConv, kBf16, kExtra>(a, bt, res, out, p, grid,
+                                               stream);
     case 256:
-      return launch<256, kConv, kBf16>(a, bt, res, out, p, grid, stream);
+      return launch<256, kConv, kBf16, kExtra>(a, bt, res, out, p, grid,
+                                               stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool kConv>
 cudaError_t launch_bn(int bn, const int8_t* a, const int8_t* bt,
-                      const int8_t* res, void* out, const Params& p, int grid,
+                      const void* res, void* out, const Params& p, int grid,
                       cudaStream_t stream) {
-  return p.bf16 ? launch_bn_mode<kConv, true>(bn, a, bt, res, out, p, grid,
-                                               stream)
-                : launch_bn_mode<kConv, false>(bn, a, bt, res, out, p, grid,
-                                                stream);
+  if (extra_mode(p.mode, p.res_type)) {
+    return p.bf16 ? launch_bn_mode<kConv, true, true>(bn, a, bt, res, out, p,
+                                                      grid, stream)
+                  : launch_bn_mode<kConv, false, true>(bn, a, bt, res, out,
+                                                       p, grid, stream);
+  }
+  return p.bf16 ? launch_bn_mode<kConv, true, false>(bn, a, bt, res, out, p,
+                                                     grid, stream)
+                : launch_bn_mode<kConv, false, false>(bn, a, bt, res, out, p,
+                                                      grid, stream);
 }
 
 }  // namespace tma

@@ -21,8 +21,9 @@ and the int8 head denses. A conv or dense returns a pending product that
 its consumer (ReLU + requantize, shortcut requantize, residual join,
 flatten) resolves with the matching fused epilogue, so no s32
 accumulator or float activation is written between two int8 sites. The
-maxpool, the input quantize and the float final dense stay plain
-PyTorch ops, as they were XLA ops in the JAX package.
+maxpool, the input quantize, the float final denses and the bf16
+stem's conv stay plain PyTorch ops, as they were XLA ops in the JAX
+package.
 
 The space-to-depth stem (QUANT_STEM_S2D, or a kernel already in
 (4,4,12,64) form) dispatches on the input's type: a uint8 batch runs the
@@ -48,8 +49,17 @@ strided pixels), conv1 (3x3/s, (1,1) pads) with ReLU + requantize, and
 conv2 (3x3/1) resolved in the residual join's epilogue on `conv_s8`.
 QUANT_STEM_S2D rewrites 'conv0' as it rewrites 'conv1'.
 
-Not ported (NotImplementedError): shard_over, the bf16 stem and
-s8_join.
+The serving knobs of the JAX package: QUANT_S8_JOIN resolves each
+residual join in `join_s8`, the integer join of both operands rounded
+onto the output grid; QUANT_BF16_STEM molds the pixels into bf16 and
+runs the stem conv on them and the stored int8 kernel with f32
+accumulation, in PyTorch as the JAX package runs it in XLA (the fused
+stem and the int8 input quantize do not run then). An artifact calibrated
+before the shortcut requant sites existed serves its shortcut convs in
+float ('f32' epilogue, 'f32_sum' under QUANT_S8_JOIN) and joins them as
+a float residual.
+
+Not ported (NotImplementedError): shard_over.
 
 Usage:
     qm = QuantizedModel.from_variables(config, params, batch_stats)
@@ -347,6 +357,12 @@ class Int8Ops:
     plain versions (float64 accumulation) on any device. fused_stem: the
     stem kernel is in s2d form, so a uint8 batch takes `stem_s8`.
 
+    bf16_stem (QUANT_BF16_STEM): the input is molded into bf16 pixels
+    and the stem conv is a float conv (f32 accumulation) over them and
+    the stored int8 kernel, `acc * sw + b` in f32, requantized by its
+    ReLU. s8_join (QUANT_S8_JOIN): each join whose site is calibrated is
+    the kernels' `join_s8`.
+
     When `capture` is a dict (bias_correct), every product resolves to
     its s32 accumulator; the per-channel mean of its pre-activation sum
     (`int8_cuda.epilogue_sum`: under F16 the sum before its bf16
@@ -358,8 +374,10 @@ class Int8Ops:
 
     def __init__(self, q, ffinal, act_scales, mean_pixel=None,
                  alphas=None, plain=False, fused_stem=False,
-                 acc_dtype=torch.float32):
+                 acc_dtype=torch.float32, bf16_stem=False, s8_join=False):
         self.q = q
+        self.bf16_stem = bf16_stem
+        self.s8_join = s8_join
         self.ffinal = ffinal
         self.mean_pixel = mean_pixel
         # a site whose calibration batch gave all-zero activations must
@@ -417,9 +435,11 @@ class Int8Ops:
                               epilogue, **kw).reshape(bsz, h, w, -1)
         return self._conv(arr, w8, p.stride, pads, epilogue, **kw)
 
-    def _run(self, p: _Pending, epilogue, out_site=None, res=None):
+    def _run(self, p: _Pending, epilogue, out_site=None, res=None,
+             res_scale=1.0):
         """Resolve a pending product with `epilogue`; the int8 modes
-        requantize onto `out_site`'s step."""
+        requantize onto `out_site`'s step; the joins add the residual
+        tensor `res` (int8 or float) times `res_scale`."""
         _, _, b = self.q[p.site]
         alpha = self._alpha(p.site, p.x.scale, p.x.arr.device)
         kw = dict(alpha=alpha, beta=b)
@@ -428,7 +448,7 @@ class Int8Ops:
             step = self._step(out_site)
             kw['inv_s_out'] = self._inv(step)
         if res is not None:
-            kw.update(res=res.arr, res_scale=float(np.float32(res.scale)))
+            kw.update(res=res, res_scale=res_scale)
         if self.capture is None:
             out = self._product(p, epilogue, kw)
         else:
@@ -440,6 +460,9 @@ class Int8Ops:
         return _QT(out, step) if step is not None else out
 
     def input(self, x):
+        if self.bf16_stem:
+            # molded pixels in bf16 (integers up to 255 keep 8 bits)
+            return F32Ops._mold_maybe(self, x).to(torch.bfloat16)
         if self.fused_stem and x.dtype == torch.uint8 \
                 and self.capture is None:
             return _U8(x)
@@ -447,6 +470,26 @@ class Int8Ops:
 
     def conv(self, x, site, stride=1, padding='SAME'):
         return _Pending(x, site, stride, padding)
+
+    def _float_stem(self, p: _Pending) -> torch.Tensor:
+        """The bf16 stem's conv: bf16 pixels times the stored int8 kernel
+        (exact products) summed in f32, then acc * sw + b in f32, b
+        rounded to bf16 first under F16 as JAX's b.astype(dt). The sums
+        run in another order than XLA's, and the product and the sum are
+        each rounded where XLA may contract them into an FMA: the bf16
+        stem holds the JAX package's outputs at a tolerance."""
+        w8, sw, b = self.q[p.site]
+        x = p.x.to(torch.float32)
+        w = w8.permute(3, 2, 0, 1).to(torch.float32)
+        (pt, pb), (pl, pr) = _pads(p.padding, x.shape[1], x.shape[2],
+                                   w.shape[2], w.shape[3], p.stride)
+        xc = F.pad(_nchw(x), (pl, pr, pt, pb))
+        acc = _nhwc(F.conv2d(xc, w, stride=p.stride))
+        if self.acc_dtype == torch.bfloat16:
+            b = int8_cuda.bf(b)
+        y = acc * sw + b
+        _capture_mean(self.capture, p.site, y)
+        return y
 
     def _run_stem(self, p: _PendingStem):
         """One stem_s8 launch: input quantize at the 'input' step, the
@@ -484,21 +527,41 @@ class Int8Ops:
         if isinstance(x, _Pending):
             if isinstance(x.x, _U8):
                 return _PendingStem(x.x, x.site, site)
+            if isinstance(x.x, torch.Tensor):     # the bf16 stem
+                y = torch.relu(self._float_stem(x))
+                return self._q8(y, site) if site else y
             if site:
                 return self._run(x, 'q8_relu', site)
             return self._run(x, 'f32_relu')
         return torch.relu(self._float(x))  # after a float dense_final
 
     def requant(self, x, site):
+        """The shortcut conv requantized onto `site`; for an artifact
+        calibrated before that site existed, its float output, which the
+        join takes as it is: the 'f32' epilogue (bf16 under F16), or under
+        s8_join 'f32_sum' (f32: the sum before the bf16 rounding, which
+        XLA drops where the JAX package widens it to f32 for the integer
+        join)."""
         if site not in self.scales:
-            raise NotImplementedError(
-                f'artifact without the shortcut requant site {site!r}: the '
-                'float residual join is not ported')
+            return self._run(x, 'f32_sum' if self.s8_join else 'f32')
         return self._run(x, 'q8', site)
 
     def join(self, r, sc, site):
-        # r: the pending 2c conv; sc: the int8 shortcut
-        return self._run(r, 'join', site, res=sc)
+        """The pending 2c (conv2) conv `r` joined with the shortcut `sc`
+        (int8, or float from `requant`) in the conv's epilogue: `join`
+        (relu(r + sc) requantized onto `site`), or under s8_join, where
+        `site` is calibrated, `join_s8` with the shortcut's ratio to the
+        output step (a float shortcut: the reciprocal step)."""
+        if self.s8_join and site in self.scales:
+            if isinstance(sc, _QT):
+                ratio = np.float32(sc.scale / self._step(site))
+                return self._run(r, 'join_s8', site, sc.arr, float(ratio))
+            return self._run(r, 'join_s8', site, sc,
+                             self._inv(self._step(site)))
+        if isinstance(sc, _QT):
+            return self._run(r, 'join', site, sc.arr,
+                             float(np.float32(sc.scale)))
+        return self._run(r, 'join', site, sc)
 
     def maxpool(self, x):
         """3x3/2 SAME max over int8 (monotone, so it commutes with the
@@ -793,10 +856,6 @@ def twin_forward(ops, images, mcfg: dict) -> Dict[str, torch.Tensor]:
 # Public facade
 # --------------------------------------------------------------------------
 
-_UNPORTED_KNOBS = (('QUANT_BF16_STEM', 'the bf16 stem'),
-                   ('QUANT_S8_JOIN', 'integer residual joins'))
-
-
 class QuantizedModel:
     """Calibrated int8 serving model on `device` (default the card).
 
@@ -807,10 +866,6 @@ class QuantizedModel:
 
     def __init__(self, config, flat_params, device='cuda'):
         self.device = resolve_device(device)
-        for knob, what in _UNPORTED_KNOBS:
-            if getattr(config, knob, False):
-                raise NotImplementedError(
-                    f'{knob}: {what} is not ported to the int8 path')
         self.flat = flat_params
         stem = 'conv0' if config.BACKBONE in SHALLOW_REPS else 'conv1'
         if (getattr(config, 'QUANT_STEM_S2D', False)
@@ -836,8 +891,10 @@ class QuantizedModel:
             # served and calibration batches arrive packed from the host
             host_s2d=(stem_s2d
                       and bool(getattr(config, 'QUANT_HOST_S2D', False))),
-            bf16_stem=False,
-            s8_join=False,
+            # serving ablations of the JAX package: the stem in bf16,
+            # the residual joins in the integer domain
+            bf16_stem=bool(getattr(config, 'QUANT_BF16_STEM', False)),
+            s8_join=bool(getattr(config, 'QUANT_S8_JOIN', False)),
             float_cls_final=bool(getattr(config, 'QUANT_FLOAT_CLS_FINAL',
                                          False)),
             float_reg_head=bool(getattr(config, 'QUANT_FLOAT_REG_HEAD',
@@ -890,7 +947,9 @@ class QuantizedModel:
 
         def qmeans():
             self._q_dev = None  # the biases with the current deltas
-            ops = self._int8_ops()
+            # as the JAX package's capture pass: the default joins even
+            # under s8_join
+            ops = self._int8_ops(s8_join=False)
             ops.capture = {}
             with no_tf32(), torch.no_grad():
                 twin_forward(ops, x, self._mcfg)
@@ -1055,7 +1114,9 @@ class QuantizedModel:
             self._q_dev = q
         return self._q_dev
 
-    def _int8_ops(self, plain: bool = False) -> Int8Ops:
+    def _int8_ops(self, plain: bool = False, s8_join=None) -> Int8Ops:
+        """The serving phase's ops; `s8_join` None takes the model's
+        knob."""
         flat_dev = self._flat_f32()
         ffinal = {s: flat_dev[s] for s in float_sites(self._mcfg)
                   if s in flat_dev}
@@ -1063,7 +1124,10 @@ class QuantizedModel:
                        mean_pixel=self._mcfg['mean_pixel'],
                        alphas=self._alphas, plain=plain,
                        fused_stem=self._mcfg['stem_s2d'],
-                       acc_dtype=self.acc_dtype)
+                       acc_dtype=self.acc_dtype,
+                       bf16_stem=self._mcfg['bf16_stem'],
+                       s8_join=(self._mcfg['s8_join'] if s8_join is None
+                                else s8_join))
 
     def __call__(self, images, plain: bool = False):
         """int8 forward of a molded (float) or raw (uint8) [B,H,W,3]

@@ -368,10 +368,16 @@ class _Backbone(nn.Module):
 class ResNetBackbone(_Backbone):
     """ResNet-50/101 feature extractor; returns C5 [N,2048,H/32,W/32].
     ResNet-101 differs only in stage 4: res4a, then 22 identity blocks
-    res4b ... res4w."""
+    res4b ... res4w.
+
+    `inner_mult` (INNER_WIDTH_MULT) scales each bottleneck's inner widths
+    (f1, f2) by `scale_inner`: the reduced-FLOP serving variant. Stream
+    widths and layer names stay, so a flagship checkpoint prunes into it
+    by channel selection (`ursonet_torch/prune_inner.py`)."""
 
     def __init__(self, architecture: str = 'resnet50', train_bn=False,
-                 stem_s2d: bool = False, remat=False):
+                 stem_s2d: bool = False, remat=False,
+                 inner_mult: float = 1.0):
         super().__init__()
         if architecture not in STAGE4_BLOCKS:
             raise ValueError(f"unsupported backbone {architecture}")
@@ -385,6 +391,9 @@ class ResNetBackbone(_Backbone):
         def blk(filters, stage, block, strides=1, conv_shortcut=False):
             nonlocal in_ch
             name = f'res{stage}{block}'
+            f1, f2, f3 = filters
+            filters = (scale_inner(f1, inner_mult),
+                       scale_inner(f2, inner_mult), f3)
             self.add_module(name, BottleneckBlock(
                 in_ch, filters, stage, block, strides, conv_shortcut,
                 train_bn, remat))
@@ -442,19 +451,20 @@ C5_CHANNELS = {'resnet18': 512, 'resnet34': 512, 'resnet50': 2048,
                'resnet101': 2048}
 
 
+def scale_inner(f: int, mult: float) -> int:
+    """Scaled inner width, rounded to a multiple of 8 (min 8)."""
+    return max(8, int(round(f * mult / 8.0)) * 8)
+
+
 def make_backbone(architecture: str, train_bn=False, stem_s2d: bool = False,
                   remat=False, inner_mult: float = 1.0) -> nn.Module:
     """The backbone of `architecture` (resnet18/34/50/101), as the JAX
     package's `make_backbone` dispatches. `inner_mult`
-    (INNER_WIDTH_MULT) scales a bottleneck's inner widths in the JAX
-    package; a basic block has none, so anything but 1 raises there, and
-    the port has no scaled bottleneck either."""
+    (INNER_WIDTH_MULT) scales a bottleneck's inner widths; a basic block
+    has none, so anything but 1 raises for ResNet-18/34."""
     if architecture in STAGE4_BLOCKS:
-        if inner_mult != 1.0:
-            raise NotImplementedError(
-                'INNER_WIDTH_MULT: the reduced-width bottleneck variant is '
-                'not ported')
-        return ResNetBackbone(architecture, train_bn, stem_s2d, remat)
+        return ResNetBackbone(architecture, train_bn, stem_s2d, remat,
+                              inner_mult)
     if architecture in SHALLOW_REPS:
         if inner_mult != 1.0:
             raise ValueError('INNER_WIDTH_MULT applies to bottleneck '

@@ -29,6 +29,9 @@ with y = fma(f32(acc), alpha[n], beta[n]) (one rounding):
     q8        clip(rint(y * inv_s_out), -127, 127)               (int8)
     join      clip(rint(max(y + f32(res) * res_scale, 0) * inv_s_out),
                    0, 127)                                        (int8)
+    join_s8   clip(rint(y * inv_s_out) + rint(f32(res) * res_scale),
+                   0, 127)                                        (int8)
+    f32_sum   y (the same as f32 in this mode)
 
 That is the arithmetic XLA compiles the JAX package's Int8Ops into
 (measured on the CPU against the whole model): it contracts
@@ -52,10 +55,32 @@ FMA. With bf(v) = f32(bf16(v)):
     join      clip(rint(max(bf(y + bf(f32(res) * bf(res_scale))), 0)
                         * inv_s_out), 0, 127)
 
-q8 multiplies the unrounded sum s: XLA drops the bf16 round trip of a
-value whose only use is its widening back to f32 (excess precision),
-which is the case where Int8Ops requantizes a shortcut conv. The multiply
-by inv_s_out stays in f32 as in the f32 mode.
+    join_s8   clip(rint(s * inv_s_out) + rint(f32(res) * res_scale),
+                   0, 127)
+    f32_sum   s                                                   (f32)
+
+q8 and join_s8 multiply the unrounded sum s, and f32_sum writes it:
+XLA drops the bf16 round trip of a value whose only use is its widening
+back to f32 (excess precision), which is the case where Int8Ops
+requantizes a shortcut conv and where it rounds a 2c conv onto the
+join's grid. The multiplies by
+inv_s_out and by join_s8's res_scale stay in f32 as in the f32 mode
+(res_scale is not rounded to bf16 there: JAX multiplies the f32
+residual by a weakly typed Python float). f32_sum is the shortcut conv
+that join_s8 takes as a float residual: XLA drops its bf16 rounding too
+(measured on the CPU against the whole model).
+
+The residual joins (`join`, `join_s8`) take `res` as int8 (a requantized
+shortcut, res_scale its step) or as the float output of the shortcut
+conv (`f32`: f32, or bf16 in the bf16 mode; `f32_sum`: f32): the
+artifacts calibrated before the shortcut requant sites existed.
+`join` then takes res_scale 1 (the residual enters the sum as it is),
+and JAX's relu(r + sc) followed by the requantize is the formula above.
+join_s8 is the JAX package's QUANT_S8_JOIN: both operands rounded onto
+the output grid, r_i = rint(r / s_out) and sc_i = rint(sc * ratio) with
+ratio = f32(step_sc / s_out) for an int8 shortcut and f32(1 / s_out) for
+a float one, then the integer clip of r_i + sc_i (ReLU is its lower
+bound).
 
 Layouts the kernels take: `a` and `x` contiguous; the weights
 output-channel-major, i.e. `b` is the [K,N] view `wt.t()` of a
@@ -109,38 +134,52 @@ import torch.nn.functional as F
 from ursonet_torch.ops import cuda_build
 
 EPILOGUES = {"s32": 0, "f32": 1, "f32_relu": 2, "q8_relu": 3, "q8": 4,
-             "join": 5}
+             "join": 5, "join_s8": 6, "f32_sum": 7}
+# The epilogues that add a residual.
+JOINS = ("join", "join_s8")
 # The accumulation modes, by their names in `calls`: the f32 epilogue
 # and the bf16 one (F16).
 ACC_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 ACC_DTYPES = tuple(ACC_NAMES)
 _OUT_F32 = {"s32": torch.int32, "f32": torch.float32,
             "f32_relu": torch.float32, "q8_relu": torch.int8,
-            "q8": torch.int8, "join": torch.int8}
+            "q8": torch.int8, "join": torch.int8, "join_s8": torch.int8,
+            "f32_sum": torch.float32}
 # {acc_dtype: {epilogue: output dtype}}: f32 and f32_relu write bf16 in
 # the bf16 mode
 OUT_DTYPES = {torch.float32: _OUT_F32,
               torch.bfloat16: dict(_OUT_F32, f32=torch.bfloat16,
                                    f32_relu=torch.bfloat16)}
-# Kernel launches since the last reset_counts(), by kernel name.
+# Kernel launches since the last reset_counts(), by kernel name, and the
+# joins among them by kernel, epilogue and residual type ('s8', 'f32',
+# 'bf16'), e.g. ('gemm_s8', 'join_s8', 's8').
 launches = {"gemm_s8": 0, "conv_s8": 0, "stem_s8": 0}
+join_launches: dict = {}
 # None, or a list that each launch appends (name, shapes, epilogue,
-# route, accumulation mode 'f32' or 'bf16') to.
+# route, accumulation mode 'f32' or 'bf16', and for a join the
+# residual's type) to.
 calls = None
 
 
 def reset_counts() -> None:
     for k in launches:
         launches[k] = 0
+    join_launches.clear()
+
+
+def res_kind(res) -> str:
+    """The residual's type as `calls` and `join_launches` name it."""
+    return {torch.int8: "s8", torch.float32: "f32",
+            torch.bfloat16: "bf16"}[res.dtype]
 
 
 def _bind_gemm(lib) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ursonet_gemm_s8.argtypes = [P, P, I, I, I, I, I, I, I, P, P, Fl, P,
-                                    Fl, P, I, I, P]
+                                    I, Fl, P, I, I, P]
     lib.ursonet_gemm_s8.restype = I
-    lib.ursonet_gemm_s8_tma.argtypes = [P, P, I, I, I, I, I, P, P, Fl, P, Fl,
-                                        P, I, I, I, I, I, P, P, I, I, P]
+    lib.ursonet_gemm_s8_tma.argtypes = [P, P, I, I, I, I, I, P, P, Fl, P, I,
+                                        Fl, P, I, I, I, I, I, P, P, I, I, P]
     lib.ursonet_gemm_s8_tma.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
@@ -149,11 +188,11 @@ def _bind_gemm(lib) -> None:
 def _bind_conv(lib) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ursonet_conv_s8.argtypes = [P, P] + [I] * 14 + [I, I, P, P, Fl, P,
-                                                        Fl, P, I, I, P]
+                                                        I, Fl, P, I, I, P]
     lib.ursonet_conv_s8.restype = I
     lib.ursonet_conv_s8_tma.argtypes = [P, P] + [I] * 12 + [I, I, P, P, Fl,
-                                                            P, Fl, P, I, I, I,
-                                                            I, I, I, P]
+                                                            P, I, Fl, P, I, I,
+                                                            I, I, I, I, P]
     lib.ursonet_conv_s8_tma.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
     lib.ursonet_int8_error_string.restype = ctypes.c_char_p
@@ -208,22 +247,35 @@ STAGE_K = 128             # bytes of K in a pipeline stage
 RESIDENT_LIMIT = 65536    # weights kept in shared memory up to this
 SPLIT_K_MAX_M = 1024      # outputs of at most this many rows split K
 # (stages, output buffers), best first; the first that fits is taken.
-# `join` keeps three buffers and gives up stages instead: its residual
+# The joins keep three buffers and give up stages instead: the residual
 # tile is loaded into the buffer two tiles ahead (measured on the H100:
-# PERF.md).
+# PERF.md). A float residual has a slot of its own beside each buffer
+# (an s8 one is loaded into the output buffer and transformed in place),
+# 2 or 4 times the output tile, so those plans give up buffers too.
 _DEPTHS = ((4, 3), (3, 3), (4, 2), (3, 2), (4, 1))
 _DEPTHS_JOIN = ((4, 3), (3, 3), (2, 3))
+_DEPTHS_JOIN_FLOAT = _DEPTHS_JOIN + ((3, 2),)
+
+
+def res_bytes(epilogue: str, res_dtype) -> int:
+    """Bytes an element of a join's float residual takes in its own
+    slot of shared memory: 0 without one (no join, or an int8 residual,
+    which shares the output buffer)."""
+    if epilogue not in JOINS or res_dtype in (None, torch.int8):
+        return 0
+    return res_dtype.itemsize
 
 
 def gemm_route(m: int, k: int, n: int, epilogue: str,
                aligned: bool = True, acc_dtype=torch.float32) -> str:
     """'tma' when TMA can address the operands of an [m,k] @ [k,n]
     product (global strides are multiples of 16 bytes; the output's
-    element size depends on the accumulation mode), else 'ragged'.
+    element size depends on the accumulation mode; a join's residual
+    has rows of n elements of 1, 2 or 4 bytes), else 'ragged'.
     `aligned`: every pointer is 16-byte aligned."""
     ok = aligned and k % 16 == 0 \
         and (n * OUT_BYTES[acc_dtype][epilogue]) % 16 == 0 \
-        and (epilogue != "join" or n % 16 == 0)
+        and (epilogue not in JOINS or n % 16 == 0)
     return "tma" if ok else "ragged"
 
 
@@ -264,15 +316,17 @@ def out_box_offset(row: int, byte: int, inner: int) -> int:
 
 
 def tma_smem_bytes(bn: int, out_bytes: int, stages: int, bufs: int,
-                   resident: bool, ksteps: int, n_tiles: int) -> int:
+                   resident: bool, ksteps: int, n_tiles: int,
+                   res_bytes: int = 0) -> int:
     """Dynamic shared memory of a launch of the TMA route: alignment
     slack, the ring of stages (A 128 x 128 B, and the weights' bn x 128 B
-    unless resident), the resident weights, the output buffers, alpha and
+    unless resident), the resident weights, the output buffers (each
+    with its float residual's slot of `res_bytes` an element), alpha and
     beta of both warpgroups, barriers."""
     stage = TILE_M * STAGE_K + (0 if resident else bn * STAGE_K)
     bres = ksteps * n_tiles * bn * STAGE_K if resident else 0
-    return 1024 + stages * stage + bres + bufs * TILE_M * bn * out_bytes \
-        + 16 * bn + 256
+    return 1024 + stages * stage + bres \
+        + bufs * TILE_M * bn * (out_bytes + res_bytes) + 16 * bn + 256
 
 
 # What one more split costs the block that sums the partial sums, in
@@ -283,12 +337,12 @@ SPLIT_COST_STAGES = 2
 def split_k(m: int, tiles: int, ksteps: int, epilogue: str,
             sms: int = SM_COUNT) -> int:
     """Into how many parts the K stages of each tile are split: 1 for
-    more than SPLIT_K_MAX_M rows, for `join` (the residual is loaded per
-    tile) and when the tiles fill the SMs. Else the divisor d of `ksteps`
+    more than SPLIT_K_MAX_M rows, for the joins (the residual is loaded
+    per tile) and when the tiles fill the SMs. Else the divisor d of `ksteps`
     with tiles * d <= sms (one wave of blocks) that makes the longest
     block's work least: ksteps / d stages, and SPLIT_COST_STAGES * d for
     the block that sums the d partial sums."""
-    if m > SPLIT_K_MAX_M or epilogue == "join" or tiles >= sms:
+    if m > SPLIT_K_MAX_M or epilogue in JOINS or tiles >= sms:
         return 1
     best, best_cost = 1, ksteps
     for d in range(2, ksteps + 1):
@@ -302,14 +356,16 @@ def split_k(m: int, tiles: int, ksteps: int, epilogue: str,
 @functools.lru_cache(maxsize=4096)
 def hopper_plan(m: int, k: int, n: int, epilogue: str,
                 sms: int = SM_COUNT, split: bool = True,
-                acc_dtype=torch.float32) -> dict:
+                acc_dtype=torch.float32, res_bytes: int = 0) -> dict:
     """Launch configuration of the TMA route for an [m,k] @ [k,n] product
     (a conv: k = KH * KW * C, and `split` False: its kernel does not split
     K): tile width `bn` (256 for wide int8 outputs of many rows, 128, or
     64 for narrow N and for few rows whose 64-wide tiles fit one wave of
-    blocks), K `ksteps`, `splits`, `resident` weights, `stages`, `bufs`,
-    `grid` and `smem` bytes. The output buffers hold elements of
-    OUT_BYTES[acc_dtype][epilogue] bytes."""
+    blocks; at most 128 beside a bf16 residual and 64 beside an f32 one),
+    K `ksteps`, `splits`, `resident` weights, `stages`, `bufs`, `grid`
+    and `smem` bytes. The output buffers hold elements of
+    OUT_BYTES[acc_dtype][epilogue] bytes, and a join's float residual
+    `res_bytes` an element (`res_bytes()`)."""
     ob = OUT_BYTES[acc_dtype][epilogue]
     if m <= SPLIT_K_MAX_M:      # few rows: more tiles, in one wave
         bn = 64 if n < 128 or -(-m // TILE_M) * -(-n // 64) <= sms else 128
@@ -317,14 +373,19 @@ def hopper_plan(m: int, k: int, n: int, epilogue: str,
         bn = 256
     else:
         bn = 128 if n >= 128 else 64
+    if res_bytes:
+        bn = min(bn, 128 // res_bytes * 2)
     m_tiles, n_tiles = -(-m // TILE_M), -(-n // bn)
     ksteps = -(-k // STAGE_K)
     splits = split_k(m, m_tiles * n_tiles, ksteps, epilogue, sms) \
         if split else 1
     resident = splits == 1 \
         and ksteps * n_tiles * bn * STAGE_K <= RESIDENT_LIMIT
-    for stages, bufs in _DEPTHS_JOIN if epilogue == "join" else _DEPTHS:
-        smem = tma_smem_bytes(bn, ob, stages, bufs, resident, ksteps, n_tiles)
+    depths = _DEPTHS_JOIN_FLOAT if res_bytes else \
+        _DEPTHS_JOIN if epilogue in JOINS else _DEPTHS
+    for stages, bufs in depths:
+        smem = tma_smem_bytes(bn, ob, stages, bufs, resident, ksteps, n_tiles,
+                              res_bytes)
         if smem <= SMEM_LIMIT:
             break
     else:
@@ -408,11 +469,17 @@ def epilogue_torch(acc: torch.Tensor, epilogue: str, alpha=None, beta=None,
     out = OUT_DTYPES[acc_dtype][epilogue]
     if epilogue == "f32":
         return y.to(out)
+    if epilogue == "f32_sum":
+        return s
     if epilogue == "f32_relu":
         return torch.clamp_min(y, 0.0).to(out)
     inv = _f32(inv_s_out, dev)
     if epilogue == "q8":
         return torch.clamp(torch.round(s * inv), -127, 127).to(torch.int8)
+    if epilogue == "join_s8":
+        r_i = torch.round(s * inv)
+        sc_i = torch.round(res.to(torch.float32) * _f32(res_scale, dev))
+        return torch.clamp(r_i + sc_i, 0, 127).to(torch.int8)
     if epilogue == "join":
         r = res.to(torch.float32)
         if acc_dtype == torch.bfloat16:
@@ -509,7 +576,8 @@ def stem_s8_torch(x, w, alpha, beta, inv_s_out=1.0, mode="calibrated",
 # wrappers
 
 
-def _check_epilogue(dev, m, n, epilogue, alpha, beta, res):
+def _check_epilogue(dev, m, n, epilogue, alpha, beta, res,
+                    acc_dtype=torch.float32):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if epilogue != "s32":
@@ -519,12 +587,13 @@ def _check_epilogue(dev, m, n, epilogue, alpha, beta, res):
                     and v.device == dev):
                 raise ValueError(f"{name} must be a contiguous [{n}] float32 "
                                  f"tensor on {dev}")
-    if epilogue == "join":
-        if not (isinstance(res, torch.Tensor) and res.dtype == torch.int8
+    if epilogue in JOINS:
+        types = (torch.int8, torch.float32, OUT_DTYPES[acc_dtype]["f32"])
+        if not (isinstance(res, torch.Tensor) and res.dtype in types
                 and res.numel() == m * n and res.shape[-1] == n
                 and res.is_contiguous() and res.device == dev):
-            raise ValueError(f"res must be a contiguous int8 tensor of "
-                             f"{m}x{n} elements on {dev}")
+            raise ValueError(f"res must be a contiguous tensor of {m}x{n} "
+                             f"elements of {types} on {dev}")
 
 
 def _ptr(t):
@@ -550,6 +619,26 @@ def _pick_route(name, route, auto):
         raise ValueError(f"{name}: the tma route does not take these shapes "
                          "or this alignment")
     return route
+
+
+def _record(name, epilogue, res, shapes) -> None:
+    """Counts a launch: `launches`, `join_launches`, `calls`."""
+    launches[name] += 1
+    if epilogue in JOINS:
+        key = (name, epilogue, res_kind(res))
+        join_launches[key] = join_launches.get(key, 0) + 1
+        shapes = dict(shapes, res=res_kind(res))
+    if calls is not None:
+        calls.append((name, shapes))
+
+
+# The kernels' residual types (csrc/int8_common.cuh ResType).
+RES_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _res_type(epilogue, res) -> int:
+    """The residual's type code for a join, 0 without a join."""
+    return RES_TYPES[res.dtype] if epilogue in JOINS else 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -582,7 +671,9 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
     n = b.shape[1]
     if m == 0 or k == 0 or n == 0:
         raise ValueError(f"empty product {m}x{k} @ {k}x{n}")
-    _check_epilogue(a.device, m, n, epilogue, alpha, beta, res)
+    _check_epilogue(a.device, m, n, epilogue, alpha, beta, res, acc_dtype)
+    rt = _res_type(epilogue, res)
+    rb = res_bytes(epilogue, getattr(res, "dtype", None))
     out = torch.empty((m, n), dtype=OUT_DTYPES[acc_dtype][epilogue],
                       device=a.device)
     lib = cuda_build.load("int8_gemm", _bind_gemm)
@@ -592,7 +683,8 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
     bf16 = int(acc_dtype == torch.bfloat16)
     if route == "tma":
         plan = hopper_plan(m, k, n, epilogue, _sms(a.device),
-                           acc_dtype=acc_dtype)
+                           acc_dtype=acc_dtype,
+                           res_bytes=rb)
         partial = counters = None
         if plan["splits"] > 1:
             partial = torch.empty((plan["splits"], m, n), dtype=torch.int32,
@@ -601,7 +693,7 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
                                    dtype=torch.int32, device=a.device)
         rc = lib.ursonet_gemm_s8_tma(
             a.data_ptr(), b.data_ptr(), m, n, k, EPILOGUES[epilogue], bf16,
-            _ptr(alpha), _ptr(beta), float(inv_s_out), _ptr(res),
+            _ptr(alpha), _ptr(beta), float(inv_s_out), _ptr(res), rt,
             float(res_scale), out.data_ptr(), plan["bn"], plan["stages"],
             plan["bufs"], int(plan["resident"]), plan["splits"],
             _ptr(partial), _ptr(counters), plan["grid"], a.device.index,
@@ -612,13 +704,12 @@ def gemm_s8(a: torch.Tensor, b: torch.Tensor, epilogue: str = "s32",
             int(k % 16 == 0 and a.data_ptr() % 16 == 0),
             int(k % 16 == 0 and b.data_ptr() % 16 == 0),
             EPILOGUES[epilogue], bf16, _ptr(alpha), _ptr(beta),
-            float(inv_s_out), _ptr(res), float(res_scale), out.data_ptr(),
-            tile_for(m, n), a.device.index, stream)
+            float(inv_s_out), _ptr(res), rt, float(res_scale),
+            out.data_ptr(), tile_for(m, n), a.device.index, stream)
     _raise_if(rc, lib, "gemm_s8")
-    launches["gemm_s8"] += 1
-    if calls is not None:
-        calls.append(("gemm_s8", dict(m=m, k=k, n=n, epilogue=epilogue,
-                                      route=route, acc=ACC_NAMES[acc_dtype])))
+    _record("gemm_s8", epilogue, res, dict(
+        m=m, k=k, n=n, epilogue=epilogue, route=route,
+        acc=ACC_NAMES[acc_dtype]))
     return out
 
 
@@ -660,7 +751,9 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     if oh < 1 or ow < 1:
         raise ValueError(f"empty output for {h}x{wd} and a {kh}x{kw} kernel")
     m = bsz * oh * ow
-    _check_epilogue(x.device, m, n, epilogue, alpha, beta, res)
+    _check_epilogue(x.device, m, n, epilogue, alpha, beta, res, acc_dtype)
+    rt = _res_type(epilogue, res)
+    rb = res_bytes(epilogue, getattr(res, "dtype", None))
     out = torch.empty((bsz, oh, ow, n),
                       dtype=OUT_DTYPES[acc_dtype][epilogue], device=x.device)
     lib = cuda_build.load("int8_conv", _bind_conv)
@@ -671,12 +764,13 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     bf16 = int(acc_dtype == torch.bfloat16)
     if route == "tma":
         plan = hopper_plan(m, kh * kw * c, n, epilogue, _sms(x.device),
-                           split=False, acc_dtype=acc_dtype)
+                           split=False, acc_dtype=acc_dtype,
+                           res_bytes=rb)
         rc = lib.ursonet_conv_s8_tma(
             x.data_ptr(), w.data_ptr(), bsz, h, wd, c, n, kh, kw, stride,
             pt, pb, pl, pr, EPILOGUES[epilogue], bf16, _ptr(alpha),
-            _ptr(beta),
-            float(inv_s_out), _ptr(res), float(res_scale), out.data_ptr(),
+            _ptr(beta), float(inv_s_out), _ptr(res), rt, float(res_scale),
+            out.data_ptr(),
             plan["bn"], plan["stages"], plan["bufs"], int(plan["resident"]),
             plan["grid"], x.device.index, stream)
     else:
@@ -686,15 +780,13 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             pt, pb, pl, pr, int(vec and x.data_ptr() % 16 == 0),
             int((kh * kw * c) % 16 == 0 and w.data_ptr() % 16 == 0),
             EPILOGUES[epilogue], bf16, _ptr(alpha), _ptr(beta),
-            float(inv_s_out), _ptr(res), float(res_scale), out.data_ptr(),
-            tile_for(m, n), x.device.index, stream)
+            float(inv_s_out), _ptr(res), rt, float(res_scale),
+            out.data_ptr(), tile_for(m, n), x.device.index, stream)
     _raise_if(rc, lib, "conv_s8")
-    launches["conv_s8"] += 1
-    if calls is not None:
-        calls.append(("conv_s8", dict(b=bsz, h=h, w=wd, c=c, kh=kh, kw=kw,
-                                      n=n, stride=stride, padding=padding,
-                                      epilogue=epilogue, route=route,
-                                      acc=ACC_NAMES[acc_dtype])))
+    _record("conv_s8", epilogue, res, dict(
+        b=bsz, h=h, w=wd, c=c, kh=kh, kw=kw, n=n, stride=stride,
+        padding=padding, epilogue=epilogue, route=route,
+        acc=ACC_NAMES[acc_dtype]))
     return out
 
 
@@ -748,8 +840,7 @@ def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
         float(inv_s_out), int(acc_dtype == torch.bfloat16), out.data_ptr(),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_if(rc, lib, "stem_s8")
-    launches["stem_s8"] += 1
-    if calls is not None:
-        calls.append(("stem_s8", dict(b=bsz, h2=h2, w2=w2, mode=mode,
-                                      route=route, acc=ACC_NAMES[acc_dtype])))
+    _record("stem_s8", "q8_relu", None, dict(
+        b=bsz, h2=h2, w2=w2, mode=mode, route=route,
+        acc=ACC_NAMES[acc_dtype]))
     return out

@@ -124,7 +124,8 @@ SERVING_VARIANTS = ('base', 's2d', 'host_s2d')
 
 
 def serving_config(batch: int = 128, variant: str = 'base',
-                   f16: bool = True) -> Config:
+                   f16: bool = True, inner_mult: float = 1.0,
+                   s8_join: bool = False, bf16_stem: bool = False) -> Config:
     """The flagship int8 PTQ serving configuration: the one `bench.py`
     times and `tools/make_gate_artifact.py::flagship_gate_config` builds
     the committed artifact for. ResNet-50, bottleneck 128, one 1024-wide
@@ -140,7 +141,12 @@ def serving_config(batch: int = 128, variant: str = 'base',
     batch runs the fused stem kernel.
 
     `f16=False` gives the f32-epilogue mode of the same artifact (F16 is
-    not recorded in it): the int8 epilogues in f32 with one FMA."""
+    not recorded in it): the int8 epilogues in f32 with one FMA.
+
+    The ablation knobs `bench.py` reads from its environment:
+    `inner_mult` (BENCH_INNER_MULT: INNER_WIDTH_MULT, the pruned-width
+    flagship), `s8_join` (BENCH_S8_JOIN: QUANT_S8_JOIN) and `bf16_stem`
+    (BENCH_BF16_STEM: QUANT_BF16_STEM)."""
     if variant not in SERVING_VARIANTS:
         raise ValueError(f"unknown serving variant {variant!r} "
                          f"{SERVING_VARIANTS}")
@@ -161,5 +167,8 @@ def serving_config(batch: int = 128, variant: str = 'base',
     cfg.IMAGES_PER_GPU = batch
     cfg.INT8_U8_INPUT = True
     cfg.F16 = bool(f16)
+    cfg.INNER_WIDTH_MULT = float(inner_mult)
+    cfg.QUANT_S8_JOIN = bool(s8_join)
+    cfg.QUANT_BF16_STEM = bool(bf16_stem)
     cfg.update()
     return cfg
