@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
               facts later slices need: whether h5py and torchvision
               import, whether native/host_loader.cpp compiles and links
               against libjpeg and libpng (into a temporary dir), the g++
-              version, whether zlib.h is there and where libnvjpeg is.
+              version, whether zlib.h and zstd.h are there, whether
+              libzstd.so.1 loads and where libnvjpeg is.
   2. build    nvcc builds every kernel of the port from the checkout, one
               nvcc per source, all at once; ptxas's registers and spills
               and, per kernel, its count of wgmma (IGMMA, HGMMA), TMA
@@ -186,6 +187,23 @@ Phases, in order; any failure exits non-zero:
               random-init gate of the float twin; the batch's median of
               10 beside the default F16 base of the same run, and the
               joins launched by epilogue and residual type.
+  8e. orbax  the Orbax checkpoint store (CHECKPOINT_FORMAT='orbax') on
+              phase 6's frames: the flagship (benchmark_config(3), batch
+              32, 512x640, rotation on) trained 1 epoch of 2 steps (the
+              fused warp launched, its first call equal to the plain
+              chain), the state directory's bytes and its write and read
+              seconds; a fresh engine's resume_state bit for bit (params,
+              batch_stats, velocity, step, epoch) and its next epoch equal
+              to the uninterrupted engine's bit for bit (cuDNN held to
+              deterministic algorithms in this phase); the second
+              snapshot (find_last) loaded by an inference engine,
+              quantized on 8 frames and a batch of 32 served (gemm_s8 and
+              conv_s8 on their TMA routes, each distinct call and the heads
+              equal to the plain version bit for bit); the committed
+              JAX-written fixture (tests/data/orbax_fixture.orbax) read to
+              its seeded arrays; the zstd decoder's MB/s on the fixture
+              and on the state. zstd.cpp is built by g++ from the
+              checkout; a failed build or read fails the run.
  9. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
@@ -235,6 +253,7 @@ from __future__ import annotations
 import argparse
 import copy
 import importlib
+import importlib.util
 import json
 import os
 import re
@@ -350,9 +369,10 @@ def machine_facts() -> dict:
 
 def host_toolchain_facts() -> dict:
     """What a parallel host decoder could build on: the g++ version (it
-    builds the port's JPEG codec), whether zlib.h preprocesses, and where
-    a libnvjpeg is (the CUDA toolkit's lib dirs, then the loader's
-    search)."""
+    builds the port's JPEG codec and zstd decoder), whether zlib.h and
+    zstd.h preprocess and libzstd.so.1 loads (the port uses neither: the
+    Orbax store decodes zstd itself), and where a libnvjpeg is (the CUDA
+    toolkit's lib dirs, then the loader's search)."""
     import ctypes.util
     facts = {}
     try:
@@ -373,6 +393,19 @@ def host_toolchain_facts() -> dict:
         if os.path.isdir(path):
             libs += sorted(os.path.join(path, f) for f in os.listdir(path)
                            if f.startswith('libnvjpeg'))
+    try:
+        r = subprocess.run(['g++', '-E', '-x', 'c++', '-'],
+                           input='#include <zstd.h>\n', capture_output=True,
+                           text=True, timeout=60)
+        facts['zstd.h'] = 'found' if r.returncode == 0 else \
+            'not found: ' + (r.stderr.strip().splitlines() or ['?'])[0]
+    except FileNotFoundError:
+        pass
+    try:
+        ctypes.CDLL('libzstd.so.1')
+        facts['libzstd.so.1'] = 'loads'
+    except OSError as e:
+        facts['libzstd.so.1'] = f'does not load ({e})'
     found = ctypes.util.find_library('nvjpeg')
     facts['libnvjpeg'] = ', '.join(libs) if libs else (
         f'found by the loader: {found}' if found else 'not found')
@@ -3800,6 +3833,229 @@ def run_knobs(root, device, seed: int = 0, card: str = '',
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8e: the Orbax checkpoint store
+
+ORBAX_STEPS = 2      # train steps of each epoch under CHECKPOINT_FORMAT='orbax'
+ORBAX_CALIB = 8      # training frames the reloaded weights are quantized on
+ORBAX_DECODE_REPS = 3    # passes of the decoder timing over the fixture
+ORBAX_FIXTURE = os.path.join(ROOT, 'tests', 'data', 'orbax_fixture.orbax')
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def decoder_mb_s(path, reps: int = 1) -> tuple:
+    """(MB/s, decoded bytes) of `checkpoint/zstd.py::decompress` over
+    every chunk of the Orbax directory `path` (the frames as the
+    directory holds them: compressed by the JAX package's writer, raw
+    blocks by the port's), host wall over `reps` passes."""
+    from ursonet_torch.checkpoint import ocdbt, zstd
+    db = ocdbt.Database(path)
+    frames = [db.get(k) for k in db.keys() if not k.endswith('/.zarray')]
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(reps):
+        for f in frames:
+            n += len(zstd.decompress(f))
+    return n / (time.perf_counter() - t0) / 1e6, n // reps
+
+
+def fixture_tree() -> dict:
+    """The seeded arrays of the committed JAX-written fixture
+    (tests/make_orbax_fixture.py, numpy alone)."""
+    spec = importlib.util.spec_from_file_location(
+        'make_orbax_fixture', os.path.join(ROOT, 'tests',
+                                           'make_orbax_fixture.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.fixture_tree()
+
+
+def _same_arrays(tag, got, want, path='') -> int:
+    """Nested numpy dicts equal in dtype, shape and bytes; the leaves."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            raise RuntimeError(f"{tag}: {path or 'the tree'} holds "
+                               f"{sorted(got) if isinstance(got, dict) else got}")
+        return sum(_same_arrays(tag, got[k], want[k], f'{path}/{k}')
+                   for k in want)
+    if (got.dtype, got.shape) != (want.dtype, want.shape) \
+            or got.tobytes() != want.tobytes():
+        raise RuntimeError(f"{tag}: {path} differs")
+    return 1
+
+
+def run_orbax(root, device, seed: int = 0, card: str = '',
+              cfg_fn=flagship_config, calib: int = ORBAX_CALIB) -> dict:
+    """Phase 8e on the URSO frames under `root/urso`: (a) `cfg_fn()`
+    (benchmark_config(3) at full width, batch 32, rotation on) trained
+    one epoch of ORBAX_STEPS steps under CHECKPOINT_FORMAT='orbax'
+    (warp_mold launched); the state's write and read seconds and bytes;
+    (b) a fresh engine's resume_state of the run bit for bit (params,
+    batch_stats, velocity, step, epoch), then one more epoch on it and on
+    the engine that never stopped: the two equal bit for bit (cuDNN held
+    to deterministic algorithms for the phase); (c) the second epoch's
+    snapshot loaded by an inference engine, quantized on `calib` frames
+    and a batch served: gemm_s8 and conv_s8 on their TMA routes, each
+    distinct call and the heads equal to the plain version bit for bit;
+    (d) the committed JAX-written fixture read to its seeded arrays, the
+    decoder's MB/s on it and on the state. Returns the launches by
+    kernel row and the numbers."""
+    from ursonet_torch.checkpoint import orbax_store
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {'rows': Counter(), 'fused_err': 0.0}
+    t0 = time.perf_counter()
+    lib, _ = cuda_build.build('zstd')
+    log(f"orbax: zstd decoder {lib.name} ready in "
+        f"{time.perf_counter() - t0:.1f} s (g++ at first use)")
+    cfg = cfg_fn()
+    cfg.CHECKPOINT_FORMAT = 'orbax'
+    cfg.STEPS_PER_EPOCH = ORBAX_STEPS
+    cfg.update()
+    ds = Urso()
+    ds.load_dataset(os.path.join(root, 'urso'), cfg, 'train')
+    model_dir = os.path.join(root, 'orbax_logs')
+    quiet = dict(log_fn=lambda *a: None)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) one epoch under Orbax
+        eng = UrsoNet('training', cfg, model_dir, device=dev)
+        eng.initialize(seed)
+        warp_cuda.reset_counts()
+        with _FusedWarps() as fused:
+            eng.train(ds, None, cfg.LEARNING_RATE, 1, **quiet)
+        sync()
+        out['fused_err'] = check_fused_call('orbax (a)', fused.first, cuda)
+        del fused
+        state = os.path.join(eng.log_dir, 'state_latest.orbax')
+        snaps = sorted(f for f in os.listdir(eng.log_dir)
+                       if f.startswith('weights_'))
+        template = eng.checkpoint_path
+        first = store.checkpoint_epoch(template, 0)
+        if snaps != [os.path.basename(first)] or not os.path.isdir(state):
+            raise RuntimeError(f"orbax (a): run dir holds "
+                               f"{sorted(os.listdir(eng.log_dir))}")
+        t0 = time.perf_counter()
+        store.save_state(state, eng.model, eng.tx, eng.slots, eng.step,
+                         eng.epoch)
+        out['write_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.load_state(state)
+        out['read_s'] = time.perf_counter() - t0
+        out['state_bytes'] = _dir_bytes(state)
+        out['weights_bytes'] = _dir_bytes(os.path.join(eng.log_dir, snaps[0]))
+        log(f"orbax (a) {cfg.BACKBONE} batch {cfg.BATCH_SIZE} "
+            f"{cfg.IMAGE_SHAPE[1]}x{cfg.IMAGE_SHAPE[0]}: 1 epoch of "
+            f"{ORBAX_STEPS} steps, warp_mold x{warp_cuda.launches['warp_mold']}"
+            f"; state_latest.orbax {out['state_bytes']} bytes, written in "
+            f"{out['write_s']:.3f} s, read in {out['read_s']:.3f} s (host "
+            f"wall); weights snapshot {out['weights_bytes']} bytes {card}")
+
+        # (b) resume bit for bit, then one more epoch on both engines
+        eng2 = UrsoNet('training', cfg, model_dir, device=dev)
+        if not eng2.resume_state(eng.log_dir):
+            raise RuntimeError("orbax (b): no state_latest to resume")
+        _same_tensors('orbax (b) params and batch_stats',
+                      eng2.model.state_dict(), eng.model.state_dict())
+        _same_tensors('orbax (b) velocity', eng2.velocity, eng.velocity)
+        if (eng2.step, eng2.epoch) != (eng.step, eng.epoch) \
+                or (eng.step, eng.epoch) != (ORBAX_STEPS, 1):
+            raise RuntimeError(f"orbax (b): step/epoch {eng2.step}/"
+                               f"{eng2.epoch} vs {eng.step}/{eng.epoch}")
+        eng.train(ds, None, cfg.LEARNING_RATE, 2, **quiet)
+        eng2.train(ds, None, cfg.LEARNING_RATE, 2, **quiet)
+        sync()
+        _same_tensors('orbax (b) next epoch params and batch_stats',
+                      eng2.model.state_dict(), eng.model.state_dict())
+        _same_tensors('orbax (b) next epoch velocity', eng2.velocity,
+                      eng.velocity)
+        log(f"orbax (b) resumed {os.path.basename(eng.log_dir)}: params, "
+            f"batch_stats and velocity bit for bit at step {ORBAX_STEPS}; "
+            f"the next epoch ({ORBAX_STEPS} steps) on the resumed engine "
+            f"equals the uninterrupted one's bit for bit (step {eng2.step})")
+        for k in ('warp_homography', 'warp_mold'):
+            out['rows'][k] += warp_cuda.launches[k]
+        if cuda and warp_cuda.launches['warp_mold'] < 1:
+            raise RuntimeError("orbax: the train path never launched "
+                               "warp_mold")
+        want = eng.model.state_dict()
+        del eng2
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # (c) the snapshot served int8
+    inf = UrsoNet('inference', cfg, model_dir, device=dev)
+    snap = inf.find_last()
+    if snap != store.checkpoint_epoch(template, 1):
+        raise RuntimeError(f"orbax (c): find_last gave {snap}")
+    t0 = time.perf_counter()
+    inf.load_weights(snap)
+    out['load_weights_s'] = time.perf_counter() - t0
+    _same_tensors('orbax (c) loaded weights', inf.model.state_dict(), want)
+    del eng, want
+    images = [ds.load_image(i) for i in range(cfg.BATCH_SIZE)]
+    qm = inf.quantize(images[:calib])
+    molded = inf.mold_inputs(images)[0]
+    int8_cuda.reset_counts()
+    int8_cuda.calls = []
+    served = inf.serving.predict_molded(molded)
+    sync()
+    launches, calls = dict(int8_cuda.launches), int8_cuda.calls
+    int8_cuda.calls = None
+    log(f"orbax (c) {os.path.basename(snap)} loaded in "
+        f"{out['load_weights_s']:.3f} s (host wall), quantized on {calib} "
+        f"frames, served batch of {len(images)}: launches {launches}")
+    if cuda:
+        if min(launches['gemm_s8'], launches['conv_s8']) < 1:
+            raise RuntimeError(f"orbax (c): launches {launches}")
+        check_served_routes('orbax', calls)
+        check_served_calls('orbax', calls, dev, np.random.RandomState(seed))
+    sfx = '' if ACC_NAMES[qm.acc_dtype] == 'bf16' else '_f32acc'
+    for k in ('gemm_s8', 'conv_s8'):
+        out['rows'][k + sfx] += launches[k]
+    out['rows'][C2_REQUANT + sfx] += sum(
+        1 for n, a in calls if n == 'gemm_s8' and a.get('epilogue') ==
+        'q8_relu')
+    plain = qm(inf.serving.served_batch(molded), plain=True)
+    for k, v in served.items():
+        diff = int((v != plain[k]).sum())
+        if diff or not torch.isfinite(v).all():
+            raise RuntimeError(f"orbax (c) {k}: {diff} values differ from "
+                               "the plain version")
+    log("orbax (c) the served heads equal the plain version's (0 differing "
+        "values)")
+    del inf, qm, served, plain
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the JAX-written fixture, and the decoder's rate
+    t0 = time.perf_counter()
+    got = orbax_store.load_weights_dir(ORBAX_FIXTURE)
+    fx_s = time.perf_counter() - t0
+    want = fixture_tree()
+    n = _same_arrays('orbax (d) fixture', got['params'], want['params'])
+    if got['batch_stats'] is not None:
+        raise RuntimeError("orbax (d): the fixture's empty batch_stats "
+                           f"read as {got['batch_stats']}")
+    out['fixture_mb_s'], fx_bytes = decoder_mb_s(ORBAX_FIXTURE,
+                                                 ORBAX_DECODE_REPS)
+    out['state_mb_s'], st_bytes = decoder_mb_s(state)
+    log(f"orbax (d) the JAX package's fixture ({_dir_bytes(ORBAX_FIXTURE)} "
+        f"bytes, zstd level 1) read in {fx_s:.3f} s: its {n} arrays equal "
+        f"the seeded ones bit for bit")
+    log(f"orbax (d) zstd decoder (host): {out['fixture_mb_s']:.1f} MB/s on "
+        f"the fixture's frames ({fx_bytes} bytes decoded, Huffman and FSE), "
+        f"{out['state_mb_s']:.1f} MB/s on the state's ({st_bytes} bytes, "
+        f"raw blocks) {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -4023,8 +4279,15 @@ def main(argv=None) -> int:
         t8 = time.perf_counter()
         kn = run_knobs(root, dev, args.seed, card=card)
         fused_err = max(fused_err, kn['fused_err'])
+        torch.cuda.empty_cache()
+        log(f"knobs phase: {time.perf_counter() - t8:.1f} s {card}")
+
+        # 8e. the Orbax checkpoint store: train, resume and serve
+        t8 = time.perf_counter()
+        ob = run_orbax(root, dev, args.seed, card=card)
+        fused_err = max(fused_err, ob['fused_err'])
     torch.cuda.empty_cache()
-    log(f"knobs phase: {time.perf_counter() - t8:.1f} s {card}")
+    log(f"orbax phase: {time.perf_counter() - t8:.1f} s {card}")
 
     # 9. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
@@ -4284,7 +4547,7 @@ def main(argv=None) -> int:
         # benchmark config 2's launches (phase 8b) and the TRAIN_BN
         # paths' (phase 8c)
         for path, got in (('config2', c2['rows']), ('trainbn', tb['rows']),
-                          ('knobs', kn['rows'])):
+                          ('knobs', kn['rows']), ('orbax', ob['rows'])):
             n = got.get(row['name'], 0)
             if n:
                 row.setdefault('launches_by_path',
@@ -4295,6 +4558,7 @@ def main(argv=None) -> int:
     kernels[0]['launches_fused_by_path']['config2'] = c2['rows']['warp_mold']
     kernels[0]['launches_fused_by_path']['trainbn'] = tb['rows']['warp_mold']
     kernels[0]['launches_fused_by_path']['knobs'] = kn['warp_mold']
+    kernels[0]['launches_fused_by_path']['orbax'] = ob['rows']['warp_mold']
     # phase 8d's joins by mode and residual type, and its checks of them
     # (every distinct call on fresh operands: any difference raised)
     new_modes = int8_cuda.JOINS + ('f32_sum',)

@@ -194,15 +194,11 @@ def test_checkpoint_keep_prunes_by_parsed_epoch(urso_dir, run_dir):
 
 
 def test_engine_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    _, cfg = small_configs(CHECKPOINT_FORMAT='orbax')
-    with pytest.raises(NotImplementedError, match='orbax'):
-        UrsoNet('training', cfg, str(tmp_path), device='cpu')
+    # Keras h5 files load through checkpoint/h5_import.py
+    # (tests/test_torch_h5_import.py), Orbax directories through
+    # checkpoint/orbax_store.py (tests/test_torch_orbax*.py)
     _, cfg = small_configs()
     engine = UrsoNet('inference', cfg, str(tmp_path), device='cpu')
-    # Keras h5 files load through checkpoint/h5_import.py
-    # (tests/test_torch_h5_import.py); orbax weight dirs are not ported
-    with pytest.raises(NotImplementedError, match='orbax'):
-        engine.load_weights(str(tmp_path / 'w.orbax'))
     with pytest.raises(RuntimeError, match='training mode'):
         engine.train(None, None, None, 1)
     with pytest.raises(ValueError):

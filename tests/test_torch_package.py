@@ -29,7 +29,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'ursonet_tpu', 'pandas', 'PIL',
-             'cv2', 'msgpack', 'tools', 'h5py', 'matplotlib')
+             'cv2', 'msgpack', 'tools', 'h5py', 'matplotlib', 'orbax',
+             'tensorstore', 'zstandard', 'zstd')
 
 
 def _port_sources():
@@ -75,7 +76,9 @@ def test_the_checks_cover_the_data_and_engine_modules():
               'ursonet_torch.ops.viz', 'ursonet_torch.evaluate',
               'ursonet_torch.pose_estimator', 'ursonet_torch.data.jpeg',
               'ursonet_torch.data.speed', 'ursonet_torch.submission',
-              'ursonet_torch.split_dataset'):
+              'ursonet_torch.split_dataset', 'ursonet_torch.checkpoint.zstd',
+              'ursonet_torch.checkpoint.ocdbt', 'ursonet_torch.checkpoint.zarr',
+              'ursonet_torch.checkpoint.orbax_store'):
         assert m in names, m
     assert ROOT / 'ursonet_torch' / 'data' / 'png.py' in _port_sources()
 

@@ -8,8 +8,11 @@ counterpart of `ursonet_tpu/checkpoint/store.py`.
   * by-name partial loading with layer exclusion (`merge_params`).
 
 Files are written atomically (a temporary file, then a rename) in the
-JAX package's own msgpack layout (`checkpoint/msgpack.py`), so each
-package loads and resumes the other's:
+JAX package's own msgpack layout (`checkpoint/msgpack.py`), or, for a
+path ending in `.orbax` (CHECKPOINT_FORMAT='orbax'), as the Orbax
+directory the JAX package writes (`checkpoint/orbax_store.py`), so each
+package loads and resumes the other's. Both formats hold the same trees
+through the same conversion:
 
   weights  {'params': tree, 'batch_stats': tree}
   state    {'step', 'epoch', 'params', 'batch_stats', 'opt_state'}
@@ -46,6 +49,9 @@ from ursonet_torch.checkpoint.convert import params_from_jax, \
     params_to_jax_layout
 from ursonet_torch.checkpoint.msgpack import msgpack_restore, \
     msgpack_serialize
+from ursonet_torch.checkpoint.orbax_store import ORBAX_SUFFIX, \
+    is_orbax_path, load_state_dir, load_weights_dir, save_state_dir, \
+    save_weights_dir
 from ursonet_torch.train.state import layer_name_of
 
 WEIGHTS_EXT = '.msgpack'
@@ -94,7 +100,7 @@ def latest_in_dir(run_dir: str) -> Optional[str]:
         return None
     cands = sorted(f for f in os.listdir(run_dir)
                    if f.startswith("weights_")
-                   and (f.endswith(WEIGHTS_EXT) or f.endswith('.orbax')))
+                   and (f.endswith(WEIGHTS_EXT) or f.endswith(ORBAX_SUFFIX)))
     return os.path.join(run_dir, cands[-1]) if cands else None
 
 
@@ -140,14 +146,20 @@ def _read(path: str) -> dict:
 
 
 def save_weights_file(path: str, state_dict) -> None:
-    """Atomic weight snapshot of a model's state_dict."""
-    _atomic_write(path, msgpack_serialize(params_to_jax_layout(state_dict)))
+    """Atomic weight snapshot of a model's state_dict (an Orbax directory
+    for a `.orbax` path)."""
+    tree = params_to_jax_layout(state_dict)
+    if is_orbax_path(path):
+        save_weights_dir(path, tree['params'], tree['batch_stats'])
+    else:
+        _atomic_write(path, msgpack_serialize(tree))
 
 
 def load_weights_file(path: str) -> Dict[str, torch.Tensor]:
-    """A weight snapshot (of either package) as a state_dict of f32
-    tensors on the CPU."""
-    return params_from_jax(_read(path))
+    """A weight snapshot (of either package, msgpack or Orbax) as a
+    state_dict of f32 tensors on the CPU."""
+    return params_from_jax(load_weights_dir(path) if is_orbax_path(path)
+                           else _read(path))
 
 
 def velocity_tree(model, velocity: Dict[str, torch.Tensor]) -> dict:
@@ -190,18 +202,23 @@ def save_state(path: str, model, tx,
                slots: Dict[str, Dict[str, torch.Tensor]], step: int,
                epoch: int) -> None:
     """Atomic full train-state snapshot for an exact resume: weights, the
-    optimizer's slots by parameter name and its update count."""
+    optimizer's slots by parameter name and its update count (an Orbax
+    directory for a `.orbax` path)."""
     tree = params_to_jax_layout(model.state_dict())
     tree.update({'step': int(step), 'epoch': int(epoch),
                  'opt_state': opt_state_tree(model, tx, slots)})
-    _atomic_write(path, msgpack_serialize(tree))
+    if is_orbax_path(path):
+        save_state_dir(path, tree)
+    else:
+        _atomic_write(path, msgpack_serialize(tree))
 
 
 def load_state(path: str) -> dict:
-    """A train-state snapshot (of either package): {'state_dict', 'slots'
-    ({slot: {parameter name: tensor}}), 'count' (the optimizer's update
-    count), 'step', 'epoch'}, tensors f32 on the CPU."""
-    tree = _read(path)
+    """A train-state snapshot (of either package, msgpack or Orbax):
+    {'state_dict', 'slots' ({slot: {parameter name: tensor}}), 'count'
+    (the optimizer's update count), 'step', 'epoch'}, tensors f32 on the
+    CPU."""
+    tree = load_state_dir(path) if is_orbax_path(path) else _read(path)
     count, trees = _slots_of(tree['opt_state'])
     slots = {s: params_from_jax({'params': t}) for s, t in trees.items()}
     return {'state_dict': params_from_jax(tree), 'slots': slots,

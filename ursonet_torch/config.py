@@ -159,9 +159,9 @@ class Config:
     # Per-step scalar logging to metrics.jsonl every N steps (0 = per
     # epoch only).
     LOG_EVERY_STEPS = 0
-    CHECKPOINT_FORMAT = 'msgpack'   # msgpack ('orbax' is not ported)
+    CHECKPOINT_FORMAT = 'msgpack'   # msgpack | orbax
     # Keep only the newest N per-epoch weight snapshots (0 = keep all);
-    # state_latest.msgpack always remains.
+    # state_latest (.msgpack or .orbax) always remains.
     CHECKPOINT_KEEP = 0
     # Raise FloatingPointError at the first step whose losses, metrics or
     # updated weights hold a NaN (the JAX package's jax_debug_nans); costs

@@ -18,7 +18,9 @@ epoch `metrics.jsonl`, a config dump, a weight snapshot (with the
 batch norms' running statistics, which train under TRAIN_BN None / True)
 and `state_latest.msgpack` in the run dir (`checkpoint/store.py`, the
 JAX package's layout: each package loads and resumes the other's
-files). Under DEBUG_NANS each step's metrics and weights are read for a
+files); under CHECKPOINT_FORMAT='orbax' the snapshots and
+`state_latest.orbax` are Orbax directories (`checkpoint/orbax_store.py`)
+in the layout the JAX package writes. Under DEBUG_NANS each step's metrics and weights are read for a
 NaN (`train/step.py::check_nans`, the counterpart of jax_debug_nans).
 
     engine = ServingEngine(config)              # float model, seeded weights
@@ -46,6 +48,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import time
 from typing import List, Optional, Sequence
 
@@ -54,6 +57,7 @@ import torch
 
 from ursonet_torch.checkpoint import h5_import, store
 from ursonet_torch.checkpoint.convert import params_to_jax_layout
+from ursonet_torch.checkpoint.orbax_store import ORBAX_SUFFIX
 from ursonet_torch.checkpoint.quant_store import load_quantized
 from ursonet_torch.data import loader
 from ursonet_torch.device import resolve_device
@@ -204,10 +208,6 @@ class UrsoNet:
         if mode not in ('training', 'inference'):
             raise ValueError(f"mode must be 'training' or 'inference', got "
                              f"{mode!r}")
-        if getattr(config, 'CHECKPOINT_FORMAT', 'msgpack') != 'msgpack':
-            raise NotImplementedError(
-                f"CHECKPOINT_FORMAT={config.CHECKPOINT_FORMAT!r}: the orbax "
-                "store is not ported (ROADMAP §1); use 'msgpack'")
         self.mode = mode
         self.config = config
         self.model_dir = model_dir
@@ -224,11 +224,19 @@ class UrsoNet:
 
     # -- bookkeeping ----------------------------------------------------------
 
+    @property
+    def _orbax(self) -> bool:
+        return getattr(self.config, 'CHECKPOINT_FORMAT',
+                       'msgpack') == 'orbax'
+
     def set_log_dir(self, weights_path: Optional[str] = None):
         """Run dir, checkpoint template and epoch counter; a snapshot path
-        of a run dir continues that run."""
+        of a run dir continues that run. Snapshots are `.orbax`
+        directories under CHECKPOINT_FORMAT='orbax', else `.msgpack`
+        files."""
+        ext = ORBAX_SUFFIX if self._orbax else store.WEIGHTS_EXT
         self.log_dir, self.checkpoint_path, self.epoch = store.set_log_dir(
-            self.model_dir, self.config.NAME, weights_path)
+            self.model_dir, self.config.NAME, weights_path, ext=ext)
 
     def find_last(self) -> str:
         return store.find_last(self.model_dir)
@@ -264,14 +272,12 @@ class UrsoNet:
 
     def load_weights(self, path: str, exclude: Sequence[str] = (),
                      verbose: bool = False):
-        """Load a msgpack weight snapshot of either package, or a Keras
-        h5 weight file (`checkpoint/h5_import.py`), by layer name,
-        skipping layers that fully match a regex of `exclude` and tensors
-        of another shape; the optimizer state starts afresh. A snapshot
-        of a run dir continues that run's epochs."""
-        if path.endswith('.orbax'):
-            raise NotImplementedError(
-                f'{path}: the orbax store is not ported (ROADMAP §1)')
+        """Load a weight snapshot of either package (a msgpack file or an
+        Orbax directory), or a Keras h5 weight file
+        (`checkpoint/h5_import.py`), by layer name, skipping layers that
+        fully match a regex of `exclude` and tensors of another shape;
+        the optimizer state starts afresh. A snapshot of a run dir
+        continues that run's epochs."""
         if self.model is None:
             self.initialize()
         if path.endswith('.h5'):
@@ -293,15 +299,15 @@ class UrsoNet:
         store.save_weights_file(path, self.model.state_dict())
 
     def resume_state(self, run_dir: Optional[str] = None) -> bool:
-        """Exact resume from `state_latest.msgpack` in `run_dir` (default
-        the current run dir), written by either package: weights, the
+        """Exact resume from `state_latest.orbax` or, where there is none,
+        `state_latest.msgpack` in `run_dir` (default the current run dir),
+        written by either package (the JAX engine's order): weights, the
         optimizer's slots and update count, step and epoch. Returns False
-        when there is none."""
+        when there is neither."""
         run_dir = run_dir or self.log_dir
-        if os.path.exists(os.path.join(run_dir, 'state_latest.orbax')):
-            raise NotImplementedError(
-                f'{run_dir}: orbax states are not ported (ROADMAP §1)')
-        path = os.path.join(run_dir, 'state_latest.msgpack')
+        path = os.path.join(run_dir, 'state_latest' + ORBAX_SUFFIX)
+        if not os.path.exists(path):
+            path = os.path.join(run_dir, 'state_latest' + store.WEIGHTS_EXT)
         if not os.path.exists(path):
             return False
         if self.model is None:
@@ -472,7 +478,8 @@ class UrsoNet:
                 self._prune_snapshots(int(getattr(cfg, 'CHECKPOINT_KEEP', 0)
                                           or 0))
                 store.save_state(
-                    os.path.join(self.log_dir, 'state_latest.msgpack'),
+                    os.path.join(self.log_dir, 'state_latest' + (
+                        ORBAX_SUFFIX if self._orbax else store.WEIGHTS_EXT)),
                     self.model, self.tx, self.slots, self.step, epoch + 1)
                 self.epoch = epoch + 1
                 last_means = means
@@ -485,7 +492,7 @@ class UrsoNet:
     def _prune_snapshots(self, keep: int):
         """Keep the newest `keep` per-epoch snapshots (0: all), ordered by
         the epoch parsed from the name; only names that match the
-        snapshot template go."""
+        snapshot template go (an Orbax snapshot with its directory)."""
         if keep <= 0:
             return
         pat = re.compile(re.escape(os.path.basename(self.checkpoint_path))
@@ -496,7 +503,10 @@ class UrsoNet:
             if m:
                 snaps.append((int(m.group(1)), p))
         for _, old in sorted(snaps)[:-keep]:
-            os.remove(old)
+            if os.path.isdir(old):
+                shutil.rmtree(old)
+            else:
+                os.remove(old)
 
     # -- introspection --------------------------------------------------------
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (`ursonet_torch/csrc/*.cu`)
-and its host libraries (`csrc/jpeg.cpp`, the JPEG codec, and
-`csrc/host_loader.cpp`, the threaded batch loader).
+and its host libraries (`csrc/jpeg.cpp`, the JPEG codec,
+`csrc/host_loader.cpp`, the threaded batch loader, and `csrc/zstd.cpp`,
+the zstd decoder and CRC-32C of the Orbax store).
 
 Each source is compiled with `nvcc` for sm_90a into its own shared
 library with a plain C interface, at first use, into `.torch_ext/` at
@@ -40,7 +41,7 @@ SOURCES = ("warp", "int8_gemm", "int8_conv", "int8_stem", "int8_block",
            "mma_rate")
 GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 # host source -> its link flags
-HOST_LINK = {"jpeg": (), "host_loader": ("-lz", "-pthread")}
+HOST_LINK = {"jpeg": (), "host_loader": ("-lz", "-pthread"), "zstd": ()}
 HOST_SOURCES = tuple(HOST_LINK)
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
