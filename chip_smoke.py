@@ -204,6 +204,29 @@ Phases, in order; any failure exits non-zero:
               its seeded arrays; the zstd decoder's MB/s on the fixture
               and on the state. zstd.cpp is built by g++ from the
               checkout; a failed build or read fails the run.
+  8f. parallel the (data, model) mesh over torch.distributed ranks
+              (`run_parallel`): (a) a world of one in this process under
+              NCCL (a FileStore, device_id set) and its 1 x 1
+              DeviceMesh: two flagship f32 steps at batch 32 through the
+              parallel path (warp_mold, the bucketed gradient all-reduce
+              executed) equal to the step without a mesh bit for bit
+              (cuDNN deterministic), both steps timed in turns (median of
+              10 each, twice; the run's cuDNN setting) beside phase 4's,
+              int8 at batch 128 under shard_over of the mesh equal to
+              unsharded serving bit for bit; (b) a 2 x 2 world of four
+              processes under gloo, all on the one card (asked for by
+              device=): the flagship recipe at full width (13,824-wide
+              ori_final split by its in features) at a global batch of
+              16, two steps, convolutions in full f32 (TF32 off, also
+              in its reference): loss and every parameter against the world
+              of one on the same global batch (rtol 2e-4, atol 2e-5, the
+              JAX package's DP x TP bounds), each rank's first warp_mold
+              call against the plain chain, rank 0's whole state equal
+              to the gathered tree and resumed by a fresh 2 x 2 world bit
+              for bit, int8 served over the 2 data rows (the int8 body
+              equal to one rank's serving bit for bit, the float final
+              within 1e-5, each rank's rows equal to the plain version);
+              seconds and each rank's peak memory.
  9. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
@@ -2750,8 +2773,8 @@ def _record_lrs(eng) -> list:
     from now on."""
     lrs, step = [], eng.tx.step
 
-    def recorded(params, grads):
-        step(params, grads)
+    def recorded(*args):
+        step(*args)
         lrs.append(eng.tx.last_lr)
     eng.tx.step = recorded
     return lrs
@@ -4056,6 +4079,472 @@ def run_orbax(root, device, seed: int = 0, card: str = '',
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8f: parallelism over torch.distributed ranks
+
+PAR_MESH = (2, 2)     # the (data, model) world of four ranks on one card
+PAR_BATCH = 16        # its global batch: 8 images a data row
+PAR_STEPS = 2         # train steps of each parallel run
+PAR_SERVE = 128       # int8 images served under the world of one's mesh
+PAR_CALIB = 8         # images the int8 models are calibrated on
+PAR_REL = dict(rtol=2e-4, atol=2e-5)   # tests/test_parallel.py's bounds
+
+
+def par_config(cfg, per_row: int, mesh=(1, 1)) -> Config:
+    """`cfg` at `per_row` images a data row over a (data, model) mesh."""
+    cfg = copy.deepcopy(cfg)
+    cfg.IMAGES_PER_GPU = per_row
+    cfg.MESH_DATA, cfg.MESH_MODEL = mesh
+    cfg.update()
+    return cfg
+
+
+def state_digest(tensors: dict) -> str:
+    """sha256 over the bytes of `tensors` in name order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _Buckets:
+    """While open, counts the train step's bucketed gradient
+    all-reduces (`parallel/sharding.py::all_reduce_bucket`)."""
+
+    def __enter__(self):
+        from ursonet_torch.train import step as step_mod
+        self.mod, self.n = step_mod, 0
+        self.saved = step_mod.all_reduce_bucket
+
+        def counted(tensors, group):
+            self.n += 1
+            return self.saved(tensors, group)
+        step_mod.all_reduce_bucket = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.all_reduce_bucket = self.saved
+
+
+def _par_steps(cfg, dev, seed, raw, mesh=None, model=None, tx=None):
+    """PAR_STEPS train steps with warp_mold on `raw` (this rank's rows
+    under a mesh); each step draws the global batch's augmentation from
+    its own seed. Returns (losses, model, step fn, first warp_mold call,
+    bucketed all-reduces)."""
+    from ursonet_torch.parallel.sharding import shard_model
+    if model is None:
+        model = build_model(cfg, dev, torch.Generator().manual_seed(seed))
+        if mesh is not None:
+            shard_model(model, mesh, cfg)
+    pre = make_device_preprocess(cfg, device=dev)
+    step = make_train_step(model, cfg, tx or make_optimizer(cfg),
+                           trainable_mask(model, 'all'), pre, dev, mesh)
+    losses = []
+    with _FusedWarps() as fused, _Buckets() as buckets:
+        for i in range(PAR_STEPS):
+            m = step(raw, torch.Generator().manual_seed(seed + 1 + i))
+            losses.append(float(m['loss']))
+    return losses, model, step, fused.first, buckets.n
+
+
+def _count_int8(calls, rows, sfx='_f32acc') -> None:
+    for k in ('gemm_s8', 'conv_s8'):
+        rows[k + sfx] += sum(1 for n, _ in calls if n == k)
+    rows[C2_REQUANT + sfx] += sum(1 for n, a in calls if n == 'gemm_s8'
+                                  and a.get('epilogue') == 'q8_relu')
+
+
+def world_of_one(dev, cfg, seed, card, train_ms, serve=PAR_SERVE) -> dict:
+    """Phase 8f (a): a world of one rank in this process (NCCL on the
+    card, gloo on the CPU; a FileStore), its 1 x 1 DeviceMesh: the train
+    step through the parallel path (the bucketed all-reduce executed)
+    equal to the step without a mesh bit for bit, and int8 serving under
+    shard_over of the mesh equal to unsharded serving bit for bit. Also
+    the world-of-one reference of part (b): its global batch's steps."""
+    import torch.distributed as dist
+
+    from ursonet_torch.parallel import make_mesh, multihost
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rows = Counter()
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as d:
+        multihost.initialize(f'file://{d}/store', 1, 0,
+                             backend='nccl' if cuda else 'gloo', device=dev)
+        try:
+            mesh = make_mesh(data=1, model=1)
+            if mesh.device_mesh is None:
+                raise RuntimeError("parallel: no DeviceMesh in the world "
+                                   "of one")
+            log(f"parallel [world of one] backend {dist.get_backend()}, "
+                f"{mesh}")
+            raw = make_raw_batch(cfg, seed)
+            got, steps = {}, {}
+            for tag, m in (('no mesh', None), ('mesh 1x1', mesh)):
+                warp_cuda.reset_counts()
+                losses, model, step, first, buckets = _par_steps(
+                    cfg, dev, seed, raw, m)
+                sync()
+                if tag == 'mesh 1x1':
+                    rows['warp_homography'] += warp_cuda.launches[
+                        'warp_homography']
+                    rows['warp_mold'] += warp_cuda.launches['warp_mold']
+                    if buckets != PAR_STEPS:
+                        raise RuntimeError(f"parallel: {buckets} bucketed "
+                                           f"all-reduces in {PAR_STEPS} "
+                                           "steps")
+                    out['fused_err'] = check_fused_call('parallel [world '
+                                                        'of one]', first,
+                                                        cuda)
+                got[tag] = (losses, {k: v.clone() for k, v in
+                                     model.state_dict().items()})
+                steps[tag] = step
+                del model
+            (l0, s0), (l1, s1) = got['no mesh'], got['mesh 1x1']
+            diff = [k for k in s0 if not torch.equal(s0[k], s1[k])]
+            if l0 != l1 or diff:
+                raise RuntimeError(f"parallel [world of one]: losses {l1} "
+                                   f"vs {l0}, {len(diff)} tensors differ "
+                                   f"({diff[:4]})")
+            log(f"parallel [world of one] {PAR_STEPS} steps equal the "
+                f"step without a mesh bit for bit: losses {l1}, "
+                f"{len(s1)} tensors, {PAR_STEPS} bucketed all-reduces")
+            if cuda:
+                # both steps timed in turns under the run's cuDNN setting
+                # (the comparison above held it deterministic)
+                torch.backends.cudnn.deterministic = deterministic
+                ms = {tag: [] for tag in steps}
+                for tag in ('no mesh', 'mesh 1x1', 'mesh 1x1', 'no mesh'):
+                    ms[tag].append(time_train({'step': steps[tag],
+                                               'raw': raw}, seed))
+                out['step_ms'] = {k: statistics.mean(v)
+                                  for k, v in ms.items()}
+                torch.backends.cudnn.deterministic = True
+                t = out['step_ms']
+                log(f"parallel [world of one] train step (mean of two "
+                    f"medians of 10, in turns): {t['mesh 1x1']:.3f} ms "
+                    f"through the mesh vs {t['no mesh']:.3f} ms without it "
+                    f"({ms}); phase 4's {train_ms:.3f} ms; batch "
+                    f"{cfg.BATCH_SIZE} {card}")
+            del steps
+            # int8 serving under shard_over(mesh) against unsharded
+            model = build_model(cfg, dev, torch.Generator().manual_seed(
+                seed))
+            model.load_state_dict(s1)
+            engine = ServingEngine(cfg, dev, model=model, mesh=mesh)
+            rng = np.random.RandomState(seed)
+            h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+            images = rng.randint(0, 256, (serve, h, w, 3), np.uint8)
+            qm = engine.quantize()
+            qm.calibrate(images[:PAR_CALIB])
+            int8_cuda.reset_counts()
+            int8_cuda.calls = []
+            served = engine.predict_molded(images)
+            sync()
+            launches = dict(int8_cuda.launches)
+            calls, int8_cuda.calls = int8_cuda.calls, None
+            _count_int8(calls, rows)
+            if qm.mesh is not None:
+                raise RuntimeError("shard_over of a 1 x 1 mesh sharded")
+            alone = qm.shard_over(None)(images)
+            for k in alone:
+                if not torch.equal(served[k], alone[k]):
+                    raise RuntimeError(f"parallel [world of one] serve {k}:"
+                                       " differs from unsharded serving")
+            plain = qm(images[:PAR_CALIB], plain=True)
+            for k in plain:
+                if not torch.equal(served[k][:PAR_CALIB], plain[k]):
+                    raise RuntimeError(f"parallel [world of one] serve {k}:"
+                                       " differs from the plain version")
+            log(f"parallel [world of one] int8 batch {serve} under "
+                f"shard_over(mesh) equals unsharded serving bit for bit, "
+                f"{PAR_CALIB} images equal the plain version; launches "
+                f"{launches}")
+            del engine, qm, model, served, alone
+            # the reference of part (b): the global batch at one rank,
+            # convolutions in full f32 as the world runs them
+            ref_cfg = par_config(cfg, PAR_BATCH)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                losses, model, _, _, _ = _par_steps(
+                    ref_cfg, dev, seed, make_raw_batch(ref_cfg, seed), mesh)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            out['ref'] = (losses, {k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+            del model
+        finally:
+            multihost.shutdown()
+            torch.backends.cudnn.deterministic = deterministic
+    out['rows'] = rows
+    return out
+
+
+def parallel_rank(rank: int, d: str, resume: bool = False) -> None:
+    """One rank of phase 8f (b), run as its own process (`python -c
+    "import chip_smoke; chip_smoke.parallel_rank(...)"`): joins the 2 x 2
+    gloo world of `d/spec.json` on its device (all ranks on one card,
+    asked for explicitly); trains PAR_STEPS steps on its rows of the
+    global batch through UrsoNet's model, writes the state through rank
+    0, serves int8 over the 2 data rows; or, with `resume`, resumes that
+    state in a fresh world. Writes `d/rank<r>[_resume].json`."""
+    from ursonet_torch.parallel import multihost
+    from ursonet_torch.parallel.sharding import gathered, model_split
+    # full f32 convolutions: under TF32 a parameter that differs from the
+    # world of one's by rounding may round to another TF32 value, and the
+    # second step's loss moved by 1.5e-4 relative on the card
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    spec = json.load(open(os.path.join(d, 'spec.json')))
+    dev = torch.device(spec['device'])
+    cuda = dev.type == 'cuda'
+    if not cuda:
+        torch.set_num_threads(1)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    seed = spec['seed']
+    cfg = Config.from_dict(spec['config'])
+    store_dir = os.path.join(d, 'world_resume' if resume else 'world')
+    os.makedirs(store_dir, exist_ok=True)
+    multihost.initialize(f"file://{store_dir}/store", 4, rank,
+                         backend='gloo', device=dev)
+    t0 = time.perf_counter()
+    res = {'rank': rank}
+    try:
+        eng = UrsoNet('training', cfg, os.path.join(d, 'logs'), device=dev)
+        mesh = eng.mesh
+        if resume:
+            if not eng.resume_state(spec['run_dir']):
+                raise RuntimeError("no state to resume")
+            res['digest'] = state_digest({**eng.model.state_dict(), **{
+                f'{s}/{n}': v for s, vs in eng.slots.items()
+                for n, v in vs.items()}})
+            res['shapes'] = {k: list(v.shape) for k, v in
+                             eng.model.state_dict().items()
+                             if k in model_split(eng.model)}
+            return
+        model = eng.initialize(seed)
+        eng._bind_slots([n for n, _ in model.named_parameters()])
+        lo, hi = multihost.local_batch_slice(mesh, cfg.BATCH_SIZE)
+        raw = {k: v[lo:hi] for k, v in make_raw_batch(cfg, seed).items()}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        warp_cuda.reset_counts()
+        t1 = time.perf_counter()
+        losses, _, step, first, buckets = _par_steps(
+            cfg, dev, seed, raw, mesh, model, eng.tx)
+        sync()
+        res['steps_s'] = time.perf_counter() - t1
+        res['warp'] = dict(warp_cuda.launches)
+        res['fused_err'] = check_fused_call(f'parallel rank {rank}', first,
+                                            cuda)
+        res['losses'], res['buckets'] = losses, buckets
+        res['shard_shapes'] = {k: list(v.shape) for k, v in
+                               model.state_dict().items()
+                               if k in model_split(model)}
+        eng.step = PAR_STEPS
+        whole = gathered(model, mesh).state_dict()
+        if mesh.is_writer:
+            torch.save(whole, os.path.join(d, 'whole.pt'))
+        slots = {s: multihost.fetch_global(v, mesh, model_split(model))
+                 for s, v in eng.slots.items()}
+        res['whole_digest'] = state_digest({**whole, **{
+            f'{s}/{n}': v for s, vs in slots.items()
+            for n, v in vs.items()}})
+        t1 = time.perf_counter()
+        eng.save_state(1)
+        res['save_s'] = time.perf_counter() - t1
+        res['run_dir'] = eng.log_dir
+        res['digest'] = state_digest({**model.state_dict(), **{
+            f'{s}/{n}': v for s, vs in eng.slots.items()
+            for n, v in vs.items()}})
+        # int8 serving over the 2 data rows
+        rng = np.random.RandomState(seed)
+        h, w = int(cfg.IMAGE_SHAPE[0]), int(cfg.IMAGE_SHAPE[1])
+        images = rng.randint(0, 256, (PAR_BATCH, h, w, 3), np.uint8)
+        qm = eng.quantize()
+        qm.calibrate(images[:PAR_CALIB])
+        int8_cuda.reset_counts()
+        int8_cuda.calls = []
+        served = eng.predict_molded(images)
+        sync()
+        calls, int8_cuda.calls = int8_cuda.calls, None
+        rows = Counter()
+        _count_int8(calls, rows)
+        res['int8'] = dict(rows)
+        served = {k: v.cpu() for k, v in served.items()}
+        qm.shard_over(None)
+        alone = {k: v.cpu() for k, v in qm(images).items()}
+        lo, hi = multihost.local_batch_slice(mesh, PAR_BATCH)
+        plain = {k: v.cpu() for k, v in qm(images[lo:hi],
+                                           plain=True).items()}
+        res['serve'] = {}
+        for k in alone:
+            exact = bool(torch.equal(served[k], alone[k]))
+            res['serve'][k] = {
+                'exact': exact, 'rel': rel(served[k], alone[k]),
+                'plain_equal': bool(torch.equal(served[k][lo:hi],
+                                                plain[k]))}
+        res['peak'] = torch.cuda.max_memory_allocated() if cuda else 0
+    finally:
+        res['seconds'] = time.perf_counter() - t0
+        multihost.shutdown()
+        with open(os.path.join(
+                d, f"rank{rank}{'_resume' if resume else ''}.json"),
+                'w') as f:
+            json.dump(res, f)
+
+
+def _spawn_world(d, resume=False, timeout=600) -> list:
+    """The four ranks of phase 8f (b) as processes; their JSON results.
+    Every process is waited for (killed if it outlives `timeout`)."""
+    cmd = (f"import chip_smoke as c; import sys; "
+           f"c.parallel_rank(int(sys.argv[1]), sys.argv[2], {resume})")
+    procs = [subprocess.Popen([sys.executable, '-c', cmd, str(r), d],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(4)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"parallel rank {bad[0]} failed:\n"
+                           f"{outs[bad[0]][-6000:]}")
+    tag = '_resume' if resume else ''
+    return [json.load(open(os.path.join(d, f'rank{r}{tag}.json')))
+            for r in range(4)]
+
+
+def run_parallel(root, device, seed: int = 0, card: str = '',
+                 cfg=None, train_ms: float = float('nan'),
+                 serve: int = PAR_SERVE) -> dict:
+    """Phase 8f. (a) `world_of_one`. (b) a 2 x 2 world of four processes
+    under gloo on the one card (each rank's device given explicitly):
+    the flagship recipe at full width (ResNet-50, bottleneck 128,
+    BRANCH_SIZE 1024, 24^3 bins so that the 13,824-wide ori_final is
+    split by its in features, 512x640, rotation through warp_mold) at a
+    global batch of PAR_BATCH, PAR_STEPS steps: loss and every parameter
+    against the world of one on the same global batch (PAR_REL), each
+    rank's first warp_mold call against the plain chain; rank 0's state
+    whole in the JAX layout (its tree equal to the gathered one bit for
+    bit) and resumed by a fresh 2 x 2 world bit for bit on every rank;
+    int8 served over the 2 data rows: the classified orientation (the
+    int8 body) equal to one rank's unsharded serving bit for bit, the
+    float location final within 1e-5 relative, each rank's rows equal to
+    the plain version. Part (b) and its reference run the convolutions
+    in full f32 (TF32 off). `serve`: the world of one's served batch.
+    Returns the launches by kernel row."""
+    dev = torch.device(device)
+    cfg = cfg or flagship_config()
+    t0 = time.perf_counter()
+    one = world_of_one(dev, cfg, seed, card, train_ms, serve)
+    rows = one['rows']
+    log(f"parallel [world of one]: {time.perf_counter() - t0:.1f} s")
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    d = os.path.join(root, 'parallel')
+    os.makedirs(d)
+    wcfg = par_config(cfg, PAR_BATCH // PAR_MESH[0], PAR_MESH)
+    with open(os.path.join(d, 'spec.json'), 'w') as f:
+        json.dump({'device': str(dev), 'seed': seed,
+                   'config': wcfg.to_dict()}, f)
+    ranks = _spawn_world(d)
+    log(f"parallel [2x2 gloo world]: {time.perf_counter() - t1:.1f} s, "
+        f"ranks' own seconds {[round(r['seconds'], 1) for r in ranks]}")
+    # the training against the world of one on the same global batch
+    ref_losses, ref = one['ref']
+    got = torch.load(os.path.join(d, 'whole.pt'))
+    worst, worst_name = 0.0, None
+    for k, v in ref.items():
+        excess = float(((got[k] - v).abs() - PAR_REL['rtol'] * v.abs())
+                       .max()) if v.numel() else 0.0
+        if excess > worst:
+            worst, worst_name = excess, k
+    maxdiff = max(float((got[k] - v).abs().max()) for k, v in ref.items()
+                  if v.numel())
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(ranks[0]['losses'], ref_losses))
+    log(f"parallel [2x2] losses {ranks[0]['losses']} vs world of one "
+        f"{ref_losses}: largest relative difference {loss_rel:.3e}; "
+        f"parameters: largest abs difference {maxdiff:.3e}, largest "
+        f"excess over rtol {PAR_REL['rtol']} {worst:.3e} ({worst_name}; "
+        f"atol {PAR_REL['atol']})")
+    if loss_rel > 1e-5 or worst > PAR_REL['atol']:
+        raise RuntimeError("parallel [2x2]: the world's step differs from "
+                           "the world of one")
+    if any(r['losses'] != ranks[0]['losses'] for r in ranks):
+        raise RuntimeError("parallel [2x2]: the ranks' losses differ")
+    n_ori = wcfg.ORI_BINS_PER_DIM ** 3
+    for r in ranks:
+        sh = r['shard_shapes'].get('ori_head.ori_final.weight')
+        if sh != [n_ori, wcfg.BRANCH_SIZE // PAR_MESH[1]]:
+            raise RuntimeError(f"parallel rank {r['rank']}: ori_final "
+                               f"shard {sh}")
+        if r['buckets'] != PAR_STEPS or (
+                dev.type == 'cuda' and r['warp']['warp_mold'] < PAR_STEPS):
+            raise RuntimeError(f"parallel rank {r['rank']}: buckets "
+                               f"{r['buckets']}, warp {r['warp']}")
+        rows['warp_homography'] += r['warp']['warp_homography']
+        rows['warp_mold'] += r['warp']['warp_mold']
+        for k, n in r['int8'].items():
+            rows[k] += n
+    fused_err = max([one['fused_err']] + [r['fused_err'] for r in ranks])
+    # rank 0's file against the gathered tree, then a fresh world resumes
+    path = os.path.join(ranks[0]['run_dir'], 'state_latest.msgpack')
+    tree = store.load_state(path)
+    file_digest = state_digest({**tree['state_dict'], **{
+        f'{s}/{n}': v for s, vs in tree['slots'].items()
+        for n, v in vs.items()}})
+    if file_digest != ranks[0]['whole_digest']:
+        raise RuntimeError("parallel [2x2]: rank 0's state file differs "
+                           "from the gathered tree")
+    with open(os.path.join(d, 'spec.json'), 'w') as f:
+        json.dump({'device': str(dev), 'seed': seed, 'run_dir':
+                   ranks[0]['run_dir'], 'config': wcfg.to_dict()}, f)
+    t2 = time.perf_counter()
+    back = _spawn_world(d, resume=True)
+    for r, b in zip(ranks, back):
+        if b['digest'] != r['digest']:
+            raise RuntimeError(f"parallel [2x2] rank {r['rank']}: the "
+                               "resumed state differs")
+    log(f"parallel [2x2] rank 0 wrote the whole state "
+        f"({os.path.getsize(path)} bytes, {ranks[0]['save_s']:.2f} s with "
+        f"the gather); its tree equals the gathered one bit for bit, and a "
+        f"fresh 2x2 world resumed every rank's shards bit for bit "
+        f"({time.perf_counter() - t2:.1f} s)")
+    for r in ranks:
+        s = r['serve']
+        if not (s['ori']['exact'] and s['loc']['rel'] <= 1e-5
+                and all(v['plain_equal'] for v in s.values())):
+            raise RuntimeError(f"parallel rank {r['rank']} int8 serving: "
+                               f"{s}")
+    log(f"parallel [2x2] int8 batch {PAR_BATCH} over 2 data rows: ori (int8"
+        f" body) equal to one rank's serving bit for bit, loc (float "
+        f"final) within {max(r['serve']['loc']['rel'] for r in ranks):.2e}"
+        f" relative, each rank's rows equal to the plain version")
+    if dev.type == 'cuda':
+        log(f"parallel [2x2] {PAR_STEPS} steps in "
+            f"{[round(r['steps_s'], 2) for r in ranks]} s by rank (four "
+            f"ranks share one card: no scaling meaning); peak memory by "
+            f"rank {[r['peak'] for r in ranks]} bytes {card}")
+    log(f"parallel launches: {dict(rows)}")
+    return {'rows': rows, 'fused_err': fused_err,
+            'seconds': time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -4286,8 +4775,15 @@ def main(argv=None) -> int:
         t8 = time.perf_counter()
         ob = run_orbax(root, dev, args.seed, card=card)
         fused_err = max(fused_err, ob['fused_err'])
+        torch.cuda.empty_cache()
+        log(f"orbax phase: {time.perf_counter() - t8:.1f} s {card}")
+
+        # 8f. parallelism: a world of one under NCCL, a 2x2 gloo world
+        par = run_parallel(root, dev, args.seed, card=card,
+                           train_ms=train_ms)
+        fused_err = max(fused_err, par['fused_err'])
     torch.cuda.empty_cache()
-    log(f"orbax phase: {time.perf_counter() - t8:.1f} s {card}")
+    log(f"parallel phase: {par['seconds']:.1f} s {card}")
 
     # 9. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
@@ -4547,7 +5043,8 @@ def main(argv=None) -> int:
         # benchmark config 2's launches (phase 8b) and the TRAIN_BN
         # paths' (phase 8c)
         for path, got in (('config2', c2['rows']), ('trainbn', tb['rows']),
-                          ('knobs', kn['rows']), ('orbax', ob['rows'])):
+                          ('knobs', kn['rows']), ('orbax', ob['rows']),
+                          ('parallel', par['rows'])):
             n = got.get(row['name'], 0)
             if n:
                 row.setdefault('launches_by_path',
@@ -4559,6 +5056,8 @@ def main(argv=None) -> int:
     kernels[0]['launches_fused_by_path']['trainbn'] = tb['rows']['warp_mold']
     kernels[0]['launches_fused_by_path']['knobs'] = kn['warp_mold']
     kernels[0]['launches_fused_by_path']['orbax'] = ob['rows']['warp_mold']
+    kernels[0]['launches_fused_by_path']['parallel'] = par['rows'][
+        'warp_mold']
     # phase 8d's joins by mode and residual type, and its checks of them
     # (every distinct call on fresh operands: any difference raised)
     new_modes = int8_cuda.JOINS + ('f32_sum',)

@@ -35,8 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Knobs of the JAX package's Config the port's does not carry: the mesh
 # (one card), the Pallas warp switch, int8 training activations and the
 # decoupled-orientation switch (ROADMAP.md §1 items 9, 11).
-JAX_ONLY = {'DECOUPLE_ORIENTATION', 'MESH_DATA', 'MESH_MODEL', 'PALLAS_WARP',
-            'TRAIN_ACT_Q8'}
+JAX_ONLY = {'DECOUPLE_ORIENTATION', 'PALLAS_WARP', 'TRAIN_ACT_Q8'}
 
 FLAGSHIP = ['--bottleneck', '128', '--ori_resolution', '24',
             '--classify_ori', '--regress_loc', '--rot_aug',
@@ -206,13 +205,38 @@ def test_quick_start_on_the_cpu(env, capsys):
 
 @pytest.mark.parametrize('extra,item', [
     (['test', '--weights', 'none', '--video', 'v.mp4'], 'video'),
-    (['train', '--weights', 'none', '--mesh_data', '2'], 'parallelism'),
-    (['evaluate', '--weights', 'none', '--mesh_model', '2'], 'parallelism'),
 ])
 def test_what_is_not_ported_raises(env, extra, item):
     with pytest.raises(NotImplementedError, match='ROADMAP.md') as e:
         tcli.main(_args(env, *extra), device='cpu')
     assert item in str(e.value)
+
+
+@pytest.mark.parametrize('extra,mesh', [
+    (['train', '--weights', 'none', '--mesh_data', '2'], (2, 1)),
+    (['evaluate', '--weights', 'none', '--mesh_model', '2'], (2, 2)),
+])
+def test_mesh_flags_make_the_mesh(env, extra, mesh, monkeypatch):
+    """--mesh_data / --mesh_model (refused before the parallel slice)
+    make the JAX CLI's mesh knobs (a 4-rank world, --mesh_data 0 taking
+    world // mesh_model); a process without a 2-rank world refuses the
+    mesh, naming the launcher (tests/test_torch_multihost.py trains
+    through the CLI on a 2 x 2 mesh)."""
+    import jax
+    import torch.distributed as dist
+    argv = _args(env, *extra)
+    monkeypatch.setattr(jax, 'devices',
+                        lambda *a: jax.local_devices()[:1] * 4)
+    want = jcli.make_config(jcli.build_parser().parse_args(argv))
+    monkeypatch.setattr(dist, 'is_initialized', lambda: True)
+    monkeypatch.setattr(dist, 'get_world_size', lambda *a: 4)
+    got = tcli.make_config(tcli.build_parser().parse_args(argv))
+    monkeypatch.undo()
+    for k in ('MESH_DATA', 'MESH_MODEL', 'GPU_COUNT', 'BATCH_SIZE'):
+        assert getattr(got, k) == getattr(want, k), k
+    assert (got.MESH_DATA, got.MESH_MODEL) == mesh
+    with pytest.raises(RuntimeError, match='torch.distributed.run'):
+        tcli.main(argv, device='cpu')
 
 
 def test_host_augment_trains(env, tmp_path, monkeypatch, capsys):

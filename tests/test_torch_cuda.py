@@ -1361,3 +1361,68 @@ def test_batch_stats_bn_matches_the_cpu(cuda_device, shape, dtype):
     for k in ('running_mean', 'running_var'):
         torch.testing.assert_close(getattr(bns[1], k).cpu(),
                                    getattr(bns[0], k), rtol=1e-6, atol=1e-6)
+
+
+def test_world_of_one_under_nccl_equals_the_step_without_a_mesh(cuda_device,
+                                                                tmp_path):
+    """A world of one rank under NCCL (a FileStore, device_id set) and its
+    1 x 1 DeviceMesh: two train steps through the parallel path (warp_mold,
+    the bucketed gradient all-reduce executed) equal the step without a
+    mesh bit for bit (cuDNN held deterministic)."""
+    from ursonet_torch.parallel import make_mesh, multihost
+    cfg = chip_smoke.small_config()
+    raw = chip_smoke.make_raw_batch(cfg, 0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    multihost.initialize(f'file://{tmp_path}/store', 1, 0, backend='nccl',
+                         device=cuda_device)
+    try:
+        mesh = make_mesh(data=1, model=1)
+        assert mesh.device_mesh is not None
+        got = []
+        for m in (None, mesh):
+            losses, model, _, first, buckets = chip_smoke._par_steps(
+                cfg, cuda_device, 0, raw, m)
+            got.append((losses, model.state_dict(), buckets))
+            assert first is not None
+    finally:
+        multihost.shutdown()
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, s0, b0), (l1, s1, b1) = got
+    assert (b0, b1) == (0, chip_smoke.PAR_STEPS)
+    assert l0 == l1
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]), k
+
+
+def test_gloo_collectives_take_cuda_tensors(cuda_device, tmp_path):
+    """The collectives of the parallel path on CUDA tensors under gloo (a
+    world of one): the Megatron pair and the gather by all-reduce keep
+    their values and gradients on the card, the bucket all-reduce its
+    tensors, gather_rows via the host returns the rows on the CPU."""
+    import torch.distributed as dist
+    from ursonet_torch.parallel import make_mesh, multihost
+    from ursonet_torch.parallel import sharding as sh
+    multihost.initialize(f'file://{tmp_path}/store', 1, 0, backend='gloo',
+                         device=cuda_device)
+    try:
+        mesh = make_mesh(data=1, model=1)
+        g = mesh.group('model')
+        x = torch.randn(4, 6, device=cuda_device, requires_grad=True)
+        y = sh.gather_from(sh.reduce_from(sh.copy_to(x, g), g), g, 6, 0, 6)
+        y.sum().backward()
+        assert y.is_cuda and torch.equal(y, x) and torch.equal(
+            x.grad, torch.ones_like(x))
+        ts = [torch.randn(3, device=cuda_device), torch.randn(
+            2, 2, device=cuda_device)]
+        before = [t.clone() for t in ts]
+        sh.all_reduce_bucket(ts, g)
+        assert all(torch.equal(a, b) for a, b in zip(ts, before))
+        rows = sh.gather_rows(x.detach(), g, via_host=True)
+        assert not rows.is_cuda and torch.equal(rows, x.detach().cpu())
+        t = torch.arange(3.0, device=cuda_device)
+        assert torch.equal(sh.replicated(mesh, t), torch.arange(
+            3.0, device=cuda_device))
+        assert dist.get_backend() == 'gloo'
+    finally:
+        multihost.shutdown()

@@ -388,11 +388,14 @@ def test_data_generator_matches_jax(jax_dir):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_data_generator_refuses_what_is_not_ported(jax_dir):
+def test_data_generator_host_parity_and_batch_slices(jax_dir):
     """raw=False, and raw=None under AUGMENT_ON_DEVICE False, run the
     host-parity generator (they raised before it was ported; its parity
     tests are in tests/test_torch_host_augment.py): here its first batch
-    equals the JAX generator's. Multi-host batch slices still raise."""
+    equals the JAX generator's. A rank's batch slice of it (which raised
+    before the parallel slice) equals the JAX generator's slice, its
+    augmentation stream started at the slice's first row
+    (tests/test_torch_multihost.py holds the raw slices)."""
     jcfg, tcfg = small_configs()
     jds, tds = _adapters(jax_dir, 'train')
     want = next(jloader.data_generator(jds, jcfg, batch_size=3, seed=2,
@@ -407,8 +410,17 @@ def test_data_generator_refuses_what_is_not_ported(jax_dir):
             assert batch[k].dtype == want[k].dtype, k
             np.testing.assert_allclose(batch[k], want[k], rtol=0, atol=1e-6,
                                        err_msg=k)
-    with pytest.raises(NotImplementedError, match='parallel'):
-        tloader.data_generator(tds, small_configs()[1], batch_slice=(0, 1))
+    for bslice in ((1, 3), np.array([0, 2])):
+        want = next(jloader.data_generator(jds, jcfg, batch_size=3, seed=2,
+                                           raw=False, batch_slice=bslice))
+        got = next(tloader.data_generator(tds, small_configs()[1],
+                                          batch_size=3, seed=2, raw=False,
+                                          batch_slice=bslice))
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].shape[0] == 2, k
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6,
+                                       err_msg=k)
 
 
 def test_data_generator_skips_five_bad_frames_then_raises(jax_dir, tmp_path):

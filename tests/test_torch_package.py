@@ -78,13 +78,18 @@ def test_the_checks_cover_the_data_and_engine_modules():
               'ursonet_torch.data.speed', 'ursonet_torch.submission',
               'ursonet_torch.split_dataset', 'ursonet_torch.checkpoint.zstd',
               'ursonet_torch.checkpoint.ocdbt', 'ursonet_torch.checkpoint.zarr',
-              'ursonet_torch.checkpoint.orbax_store'):
+              'ursonet_torch.checkpoint.orbax_store',
+              'ursonet_torch.parallel', 'ursonet_torch.parallel.mesh',
+              'ursonet_torch.parallel.sharding',
+              'ursonet_torch.parallel.multihost'):
         assert m in names, m
     assert ROOT / 'ursonet_torch' / 'data' / 'png.py' in _port_sources()
 
 
 def test_sources_import_no_jax():
-    for path in _port_sources():
+    # and the worker the parallel tests spawn (its processes run no JAX)
+    for path in _port_sources() + [ROOT / 'tests' /
+                                   'torch_parallel_worker.py']:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 roots = [a.name.split('.')[0] for a in node.names]

@@ -207,8 +207,11 @@ def test_requires_calibration_and_refuses_unported(jax_qm):
         qm.smooth()
     with pytest.raises(RuntimeError, match='calibrate'):
         qm.bias_correct(_images(0))
-    with pytest.raises(NotImplementedError):
-        qm.shard_over(None)
+    # shard_over(None) or a mesh of one data row serves unsharded
+    # (tests/test_torch_parallel.py serves over two data rows)
+    from ursonet_torch.parallel import make_mesh
+    for mesh in (None, make_mesh()):
+        assert qm.shard_over(mesh) is qm and qm.mesh is None
     # the serving knobs are served (tests/test_torch_serving_knobs.py)
     for knob, key in (('QUANT_S8_JOIN', 's8_join'),
                       ('QUANT_BF16_STEM', 'bf16_stem')):

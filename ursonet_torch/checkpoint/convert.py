@@ -19,6 +19,13 @@ and, under TRAIN_BN=True, the heads' '{loc,ori}_bn_{i}' (`is_bn_layer`).
 The
 Kendall log-variances map as they are: params/loss_log_vars/<loss> <->
 loss_log_vars.<loss>, 0-d.
+
+A model whose heads are split over a mesh's 'model' axis
+(`parallel/sharding.py`) holds shards: `params_from_jax(tree, mesh,
+split)` gives this rank's shards of a whole tree, and
+`params_to_jax_layout(state_dict, mesh, split)` the whole tree of a
+rank's shards (collective over 'model'). The trees on disk are always
+whole.
 """
 
 from __future__ import annotations
@@ -59,9 +66,10 @@ _PARAM_LEAF = {'kernel': 'weight', 'bias': 'bias', 'scale': 'weight'}
 _STAT_LEAF = {'mean': 'running_mean', 'var': 'running_var'}
 
 
-def params_from_jax(tree) -> dict:
+def params_from_jax(tree, mesh=None, split=None) -> dict:
     """{'params', 'batch_stats'} nested dicts of arrays -> state_dict of
-    float32 tensors."""
+    float32 tensors; with a mesh, this rank's shards of the tensors
+    `split` names."""
     sd = {}
     for section, names in (('params', _PARAM_LEAF),
                            ('batch_stats', _STAT_LEAF)):
@@ -77,12 +85,20 @@ def params_from_jax(tree) -> dict:
             a = _to_torch_layout(leaf, np.asarray(a, np.float32))
             sd['.'.join(mods + [names[leaf]])] = torch.from_numpy(
                 np.ascontiguousarray(a))
+    if mesh is not None and split:
+        from ursonet_torch.parallel.sharding import shard_state
+        sd = shard_state(sd, mesh, split)
     return sd
 
 
-def params_to_jax_layout(state_dict) -> dict:
+def params_to_jax_layout(state_dict, mesh=None, split=None) -> dict:
     """state_dict -> {'params', 'batch_stats'} nested dicts of numpy
-    arrays in the JAX package's layout (the inverse of params_from_jax)."""
+    arrays in the JAX package's layout (the inverse of params_from_jax);
+    with a mesh, the shards `split` names are gathered into the whole
+    tensors first (every rank of a model group must call it)."""
+    if mesh is not None and split:
+        from ursonet_torch.parallel.sharding import gather_state
+        state_dict = gather_state(state_dict, mesh, split)
     out = {'params': {}, 'batch_stats': {}}
     for key, t in state_dict.items():
         *mods, leaf = key.split('.')

@@ -213,15 +213,17 @@ def save_state(path: str, model, tx,
         _atomic_write(path, msgpack_serialize(tree))
 
 
-def load_state(path: str) -> dict:
+def load_state(path: str, mesh=None, split=None) -> dict:
     """A train-state snapshot (of either package, msgpack or Orbax):
     {'state_dict', 'slots' ({slot: {parameter name: tensor}}), 'count'
     (the optimizer's update count), 'step', 'epoch'}, tensors f32 on the
-    CPU."""
+    CPU; with a mesh, this rank's shards of the tensors `split` names
+    (the weights and the slots)."""
     tree = load_state_dir(path) if is_orbax_path(path) else _read(path)
     count, trees = _slots_of(tree['opt_state'])
-    slots = {s: params_from_jax({'params': t}) for s, t in trees.items()}
-    return {'state_dict': params_from_jax(tree), 'slots': slots,
+    slots = {s: params_from_jax({'params': t}, mesh, split)
+             for s, t in trees.items()}
+    return {'state_dict': params_from_jax(tree, mesh, split), 'slots': slots,
             'count': count, 'step': int(tree['step']),
             'epoch': int(tree['epoch'])}
 

@@ -3,9 +3,9 @@
 Same knob names and derived-field semantics as the JAX package, so one
 configuration reads the same in both: attributes are set after
 construction and `update()` recomputes the derived fields
-(BATCH_SIZE, IMAGE_SHAPE, IMAGE_META_SIZE). Knobs that only steered the
-TPU build (mesh shape, Pallas switch) are left out; a later slice adds
-the ones it needs. A configuration written by `write_to_file` in either
+(BATCH_SIZE, IMAGE_SHAPE, IMAGE_META_SIZE, and GPU_COUNT from the mesh).
+Knobs that only steered the TPU build (the Pallas switch) are left out;
+a later slice adds the ones it needs. A configuration written by `write_to_file` in either
 package reads back in the other through `from_dict`. numpy only.
 """
 
@@ -22,9 +22,15 @@ class Config:
 
     NAME = "ursonet"
 
-    # --- batch ---------------------------------------------------------------
+    # --- batch and parallelism ---------------------------------------------
+    # GPU_COUNT is the number of ranks, MESH_DATA x MESH_MODEL (update()
+    # keeps them in step); IMAGES_PER_GPU is a data row's batch.
     GPU_COUNT = 1
     IMAGES_PER_GPU = 2
+    # the (data, model) mesh of ranks (parallel/mesh.py): data-parallel
+    # rows, tensor-parallel head denses
+    MESH_DATA = 1
+    MESH_MODEL = 1
 
     # --- training schedule (UrsoNet.train) ----------------------------------
     STEPS_PER_EPOCH = 1000
@@ -170,7 +176,14 @@ class Config:
 
     def update(self):
         """Recompute derived fields."""
-        self.BATCH_SIZE = self.IMAGES_PER_GPU * self.GPU_COUNT
+        # ranks = data x model; without a mesh, GPU_COUNT ranks all go to
+        # the data axis (BATCH_SIZE = IMAGES_PER_GPU x GPU_COUNT)
+        if self.MESH_DATA * self.MESH_MODEL > 1:
+            self.GPU_COUNT = self.MESH_DATA * self.MESH_MODEL
+        else:
+            self.MESH_DATA = self.GPU_COUNT
+            self.MESH_MODEL = 1
+        self.BATCH_SIZE = self.IMAGES_PER_GPU * self.MESH_DATA
         if self.IMAGE_RESIZE_MODE == "crop":
             self.IMAGE_SHAPE = np.array(
                 [self.IMAGE_MIN_DIM, self.IMAGE_MIN_DIM, self.NR_IMAGE_CHANNELS])

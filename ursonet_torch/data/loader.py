@@ -35,7 +35,10 @@ warpPerspective and GaussianBlur), the resize and the mold on the host;
 it yields molded [B,H,W,3] batches (float16 under F16), which
 `molded_to_device` hands to a step made without a preprocess.
 
-Not ported yet: multi-host batch slices.
+Over several ranks each loads only its rows of every global batch
+(`data_generator(batch_slice=...)`): the id stream is the whole
+deterministic global one on every rank, so the batches' composition
+agrees with no communication.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from ursonet_torch.ops import encoders
 from ursonet_torch.ops import image as imops
 from ursonet_torch.ops import warp_cuda
 from ursonet_torch.ops.image import resize_geometry
+from ursonet_torch.parallel.multihost import slice_rows
 
 
 def as_tensor(x, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -338,35 +342,37 @@ def data_generator(dataset, config, shuffle=True, batch_size=1,
     The ids are shuffled by `np.random.RandomState(seed)` at the start
     of every pass, as the JAX package's generator shuffles them, so both
     yield the same ids. The host-parity augmentation draws from a second
-    stream, `np.random.RandomState(seed + 104729)` (the JAX package's
-    stream of the first batch row), sample after sample: a new generator
-    restarts it. Under NATIVE_LOADER with a fixed geometry
+    stream, `np.random.RandomState(seed + 104729 + first row)` (the JAX
+    package's stream of the first row it loads), sample after sample: a
+    new generator restarts it. Under NATIVE_LOADER with a fixed geometry
     (`native_geometry`) each raw batch is one call of the native loader;
     a batch that fails is logged and skipped. Otherwise (and always for
     raw=False, as in the JAX package) a frame that fails to load is
     logged and skipped. Either way the sixth failure raises.
-    `batch_slice` (multi-host input sharding) is not ported and raises
-    here, when the generator is made.
+
+    batch_slice: a rank's rows of each global batch of `batch_size`,
+    (lo, hi) or an index array (`parallel/multihost.py::
+    local_batch_slice`): the id stream is the whole global one, and only
+    those rows are loaded and yielded. Then any per-image error raises at
+    once: a skip would desynchronize the global stream across ranks.
     """
     if raw is None:
         raw = bool(getattr(config, 'AUGMENT_ON_DEVICE', True))
-    if batch_slice is not None:
-        raise NotImplementedError(
-            'batch_slice: multi-host input sharding comes with the '
-            'parallel slice (ROADMAP §1)')
+    rows = slice_rows(batch_slice, batch_size)
+    strict = batch_slice is not None
     if not raw:
         aug_rng = np.random.RandomState(
-            None if seed is None else seed + 104729)
+            None if seed is None else seed + 104729 + int(rows[0]))
         dtype = np.float16 if config.F16 else np.float32
         return _batches(dataset, shuffle, batch_size, seed,
                         lambda i: _load_parity(dataset, config, i, aug_rng,
-                                               dtype))
+                                               dtype), rows, strict)
     geom = native_geometry(dataset, config)
     if geom is not None:
         return _native_batches(dataset, config, shuffle, batch_size, seed,
-                               geom)
+                               geom, rows, strict)
     return _batches(dataset, shuffle, batch_size, seed,
-                    lambda i: _load_raw(dataset, config, i))
+                    lambda i: _load_raw(dataset, config, i), rows, strict)
 
 
 def molded_to_device(batch, dev: torch.device) -> dict:
@@ -416,7 +422,10 @@ def _id_stream(dataset, shuffle, seed):
         yield int(image_ids[image_index])
 
 
-def _native_batches(dataset, config, shuffle, batch_size, seed, g):
+def _native_batches(dataset, config, shuffle, batch_size, seed, g, rows,
+                    strict):
+    """Batches of the native loader: rows `rows` of each global batch;
+    `strict`: raise at the first error."""
     from ursonet_torch.data import native_loader
     stream = _id_stream(dataset, shuffle, seed)
     error_count = 0
@@ -424,6 +433,7 @@ def _native_batches(dataset, config, shuffle, batch_size, seed, g):
     while True:
         try:
             ids = [next(stream) for _ in range(batch_size)]
+            ids = [ids[j] for j in rows]
             paths = [dataset.image_info[i]['path'] for i in ids]
             batch = {'images_u8': native_loader.load_batch(
                 paths, g['out_h'], g['out_w'], g['content_h'],
@@ -442,26 +452,32 @@ def _native_batches(dataset, config, shuffle, batch_size, seed, g):
         except Exception:
             logging.exception("Error in native batch load")
             error_count += 1
-            if error_count > 5:
+            if strict or error_count > 5:
                 raise
 
 
-def _batches(dataset, shuffle, batch_size, seed, load):
-    """Batches of the samples `load(image_id)` makes, frame by frame."""
+def _batches(dataset, shuffle, batch_size, seed, load, rows, strict):
+    """Batches of the samples `load(image_id)` makes, frame by frame:
+    rows `rows` of each global batch (the others are not loaded);
+    `strict`: raise at the first error."""
     stream = _id_stream(dataset, shuffle, seed)
+    row_pos = np.full(batch_size, -1, np.int64)
+    row_pos[rows] = np.arange(len(rows))
     b = 0
     error_count = 0
     batch = {}
     while True:
         image_id = next(stream)
         try:
-            sample = load(image_id)
-            if not batch:
-                batch = {k: np.zeros((batch_size,) + np.shape(v),
-                                     dtype=np.asarray(v).dtype)
-                         for k, v in sample.items()}
-            for k, v in sample.items():
-                batch[k][b] = v
+            pos = row_pos[b]
+            if pos >= 0:
+                sample = load(image_id)
+                if not batch:
+                    batch = {k: np.zeros((len(rows),) + np.shape(v),
+                                         dtype=np.asarray(v).dtype)
+                             for k, v in sample.items()}
+                for k, v in sample.items():
+                    batch[k][pos] = v
             b += 1
             if b >= batch_size:
                 yield batch
@@ -473,7 +489,7 @@ def _batches(dataset, shuffle, batch_size, seed, load):
             logging.exception("Error processing image %s",
                               dataset.image_info[image_id])
             error_count += 1
-            if error_count > 5:
+            if strict or error_count > 5:
                 raise
 
 

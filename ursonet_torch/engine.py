@@ -40,10 +40,25 @@ device reads [B,H/2,W/2,12] pixels straight into the fused stem kernel.
 `detect` takes frames at any size: `mold_inputs` resizes them to the
 network shape (`ops/image.py::resize_image`). Runs on `device` (default
 the card); the CPU only when asked for.
+
+Over several ranks (`parallel/`: MESH_DATA × MESH_MODEL processes,
+launched by `torch.distributed.run`) `UrsoNet` makes the (data, model)
+mesh, builds the whole model from the seed on every rank and keeps the
+rank's head shards; `train` loads each rank's rows of the global batches
+(`data_generator(batch_slice=...)`, or the rank's rows of a resident
+dataset replicated on every rank), and rank 0 alone logs and writes the
+run dir, `config_*.json`, `metrics.jsonl`, the snapshots and
+`state_latest`, all whole: the head shards and their optimizer slots
+are gathered first, so either package resumes the files, and a resume
+reads the whole tree on every rank and keeps the rank's shards.
+`predict_molded` pads a batch to the mesh's data rows, serves each
+rank's rows and trims; `quantize` gathers the heads before it folds (the
+int8 model is data-parallel only, `QuantizedModel.shard_over`).
 """
 
 from __future__ import annotations
 
+import datetime
 import glob
 import json
 import os
@@ -66,6 +81,10 @@ from ursonet_torch.models.resnet import space_to_depth2
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops.image import compose_image_meta, mold_image, \
     resize_image
+from ursonet_torch.parallel import make_mesh, multihost
+from ursonet_torch.parallel.mesh import AXIS_DATA
+from ursonet_torch.parallel.sharding import gather_rows, gathered, \
+    model_split, replicated, shard_model, shard_state
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import check_nans, make_eval_step, \
@@ -74,17 +93,20 @@ from ursonet_torch.utils.memory import check_train_memory
 
 
 class ServingEngine:
-    """Float and int8 serving of one configuration on one device."""
+    """Float and int8 serving of one configuration on one device, or on
+    each rank of a mesh."""
 
     def __init__(self, config, device='cuda', model=None,
-                 generator: Optional[torch.Generator] = None):
-        """`model`: the float model to serve, else one built for
-        `config` with weights from `generator` when first needed (an
-        engine that serves an artifact never builds it)."""
+                 generator: Optional[torch.Generator] = None, mesh=None):
+        """`model`: the float model to serve (sharded over `mesh` where
+        one is given), else one built for `config` with weights from
+        `generator` when first needed (an engine that serves an artifact
+        never builds it)."""
         self.config = config
         self.device = resolve_device(device)
         self._model = model
         self._generator = generator
+        self.mesh = mesh
         self.qmodel: Optional[QuantizedModel] = None
 
     @property
@@ -92,7 +114,13 @@ class ServingEngine:
         if self._model is None:
             self._model = build_model(self.config, self.device,
                                       self._generator)
+            if self.mesh is not None:
+                shard_model(self._model, self.mesh, self.config)
         return self._model.eval()
+
+    @property
+    def _data_rows(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[AXIS_DATA]
 
     # -- int8 -----------------------------------------------------------------
 
@@ -101,9 +129,12 @@ class ServingEngine:
         """Switch predict_molded() to the int8 model of the current float
         weights. calib_images: raw images for the activation calibration;
         without them it happens on the first served batch."""
-        tree = params_to_jax_layout(self.model.state_dict())
+        # the heads made whole (collective over 'model')
+        tree = params_to_jax_layout(self.model.state_dict(), self.mesh,
+                                    model_split(self.model))
         self.qmodel = QuantizedModel.from_variables(
             self.config, tree['params'], tree['batch_stats'], self.device)
+        self.qmodel.shard_over(self.mesh)
         if calib_images is not None:
             molded, _, _ = self.mold_inputs(calib_images)
             self.qmodel.calibrate(self._host_s2d_maybe(molded),
@@ -130,6 +161,7 @@ class ServingEngine:
     def load_serving_artifact(self, path: str) -> QuantizedModel:
         """Serve a calibrated int8 artifact (checkpoint/quant_store.py)."""
         self.qmodel = load_quantized(path, self.config, self.device)
+        self.qmodel.shard_over(self.mesh)
         return self.qmodel
 
     # -- forward --------------------------------------------------------------
@@ -137,19 +169,38 @@ class ServingEngine:
     def predict_molded(self, molded) -> dict:
         """Forward a molded [B,H,W,3] batch (or, for the int8 model, raw
         uint8 pixels) through the serving path; returns head outputs as
-        tensors on the device."""
+        tensors on the device. Over a mesh whose 'data' axis splits, the
+        batch is padded to a multiple of the data rows (repeating its
+        last row), each rank serves its rows, the outputs are gathered
+        (the int8 model's on the host under gloo) and trimmed; every
+        rank of the mesh calls it with the same batch."""
+        n, rows = int(molded.shape[0]), self._data_rows
+        pad = (-n) % rows
+        if pad:
+            last = molded[-1:]
+            molded = torch.cat([molded] + [last] * pad) \
+                if isinstance(molded, torch.Tensor) \
+                else np.concatenate([molded] + [last] * pad)
         if self.qmodel is not None:
             x = self.served_batch(molded)
             if self.qmodel.act_scales is None:
                 self.qmodel.calibrate(x)
-            return self.qmodel(x)
-        x = molded if isinstance(molded, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(molded))
-        x = x.to(self.device, torch.float32).permute(0, 3, 1, 2)
-        with torch.no_grad():
-            # the model casts to its compute dtype (bf16 under F16) and
-            # returns f32 head outputs
-            return self.model(x)
+            out = self.qmodel(x)
+        else:
+            x = molded if isinstance(molded, torch.Tensor) \
+                else torch.from_numpy(np.ascontiguousarray(molded))
+            if rows > 1:
+                lo, hi = multihost.local_batch_slice(self.mesh, len(x))
+                x = x[lo:hi]
+            x = x.to(self.device, torch.float32).permute(0, 3, 1, 2)
+            with torch.no_grad():
+                # the model casts to its compute dtype (bf16 under F16)
+                # and returns f32 head outputs
+                out = self.model(x)
+            if rows > 1:
+                group = self.mesh.group(AXIS_DATA)
+                out = {k: gather_rows(v, group) for k, v in out.items()}
+        return {k: v[:n] for k, v in out.items()} if pad else out
 
     def served_batch(self, molded):
         """The batch the int8 model is given for a molded one: under
@@ -200,9 +251,9 @@ class ServingEngine:
 
 class UrsoNet:
     """Training engine of one configuration on one device (default the
-    card): the model, its optimizer state, the step and epoch counters
-    and the run dir. Serves through a `ServingEngine` that shares the
-    model."""
+    card), or on each rank of a (data, model) mesh: the model, its
+    optimizer state, the step and epoch counters and the run dir. Serves
+    through a `ServingEngine` that shares the model."""
 
     def __init__(self, mode: str, config, model_dir: str, device='cuda'):
         if mode not in ('training', 'inference'):
@@ -212,6 +263,8 @@ class UrsoNet:
         self.config = config
         self.model_dir = model_dir
         self.device = resolve_device(device)
+        # MESH_DATA x MESH_MODEL ranks (1 x 1 without a process group)
+        self.mesh = make_mesh(config)
         self.epoch = 0
         self.step = 0
         self.model = None
@@ -235,8 +288,12 @@ class UrsoNet:
         directories under CHECKPOINT_FORMAT='orbax', else `.msgpack`
         files."""
         ext = ORBAX_SUFFIX if self._orbax else store.WEIGHTS_EXT
+        # every rank names the run dir by rank 0's clock
+        now = replicated(self.mesh, torch.tensor(
+            [int(time.time())], dtype=torch.int64, device=self.device))
+        now = datetime.datetime.fromtimestamp(int(now.item()))
         self.log_dir, self.checkpoint_path, self.epoch = store.set_log_dir(
-            self.model_dir, self.config.NAME, weights_path, ext=ext)
+            self.model_dir, self.config.NAME, weights_path, now=now, ext=ext)
 
     def find_last(self) -> str:
         return store.find_last(self.model_dir)
@@ -250,8 +307,11 @@ class UrsoNet:
         """Fresh weights from `seed` (default config.SEED), a fresh
         optimizer state."""
         seed = self.config.SEED if seed is None else seed
-        self.model = build_model(self.config, self.device,
-                                 torch.Generator().manual_seed(int(seed)))
+        # the whole model from the seed on every rank, then its shards
+        self.model = shard_model(
+            build_model(self.config, self.device,
+                        torch.Generator().manual_seed(int(seed))),
+            self.mesh, self.config)
         self._reset_optimizer()
         self.serving = None
         return self.model
@@ -280,23 +340,39 @@ class UrsoNet:
         continues that run's epochs."""
         if self.model is None:
             self.initialize()
+        verbose = verbose and self.mesh.is_writer
+        whole = self.whole_state_dict()
         if path.endswith('.h5'):
-            merged, _ = h5_import.load_keras_h5(
-                path, self.model.state_dict(), exclude, verbose)
+            merged, _ = h5_import.load_keras_h5(path, whole, exclude,
+                                                verbose)
         else:
             merged, loaded, skipped = store.merge_params(
-                self.model.state_dict(), store.load_weights_file(path),
-                exclude)
+                whole, store.load_weights_file(path), exclude)
             if verbose:
                 print(f"loaded {len(loaded)} layers, skipped {skipped}")
-        self.model.load_state_dict(merged)
+        self.model.load_state_dict(shard_state(merged, self.mesh,
+                                               model_split(self.model)))
         self._drop_qmodel()
         self._reset_optimizer()
         self.set_log_dir(path)
         return self.model
 
+    def _whole(self):
+        """The whole weights (`parallel/sharding.py::gathered`; every rank
+        must call it)."""
+        return gathered(self.model, self.mesh)
+
+    def whole_state_dict(self) -> dict:
+        """The model's state_dict with its head shards gathered, on the
+        CPU (every rank of the mesh must call it)."""
+        return self._whole().state_dict()
+
     def save_weights(self, path: str):
-        store.save_weights_file(path, self.model.state_dict())
+        """A weight snapshot of the whole model, written by rank 0 (every
+        rank must call it)."""
+        whole = self.whole_state_dict()
+        if self.mesh.is_writer:
+            store.save_weights_file(path, whole)
 
     def resume_state(self, run_dir: Optional[str] = None) -> bool:
         """Exact resume from `state_latest.orbax` or, where there is none,
@@ -312,7 +388,7 @@ class UrsoNet:
             return False
         if self.model is None:
             self.initialize()
-        tree = store.load_state(path)
+        tree = store.load_state(path, self.mesh, model_split(self.model))
         self.model.load_state_dict(tree['state_dict'])
         self._drop_qmodel()
         self._reset_optimizer()
@@ -363,7 +439,15 @@ class UrsoNet:
         if self.model is None:
             self.initialize()
         self._drop_qmodel()   # training replaces the weights it serves
+        mesh = self.mesh
+        writer = mesh.is_writer   # rank 0 logs and writes
+        if not writer:
+            def log_fn(*_):
+                pass
         check_train_memory(cfg, dev, log_fn)
+        # each rank loads its rows of every global batch
+        bslice = multihost.local_batch_slice(mesh, cfg.BATCH_SIZE) \
+            if multihost.is_multiprocess() else None
 
         mask = trainable_mask(self.model, layers)
         self._bind_slots([n for n, _ in self.model.named_parameters()
@@ -379,33 +463,35 @@ class UrsoNet:
             res_train, n_train = loader.load_dataset_resident(
                 train_dataset, cfg, dev)
             train_step = make_resident_train_step(
-                self.model, cfg, self.tx, n_train, mask, pre, dev)
+                self.model, cfg, self.tx, n_train, mask, pre, dev, mesh)
             if val_dataset is not None:
                 res_val, n_val = loader.load_dataset_resident(
                     val_dataset, cfg, dev)
                 eval_step = make_resident_eval_step(self.model, cfg, n_val,
-                                                    pre, dev)
+                                                    pre, dev, mesh)
             log_fn(f"data: device-resident ({n_train} train"
                    + (f" + {n_val} val" if res_val is not None else "")
                    + " images)")
         else:
             train_step = make_train_step(self.model, cfg, self.tx, mask, pre,
-                                         dev)
-            eval_step = make_eval_step(self.model, cfg, pre, dev)
+                                         dev, mesh)
+            eval_step = make_eval_step(self.model, cfg, pre, dev, mesh)
             train_gen = loader.Prefetcher(loader.data_generator(
                 train_dataset, cfg, shuffle=True, batch_size=cfg.BATCH_SIZE,
-                seed=cfg.SEED))
+                seed=cfg.SEED, batch_slice=bslice))
             if val_dataset is not None:
                 # an epoch takes VALIDATION_STEPS batches: decoding more
                 # ahead only competes with the train loader
                 val_gen = loader.Prefetcher(loader.data_generator(
                     val_dataset, cfg, shuffle=True,
-                    batch_size=cfg.BATCH_SIZE, seed=cfg.SEED + 1),
+                    batch_size=cfg.BATCH_SIZE, seed=cfg.SEED + 1,
+                    batch_slice=bslice),
                     depth=max(1, min(8, int(cfg.VALIDATION_STEPS))))
 
-        os.makedirs(self.log_dir, exist_ok=True)
-        cfg.write_to_file(os.path.join(self.log_dir,
-                                       f"config_{self.epoch}.json"))
+        if writer:
+            os.makedirs(self.log_dir, exist_ok=True)
+            cfg.write_to_file(os.path.join(self.log_dir,
+                                           f"config_{self.epoch}.json"))
         metrics_path = os.path.join(self.log_dir, 'metrics.jsonl')
         log_every = int(getattr(cfg, 'LOG_EVERY_STEPS', 0) or 0)
         # Every draw is keyed by the step or epoch it belongs to, as the
@@ -418,6 +504,9 @@ class UrsoNet:
 
         def batch_of(gen):
             batch = next(gen)
+            if bslice is not None:
+                batch = multihost.shard_batch_local(mesh, batch,
+                                                    cfg.BATCH_SIZE, bslice)
             return loader.molded_to_device(batch, dev) if host else batch
 
         last_means = {}
@@ -442,7 +531,7 @@ class UrsoNet:
                     n += 1
                     sums = metrics if sums is None else \
                         {k: sums[k] + v for k, v in metrics.items()}
-                    if log_every and n % log_every == 0:
+                    if log_every and n % log_every == 0 and writer:
                         # opting in reads the metrics every log_every steps
                         with open(metrics_path, 'a') as f:
                             f.write(json.dumps(
@@ -469,18 +558,17 @@ class UrsoNet:
                 record = {'epoch': epoch, 'time_s': round(dt, 2),
                           'imgs_per_s': round(n * cfg.BATCH_SIZE / dt, 2),
                           **{k: round(v, 6) for k, v in means.items()}}
-                with open(metrics_path, 'a') as f:
-                    f.write(json.dumps(record) + '\n')
+                if writer:
+                    with open(metrics_path, 'a') as f:
+                        f.write(json.dumps(record) + '\n')
                 log_fn(f"epoch {epoch}: " + " ".join(
                     f"{k}={v}" for k, v in record.items() if k != 'epoch'))
                 self.save_weights(store.checkpoint_epoch(self.checkpoint_path,
                                                          epoch))
-                self._prune_snapshots(int(getattr(cfg, 'CHECKPOINT_KEEP', 0)
-                                          or 0))
-                store.save_state(
-                    os.path.join(self.log_dir, 'state_latest' + (
-                        ORBAX_SUFFIX if self._orbax else store.WEIGHTS_EXT)),
-                    self.model, self.tx, self.slots, self.step, epoch + 1)
+                if writer:
+                    self._prune_snapshots(
+                        int(getattr(cfg, 'CHECKPOINT_KEEP', 0) or 0))
+                self.save_state(epoch + 1)
                 self.epoch = epoch + 1
                 last_means = means
         finally:
@@ -488,6 +576,23 @@ class UrsoNet:
                 if gen is not None:
                     gen.close()
         return last_means
+
+    def save_state(self, epoch: int):
+        """`state_latest` of the run dir at `epoch`: the whole weights and
+        optimizer slots, gathered from the head shards and written by
+        rank 0 (every rank must call it; the ranks meet once it is
+        written)."""
+        whole = self._whole()
+        split = model_split(self.model)
+        slots = {s: multihost.fetch_global(v, self.mesh, split)
+                 for s, v in self.slots.items()}
+        if self.mesh.is_writer:
+            store.save_state(
+                os.path.join(self.log_dir, 'state_latest' + (
+                    ORBAX_SUFFIX if self._orbax else store.WEIGHTS_EXT)),
+                whole, self.tx, slots, self.step, epoch)
+        if multihost.is_multiprocess():
+            torch.distributed.barrier()
 
     def _prune_snapshots(self, keep: int):
         """Keep the newest `keep` per-epoch snapshots (0: all), ordered by
@@ -515,7 +620,7 @@ class UrsoNet:
         if self.model is None:
             self.initialize()
         counts = {}
-        for name, p in self.model.named_parameters():
+        for name, p in self._whole().named_parameters():
             top = name.split('.')[0]
             counts[top] = counts.get(top, 0) + p.numel()
         total = sum(counts.values())
@@ -531,7 +636,7 @@ class UrsoNet:
             self.initialize()
         if self.serving is None:
             self.serving = ServingEngine(self.config, self.device,
-                                         model=self.model)
+                                         model=self.model, mesh=self.mesh)
         return self.serving
 
     def quantize(self, calib_images: Optional[Sequence[np.ndarray]] = None,

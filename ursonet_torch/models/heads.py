@@ -9,6 +9,20 @@ KeypointHead has three linear Dense(3) finals, k1/k2/k3. Layer names are
 the Keras ones: '{prefix}_dense_{i}', '{prefix}_bn_{i}' and the final
 layers' own names.
 Under F16 they compute in bf16 like the backbone (`Linear`).
+
+Tensor parallelism (`shard_heads`, under a mesh whose 'model' axis
+splits): each hidden dense becomes a `ColumnParallelLinear` that holds
+its shard of the out features, each head batch norm its slice of the
+features (normalizing its own slice), and the final dense a
+`RowParallelLinear` that holds its shard of the in features, the
+Megatron pattern of the JAX package's annotations: the column-parallel
+input is the identity forward and an all-reduce backward, the
+row-parallel output an all-reduce forward and the identity backward,
+and the bias is added once, after the reduce. A second hidden dense and
+the keypoint head's whole `k*_final` take the whole activation, and the
+column-parallel final of NR_DENSE_LAYERS == 0 gives the whole output: an
+all-reduce of the zero-padded shard (`parallel/sharding.py::
+gather_from`), which gloo also runs on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ursonet_torch.models.resnet import FrozenBN, Linear
+from ursonet_torch.parallel.mesh import AXIS_MODEL
+from ursonet_torch.parallel.sharding import copy_to, gather_from, \
+    reduce_from, split_bounds
 
 
 class _DenseStack(nn.Module):
@@ -59,6 +76,7 @@ class PoseHead(_DenseStack):
         self.final_name = final_name
         self.add_module(final_name, Linear(self.out_features, final_features))
         self.final_activation = final_activation
+        self.final_names = (final_name,)
 
     def forward(self, x):
         out = self._modules[self.final_name](self.hidden(x))
@@ -81,7 +99,135 @@ class KeypointHead(_DenseStack):
                          train_bn)
         for name in ('k1_final', 'k2_final', 'k3_final'):
             self.add_module(name, Linear(self.out_features, 3))
+        self.final_names = ()
+        # the whole hidden activation for the whole finals, under a
+        # split 'model' axis (`shard_heads`)
+        self.gather_hidden = None
 
     def forward(self, x):
         x = self.hidden(x)
+        if self.gather_hidden is not None:
+            x = self.gather_hidden(x)
         return self.k1_final(x), self.k2_final(x), self.k3_final(x)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+
+
+class _Shard(nn.Module):
+    """Where a layer's shard lies: shard `index` of `parts` over the
+    'model' group `group`."""
+
+    def __init__(self, group, index: int, parts: int):
+        super().__init__()
+        self.group, self.index, self.parts = group, index, parts
+
+    def bounds(self, n: int):
+        return split_bounds(n, self.parts, self.index)
+
+
+def _linear(x, weight, bias=None):
+    """The port's `Linear` arithmetic: F.linear in the input's dtype."""
+    if x.dtype == weight.dtype:
+        return F.linear(x, weight, bias)
+    y = F.linear(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+class ColumnParallelLinear(_Shard):
+    """A dense with its out features split: weight [hi − lo, in], bias
+    [hi − lo]. `gather_input`: the input arrives as the previous
+    column-parallel layer's shard and is made whole first;
+    `gather_output`: the output is made whole (the final dense of
+    NR_DENSE_LAYERS == 0)."""
+
+    def __init__(self, full: nn.Linear, group, index: int, parts: int,
+                 gather_input: bool = False, gather_output: bool = False):
+        super().__init__(group, index, parts)
+        self.in_features, self.out_features = full.in_features, \
+            full.out_features
+        self.lo, self.hi = self.bounds(self.out_features)
+        self.weight = nn.Parameter(full.weight.detach()[self.lo:self.hi]
+                                   .clone())
+        self.bias = nn.Parameter(full.bias.detach()[self.lo:self.hi].clone())
+        self.gather_input = gather_input
+        self.gather_output = gather_output
+
+    def forward(self, x):
+        if self.gather_input:
+            x = gather_from(x, self.group, self.in_features,
+                            *self.bounds(self.in_features))
+        y = _linear(copy_to(x, self.group), self.weight, self.bias)
+        if self.gather_output:
+            y = gather_from(y, self.group, self.out_features, self.lo,
+                            self.hi)
+        return y
+
+
+class RowParallelLinear(_Shard):
+    """A dense with its in features split: weight [out, hi − lo], the
+    bias whole, added once after the partial products are all-reduced
+    (in f32 under F16, then cast back)."""
+
+    def __init__(self, full: nn.Linear, group, index: int, parts: int):
+        super().__init__(group, index, parts)
+        self.in_features, self.out_features = full.in_features, \
+            full.out_features
+        self.lo, self.hi = self.bounds(self.in_features)
+        self.weight = nn.Parameter(full.weight.detach()[:, self.lo:self.hi]
+                                   .clone())
+        self.bias = nn.Parameter(full.bias.detach().clone())
+
+    def forward(self, x):
+        y = _linear(x, self.weight)
+        y = reduce_from(y.float(), self.group).to(x.dtype)
+        return y + self.bias.to(x.dtype)
+
+
+class GatherFeatures(_Shard):
+    """The whole last axis (`n` features) of a column-parallel shard."""
+
+    def __init__(self, n: int, group, index: int, parts: int):
+        super().__init__(group, index, parts)
+        self.n = n
+
+    def forward(self, x):
+        return gather_from(x, self.group, self.n, *self.bounds(self.n))
+
+
+def _slice_bn(bn: FrozenBN, lo: int, hi: int) -> FrozenBN:
+    """A head batch norm over features [lo, hi) of `bn`'s."""
+    out = FrozenBN(hi - lo, bn.train_bn)
+    with torch.no_grad():
+        for name in ('weight', 'bias', 'running_mean', 'running_var'):
+            getattr(out, name).copy_(getattr(bn, name)[lo:hi])
+    return out.to(bn.weight.device)
+
+
+def shard_heads(model: nn.Module, mesh) -> None:
+    """Split every head of `model` over the mesh's 'model' axis in place,
+    keeping this rank's shards (the layers keep their names, so the
+    state_dict's keys stay the whole model's)."""
+    group, index = mesh.group(AXIS_MODEL), mesh.index(AXIS_MODEL)
+    parts = mesh.shape[AXIS_MODEL]
+    for head in model.modules():
+        if not isinstance(head, _DenseStack):
+            continue
+        for i, layers in enumerate(head.dense):
+            dense = head._modules[layers[0]]
+            col = ColumnParallelLinear(dense, group, index, parts,
+                                       gather_input=i > 0)
+            head._modules[layers[0]] = col
+            if len(layers) > 1:
+                head._modules[layers[1]] = _slice_bn(
+                    head._modules[layers[1]], col.lo, col.hi)
+        for name in head.final_names:
+            final = head._modules[name]
+            head._modules[name] = (
+                RowParallelLinear(final, group, index, parts) if head.dense
+                else ColumnParallelLinear(final, group, index, parts,
+                                          gather_output=True))
+        if isinstance(head, KeypointHead) and head.dense:
+            head.gather_hidden = GatherFeatures(head.out_features, group,
+                                                index, parts)

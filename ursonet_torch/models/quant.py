@@ -59,7 +59,11 @@ before the shortcut requant sites existed serves its shortcut convs in
 float ('f32' epilogue, 'f32_sum' under QUANT_S8_JOIN) and joins them as
 a float residual.
 
-Not ported (NotImplementedError): shard_over.
+`shard_over(mesh)` serves data-parallel over a mesh's 'data' axis: each
+data rank runs its rows of the batch through the kernels with the
+weights and scales replicated (no collective in the int8 body), and the
+outputs are gathered over 'data' (on the card under NCCL, on the host
+under gloo).
 
 Usage:
     qm = QuantizedModel.from_variables(config, params, batch_stats)
@@ -913,6 +917,8 @@ class QuantizedModel:
         self._q_base = None
         self._q_dev = None
         self._alphas: dict = {}
+        # the data-parallel serving mesh (shard_over)
+        self.mesh = None
 
     @classmethod
     def from_variables(cls, config, params, batch_stats, device='cuda'):
@@ -923,7 +929,18 @@ class QuantizedModel:
                    device)
 
     def shard_over(self, mesh):
-        raise NotImplementedError('data-parallel int8 serving is not ported')
+        """Serve data-parallel over `mesh`'s 'data' axis: __call__ takes
+        the global batch on every rank, runs this rank's rows (weights
+        and activation scales replicated; calibration and bias
+        correction stay whole-batch and replicated) and gathers the
+        outputs over 'data'. The int8 body is row-exact, so the gathered
+        outputs are a single rank's bits; the float final denses see
+        another row count per rank, so they match to f32 rounding only.
+        A mesh of one data row, or None, reverts to single-process
+        serving."""
+        self.mesh = mesh if (mesh is not None
+                             and mesh.shape['data'] > 1) else None
+        return self
 
     def bias_correct(self, images, passes: int = 1):
         """Calibration-set bias correction (DFQ-style, arXiv:1906.04721),
@@ -1137,5 +1154,26 @@ class QuantizedModel:
         if self.act_scales is None:
             raise RuntimeError('calibrate() before inference')
         ops = self._int8_ops(plain)
+        if self.mesh is not None:
+            return self._sharded(ops, images)
         with no_tf32(), torch.no_grad():
             return twin_forward(ops, self._images(images), self._mcfg)
+
+    def _sharded(self, ops, images):
+        """This rank's rows through `ops`, the outputs gathered over
+        'data' in row order (`shard_over`)."""
+        from ursonet_torch.parallel.multihost import local_batch_slice
+        from ursonet_torch.parallel.sharding import gather_rows
+        n = int(images.shape[0])
+        rows = self.mesh.shape['data']
+        if n % rows:
+            raise ValueError(
+                f"batch {n} not divisible by the mesh's 'data' axis "
+                f"({rows}); pad the batch (the engine's predict_molded "
+                f"does) or serve unsharded")
+        lo, hi = local_batch_slice(self.mesh, n)
+        with no_tf32(), torch.no_grad():
+            out = twin_forward(ops, self._images(images[lo:hi]), self._mcfg)
+        group = self.mesh.group('data')
+        return {k: gather_rows(v, group, via_host=True)
+                for k, v in out.items()}

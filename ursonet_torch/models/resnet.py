@@ -53,6 +53,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ursonet_torch.parallel.sharding import all_reduce_sum
+
 # Keras BatchNormalization defaults
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
@@ -175,7 +177,17 @@ class FrozenBN(nn.Module):
     would update twice, where a recompute only rewrites `pending` with
     the same values. At one value per channel (a head BN at batch 1)
     F.batch_norm refuses; Flax's formula gives the bias there, and runs
-    as written."""
+    as written.
+
+    Over a mesh whose 'data' axis splits (`data_group`, set by
+    `parallel/sharding.py::shard_model`) the batch statistics are the
+    global batch's, as the JAX package computes them over the sharded
+    batch: the per-channel sums are all-reduced over 'data' under
+    autograd (the gradient runs through the global statistics), the
+    variance in two passes as F.batch_norm's, and `pending` from the
+    same global sums by Flax's fast formula. A rank never normalizes
+    with its own rows' statistics there, and the one-value-per-channel
+    case is the global batch's."""
 
     def __init__(self, num_features: int, train_bn=False):
         super().__init__()
@@ -188,6 +200,8 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.pending = None
+        self.data_group = None
+        self.data_size = 1
 
     def forward(self, x):
         if self.train_bn is False or not self.training:
@@ -195,6 +209,8 @@ class FrozenBN(nn.Module):
                                 self.weight, self.bias, training=False,
                                 momentum=0.0, eps=BN_EPS)
         dims = [0] + list(range(2, x.dim()))
+        if self.data_group is not None:
+            return self._global_forward(x, dims)
         if x.numel() == x.shape[1]:
             # one value per channel: (x - mean) is 0, the output the bias
             xf = x.float()
@@ -209,6 +225,24 @@ class FrozenBN(nn.Module):
             self.pending = _fast_stats(x.float(), dims)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=BN_EPS)
+
+    def _global_forward(self, x, dims):
+        """Batch statistics over the global batch (every data rank holds
+        as many rows, so it holds more than one value a channel)."""
+        xf = x.float()
+        n = (x.numel() // x.shape[1]) * self.data_size
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        sums = all_reduce_sum(torch.stack(
+            [xf.sum(dims), torch.square(xf.detach()).sum(dims)]),
+            self.data_group)
+        mean = sums[0] / n
+        with torch.no_grad():
+            self.pending = (mean.detach(), torch.clamp(
+                sums[1] / n - torch.square(mean.detach()), min=0.0))
+        d = xf - mean.view(shape)
+        var = all_reduce_sum(torch.square(d).sum(dims), self.data_group) / n
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (d * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
 
     @torch.no_grad()
     def commit(self) -> bool:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The command line of the port, the counterpart of the repository's
 `pose_estimator.py`: the same commands, flags, names and defaults, on
-one NVIDIA card.
+one NVIDIA card or on a (data, model) mesh of ranks, one card each.
 
     python -m ursonet_torch.pose_estimator <command> --dataset <name> \
         --weights <source> [flags]
@@ -24,9 +24,19 @@ init), 'imagenet' / 'coco' / the released model names ('soyuz_hard',
 (nothing is downloaded), or a run name whose latest snapshot is used.
 
 Everything runs on the card: without CUDA the command fails at once.
-Flags of paths the port does not have yet raise NotImplementedError
-naming their ROADMAP.md item: --mesh_data / --mesh_model above 1, and
---video. `--host_augment` trains from the host-parity generator
+Several ranks, one process and one card each (rank r on
+cuda:{LOCAL_RANK}):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m ursonet_torch.pose_estimator train ... --mesh_data D --mesh_model M
+
+trains data-parallel over D rows with the head denses split over M
+(`parallel/`); --mesh_data 0 takes world size // M, and D × M must equal
+the world size. Rank 0 alone prints and writes (the run dir; the other
+ranks' evaluation, overlay and export outputs go to a temporary
+directory that is removed). Flags of paths the port does not have yet
+raise NotImplementedError naming their ROADMAP.md item: --video.
+`--host_augment` trains from the host-parity generator
 (AUGMENT_ON_DEVICE False).
 """
 
@@ -34,8 +44,11 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import os
+import shutil
 import sys
+import tempfile
 
 ROOT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_LOGS_DIR = os.path.join(ROOT_DIR, "models", "logs")
@@ -104,11 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--data_dir', default=DEFAULT_DATA_DIR)
     p.add_argument('--models_dir', default=DEFAULT_MODELS_DIR)
     p.add_argument('--mesh_data', default=0, type=int,
-                   help='data-parallel axis (0 = all cards; the port runs '
-                        'one)')
+                   help='data-parallel mesh axis (0 = all ranks)')
     p.add_argument('--mesh_model', default=1, type=int,
-                   help='tensor-parallel axis over the heads (the port '
-                        'runs one card)')
+                   help='tensor-parallel mesh axis over the heads')
     p.add_argument('--steps_per_epoch', default=None, type=int)
     p.add_argument('--keep_checkpoints', default=0, type=int,
                    help='keep only the newest N per-epoch snapshots '
@@ -167,17 +178,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_config(args):
-    """The Config of the parsed flags, as the JAX package's CLI makes it
-    (one card: no mesh)."""
+    """The Config of the parsed flags, as the JAX package's CLI makes it;
+    the mesh's default data axis takes the ranks of the world (one
+    without a process group)."""
+    import torch.distributed as dist
+
     from ursonet_torch.config import Config
 
     if args.ori_param not in ORIENTATION_PARAM_OPTIONS:
         raise SystemExit(
             f"--ori_param must be one of {sorted(ORIENTATION_PARAM_OPTIONS)}"
             f", got '{args.ori_param}'")
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise _not_ported('a device mesh (--mesh_data / --mesh_model > 1)',
-                          '§1 item 9 (parallelism)')
 
     config = Config()
     config.ORIENTATION_PARAM = args.ori_param
@@ -217,6 +228,12 @@ def make_config(args):
 
     config.IMAGES_PER_GPU = args.batch_size if args.command == 'train' \
         else max(1, args.eval_batch)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    config.MESH_MODEL = max(1, args.mesh_model)
+    if args.mesh_data > 0:
+        config.MESH_DATA = args.mesh_data
+    else:
+        config.MESH_DATA = max(1, world // config.MESH_MODEL)
     if args.steps_per_epoch:
         config.STEPS_PER_EPOCH = args.steps_per_epoch
     if args.keep_checkpoints:
@@ -402,7 +419,7 @@ def _export(engine, args, config):
         engine.initialize()
     os.makedirs(args.out_dir, exist_ok=True)
     h5_path = os.path.join(args.out_dir, f'{config.NAME}_weights.h5')
-    save_keras_h5(h5_path, engine.model.state_dict())
+    save_keras_h5(h5_path, engine.whole_state_dict())
     print(f"Keras-h5 weights written to {h5_path}")
     if args.int8:
         subset = _labelled_subset(args)
@@ -444,13 +461,39 @@ def _test_image(engine, args, config, dataset):
 
 def main(argv=None, device='cuda'):
     """Run one command; returns the exit code. `device` is the card
-    ('cuda') unless a caller asks for the CPU."""
-    from ursonet_torch import evaluate
-    from ursonet_torch.device import resolve_device
-    from ursonet_torch.engine import UrsoNet
+    ('cuda') unless a caller asks for the CPU. Under
+    `torch.distributed.run` (its environment) the process joins the
+    world first, on cuda:{LOCAL_RANK} (gloo ranks on the CPU for
+    device='cpu'), and leaves it at the end; rank 0 alone prints."""
+    import torch.distributed as dist
+
+    from ursonet_torch.parallel import multihost
 
     args = build_parser().parse_args(argv)
-    dev = resolve_device(device)
+    # a world this call forms is also left by it
+    joined = not dist.is_initialized() and multihost.initialize(
+        device=device)
+    dev = multihost.rank_device(device)
+    scratch = None
+    try:
+        with contextlib.ExitStack() as stack:
+            if multihost.process_index() != 0:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, 'w'))))
+                scratch = tempfile.mkdtemp(prefix='ursonet_rank_')
+                args.out_dir = scratch
+            return _run(args, dev)
+    finally:
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+        if joined:
+            multihost.shutdown()
+
+
+def _run(args, dev):
+    from ursonet_torch import evaluate
+    from ursonet_torch.engine import UrsoNet
+
     print("Command: ", args.command)
     print("Dataset: ", args.dataset)
     print("Logs: ", args.logs)

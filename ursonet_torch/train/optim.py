@@ -31,6 +31,7 @@ from typing import Callable, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 Schedule = Callable[[int], float]
 
@@ -64,11 +65,20 @@ def clr_schedule(base_lr: float, max_lr: float, step_size: int,
     return schedule
 
 
-def _global_norm_clip(grads, clip_norm) -> None:
+def _global_norm_clip(grads, clip_norm, split=None, group=None) -> None:
     """optax.clip_by_global_norm, in place: unchanged below the limit,
-    else scaled to it."""
-    g_norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g) for g in grads]))
+    else scaled to it. `split` [bool per gradient]: the gradients held as
+    shards over the 'model' group `group`; their norms are the whole
+    tensors', the squares of the shards summed over the group (one
+    all-reduce), and every replicated tensor counts once."""
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    if group is not None and any(split):
+        idx = torch.tensor([i for i, s in enumerate(split) if s],
+                           device=norms.device)
+        sq = torch.square(norms[idx])
+        dist.all_reduce(sq, group=group)
+        norms = norms.index_put((idx,), torch.sqrt(sq))
+    g_norm = torch.linalg.vector_norm(norms)
     factor = torch.where(g_norm < clip_norm, torch.ones_like(g_norm),
                          clip_norm / g_norm)
     for g in grads:
@@ -100,10 +110,11 @@ class _Optimizer:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, params, grads) -> None:
+    def step(self, params, grads, split=None, group=None) -> None:
         """Update `params` in place from `grads` (a list aligned with
-        them; the grads are clipped in place)."""
-        _global_norm_clip(grads, self.clip_norm)
+        them; the grads are clipped in place). `split`, `group`: the
+        gradients held as shards over 'model' (`_global_norm_clip`)."""
+        _global_norm_clip(grads, self.clip_norm, split, group)
         if self.state is None:
             self.state = {s: [torch.zeros_like(p) for p in params]
                           for s in self.SLOTS}

@@ -22,6 +22,19 @@ the device (`data/loader.py::load_dataset_resident`) by an index gather
 on the device: no host-to-device copy per step. Under
 LEARNABLE_LOSS_WEIGHTS the model's `loss_log_vars` weight the losses
 (`losses.compute_losses`) and train with the other parameters.
+
+Over a (data, model) mesh (`parallel/`, `mesh=`) each rank's step takes
+its rows of the global batch. It draws the global batch's augmentation
+from the shared generator and keeps its rows
+(`parallel/sharding.py::slice_draws`), so each rank's `warp_mold` warps
+its own rows with the single-process draws; the losses are the global
+batch's (`losses.compute_losses(red=...)`); after
+`torch.autograd.grad` the gradients are summed over 'data' as one flat
+bucket (`all_reduce_bucket`: one all-reduce a step, also over a group of
+one); the clip and the L2 term count a head shard as its share of the
+whole tensor. The resident steps draw one permutation on every rank and
+gather the rank's rows of each global batch. A mesh of one rank
+computes the single-process step's bits.
 """
 
 from __future__ import annotations
@@ -33,20 +46,44 @@ import torch
 from ursonet_torch.data.loader import as_tensor
 from ursonet_torch.device import check_on, resolve_device
 from ursonet_torch.models.resnet import commit_batch_stats
+from ursonet_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL
+from ursonet_torch.parallel.multihost import local_batch_slice
+from ursonet_torch.parallel.sharding import all_reduce_bucket, \
+    data_reduce, model_split, scale_grad, slice_draws
 from ursonet_torch.train import losses as L
 
 
-def _model_batch(batch, preprocess, generator, dev):
+def _model_batch(batch, preprocess, generator, dev, rows=None):
     """The model batch: preprocessed from a raw batch, or an already
-    molded batch (images [B,3,H,W]) moved to the device."""
+    molded batch (images [B,3,H,W]) moved to the device. rows (lo, hi,
+    global batch): `batch` holds rows [lo, hi) of a global batch, whose
+    draws are made whole and sliced."""
     if preprocess is not None:
-        b = len(batch['images_u8'])
-        return preprocess(batch, preprocess.draw(generator, b))
+        if rows is None:
+            b = len(batch['images_u8'])
+            return preprocess(batch, preprocess.draw(generator, b))
+        lo, hi, b = rows
+        if len(batch['images_u8']) != hi - lo:
+            raise ValueError(f"the rank's batch holds "
+                             f"{len(batch['images_u8'])} rows, its slice "
+                             f"{hi - lo}")
+        return preprocess(batch, slice_draws(preprocess.draw(generator, b),
+                                             lo, hi))
     return {k: as_tensor(v, dev, torch.float32) for k, v in batch.items()}
 
 
+def _rows(mesh, config):
+    """(lo, hi, global batch) of this rank under a mesh that splits
+    'data', else None (the batch is the whole one)."""
+    if mesh is None or mesh.shape[AXIS_DATA] == 1:
+        return None
+    bsz = int(config.BATCH_SIZE)
+    return local_batch_slice(mesh, bsz) + (bsz,)
+
+
 def make_train_step(model, config, tx, trainable: Optional[dict] = None,
-                    preprocess: Optional[Callable] = None, device="cuda"):
+                    preprocess: Optional[Callable] = None, device="cuda",
+                    mesh=None):
     """Build the train step fn(batch, generator=None) -> metrics.
 
     tx: `train.optim.KerasSGD`; trainable: {parameter name: bool} from
@@ -59,30 +96,44 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
     every batch norm's, also where `trainable` freezes its parameters, as
     the JAX step makes all of batch_stats mutable.
     preprocess: `data.loader.make_device_preprocess(...)`; its draws come
-    from `generator`.
+    from `generator`. mesh: the (data, model) mesh `model` was sharded
+    over (`parallel.shard_model`); the batch is then this rank's rows.
     """
     dev = resolve_device(device)
     check_on(model, dev)
     update_bn = config.TRAIN_BN is None or config.TRAIN_BN is True
     if trainable is None:
         trainable = {n: True for n, _ in model.named_parameters()}
-    params = []
+    params, names = [], []
     for name, p in model.named_parameters():
         p.requires_grad_(bool(trainable[name]))
         if trainable[name]:
             params.append(p)
+            names.append(name)
+    rows = _rows(mesh, config)
+    red = data_reduce(mesh)
+    data_group = None if mesh is None else mesh.group(AXIS_DATA)
+    model_group = None if mesh is None else mesh.split(AXIS_MODEL)
+    split = model_split(model)
+    sharded = [n in split for n in names]
 
     def step(batch, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
-            batch = _model_batch(batch, preprocess, generator, dev)
+            batch = _model_batch(batch, preprocess, generator, dev, rows)
         model.train()
         outputs = model(batch['images'])
         total, parts = L.compute_losses(outputs, batch, config,
-                                        L.log_vars_of(model))
-        reg = L.l2_regularization(model, config.WEIGHT_DECAY, trainable)
+                                        L.log_vars_of(model), red)
+        reg = L.l2_regularization(model, config.WEIGHT_DECAY, trainable,
+                                  split, model_group)
+        if red is not None:
+            # every data rank computes the L2 term's whole gradient
+            reg = scale_grad(reg, 1.0 / red.size)
         loss = total + reg
         grads = list(torch.autograd.grad(loss, params))
-        tx.step(params, grads)
+        if data_group is not None:
+            all_reduce_bucket(grads, data_group)
+        tx.step(params, grads, sharded, model_group)
         if update_bn:
             commit_batch_stats(model)
         metrics = {k: v.detach() for k, v in parts.items()}
@@ -94,20 +145,24 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
 
 
 def make_eval_step(model, config, preprocess: Optional[Callable] = None,
-                   device="cuda"):
+                   device="cuda", mesh=None):
     """Validation step fn(batch, generator=None) -> metrics: forward and
     losses in eval mode (batch norm on its running statistics), no
-    update (the preprocess augments, as in the JAX package)."""
+    update (the preprocess augments, as in the JAX package). Under a
+    mesh the batch is this rank's rows and the metrics the global
+    batch's."""
     dev = resolve_device(device)
     check_on(model, dev)
+    rows = _rows(mesh, config)
+    red = data_reduce(mesh)
 
     @torch.no_grad()
     def step(batch, generator: Optional[torch.Generator] = None):
-        batch = _model_batch(batch, preprocess, generator, dev)
+        batch = _model_batch(batch, preprocess, generator, dev, rows)
         model.eval()
         outputs = model(batch['images'])
         total, parts = L.compute_losses(outputs, batch, config,
-                                        L.log_vars_of(model))
+                                        L.log_vars_of(model), red)
         metrics = dict(parts)
         metrics['loss'] = total
         return metrics
@@ -134,26 +189,37 @@ def check_nans(where: str, metrics: dict, model=None) -> None:
 def _positions(i: int, steps: int, bsz: int, n_images: int,
                arange: torch.Tensor) -> torch.Tensor:
     """Dataset positions of the i-th batch of an epoch: B consecutive
-    positions, wrapping around (also for a dataset smaller than B)."""
+    positions, wrapping around (also for a dataset smaller than B);
+    `arange` the rows of the batch to take (all, or a rank's)."""
     return ((i % steps) * bsz + arange) % n_images
+
+
+def _local_arange(mesh, config, dev) -> torch.Tensor:
+    """The rows of each global batch this rank gathers."""
+    rows = _rows(mesh, config)
+    lo, hi = (0, int(config.BATCH_SIZE)) if rows is None else rows[:2]
+    return torch.arange(lo, hi, device=dev)
 
 
 def make_resident_train_step(model, config, tx, n_images: int,
                              trainable: Optional[dict] = None,
                              preprocess: Optional[Callable] = None,
-                             device="cuda"):
+                             device="cuda", mesh=None):
     """Train step over a device-resident dataset. Returns
     fn(data, perm, i, generator=None) -> (i + 1, metrics): `data` is
     {field: [N, ...] tensor on the device}, `perm` a permutation of N on
     the device (one an epoch, `torch.randperm(n, generator=...,
     device=...)`), `i` the step in the epoch; the batch is `data`
     gathered at perm[((i mod steps)·B + arange(B)) mod N], and the
-    augmentation draws come from `generator`."""
+    augmentation draws come from `generator`. Under a mesh every rank
+    holds the whole dataset and the same permutation, and gathers its
+    rows of the global batch."""
     dev = resolve_device(device)
-    step = make_train_step(model, config, tx, trainable, preprocess, dev)
+    step = make_train_step(model, config, tx, trainable, preprocess, dev,
+                           mesh)
     bsz = int(config.BATCH_SIZE)
     steps = max(n_images // bsz, 1)
-    arange = torch.arange(bsz, device=dev)
+    arange = _local_arange(mesh, config, dev)
 
     def resident_step(data, perm, i: int,
                       generator: Optional[torch.Generator] = None):
@@ -167,15 +233,15 @@ def make_resident_train_step(model, config, tx, n_images: int,
 
 def make_resident_eval_step(model, config, n_images: int,
                             preprocess: Optional[Callable] = None,
-                            device="cuda"):
+                            device="cuda", mesh=None):
     """Validation twin of make_resident_train_step: the i-th batch is
     `data` at ((i mod steps)·B + arange(B)) mod N, in order. Returns
     fn(data, i, generator=None) -> (i + 1, metrics)."""
     dev = resolve_device(device)
-    step = make_eval_step(model, config, preprocess, dev)
+    step = make_eval_step(model, config, preprocess, dev, mesh)
     bsz = int(config.BATCH_SIZE)
     steps = max(n_images // bsz, 1)
-    arange = torch.arange(bsz, device=dev)
+    arange = _local_arange(mesh, config, dev)
 
     def resident_step(data, i: int,
                       generator: Optional[torch.Generator] = None):
