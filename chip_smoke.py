@@ -227,6 +227,24 @@ Phases, in order; any failure exits non-zero:
               equal to one rank's serving bit for bit, the float final
               within 1e-5, each rank's rows equal to the plain version);
               seconds and each rank's peak memory.
+  8g. actq    TRAIN_ACT_Q8 (`run_actq`): the F16 flagship (ResNet-50,
+              512x640, batch 32) under TRAIN_ACT_Q8 False, True and
+              'wgrad8' in turns, from the same seeded weights and batch, 3
+              train steps + 1 validation step each: the first step's loss
+              equal in every mode (the forward is exact), losses finite and
+              falling, quant_s8 (by mode), wgrad_s8 and their gemm_s8
+              launches counted, every distinct quant_s8 / wgrad_s8 call of
+              a step on fresh operands equal to its plain version (0
+              differing values), each timed beside its plain version, its
+              bound and (wgrad_s8) torch._int_mm on the same patch matrix;
+              the median step time and one step's peak memory per mode.
+  8h. video   `test --video` (`run_video`): 24 synthetic 1280x960 URSO
+              frames written as an MJPG AVI by the port's writer, then
+              the CLI's test --video float and --int8 --f16 (the
+              flagship's flags, batches of 8): every frame written, each
+              frame's pose equal to engine.detect's on the reader's frames
+              in the same batches, frames/s split into decode, serve, draw
+              and encode.
  9. artifact the committed flagship int8 artifact served on its golden
               input under F16 and in the f32-epilogue mode: kernel path
               equal to the plain path, within the gate bound of the float
@@ -304,7 +322,8 @@ from ursonet_torch.engine import ServingEngine, UrsoNet
 from ursonet_torch.models import quant
 from ursonet_torch.models.resnet import FrozenBN
 from ursonet_torch.models.ursonet import build_model
-from ursonet_torch.ops import augment, cuda_build, int8_cuda, warp_cuda
+from ursonet_torch.ops import (actq_cuda, augment, cuda_build, int8_cuda,
+                               warp_cuda)
 from ursonet_torch.ops.image import resize_geometry, resize_image
 from ursonet_torch.probes import fused_block, int4_mma, int8_mma, mma_rate
 from ursonet_torch.probes import stem as stem_probe
@@ -4545,6 +4564,342 @@ def run_parallel(root, device, seed: int = 0, card: str = '',
             'seconds': time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------------------
+# phase 8g: TRAIN_ACT_Q8, the int8 saved-activation train step
+
+ACTQ_MODES = (False, True, 'wgrad8')
+ACTQ_STEPS = 3       # train steps of each mode's path, then 1 validation step
+ACTQ_TIMED = 5       # timed launches of each distinct kernel call
+
+
+def actq_operands(name, args, dev, gen):
+    """Fresh operands of a recorded quant_s8 / wgrad_s8 call on `dev`:
+    (kernel fn, plain fn), each taking no argument."""
+    if name == 'wgrad_s8':
+        n, ci, h, w = args['q']
+        kh, kw = args['kernel_hw']
+        (pt, pb), (pl, pr) = args['pads']
+        ho, wo = int8_cuda.conv_out_hw(h, w, kh, kw, args['stride'],
+                                       args['pads'])
+        q = torch.randint(-127, 128, (n, ci, h, w), generator=gen,
+                          dtype=torch.int8).to(dev)
+        qg = torch.randint(-127, 128, (n, args['co'], ho, wo),
+                           generator=gen, dtype=torch.int8)
+        qgt = actq_cuda._qgt(qg, actq_cuda.padded_k(n * ho * wo)).to(dev)
+        alpha = torch.full((ci * kh * kw,), 1e-6, device=dev)
+        geo = ((kh, kw), args['stride'], args['pads'])
+        return (lambda: actq_cuda.wgrad_s8(q, qgt, *geo, alpha),
+                lambda: actq_cuda.wgrad_s8_torch(q, qgt, *geo),
+                lambda: actq_cuda.wgrad_s8(q, qgt, *geo),
+                (q, qgt, geo))
+    mode, shape, dtype = args['mode'], args['shape'], args['dtype']
+    if mode == 'dequant':
+        t = torch.randint(-127, 128, shape, generator=gen,
+                          dtype=torch.int8).to(dev)
+        scale = (torch.rand(shape[0], generator=gen) + 0.01).to(dev)
+        kw = dict(scale=scale, dtype=args['out_dtype'])
+    else:
+        t = (torch.randn(shape, generator=gen) * 3).to(dtype).to(dev)
+        scale = (torch.rand(shape[0], generator=gen) + 0.01).to(dev)
+        kw = {} if mode == 'x' else dict(scale=scale, alpha_len=27)
+    return (lambda: actq_cuda.quant_s8(t, mode, **kw),
+            lambda: actq_cuda.quant_s8_torch(t, mode, **kw), None, (t, kw))
+
+
+def actq_bytes(name, args) -> int:
+    """Bytes a call must move: each input read once, each output written
+    once."""
+    if name == 'wgrad_s8':
+        n, ci, h, w = args['q']
+        kh, kw = args['kernel_hw']
+        ho, wo = int8_cuda.conv_out_hw(h, w, kh, kw, args['stride'],
+                                       args['pads'])
+        return n * ci * h * w + args['co'] * n * ho * wo \
+            + 4 * args['co'] * ci * kh * kw
+    numel = int(np.prod(args['shape']))
+    n = args['shape'][0]
+    if args['mode'] == 'x':
+        return numel * args['dtype'].itemsize + numel + 4 * n
+    if args['mode'] == 'g':
+        return numel * args['dtype'].itemsize + 4 * n + numel
+    return numel + 4 * n + numel * args['out_dtype'].itemsize
+
+
+def actq_ops(name, args) -> int:
+    """Operations of a wgrad_s8 call: 2 M N K over the valid columns."""
+    if name != 'wgrad_s8':
+        return 0
+    n, ci, h, w = args['q']
+    kh, kw = args['kernel_hw']
+    ho, wo = int8_cuda.conv_out_hw(h, w, kh, kw, args['stride'],
+                                   args['pads'])
+    return 2 * args['co'] * ci * kh * kw * n * ho * wo
+
+
+def _call_key(name, args):
+    return (name,) + tuple(sorted((k, str(v)) for k, v in args.items()))
+
+
+def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
+    """Each distinct quant_s8 / wgrad_s8 call of a step (`calls`, one
+    step's) on fresh operands: the kernel against its plain version (0
+    differing values: the quantizes bit for bit, wgrad_s8's int32 sums),
+    and with `timed` its time (CUDA events, mean of ACTQ_TIMED), the plain
+    version's, torch._int_mm on wgrad_s8's patch matrix, each weighted by
+    the call's count in the step. Returns, per kernel: launches, distinct
+    calls, ms, plain_ms, library_ms, bound terms."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = Counter(_call_key(n, a) for n, a in calls)
+    first = {}
+    for n, a in calls:
+        first.setdefault(_call_key(n, a), (n, a))
+    out = {k: {'launches': 0, 'distinct': 0, 'ms': 0.0, 'plain_ms': 0.0,
+               'library_ms': 0.0 if k == 'wgrad_s8' else None,
+               'bytes': 0, 'ops': 0, 'max_abs_err': 0.0}
+           for k in ('quant_s8', 'wgrad_s8')}
+    for key, (name, args) in first.items():
+        c = counts[key]
+        row = out[name]
+        row['launches'] += c
+        row['distinct'] += 1
+        row['bytes'] += c * actq_bytes(name, args)
+        row['ops'] += c * actq_ops(name, args)
+        kern, plain, s32, ops = actq_operands(name, args, dev, gen)
+        got, want = (s32 or kern)(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"{name} {args}: the kernel differs from "
+                                   "its plain version")
+        if not timed:
+            continue
+        row['ms'] += c * cuda_ms(kern, ACTQ_TIMED)
+        row['plain_ms'] += c * cuda_ms(plain, 2, warmup=1)
+        if name == 'wgrad_s8':
+            q, qgt, geo = ops
+            p = actq_cuda.im2col_torch(q, *geo)
+            row['library_ms'] += c * cuda_ms(
+                lambda: torch._int_mm(qgt, p.t()), ACTQ_TIMED)
+            del p
+        del kern, plain, s32, ops
+    for k, row in out.items():
+        row.update(_bound(row['ops'], row['bytes'], INT8_OP_PER_S))
+    return out
+
+
+def run_actq(device, seed: int = 0, card: str = '', cfg=None,
+             steps: int = ACTQ_STEPS, timed: bool = True) -> dict:
+    """Phase 8g: the F16 flagship (`cfg`, default flagship_config(F16))
+    under TRAIN_ACT_Q8 False, True and 'wgrad8' in turns: each `steps`
+    train steps + 1 validation step from the same seeded weights and
+    batch (the first step's loss equal across the modes: the forward is
+    exact), the launches of quant_s8 by mode, wgrad_s8 and their GEMMs,
+    every distinct call of one step held against the plain version, and
+    on the card the median step time and one step's peak memory. Returns
+    per mode the numbers, and the kernel rows of 'wgrad8' (and True)."""
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    cfg = cfg or flagship_config(f16=True)
+    out = {'modes': {}, 'rows': Counter(), 'fused_err': 0.0}
+    for mode in ACTQ_MODES:
+        c = copy.deepcopy(cfg)
+        c.TRAIN_ACT_Q8 = mode
+        c.update()
+        tag = f"TRAIN_ACT_Q8={mode}"
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        warp_cuda.reset_counts()
+        int8_cuda.reset_counts()
+        actq_cuda.reset_counts()
+        with _FusedWarps() as fused:
+            res = run_main_path(c, dev, seed, steps)
+        if cuda:
+            torch.cuda.synchronize()
+            out['fused_err'] = max(out['fused_err'], check_fused_call(
+                f"actq [{tag}]", fused.first))
+        del fused
+        launches = {**actq_cuda.launches,
+                    **{f'quant_s8_{k}': v
+                       for k, v in actq_cuda.mode_launches.items()},
+                    'gemm_s8': int8_cuda.launches['gemm_s8'],
+                    'warp_mold': warp_cuda.launches['warp_mold']}
+        losses = [m['loss'] for m in res['train']]
+        log(f"actq [{tag}] losses: " + " ".join(f"{v:.6f}" for v in losses)
+            + f"; validation {res['val']}; launches {launches}")
+        check_main_path(res)
+        per_step = {k: v // steps for k, v in launches.items()
+                    if k not in ('warp_mold',)}
+        want = {False: {}, True: {'quant_s8_x': 1, 'quant_s8_dequant': 1},
+                'wgrad8': {'quant_s8_x': 1, 'quant_s8_g': 1,
+                           'wgrad_s8': 1}}[mode]
+        for k in want if cuda else ():
+            if per_step[k] < 1:
+                raise RuntimeError(f"actq [{tag}]: {k} never launched "
+                                   f"({launches})")
+        if mode is False and (launches['quant_s8'] or launches['wgrad_s8']):
+            raise RuntimeError(f"actq [{tag}] launched {launches}")
+        info = {'losses': losses, 'launches': launches,
+                'per_step': per_step}
+        if mode:
+            # one more step with the calls recorded: each distinct one
+            actq_cuda.calls = []
+            res['step'](res['raw'], torch.Generator().manual_seed(seed + 1))
+            calls, actq_cuda.calls = actq_cuda.calls, None
+            info['kernels'] = check_actq_calls(calls, dev, seed,
+                                               timed and cuda)
+            for k, row in info['kernels'].items():
+                log(f"actq [{tag}] {k}: {row['launches']} launches a step "
+                    f"({row['distinct']} distinct calls, each equal to the "
+                    f"plain version on fresh operands)"
+                    + (f"; {row['ms']:.4f} ms a step, plain "
+                       f"{row['plain_ms']:.4f} ms, bound "
+                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                       f"library {row['library_ms']} ms {card}"
+                       if timed and cuda else ""))
+            out['rows']['quant_s8'] += launches['quant_s8']
+            out['rows']['wgrad_s8'] += launches['wgrad_s8']
+            out['rows']['gemm_s8_f32acc'] += launches['gemm_s8']
+        if cuda and timed:
+            info['ms'] = time_train(res, seed)
+            info['peak'] = step_peak(res, seed)
+            log(f"actq [{tag}] step: median {info['ms']:.3f} ms over 10 "
+                f"after 2 warm-up, {c.BATCH_SIZE / info['ms'] * 1e3:.2f} "
+                f"imgs/s, batch {c.BATCH_SIZE} {c.IMAGE_SHAPE[0]}x"
+                f"{c.IMAGE_SHAPE[1]}; one step's peak {info['peak']} bytes "
+                f"({info['peak'] / 2**30:.2f} GiB) {card}")
+        out['modes'][mode] = info
+        del res
+    first = {m: v['losses'][0] for m, v in out['modes'].items()}
+    if len(set(first.values())) != 1 or not np.isfinite(first[False]):
+        raise RuntimeError(f"actq: the first step's losses differ: {first}")
+    log(f"actq: the first step's loss {first[False]!r} in every mode (the "
+        "forward is exact)")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 8h: test --video
+
+VIDEO_FRAMES = 24
+VIDEO_WH = (1280, 960)
+VIDEO_FPS = 10.0
+VIDEO_BATCH = 8
+
+
+def run_video(root, device, seed: int = 0, card: str = '',
+              frames: int = VIDEO_FRAMES, wh=VIDEO_WH, flags=CLI_FLAGS,
+              batch: int = VIDEO_BATCH) -> dict:
+    """Phase 8h: a clip of `frames` synthetic URSO frames (`wh`, the
+    labelled 'test' subset of a dataset under `root/video`) written by the
+    port's AVI writer, then `test --video` through the CLI float and
+    `--int8 --f16`: every frame written, each frame's pose equal to
+    `engine.detect` on the reader's frames in the same batches, frames/s
+    and its split into decode, serve, draw and encode."""
+    from ursonet_torch import pose_estimator, video
+    from ursonet_torch.data.avi import AviReader, AviWriter
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    data_dir = os.path.join(root, 'video')
+    make_urso_dataset(os.path.join(data_dir, 'clip'), subsets=('test',),
+                      n_per_subset=frames, width=wh[0], height=wh[1],
+                      seed=seed + 7)
+    ds = Urso()
+    ds.load_dataset(os.path.join(data_dir, 'clip'), Config(), 'test')
+    clip = os.path.join(root, 'clip.avi')
+    t0 = time.perf_counter()
+    w = AviWriter(clip, VIDEO_FPS)
+    for i in ds.image_ids:
+        w.append(ds.load_image(i))
+    w.close()
+    log(f"video: {frames} frames of {wh[0]}x{wh[1]} written to an MJPG AVI "
+        f"of {os.path.getsize(clip)} bytes in {time.perf_counter() - t0:.2f}"
+        " s (PNG read and JPEG encode, host)")
+    reader = AviReader(clip)
+    clip_frames = list(reader)
+    reader.close()
+    out = {'rows': Counter(), 'runs': {}}
+    for tag, extra in (('float', []), ('int8 f16', ['--int8', '--f16'])):
+        seen, drawn = {}, []
+        real_detect, real_overlay = video.detect_video, video.overlay_axes
+
+        def spy(engine, dataset, *a, **kw):
+            seen['engine'], seen['dataset'] = engine, dataset
+            seen['timings'] = kw['timings'] = {}
+            return real_detect(engine, dataset, *a, **kw)
+
+        def overlay(frame, K, loc, q, conv, scale=1.0):
+            drawn.append((np.array(loc), np.array(q)))
+            return real_overlay(frame, K, loc, q, conv, scale)
+
+        out_dir = os.path.join(root, f"video_out_{tag.replace(' ', '_')}")
+        argv = ['test', '--dataset', 'clip', '--data_dir', data_dir,
+                '--logs', os.path.join(root, 'video_logs'), '--out_dir',
+                out_dir, '--weights', 'none', '--eval_batch', str(batch),
+                '--seed', str(seed), '--video', clip] + list(flags) + extra
+        warp_cuda.reset_counts()
+        int8_cuda.reset_counts()
+        video.detect_video, video.overlay_axes = spy, overlay
+        t0 = time.perf_counter()
+        try:
+            rc = pose_estimator.main(argv, device=dev)
+        finally:
+            video.detect_video, video.overlay_axes = real_detect, real_overlay
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"video [{tag}]: exit code {rc}")
+        launches = {**int8_cuda.launches}
+        path = os.path.join(out_dir, 'clip.avi_annotated.avi')
+        r = AviReader(path)
+        n_out = sum(1 for _ in r.chunks())
+        r.close()
+        if n_out != frames or len(drawn) != frames:
+            raise RuntimeError(f"video [{tag}]: {n_out} frames written, "
+                               f"{len(drawn)} drawn of {frames}")
+        if extra and cuda and min(launches['gemm_s8'],
+                                  launches['conv_s8']) < 1:
+            raise RuntimeError(f"video [{tag}]: launches {launches}")
+        # the poses against engine.detect on the reader's frames
+        eng = seen['engine']
+        if eng.config.BATCH_SIZE != batch:
+            raise RuntimeError(f"video [{tag}]: batch {eng.config.BATCH_SIZE}")
+        worst = 0.0
+        for i in range(0, frames, batch):
+            chunk = clip_frames[i:i + batch]
+            chunk = chunk + [chunk[-1]] * (batch - len(chunk))
+            outs = eng.detect(chunk)
+            raw = {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+            locs, qs = evaluate.decode_dataset_results(raw, eng.config,
+                                                       seen['dataset'])
+            for j in range(min(batch, frames - i)):
+                loc, q = drawn[i + j]
+                worst = max(worst, float(np.abs(loc - locs[j]).max()),
+                            float(np.abs(q - qs[j]).max()))
+        if worst != 0.0:
+            raise RuntimeError(f"video [{tag}]: poses differ from "
+                               f"engine.detect's by {worst}")
+        t = seen['timings']
+        split = {k: t[k] for k in video.TIMED}
+        busy = sum(split.values())
+        log(f"video [{tag}] test --video: {n_out} frames written, each pose "
+            f"equal to engine.detect's on the reader's frames; "
+            f"{frames / busy:.2f} frames/s over detect_video's {busy:.2f} s "
+            f"(" + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+            + f"), the command {wall:.1f} s with model build and "
+            f"calibration; launches {launches} {card}")
+        sfx = '' if '--f16' in extra else '_f32acc'
+        if extra:
+            for k in ('gemm_s8', 'conv_s8', 'stem_s8'):
+                out['rows'][k + sfx] += launches[k]
+        out['runs'][tag] = {'frames_per_s': frames / busy, 'split': split,
+                            'wall': wall}
+        del seen, eng
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -4782,8 +5137,26 @@ def main(argv=None) -> int:
         par = run_parallel(root, dev, args.seed, card=card,
                            train_ms=train_ms)
         fused_err = max(fused_err, par['fused_err'])
-    torch.cuda.empty_cache()
-    log(f"parallel phase: {par['seconds']:.1f} s {card}")
+        torch.cuda.empty_cache()
+        log(f"parallel phase: {par['seconds']:.1f} s {card}")
+
+        # 8g. TRAIN_ACT_Q8: the F16 flagship with int8-saved activations
+        t8 = time.perf_counter()
+        aq = run_actq(dev, args.seed, card=card)
+        fused_err = max(fused_err, aq['fused_err'])
+        torch.cuda.empty_cache()
+        log(f"actq phase: {time.perf_counter() - t8:.1f} s; step "
+            + ", ".join(f"TRAIN_ACT_Q8={m} {v['ms']:.3f} ms (peak "
+                        f"{v['peak'] / 2**30:.2f} GiB)"
+                        for m, v in aq['modes'].items()) + f" {card}")
+
+        # 8h. test --video on a clip of 1280x960 URSO frames
+        t8 = time.perf_counter()
+        vid = run_video(root, dev, args.seed, card=card)
+        torch.cuda.empty_cache()
+        log(f"video phase: {time.perf_counter() - t8:.1f} s; frames/s "
+            + ", ".join(f"{k} {v['frames_per_s']:.2f}"
+                        for k, v in vid['runs'].items()) + f" {card}")
 
     # 9. the committed artifact, under F16 and in the f32-epilogue mode
     for f16 in (True, False):
@@ -5044,7 +5417,10 @@ def main(argv=None) -> int:
         # paths' (phase 8c)
         for path, got in (('config2', c2['rows']), ('trainbn', tb['rows']),
                           ('knobs', kn['rows']), ('orbax', ob['rows']),
-                          ('parallel', par['rows'])):
+                          ('parallel', par['rows']),
+                          ('actq', {'gemm_s8_f32acc':
+                                    aq['rows']['gemm_s8_f32acc']}),
+                          ('video', vid['rows'])):
             n = got.get(row['name'], 0)
             if n:
                 row.setdefault('launches_by_path',
@@ -5073,6 +5449,33 @@ def main(argv=None) -> int:
             row['max_abs_err_by_mode'] = checked
     # train --host_augment warps on the host: checked to launch none
     kernels[0]['launches_fused_by_path']['host_augment'] = 0
+    # TRAIN_ACT_Q8's kernels (phase 8g), which replace XLA operations of
+    # the JAX package, no Pallas kernel: a train step's calls under
+    # 'wgrad8' (quant_s8 'x' and 'g', wgrad_s8), each distinct call timed
+    # on fresh operands and weighted by its count; under True beside them
+    # (quant_s8 'x' and 'dequant'). wgrad_s8's time is its gather and its
+    # gemm_s8 (f32 epilogue), whose launches count in gemm_s8_f32acc too;
+    # its library call torch._int_mm on the same patch matrix.
+    for name, replaces in (('quant_s8', 'ursonet_tpu/models/actq.py:117'),
+                           ('wgrad_s8', 'ursonet_tpu/models/actq.py:90')):
+        w8 = aq['modes']['wgrad8']['kernels'][name]
+        row = {"name": name, "route": "cuda",
+               "source": "ursonet_torch/csrc/actq.cu", "replaces": replaces,
+               "replaces_kind": "XLA operations of the JAX package (no "
+                                "Pallas kernel)",
+               "launches": aq['rows'][name],
+               "launches_by_mode": {str(m): v['launches'][name]
+                                    for m, v in aq['modes'].items()},
+               "max_abs_err": 0.0,
+               **{k: w8[k] for k in keys}, "per": "train step, 'wgrad8'"}
+        if name == 'quant_s8':
+            row["launches_by_quant_mode"] = {
+                str(m): {q: v['launches'][f'quant_s8_{q}']
+                         for q in actq_cuda.MODES}
+                for m, v in aq['modes'].items()}
+            row["mode_true"] = {k: aq['modes'][True]['kernels'][name][k]
+                                for k in keys}
+        kernels.append(row)
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

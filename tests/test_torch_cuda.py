@@ -1426,3 +1426,85 @@ def test_gloo_collectives_take_cuda_tensors(cuda_device, tmp_path):
         assert dist.get_backend() == 'gloo'
     finally:
         multihost.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# TRAIN_ACT_Q8: quant_s8 and wgrad_s8 (csrc/actq.cu) against their plain
+# versions on the card, bit for bit
+
+from ursonet_torch.models.actq import ConvQ8  # noqa: E402
+from ursonet_torch.ops import actq_cuda as aq  # noqa: E402
+from ursonet_torch.probes import actq_wgrad8 as aw  # noqa: E402
+
+ACTQ_SHAPES = [(4, 64, 32, 40), (3, 5, 7, 9), (2, 3, 70, 90)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shape', ACTQ_SHAPES,
+                         ids=['aligned', 'ragged', 'stem'])
+def test_quant_s8_modes_match_plain(cuda_device, shape, dtype):
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn(shape, generator=gen) * 3).to(dtype)
+    before = dict(aq.mode_launches)
+    q, scale = aq.quant_s8(x.to(cuda_device), 'x')
+    pq, pscale = aq.quant_s8_torch(x, 'x')
+    assert torch.equal(q.cpu(), pq) and torch.equal(scale.cpu(), pscale)
+    r = 27
+    qgt, alpha = aq.quant_s8(x.to(cuda_device), 'g', scale, alpha_len=r)
+    pqgt, palpha = aq.quant_s8_torch(x, 'g', pscale, alpha_len=r)
+    assert torch.equal(qgt.cpu(), pqgt) and torch.equal(alpha.cpu(), palpha)
+    dq = aq.quant_s8(q, 'dequant', scale, dtype=dtype)
+    assert torch.equal(dq.cpu(), aq.quant_s8_torch(pq, 'dequant', pscale,
+                                                   dtype=dtype))
+    torch.cuda.synchronize()
+    assert {m: aq.mode_launches[m] - before[m] for m in aq.MODES} \
+        == {'x': 1, 'g': 1, 'dequant': 1}
+
+
+@pytest.mark.parametrize('name', list(aw.flagship_geometries(4)))
+def test_wgrad_s8_at_flagship_geometries_matches_plain(cuda_device, name):
+    """The flagship's int8-route geometries at batch 4 (the same widths),
+    int32 and with the f32 epilogue."""
+    geom, _ = aw.flagship_geometries(4)[name]
+    n, h, w, ci, co, k, s, pad = geom
+    q, qgt, pads = aw.operands(geom, 1, cuda_device)
+    got = aq.wgrad_s8(q, qgt, (k, k), s, pads)
+    want = aq.wgrad_s8_torch(q, qgt, (k, k), s, pads)
+    assert torch.equal(got, want)
+    alpha = torch.full((ci * k * k,), 3e-7, device=cuda_device)
+    f = aq.wgrad_s8(q, qgt, (k, k), s, pads, alpha)
+    assert torch.equal(f, want.float() * alpha.view(1, ci, k, k))
+
+
+def test_wgrad_s8_check_geometries(cuda_device):
+    aw.check(cuda_device)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('mode', [True, 'wgrad8'])
+def test_convq8_on_the_card_matches_the_cpu(cuda_device, mode, dtype):
+    """ConvQ8's saved q, its forward (cuDNN deterministic, TF32 off) and
+    dw against the same module on the CPU: q bit for bit; wgrad8's dw bit
+    for bit given the same g (the int8 sums are exact); mode True's within
+    1e-2 relative (cuDNN sums in another order, in bf16 under bf16)."""
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    m = ConvQ8(16, 32, 3, 1, padding=1, mode=mode)
+    x = torch.relu(torch.randn((4, 16, 20, 24), generator=gen)).to(dtype)
+    g = torch.randn((4, 32, 20, 24), generator=gen).to(dtype)
+    outs = {}
+    for dev in ('cpu', cuda_device):
+        mm = ConvQ8(16, 32, 3, 1, padding=1, mode=mode).to(dev)
+        mm.load_state_dict(m.state_dict())
+        xx = x.to(dev).requires_grad_(True)
+        mm(xx).backward(g.to(dev))
+        outs[str(dev)] = (mm.weight.grad.cpu(), aq.quant_s8(x.to(dev), 'x'))
+    (dw_c, (q_c, s_c)), (dw_g, (q_g, s_g)) = outs.values()
+    assert torch.equal(q_c, q_g.cpu()) and torch.equal(s_c, s_g.cpu())
+    if mode == 'wgrad8':
+        # the same q, g and scales: the int32 sums and their rescale agree
+        assert torch.equal(dw_g, dw_c)
+    else:
+        assert float((dw_g - dw_c).norm() / dw_c.norm()) <= 1e-2

@@ -113,7 +113,7 @@ def test_encoder_default_quality_is_pils():
     with pytest.raises(ValueError, match='uint8'):
         jpeg.encode_jpeg(arr.astype(np.float32))
     with pytest.raises(ValueError, match=r'\[H, W\]'):
-        jpeg.encode_jpeg(np.zeros((4, 4, 3), np.uint8))
+        jpeg.encode_jpeg(np.zeros((4, 4, 2), np.uint8))
 
 
 def _with_sof(data: bytes, marker: int = None, precision: int = None):

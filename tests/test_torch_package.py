@@ -225,7 +225,8 @@ def test_kernel_modules_import_and_run_on_cpu_without_building():
         "    raise AssertionError('a process was started')\n"
         "subprocess.Popen = subprocess.run = refuse\n"
         "import numpy as np, torch\n"
-        "from ursonet_torch.ops import cuda_build, int8_cuda, warp_cuda\n"
+        "from ursonet_torch.ops import actq_cuda, cuda_build, int8_cuda, "
+        "warp_cuda\n"
         "from ursonet_torch.probes import fused_block, int4_mma, int8_mma, "
         "mma_rate\n"
         "x = torch.zeros(1, 4, 6, 12, dtype=torch.uint8)\n"
@@ -235,21 +236,27 @@ def test_kernel_modules_import_and_run_on_cpu_without_building():
         "z = fused_block.block_s8(*ops)\n"
         "a, b = mma_rate.operands('s4', 32, 64, 64, 0, 'cpu')\n"
         "r = mma_rate.mma_rate(a, b, 2, 's4')\n"
+        "q, sc = actq_cuda.quant_s8(torch.ones(2, 3, 4, 4), 'x')\n"
+        "qg, al = actq_cuda.quant_s8(torch.ones(2, 5, 4, 4), 'g', sc, "
+        "alpha_len=27)\n"
+        "dw = actq_cuda.wgrad_s8(q, qg, (3, 3), 1, ((1, 1), (1, 1)), al)\n"
         "print(json.dumps([list(y.shape), list(z.shape), list(r.shape), "
         "len(cuda_build._libs), cuda_build.BUILD_DIR.exists(), "
         "sum(int8_cuda.launches.values()) + "
         "sum(fused_block.launches.values()) + "
-        "sum(mma_rate.launches.values())]))\n")
+        "sum(mma_rate.launches.values()) + "
+        "sum(actq_cuda.launches.values()), list(dw.shape)]))\n")
     existed = cuda_build.BUILD_DIR.exists()
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [
-        [1, 2, 3, 64], [1, 3, 3, 256], [32, 64], 0, existed, 0]
+        [1, 2, 3, 64], [1, 3, 3, 256], [32, 64], 0, existed, 0,
+        [5, 3, 3, 3]]
 
 
 @pytest.mark.parametrize('probe', ['fused_block', 'int8_mma', 'int4_mma',
-                                   'stem'])
+                                   'stem', 'actq_wgrad8'])
 def test_probe_entry_points_refuse_cpu_fallback(monkeypatch, probe):
     import importlib
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

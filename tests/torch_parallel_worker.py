@@ -5,8 +5,9 @@ RANK WORLD DIR CASE...`. It imports no JAX: the parent writes the inputs
 against the single-process port and the JAX package.
 
 The world forms through a FileStore under DIR (no port to collide on)
-and lays out as a 2 x 2 (data, model) mesh; each rank runs on one CPU
-thread."""
+and lays out as a 2 x 2 (data, model) mesh, or the mesh that
+TORCH_WORKER_MESH names ('2x1': two data ranks); each rank runs on one
+CPU thread."""
 
 import os
 import sys
@@ -22,7 +23,8 @@ from ursonet_torch.config import Config  # noqa: E402
 from ursonet_torch.parallel import multihost  # noqa: E402
 from ursonet_torch.parallel.mesh import make_mesh  # noqa: E402
 
-MESH = (2, 2)
+MESH = tuple(int(v) for v in
+             os.environ.get('TORCH_WORKER_MESH', '2x2').split('x'))
 
 
 def _load(path):
@@ -122,6 +124,13 @@ def run_steps(cfg, mesh, inp, n_steps, preprocess=False):
 def case_step_tiny(mesh, d):
     cfg = tiny_config(IMAGES_PER_GPU=4, MESH_DATA=2, MESH_MODEL=2)
     return run_steps(cfg, mesh, _load(f'{d}/in_step_tiny.pt'), 2)
+
+
+def case_actq(mesh, d):
+    """Two steps under TRAIN_ACT_Q8='wgrad8' over the mesh's data rows."""
+    cfg = tiny_config(IMAGES_PER_GPU=8 // MESH[0], MESH_DATA=MESH[0],
+                      MESH_MODEL=MESH[1], TRAIN_ACT_Q8='wgrad8')
+    return run_steps(cfg, mesh, _load(f'{d}/in_actq.pt'), 2)
 
 
 def case_step_flagship(mesh, d):

@@ -121,6 +121,15 @@ class Config:
     #              conv net degenerates to 'all'
     # Gradients are identical across policies.
     REMAT = False
+    # Backbone convs whose backward reads an int8 copy of their input
+    # (models/actq.py::ConvQ8): the forward and the input gradient stay
+    # exact, the weight gradient sees 8-bit activations.
+    #   False     plain convs
+    #   True      weight gradient from the dequantized copy
+    #   'wgrad8'  weight gradient as an int8 x int8 -> int32 product of the
+    #             saved copy and an int8 output gradient (the hand-written
+    #             `wgrad_s8`), where its worst case fits int32
+    TRAIN_ACT_Q8 = False
 
     # --- int8 PTQ serving (models/quant.py) -------------------------------------------
     # INT8_U8_INPUT ships served batches as raw uint8 pixels and folds the
@@ -176,6 +185,10 @@ class Config:
 
     def update(self):
         """Recompute derived fields."""
+        if self.TRAIN_ACT_Q8 not in (False, True, 'wgrad8'):
+            raise ValueError(
+                f"TRAIN_ACT_Q8 must be False, True, or 'wgrad8' "
+                f"(got {self.TRAIN_ACT_Q8!r})")
         # ranks = data x model; without a mesh, GPU_COUNT ranks all go to
         # the data axis (BATCH_SIZE = IMAGES_PER_GPU x GPU_COUNT)
         if self.MESH_DATA * self.MESH_MODEL > 1:

@@ -67,4 +67,18 @@ int64_t ursonet_jpeg_encode_gray(const uint8_t* px, int h, int w,
   }
 }
 
+// Encode an [h, w, 3] RGB image (YCbCr 4:2:0), as ursonet_jpeg_encode_gray.
+int64_t ursonet_jpeg_encode_rgb(const uint8_t* px, int h, int w, int quality,
+                                uint8_t* out, size_t cap, char* err,
+                                int errlen) {
+  try {
+    std::vector<uint8_t> o = encode_rgb(px, h, w, quality);
+    if (o.size() <= cap) std::memcpy(out, o.data(), o.size());
+    return int64_t(o.size());
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return -1;
+  }
+}
+
 }  // extern "C"

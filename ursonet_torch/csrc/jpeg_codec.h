@@ -17,13 +17,18 @@
 //     PASS1_BITS 2, rounding descale, +128 through the range-limit table);
 //   * jdsample.c's fancy upsampling (h2v1 / h2v2 triangle filters with
 //     their alternating biases; the plain box copy at widths of 2 or less);
-//   * jdcolor.c's fixed-point YCbCr -> RGB tables.
+//   * jdcolor.c's fixed-point YCbCr -> RGB tables;
+//   * a scan whose Huffman table the file never defined takes the
+//     standard table of its slot (Annex K.3), as libjpeg does for the
+//     Motion-JPEG frames of AVI files, which carry no DHT segment.
 // Everything else raises, naming the feature: progressive, lossless,
 // hierarchical or arithmetic-coded files, 12-bit samples, four
 // components, other sampling factors.
 //
 // Encoder: one gray component as libjpeg-turbo writes it at a given
-// quality with jpeg_set_defaults (what PIL writes for a mode-L image):
+// quality with jpeg_set_defaults (what PIL writes for a mode-L image), or
+// RGB as baseline YCbCr 4:2:0 with libjpeg's conversion and
+// downsampling (encode_rgb; MJPEG video frames):
 // the Annex K luminance table scaled by the IJG quality rule (capped at
 // 255), jfdctint.c's integer FDCT, jcdctmgr.c's reciprocal quantizer, the
 // Annex K Huffman tables, and edge replication into partial blocks.
@@ -34,6 +39,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <initializer_list>
 #include <stdexcept>
 #include <string>
 #include <vector>
@@ -203,6 +209,57 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out,
     o[3] = kRange(descale(tmp13 + tmp0, sh));
     o[4] = kRange(descale(tmp13 - tmp0, sh));
   }
+}
+
+// ---------------------------------------------------------------------------
+// the standard Huffman tables (ITU-T T.81 Annex K.3): the encoder's, and the
+// decoder's for a scan whose table was never defined, as libjpeg's
+// std_huff_tables (AVI MJPEG frames carry no DHT segment): slot 0 the
+// luminance tables, slot 1 the chrominance ones
+
+const uint8_t kDcBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+const uint8_t kDcBitsC[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kAcBitsC[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcValsC[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// (bits, values) of standard table `slot` (0 luminance, 1 chrominance)
+inline const uint8_t* std_bits(bool ac, int slot) {
+  return ac ? (slot ? kAcBitsC : kAcBits) : (slot ? kDcBitsC : kDcBits);
+}
+inline const uint8_t* std_vals(bool ac, int slot) {
+  return ac ? (slot ? kAcValsC : kAcVals) : kDcVals;   // DC: 0..11 both
 }
 
 // ---------------------------------------------------------------------------
@@ -516,6 +573,21 @@ struct Decoder {
     }
   }
 
+  // a table the file never defined: the standard one of its slot (0 or 1,
+  // as libjpeg loads them for Motion-JPEG), else an error
+  static void load_std_table(Huffman& h, bool is_ac, int slot) {
+    if (h.defined) return;
+    if (slot > 1) fail("corrupt data: undefined Huffman table");
+    const uint8_t* bits = std_bits(is_ac, slot);
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) {
+      h.bits[l] = bits[l];
+      count += bits[l];
+    }
+    std::memcpy(h.vals, std_vals(is_ac, slot), size_t(count));
+    h.build();
+  }
+
   void read_scan(size_t seg_end) {
     if (!have_frame) fail("corrupt data: scan before frame header");
     int ns = u8();
@@ -529,8 +601,8 @@ struct Decoder {
       if (!found) fail("corrupt data: scan names an unknown component");
       found->dc_tbl = tt >> 4 & 3;
       found->ac_tbl = tt & 3;
-      if (!dc[found->dc_tbl].defined || !ac[found->ac_tbl].defined)
-        fail("corrupt data: undefined Huffman table");
+      load_std_table(dc[found->dc_tbl], false, found->dc_tbl);
+      load_std_table(ac[found->ac_tbl], true, found->ac_tbl);
       if (!found->latched) {
         if (!qt_defined[found->tq])
           fail("corrupt data: undefined quantization table");
@@ -712,25 +784,6 @@ const uint8_t kStdLuma[64] = {
     18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
 
-const uint8_t kDcBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kAcBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kAcVals[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
-    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
-    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
-    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
-    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
-    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
-    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
-    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
-    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
-    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
-    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
-    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
-    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-
 struct EncTable {
   uint16_t code[256] = {};
   uint8_t size[256] = {};
@@ -843,49 +896,149 @@ void put16(std::vector<uint8_t>& o, int v) {
   o.push_back(uint8_t(v & 0xFF));
 }
 
-std::vector<uint8_t> encode_gray(const uint8_t* px, int h, int w,
-                                 int quality) {
-  if (h < 1 || w < 1 || h > 65535 || w > 65535)
-    fail("image size out of JPEG's range");
-  if (quality < 1) quality = 1;
-  if (quality > 100) quality = 100;
-  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+const uint8_t kStdChroma[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// `base` scaled by the IJG quality rule (capped at 255: force_baseline),
+// and the quantizer's divisors
+struct QTable {
   uint16_t q[64];
   Divisor div[64];
-  for (int i = 0; i < 64; ++i) {
-    int64_t t = (int64_t(kStdLuma[i]) * scale + 50) / 100;
-    if (t <= 0) t = 1;
-    if (t > 255) t = 255;   // force_baseline
-    q[i] = uint16_t(t);
-    div[i] = reciprocal(uint32_t(t) << 3);
+  QTable(const uint8_t* base, int quality) {
+    if (quality < 1) quality = 1;
+    if (quality > 100) quality = 100;
+    int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+    for (int i = 0; i < 64; ++i) {
+      int64_t t = (int64_t(base[i]) * scale + 50) / 100;
+      if (t <= 0) t = 1;
+      if (t > 255) t = 255;
+      q[i] = uint16_t(t);
+      div[i] = reciprocal(uint32_t(t) << 3);
+    }
   }
-  std::vector<uint8_t> o;
-  o.reserve(size_t(h) * w / 2 + 1024);
+};
+
+// one component's blocks: FDCT, quantize, Huffman-code (DC predicted)
+struct BlockCoder {
+  BitWriter& bw;
+  const QTable& qt;
+  const EncTable& dct;
+  const EncTable& act;
+  int last_dc = 0;
+
+  // a level-shifted 8x8 block, in place
+  void code(int32_t* blk) {
+    int16_t coef[64];
+    fdct_islow(blk);
+    for (int i = 0; i < 64; ++i) {
+      int32_t t = int16_t(blk[i]);
+      bool neg = t < 0;
+      if (neg) t = -t;
+      uint32_t prod = uint32_t(t + int32_t(qt.div[i].corr)) * qt.div[i].recip;
+      prod >>= qt.div[i].shift + 16;
+      int16_t v = int16_t(prod);
+      coef[i] = neg ? int16_t(-v) : v;
+    }
+    int diff = coef[0] - last_dc;
+    last_dc = coef[0];
+    int t = diff < 0 ? -diff : diff, t2 = diff < 0 ? diff - 1 : diff;
+    int nb = 0;
+    while (t) { ++nb; t >>= 1; }
+    bw.put(dct.code[nb], dct.size[nb]);
+    if (nb) bw.put(uint32_t(t2), nb);
+    int run = 0;
+    for (int k = 1; k < 64; ++k) {
+      int v = coef[kNatural[k]];
+      if (v == 0) { ++run; continue; }
+      while (run > 15) {
+        bw.put(act.code[0xF0], act.size[0xF0]);
+        run -= 16;
+      }
+      int a = v < 0 ? -v : v, a2 = v < 0 ? v - 1 : v;
+      nb = 0;
+      while (a) { ++nb; a >>= 1; }
+      int sym = (run << 4) + nb;
+      bw.put(act.code[sym], act.size[sym]);
+      bw.put(uint32_t(a2), nb);
+      run = 0;
+    }
+    if (run > 0) bw.put(act.code[0], act.size[0]);
+  }
+
+  // the 8x8 block at (x0, y0) of a w-wide plane (already padded)
+  void code_at(const uint8_t* plane, int w, int x0, int y0) {
+    int32_t blk[64];
+    for (int r = 0; r < 8; ++r)
+      for (int c = 0; c < 8; ++c)
+        blk[8 * r + c] = int32_t(plane[size_t(y0 + r) * w + x0 + c]) - 128;
+    code(blk);
+  }
+};
+
+void put_dqt(std::vector<uint8_t>& o, int id, const QTable& t) {
+  o.push_back(0xFF); o.push_back(0xDB); put16(o, 67); o.push_back(uint8_t(id));
+  for (int k = 0; k < 64; ++k) o.push_back(uint8_t(t.q[kNatural[k]]));
+}
+
+struct HuffSpec {
+  int tc;                 // class << 4 | slot
+  const uint8_t* bits;    // [17], bits[0] unused
+  const uint8_t* vals;
+};
+
+// one DHT segment holding every table of `specs`
+void put_dht(std::vector<uint8_t>& o, std::initializer_list<HuffSpec> specs) {
+  int len = 2;
+  for (const HuffSpec& h : specs) {
+    len += 17;
+    for (int l = 1; l <= 16; ++l) len += h.bits[l];
+  }
+  o.push_back(0xFF); o.push_back(0xC4); put16(o, len);
+  for (const HuffSpec& h : specs) {
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) count += h.bits[l];
+    o.push_back(uint8_t(h.tc));
+    o.insert(o.end(), h.bits + 1, h.bits + 17);
+    o.insert(o.end(), h.vals, h.vals + count);
+  }
+}
+
+// SOI and a JFIF 1.1 APP0 segment (no thumbnail)
+void put_head(std::vector<uint8_t>& o) {
   const uint8_t head[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I',
                           'F',  0x00, 0x01, 0x01, 0x00, 0x00, 0x01, 0x00,
                           0x01, 0x00, 0x00};
   o.insert(o.end(), head, head + sizeof(head));
-  o.push_back(0xFF); o.push_back(0xDB); put16(o, 67); o.push_back(0);
-  for (int k = 0; k < 64; ++k) o.push_back(uint8_t(q[kNatural[k]]));
+}
+
+void check_size(int h, int w) {
+  if (h < 1 || w < 1 || h > 65535 || w > 65535)
+    fail("image size out of JPEG's range");
+}
+
+std::vector<uint8_t> encode_gray(const uint8_t* px, int h, int w,
+                                 int quality) {
+  check_size(h, w);
+  const QTable qt(kStdLuma, quality);
+  std::vector<uint8_t> o;
+  o.reserve(size_t(h) * w / 2 + 1024);
+  put_head(o);
+  put_dqt(o, 0, qt);
   o.push_back(0xFF); o.push_back(0xC0); put16(o, 11); o.push_back(8);
   put16(o, h); put16(o, w);
   o.push_back(1); o.push_back(1); o.push_back(0x11); o.push_back(0);
-  o.push_back(0xFF); o.push_back(0xC4); put16(o, 2 + 17 + 12 + 17 + 162);
-  o.push_back(0x00);
-  o.insert(o.end(), kDcBits + 1, kDcBits + 17);
-  o.insert(o.end(), kDcVals, kDcVals + 12);
-  o.push_back(0x10);
-  o.insert(o.end(), kAcBits + 1, kAcBits + 17);
-  o.insert(o.end(), kAcVals, kAcVals + 162);
+  put_dht(o, {{0x00, kDcBits, kDcVals}, {0x10, kAcBits, kAcVals}});
   const uint8_t sos[] = {0xFF, 0xDA, 0x00, 0x08, 0x01, 0x01,
                          0x00, 0x00, 0x3F, 0x00};
   o.insert(o.end(), sos, sos + sizeof(sos));
 
   static const EncTable dct(kDcBits, kDcVals), act(kAcBits, kAcVals);
   BitWriter bw(o);
-  int last_dc = 0;
+  BlockCoder coder{bw, qt, dct, act};
   int32_t blk[64];
-  int16_t coef[64];
   for (int by = 0; by < (h + 7) / 8; ++by) {
     for (int bx = 0; bx < (w + 7) / 8; ++bx) {
       for (int r = 0; r < 8; ++r) {
@@ -895,40 +1048,92 @@ std::vector<uint8_t> encode_gray(const uint8_t* px, int h, int w,
           blk[8 * r + c] = int32_t(px[size_t(y) * w + x]) - 128;
         }
       }
-      fdct_islow(blk);
-      for (int i = 0; i < 64; ++i) {
-        int32_t t = int16_t(blk[i]);
-        bool neg = t < 0;
-        if (neg) t = -t;
-        uint32_t prod = uint32_t(t + int32_t(div[i].corr)) * div[i].recip;
-        prod >>= div[i].shift + 16;
-        int16_t v = int16_t(prod);
-        coef[i] = neg ? int16_t(-v) : v;
+      coder.code(blk);
+    }
+  }
+  bw.flush();
+  o.push_back(0xFF);
+  o.push_back(0xD9);
+  return o;
+}
+
+// jccolor.c's fixed-point RGB -> YCbCr (SCALEBITS 16)
+constexpr int kScaleBits = 16;
+constexpr int32_t fix(double x) {
+  return int32_t(x * (1 << kScaleBits) + 0.5);
+}
+
+// An [h, w, 3] RGB image as baseline YCbCr 4:2:0 (libjpeg's default
+// sampling: 2x2 luma blocks, one Cb and one Cr block an MCU), the Annex K
+// luminance and chrominance tables scaled by `quality`, jccolor.c's
+// conversion and jcsample.c's h2v2 box downsampling (biases 1, 2
+// alternating). The image is extended to whole 16x16 MCUs by replicating
+// its last column and row.
+std::vector<uint8_t> encode_rgb(const uint8_t* px, int h, int w,
+                                int quality) {
+  check_size(h, w);
+  const QTable ql(kStdLuma, quality), qc(kStdChroma, quality);
+  const int W = (w + 15) / 16 * 16, H = (h + 15) / 16 * 16;
+  std::vector<uint8_t> Y(size_t(W) * H), Cb(size_t(W / 2) * (H / 2)),
+      Cr(size_t(W / 2) * (H / 2));
+  std::vector<uint8_t> cb_full(size_t(W) * 2), cr_full(size_t(W) * 2);
+  const int32_t half = 1 << (kScaleBits - 1);
+  const int32_t cbcr_off = (128 << kScaleBits) + half - 1;
+  for (int y2 = 0; y2 < H / 2; ++y2) {
+    for (int dy = 0; dy < 2; ++dy) {
+      const int y = 2 * y2 + dy;
+      const uint8_t* row = px + size_t(std::min(y, h - 1)) * w * 3;
+      for (int x = 0; x < W; ++x) {
+        const uint8_t* p = row + size_t(std::min(x, w - 1)) * 3;
+        const int32_t r = p[0], g = p[1], b = p[2];
+        Y[size_t(y) * W + x] = uint8_t(
+            (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >>
+            kScaleBits);
+        cb_full[size_t(dy) * W + x] = uint8_t(
+            (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + cbcr_off) >>
+            kScaleBits);
+        cr_full[size_t(dy) * W + x] = uint8_t(
+            (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + cbcr_off) >>
+            kScaleBits);
       }
-      int diff = coef[0] - last_dc;
-      last_dc = coef[0];
-      int t = diff < 0 ? -diff : diff, t2 = diff < 0 ? diff - 1 : diff;
-      int nb = 0;
-      while (t) { ++nb; t >>= 1; }
-      bw.put(dct.code[nb], dct.size[nb]);
-      if (nb) bw.put(uint32_t(t2), nb);
-      int run = 0;
-      for (int k = 1; k < 64; ++k) {
-        int v = coef[kNatural[k]];
-        if (v == 0) { ++run; continue; }
-        while (run > 15) {
-          bw.put(act.code[0xF0], act.size[0xF0]);
-          run -= 16;
-        }
-        int a = v < 0 ? -v : v, a2 = v < 0 ? v - 1 : v;
-        nb = 0;
-        while (a) { ++nb; a >>= 1; }
-        int sym = (run << 4) + nb;
-        bw.put(act.code[sym], act.size[sym]);
-        bw.put(uint32_t(a2), nb);
-        run = 0;
-      }
-      if (run > 0) bw.put(act.code[0], act.size[0]);
+    }
+    for (int x2 = 0; x2 < W / 2; ++x2) {
+      const int bias = 1 + (x2 & 1);
+      const size_t a = size_t(2 * x2), b = size_t(W) + 2 * x2;
+      Cb[size_t(y2) * (W / 2) + x2] = uint8_t(
+          (cb_full[a] + cb_full[a + 1] + cb_full[b] + cb_full[b + 1] + bias) >>
+          2);
+      Cr[size_t(y2) * (W / 2) + x2] = uint8_t(
+          (cr_full[a] + cr_full[a + 1] + cr_full[b] + cr_full[b + 1] + bias) >>
+          2);
+    }
+  }
+
+  std::vector<uint8_t> o;
+  o.reserve(size_t(h) * w / 2 + 2048);
+  put_head(o);
+  put_dqt(o, 0, ql);
+  put_dqt(o, 1, qc);
+  o.push_back(0xFF); o.push_back(0xC0); put16(o, 17); o.push_back(8);
+  put16(o, h); put16(o, w); o.push_back(3);
+  const uint8_t comps[] = {1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1};
+  o.insert(o.end(), comps, comps + sizeof(comps));
+  put_dht(o, {{0x00, kDcBits, kDcVals}, {0x10, kAcBits, kAcVals},
+              {0x01, kDcBitsC, kDcVals}, {0x11, kAcBitsC, kAcValsC}});
+  const uint8_t sos[] = {0xFF, 0xDA, 0x00, 0x0C, 0x03, 0x01, 0x00, 0x02,
+                         0x11, 0x03, 0x11, 0x00, 0x3F, 0x00};
+  o.insert(o.end(), sos, sos + sizeof(sos));
+
+  static const EncTable dcl(kDcBits, kDcVals), acl(kAcBits, kAcVals),
+      dcc(kDcBitsC, kDcVals), acc(kAcBitsC, kAcValsC);
+  BitWriter bw(o);
+  BlockCoder cy{bw, ql, dcl, acl}, cb{bw, qc, dcc, acc}, cr{bw, qc, dcc, acc};
+  for (int my = 0; my < H / 16; ++my) {
+    for (int mx = 0; mx < W / 16; ++mx) {
+      for (int j = 0; j < 4; ++j)
+        cy.code_at(Y.data(), W, 16 * mx + 8 * (j & 1), 16 * my + 8 * (j >> 1));
+      cb.code_at(Cb.data(), W / 2, 8 * mx, 8 * my);
+      cr.code_at(Cr.data(), W / 2, 8 * mx, 8 * my);
     }
   }
   bw.flush();

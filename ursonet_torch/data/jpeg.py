@@ -3,13 +3,17 @@
 counterpart of the JPEG half of `native/host_loader.cpp`.
 
     decode_jpeg(data) -> [H, W] uint8 (one component) or [H, W, 3] RGB
-    encode_jpeg(gray, quality=75) -> bytes
+    encode_jpeg(image, quality=75) -> bytes    ([H, W] gray or [H, W, 3] RGB)
 
 The decoder gives PIL's pixels bit for bit (libjpeg-turbo's defaults:
 the integer IDCT, fancy upsampling, its YCbCr tables) for baseline
-Huffman-coded files; any other kind raises ValueError naming the
-feature. The encoder writes the quantized coefficients PIL writes for a
-mode-L image at the same quality.
+Huffman-coded files; a scan without Huffman tables (the Motion-JPEG
+frames of AVI files) takes the standard ones of ITU-T T.81 Annex K.3;
+any other kind raises ValueError naming the feature. The encoder writes
+the quantized coefficients PIL writes for a mode-L image at the same
+quality; an RGB image becomes baseline YCbCr 4:2:0 with the Annex K
+luminance and chrominance tables (libjpeg's conversion and
+downsampling).
 
 The library is built with g++ at first use into `.torch_ext/`
 (`ops/cuda_build.py`); a failed build raises RuntimeError with the
@@ -40,6 +44,9 @@ def _bind(lib) -> None:
         ctypes.c_void_p, c_int, c_int, c_int, ctypes.c_void_p, size_t,
         ctypes.c_void_p, c_int]
     lib.ursonet_jpeg_encode_gray.restype = ctypes.c_int64
+    lib.ursonet_jpeg_encode_rgb.argtypes = \
+        lib.ursonet_jpeg_encode_gray.argtypes
+    lib.ursonet_jpeg_encode_rgb.restype = ctypes.c_int64
 
 
 def _lib() -> ctypes.CDLL:
@@ -65,21 +72,24 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return out
 
 
-def encode_jpeg(gray: np.ndarray, quality: int = 75) -> bytes:
-    """Encode an [H, W] uint8 image as a baseline gray JPEG."""
-    gray = np.asarray(gray)
-    if gray.ndim != 2 or gray.dtype != np.uint8:
-        raise ValueError(f"encode_jpeg takes an [H, W] uint8 image, got "
-                         f"{gray.shape} {gray.dtype}")
-    gray = np.ascontiguousarray(gray)
+def encode_jpeg(image: np.ndarray, quality: int = 75) -> bytes:
+    """Encode an [H, W] uint8 image as a baseline gray JPEG, or an
+    [H, W, 3] uint8 RGB image as a baseline YCbCr 4:2:0 one."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or not (
+            image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes an [H, W] or [H, W, 3] uint8 "
+                         f"image, got {image.shape} {image.dtype}")
+    image = np.ascontiguousarray(image)
     lib = _lib()
+    fn = lib.ursonet_jpeg_encode_gray if image.ndim == 2 \
+        else lib.ursonet_jpeg_encode_rgb
     err = ctypes.create_string_buffer(_ERR_LEN)
-    h, w = gray.shape
-    out = np.empty(gray.size + 4096, np.uint8)
+    h, w = image.shape[:2]
+    out = np.empty(image.size + 4096, np.uint8)
     while True:
-        n = lib.ursonet_jpeg_encode_gray(gray.ctypes.data, h, w, int(quality),
-                                         out.ctypes.data, out.nbytes, err,
-                                         _ERR_LEN)
+        n = fn(image.ctypes.data, h, w, int(quality), out.ctypes.data,
+               out.nbytes, err, _ERR_LEN)
         if n < 0:
             raise ValueError(f"JPEG: {err.value.decode()}")
         if n <= out.nbytes:

@@ -39,6 +39,10 @@ Semantics kept from the JAX package:
     statistics and returns bf16 (`FrozenBN`, as flax's `_normalize`).
     Under autograd the casts are differentiable, so the gradients of
     the f32 parameters come back in f32.
+  * TRAIN_ACT_Q8 (`act_q8` True or 'wgrad8'): every backbone conv (the
+    stem, the blocks' convs and their shortcuts) is a `ConvQ8`
+    (`models/actq.py`), whose backward reads an int8 copy of its input;
+    the forward and the parameters are the plain conv's.
   * REMAT: each residual block is one checkpoint
     (`torch.utils.checkpoint`, non-reentrant) under the JAX package's
     policies (`_remat_wrap`); outside autograd (eval, no_grad) blocks run
@@ -141,6 +145,17 @@ class Conv2d(nn.Conv2d):
         if self.bias is None:
             return y
         return y + self.bias.to(x.dtype)[:, None, None]
+
+
+def _conv(in_ch, out_ch, kernel, stride=1, padding=0, bias=True,
+          act_q8=False) -> Conv2d:
+    """A backbone conv: Conv2d, or under TRAIN_ACT_Q8 (`act_q8` True or
+    'wgrad8') its int8 saved-activation form ConvQ8."""
+    if act_q8:
+        from ursonet_torch.models.actq import ConvQ8
+        return ConvQ8(in_ch, out_ch, kernel, stride, padding=padding,
+                      bias=bias, mode=act_q8)
+    return Conv2d(in_ch, out_ch, kernel, stride, padding=padding, bias=bias)
 
 
 class Linear(nn.Linear):
@@ -293,22 +308,23 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_ch: int, filters, stage: int, block: str,
                  strides: int = 1, conv_shortcut: bool = False,
-                 train_bn=False, remat=False):
+                 train_bn=False, remat=False, act_q8=False):
         super().__init__()
         self.remat = check_remat(remat)
         f1, f2, f3 = filters
         self.cname = f"res{stage}{block}_branch"
         self.bname = f"bn{stage}{block}_branch"
         c, b = self.cname, self.bname
-        self.add_module(c + '2a', Conv2d(in_ch, f1, 1, strides))
+        aq = act_q8
+        self.add_module(c + '2a', _conv(in_ch, f1, 1, strides, act_q8=aq))
         self.add_module(b + '2a', FrozenBN(f1, train_bn))
-        self.add_module(c + '2b', Conv2d(f1, f2, 3, 1, padding=1))
+        self.add_module(c + '2b', _conv(f1, f2, 3, 1, padding=1, act_q8=aq))
         self.add_module(b + '2b', FrozenBN(f2, train_bn))
-        self.add_module(c + '2c', Conv2d(f2, f3, 1, 1))
+        self.add_module(c + '2c', _conv(f2, f3, 1, 1, act_q8=aq))
         self.add_module(b + '2c', FrozenBN(f3, train_bn))
         self.conv_shortcut = conv_shortcut
         if conv_shortcut:
-            self.add_module(c + '1', Conv2d(in_ch, f3, 1, strides))
+            self.add_module(c + '1', _conv(in_ch, f3, 1, strides, act_q8=aq))
             self.add_module(b + '1', FrozenBN(f3, train_bn))
 
     def _narrow(self, x):
@@ -349,20 +365,20 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, filters: int, stage: int, block: int,
                  strides: int = 1, cut: str = 'pre', train_bn=False,
-                 remat=False):
+                 remat=False, act_q8=False):
         super().__init__()
         self.remat = check_remat(remat)
         self.base = f"stage{stage + 1}_unit{block + 1}_"
-        b = self.base
+        b, aq = self.base, act_q8
         self.cut = cut
         if cut == 'post':
-            self.add_module(b + 'sc', Conv2d(in_ch, filters, 1, strides,
-                                             bias=False))
-        self.add_module(b + 'conv1', Conv2d(in_ch, filters, 3, strides,
-                                            padding=1, bias=False))
+            self.add_module(b + 'sc', _conv(in_ch, filters, 1, strides,
+                                            bias=False, act_q8=aq))
+        self.add_module(b + 'conv1', _conv(in_ch, filters, 3, strides,
+                                           padding=1, bias=False, act_q8=aq))
         self.add_module(b + 'bn2', FrozenBN(filters, train_bn))
-        self.add_module(b + 'conv2', Conv2d(filters, filters, 3, 1,
-                                            padding=1, bias=False))
+        self.add_module(b + 'conv2', _conv(filters, filters, 3, 1,
+                                           padding=1, bias=False, act_q8=aq))
 
     def _block(self, x):
         m, b = self._modules, self.base
@@ -411,13 +427,13 @@ class ResNetBackbone(_Backbone):
 
     def __init__(self, architecture: str = 'resnet50', train_bn=False,
                  stem_s2d: bool = False, remat=False,
-                 inner_mult: float = 1.0):
+                 inner_mult: float = 1.0, act_q8=False):
         super().__init__()
         if architecture not in STAGE4_BLOCKS:
             raise ValueError(f"unsupported backbone {architecture}")
         self.stem_s2d = stem_s2d
-        self.conv1 = Conv2d(12, 64, 4, 1) if stem_s2d \
-            else Conv2d(3, 64, 7, 2, padding=3)
+        self.conv1 = _conv(12, 64, 4, 1, act_q8=act_q8) if stem_s2d \
+            else _conv(3, 64, 7, 2, padding=3, act_q8=act_q8)
         self.bn_conv1 = FrozenBN(64, train_bn)
         self.blocks = []
         in_ch = 64
@@ -430,7 +446,7 @@ class ResNetBackbone(_Backbone):
                        scale_inner(f2, inner_mult), f3)
             self.add_module(name, BottleneckBlock(
                 in_ch, filters, stage, block, strides, conv_shortcut,
-                train_bn, remat))
+                train_bn, remat, act_q8))
             self.blocks.append(name)
             in_ch = filters[2]
 
@@ -458,13 +474,14 @@ class ResNetShallowBackbone(_Backbone):
     stem = 'conv0'
 
     def __init__(self, architecture: str = 'resnet18', train_bn=False,
-                 stem_s2d: bool = False, remat=False):
+                 stem_s2d: bool = False, remat=False, act_q8=False):
         super().__init__()
         if architecture not in SHALLOW_REPS:
             raise ValueError(f"unsupported backbone {architecture}")
         self.stem_s2d = stem_s2d
-        self.conv0 = Conv2d(12, 64, 4, 1, bias=False) if stem_s2d \
-            else Conv2d(3, 64, 7, 2, padding=3, bias=False)
+        self.conv0 = _conv(12, 64, 4, 1, bias=False, act_q8=act_q8) \
+            if stem_s2d else _conv(3, 64, 7, 2, padding=3, bias=False,
+                                   act_q8=act_q8)
         self.bn_conv0 = FrozenBN(64, train_bn)
         self.blocks = []
         in_ch = 64
@@ -475,7 +492,8 @@ class ResNetShallowBackbone(_Backbone):
                 name = f'stage{stage + 1}_unit{block + 1}'
                 self.add_module(name, BasicBlock(
                     in_ch, filters, stage, block, strides,
-                    'post' if block == 0 else 'pre', train_bn, remat))
+                    'post' if block == 0 else 'pre', train_bn, remat,
+                    act_q8))
                 self.blocks.append(name)
                 in_ch = filters
 
@@ -491,19 +509,22 @@ def scale_inner(f: int, mult: float) -> int:
 
 
 def make_backbone(architecture: str, train_bn=False, stem_s2d: bool = False,
-                  remat=False, inner_mult: float = 1.0) -> nn.Module:
+                  remat=False, inner_mult: float = 1.0,
+                  act_q8=False) -> nn.Module:
     """The backbone of `architecture` (resnet18/34/50/101), as the JAX
     package's `make_backbone` dispatches. `inner_mult`
     (INNER_WIDTH_MULT) scales a bottleneck's inner widths; a basic block
-    has none, so anything but 1 raises for ResNet-18/34."""
+    has none, so anything but 1 raises for ResNet-18/34. `act_q8`
+    (TRAIN_ACT_Q8) makes every backbone conv a ConvQ8."""
     if architecture in STAGE4_BLOCKS:
         return ResNetBackbone(architecture, train_bn, stem_s2d, remat,
-                              inner_mult)
+                              inner_mult, act_q8)
     if architecture in SHALLOW_REPS:
         if inner_mult != 1.0:
             raise ValueError('INNER_WIDTH_MULT applies to bottleneck '
                              'backbones (resnet50/101) only: basic blocks '
                              'have no inner channel space distinct from '
                              'the residual stream')
-        return ResNetShallowBackbone(architecture, train_bn, stem_s2d, remat)
+        return ResNetShallowBackbone(architecture, train_bn, stem_s2d, remat,
+                                     act_q8)
     raise ValueError(f"unsupported backbone {architecture}")

@@ -48,12 +48,12 @@ class UrsoNetModule(nn.Module):
                  ori_bins: int = 32, train_bn=False, stem_s2d: bool = False,
                  dtype: torch.dtype = torch.float32,
                  regress_keypoints: bool = False, remat=False,
-                 inner_mult: float = 1.0):
+                 inner_mult: float = 1.0, act_q8=False):
         super().__init__()
         self.dtype = dtype
         self.regress_keypoints = regress_keypoints
         self.backbone = make_backbone(backbone, train_bn, stem_s2d, remat,
-                                      inner_mult)
+                                      inner_mult, act_q8)
         self.bottleneck_layer = Conv2d(C5_CHANNELS[backbone],
                                        bottleneck_width, 3, 2)
         h6, w6 = _c6_hw(*image_hw)
@@ -120,7 +120,8 @@ def build_model(config, device="cuda",
     """Build the model for `config` on `device`, with weights drawn from
     `generator` (default: a CPU generator seeded with config.SEED),
     computing in bf16 under config.F16, its residual blocks recomputed in
-    the backward pass under config.REMAT, with zero Kendall
+    the backward pass under config.REMAT, its backbone convs saving int8
+    activations under config.TRAIN_ACT_Q8, with zero Kendall
     log-variances (`loss_log_vars`) under LEARNABLE_LOSS_WEIGHTS.
     Validates the %64 image-shape contract."""
     dev = resolve_device(device)
@@ -143,7 +144,8 @@ def build_model(config, device="cuda",
             dtype=torch.bfloat16 if config.F16 else torch.float32,
             regress_keypoints=config.REGRESS_KEYPOINTS,
             remat=config.REMAT,
-            inner_mult=float(getattr(config, 'INNER_WIDTH_MULT', 1.0)))
+            inner_mult=float(getattr(config, 'INNER_WIDTH_MULT', 1.0)),
+            act_q8=getattr(config, 'TRAIN_ACT_Q8', False))
     model.to_empty(device='cpu')
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.SEED))

@@ -17,6 +17,12 @@ link flags (`HOST_LINK`: zlib and threads for the loader).
 into an FMA on a machine whose default target has one, so the loader's
 float resize rounds as its numpy version does.
 
+The JAX package's persistent compilation cache
+(`ursonet_tpu/utils/cache.py`) has no twin in the port: PyTorch runs
+eagerly and compiles nothing per shape, and the kernels are built once
+into `.torch_ext/`, where every later process of the checkout loads
+them.
+
 Flags: `-fmad=false` keeps nvcc from contracting a multiply and an add
 into an FMA, so the kernels' float arithmetic rounds exactly where their
 plain PyTorch versions round.
@@ -38,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 SOURCES = ("warp", "int8_gemm", "int8_conv", "int8_stem", "int8_block",
-           "mma_rate")
+           "mma_rate", "actq")
 GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 # host source -> its link flags
 HOST_LINK = {"jpeg": (), "host_loader": ("-lz", "-pthread"), "zstd": ()}

@@ -149,8 +149,10 @@ def shard_model(model, mesh, config):
     `mesh` in place: the heads keep their shards of the denses (and of
     the head batch norms) as column- and row-parallel layers when
     'model' splits, and every batch norm takes its batch statistics over
-    'data' when 'data' splits. Records the split as `model.tp_split`.
+    'data' when 'data' splits, as every ConvQ8 (TRAIN_ACT_Q8) takes its
+    g-scale and its int32 guard. Records the split as `model.tp_split`.
     Returns the model."""
+    from ursonet_torch.models.actq import ConvQ8
     from ursonet_torch.models.heads import shard_heads
     from ursonet_torch.models.resnet import FrozenBN
     split = {}
@@ -160,7 +162,7 @@ def shard_model(model, mesh, config):
     model.tp_split = split
     data = mesh.split(AXIS_DATA)
     for mod in model.modules():
-        if isinstance(mod, FrozenBN):
+        if isinstance(mod, (FrozenBN, ConvQ8)):
             mod.data_group = data
             mod.data_size = mesh.shape[AXIS_DATA]
     return model

@@ -10,7 +10,8 @@ Commands:
   train      train on an URSO or SPEED dataset (`UrsoNet.train`; SPEED
              trains on train_no_val and validates on val)
   test       spot-check 10 random test images (axes overlays under
-             --out_dir/overlays), or one --image
+             --out_dir/overlays), one --image, or a --video (an MJPG AVI
+             clip, annotated as --out_dir/<name>_annotated.avi)
   evaluate   full test-set metrics and the CSVs (`evaluate.evaluate`;
              SPEED's labelled set is val)
   export     Keras-h5 weights; with --int8 also the calibrated int8
@@ -34,9 +35,9 @@ trains data-parallel over D rows with the head denses split over M
 (`parallel/`); --mesh_data 0 takes world size // M, and D × M must equal
 the world size. Rank 0 alone prints and writes (the run dir; the other
 ranks' evaluation, overlay and export outputs go to a temporary
-directory that is removed). Flags of paths the port does not have yet
-raise NotImplementedError naming their ROADMAP.md item: --video.
-`--host_augment` trains from the host-parity generator
+directory that is removed). `test --video` reads and writes
+Motion-JPEG AVI only (`data/avi.py`), where the JAX package writes mp4v
+through cv2. `--host_augment` trains from the host-parity generator
 (AUGMENT_ON_DEVICE False).
 """
 
@@ -61,11 +62,6 @@ RELEASED_MODELS = {'soyuz_hard', 'dragon_hard', 'speed'}
 # camera frame sizes (width, height) the image scale applies to
 URSO_WH = (1280, 960)
 SPEED_WH = (1920, 1200)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                               f"{item}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,8 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--weights', required=True)
     p.add_argument('--logs', default=DEFAULT_LOGS_DIR)
     p.add_argument('--image', help='single image to evaluate')
-    p.add_argument('--video', help='video to annotate (test command; not '
-                                   'ported)')
+    p.add_argument('--video', help='MJPG AVI clip to annotate (test '
+                                   'command)')
     p.add_argument('--data_dir', default=DEFAULT_DATA_DIR)
     p.add_argument('--models_dir', default=DEFAULT_MODELS_DIR)
     p.add_argument('--mesh_data', default=0, type=int,
@@ -497,9 +493,6 @@ def _run(args, dev):
     print("Command: ", args.command)
     print("Dataset: ", args.dataset)
     print("Logs: ", args.logs)
-    if args.command == 'test' and args.video and not args.image:
-        raise _not_ported('test --video', '§1 item 10 (test --video: a '
-                          'video codec)')
     if args.command not in ('train', 'test', 'evaluate', 'export',
                             'submit'):
         print("wrong command")
@@ -536,6 +529,13 @@ def _run(args, dev):
         calibrate_int8(engine, args, dataset, config)
         if args.image:
             _test_image(engine, args, config, dataset)
+        elif args.video:
+            from ursonet_torch.video import detect_video
+            os.makedirs(args.out_dir, exist_ok=True)
+            detect_video(engine, dataset, args.video,
+                         out_path=os.path.join(
+                             args.out_dir, os.path.basename(args.video)
+                             + '_annotated.avi'))
         else:
             evaluate.detect_dataset(
                 engine, dataset, 10,

@@ -1,0 +1,98 @@
+"""Profiling and observability, the counterpart of
+`ursonet_tpu/utils/profiling.py` (`cost_analysis`, `get_flops`, `trace`,
+`log_tensor_stats`, `initialize_multihost`).
+
+  * cost_analysis / get_flops run the function once under
+    `torch.utils.flop_counter.FlopCounterMode`. Stated deviation: the JAX
+    package reads XLA's cost model of the compiled program, which counts
+    every operation; PyTorch's counter counts aten's convolutions and
+    matrix products (2 operations a multiply-add, their backward too when
+    the function runs one), not elementwise operations, reductions or
+    the port's own CUDA kernels (called through ctypes, they are not aten
+    operations).
+  * trace writes a `torch.profiler` Chrome trace (CPU and, on the card,
+    CUDA activity) of the block it wraps: `<log_dir>/trace.json`.
+  * log_tensor_stats prints the JAX package's line, character for
+    character (torch tensors are read on the host; bf16 as f32 values
+    with the dtype named 'bfloat16').
+  * initialize_multihost delegates to `parallel/multihost.initialize`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def cost_analysis(fn, *args, **kwargs) -> Dict[str, Any]:
+    """Run fn(*args, **kwargs) once and count its operations:
+    {'flops': total, 'flops_by_op': {aten op name: flops}}."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    by_op = {str(op): int(n) for op, n in
+             counter.get_flop_counts().get('Global', {}).items()}
+    return {'flops': float(counter.get_total_flops()), 'flops_by_op': by_op}
+
+
+def get_flops(fn, *args, **kwargs) -> float:
+    """The operations of one call of fn (module docstring: what counts)."""
+    return float(cost_analysis(fn, *args, **kwargs).get('flops', 0.0))
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a Chrome trace of the block into `log_dir`/trace.json:
+
+        with profiling.trace('/tmp/trace'):
+            step(batch)
+    """
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+
+
+def _host_array(array):
+    if isinstance(array, torch.Tensor):
+        t = array.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.float().numpy(), 'bfloat16'
+        a = t.numpy()
+        return a, str(a.dtype)
+    a = np.asarray(array)
+    return a, str(a.dtype)
+
+
+def log_tensor_stats(text: str, array: Optional[Any] = None,
+                     log_fn=print):
+    """Shape/dtype/min/max printer (the JAX package's format)."""
+    if array is not None:
+        a, dtype = _host_array(array)
+        text = text.ljust(25)
+        if a.size:
+            text += (f"shape: {str(a.shape):20}  "
+                     f"min: {a.min():10.5f}  max: {a.max():10.5f}")
+        else:
+            text += f"shape: {str(a.shape):20}  min:     empty  max: empty"
+        text += f"  {dtype}"
+    log_fn(text)
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None, **kwargs):
+    """Form the world of ranks (`parallel/multihost.initialize`)."""
+    from ursonet_torch.parallel import multihost
+    return multihost.initialize(coordinator_address, num_processes,
+                                process_id, **kwargs)
