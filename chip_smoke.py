@@ -232,12 +232,16 @@ Phases, in order; any failure exits non-zero:
               'wgrad8' in turns, from the same seeded weights and batch, 3
               train steps + 1 validation step each: the first step's loss
               equal in every mode (the forward is exact), losses finite and
-              falling, quant_s8 (by mode), wgrad_s8 and their gemm_s8
-              launches counted, every distinct quant_s8 / wgrad_s8 call of
-              a step on fresh operands equal to its plain version (0
-              differing values), each timed beside its plain version, its
-              bound and (wgrad_s8) torch._int_mm on the same patch matrix;
-              the median step time and one step's peak memory per mode.
+              falling, quant_s8 (by mode and by kernel: one launch a 'x'
+              or 'g' call), wgrad_s8 (by route: the flagship's all on
+              the TMA route) and gemm_s8 launches counted, every distinct
+              quant_s8 / wgrad_s8 call of a step on fresh operands equal
+              to its plain version (0 differing values; wgrad_s8 on both
+              routes, 'g' under a gloo group of one too), each timed by
+              CUDA graph and by host pace beside its plain version, its
+              bound and (wgrad_s8) torch._int_mm on the same patch matrix
+              and its ragged route; the median step time and one step's
+              peak memory per mode.
   8h. video   `test --video` (`run_video`): 24 synthetic 1280x960 URSO
               frames written as an MJPG AVI by the port's writer, then
               the CLI's test --video float and --int8 --f16 (the
@@ -298,6 +302,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -327,7 +332,7 @@ from ursonet_torch.ops import (actq_cuda, augment, cuda_build, int8_cuda,
 from ursonet_torch.ops.image import resize_geometry, resize_image
 from ursonet_torch.probes import fused_block, int4_mma, int8_mma, mma_rate
 from ursonet_torch.probes import stem as stem_probe
-from ursonet_torch.probes.timing import sm_clock_mhz
+from ursonet_torch.probes.timing import graph_ms, sm_clock_mhz
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import make_eval_step, make_train_step
@@ -1402,36 +1407,6 @@ def grid_from_homography(Ms, h, w):
     """F.grid_sample grid (align_corners=True) of the source coordinates."""
     sx, sy = augment._warp_coords(Ms, h, w)
     return torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], dim=-1)
-
-
-def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
-    """Device time of one fn() call, apart from the host's pace: n calls
-    captured in a CUDA graph (after 2 warm-up calls on a side stream),
-    the graph replayed `reps` times between two CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (reps * n)
-    del graph
-    torch.cuda.empty_cache()
-    return ms
 
 
 def both_ways(fn, iters: int = 50) -> dict:
@@ -4569,60 +4544,88 @@ def run_parallel(root, device, seed: int = 0, card: str = '',
 
 ACTQ_MODES = (False, True, 'wgrad8')
 ACTQ_STEPS = 3       # train steps of each mode's path, then 1 validation step
-ACTQ_TIMED = 5       # timed launches of each distinct kernel call
+ACTQ_TIMED = 5       # host-paced launches of each distinct kernel call
+
+
+def _randint8(shape, gen, dev):
+    return torch.randint(-127, 128, shape, generator=gen,
+                         dtype=torch.int8).to(dev)
 
 
 def actq_operands(name, args, dev, gen):
-    """Fresh operands of a recorded quant_s8 / wgrad_s8 call on `dev`:
-    (kernel fn, plain fn), each taking no argument."""
+    """Fresh operands of a recorded quant_s8 / wgrad_s8 call on `dev`, in
+    the call's layouts: (kernel fn, plain fn, kernel fn checked against
+    the plain one (wgrad_s8: its int32 sums), extras)."""
     if name == 'wgrad_s8':
         n, ci, h, w = args['q']
-        kh, kw = args['kernel_hw']
-        (pt, pb), (pl, pr) = args['pads']
-        ho, wo = int8_cuda.conv_out_hw(h, w, kh, kw, args['stride'],
-                                       args['pads'])
-        q = torch.randint(-127, 128, (n, ci, h, w), generator=gen,
-                          dtype=torch.int8).to(dev)
-        qg = torch.randint(-127, 128, (n, args['co'], ho, wo),
-                           generator=gen, dtype=torch.int8)
-        qgt = actq_cuda._qgt(qg, actq_cuda.padded_k(n * ho * wo)).to(dev)
-        alpha = torch.full((ci * kh * kw,), 1e-6, device=dev)
-        geo = ((kh, kw), args['stride'], args['pads'])
-        return (lambda: actq_cuda.wgrad_s8(q, qgt, *geo, alpha),
-                lambda: actq_cuda.wgrad_s8_torch(q, qgt, *geo),
-                lambda: actq_cuda.wgrad_s8(q, qgt, *geo),
-                (q, qgt, geo))
+        geo = (args['kernel_hw'], args['stride'], args['pads'])
+        plan = actq_cuda.wgrad_plan(args['q'], args['co'], *geo)
+        q = _randint8((n, ci, h, w), gen, dev)
+        qg = _randint8((n, args['co'], plan.ho, plan.wo), gen, dev)
+        ql, qgt = actq_cuda.to_layout(q, plan), actq_cuda._qgt(qg, plan=plan)
+        alpha = torch.full((ci * plan.kh * plan.kw,), 1e-6, device=dev)
+        return (lambda: actq_cuda.wgrad_s8(ql, qgt, *geo, alpha, plan=plan),
+                lambda: actq_cuda.wgrad_s8_torch(ql, qgt, *geo, plan),
+                lambda: actq_cuda.wgrad_s8(ql, qgt, *geo, plan=plan),
+                dict(q=q, qg=qg, geo=geo, plan=plan, alpha=alpha))
     mode, shape, dtype = args['mode'], args['shape'], args['dtype']
+    plan = args.get('plan')
     if mode == 'dequant':
-        t = torch.randint(-127, 128, shape, generator=gen,
-                          dtype=torch.int8).to(dev)
+        t = _randint8(shape, gen, dev)
         scale = (torch.rand(shape[0], generator=gen) + 0.01).to(dev)
         kw = dict(scale=scale, dtype=args['out_dtype'])
     else:
         t = (torch.randn(shape, generator=gen) * 3).to(dtype).to(dev)
         scale = (torch.rand(shape[0], generator=gen) + 0.01).to(dev)
-        kw = {} if mode == 'x' else dict(scale=scale, alpha_len=27)
+        kw = dict(plan=plan) if mode == 'x' else dict(
+            scale=scale, alpha_len=args['alpha_len'], plan=plan)
     return (lambda: actq_cuda.quant_s8(t, mode, **kw),
-            lambda: actq_cuda.quant_s8_torch(t, mode, **kw), None, (t, kw))
+            lambda: actq_cuda.quant_s8_torch(t, mode, **kw), None,
+            dict(t=t, kw=kw))
 
 
 def actq_bytes(name, args) -> int:
-    """Bytes a call must move: each input read once, each output written
-    once."""
+    """Bytes the function must move, whatever the kernel's layouts: each
+    input read once, each output written once, plain. wgrad_s8: int8 q
+    [N,Ci,H,W] and qg [N,Co,Ho,Wo], alpha [R] read, f32 dw [Co,R]
+    written; 'x': x read, int8 q and the scale [N] written; 'g': g and
+    the scale [N] read, int8 qg and alpha written; 'dequant': q and the
+    scale read, x written."""
     if name == 'wgrad_s8':
         n, ci, h, w = args['q']
         kh, kw = args['kernel_hw']
         ho, wo = int8_cuda.conv_out_hw(h, w, kh, kw, args['stride'],
                                        args['pads'])
-        return n * ci * h * w + args['co'] * n * ho * wo \
-            + 4 * args['co'] * ci * kh * kw
+        r = ci * kh * kw
+        return n * ci * h * w + n * args['co'] * ho * wo + 4 * r \
+            + 4 * args['co'] * r
     numel = int(np.prod(args['shape']))
     n = args['shape'][0]
     if args['mode'] == 'x':
         return numel * args['dtype'].itemsize + numel + 4 * n
     if args['mode'] == 'g':
-        return numel * args['dtype'].itemsize + 4 * n + numel
+        return numel * args['dtype'].itemsize + 4 * n + numel \
+            + 4 * args['alpha_len']
     return numel + 4 * n + numel * args['out_dtype'].itemsize
+
+
+def actq_layout_bytes(name, args) -> int:
+    """What the kernels' layouts add to `actq_bytes`: q as KW column
+    copies with padded rows and qgt with padded K (`actq_cuda.wgrad_plan`),
+    the bytes 'x' writes and wgrad_s8 reads beyond plain q, and 'g'
+    writes and wgrad_s8 reads beyond dense qg. Not part of the bound."""
+    if name == 'wgrad_s8':
+        plan = actq_cuda.wgrad_plan(args['q'], args['co'], args['kernel_hw'],
+                                    args['stride'], args['pads'])
+    else:
+        plan = args.get('plan')
+    if plan is None or args.get('mode') == 'dequant':
+        return 0
+    extra_q = int(np.prod(plan.q_shape)) - plan.n * plan.ci * plan.h * plan.w
+    extra_qg = plan.co * plan.kp - plan.n * plan.co * plan.ho * plan.wo
+    if name == 'wgrad_s8':
+        return extra_q + extra_qg
+    return extra_q if args['mode'] == 'x' else extra_qg
 
 
 def actq_ops(name, args) -> int:
@@ -4640,49 +4643,112 @@ def _call_key(name, args):
     return (name,) + tuple(sorted((k, str(v)) for k, v in args.items()))
 
 
+def _must_equal_all(name, args, got, want, what=''):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise RuntimeError(f"{name} {what}{args}: the kernel differs from "
+                               "its plain version")
+
+
+def _actq_world(dev):
+    """A gloo world of one process (a file store in a temp dir), for
+    quant_s8 'g' under a data-parallel group: its two launches and the
+    all-reduce between them. Returns (group, cleanup)."""
+    import torch.distributed as dist
+
+    from ursonet_torch.parallel import multihost
+    if dist.is_initialized():
+        return dist.group.WORLD, lambda: None
+    d = tempfile.mkdtemp()
+    multihost.initialize(f'file://{d}/store', 1, 0, backend='gloo',
+                         device=dev)
+
+    def cleanup():
+        multihost.shutdown()
+        shutil.rmtree(d, ignore_errors=True)
+    return dist.group.WORLD, cleanup
+
+
 def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
     """Each distinct quant_s8 / wgrad_s8 call of a step (`calls`, one
-    step's) on fresh operands: the kernel against its plain version (0
-    differing values: the quantizes bit for bit, wgrad_s8's int32 sums),
-    and with `timed` its time (CUDA events, mean of ACTQ_TIMED), the plain
-    version's, torch._int_mm on wgrad_s8's patch matrix, each weighted by
-    the call's count in the step. Returns, per kernel: launches, distinct
-    calls, ms, plain_ms, library_ms, bound terms."""
+    step's) on fresh operands, against its plain version (0 differing
+    values: the quantizes bit for bit, wgrad_s8's int32 sums and its f32
+    epilogue): wgrad_s8 on its own route and on the ragged one, quant_s8
+    'g' also under a data-parallel group (a gloo world of one: its two
+    launches). With `timed`: the device time by CUDA graph (`graph_ms`),
+    the host pace (back-to-back calls between events), the plain
+    version's time and, for wgrad_s8, torch._int_mm's on its patch matrix
+    (graph) and the ragged route's; each weighted by the call's count in
+    the step. Returns per kernel: launches, routes, distinct calls, ms,
+    host_ms, plain_ms, library_ms, bound terms."""
     gen = torch.Generator().manual_seed(seed)
     counts = Counter(_call_key(n, a) for n, a in calls)
     first = {}
     for n, a in calls:
         first.setdefault(_call_key(n, a), (n, a))
-    out = {k: {'launches': 0, 'distinct': 0, 'ms': 0.0, 'plain_ms': 0.0,
+    out = {k: {'launches': 0, 'distinct': 0, 'ms': 0.0, 'host_ms': 0.0,
+               'plain_ms': 0.0,
                'library_ms': 0.0 if k == 'wgrad_s8' else None,
-               'bytes': 0, 'ops': 0, 'max_abs_err': 0.0}
+               'bytes': 0, 'layout_bytes': 0, 'ops': 0, 'max_abs_err': 0.0,
+               'routes': Counter(),
+               'modes': Counter()}
            for k in ('quant_s8', 'wgrad_s8')}
-    for key, (name, args) in first.items():
-        c = counts[key]
-        row = out[name]
-        row['launches'] += c
-        row['distinct'] += 1
-        row['bytes'] += c * actq_bytes(name, args)
-        row['ops'] += c * actq_ops(name, args)
-        kern, plain, s32, ops = actq_operands(name, args, dev, gen)
-        got, want = (s32 or kern)(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        for g, w in zip(got, want):
-            if not torch.equal(g, w):
-                raise RuntimeError(f"{name} {args}: the kernel differs from "
-                                   "its plain version")
-        if not timed:
-            continue
-        row['ms'] += c * cuda_ms(kern, ACTQ_TIMED)
-        row['plain_ms'] += c * cuda_ms(plain, 2, warmup=1)
-        if name == 'wgrad_s8':
-            q, qgt, geo = ops
-            p = actq_cuda.im2col_torch(q, *geo)
-            row['library_ms'] += c * cuda_ms(
-                lambda: torch._int_mm(qgt, p.t()), ACTQ_TIMED)
-            del p
-        del kern, plain, s32, ops
+    out['wgrad_s8']['ragged_ms'] = 0.0
+    out['quant_s8']['by_mode_ms'] = Counter()
+    group, cleanup = _actq_world(dev)
+    cuda = dev.type == 'cuda'
+    try:
+        for key, (name, args) in first.items():
+            c = counts[key]
+            row = out[name]
+            row['launches'] += c
+            row['distinct'] += 1
+            row['bytes'] += c * actq_bytes(name, args)
+            row['layout_bytes'] += c * actq_layout_bytes(name, args)
+            row['ops'] += c * actq_ops(name, args)
+            kern, plain, s32, ops = actq_operands(name, args, dev, gen)
+            want = plain()
+            _must_equal_all(name, args, (s32 or kern)(), want)
+            if name == 'wgrad_s8':
+                row['routes'][args['route']] += c
+                geo, plan = ops['geo'], ops['plan']
+                f = kern()
+                _must_equal_all(name, args, f, want.float()
+                                * ops['alpha'].view(1, plan.ci, plan.kh,
+                                                    plan.kw), 'f32 ')
+                rplan = actq_cuda.wgrad_plan(args['q'], args['co'], *geo,
+                                             route='ragged')
+                rqgt = actq_cuda._qgt(ops['qg'], plan=rplan)
+                ragged = (lambda: actq_cuda.wgrad_s8(
+                    ops['q'], rqgt, *geo, ops['alpha'], plan=rplan))
+                _must_equal_all(name, args, actq_cuda.wgrad_s8(
+                    ops['q'], rqgt, *geo, plan=rplan), want, 'ragged ')
+            else:
+                row['modes'][args['mode']] += c
+                if args['mode'] == 'g':
+                    t, kw = ops['t'], ops['kw']
+                    _must_equal_all(name, args, actq_cuda.quant_s8(
+                        t, 'g', group=group, **kw), actq_cuda.quant_s8_torch(
+                        t, 'g', group=group, **kw), 'group ')
+            if not (timed and cuda):
+                continue
+            ms = graph_ms(kern)
+            row['ms'] += c * ms
+            row['host_ms'] += c * cuda_ms(kern, ACTQ_TIMED)
+            row['plain_ms'] += c * cuda_ms(plain, 2, warmup=1)
+            if name == 'wgrad_s8':
+                p = actq_cuda.im2col_torch(ops['q'], *geo)
+                row['library_ms'] += c * graph_ms(
+                    lambda: torch._int_mm(rqgt, p.t()))
+                row['ragged_ms'] += c * graph_ms(ragged)
+                del p
+            else:
+                row['by_mode_ms'][args['mode']] += c * ms
+            del kern, plain, s32, ops
+    finally:
+        cleanup()
     for k, row in out.items():
         row.update(_bound(row['ops'], row['bytes'], INT8_OP_PER_S))
     return out
@@ -4694,12 +4760,15 @@ def run_actq(device, seed: int = 0, card: str = '', cfg=None,
     under TRAIN_ACT_Q8 False, True and 'wgrad8' in turns: each `steps`
     train steps + 1 validation step from the same seeded weights and
     batch (the first step's loss equal across the modes: the forward is
-    exact), the launches of quant_s8 by mode, wgrad_s8 and their GEMMs,
+    exact), the launches of quant_s8 by mode and by kernel (one a call
+    for 'x' and 'g': no fill launch), of wgrad_s8 by route (the
+    flagship's all 'tma': no patch matrix, no gather) and of their GEMMs,
     every distinct call of one step held against the plain version, and
     on the card the median step time and one step's peak memory. Returns
     per mode the numbers, and the kernel rows of 'wgrad8' (and True)."""
     dev = torch.device(device)
     cuda = dev.type == 'cuda'
+    tma_only = cfg is None      # the flagship's int8 convs all take 'tma'
     cfg = cfg or flagship_config(f16=True)
     out = {'modes': {}, 'rows': Counter(), 'fused_err': 0.0}
     for mode in ACTQ_MODES:
@@ -4723,6 +4792,10 @@ def run_actq(device, seed: int = 0, card: str = '', cfg=None,
         launches = {**actq_cuda.launches,
                     **{f'quant_s8_{k}': v
                        for k, v in actq_cuda.mode_launches.items()},
+                    **{f'wgrad_s8_{k}': v
+                       for k, v in actq_cuda.route_launches.items()},
+                    **{f'kernel_{k}': v
+                       for k, v in actq_cuda.kernel_launches.items()},
                     'gemm_s8': int8_cuda.launches['gemm_s8'],
                     'warp_mold': warp_cuda.launches['warp_mold']}
         losses = [m['loss'] for m in res['train']]
@@ -4740,6 +4813,18 @@ def run_actq(device, seed: int = 0, card: str = '', cfg=None,
                                    f"({launches})")
         if mode is False and (launches['quant_s8'] or launches['wgrad_s8']):
             raise RuntimeError(f"actq [{tag}] launched {launches}")
+        if cuda:
+            # one kernel launch a quantize call, none before it; the TMA
+            # route writes no patch matrix (no gather, no GEMM)
+            if launches['kernel_quant_x'] != launches['quant_s8_x'] \
+                    or launches['kernel_quant_g'] != launches['quant_s8_g'] \
+                    or launches['kernel_im2col'] != launches['wgrad_s8_ragged'] \
+                    or launches['kernel_wgrad_tma'] != launches['wgrad_s8_tma']:
+                raise RuntimeError(f"actq [{tag}]: launches do not add up "
+                                   f"({launches})")
+            if tma_only and launches['wgrad_s8_ragged']:
+                raise RuntimeError(f"actq [{tag}]: a flagship wgrad_s8 took "
+                                   f"the ragged route ({launches})")
         info = {'losses': losses, 'launches': launches,
                 'per_step': per_step}
         if mode:
@@ -4752,23 +4837,38 @@ def run_actq(device, seed: int = 0, card: str = '', cfg=None,
             for k, row in info['kernels'].items():
                 log(f"actq [{tag}] {k}: {row['launches']} launches a step "
                     f"({row['distinct']} distinct calls, each equal to the "
-                    f"plain version on fresh operands)"
-                    + (f"; {row['ms']:.4f} ms a step, plain "
+                    f"plain version on fresh operands"
+                    + (", on both routes" if k == 'wgrad_s8' else
+                       ", 'g' under a group too") + "); "
+                    + (f"routes {dict(row['routes'])}" if k == 'wgrad_s8'
+                       else f"modes {dict(row['modes'])}")
+                    + (f"; device {row['ms']:.4f} ms a step (graph), host "
+                       f"pace {row['host_ms']:.4f} ms, plain "
                        f"{row['plain_ms']:.4f} ms, bound "
-                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                       f"library {row['library_ms']} ms {card}"
-                       if timed and cuda else ""))
+                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                       f"{row['bytes']} B plain, {row['ops']} op; the "
+                       f"layouts add {row['layout_bytes']} B), library "
+                       f"{row['library_ms']} ms"
+                       + (f", ragged route {row['ragged_ms']:.4f} ms"
+                          if k == 'wgrad_s8' else
+                          f", by mode {dict(row['by_mode_ms'])}")
+                       + f" {card}" if timed and cuda else ""))
             out['rows']['quant_s8'] += launches['quant_s8']
             out['rows']['wgrad_s8'] += launches['wgrad_s8']
             out['rows']['gemm_s8_f32acc'] += launches['gemm_s8']
         if cuda and timed:
             info['ms'] = time_train(res, seed)
             info['peak'] = step_peak(res, seed)
+            info['estimate_gb'] = memory.calibrated_train_gb(c)
+            info['actq_saved_gb'] = memory.actq_saved_gb(c)
             log(f"actq [{tag}] step: median {info['ms']:.3f} ms over 10 "
                 f"after 2 warm-up, {c.BATCH_SIZE / info['ms'] * 1e3:.2f} "
                 f"imgs/s, batch {c.BATCH_SIZE} {c.IMAGE_SHAPE[0]}x"
                 f"{c.IMAGE_SHAPE[1]}; one step's peak {info['peak']} bytes "
-                f"({info['peak'] / 2**30:.2f} GiB) {card}")
+                f"({info['peak'] / 2**30:.2f} GiB) vs check_train_memory's "
+                f"estimate {info['estimate_gb']:.3f} GB, of which the int8 "
+                f"saved copies and their layout {info['actq_saved_gb']:.3f} "
+                f"GB {card}")
         out['modes'][mode] = info
         del res
     first = {m: v['losses'][0] for m, v in out['modes'].items()}
@@ -5452,10 +5552,11 @@ def main(argv=None) -> int:
     # TRAIN_ACT_Q8's kernels (phase 8g), which replace XLA operations of
     # the JAX package, no Pallas kernel: a train step's calls under
     # 'wgrad8' (quant_s8 'x' and 'g', wgrad_s8), each distinct call timed
-    # on fresh operands and weighted by its count; under True beside them
-    # (quant_s8 'x' and 'dequant'). wgrad_s8's time is its gather and its
-    # gemm_s8 (f32 epilogue), whose launches count in gemm_s8_f32acc too;
-    # its library call torch._int_mm on the same patch matrix.
+    # on fresh operands by CUDA graph (device time; host_ms its host pace)
+    # and weighted by its count; under True beside them (quant_s8 'x' and
+    # 'dequant'). wgrad_s8 on the TMA route (implicit GEMM, no patch
+    # matrix); its library call torch._int_mm on the patch matrix of the
+    # same operands, and its ragged route (gather + gemm_s8) beside it.
     for name, replaces in (('quant_s8', 'ursonet_tpu/models/actq.py:117'),
                            ('wgrad_s8', 'ursonet_tpu/models/actq.py:90')):
         w8 = aq['modes']['wgrad8']['kernels'][name]
@@ -5466,15 +5567,35 @@ def main(argv=None) -> int:
                "launches": aq['rows'][name],
                "launches_by_mode": {str(m): v['launches'][name]
                                     for m, v in aq['modes'].items()},
+               "kernel_launches_by_mode": {
+                   str(m): {k[len('kernel_'):]: n
+                            for k, n in v['launches'].items()
+                            if k.startswith('kernel_')}
+                   for m, v in aq['modes'].items()},
                "max_abs_err": 0.0,
-               **{k: w8[k] for k in keys}, "per": "train step, 'wgrad8'"}
+               **{k: w8[k] for k in keys}, "host_ms": w8['host_ms'],
+               "bound_bytes": w8['bytes'],
+               "layout_extra_bytes": w8['layout_bytes'],
+               "per": "train step, 'wgrad8'"}
         if name == 'quant_s8':
             row["launches_by_quant_mode"] = {
                 str(m): {q: v['launches'][f'quant_s8_{q}']
                          for q in actq_cuda.MODES}
                 for m, v in aq['modes'].items()}
-            row["mode_true"] = {k: aq['modes'][True]['kernels'][name][k]
-                                for k in keys}
+            row["ms_by_quant_mode"] = dict(w8['by_mode_ms'])
+            row["library_null_reason"] = (
+                "no one PyTorch call computes the per-sample amax, the "
+                "scale and the quantize")
+            tr = aq['modes'][True]['kernels'][name]
+            row["mode_true"] = {**{k: tr[k] for k in keys},
+                                "host_ms": tr['host_ms'],
+                                "ms_by_quant_mode": dict(tr['by_mode_ms'])}
+        else:
+            row["launches_by_route"] = {
+                str(m): {r: v['launches'][f'wgrad_s8_{r}']
+                         for r in actq_cuda.ROUTES}
+                for m, v in aq['modes'].items()}
+            row["ragged_route_ms"] = w8['ragged_ms']
         kernels.append(row)
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "

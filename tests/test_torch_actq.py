@@ -247,6 +247,77 @@ def test_quantizes_and_int32_wgrad_are_jax_bits(name, dtype):
         got.float().numpy().transpose(0, 2, 3, 1), want.astype(np.float32))
 
 
+# (N, H, W, Ci, Co, k, stride, JAX padding) with 64 input channels: the
+# TMA route's layouts (column copies, a 1x1 stride-2 conv's even columns,
+# a 1x1 conv's plane cut into rows, padded qgt rows)
+TMA_GEOMS = {
+    'k3s1_same': (2, 9, 10, 64, 12, 3, 1, 'SAME'),
+    'k3s2_same': (2, 9, 11, 64, 12, 3, 2, 'SAME'),
+    'k1s2_valid': (2, 10, 12, 64, 12, 1, 2, 'VALID'),
+    'k1s1_valid': (2, 8, 12, 64, 12, 1, 1, 'VALID'),
+}
+
+
+@pytest.mark.parametrize('name', list(TMA_GEOMS))
+def test_tma_layouts_are_jax_bits(name):
+    """quant_s8 'x' and 'g' in the TMA route's layouts and wgrad_s8 on
+    them give JAX's q, qg, int32 sums and f32 rescale bit for bit."""
+    geom = TMA_GEOMS[name]
+    n, h, w, ci, co, k, s, pad = geom
+    x, _, g = inputs(geom, seed=7)
+    x = x * 5.1 - 1.0
+    pads = _pads(geom)
+    plan = actq_cuda.wgrad_plan((n, ci, h, w), co, (k, k), s, pads)
+    assert plan.route == 'tma'
+    jq, jscale = jactq._quantize_per_sample(jnp.asarray(x))
+    q, scale = actq_cuda.quant_s8(
+        torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), 'x', plan=plan)
+    assert tuple(q.shape) == plan.q_shape
+    np.testing.assert_array_equal(scale.numpy(),
+                                  np.asarray(jscale).reshape(-1))
+    # every column a tap reads (a 1x1 stride-2 conv reads the even ones)
+    src, inside = actq_cuda._copy_columns(plan)
+    cols = np.arange(w) if plan.plain_q else np.unique(src[inside].numpy())
+    np.testing.assert_array_equal(
+        actq_cuda.q_of(q, plan).numpy().transpose(0, 2, 3, 1)[:, :, cols],
+        np.asarray(jq)[:, :, cols])
+    G = jnp.asarray(g) * jscale
+    sg = jnp.maximum(jnp.max(jnp.abs(G)), 1e-30) / 127.0
+    jqg = jnp.clip(jnp.round(G / sg), -127, 127).astype(jnp.int8)
+    qgt, alpha = actq_cuda.quant_s8(
+        torch.from_numpy(g.transpose(0, 3, 1, 2).copy()), 'g', scale,
+        alpha_len=ci * k * k, plan=plan)
+    assert qgt.shape == (co, plan.kp)
+    np.testing.assert_array_equal(
+        actq_cuda.qg_of(qgt, n, plan.ho, plan.wo, plan).numpy()
+        .transpose(0, 2, 3, 1), np.asarray(jqg))
+    jdw = jactq._wgrad_conv(jq, jqg, (k, k), (s, s), pads,
+                            preferred=jnp.int32)
+    dw = actq_cuda.wgrad_s8(q, qgt, (k, k), s, pads, plan=plan)
+    np.testing.assert_array_equal(dw.numpy().transpose(2, 3, 1, 0),
+                                  np.asarray(jdw))
+    dwf = actq_cuda.wgrad_s8(q, qgt, (k, k), s, pads, alpha, plan=plan)
+    np.testing.assert_array_equal(
+        dwf.numpy().transpose(2, 3, 1, 0),
+        np.asarray(jdw.astype(jnp.float32) * sg))
+
+
+@pytest.mark.parametrize('name', ['k3s2_same', 'k1s1_valid'])
+def test_convq8_tma_route_matches_jax(name):
+    """ConvQ8 'wgrad8' on convs whose weight gradient takes the TMA
+    route's layouts: forward, dx and the bias gradient the plain conv's,
+    dw JAX's within test_convq8_matches_jax's bound."""
+    geom = TMA_GEOMS[name]
+    x, wt, g = inputs(geom, seed=8)
+    got = run_port(*port_conv(geom, 'wgrad8', True, wt), x, g,
+                   torch.float32)
+    want = run_jax(geom, 'wgrad8', x, wt, g, True)
+    plain = run_port(*port_conv(geom, False, True, wt), x, g, torch.float32)
+    for i in (0, 1, 3):
+        np.testing.assert_array_equal(got[i], plain[i])
+    assert _rel(got[2], want[2]) < 1e-6
+
+
 def test_gather_plain_is_the_conv_sums():
     """The kernel's gather and product, written as im2col_torch @ qgt^T,
     give wgrad_s8_torch's sums."""

@@ -1437,6 +1437,23 @@ from ursonet_torch.ops import actq_cuda as aq  # noqa: E402
 from ursonet_torch.probes import actq_wgrad8 as aw  # noqa: E402
 
 ACTQ_SHAPES = [(4, 64, 32, 40), (3, 5, 7, 9), (2, 3, 70, 90)]
+# (N, H, W, Ci, Co, k, stride, pad): odd shapes on wgrad_s8's TMA route
+# (ragged Co and Ci blocks, 128- and 256-wide tiles, stride 2 and 3, wide
+# rows, the s2d stem's pads), beside the flagship's
+ACTQ_ODD = {'ci64_3x3s1': (3, 9, 13, 64, 200, 3, 1, 1),
+            'ci256_3x3s1': (2, 7, 9, 256, 200, 3, 1, 1),
+            'ci96_3x3s2': (2, 11, 9, 96, 40, 3, 2, 1),
+            '1x1s2': (2, 10, 14, 128, 72, 1, 2, 0),
+            '1x1s1_view': (3, 7, 9, 192, 64, 1, 1, 0),
+            '5x5s3': (2, 20, 23, 64, 64, 5, 3, 2),
+            'wide_row': (1, 4, 300, 64, 32, 3, 1, 1),
+            's2d_pads': (2, 11, 11, 64, 6, 4, 1, ((2, 1), (2, 1)))}
+
+
+def _actq_plan(name):
+    g = ACTQ_ODD.get(name) or aw.flagship_geometries(4)[name][0]
+    n, h, w, ci, co, k, s, pad = g
+    return aq.wgrad_plan((n, ci, h, w), co, (k, k), s, aw._pads(pad))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -1447,6 +1464,7 @@ def test_quant_s8_modes_match_plain(cuda_device, shape, dtype):
     gen = torch.Generator().manual_seed(3)
     x = (torch.randn(shape, generator=gen) * 3).to(dtype)
     before = dict(aq.mode_launches)
+    kernels = dict(aq.kernel_launches)
     q, scale = aq.quant_s8(x.to(cuda_device), 'x')
     pq, pscale = aq.quant_s8_torch(x, 'x')
     assert torch.equal(q.cpu(), pq) and torch.equal(scale.cpu(), pscale)
@@ -1460,43 +1478,110 @@ def test_quant_s8_modes_match_plain(cuda_device, shape, dtype):
     torch.cuda.synchronize()
     assert {m: aq.mode_launches[m] - before[m] for m in aq.MODES} \
         == {'x': 1, 'g': 1, 'dequant': 1}
+    # one kernel launch a call, no fill before it
+    assert {k: aq.kernel_launches[k] - kernels[k]
+            for k in ('quant_x', 'quant_g', 'dequant')} \
+        == {'quant_x': 1, 'quant_g': 1, 'dequant': 1}
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('name', list(aw.flagship_geometries(4))
+                         + list(ACTQ_ODD))
+def test_quant_s8_layouts_match_plain(cuda_device, name, dtype):
+    """'x' and 'g' in a wgrad plan's layouts (the TMA route's column
+    copies and padded qgt), and 'g' under a data-parallel group (a gloo
+    world of one: two launches, the all-reduce between)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ursonet_torch.parallel import multihost
+    plan = _actq_plan(name)
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.randn((plan.n, plan.ci, plan.h, plan.w), generator=gen)
+         * 3).to(dtype)
+    g = (torch.randn((plan.n, plan.co, plan.ho, plan.wo), generator=gen)
+         * 2).to(dtype)
+    q, scale = aq.quant_s8(x.to(cuda_device), 'x', plan=plan)
+    pq, pscale = aq.quant_s8_torch(x, 'x', plan=plan)
+    assert q.shape == plan.q_shape
+    assert torch.equal(q.cpu(), pq) and torch.equal(scale.cpu(), pscale)
+    qgt, alpha = aq.quant_s8(g.to(cuda_device), 'g', scale, alpha_len=9,
+                             plan=plan)
+    pqgt, palpha = aq.quant_s8_torch(g, 'g', pscale, alpha_len=9, plan=plan)
+    assert torch.equal(qgt.cpu(), pqgt) and torch.equal(alpha.cpu(), palpha)
+    with tempfile.TemporaryDirectory() as d:
+        multihost.initialize(f'file://{d}/store', 1, 0, backend='gloo',
+                             device=cuda_device)
+        try:
+            before = aq.kernel_launches['quant_g_group']
+            got = aq.quant_s8(g.to(cuda_device), 'g', scale, alpha_len=9,
+                              plan=plan, group=dist.group.WORLD)
+            assert aq.kernel_launches['quant_g_group'] == before + 2
+        finally:
+            multihost.shutdown()
+    assert torch.equal(got[0].cpu(), pqgt) and torch.equal(got[1].cpu(),
+                                                          palpha)
+
+
+@pytest.mark.parametrize('route', ['tma', 'ragged'])
 @pytest.mark.parametrize('name', list(aw.flagship_geometries(4)))
-def test_wgrad_s8_at_flagship_geometries_matches_plain(cuda_device, name):
+def test_wgrad_s8_at_flagship_geometries_matches_plain(cuda_device, name,
+                                                       route):
     """The flagship's int8-route geometries at batch 4 (the same widths),
-    int32 and with the f32 epilogue."""
+    on each route, int32 and with the f32 epilogue."""
     geom, _ = aw.flagship_geometries(4)[name]
     n, h, w, ci, co, k, s, pad = geom
-    q, qgt, pads = aw.operands(geom, 1, cuda_device)
-    got = aq.wgrad_s8(q, qgt, (k, k), s, pads)
-    want = aq.wgrad_s8_torch(q, qgt, (k, k), s, pads)
+    q, qgt, pads, plan = aw.operands(geom, 1, cuda_device, route)
+    before = dict(aq.route_launches)
+    got = aq.wgrad_s8(q, qgt, (k, k), s, pads, plan=plan)
+    want = aq.wgrad_s8_torch(q, qgt, (k, k), s, pads, plan)
     assert torch.equal(got, want)
     alpha = torch.full((ci * k * k,), 3e-7, device=cuda_device)
-    f = aq.wgrad_s8(q, qgt, (k, k), s, pads, alpha)
+    f = aq.wgrad_s8(q, qgt, (k, k), s, pads, alpha, plan=plan)
     assert torch.equal(f, want.float() * alpha.view(1, ci, k, k))
+    assert aq.route_launches[route] == before[route] + 2
+
+
+@pytest.mark.parametrize('name', list(ACTQ_ODD))
+def test_wgrad_s8_tma_route_at_odd_shapes(cuda_device, name):
+    """The TMA route on shapes whose Co, Ci, K and rows are ragged, its
+    int32 sums equal to the plain version's and to the ragged route's."""
+    n, h, w, ci, co, k, s, pad = ACTQ_ODD[name]
+    q, qgt, pads, plan = aw.operands(ACTQ_ODD[name], 2, cuda_device)
+    assert plan.route == 'tma'
+    got = aq.wgrad_s8(q, qgt, (k, k), s, pads, plan=plan)
+    assert torch.equal(got, aq.wgrad_s8_torch(q, qgt, (k, k), s, pads,
+                                              plan))
+    rq, rqgt, _, rplan = aw.operands(ACTQ_ODD[name], 2, cuda_device,
+                                     'ragged')
+    assert torch.equal(got, aq.wgrad_s8(rq, rqgt, (k, k), s, pads,
+                                        plan=rplan))
 
 
 def test_wgrad_s8_check_geometries(cuda_device):
     aw.check(cuda_device)
 
 
+@pytest.mark.parametrize('ci', [16, 64])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('mode', [True, 'wgrad8'])
-def test_convq8_on_the_card_matches_the_cpu(cuda_device, mode, dtype):
+def test_convq8_on_the_card_matches_the_cpu(cuda_device, mode, dtype, ci):
     """ConvQ8's saved q, its forward (cuDNN deterministic, TF32 off) and
     dw against the same module on the CPU: q bit for bit; wgrad8's dw bit
-    for bit given the same g (the int8 sums are exact); mode True's within
-    1e-2 relative (cuDNN sums in another order, in bf16 under bf16)."""
+    for bit given the same g (the int8 sums are exact; 16 input channels
+    take the ragged route, 64 the TMA route); mode True's within 1e-2
+    relative (cuDNN sums in another order, in bf16 under bf16)."""
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(5)
-    m = ConvQ8(16, 32, 3, 1, padding=1, mode=mode)
-    x = torch.relu(torch.randn((4, 16, 20, 24), generator=gen)).to(dtype)
+    m = ConvQ8(ci, 32, 3, 1, padding=1, mode=mode)
+    x = torch.relu(torch.randn((4, ci, 20, 24), generator=gen)).to(dtype)
     g = torch.randn((4, 32, 20, 24), generator=gen).to(dtype)
     outs = {}
     for dev in ('cpu', cuda_device):
-        mm = ConvQ8(16, 32, 3, 1, padding=1, mode=mode).to(dev)
+        mm = ConvQ8(ci, 32, 3, 1, padding=1, mode=mode).to(dev)
         mm.load_state_dict(m.state_dict())
         xx = x.to(dev).requires_grad_(True)
         mm(xx).backward(g.to(dev))

@@ -5,6 +5,8 @@ structure times the eager step's factor per mode) reproduces the peaks
 the factors were calibrated on, within the ±25% that chip_smoke.py holds
 each train configuration to on the card."""
 
+import math
+
 import pytest
 
 from ursonet_tpu import presets as jpresets
@@ -100,3 +102,59 @@ def test_shallow_backbones_are_said_to_be_uncalibrated(arch):
         assert est == tmemory.calibrated_train_gb(cfg)
         assert len(notes) == 1 and 'uncalibrated' in notes[0] \
             and arch in notes[0]
+
+
+class _Cfg:
+    """The fields backbone_convs and actq_saved_gb read."""
+
+    def __init__(self, arch, batch, hw, mode, inner=1.0):
+        self.BACKBONE, self.BATCH_SIZE, self.IMAGE_SHAPE = arch, batch, hw
+        self.TRAIN_ACT_Q8, self.INNER_WIDTH_MULT = mode, inner
+
+
+@pytest.mark.parametrize('arch,inner', [('resnet50', 1.0), ('resnet50', 0.6),
+                                        ('resnet18', 1.0)])
+@pytest.mark.parametrize('mode', [True, 'wgrad8'])
+def test_actq_saved_bytes_are_the_models(arch, inner, mode, monkeypatch):
+    """backbone_convs lists the inputs that the backbone's ConvQ8s
+    quantize, in order, and actq_saved_gb counts the bytes of the q they
+    save, in the layout each one's backward reads (plain, or the TMA
+    route's column copies under 'wgrad8')."""
+    import torch
+
+    from ursonet_torch.models.resnet import make_backbone
+    from ursonet_torch.ops import actq_cuda
+    seen = []
+    quant = actq_cuda.quant_s8
+
+    def spy(t, m, *a, **kw):
+        out = quant(t, m, *a, **kw)
+        if m == 'x':
+            seen.append((tuple(t.shape), out[0].numel()))
+        return out
+    monkeypatch.setattr(actq_cuda, 'quant_s8', spy)
+    torch.manual_seed(0)
+    net = make_backbone(arch, inner_mult=inner, act_q8=mode)
+    net(torch.randn(2, 3, 64, 80))
+    cfg = _Cfg(arch, 2, (64, 80, 3), mode, inner)
+    assert [s for s, _ in seen] == [c[:4] for c in
+                                    tmemory.backbone_convs(cfg)]
+    assert tmemory.actq_saved_gb(cfg) * 1e9 == pytest.approx(
+        sum(b for _, b in seen), abs=0.5)
+    if mode == 'wgrad8' and arch == 'resnet50':
+        # the 3x3 convs' column copies make q larger than the input
+        assert sum(b for _, b in seen) > sum(
+            math.prod(s) for s, _ in seen)
+    else:
+        assert tmemory.actq_saved_gb(_Cfg(arch, 2, (64, 80, 3), False,
+                                          inner)) == 0.0
+
+
+def test_actq_saved_bytes_join_the_calibrated_estimate():
+    _, cfg = _both(3, IMAGES_PER_GPU=32, F16=True)
+    base = tmemory.calibrated_train_gb(cfg)
+    for mode in (True, 'wgrad8'):
+        cfg.TRAIN_ACT_Q8 = mode
+        extra = tmemory.actq_saved_gb(cfg)
+        assert extra > 0
+        assert tmemory.calibrated_train_gb(cfg) == base + extra

@@ -9,35 +9,101 @@
 // quantize written as plain operations costs several launches a conv on
 // an eager step that the host already paces, so the port writes them:
 //
-//   quant_s8, three modes over one reduction / elementwise scheme:
+//   quant_s8, three modes:
 //     'x'        per sample n: amax = max|x[n]|, scale = max(amax, 1e-12)
 //                / 127 (rounded to bf16 for a bf16 x, as JAX divides in
 //                bf16), q = clip(rint(f32(x) / scale), +-127).
 //     'g'        G = f32(g) * scale[n], sg = max(max|G|, 1e-30) / 127 over
 //                the whole tensor, qg = clip(rint(G / sg), +-127), written
-//                transposed as the [Co, Kp] A operand of the wgrad GEMM
-//                (column k = n * Ho * Wo + p, zero for k >= N * Ho * Wo);
-//                sg is also written `alpha_len` times, the GEMM
-//                epilogue's alpha.
+//                as the [Co, Kp] A operand of the weight-gradient product;
+//                sg is also written `alpha_len` times, that product's
+//                epilogue factor.
 //     'dequant'  T(q) * T(scale[n]) in the compute type T.
-//     The two reductions are a launch of their own each ('x': one slot a
-//     sample; 'g': one slot), so that the caller can all-reduce the g
-//     slot over the data-parallel ranks before the quantize launch.
-//   wgrad_s8's gather: the int8 patch matrix P[ci * KH * KW + dy * KW +
-//     dx, k] = q[n, ci, oh * s + dy - pt, ow * s + dx - pl] (0 outside),
-//     k = n * Ho * Wo + oh * Wo + ow, rows padded with zeros to Kp (a
-//     multiple of 16). The product dw[co, r] = sum_k qg[co, k] * P[r, k]
-//     is gemm_s8's (int8_gemm.cu), with its f32 epilogue alpha = sg,
-//     beta = 0: the rounding of JAX's f32(acc) * sg.
+//   wgrad_s8: dw[co, r] = sum_k qg[co, k] * P[r, k], P the int8 patch
+//     matrix of the saved q (r = ci * KH * KW + dy * KW + dx), with the
+//     epilogue f32(acc) * alpha[r] (JAX's f32(acc) * sg) or the int32 sums.
 //
-// Bound. All of them move bytes and do a few operations a byte: the
-// reductions read the tensor once, the quantizes read it again and write
-// a byte an element, the gather writes KH * KW / s^2 bytes a saved byte.
-// So each thread moves 16 bytes where the layout allows (vector loads of
-// 8 bf16 or 4 f32, 16-byte stores of the gather and the g-quantize), the
-// reductions combine in registers, then through the warp, then through
-// shared memory, and each block adds one atomicMax on the float's bits
-// (non-negative floats order as their bit patterns).
+// Layouts. q and qg are private to ConvQ8 (saved for its backward), so
+// their layout is chosen for the product, from the shapes, before any
+// launch (`actq_cuda.wgrad_plan`):
+//   q   rows of the conv's input, viewed as [N, C, Hk, Wk] (the input
+//       itself, or for a 1x1 stride-1 unpadded conv its planes cut into
+//       rows of Wk that suit the product), each row kept as KW copies of
+//       `wph` bytes, one a kernel column dx: byte j of copy dx holds
+//       column j * s + dx - pl (zero outside the row), the column that
+//       output column j reads through tap dx. So a tap's patch row starts
+//       at byte 0 of its copy: TMA takes a box only where its innermost
+//       start coordinate is a multiple of 16 bytes (an unaligned start
+//       is an illegal instruction on the card), and that dimension takes
+//       no traversal stride either; stride and left padding would both
+//       put it off 16. wph (>= Wo, a multiple of 16) keeps every row
+//       addressable (global strides are multiples of 16). Stride 1: the
+//       copies are planes, [N, C, KW, Hk, wph] (`cmaj`), so a stage's 128
+//       bytes of K are consecutive bytes of one plane; larger strides:
+//       [N, C, Hk, KW, wph] (row-major), one box a row. A 1x1 stride-1
+//       unpadded view is the plain NCHW bytes (the dequant and the gather
+//       route read q so too).
+//   qgt [Co, Kp], output row oh of sample n at column n * Kps + oh * Wst
+//       of the same view (zero where oh >= Ho or ow >= Wo, Kp = N * Kps):
+//       stride 1, Wst = wph and Kps = Ho * wph rounded up to 128; larger
+//       strides, Wst = Wop = 32, 64, 128 (or a multiple of 128), so a
+//       128-byte stage of K is a whole number of output rows (Hb = 128 /
+//       Wop) or of 128-byte pieces of one (Wseg = min(Wop, 128)), and Kps
+//       = Hop * Wop, Hop rounding Ho up to a multiple of Hb. The zero
+//       columns add nothing to the sums; they cost operations (rows of
+//       40 -> 48 bytes, 20 -> 32 on the flagship's 3x3 convs).
+//   Why not an NHWC view with the patches built in registers (register-A
+//   wgmma, the stem's way): int8 wgmma takes B from shared memory K-major
+//   only, and the product's B operand is the patch matrix whichever way
+//   round it is set; building it in registers costs byte permutes on every
+//   stage, while this layout costs one padded write of q in the quantize
+//   that writes q anyway.
+//
+// Kernels and what bounds them.
+//   quant_kernel ('x', and 'g' without a data-parallel group): one launch
+//     a call, a grid of co-resident blocks (one a SM, checked against the
+//     occupancy query before the launch), each with a chunk of rows.
+//     A block reduces |x| over its rows (16-byte loads) in registers, the
+//     warp and the block, and adds one atomicMax on the float's bits into
+//     its sample's slot (non-negative floats order as their bits; a NaN's
+//     bits order above +inf, so a NaN is kept). A grid-wide barrier
+//     follows; then each block reads its rows again, quantizes them and
+//     writes the output in 16-byte stores. The second read is served by
+//     L2 where the call fits it (50 MB on the H100). Keeping the rows in
+//     shared memory instead (one bulk copy a block, possible for calls
+//     up to 132 x 200 KB) was measured no faster, and waves of whole
+//     samples, a barrier each, slower than the second read (PERF.md). The
+//     slots and the barrier counters live in a workspace that the last
+//     block out leaves zero, so no fill launch precedes a call. Under a
+//     data-parallel group, 'g' runs the same kernel twice: the reduction
+//     alone, the all-reduce of the slot between, the quantize alone. The
+//     quantize divides truly (__fdiv_rn, JAX's bits) and moves 16 bytes
+//     a thread; what bounds it on the card is in PERF.md.
+//   wgrad_tma_kernel: implicit GEMM, no patch matrix. Persistent blocks of
+//     three warpgroups: one thread loads, by TMA into a ring of stages,
+//     qgt's [128 rows][128 B] tile (128-byte swizzle) and the patch tile
+//     of BN = 128 or 256 channels of one tap (the width and the split of K
+//     from actq_cuda.wgrad_tiles' cost model): for stride 1 one 4-D box of
+//     128 consecutive bytes of the tap's copy plane (its start shifted by
+//     dy - pt rows, negative at the top: out-of-bounds bytes arrive as
+//     zeros), for larger strides Hb 5-D boxes, one a output row, each
+//     Wseg bytes in the swizzle of Wseg-byte rows (a box narrower than the
+//     128-byte swizzle's rows does not land as 128-byte rows), so that B
+//     tile is Hb regions of K-major [BN][Wseg] and each k32 step's
+//     descriptor points into one of them. Two warpgroups multiply 64 rows
+//     each with wgmma m64nBNk32 s8 and apply the epilogue in registers,
+//     storing dw in its [Co, Ci, KH, KW] layout. Where the tiles cannot
+//     fill the SMs, K is split over blocks: each writes its int32 partial
+//     sums to a slot of its own (plain stores: an atomic add a sum cost
+//     more than the product at these sizes), the last of a tile's parts
+//     to arrive adds the slots in split order (integer sums, exact) and
+//     rounds once. Bound: the operations (2 Co R N Ho Wo at the int8
+//     rate); each 128-byte stage of K reads 128 x (128 + BN) bytes from
+//     L2, which at 128 x 128 tiles asks more of L2 than it gives.
+//   The gather route (`ursonet_actq_im2col` + gemm_s8), for shapes the TMA
+//     route does not take (fewer than 64 input channels):
+//     P [R, Kp] written to device memory, 16 bytes a thread.
+//   dequant_kernel: one pass, 8 elements a thread.
 //
 // Rounding: rintf (round half to even, jnp.round's rule) and a true
 // division by the scale (not a multiply by its reciprocal); nvcc runs
@@ -46,6 +112,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,21 +129,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// V consecutive elements of x starting at element i, as floats; `vec`
-// loads them as one 16-byte (V * sizeof(T) == 16) or scalar loads.
-template <class T, int V>
-__device__ __forceinline__ void load(const T* x, long long i, float* out) {
-  if constexpr (V == 1) {
-    out[0] = to_f32(x[i]);
-  } else {
-    static_assert(V * sizeof(T) == 16, "16-byte vectors");
-    const uint4 raw = *reinterpret_cast<const uint4*>(x + i);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < V; ++j) out[j] = to_f32(e[j]);
-  }
-}
-
 __device__ __forceinline__ float absmax(float a, float b) {
   // max of two non-negative values that keeps a NaN (fmaxf drops it)
   return (b != b || b > a) ? b : a;
@@ -86,44 +139,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = absmax(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// The block's max of `v` into *slot by atomicMax on the bits (v >= 0 or
-// NaN: a NaN's bits order above +inf, so a NaN is kept as the max).
-__device__ __forceinline__ void block_max_to(float v, unsigned* slot) {
-  __shared__ float part[kThreads / 32];
-  v = warp_max(v);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) part[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    v = lane < kThreads / 32 ? part[lane] : 0.0f;
-    v = warp_max(v);
-    if (lane == 0) atomicMax(slot, __float_as_uint(v));
-  }
-}
-
-// Reduction. grid (blocks per sample, N); sample n's `per` elements.
-// per_sample: slot n, value |x|; else slot 0, value |f32(x) * scale[n]|.
-template <class T, int V>
-__global__ void __launch_bounds__(kThreads)
-amax_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-            long long per, unsigned* __restrict__ amax, int per_sample) {
-  const int n = blockIdx.y;
-  const T* xs = x + static_cast<long long>(n) * per;
-  const float s = per_sample ? 1.0f : scale[n];
-  float m = 0.0f;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads * V;
-  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x) * V;
-       i < per; i += step) {
-    float v[V];
-    load<T, V>(xs, i, v);
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      m = absmax(m, per_sample ? fabsf(v[j]) : fabsf(v[j] * s));
-  }
-  block_max_to(m, amax + (per_sample ? n : 0));
 }
 
 // scale of mode 'x' from sample n's amax: max(amax, 1e-12) / 127, in bf16
@@ -139,81 +154,647 @@ __device__ __forceinline__ float x_scale(unsigned bits) {
   }
 }
 
-__device__ __forceinline__ int8_t quant(float v, float scale) {
+__device__ __forceinline__ float g_scale(unsigned bits) {
+  const float a = __uint_as_float(bits);
+  return __fdiv_rn(a != a ? a : fmaxf(a, 1e-30f), 127.0f);
+}
+
+__device__ __forceinline__ int8_t quantize(float v, float scale) {
   const float r = rintf(__fdiv_rn(v, scale));
   return static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
 }
 
-// Mode 'x' quantize. grid (blocks per sample, N).
-template <class T, int V>
-__global__ void __launch_bounds__(kThreads)
-quant_x_kernel(const T* __restrict__ x, const unsigned* __restrict__ amax,
-               long long per, int8_t* __restrict__ q,
-               float* __restrict__ scale) {
-  const int n = blockIdx.y;
-  const float sc = x_scale<T>(amax[n]);
-  if (blockIdx.x == 0 && threadIdx.x == 0) scale[n] = sc;
-  const long long base = static_cast<long long>(n) * per;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads * V;
-  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x) * V;
-       i < per; i += step) {
-    float v[V];
-    load<T, V>(x + base, i, v);
-    if constexpr (V == 1) {
-      q[base + i] = quant(v[0], sc);
-    } else {
-      alignas(8) int8_t o[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = quant(v[j], sc);
-      if constexpr (V == 8) {
-        *reinterpret_cast<uint2*>(q + base + i) =
-            *reinterpret_cast<const uint2*>(o);
-      } else {
-        *reinterpret_cast<uint32_t*>(q + base + i) =
-            *reinterpret_cast<const uint32_t*>(o);
+// quantize(v, scale), or with MUL v times `scale` holding the reciprocal
+// (timing only: not JAX's bits)
+template <bool MUL>
+__device__ __forceinline__ int8_t quantize_as(float v, float scale) {
+  if constexpr (MUL) {
+    const float r = rintf(__fmul_rn(v, scale));
+    return static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
+  } else {
+    return quantize(v, scale);
+  }
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+unsigned blocks_for(long long threads) {
+  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+}
+
+// Blocks a sample for `per` elements at V a thread: four passes of the
+// block's threads each, at most 4096 (the grid-stride loop takes the
+// rest).
+unsigned blocks_per_sample(long long per, int v) {
+  const long long want = (per + static_cast<long long>(kThreads) * v * 4 - 1) /
+                         (static_cast<long long>(kThreads) * v * 4);
+  return static_cast<unsigned>(want < 1 ? 1 : (want > 4096 ? 4096 : want));
+}
+
+// ===========================================================================
+// quant_s8 'x' and 'g': one launch
+
+namespace quant {
+
+constexpr int kThreadsQ = 1024;
+constexpr int kScales = 32;         // per-sample scales a block caches
+constexpr int kModeX = 0, kModeG = 1;
+constexpr int kReduce = 1, kQuant = 2, kBoth = 3;
+
+struct Params {
+  const void* x;          // rows [rows][w] of T
+  const float* scale_in;  // 'g': the per-sample scale of the conv's input
+  int8_t* q;              // 'x': rows of copies * wph bytes; 'g': qgt
+  float* scale_out;       // 'x': scale [n]; 'g': alpha [alpha_len]
+  unsigned* slots;        // amax bits ('x': one a sample; 'g': slot 0)
+  unsigned* bar;          // [0] barrier arrivals, [1] blocks done
+  int rows, w;            // input rows and their length
+  int copies, wph;        // output row: byte v * wph + j = column j * s + v - pl
+  int s, pl;
+  int rps;                // input rows a sample ('g': co * hok)
+  int n;                  // samples
+  int mode, phase;        // kModeX / kModeG; kReduce, kQuant or kBoth
+  int hok;               // rows a plane ('x' copy-major: Hk; 'g': Hok)
+  long long kps, kp;     // 'g': input row (n, co, oh) -> qgt row co (kp
+                          // bytes), column n * kps + oh * wph; zero past
+                          // hok rows of each sample's kps
+  int cmaj;               // 'x': copy v of row (nc, h) at ((nc * copies +
+                          // v) * hok + h) * wph, else at row * copies * wph
+  int alpha_len;
+  int chunk_rows;         // block b's rows: [b * chunk_rows, + chunk_rows)
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every block of the grid (co-resident by the launch's occupancy check)
+// arrives; returns once `target` arrivals are counted. A wait that sees
+// no progress for hopper::kStallClocks traps instead of hanging the card.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    if (ld_acquire(bar) < target) {
+      const long long t0 = clock64();
+      while (ld_acquire(bar) < target) {
+        __nanosleep(100);
+        if (clock64() - t0 > hopper::kStallClocks) __trap();
       }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The block's max of `v` into *slot (atomicMax on the bits).
+__device__ __forceinline__ void block_max_to(float v, unsigned* slot,
+                                             float* part) {
+  v = warp_max(v);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) part[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    v = warp_max(part[lane]);
+    if (lane == 0) atomicMax(slot, __float_as_uint(v));
+  }
+  __syncthreads();
+}
+
+// 16 consecutive elements of a row as floats, from 16-byte aligned
+// memory (shared or global).
+template <class T>
+__device__ __forceinline__ void load16(const T* src, float (&f)[16]) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int k = 0; k < 16 / V; ++k) {
+    alignas(16) T v[V];
+    *reinterpret_cast<uint4*>(v) = reinterpret_cast<const uint4*>(src)[k];
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[k * V + j] = to_f32(v[j]);
+  }
+}
+
+// Rows [ra, rb): |x| (|f32(g) * scale[n]| for 'g') reduced per sample into
+// the slots, from `src` (the chunk's rows), 16-byte loads where VEC.
+template <class T, bool VEC>
+__device__ void reduce_rows(const Params& p, int ra, int rb, const T* src,
+                            float* part) {
+  constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+  const long long base = static_cast<long long>(ra) * p.w;
+  for (int r = ra; r < rb;) {
+    const int n = r / p.rps;
+    const int re = min(rb, (n + 1) * p.rps);
+    const float s = p.mode == kModeG ? __ldg(p.scale_in + n) : 1.0f;
+    const long long e1 = static_cast<long long>(re) * p.w - base;
+    float m = 0.0f;
+#pragma unroll 4
+    for (long long e = static_cast<long long>(r) * p.w - base +
+                       threadIdx.x * V;
+         e < e1; e += kThreadsQ * V) {
+      alignas(16) T v[V];
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src + e);
+      } else {
+        v[0] = src[e];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float f = to_f32(v[j]);
+        m = absmax(m, p.mode == kModeG ? fabsf(f * s) : fabsf(f));
+      }
+    }
+    block_max_to(m, p.slots + (p.mode == kModeX ? n : 0), part);
+    r = re;
+  }
+}
+
+// Rows [ra, rb) quantized into the output layout from `src` (their rows),
+// 16 output bytes a thread
+// (VEC) or one. CONTIG (one copy, stride 1, no left padding, rows of a
+// multiple of 16 bytes): a unit's 16 columns are consecutive and 16-byte
+// aligned, read as vectors. `sc` caches the scales of samples n0 .. n0 +
+// cached - 1 ('x') or sg in sc[0] ('g'). MUL multiplies by the scale's
+// reciprocal instead of dividing: not JAX's bits, for timing the division
+// alone (`ursonet_actq_quant`'s `timing_mul`), never on the path.
+template <class T, bool VEC, bool CONTIG, bool MUL>
+__device__ void quant_rows(const Params& p, int ra, int rb, const T* src,
+                           const float* sc, int n0, int cached) {
+  const int P = p.copies * p.wph;
+  const int U = VEC ? P / 16 : P;
+  const int units = (rb - ra) * U;
+  for (int u = threadIdx.x; u < units; u += kThreadsQ) {
+    const int rl = u / U;
+    const int b0 = (u - rl * U) * (VEC ? 16 : 1);
+    const int r = ra + rl;
+    const T* row = src + static_cast<long long>(rl) * p.w;
+    const int n = r / p.rps;
+    float scale, gs = 1.0f;
+    long long out;
+    const int cv = b0 / p.wph, j0 = b0 - cv * p.wph;
+    if (p.mode == kModeX) {
+      scale = n - n0 < cached ? sc[n - n0] : x_scale<T>(__ldcg(p.slots + n));
+      if (p.cmaj) {
+        const int nc = r / p.hok, h = r - nc * p.hok;
+        out = ((static_cast<long long>(nc) * p.copies + cv) * p.hok + h) *
+                  p.wph - b0 + j0;
+      } else {
+        out = static_cast<long long>(r) * P;
+      }
+    } else {
+      scale = sc[0];
+      gs = __ldg(p.scale_in + n);
+      const int rem = r - n * p.rps, co = rem / p.hok, oh = rem - co * p.hok;
+      out = co * p.kp + n * p.kps + static_cast<long long>(oh) * p.wph;
+    }
+    if constexpr (MUL) scale = __frcp_rn(scale);
+    const int w0 = j0 * p.s + cv - p.pl;   // the column of byte b0
+    if constexpr (VEC) {
+      alignas(16) int8_t o[16];
+      if (CONTIG && w0 + 16 <= p.w) {
+        float f[16];
+        load16<T>(row + w0, f);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          o[i] = quantize_as<MUL>(p.mode == kModeG ? f[i] * gs : f[i], scale);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int w = w0 + i * p.s;
+          int8_t v = 0;
+          if (w >= 0 && w < p.w) {
+            const float f = to_f32(row[w]);
+            v = quantize_as<MUL>(p.mode == kModeG ? f * gs : f, scale);
+          }
+          o[i] = v;
+        }
+      }
+      *reinterpret_cast<uint4*>(p.q + out + b0) =
+          *reinterpret_cast<const uint4*>(o);
+    } else {
+      int8_t v = 0;
+      if (w0 >= 0 && w0 < p.w) {
+        const float f = to_f32(row[w0]);
+        v = quantize_as<MUL>(p.mode == kModeG ? f * gs : f, scale);
+      }
+      p.q[out + b0] = v;
+    }
+  }
+  if (p.mode == kModeG) {
+    // the zero tail of each sample's kps bytes (and of the qgt row after
+    // the last sample), from the block that holds the plane's last row
+    for (int r = ra + threadIdx.x; r < rb; r += kThreadsQ) {
+      const int n = r / p.rps;
+      const int rem = r - n * p.rps, co = rem / p.hok, oh = rem - co * p.hok;
+      if (oh != p.hok - 1) continue;
+      const long long row0 = co * p.kp;
+      const long long z0 = n * p.kps + static_cast<long long>(p.hok) * p.wph;
+      const long long z1 = n == p.n - 1 ? p.kp : (n + 1) * p.kps;
+      for (long long b = z0; b < z1; ++b) p.q[row0 + b] = 0;
     }
   }
 }
 
-// Mode 'g' quantize, written transposed: qgt[c, k] for k < kp, 16 bytes
-// (columns k0 .. k0 + 15 of one row) a thread. g is [N, Co, HW].
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-quant_g_kernel(const T* __restrict__ g, const float* __restrict__ scale,
-               const unsigned* __restrict__ amax, int n, int co, int hw,
-               int kp, int8_t* __restrict__ qgt, float* __restrict__ alpha,
-               int alpha_len) {
-  const float a = __uint_as_float(*amax);
-  const float sg = __fdiv_rn(a != a ? a : fmaxf(a, 1e-30f), 127.0f);
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (t < alpha_len) alpha[t] = sg;
-  const long long chunks = static_cast<long long>(co) * (kp / 16);
-  if (t >= chunks) return;
-  const int c = static_cast<int>(t / (kp / 16));
-  const int k0 = static_cast<int>(t % (kp / 16)) * 16;
-  const int kvalid = n * hw;
-  int s = k0 / hw, p = k0 % hw;
-  alignas(16) int8_t o[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    int8_t v = 0;
-    if (k0 + j < kvalid) {
-      const float G = to_f32(g[(static_cast<long long>(s) * co + c) * hw + p]) *
-                      scale[s];
-      v = quant(G, sg);
+template <class T, bool VEC, bool CONTIG, bool MUL>
+__global__ void __launch_bounds__(kThreadsQ, 1) quant_kernel(const Params p) {
+  __shared__ float part[kThreadsQ / 32];
+  __shared__ float sc[kScales];
+  __shared__ int last;
+  const int ra = min(p.rows, static_cast<int>(blockIdx.x) * p.chunk_rows);
+  const int rb = min(p.rows, ra + p.chunk_rows);
+  const T* src = static_cast<const T*>(p.x) + static_cast<long long>(ra) * p.w;
+  if (p.phase & kReduce) reduce_rows<T, VEC>(p, ra, rb, src, part);
+  if (p.phase == kBoth) grid_sync(p.bar, gridDim.x);
+  if (p.phase & kQuant) {
+    int n0 = 0, cached = 0;
+    if (p.mode == kModeX) {
+      if (rb > ra) {
+        n0 = ra / p.rps;
+        const int n1 = (rb - 1) / p.rps;
+        cached = n1 - n0 < kScales ? n1 - n0 + 1 : 0;
+        for (int i = threadIdx.x; i < cached; i += kThreadsQ)
+          sc[i] = x_scale<T>(__ldcg(p.slots + n0 + i));
+        // scale[n] from the block that holds sample n's first row
+        for (int n = (ra + p.rps - 1) / p.rps + threadIdx.x; n <= n1;
+             n += kThreadsQ)
+          p.scale_out[n] = x_scale<T>(__ldcg(p.slots + n));
+      }
+    } else {
+      if (threadIdx.x == 0) sc[0] = g_scale(__ldcg(p.slots));
+      __syncthreads();
+      if (blockIdx.x == 0)
+        for (int i = threadIdx.x; i < p.alpha_len; i += kThreadsQ)
+          p.scale_out[i] = sc[0];
     }
-    o[j] = v;
-    if (++p == hw) {
-      p = 0;
-      ++s;
+    __syncthreads();
+    quant_rows<T, VEC, CONTIG, MUL>(p, ra, rb, src, sc, n0, cached);
+  }
+  // the last block out leaves the workspace zero for the next call
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(p.bar + 1, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    if (p.phase & kQuant) {
+      const int slots = p.mode == kModeX ? p.n : 1;
+      for (int i = threadIdx.x; i < slots; i += kThreadsQ) p.slots[i] = 0;
+    }
+    if (threadIdx.x == 0) {
+      p.bar[0] = 0;
+      p.bar[1] = 0;
     }
   }
-  *reinterpret_cast<uint4*>(qgt + static_cast<long long>(c) * kp + k0) =
-      *reinterpret_cast<const uint4*>(o);
 }
+
+template <class T, bool VEC, bool CONTIG, bool MUL>
+int launch(const Params& p, int grid, cudaStream_t st) {
+  auto kernel = quant_kernel<T, VEC, CONTIG, MUL>;
+  // the grid barrier needs every block resident at once
+  cudaError_t err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreadsQ, 0)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (grid > sms * per_sm)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  kernel<<<grid, kThreadsQ, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vec: 0 one byte a thread, 1 16 bytes, 2 16 bytes from contiguous rows;
+// the timing variant (mul) only with 16-byte rows (vec > 0).
+template <class T>
+int launch_t(const Params& p, int vec, int mul, int grid, cudaStream_t st) {
+  if (vec == 2) {
+    return mul ? launch<T, true, true, true>(p, grid, st)
+               : launch<T, true, true, false>(p, grid, st);
+  }
+  if (vec == 1) {
+    return mul ? launch<T, true, false, true>(p, grid, st)
+               : launch<T, true, false, false>(p, grid, st);
+  }
+  return mul ? static_cast<int>(cudaErrorInvalidValue)
+             : launch<T, false, false, false>(p, grid, st);
+}
+
+}  // namespace quant
+
+// ===========================================================================
+// wgrad_s8's TMA route: implicit GEMM
+
+namespace wgrad {
+
+constexpr int kBM = 128;     // rows of a tile (Co): 64 a consumer warpgroup
+constexpr int kBK = 128;     // bytes of K a stage: one swizzle row
+constexpr int kThreadsW = 384;
+constexpr int kATile = kBM * kBK;
+
+// A tile of BN columns (128 or 256 channels of one tap): the ring's depth
+// and the dynamic shared memory of a launch.
+template <int BN>
+struct Shape {
+  static constexpr int kStages = BN == 256 ? 4 : 6;
+  static constexpr int kBTile = BN * kBK;
+  static constexpr int kStage = kATile + kBTile;
+  static constexpr int kSmem = 1024 + kStages * kStage + 256;
+};
+
+struct Params {
+  int co, ci, taps, kw, r;   // r = ci * taps: a row of dw
+  int s, pt;                 // stride, top padding
+  int cmaj;                  // q copy-major (stride 1): stage ks is one
+                             // box at byte (ks % spp) * 128 + (dy - pt) *
+                             // wph of sample ks / spp's plane
+  int spp, wph;
+  int hb, segs, wseg, hop;   // row-major: stage ks covers output rows
+                             // (ks / segs) * hb .. + hb - 1, columns
+                             // (ks % segs) * wseg ..
+  int cblocks, n_tiles, tiles, items, ksteps, kps, splits;
+                             // split j: stages [j * kps, min((j+1) * kps, ksteps))
+  const float* alpha;        // null: the int32 sums
+  void* out;                 // dw [co, r]
+  int* ws;                   // splits > 1: [splits][tiles][kBM][BN] partial sums
+  int* counters;             // splits > 1: [tiles][2], zero in and out
+};
+
+struct Item {
+  int tile, m0, c0, tap, k0, k1, dy, dx;
+};
+
+// item = split * tiles + tile: the blocks running together work on the
+// same stretch of K, so they share qgt's and q's bytes through L2.
+template <int BN>
+__device__ __forceinline__ Item decode(const Params& p, int item) {
+  Item it;
+  const int split = item / p.tiles;
+  it.tile = item - split * p.tiles;
+  const int mt = it.tile / p.n_tiles, nt = it.tile - mt * p.n_tiles;
+  it.tap = nt / p.cblocks;
+  const int cb = nt - it.tap * p.cblocks;
+  it.dy = it.tap / p.kw;
+  it.dx = it.tap - it.dy * p.kw;
+  it.m0 = mt * kBM;
+  it.c0 = cb * BN;
+  it.k0 = split * p.kps;
+  it.k1 = min(it.k0 + p.kps, p.ksteps);
+  return it;
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Matrix descriptor of a K-major operand tile whose rows are `wseg` bytes
+// (128, 64 or 32) in the swizzle of that width, as TMA writes it: start
+// address >> 4, leading byte offset 1 (unused), 8-row groups 8 * wseg
+// bytes apart, layout type 1 (128-byte), 2 (64-byte) or 3 (32-byte).
+__device__ __forceinline__ uint64_t desc_sw(uint32_t saddr, int wseg) {
+  const uint64_t layout = wseg == 128 ? 1 : (wseg == 64 ? 2 : 3);
+  return static_cast<uint64_t>((saddr & 0x3ffffu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * wseg) >> 4) << 32) | (layout << 62);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreadsW, 1)
+wgrad_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b, const Params p) {
+  using namespace hopper;
+  using S = Shape<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + S::kStages * S::kStage);
+  const uint32_t full = smem_u32(bars), empty = full + 8 * S::kStages;
+  volatile int* last = reinterpret_cast<volatile int*>(bars + 2 * S::kStages);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);   // one per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {
+    // ============================ loader ============================
+    if (threadIdx.x != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const Item it = decode<BN>(p, item);
+      for (int ks = it.k0; ks < it.k1; ++ks) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t dst = smem_u32(sm) + stage * S::kStage;
+        mbar_arrive_expect_tx(full + 8 * stage, S::kStage);
+        tma_load_2d(dst, &map_a, full + 8 * stage, ks * kBK, it.m0);
+        if (p.cmaj) {
+          // 128 bytes of the tap's copy plane: rows of wph bytes, the
+          // stage's first output row shifted by dy - pt rows
+          const int n = ks / p.spp, koff = (ks - n * p.spp) * kBK;
+          tma_load_4d(dst + kATile, &map_b, full + 8 * stage,
+                      koff + (it.dy - p.pt) * p.wph, it.dx, it.c0, n);
+        } else {
+          const int rowg = ks / p.segs, seg = ks - rowg * p.segs;
+          const int orow = rowg * p.hb;          // n * hop + oh of its top
+          const int n = orow / p.hop, oh = orow - n * p.hop;
+          // one box a output row: BN channels x wseg bytes, in the
+          // swizzle of wseg-byte rows, region i of the B tile
+          for (int i = 0; i < p.hb; ++i)
+            tma_load_5d(dst + kATile + i * (BN * p.wseg), &map_b,
+                        full + 8 * stage, seg * p.wseg, it.dx,
+                        (oh + i) * p.s + it.dy - p.pt, it.c0, n);
+        }
+        if (++stage == S::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ========================== consumers ===========================
+  const int c = wg - 1, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  // k32 step kk of a stage: bytes 32 kk .. of K lie in region 32 kk / wseg
+  // of the B tile, at byte 32 kk % wseg of its rows
+  uint32_t boff[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    boff[kk] = (32 * kk / p.wseg) * (BN * p.wseg) + (32 * kk) % p.wseg;
+  int acc[BN / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+    const Item it = decode<BN>(p, item);
+    int prev = -1;
+    for (int ks = it.k0; ks < it.k1; ++ks) {
+      mbar_wait(full + 8 * stage, phase);
+      __syncwarp();
+      const uint32_t a = smem_u32(sm) + stage * S::kStage + c * (64 * kBK);
+      const uint32_t b = smem_u32(sm) + stage * S::kStage + kATile;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_s8<BN>(acc, wgmma_desc_sw128(a + 32 * kk),
+                     desc_sw(b + boff[kk], p.wseg),
+                     (ks != it.k0 || kk != 0) ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+      prev = stage;
+      if (++stage == S::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_registers(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+    // thread (warp, lane) holds rows rl, rl + 8 and columns 8j + q2, + 1
+    const int rl = 64 * c + warp * 16 + (lane >> 2), q2 = (lane & 3) * 2;
+    if (p.splits > 1) {
+      // this part's sums into its own slot; the last part of the tile
+      // half to arrive adds the slots in split order
+      const long long tile_ints = static_cast<long long>(kBM) * BN;
+      const int split = item / p.tiles;
+      int* slot = p.ws + (static_cast<long long>(split) * p.tiles + it.tile) *
+                             tile_ints;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          __stcg(reinterpret_cast<int2*>(slot + (rl + 8 * h) * BN + 8 * j +
+                                         q2),
+                 make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+      __threadfence();
+      named_barrier(1 + c, 128);
+      if (tid == 0)
+        last[c] = atomicAdd(p.counters + 2 * it.tile + c, 1) == p.splits - 1;
+      named_barrier(1 + c, 128);
+      if (!last[c]) continue;
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      for (int sp = 0; sp < p.splits; ++sp) {
+        const int* ps = p.ws + (static_cast<long long>(sp) * p.tiles +
+                                it.tile) * tile_ints;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int2 v = __ldcg(reinterpret_cast<const int2*>(
+                ps + (rl + 8 * h) * BN + 8 * j + q2));
+            acc[4 * j + 2 * h] += v.x;
+            acc[4 * j + 2 * h + 1] += v.y;
+          }
+      }
+      if (tid == 0) p.counters[2 * it.tile + c] = 0;
+    }
+    // the epilogue, into dw's [co][ci][tap] layout
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = it.m0 + rl + 8 * h;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ci = it.c0 + 8 * j + q2 + e;
+          if (row >= p.co || ci >= p.ci) continue;
+          const int col = ci * p.taps + it.tap;
+          const long long o = static_cast<long long>(row) * p.r + col;
+          const int v = acc[4 * j + 2 * h + e];
+          if (p.alpha != nullptr) {
+            static_cast<float*>(p.out)[o] =
+                __fmul_rn(__int2float_rn(v), __ldg(p.alpha + col));
+          } else {
+            static_cast<int*>(p.out)[o] = v;
+          }
+        }
+      }
+  }
+}
+
+// The box map over q. Row-major (stride > 1): dims (wph, kw copies, hk, c,
+// n), box (wseg, 1, 1, bn, 1) in the swizzle of wseg-byte rows: it lands
+// as bn rows of wseg bytes, the layout desc_sw reads. Copy-major (cmaj):
+// dims (hk * wph, kw copies, c, n), box (128, 1, bn, 1), 128-byte swizzle.
+bool make_patch_map(CUtensorMap* map, const void* q, int n, int c, int hk,
+                    int copies, int wph, int wseg, int cmaj, int bn) {
+  const hopper::EncodeTiledFn fn = hopper::encode_tiled_fn();
+  if (fn == nullptr) return false;
+  if (cmaj) {
+    const uint64_t plane = static_cast<uint64_t>(hk) * wph;
+    const cuuint64_t dims[4] = {plane, static_cast<cuuint64_t>(copies),
+                                static_cast<cuuint64_t>(c),
+                                static_cast<cuuint64_t>(n)};
+    const cuuint64_t strides[3] = {plane, plane * copies,
+                                   plane * copies * c};
+    const cuuint32_t box[4] = {kBK, 1, static_cast<cuuint32_t>(bn), 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(q),
+              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
+  const uint64_t row = static_cast<uint64_t>(copies) * wph;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(wph),
+                              static_cast<cuuint64_t>(copies),
+                              static_cast<cuuint64_t>(hk),
+                              static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(wph), row, row * hk,
+                                 row * hk * c};
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(wseg), 1, 1,
+                             static_cast<cuuint32_t>(bn), 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = wseg == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : wseg == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 5, const_cast<void*>(q), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
+           const Params& p, int grid, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_tma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Shape<BN>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wgrad_tma_kernel<BN><<<grid, kThreadsW, Shape<BN>::kSmem, st>>>(map_a,
+                                                                 map_b, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgrad
+
+// ===========================================================================
+// 'dequant' and the gather route
 
 // Mode 'dequant': out = T(q) * T(scale[n]) in T. grid (blocks per
 // sample, N), V elements a thread (V == 8 where per % 8 == 0).
@@ -248,8 +829,8 @@ dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
   }
 }
 
-// The gather of wgrad_s8: P [C * KH * KW, kp] from q [N, C, H, W], 16
-// bytes a thread.
+// The gather of wgrad_s8's gather route: P [C * KH * KW, kp] from q [N,
+// C, H, W], 16 bytes a thread.
 __global__ void __launch_bounds__(kThreads)
 im2col_kernel(const int8_t* __restrict__ q, int n, int c, int h, int w,
               int kh, int kw, int stride, int pt, int pl, int ho, int wo,
@@ -287,109 +868,74 @@ im2col_kernel(const int8_t* __restrict__ q, int n, int c, int h, int w,
       *reinterpret_cast<const uint4*>(o);
 }
 
-// Blocks a sample for `per` elements at V a thread: four passes of the
-// block's threads each, at most 4096 (the grid-stride loop takes the
-// rest).
-unsigned blocks_per_sample(long long per, int v) {
-  const long long want = (per + static_cast<long long>(kThreads) * v * 4 - 1) /
-                         (static_cast<long long>(kThreads) * v * 4);
-  return static_cast<unsigned>(want < 1 ? 1 : (want > 4096 ? 4096 : want));
-}
-
-unsigned blocks_for(long long threads) {
-  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-}
-
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
-template <class T>
-int launch_amax(const void* x, const float* scale, int n, long long per,
-                unsigned* amax, int per_sample, cudaStream_t st) {
-  constexpr int V = 16 / sizeof(T);
-  const T* xt = static_cast<const T*>(x);
-  if (per % V == 0 && aligned16(x)) {
-    amax_kernel<T, V><<<dim3(blocks_per_sample(per, V), n), kThreads, 0,
-                        st>>>(xt, scale, per, amax, per_sample);
-  } else {
-    amax_kernel<T, 1><<<dim3(blocks_per_sample(per, 1), n), kThreads, 0,
-                        st>>>(xt, scale, per, amax, per_sample);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class T>
-int launch_quant_x(const void* x, const unsigned* amax, int n, long long per,
-                   int8_t* q, float* scale, cudaStream_t st) {
-  constexpr int V = 16 / sizeof(T);
-  const T* xt = static_cast<const T*>(x);
-  if (per % V == 0 && aligned16(x) && aligned16(q)) {
-    quant_x_kernel<T, V><<<dim3(blocks_per_sample(per, V), n), kThreads, 0,
-                           st>>>(xt, amax, per, q, scale);
-  } else {
-    quant_x_kernel<T, 1><<<dim3(blocks_per_sample(per, 1), n), kThreads, 0,
-                           st>>>(xt, amax, per, q, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Every entry point launches on `stream` and returns cudaGetLastError()
 // after its launch (cudaErrorInvalidValue for arguments it does not take).
 
-extern "C" int ursonet_actq_amax(const void* x, int dtype, const float* scale,
-                                 int n, long long per, unsigned* amax,
-                                 int per_sample, void* stream) {
-  if (n <= 0 || n > 65535 || per <= 0 || (!per_sample && scale == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+// quant_s8 'x' (mode 0) and 'g' (mode 1), phase 3 (one launch), or 1 / 2
+// (the reduction alone, the quantize alone: 'g' under a data-parallel
+// group, the all-reduce of slot 0 between). The schedule (vec, grid,
+// chunk_rows) is actq_cuda.quant_plan's. timing_mul 1 multiplies by the
+// scale's reciprocal instead of dividing (other bits than JAX's: the
+// probe's timing of the division alone); the path passes 0.
+extern "C" int ursonet_actq_quant(
+    const void* x, int dtype, int mode, int phase, const float* scale_in,
+    int8_t* q, float* scale_out, unsigned* slots, unsigned* bar, int rows,
+    int w, int copies, int wph, int s, int pl, int rps, int n, int hok,
+    long long kps, long long kp, int cmaj, int alpha_len, int vec,
+    int timing_mul, int grid, int chunk_rows, void* stream) {
+  const int esize = dtype == kDtypeF32 ? 4 : 2;
+  const bool ok =
+      (dtype == kDtypeF32 || dtype == kDtypeBf16) &&
+      (mode == quant::kModeX || mode == quant::kModeG) && phase >= 1 &&
+      phase <= 3 && rows > 0 && w > 0 && copies > 0 && wph > 0 && s > 0 &&
+      pl >= 0 && rps > 0 && n > 0 &&
+      static_cast<long long>(rps) * n == rows && grid > 0 &&
+      chunk_rows > 0 && static_cast<long long>(grid) * chunk_rows >= rows &&
+      (mode == quant::kModeX ? scale_out != nullptr
+                             : (scale_in != nullptr && hok > 0 && !cmaj &&
+                                kps >= static_cast<long long>(hok) * wph &&
+                                rps % hok == 0 && alpha_len >= 0 &&
+                                (alpha_len == 0 || scale_out != nullptr) &&
+                                kp >= n * kps &&
+                                copies == 1 && s == 1 && pl == 0)) &&
+      (!cmaj || (mode == quant::kModeX && hok > 0 && rps % hok == 0)) &&
+      (!timing_mul || vec) &&
+      (vec != 2 || (copies == 1 && s == 1 && pl == 0 &&
+                    (static_cast<long long>(w) * esize) % 16 == 0)) &&
+      (!vec || (aligned16(x) && aligned16(q) && wph % 16 == 0 &&
+                kp % 16 == 0 &&
+                (static_cast<long long>(rps) * w) % (16 / esize) == 0 &&
+                (static_cast<long long>(chunk_rows) * w) % (16 / esize) == 0));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  quant::Params p;
+  p.x = x;
+  p.scale_in = scale_in;
+  p.q = q;
+  p.scale_out = scale_out;
+  p.slots = slots;
+  p.bar = bar;
+  p.rows = rows;
+  p.w = w;
+  p.copies = copies;
+  p.wph = wph;
+  p.s = s;
+  p.pl = pl;
+  p.rps = rps;
+  p.n = n;
+  p.mode = mode;
+  p.phase = phase;
+  p.hok = hok > 0 ? hok : 1;
+  p.kps = kps;
+  p.cmaj = cmaj;
+  p.kp = kp;
+  p.alpha_len = alpha_len;
+  p.chunk_rows = chunk_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kDtypeF32)
-    return launch_amax<float>(x, scale, n, per, amax, per_sample, st);
-  if (dtype == kDtypeBf16)
-    return launch_amax<__nv_bfloat16>(x, scale, n, per, amax, per_sample, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int ursonet_actq_quant_x(const void* x, int dtype,
-                                    const unsigned* amax, int n,
-                                    long long per, int8_t* q, float* scale,
-                                    void* stream) {
-  if (n <= 0 || n > 65535 || per <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kDtypeF32)
-    return launch_quant_x<float>(x, amax, n, per, q, scale, st);
-  if (dtype == kDtypeBf16)
-    return launch_quant_x<__nv_bfloat16>(x, amax, n, per, q, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int ursonet_actq_quant_g(const void* g, int dtype,
-                                    const float* scale, const unsigned* amax,
-                                    int n, int co, int hw, int kp,
-                                    int8_t* qgt, float* alpha, int alpha_len,
-                                    void* stream) {
-  if (n <= 0 || co <= 0 || hw <= 0 || kp <= 0 || kp % 16 != 0 ||
-      static_cast<long long>(n) * hw > kp || alpha_len < 0 ||
-      !aligned16(qgt))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long chunks = static_cast<long long>(co) * (kp / 16);
-  if (chunks < alpha_len) chunks = alpha_len;
-  if (dtype == kDtypeF32) {
-    quant_g_kernel<float><<<blocks_for(chunks), kThreads, 0, st>>>(
-        static_cast<const float*>(g), scale, amax, n, co, hw, kp, qgt, alpha,
-        alpha_len);
-  } else if (dtype == kDtypeBf16) {
-    quant_g_kernel<__nv_bfloat16><<<blocks_for(chunks), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(g), scale, amax, n, co, hw, kp, qgt,
-        alpha, alpha_len);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dtype == kDtypeF32
+             ? quant::launch_t<float>(p, vec, timing_mul, grid, st)
+             : quant::launch_t<__nv_bfloat16>(p, vec, timing_mul, grid, st);
 }
 
 extern "C" int ursonet_actq_dequant(const int8_t* q, const float* scale,
@@ -437,6 +983,75 @@ extern "C" int ursonet_actq_im2col(const int8_t* q, int n, int c, int h,
                   static_cast<cudaStream_t>(stream)>>>(
       q, n, c, h, w, kh, kw, stride, pt, pl, ho, wo, kp, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// wgrad_s8's TMA route. q in the layout [n][ci][hk][kw copies][wph]
+// (row-major) or [n][ci][kw copies][hk][wph] (cmaj, stride 1); qgt
+// [co][kp], kp = n * ksample, output row oh of sample n at n * ksample +
+// oh * wst (row-major: wst = wop, ksample = hop * wop); the tile walk
+// (splits, grid) is actq_cuda.wgrad_tiles'. out: f32 dw [co][ci * kh *
+// kw] with alpha, else int32.
+extern "C" int ursonet_actq_wgrad_tma(
+    const int8_t* q, const int8_t* qgt, const float* alpha, void* out,
+    int* ws, int* counters, int n, int ci, int hk, int copies, int wph,
+    int co, int kh, int kw, int s, int pt, int cmaj, int wst,
+    long long ksample, long long kp, int bn, int splits, int grid,
+    void* stream) {
+  using namespace wgrad;
+  const int wop = wst;
+  const int wseg = cmaj ? kBK : (wop < kBK ? wop : kBK);
+  const int hb = kBK / (wseg > 0 ? wseg : 1);
+  const long long hop = cmaj ? 0 : ksample / (wop > 0 ? wop : 1);
+  const long long ksteps = kp / kBK;
+  const long long kps = (ksteps + splits - 1) / (splits > 0 ? splits : 1);
+  const int cblocks = (ci + bn - 1) / (bn > 0 ? bn : 1);
+  const long long tiles =
+      static_cast<long long>((co + kBM - 1) / kBM) * kh * kw * cblocks;
+  const bool ok =
+      n > 0 && ci > 0 && hk > 0 && co > 0 && kh > 0 && kw > 0 && s >= 1 &&
+      copies == kw && wph > 0 && wph % 16 == 0 && ksample > 0 &&
+      ksample % kBK == 0 && kp == n * ksample && ksteps < (1LL << 30) &&
+      (cmaj ? (s == 1 && wst == wph)
+            : ((wop == 32 || wop == 64 || (wop > 0 && wop % kBK == 0)) &&
+               hop > 0 && hop % hb == 0 && hop * wop == ksample)) &&
+      (bn == 128 || bn == 256) &&
+      splits >= 1 && (splits - 1) * kps < ksteps && grid >= 1 &&
+      tiles * splits < (1LL << 30) && aligned16(q) && aligned16(qgt) &&
+      (splits == 1 || (ws != nullptr && counters != nullptr));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_b;
+  if (!hopper::make_byte_map(&map_a, qgt, kp, co, kp, kBK, kBM) ||
+      !make_patch_map(&map_b, q, n, ci, hk, copies, wph, wseg, cmaj, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.co = co;
+  p.ci = ci;
+  p.taps = kh * kw;
+  p.kw = kw;
+  p.r = ci * kh * kw;
+  p.s = s;
+  p.pt = pt;
+  p.cmaj = cmaj;
+  p.spp = static_cast<int>(ksample / kBK);
+  p.wph = wph;
+  p.hb = hb;
+  p.segs = cmaj ? 1 : wop / wseg;
+  p.wseg = wseg;
+  p.hop = static_cast<int>(hop);
+  p.cblocks = cblocks;
+  p.n_tiles = kh * kw * cblocks;
+  p.tiles = static_cast<int>(tiles);
+  p.items = static_cast<int>(tiles * splits);
+  p.ksteps = static_cast<int>(ksteps);
+  p.kps = static_cast<int>(kps);
+  p.splits = splits;
+  p.alpha = alpha;
+  p.out = out;
+  p.ws = ws;
+  p.counters = counters;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bn == 256 ? launch<256>(map_a, map_b, p, grid, st)
+                   : launch<128>(map_a, map_b, p, grid, st);
 }
 
 extern "C" const char* ursonet_actq_error_string(int code) {

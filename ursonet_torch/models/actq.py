@@ -19,7 +19,9 @@ the counterpart of `ursonet_tpu/models/actq.py` (`conv_q8saved`,
     (`wgrad_s8`), times sg, in the compute type. Where the contraction's
     worst case could pass int32 (N * Ho * Wo > INT32_SAFE_ACC, N the
     global batch), the dequant route of mode True runs instead: JAX's
-    shape branch, decided from the shapes before any launch.
+    shape branch, decided from the shapes in the forward, which then
+    saves q in the layout its backward reads (`actq_cuda.wgrad_plan`:
+    rows padded for TMA on the 'tma' route, plain NCHW otherwise).
 
 Under a mesh whose 'data' axis splits (`data_group`, set by
 `parallel/sharding.py::shard_model`), the g-scale is the global batch's
@@ -75,10 +77,20 @@ class ConvQ8Fn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, stride, padding, mode, group, data_size):
         y = torch.nn.functional.conv2d(x, w, b, stride, padding)
-        q, scale = actq_cuda.quant_s8(x.contiguous(), 'x')
+        # the int8 route of 'wgrad8' (JAX's int32 guard on the global
+        # batch) saves q in the layout its weight-gradient kernel reads
+        n, ho, wo = y.shape[0], y.shape[2], y.shape[3]
+        plan = None
+        if mode == 'wgrad8' and ctx.needs_input_grad[1] \
+                and n * data_size * ho * wo <= actq_cuda.INT32_SAFE_ACC:
+            plan = actq_cuda.wgrad_plan(tuple(x.shape), w.shape[0],
+                                        tuple(w.shape[2:]), stride[0],
+                                        _pads(padding))
+        q, scale = actq_cuda.quant_s8(x.contiguous(), 'x', plan=plan)
         ctx.save_for_backward(q, scale, w)
         ctx.stride, ctx.padding = list(stride), list(padding)
-        ctx.mode, ctx.group, ctx.data_size = mode, group, data_size
+        ctx.mode, ctx.group, ctx.plan = mode, group, plan
+        ctx.x_shape = x.shape       # q's own shape may be its plan's layout
         ctx.has_bias = b is not None
         return y
 
@@ -86,17 +98,17 @@ class ConvQ8Fn(torch.autograd.Function):
     def backward(ctx, g):
         q, scale, w = ctx.saved_tensors
         g = g.contiguous()
-        dx, db = _dx_db(ctx, g, w, q.shape)
+        dx, db = _dx_db(ctx, g, w, ctx.x_shape)
         dw = None
+        plan = ctx.plan
         if ctx.needs_input_grad[1]:
-            n, ho, wo = g.shape[0], g.shape[2], g.shape[3]
-            if ctx.mode == 'wgrad8' and n * ctx.data_size * ho * wo \
-                    <= actq_cuda.INT32_SAFE_ACC:
+            if plan is not None:
                 co, ci, kh, kw = w.shape
                 qgt, alpha = actq_cuda.quant_s8(
-                    g, 'g', scale, group=ctx.group, alpha_len=ci * kh * kw)
+                    g, 'g', scale, group=ctx.group, alpha_len=ci * kh * kw,
+                    plan=plan)
                 dw = actq_cuda.wgrad_s8(q, qgt, (kh, kw), ctx.stride[0],
-                                        _pads(ctx.padding), alpha)
+                                        _pads(ctx.padding), alpha, plan=plan)
                 dw = dw.to(w.dtype)
             else:
                 dw = _dw_dequant(ctx, g, q, scale, w)

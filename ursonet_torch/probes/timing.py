@@ -61,6 +61,36 @@ def sm_clock_mhz(fn, ms: float, device: torch.device,
     return float(out)
 
 
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one fn() call, apart from the host's pace: n calls
+    captured in a CUDA graph (after 2 warm-up calls on a side stream),
+    the graph replayed `reps` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def record(results: list, **row) -> dict:
     """Print one JSON line and keep the row."""
     print(json.dumps(row), flush=True)

@@ -41,12 +41,22 @@ The factors were fitted on the peaks above, so those peaks can show only
 drift; `chip_smoke.py` phase 4 also holds the flagship's step at half
 its batch (16), which no factor was fitted on, to ±25% of its peak.
 
+TRAIN_ACT_Q8 (True or 'wgrad8') is not in the structure or the factors:
+`actq_saved_gb` adds, on top of the calibrated figure, the int8 copy of
+every backbone conv's input that the backward keeps (the eager step
+keeps the float inputs too, for the BN and ReLU backward) and, under
+'wgrad8', what the int8 weight-gradient route's layout adds to those
+copies (q as KW column copies of padded rows, `actq_cuda.wgrad_plan`).
+`chip_smoke.py` phase 8g prints it beside each mode's measured peak.
+
 `check_train_memory` warns when the calibrated figure passes 60% of the
 card's memory (`torch.cuda.get_device_properties(dev).total_memory`);
 on the CPU there is no device memory to compare with.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -146,8 +156,78 @@ def eager_mode(config) -> str:
 
 def calibrated_train_gb(config) -> float:
     """The structural estimate times the eager step's factor for the
-    config's mode: the expected peak (GB) of one eager train step."""
-    return EAGER_FACTORS[eager_mode(config)] * estimate_train_hbm_gb(config)
+    config's mode, plus TRAIN_ACT_Q8's saved copies (`actq_saved_gb`):
+    the expected peak (GB) of one eager train step."""
+    return EAGER_FACTORS[eager_mode(config)] * estimate_train_hbm_gb(config) \
+        + actq_saved_gb(config)
+
+
+def _ceil_half(v: int, s: int) -> int:
+    return -(-v // s)
+
+
+def backbone_convs(config) -> list:
+    """(N, Ci, H, W, Co, k, stride, pad) of every backbone conv of a train
+    step, in the model's order (`models/resnet.py`), N the global batch:
+    the convs that TRAIN_ACT_Q8 quantizes the input of, one 'x' call
+    each. The s2d stem reads the image's elements as the 7x7/2 stem does
+    and is counted as it."""
+    from ursonet_torch.models.resnet import (SHALLOW_REPS, STAGE4_BLOCKS,
+                                             scale_inner)
+    n = int(config.BATCH_SIZE)
+    h, w = int(config.IMAGE_SHAPE[0]), int(config.IMAGE_SHAPE[1])
+    convs = [(n, 3, h, w, 64, 7, 2, 3)]
+    h, w = _ceil_half(_ceil_half(h, 2), 2), _ceil_half(_ceil_half(w, 2), 2)
+    cin = 64
+    arch = config.BACKBONE
+    if arch in STAGE4_BLOCKS:
+        mult = getattr(config, 'INNER_WIDTH_MULT', 1.0)
+        reps = (3, 4, STAGE4_BLOCKS[arch] + 1, 3)
+        for stage, (f, nb) in enumerate(zip((64, 128, 256, 512), reps)):
+            f1, f3 = scale_inner(f, mult), 4 * f
+            for b in range(nb):
+                s = 2 if b == 0 and stage > 0 else 1
+                ho, wo = _ceil_half(h, s), _ceil_half(w, s)
+                convs += [(n, cin, h, w, f1, 1, s, 0),
+                          (n, f1, ho, wo, f1, 3, 1, 1),
+                          (n, f1, ho, wo, f3, 1, 1, 0)]
+                if b == 0:          # the shortcut runs after the branch
+                    convs.append((n, cin, h, w, f3, 1, s, 0))
+                h, w, cin = ho, wo, f3
+        return convs
+    for stage, nb in enumerate(SHALLOW_REPS[arch]):
+        f = 64 * 2 ** stage
+        for b in range(nb):
+            s = 2 if b == 0 and stage > 0 else 1
+            ho, wo = _ceil_half(h, s), _ceil_half(w, s)
+            if b == 0:
+                convs.append((n, cin, h, w, f, 1, s, 0))
+            convs += [(n, cin, h, w, f, 3, s, 1), (n, f, ho, wo, f, 3, 1, 1)]
+            h, w, cin = ho, wo, f
+    return convs
+
+
+def actq_saved_gb(config) -> float:
+    """What TRAIN_ACT_Q8 adds to a step's peak (GB): one byte an element
+    of every backbone conv's input (the int8 copy its backward keeps)
+    and, under 'wgrad8', the bytes that the int8 route's layout adds to
+    the copies of the convs under the int32 guard (`actq_cuda.wgrad_plan`:
+    KW column copies of rows padded to 16 bytes). 0 without
+    TRAIN_ACT_Q8."""
+    mode = getattr(config, 'TRAIN_ACT_Q8', False)
+    if not mode:
+        return 0.0
+    from ursonet_torch.ops import actq_cuda
+    total = 0
+    for n, ci, h, w, co, k, s, p in backbone_convs(config):
+        plain = n * ci * h * w
+        total += plain
+        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        if mode == 'wgrad8' and n * ho * wo <= actq_cuda.INT32_SAFE_ACC:
+            plan = actq_cuda.wgrad_plan((n, ci, h, w), co, (k, k), s,
+                                        ((p, p), (p, p)))
+            total += math.prod(plan.q_shape) - plain
+    return total / 1e9
 
 
 def calibration_gap(config):
