@@ -4696,7 +4696,13 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
                'modes': Counter()}
            for k in ('quant_s8', 'wgrad_s8')}
     out['wgrad_s8']['ragged_ms'] = 0.0
-    out['quant_s8']['by_mode_ms'] = Counter()
+    for k in ('by_mode_ms', 'by_mode_plain_ms', 'by_mode_bytes'):
+        out['quant_s8'][k] = Counter()
+    # 'dequant' apart: its own kernel, bound and library call
+    dq = out['quant_s8']['dequant'] = {
+        'launches': 0, 'distinct': 0, 'ms': 0.0, 'host_ms': 0.0,
+        'plain_ms': 0.0, 'library_ms': 0.0, 'library_differs': [],
+        'bytes': 0}
     group, cleanup = _actq_world(dev)
     cuda = dev.type == 'cuda'
     try:
@@ -4727,6 +4733,12 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
                     ops['q'], rqgt, *geo, plan=rplan), want, 'ragged ')
             else:
                 row['modes'][args['mode']] += c
+                row['by_mode_bytes'][args['mode']] += c * actq_bytes(
+                    name, args)
+                if args['mode'] == 'dequant':
+                    dq['launches'] += c
+                    dq['distinct'] += 1
+                    dq['bytes'] += c * actq_bytes(name, args)
                 if args['mode'] == 'g':
                     t, kw = ops['t'], ops['kw']
                     _must_equal_all(name, args, actq_cuda.quant_s8(
@@ -4735,9 +4747,11 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
             if not (timed and cuda):
                 continue
             ms = graph_ms(kern)
+            host = cuda_ms(kern, ACTQ_TIMED)
+            plain_ms = cuda_ms(plain, 2, warmup=1)
             row['ms'] += c * ms
-            row['host_ms'] += c * cuda_ms(kern, ACTQ_TIMED)
-            row['plain_ms'] += c * cuda_ms(plain, 2, warmup=1)
+            row['host_ms'] += c * host
+            row['plain_ms'] += c * plain_ms
             if name == 'wgrad_s8':
                 p = actq_cuda.im2col_torch(ops['q'], *geo)
                 row['library_ms'] += c * graph_ms(
@@ -4746,11 +4760,32 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
                 del p
             else:
                 row['by_mode_ms'][args['mode']] += c * ms
+                row['by_mode_plain_ms'][args['mode']] += c * plain_ms
+            if args.get('mode') == 'dequant':
+                dq['ms'] += c * ms
+                dq['host_ms'] += c * host
+                dq['plain_ms'] += c * plain_ms
+                # the one PyTorch call of the same function, the yardstick
+                # only where it gives the plain version's bits
+                t, kw = ops['t'], ops['kw']
+                mul = (lambda: torch.mul(t, kw['scale'].to(kw['dtype']).view(
+                    (-1,) + (1,) * (t.dim() - 1))))
+                if torch.equal(mul(), want):
+                    dq['library_ms'] += c * graph_ms(mul)
+                else:
+                    dq['library_differs'].append(str(args['shape']))
             del kern, plain, s32, ops
     finally:
         cleanup()
     for k, row in out.items():
         row.update(_bound(row['ops'], row['bytes'], INT8_OP_PER_S))
+    q8 = out['quant_s8']
+    q8['by_mode_bound_ms'] = {m: _bound(0, b, INT8_OP_PER_S)['bound_ms']
+                              for m, b in q8['by_mode_bytes'].items()}
+    dq.update(_bound(0, dq['bytes'], INT8_OP_PER_S))
+    dq['bound_share'] = dq['bound_ms'] / dq['ms'] if dq['ms'] else None
+    if dq['library_differs']:
+        dq['library_ms'] = None
     return out
 
 
@@ -4814,10 +4849,12 @@ def run_actq(device, seed: int = 0, card: str = '', cfg=None,
         if mode is False and (launches['quant_s8'] or launches['wgrad_s8']):
             raise RuntimeError(f"actq [{tag}] launched {launches}")
         if cuda:
-            # one kernel launch a quantize call, none before it; the TMA
-            # route writes no patch matrix (no gather, no GEMM)
+            # one kernel launch a quantize or dequant call, none before
+            # it; the TMA route writes no patch matrix (no gather, no GEMM)
             if launches['kernel_quant_x'] != launches['quant_s8_x'] \
                     or launches['kernel_quant_g'] != launches['quant_s8_g'] \
+                    or launches['kernel_dequant'] \
+                    != launches['quant_s8_dequant'] \
                     or launches['kernel_im2col'] != launches['wgrad_s8_ragged'] \
                     or launches['kernel_wgrad_tma'] != launches['wgrad_s8_tma']:
                 raise RuntimeError(f"actq [{tag}]: launches do not add up "
@@ -4851,9 +4888,24 @@ def run_actq(device, seed: int = 0, card: str = '', cfg=None,
                        f"{row['library_ms']} ms"
                        + (f", ragged route {row['ragged_ms']:.4f} ms"
                           if k == 'wgrad_s8' else
-                          f", by mode {dict(row['by_mode_ms'])}")
+                          f", by mode {dict(row['by_mode_ms'])}, plain by "
+                          f"mode {dict(row['by_mode_plain_ms'])}, bound by "
+                          f"mode {row['by_mode_bound_ms']}")
                        + f" {card}" if timed and cuda else ""))
+            dq = info['kernels']['quant_s8']['dequant']
+            if dq['launches'] and timed and cuda:
+                log(f"actq [{tag}] quant_s8 'dequant': {dq['launches']} "
+                    f"launches a step ({dq['distinct']} distinct calls); "
+                    f"device {dq['ms']:.4f} ms a step (graph), host pace "
+                    f"{dq['host_ms']:.4f} ms, plain {dq['plain_ms']:.4f} ms, "
+                    f"bound {dq['bound_ms']:.4f} ms ({dq['bytes']} B), "
+                    f"{dq['bound_share']:.3f} of it; torch.mul "
+                    + (f"{dq['library_ms']:.4f} ms" if dq['library_ms']
+                       is not None else "differs from the plain version at "
+                       f"{dq['library_differs']}: not timed")
+                    + f" {card}")
             out['rows']['quant_s8'] += launches['quant_s8']
+            out['rows']['dequant'] += launches['kernel_dequant']
             out['rows']['wgrad_s8'] += launches['wgrad_s8']
             out['rows']['gemm_s8_f32acc'] += launches['gemm_s8']
         if cuda and timed:
@@ -5583,13 +5635,17 @@ def main(argv=None) -> int:
                          for q in actq_cuda.MODES}
                 for m, v in aq['modes'].items()}
             row["ms_by_quant_mode"] = dict(w8['by_mode_ms'])
+            row["plain_ms_by_quant_mode"] = dict(w8['by_mode_plain_ms'])
+            row["bound_ms_by_quant_mode"] = w8['by_mode_bound_ms']
             row["library_null_reason"] = (
                 "no one PyTorch call computes the per-sample amax, the "
                 "scale and the quantize")
             tr = aq['modes'][True]['kernels'][name]
-            row["mode_true"] = {**{k: tr[k] for k in keys},
-                                "host_ms": tr['host_ms'],
-                                "ms_by_quant_mode": dict(tr['by_mode_ms'])}
+            row["mode_true"] = {
+                **{k: tr[k] for k in keys}, "host_ms": tr['host_ms'],
+                "ms_by_quant_mode": dict(tr['by_mode_ms']),
+                "plain_ms_by_quant_mode": dict(tr['by_mode_plain_ms']),
+                "bound_ms_by_quant_mode": tr['by_mode_bound_ms']}
         else:
             row["launches_by_route"] = {
                 str(m): {r: v['launches'][f'wgrad_s8_{r}']
@@ -5597,6 +5653,30 @@ def main(argv=None) -> int:
                 for m, v in aq['modes'].items()}
             row["ragged_route_ms"] = w8['ragged_ms']
         kernels.append(row)
+    # quant_s8 'dequant' apart (its own kernel, `_q8_bwd`'s copy
+    # q.astype(dt) * scale.astype(dt)): a 'wgrad8' step's calls, True's
+    # beside them; its library call one torch.mul on the same operands.
+    # Its launches, times and bytes are also inside quant_s8's row.
+    dqs = {m: aq['modes'][m]['kernels']['quant_s8']['dequant']
+           for m in (True, 'wgrad8')}
+    kernels.append({
+        "name": "quant_s8_dequant", "route": "cuda",
+        "source": "ursonet_torch/csrc/actq.cu",
+        "replaces": "ursonet_tpu/models/actq.py:157",
+        "replaces_kind": "an XLA operation of the JAX package (no Pallas "
+                         "kernel)",
+        "included_in": "quant_s8",
+        "launches": aq['rows']['dequant'],
+        "launches_by_mode": {str(m): v['launches']['kernel_dequant']
+                             for m, v in aq['modes'].items()},
+        "max_abs_err": 0.0,
+        **{k: dqs['wgrad8'][k] for k in keys},
+        **{k: dqs['wgrad8'][k] for k in ('host_ms', 'bound_share',
+                                         'library_differs')},
+        "bound_bytes": dqs['wgrad8']['bytes'],
+        "per": "train step, 'wgrad8'",
+        "mode_true": {k: dqs[True][k] for k in keys + (
+            'host_ms', 'bound_share', 'library_differs', 'bytes')}})
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

@@ -247,6 +247,34 @@ def test_quantizes_and_int32_wgrad_are_jax_bits(name, dtype):
         got.float().numpy().transpose(0, 2, 3, 1), want.astype(np.float32))
 
 
+# (N, C, H, W) of the dequant copy: per 315 (odd), 24 (per % 16 == 8),
+# 1 at N = 70 (every chunk of the kernel's spans samples), 320 (a
+# multiple of 16)
+DEQUANT_SHAPES = {'odd': (3, 5, 7, 9), 'per8': (5, 3, 2, 4),
+                  'per1': (70, 1, 1, 1), 'per16': (2, 16, 4, 5)}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('name', list(DEQUANT_SHAPES))
+def test_dequant_is_jax_bits(name, dtype):
+    """quant_s8 'dequant' against `_q8_bwd`'s copy q.astype(dt) *
+    scale.astype(dt), bit for bit, at ragged sample sizes and every int8
+    value."""
+    shape = DEQUANT_SHAPES[name]
+    rng = np.random.RandomState(len(name))
+    q = rng.randint(-128, 128, shape).astype(np.int8)
+    scale = (rng.rand(shape[0]) * 0.1 + 1e-3).astype(np.float32)
+    jdt = BF16[dtype]
+    want = jnp.asarray(q).astype(jdt) \
+        * jnp.asarray(scale).reshape(-1, 1, 1, 1).astype(jdt)
+    got = actq_cuda.quant_s8(torch.from_numpy(q), 'dequant',
+                             torch.from_numpy(scale), dtype=dtype)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want).astype(np.float32))
+
+
 # (N, H, W, Ci, Co, k, stride, JAX padding) with 64 input channels: the
 # TMA route's layouts (column copies, a 1x1 stride-2 conv's even columns,
 # a 1x1 conv's plane cut into rows, padded qgt rows)

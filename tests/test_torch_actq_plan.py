@@ -11,7 +11,13 @@
   * quant_s8's schedule (`quant_plan`: one chunk of rows a block, at
     most one block a SM, no dynamic shared memory) covering every row
     once, and the per-unit address arithmetic of its quantize
-    giving `to_layout` and `_qgt`.
+    giving `to_layout` and `_qgt`;
+  * the 'dequant' kernel's schedule (`dequant_plan`: persistent blocks,
+    at most the resident ones, an unaligned head and a tail one element
+    a thread, 16-element chunks between them) covering every element
+    once, on the card's SMs and on one (many passes a block), each
+    element's product reading its own sample's scale where a chunk spans
+    samples, giving `dequant_torch`'s bits.
 The geometries: the F16 flagship's 29 stage-4/5 convs (ResNet-50,
 batch 32, 512x640; the box mirror at batch 2, the same widths), the
 probe's CHECK geometries, config 2's stem and odd shapes. The kernel's
@@ -417,3 +423,121 @@ def test_quant_dense_g_layout_and_plain_x():
     assert (rv['w'], rv['copies']) == (256, 1)
     np.testing.assert_array_equal(
         quant_layout_mirror('x', rv, x).reshape(x.shape), x)
+
+
+# ---------------------------------------------------------------------------
+# quant_s8 'dequant'
+
+
+def test_dequant_constants_are_the_kernels():
+    """The plan's constants are the kernel's, and its launch bounds keep
+    the plan's blocks a SM resident at once."""
+    assert _int_const('kThreadsD') == aq.DEQUANT_THREADS
+    assert _int_const('kBlocksD') == aq.DEQUANT_BLOCKS
+    assert _int_const('kUnrollD') == aq.DEQUANT_UNROLL
+    assert _int_const('kChunk') == aq.DEQUANT_CHUNK
+    assert '__launch_bounds__(kThreadsD, kBlocksD)' in SRC
+    assert aq.DEQUANT_THREADS * aq.DEQUANT_BLOCKS <= 2048
+
+
+def dequant_mirror(n, per, esize, q_mod, out_mod, sms):
+    """The kernel's walk over a call (`dequant_plan`'s schedule): block b,
+    pass k takes chunks [(k * grid + b) * span, + span) as groups of 16 /
+    esize elements, thread t groups u * threads + t of them; then the
+    head and the tail one element a thread. Each group's samples are the
+    kernel's `products`': the first element's for the whole group where
+    the group lies inside it, else each element's own.
+    Returns (plan, how often each element is written, the sample whose
+    scale each element's product reads)."""
+    p = aq.dequant_plan(n, per, esize, q_mod, out_mod, sms)
+    total, head, chunks = n * per, p['head'], p['chunks']
+    assert 1 <= p['grid'] <= sms * aq.DEQUANT_BLOCKS
+    assert head + aq.DEQUANT_CHUNK * chunks + p['tail'] == total
+    # groups of v = 16 / esize elements: v bytes of q loaded, 16 bytes of
+    # products stored; thread t's groups u * threads + t of a pass
+    v = 16 // esize
+    span = aq.DEQUANT_THREADS * aq.DEQUANT_UNROLL    # chunks a pass
+    per_pass = span * aq.DEQUANT_CHUNK // v          # groups a pass
+    groups = chunks * aq.DEQUANT_CHUNK // v
+    assert per_pass % aq.DEQUANT_THREADS == 0
+    u, t = np.divmod(np.arange(per_pass), aq.DEQUANT_THREADS)
+    starts = [np.zeros(0, np.int64)]
+    for b in range(p['grid']):
+        g0 = np.arange(b * per_pass, groups, p['grid'] * per_pass)
+        g = (g0[:, None] + u * aq.DEQUANT_THREADS + t).ravel()
+        g = head + v * g[g < groups]
+        # aligned loads of v bytes, 16-byte stores
+        assert ((q_mod + g) % v == 0).all()
+        assert ((out_mod + g * esize) % 16 == 0).all()
+        starts.append(g)
+    i0 = np.concatenate(starts)
+    seen = np.zeros(total, np.int64)
+    sample = np.full(total, -1, np.int64)
+    n0 = i0 // per
+    one = i0 + v <= (n0 + 1) * per
+    for j in range(v):
+        seen += np.bincount(i0 + j, minlength=total)
+        sample[i0 + j] = np.where(one, n0, (i0 + j) // per)
+    tail0 = head + aq.DEQUANT_CHUNK * chunks
+    k = np.arange(head + total - tail0)
+    i = np.where(k < head, k, tail0 + k - head)
+    seen += np.bincount(i, minlength=total)
+    sample[i] = i // per
+    return p, seen, sample
+
+
+# (shape, q's and out's bytes past a 16-byte boundary)
+DQ_CASES = [((4, 64, 32, 40), 0, 0), ((5, 3, 2, 4), 0, 0),
+            ((3, 5, 7, 9), 0, 0), ((70000, 1), 0, 0), ((70000, 3), 0, 0),
+            ((3, 5, 7, 9), 1, 0), ((3, 5, 7, 9), 8, 0),
+            ((3, 5, 7, 9), 12, 8), ((3, 5, 7, 9), 0, 4), ((2, 7), 0, 0),
+            ((1, 1), 3, 0), ((4, 64, 32, 40), 14, 12),
+            ((4, 64, 32, 40), 15, 12)]
+
+
+@pytest.mark.parametrize('sms', [SMS, 1], ids=['card', 'one_sm'])
+@pytest.mark.parametrize('esize', [2, 4], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('case', range(len(DQ_CASES)))
+def test_dequant_walk_covers_each_element_once(case, esize, sms):
+    """Every element written once, its product from its own sample's
+    scale (chunks that span samples too, down to one element a sample),
+    giving dequant_torch's bits; a head of at most 15 elements where q
+    and out can both be aligned, every element one a thread where they
+    cannot. On one SM a block makes many passes."""
+    shape, q_mod, out_mod = DQ_CASES[case]
+    n, per = shape[0], int(np.prod(shape[1:]))
+    p, seen, sample = dequant_mirror(n, per, esize, q_mod, out_mod, sms)
+    total = n * per
+    assert (seen == 1).all()
+    np.testing.assert_array_equal(sample, np.arange(total) // per)
+    head = -q_mod % 16
+    if head < total and (out_mod + head * esize) % 16 == 0:
+        assert p['head'] == head and p['tail'] < aq.DEQUANT_CHUNK
+    else:
+        assert (p['head'], p['chunks'], p['tail']) == (total, 0, 0)
+    rng = np.random.RandomState(case)
+    q = rng.randint(-128, 128, total).astype(np.int8)
+    scale = (rng.rand(n) + 0.01).astype(np.float32)
+    dtype = torch.bfloat16 if esize == 2 else torch.float32
+    s = torch.from_numpy(scale).to(dtype).float()
+    got = (torch.from_numpy(q).float() * s[torch.from_numpy(sample)]) \
+        .to(dtype)
+    want = aq.dequant_torch(torch.from_numpy(q).view(shape),
+                            torch.from_numpy(scale), dtype)
+    assert torch.equal(got.view(shape), want)
+
+
+@pytest.mark.parametrize('esize', [2, 4], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('shape', flagship_inputs())
+def test_dequant_flagship_schedule(shape, esize):
+    """The flagship's dequant calls (every conv input at batch 32): no
+    head and no tail, a multiple of 16 elements a sample, so each chunk
+    lies in one sample and reads one scale; the grid as many passes of
+    full blocks as fit the card."""
+    n, per = shape[0], int(np.prod(shape[1:]))
+    assert per % aq.DEQUANT_CHUNK == 0
+    span = aq.DEQUANT_THREADS * aq.DEQUANT_UNROLL
+    p = aq.dequant_plan(n, per, esize, 0, 0, SMS)
+    assert (p['head'], p['tail']) == (0, 0)
+    assert p['chunks'] * aq.DEQUANT_CHUNK == n * per
+    assert p['grid'] == min(-(-p['chunks'] // span), SMS * aq.DEQUANT_BLOCKS)

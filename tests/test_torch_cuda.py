@@ -1484,6 +1484,56 @@ def test_quant_s8_modes_match_plain(cuda_device, shape, dtype):
         == {'quant_x': 1, 'quant_g': 1, 'dequant': 1}
 
 
+# (name, shape, q's storage offset, out's, in elements): per a multiple
+# of 16, per % 16 == 8, per odd, a tiny per at N = 70,000 (more samples
+# than a grid dimension of 65,535), the flagship's res2 and stem inputs,
+# and q and out at unaligned offsets (a head one element a thread, chunks
+# that span samples, a tail; every element one a thread where q and out
+# cannot both be aligned)
+DEQUANT_CASES = [('per16', (4, 64, 32, 40), 0, 0), ('per8', (5, 3, 2, 4), 0, 0),
+                 ('odd', (3, 5, 7, 9), 0, 0),
+                 ('n70000_per1', (70000, 1), 0, 0),
+                 ('n70000_per3', (70000, 3), 0, 0),
+                 ('res2', (32, 256, 128, 160), 0, 0),
+                 ('stem', (32, 3, 512, 640), 0, 0)] \
+    + [(f'q_off{k}', (3, 5, 7, 9), k, 0) for k in (1, 4, 7, 8, 12, 15)] \
+    + [(f'out_off{k}', (3, 5, 7, 9), 0, k) for k in (1, 3, 4, 8)] \
+    + [('q_off12_out_off4', (3, 5, 7, 9), 12, 4),
+       ('q_off12_per16', (4, 64, 32, 40), 12, 0)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', DEQUANT_CASES,
+                         ids=[c[0] for c in DEQUANT_CASES])
+def test_dequant_matches_plain(cuda_device, case, dtype):
+    """quant_s8 'dequant' (out fresh: one kernel launch), or its one
+    launch into an out view at the case's offset: dequant_torch's bits,
+    every int8 value from -128 to 127 in q, every element of out
+    written."""
+    name, shape, q_off, out_off = case
+    numel = int(np.prod(shape))
+    vals = (torch.arange(numel + q_off, device=cuda_device) * 37 + 11) \
+        % 256 - 128
+    q = vals.to(torch.int8)[q_off:].view(shape)
+    gen = torch.Generator().manual_seed(11)
+    scale = (torch.rand(shape[0], generator=gen) + 0.01).to(cuda_device)
+    want = aq.dequant_torch(q, scale, dtype)
+    if out_off == 0:
+        before = aq.kernel_launches['dequant']
+        got = aq.quant_s8(q, 'dequant', scale, dtype=dtype)
+        assert aq.kernel_launches['dequant'] == before + 1
+    else:
+        buf = torch.full((numel + out_off,), float('nan'), dtype=dtype,
+                         device=cuda_device)
+        got = buf[out_off:].view(shape)
+        lib = aq._lib()
+        aq._raise_if(aq._dequant_launch(lib, q, scale, got), lib,
+                     'quant_s8')
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('name', list(aw.flagship_geometries(4))

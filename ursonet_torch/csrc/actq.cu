@@ -103,7 +103,23 @@
 //   The gather route (`ursonet_actq_im2col` + gemm_s8), for shapes the TMA
 //     route does not take (fewer than 64 input channels):
 //     P [R, Kp] written to device memory, 16 bytes a thread.
-//   dequant_kernel: one pass, 8 elements a thread.
+//   dequant_kernel: bound by bytes (1 read and 2 written an element in
+//     bf16, 1 and 4 in f32). One launch a call over a 1-D grid of
+//     persistent blocks (8 a SM, all resident; any N), one 16-element
+//     chunk a thread a pass, taken as groups of 16 / sizeof(T) elements:
+//     each group's q bytes in one evict-first load (read once) of 8 bytes
+//     in bf16, 4 in f32, and its products in one 16-byte store, so a
+//     warp's loads and stores are each contiguous. Loads are narrower
+//     than 16 bytes because the stores set the pace: one 16-byte load of
+//     a chunk's q feeds two 16-byte stores a thread in bf16, each warp
+//     store then writing every other 16 bytes, and that form reached 0.53
+//     of the bytes' time on the card against this one's 0.80 (PERF.md).
+//     A chunk reads its scale once where it lies in one sample, each
+//     element's own where it spans samples; an unaligned head and the
+//     tail go one element a thread in the same launch. Bulk copies
+//     (cp.async.bulk of q through a ring in shared memory, bulk stores of
+//     the products) were measured 6% slower in bf16 over a step's calls
+//     and 2% faster in f32 (PERF.md), so the kernel keeps one form.
 //
 // Rounding: rintf (round half to even, jnp.round's rule) and a true
 // division by the scale (not a multiply by its reciprocal); nvcc runs
@@ -112,6 +128,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -182,15 +200,6 @@ bool aligned16(const void* ptr) {
 
 unsigned blocks_for(long long threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-}
-
-// Blocks a sample for `per` elements at V a thread: four passes of the
-// block's threads each, at most 4096 (the grid-stride loop takes the
-// rest).
-unsigned blocks_per_sample(long long per, int v) {
-  const long long want = (per + static_cast<long long>(kThreads) * v * 4 - 1) /
-                         (static_cast<long long>(kThreads) * v * 4);
-  return static_cast<unsigned>(want < 1 ? 1 : (want > 4096 ? 4096 : want));
 }
 
 // ===========================================================================
@@ -794,40 +803,176 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
 }  // namespace wgrad
 
 // ===========================================================================
-// 'dequant' and the gather route
+// quant_s8 'dequant'
 
-// Mode 'dequant': out = T(q) * T(scale[n]) in T. grid (blocks per
-// sample, N), V elements a thread (V == 8 where per % 8 == 0).
+namespace dq {
+
+constexpr int kThreadsD = 256;
+constexpr int kBlocksD = 8;        // blocks a SM (launch bounds: all resident)
+constexpr int kUnrollD = 1;        // chunks (their q bytes) a thread a pass
+constexpr int kChunk = 16;         // elements (q bytes) a chunk
+
+struct Params {
+  const int8_t* q;
+  const float* scale;
+  void* out;
+  long long per, total;   // elements a sample, n * per
+  long long head;         // elements before the first aligned chunk
+  long long chunks;       // 16-element chunks from `head` on
+  int narrow;             // total <= 2^32 - 1: 32-bit sample division
+};
+
+__device__ __forceinline__ long long sample_of(const Params& p, long long i) {
+  return p.narrow ? static_cast<long long>(static_cast<unsigned>(i) /
+                                           static_cast<unsigned>(p.per))
+                  : i / p.per;
+}
+
+template <class T>
+__device__ __forceinline__ float scale_of(const Params& p, long long n) {
+  const float s = __ldg(p.scale + n);
+  return sizeof(T) == 2 ? round_bf16(s) : s;
+}
+
+__device__ __forceinline__ float byte_f32(const uint32_t* w, int j) {
+  return static_cast<float>(static_cast<int8_t>(w[j / 4] >> (8 * (j % 4))));
+}
+
+// The V elements from i0 (bytes of `w`, little-endian) as T(q) * T(scale):
+// one scale where the group lies inside one sample, else each element's
+// own sample (rare: a sample not a multiple of 16 elements long, or an
+// unaligned head).
 template <class T, int V>
-__global__ void __launch_bounds__(kThreads)
-dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
-               long long per, T* __restrict__ out) {
-  const int n = blockIdx.y;
-  const long long base = static_cast<long long>(n) * per;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads * V;
-  float s = scale[n];
-  if constexpr (sizeof(T) == 2) s = round_bf16(s);
-  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x) * V;
-       i < per; i += step) {
-    alignas(8) int8_t v[V];
-    if constexpr (V == 8) {
-      *reinterpret_cast<uint2*>(v) =
-          *reinterpret_cast<const uint2*>(q + base + i);
-    } else {
-      v[0] = q[base + i];
-    }
+__device__ __forceinline__ void products(const Params& p, long long i0,
+                                         const uint32_t (&w)[V / 4],
+                                         float (&f)[V]) {
+  const long long n = sample_of(p, i0);
+  if (i0 + V <= (n + 1) * p.per) {
+    const float s = scale_of<T>(p, n);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float r = static_cast<float>(v[j]) * s;
-      if constexpr (sizeof(T) == 2) {
-        out[base + i + j] = __float2bfloat16_rn(r);
-      } else {
-        out[base + i + j] = r;
+    for (int j = 0; j < V; ++j) f[j] = __fmul_rn(byte_f32(w, j), s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      f[j] = __fmul_rn(byte_f32(w, j), scale_of<T>(p, sample_of(p, i0 + j)));
+  }
+}
+
+// V products stored at `dst` (16-byte aligned) in 16-byte stores.
+template <class T, int V>
+__device__ __forceinline__ void store(T* dst, const float (&f)[V]) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int k = 0; k < V / 8; ++k) {
+      uint4 o;
+      uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 h =
+            __floats2bfloat162_rn(f[8 * k + 2 * j], f[8 * k + 2 * j + 1]);
+        ow[j] = *reinterpret_cast<const uint32_t*>(&h);
       }
+      reinterpret_cast<uint4*>(dst)[k] = o;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V / 4; ++k)
+      reinterpret_cast<float4*>(dst)[k] =
+          make_float4(f[4 * k], f[4 * k + 1], f[4 * k + 2], f[4 * k + 3]);
+  }
+}
+
+// The elements outside the chunks (an unaligned head, a tail shorter than
+// a chunk; every element where q and out cannot both be aligned), one a
+// thread over the whole grid.
+template <class T>
+__device__ __forceinline__ void scalar_part(const Params& p) {
+  const long long tail0 = p.head + static_cast<long long>(kChunk) * p.chunks;
+  const long long rest = p.head + (p.total - tail0);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       k < rest; k += stride) {
+    const long long i = k < p.head ? k : tail0 + (k - p.head);
+    const float r = __fmul_rn(static_cast<float>(p.q[i]),
+                              scale_of<T>(p, sample_of(p, i)));
+    if constexpr (sizeof(T) == 2) {
+      static_cast<T*>(p.out)[i] = __float2bfloat16_rn(r);
+    } else {
+      static_cast<T*>(p.out)[i] = r;
     }
   }
 }
+
+// The path's kernel. Persistent blocks (kBlocksD a SM); pass k of block b
+// covers chunks [(k * grid + b) * kThreadsD * kUnrollD, + kThreadsD *
+// kUnrollD) as groups of G = 16 / sizeof(T) elements, thread t groups u *
+// kThreadsD + t: G bytes of q loaded, one 16-byte store of products, so
+// each warp's loads and stores are contiguous; all its loads (kUnrollD *
+// 16 bytes) issued before the first product. q is loaded evict-first
+// (read once).
+template <class T>
+__global__ void __launch_bounds__(kThreadsD, kBlocksD)
+dequant_kernel(const Params p) {
+  constexpr int G = 16 / static_cast<int>(sizeof(T));
+  constexpr int U = kUnrollD * kChunk / G;
+  using L = typename std::conditional<G == 8, uint2, unsigned>::type;
+  constexpr long long kSpan = static_cast<long long>(kThreadsD) * U;
+  const long long groups = p.chunks * (kChunk / G);
+  const long long step = static_cast<long long>(gridDim.x) * kSpan;
+  const L* q = reinterpret_cast<const L*>(p.q + p.head);
+  T* out = static_cast<T*>(p.out) + p.head;
+  for (long long g0 = static_cast<long long>(blockIdx.x) * kSpan +
+                      threadIdx.x;
+       g0 < groups; g0 += step) {
+    L v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long g = g0 + u * kThreadsD;
+      if (g < groups) v[u] = __ldcs(q + g);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long g = g0 + u * kThreadsD;
+      if (g < groups) {
+        uint32_t w[G / 4];
+        if constexpr (G == 8) {
+          w[0] = v[u].x;
+          w[1] = v[u].y;
+        } else {
+          w[0] = v[u];
+        }
+        float f[G];
+        products<T, G>(p, p.head + G * g, w, f);
+        store<T, G>(out + G * g, f);
+      }
+    }
+  }
+  scalar_part<T>(p);
+}
+
+template <class T>
+int launch(const Params& p, int grid, cudaStream_t st) {
+  // the plan's grid: at most the blocks the card holds at once
+  void (*kernel)(Params) = &dequant_kernel<T>;
+  cudaError_t err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreadsD, 0)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (grid > sms * per_sm)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<grid, kThreadsD, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dq
+
+// ===========================================================================
+// wgrad_s8's gather route
 
 // The gather of wgrad_s8's gather route: P [C * KH * KW, kp] from q [N,
 // C, H, W], 16 bytes a thread.
@@ -938,36 +1083,39 @@ extern "C" int ursonet_actq_quant(
              : quant::launch_t<__nv_bfloat16>(p, vec, timing_mul, grid, st);
 }
 
+// quant_s8 'dequant': out[i] = T(q[i]) * T(scale[i / per]) for i < n *
+// per, T f32 (dtype 0) or bf16 (1). The schedule (head, chunks, grid) is
+// actq_cuda.dequant_plan's: `head` elements before the first chunk whose
+// q and out are both 16-byte aligned, then `chunks` 16-element chunks,
+// the rest one element a thread.
 extern "C" int ursonet_actq_dequant(const int8_t* q, const float* scale,
                                     int n, long long per, void* out,
-                                    int dtype, void* stream) {
-  if (n <= 0 || n > 65535 || per <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                    int dtype, long long head,
+                                    long long chunks, int grid,
+                                    void* stream) {
+  const int esize = dtype == kDtypeF32 ? 4 : 2;
+  const long long total = static_cast<long long>(n) * per;
+  const bool ok =
+      (dtype == kDtypeF32 || dtype == kDtypeBf16) && n > 0 && per > 0 &&
+      head >= 0 && chunks >= 0 && head + dq::kChunk * chunks <= total &&
+      grid > 0 &&
+      (chunks == 0 ||
+       (aligned16(q + head) &&
+        aligned16(static_cast<const char*>(out) + head * esize)));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  dq::Params p;
+  p.q = q;
+  p.scale = scale;
+  p.out = out;
+  p.per = per;
+  p.total = total;
+  p.head = head;
+  p.chunks = chunks;
+  p.narrow = total <= 0xffffffffLL;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = per % 8 == 0 && aligned16(q) && aligned16(out);
-  const unsigned bps = blocks_per_sample(per, vec ? 8 : 1);
-  if (dtype == kDtypeF32) {
-    float* o = static_cast<float*>(out);
-    if (vec) {
-      dequant_kernel<float, 8><<<dim3(bps, n), kThreads, 0, st>>>(q, scale,
-                                                                  per, o);
-    } else {
-      dequant_kernel<float, 1><<<dim3(bps, n), kThreads, 0, st>>>(q, scale,
-                                                                  per, o);
-    }
-  } else if (dtype == kDtypeBf16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    if (vec) {
-      dequant_kernel<__nv_bfloat16, 8><<<dim3(bps, n), kThreads, 0, st>>>(
-          q, scale, per, o);
-    } else {
-      dequant_kernel<__nv_bfloat16, 1><<<dim3(bps, n), kThreads, 0, st>>>(
-          q, scale, per, o);
-    }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dtype == kDtypeF32
+             ? dq::launch<float>(p, grid, st)
+             : dq::launch<__nv_bfloat16>(p, grid, st);
 }
 
 extern "C" int ursonet_actq_im2col(const int8_t* q, int n, int c, int h,

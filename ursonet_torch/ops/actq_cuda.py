@@ -57,7 +57,9 @@ group are one launch each (`quant_plan`: a grid of co-resident blocks,
 a grid-wide barrier between the reduction and the quantize, each block's
 rows read again after it, from L2 where the call fits there). The amax
 slots and the barrier counters live in a per-device workspace that the
-kernel leaves zero, so no fill precedes a call.
+kernel leaves zero, so no fill precedes a call. 'dequant' is one launch
+a call over persistent blocks (`dequant_plan`: 16-element chunks, an
+unaligned head and the tail one element a thread; any N).
 
 wgrad_s8's 'tma' route computes dw[co, r] = sum_k qgt[co, k] * P[r, k]
 without writing the patch matrix P: TMA brings qgt's tiles and one tap's
@@ -112,6 +114,10 @@ WGRAD_STAGE_K = 128          # bytes of K a pipeline stage
 WGRAD_MIN_CI = 64            # fewer input channels take the ragged route
 WGRAD_MIN_WOP = 32           # a k32 step lies in one row of the B tile
 WGRAD_MAX_SPLITS = 64
+DEQUANT_THREADS = 256        # threads of a dequant block
+DEQUANT_BLOCKS = 8           # its blocks a SM (all resident at once)
+DEQUANT_UNROLL = 1           # chunks a thread a pass (loaded at once)
+DEQUANT_CHUNK = 16           # elements (q bytes) a chunk
 
 # Wrapper calls that launched on the card since the last reset_counts().
 launches = {"quant_s8": 0, "wgrad_s8": 0}
@@ -137,7 +143,7 @@ def _bind(lib) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ursonet_actq_quant.argtypes = [P, I, I, I, P, P, P, P, P] \
         + [I] * 9 + [L, L] + [I] * 6 + [P]
-    lib.ursonet_actq_dequant.argtypes = [P, P, I, L, P, I, P]
+    lib.ursonet_actq_dequant.argtypes = [P, P, I, L, P, I, L, L, I, P]
     lib.ursonet_actq_im2col.argtypes = [P] + [I] * 12 + [P, P]
     lib.ursonet_actq_wgrad_tma.argtypes = [P] * 6 + [I] * 12 \
         + [L, L, I, I, I, P]
@@ -415,6 +421,31 @@ def quant_plan(rows: int, w: int, esize: int, vec: int,
     return dict(chunk_rows=chunk_rows, grid=-(-rows // chunk_rows), vec=vec)
 
 
+@functools.lru_cache(maxsize=4096)
+def dequant_plan(n: int, per: int, esize: int, q_mod: int = 0,
+                 out_mod: int = 0, sms: int = int8_cuda.SM_COUNT) -> dict:
+    """The dequant kernel's schedule over the n * per elements of a call
+    whose q and out start `q_mod` and `out_mod` bytes past a 16-byte
+    boundary (out's elements `esize` bytes): `head` elements one a
+    thread, then `chunks` 16-element chunks (q and out both 16-byte
+    aligned; a chunk may span samples), then the `tail`; where q and
+    out cannot both be aligned, every element one a thread. `grid`
+    persistent blocks, at most DEQUANT_BLOCKS a SM: block b takes chunks
+    [(k * grid + b) * span, + span) in its k-th pass (span =
+    DEQUANT_THREADS * DEQUANT_UNROLL; a thread loads 8 q bytes a bf16
+    group, 4 a f32 one, and stores 16 bytes of it)."""
+    total = n * per
+    head = -q_mod % 16
+    if head >= total or (out_mod + head * esize) % 16:
+        head = total
+    chunks = (total - head) // DEQUANT_CHUNK
+    tail = total - head - DEQUANT_CHUNK * chunks
+    scalars = -(-(head + tail) // DEQUANT_THREADS)
+    units = -(-chunks // (DEQUANT_THREADS * DEQUANT_UNROLL))
+    return dict(head=head, chunks=chunks, tail=tail,
+                grid=min(max(units, scalars, 1), sms * DEQUANT_BLOCKS))
+
+
 # --------------------------------------------------------------------------
 # layouts
 
@@ -646,6 +677,19 @@ def _quant_launch(lib, t, mode, phase, scale, out, scale_out, alpha_len,
         sched["chunk_rows"], _stream(t))
 
 
+def _dequant_launch(lib, q, scale, out):
+    """One launch of the dequant kernel from q [N, ...] into `out` of q's
+    shape, at their own alignments (`dequant_plan`)."""
+    n = q.shape[0]
+    per = q.numel() // n
+    plan = dequant_plan(n, per, out.element_size(), q.data_ptr() % 16,
+                        out.data_ptr() % 16, int8_cuda._sms(q.device))
+    return lib.ursonet_actq_dequant(
+        q.data_ptr(), scale.data_ptr(), n, per, out.data_ptr(),
+        _DTYPES[out.dtype], plan["head"], plan["chunks"], plan["grid"],
+        _stream(q))
+
+
 def quant_vec(rv, esize, aligned=True) -> int:
     """How the quantize kernel moves a call's bytes: 2 (16-byte loads
     and stores, each unit's columns consecutive), 1 (16-byte loads and
@@ -673,18 +717,14 @@ def quant_s8(t, mode, scale=None, dtype=None, group=None,
         return quant_s8_torch(t, mode, scale, dtype, group, alpha_len, plan)
     lib = _lib()
     n = t.shape[0]
-    per = t.numel() // n
-    st = _stream(t)
     if mode == "dequant":
         _check_cuda("quant_s8", t, scale)
         if t.dtype != torch.int8 or dtype not in _DTYPES \
-                or scale.shape != (n,):
-            raise ValueError("quant_s8 'dequant': int8 q, scale [N] and a "
-                             "float32 or bfloat16 dtype")
+                or scale.shape != (n,) or scale.dtype != torch.float32:
+            raise ValueError("quant_s8 'dequant': int8 q, float32 scale [N] "
+                             "and a float32 or bfloat16 dtype")
         out = torch.empty(t.shape, dtype=dtype, device=t.device)
-        _raise_if(lib.ursonet_actq_dequant(
-            t.data_ptr(), scale.data_ptr(), n, per, out.data_ptr(),
-            _DTYPES[dtype], st), lib, "quant_s8")
+        _raise_if(_dequant_launch(lib, t, scale, out), lib, "quant_s8")
         kernel_launches["dequant"] += 1
         launches["quant_s8"] += 1
         mode_launches[mode] += 1

@@ -4,6 +4,7 @@ counterpart of the JAX package's `tools/probe_actq_wgrad8.py`:
     python -m ursonet_torch.probes.actq_wgrad8 check [--device cpu]
     python -m ursonet_torch.probes.actq_wgrad8 [bench] [--reps 20]
     python -m ursonet_torch.probes.actq_wgrad8 variants
+    python -m ursonet_torch.probes.actq_wgrad8 dequant
 
 `check` sweeps the JAX probe's geometries (kernel, stride, padding,
 odd sizes, the 7x7/2 stem and the s2d stem's 4x4 with pads (2,1)):
@@ -31,7 +32,10 @@ flagship's conv-input shapes as the path runs it (a true division by
 the scale) and with the division replaced by a multiply by the scale's
 reciprocal (`_quant_launch(timing_mul=True)`: other bits, timed only),
 beside the time of its bytes at the card's memory rate: whether the
-division or the bytes bind the quantize.
+division or the bytes bind the quantize; and the 'dequant' kernel
+(`dequant` alone) at those shapes in bf16 and f32, beside one torch.mul
+of the same function, PyTorch's cast of q to the output type (the same
+bytes moved) and the bytes' time.
 """
 
 from __future__ import annotations
@@ -254,10 +258,54 @@ def quant_variants(device, card: str) -> list:
     return results
 
 
+DEQUANT_SHAPES = ((32, 3, 512, 640), (32, 64, 128, 160), (32, 256, 128, 160),
+                  (32, 512, 64, 80), (32, 256, 32, 40), (32, 1024, 32, 40),
+                  (32, 512, 16, 20), (32, 2048, 16, 20))
+
+
+def dequant_times(device, card: str, shapes=DEQUANT_SHAPES,
+                  dtypes=(torch.bfloat16, torch.float32)) -> list:
+    """Device time by CUDA graph of quant_s8 'dequant''s kernel (first
+    checked equal to dequant_torch bit for bit) at the F16 flagship's
+    conv-input shapes, beside the one torch.mul call of the same function
+    (its bits checked too), PyTorch's cast of q to the output type and
+    the bound: q and the scales read, out written once, at the card's
+    memory rate."""
+    results = []
+    lib = actq_cuda._lib()
+    gen = torch.Generator().manual_seed(5)
+    for shape in shapes:
+        q = torch.randint(-128, 128, shape, generator=gen,
+                          dtype=torch.int8).to(device)
+        scale = (torch.rand(shape[0], generator=gen) + 0.01).to(device)
+        for dt in dtypes:
+            want = actq_cuda.dequant_torch(q, scale, dt)
+            out = torch.zeros_like(want)
+
+            def call():
+                actq_cuda._raise_if(actq_cuda._dequant_launch(
+                    lib, q, scale, out), lib, 'quant_s8')
+            call()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"dequant {shape} {dt} differs from its "
+                                   "plain version")
+            nbytes = q.numel() * (1 + want.element_size()) + 4 * shape[0]
+            mul = (lambda: torch.mul(q, scale.to(dt).view(-1, 1, 1, 1)))
+            # PyTorch's cast q -> dt: the same bytes read and written, no
+            # scale (what the card's memory gives this mix of traffic)
+            record(results, probe='actq_wgrad8', mode='dequant',
+                   dequant=shape, dtype=str(dt).split('.')[-1],
+                   bound_ms=nbytes / 3.35e12 * 1e3, kernel_ms=graph_ms(call),
+                   mul_equal=torch.equal(mul(), want), mul_ms=graph_ms(mul),
+                   cast_ms=graph_ms(lambda: q.to(dt)), device=card)
+            del want, out
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('mode', nargs='?', default='bench',
-                    choices=['check', 'bench', 'variants'])
+                    choices=['check', 'bench', 'variants', 'dequant'])
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--reps', type=int, default=20)
     args = ap.parse_args(argv)
@@ -268,10 +316,13 @@ def main(argv=None):
         raise SystemExit(f"{args.mode} times the card: --device cuda")
     elif args.mode == 'bench':
         bench(dev, args.reps)
+    elif args.mode == 'dequant':
+        dequant_times(dev, card_label(dev))
     else:
         card = card_label(dev)
         wgrad_variants(dev, card)
         quant_variants(dev, card)
+        dequant_times(dev, card)
     return 0
 
 
