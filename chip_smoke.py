@@ -227,21 +227,34 @@ Phases, in order; any failure exits non-zero:
               equal to one rank's serving bit for bit, the float final
               within 1e-5, each rank's rows equal to the plain version);
               seconds and each rank's peak memory.
-  8g. actq    TRAIN_ACT_Q8 (`run_actq`): the F16 flagship (ResNet-50,
-              512x640, batch 32) under TRAIN_ACT_Q8 False, True and
-              'wgrad8' in turns, from the same seeded weights and batch, 3
-              train steps + 1 validation step each: the first step's loss
-              equal in every mode (the forward is exact), losses finite and
-              falling, quant_s8 (by mode and by kernel: one launch a 'x'
-              or 'g' call), wgrad_s8 (by route: the flagship's all on
-              the TMA route) and gemm_s8 launches counted, every distinct
-              quant_s8 / wgrad_s8 call of a step on fresh operands equal
-              to its plain version (0 differing values; wgrad_s8 on both
-              routes, 'g' under a gloo group of one too), each timed by
-              CUDA graph and by host pace beside its plain version, its
-              bound and (wgrad_s8) torch._int_mm on the same patch matrix
-              and its ragged route; the median step time and one step's
-              peak memory per mode.
+  8g. actq    TRAIN_ACT_Q8 in the recipes the JAX package trains it
+              with (`run_actq_phase`), each under False, True and
+              'wgrad8' in turns from the same seeded weights and batch:
+              (a) the F16 flagship (ResNet-50, 512x640, batch 32); (b)
+              benchmark_config(5) (ResNet-101, keypoints, F16, REMAT,
+              batch 16; the validation decoded by the keypoint SVD; the
+              gradients under each REMAT policy equal to those without;
+              'wgrad8' and False stepped again without REMAT); (c) config
+              2 through the command line on phase 6's frames (`run_actq_cli`:
+              train 8 steps at batch 1 through the native loader, then
+              evaluate --weights last; the C = 3 stem's weight gradient on
+              the gather route); (d) the f32 flagship. `run_actq`: 3
+              train steps + 1 validation step a mode: the first step's
+              loss equal in every mode (the forward is exact), losses
+              finite and falling, the launches a step of quant_s8 (by mode
+              and by kernel: one launch a 'x' or 'g' call), wgrad_s8 (by
+              route), the gather and their gemm_s8 equal to
+              `actq_expected` (the convs, REMAT's recompute, the routes),
+              every distinct quant_s8 / wgrad_s8 / im2col_s8 call of a
+              step on fresh operands equal to its plain version (0
+              differing values; wgrad_s8 on both routes, 'g' under a gloo
+              group of one too), each timed by CUDA graph and by host
+              pace beside its plain version, its bound and its library
+              call (wgrad_s8: torch._int_mm on the same patch matrix, and
+              its ragged route; im2col_s8: F.unfold where it takes int8);
+              the median step time and one step's peak memory beside
+              check_train_memory's estimate (outside ±25% the run fails
+              where the mode is calibrated).
   8h. video   `test --video` (`run_video`): 24 synthetic 1280x960 URSO
               frames written as an MJPG AVI by the port's writer, then
               the CLI's test --video float and --int8 --f16 (the
@@ -343,6 +356,8 @@ from ursonet_torch.utils.memory import (check_train_memory,
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the
 # tensor cores, dense int8 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
+# every row of the kernels line has these, beside its name and launches
+LINE_KEYS = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
@@ -2561,7 +2576,7 @@ def _same_heads(tag, got: dict, want: dict) -> float:
 def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
             train_batch: int = FLAGSHIP_BATCH, eval_batch: int = CLI_EVAL_BATCH,
             steps: int = CLI_TRAIN_STEPS, card: str = '', name: str = 'cli',
-            served_calls: bool = False) -> dict:
+            served_calls: bool = False, float_only: bool = False) -> dict:
     """The README's quick start through `ursonet_torch.pose_estimator.main`
     on the URSO frames under `root/urso`: train; evaluate in float;
     evaluate --int8 on the `base` stem and with the s2d knobs under F16,
@@ -2570,6 +2585,7 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
     distinct int8 call of them on fresh operands: check_served_calls);
     export (h5 and the int8 artifact); evaluate from the exported h5,
     equal to the float run bit for bit; test (overlays) and test --image.
+    With `float_only`, train and the float evaluate alone.
     Each command must return 0; every launch counter is set to 0 before a
     command and read after it. `name` tags the log lines and names the
     run's directories under `root`. Returns the launches by kernel row,
@@ -2621,8 +2637,9 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
     # 2. evaluate: float, then int8 on the base stem and with the s2d
     # knobs under F16, each against the plain version
     evals = {}
-    for tag, extra in (('evaluate', []), ('evaluate int8', ['--int8']),
-                       ('evaluate int8 s2d f16', ['--int8'] + CLI_S2D)):
+    runs = (('evaluate', []), ('evaluate int8', ['--int8']),
+            ('evaluate int8 s2d f16', ['--int8'] + CLI_S2D))
+    for tag, extra in runs[:1] if float_only else runs:
         rec, calls, launches = cli(tag, 'evaluate', '--weights', 'last',
                                    '--eval_batch', str(eval_batch), *extra)
         (served,), (summary,) = rec.served, rec.summaries
@@ -2667,6 +2684,8 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
             "version's on the same served batches (0 differing values), "
             "and so does the summary")
         del served, plain, rec
+    if float_only:
+        return res
 
     # 3. export, then evaluate from the exported h5. export --int8 runs
     # int8 products only in bias_correct's capture passes, which the CLI
@@ -4545,6 +4564,8 @@ def run_parallel(root, device, seed: int = 0, card: str = '',
 ACTQ_MODES = (False, True, 'wgrad8')
 ACTQ_STEPS = 3       # train steps of each mode's path, then 1 validation step
 ACTQ_TIMED = 5       # host-paced launches of each distinct kernel call
+# modes a REMAT recipe also steps without REMAT (the same model and batch)
+ACTQ_NO_REMAT = ('wgrad8', False)
 
 
 def _randint8(shape, gen, dev):
@@ -4588,15 +4609,18 @@ def actq_bytes(name, args) -> int:
     """Bytes the function must move, whatever the kernel's layouts: each
     input read once, each output written once, plain. wgrad_s8: int8 q
     [N,Ci,H,W] and qg [N,Co,Ho,Wo], alpha [R] read, f32 dw [Co,R]
-    written; 'x': x read, int8 q and the scale [N] written; 'g': g and
-    the scale [N] read, int8 qg and alpha written; 'dequant': q and the
-    scale read, x written."""
-    if name == 'wgrad_s8':
+    written; im2col_s8 (the gather of wgrad_s8's ragged route): q read,
+    the patch matrix P [Ci*KH*KW, Kp] written; 'x': x read, int8 q and
+    the scale [N] written; 'g': g and the scale [N] read, int8 qg and
+    alpha written; 'dequant': q and the scale read, x written."""
+    if name in ('wgrad_s8', 'im2col_s8'):
         n, ci, h, w = args['q']
         kh, kw = args['kernel_hw']
         ho, wo = int8_cuda.conv_out_hw(h, w, kh, kw, args['stride'],
                                        args['pads'])
         r = ci * kh * kw
+        if name == 'im2col_s8':
+            return n * ci * h * w + r * actq_cuda.padded_k(n * ho * wo)
         return n * ci * h * w + n * args['co'] * ho * wo + 4 * r \
             + 4 * args['co'] * r
     numel = int(np.prod(args['shape']))
@@ -4681,8 +4705,11 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
     the host pace (back-to-back calls between events), the plain
     version's time and, for wgrad_s8, torch._int_mm's on its patch matrix
     (graph) and the ragged route's; each weighted by the call's count in
-    the step. Returns per kernel: launches, routes, distinct calls, ms,
-    host_ms, plain_ms, library_ms, bound terms."""
+    the step. The gather of each ragged wgrad_s8 call (im2col_s8, the
+    path's own launch of it) apart too: against im2col_torch, timed
+    beside it and F.unfold where that computes the same. Returns per
+    kernel: launches, routes, distinct calls, ms, host_ms, plain_ms,
+    library_ms, bound terms."""
     gen = torch.Generator().manual_seed(seed)
     counts = Counter(_call_key(n, a) for n, a in calls)
     first = {}
@@ -4696,6 +4723,10 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
                'modes': Counter()}
            for k in ('quant_s8', 'wgrad_s8')}
     out['wgrad_s8']['ragged_ms'] = 0.0
+    out['wgrad_s8']['library_null_reason'] = []
+    out['quant_s8']['library_null_reason'] = (
+        "no one PyTorch call computes the per-sample amax, the scale and "
+        "the quantize")
     for k in ('by_mode_ms', 'by_mode_plain_ms', 'by_mode_bytes'):
         out['quant_s8'][k] = Counter()
     # 'dequant' apart: its own kernel, bound and library call
@@ -4703,6 +4734,12 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
         'launches': 0, 'distinct': 0, 'ms': 0.0, 'host_ms': 0.0,
         'plain_ms': 0.0, 'library_ms': 0.0, 'library_differs': [],
         'bytes': 0}
+    # the gather of wgrad_s8's ragged route apart: its own kernel, one
+    # launch a ragged call
+    im = out['im2col_s8'] = {
+        'launches': 0, 'distinct': 0, 'ms': 0.0, 'host_ms': 0.0,
+        'plain_ms': 0.0, 'library_ms': 0.0, 'library_null_reason': None,
+        'bytes': 0, 'ops': 0, 'max_abs_err': 0.0}
     group, cleanup = _actq_world(dev)
     cuda = dev.type == 'cuda'
     try:
@@ -4731,6 +4768,16 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
                     ops['q'], rqgt, *geo, ops['alpha'], plan=rplan))
                 _must_equal_all(name, args, actq_cuda.wgrad_s8(
                     ops['q'], rqgt, *geo, plan=rplan), want, 'ragged ')
+                if args['route'] == 'ragged':
+                    im['launches'] += c
+                    im['distinct'] += 1
+                    im['bytes'] += c * actq_bytes('im2col_s8', args)
+                    q = ops['q']
+                    gather = (lambda: actq_cuda.im2col_s8(q, plan))
+                    gather_plain = (lambda: actq_cuda.im2col_torch(
+                        q, *geo, plan))
+                    _must_equal_all('im2col_s8', args, gather(),
+                                    gather_plain())
             else:
                 row['modes'][args['mode']] += c
                 row['by_mode_bytes'][args['mode']] += c * actq_bytes(
@@ -4754,10 +4801,27 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
             row['plain_ms'] += c * plain_ms
             if name == 'wgrad_s8':
                 p = actq_cuda.im2col_torch(ops['q'], *geo)
-                row['library_ms'] += c * graph_ms(
-                    lambda: torch._int_mm(rqgt, p.t()))
+                try:
+                    torch._int_mm(rqgt, p.t())
+                except RuntimeError as e:
+                    # _int_mm takes no N that is not a multiple of 8
+                    row['library_null_reason'].append(
+                        f"{args['q']} x {args['co']}: torch._int_mm "
+                        f"raises: {str(e).splitlines()[0]}")
+                else:
+                    row['library_ms'] += c * graph_ms(
+                        lambda: torch._int_mm(rqgt, p.t()))
                 row['ragged_ms'] += c * graph_ms(ragged)
                 del p
+                if args['route'] == 'ragged':
+                    im['ms'] += c * graph_ms(gather)
+                    im['host_ms'] += c * cuda_ms(gather, ACTQ_TIMED)
+                    im['plain_ms'] += c * cuda_ms(gather_plain, 2, warmup=1)
+                    unfold, reason = im2col_library(q, plan, gather())
+                    if unfold is None:
+                        im['library_null_reason'] = reason
+                    else:
+                        im['library_ms'] += c * graph_ms(unfold)
             else:
                 row['by_mode_ms'][args['mode']] += c * ms
                 row['by_mode_plain_ms'][args['mode']] += c * plain_ms
@@ -4786,148 +4850,484 @@ def check_actq_calls(calls, dev, seed, timed: bool) -> dict:
     dq['bound_share'] = dq['bound_ms'] / dq['ms'] if dq['ms'] else None
     if dq['library_differs']:
         dq['library_ms'] = None
+    if out['wgrad_s8']['library_null_reason']:
+        out['wgrad_s8']['library_ms'] = None
+    im['bound_share'] = im['bound_ms'] / im['ms'] if im['ms'] else None
+    if im['library_null_reason']:
+        im['library_ms'] = None
     return out
 
 
+def im2col_library(q, plan, p):
+    """The one PyTorch call that computes the gather's patch matrix `p`
+    from the same int8 q, where there is one: F.unfold, whose [N, R, L] is
+    P for one sample under symmetric pads. Returns (fn, None) where it
+    gives p's bits, else (None, why not)."""
+    (pt, pb), (pl, pr) = plan.pads
+    if plan.n != 1 or (pt, pl) != (pb, pr):
+        return None, ("F.unfold writes [N, Ci*KH*KW, L], P's layout only "
+                      "for one sample under symmetric pads")
+
+    def unfold():
+        return F.unfold(q, (plan.kh, plan.kw), padding=(pt, pl),
+                        stride=plan.stride)
+    try:
+        u = unfold()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"F.unfold on int8 raises: {str(e).splitlines()[0]}"
+    if not torch.equal(u[0], p[:, :u.shape[-1]]):
+        return None, "F.unfold differs from the gather"
+    return unfold, None
+
+
+def actq_expected(cfg, mode) -> dict:
+    """The launches a train step of `cfg` makes under TRAIN_ACT_Q8 `mode`,
+    from the backbone's convs (`memory.backbone_blocks`) and the routes'
+    rules: one 'x' a conv, and again for each conv that REMAT's
+    checkpoints recompute (`memory.recomputed`); under
+    True one 'dequant' a conv; under 'wgrad8' one 'g' and one wgrad_s8 a
+    conv within the int32 guard (N * Ho * Wo, N the global batch), on the
+    'tma' route from 64 input channels (else 'ragged': one gather and one
+    gemm_s8), and one 'dequant' for each of the others."""
+    groups = memory.backbone_blocks(cfg)
+    convs = [conv for g in groups for conv, _ in g]
+    again = sum(memory.recomputed(part, getattr(cfg, 'REMAT', False))
+                for g in groups for _, part in g)
+    want = dict.fromkeys(('quant_s8_x', 'quant_s8_g', 'quant_s8_dequant',
+                          'wgrad_s8_tma', 'wgrad_s8_ragged'), 0)
+    if not mode:
+        return want
+    want['quant_s8_x'] = len(convs) + again
+    for n, ci, h, w, co, k, st, p in convs:
+        ho, wo = int8_cuda.conv_out_hw(h, w, k, k, st, ((p, p), (p, p)))
+        if mode == 'wgrad8' and n * ho * wo <= actq_cuda.INT32_SAFE_ACC:
+            want['quant_s8_g'] += 1
+            want[f'wgrad_s8_{actq_cuda.wgrad_route(ci)}'] += 1
+        else:
+            want['quant_s8_dequant'] += 1
+    return want
+
+
+def _actq_launches() -> dict:
+    """TRAIN_ACT_Q8's counters since the last reset, by wrapper, mode,
+    route and kernel, with gemm_s8's and the fused warp's."""
+    return {**actq_cuda.launches,
+            **{f'quant_s8_{k}': v
+               for k, v in actq_cuda.mode_launches.items()},
+            **{f'wgrad_s8_{k}': v
+               for k, v in actq_cuda.route_launches.items()},
+            **{f'kernel_{k}': v
+               for k, v in actq_cuda.kernel_launches.items()},
+            'gemm_s8': int8_cuda.launches['gemm_s8'],
+            'warp_mold': warp_cuda.launches['warp_mold']}
+
+
+def _reset_launches() -> None:
+    warp_cuda.reset_counts()
+    int8_cuda.reset_counts()
+    actq_cuda.reset_counts()
+
+
+def add_actq_rows(rows, launches) -> None:
+    """A path's launches added to the kernels line's rows: quant_s8
+    (every mode), its 'dequant' kernel, wgrad_s8, the ragged route's
+    gather and its gemm_s8 (the f32 epilogue)."""
+    for row, k in (('quant_s8', 'quant_s8'), ('dequant', 'kernel_dequant'),
+                   ('wgrad_s8', 'wgrad_s8'), ('im2col_s8', 'kernel_im2col'),
+                   ('gemm_s8_f32acc', 'gemm_s8')):
+        rows[row] += launches[k]
+
+
+def _recorded_counts(calls) -> dict:
+    """A step's recorded calls counted as `actq_expected` counts them."""
+    got = Counter()
+    for name, a in calls:
+        got[f"quant_s8_{a['mode']}" if name == 'quant_s8'
+            else f"wgrad_s8_{a['route']}"] += 1
+    return got
+
+
+def check_actq_counts(tag, mode, want, per_step, calls, cuda) -> None:
+    """A step's launches (the card's counters over the path's steps, per
+    step) and its recorded calls (on any device) against `actq_expected`;
+    each quantize, dequant, TMA product and gather one kernel launch a
+    call, the ragged route's product one gemm_s8; raises on a
+    difference."""
+    got = _recorded_counts(calls) if calls is not None else None
+    if got is not None and any(got[k] != v for k, v in want.items()):
+        raise RuntimeError(f"actq [{tag}]: the step's calls {dict(got)} are "
+                           f"not the expected {want}")
+    if not cuda:
+        return
+    bad = {k: (per_step[k], v) for k, v in want.items() if per_step[k] != v}
+    if bad:
+        raise RuntimeError(f"actq [{tag}]: launches a step (got, expected) "
+                           f"{bad}")
+    if per_step['kernel_quant_x'] != per_step['quant_s8_x'] \
+            or per_step['kernel_quant_g'] != per_step['quant_s8_g'] \
+            or per_step['kernel_dequant'] != per_step['quant_s8_dequant'] \
+            or per_step['kernel_im2col'] != per_step['wgrad_s8_ragged'] \
+            or per_step['gemm_s8'] != per_step['wgrad_s8_ragged'] \
+            or per_step['kernel_wgrad_tma'] != per_step['wgrad_s8_tma']:
+        raise RuntimeError(f"actq [{tag}]: launches do not add up "
+                           f"({per_step})")
+    if mode is False and (per_step['quant_s8'] or per_step['wgrad_s8']):
+        raise RuntimeError(f"actq [{tag}] launched {per_step}")
+
+
+def log_actq_kernels(tag, kernels, card, timed) -> None:
+    """One line per kernel of check_actq_calls' result."""
+    for k in ('quant_s8', 'wgrad_s8'):
+        row = kernels[k]
+        log(f"actq [{tag}] {k}: {row['launches']} launches a step "
+            f"({row['distinct']} distinct calls, each equal to the "
+            f"plain version on fresh operands"
+            + (", on both routes" if k == 'wgrad_s8' else
+               ", 'g' under a group too") + "); "
+            + (f"routes {dict(row['routes'])}" if k == 'wgrad_s8'
+               else f"modes {dict(row['modes'])}")
+            + (f"; device {row['ms']:.4f} ms a step (graph), host "
+               f"pace {row['host_ms']:.4f} ms, plain "
+               f"{row['plain_ms']:.4f} ms, bound "
+               f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+               f"{row['bytes']} B plain, {row['ops']} op; the "
+               f"layouts add {row['layout_bytes']} B), library "
+               + (f"{row['library_ms']} ms" if row['library_ms'] is not None
+                  else f"not timed: {row.get('library_null_reason')}")
+               + (f", ragged route {row['ragged_ms']:.4f} ms"
+                  if k == 'wgrad_s8' else
+                  f", by mode {dict(row['by_mode_ms'])}, plain by "
+                  f"mode {dict(row['by_mode_plain_ms'])}, bound by "
+                  f"mode {row['by_mode_bound_ms']}")
+               + f" {card}" if timed else ""))
+    dq = kernels['quant_s8']['dequant']
+    if dq['launches'] and timed:
+        log(f"actq [{tag}] quant_s8 'dequant': {dq['launches']} "
+            f"launches a step ({dq['distinct']} distinct calls); "
+            f"device {dq['ms']:.4f} ms a step (graph), host pace "
+            f"{dq['host_ms']:.4f} ms, plain {dq['plain_ms']:.4f} ms, "
+            f"bound {dq['bound_ms']:.4f} ms ({dq['bytes']} B), "
+            f"{dq['bound_share']:.3f} of it; torch.mul "
+            + (f"{dq['library_ms']:.4f} ms" if dq['library_ms']
+               is not None else "differs from the plain version at "
+               f"{dq['library_differs']}: not timed")
+            + f" {card}")
+    im = kernels['im2col_s8']
+    if im['launches']:
+        log(f"actq [{tag}] im2col_s8 (the ragged route's gather): "
+            f"{im['launches']} launches a step ({im['distinct']} distinct "
+            "calls, each equal to im2col_torch on fresh operands)"
+            + (f"; device {im['ms']:.4f} ms a step (graph), host pace "
+               f"{im['host_ms']:.4f} ms, plain {im['plain_ms']:.4f} ms, "
+               f"bound {im['bound_ms']:.4f} ms ({im['bytes']} B), "
+               f"{im['bound_share']:.3f} of it; F.unfold "
+               + (f"{im['library_ms']:.4f} ms" if im['library_ms']
+                  is not None else f"not timed: {im['library_null_reason']}")
+               + f" {card}" if timed else ""))
+
+
+def actq_memory(tag, cfg, peak, card, held: int = 0) -> dict:
+    """One step's peak beside check_train_memory's estimate (the int8
+    saved copies its actq_saved_gb part); where the mode is calibrated
+    (`memory.calibrated`), outside ±25% the run fails."""
+    est = memory.calibrated_train_gb(cfg)
+    saved = memory.actq_saved_gb(cfg)
+    ratio = est * 1e9 / peak
+    gap = memory.calibration_gap(cfg)
+    log(f"actq [{tag}] one step's peak {peak} bytes ({peak / 2**30:.2f} "
+        f"GiB{f', above {held} bytes held before' if held else ''}) vs "
+        f"check_train_memory's estimate {est:.3f} GB, of which the int8 "
+        f"saved copies and their layout {saved:.3f} GB: {ratio:.3f} "
+        + ("(tol 0.75-1.25)" if gap is None else f"(not gated: {gap})")
+        + f" {card}")
+    if gap is None and not 0.75 <= ratio <= 1.25:
+        raise RuntimeError(f"actq [{tag}]: the calibrated estimate is "
+                           f"{ratio:.3f} of the peak")
+    return {'peak': peak, 'estimate_gb': est, 'actq_saved_gb': saved,
+            'ratio': ratio}
+
+
 def run_actq(device, seed: int = 0, card: str = '', cfg=None,
-             steps: int = ACTQ_STEPS, timed: bool = True) -> dict:
-    """Phase 8g: the F16 flagship (`cfg`, default flagship_config(F16))
-    under TRAIN_ACT_Q8 False, True and 'wgrad8' in turns: each `steps`
-    train steps + 1 validation step from the same seeded weights and
-    batch (the first step's loss equal across the modes: the forward is
-    exact), the launches of quant_s8 by mode and by kernel (one a call
-    for 'x' and 'g': no fill launch), of wgrad_s8 by route (the
-    flagship's all 'tma': no patch matrix, no gather) and of their GEMMs,
-    every distinct call of one step held against the plain version, and
-    on the card the median step time and one step's peak memory. Returns
-    per mode the numbers, and the kernel rows of 'wgrad8' (and True)."""
+             steps: int = ACTQ_STEPS, timed: bool = True,
+             tag: str = 'F16 flagship') -> dict:
+    """One recipe of phase 8g: `cfg` (default the F16 flagship) under
+    TRAIN_ACT_Q8 False, True and 'wgrad8' in turns: each `steps` train
+    steps + 1 validation step from the same seeded weights and batch (the
+    first step's loss equal across the modes: the forward is exact; a
+    keypoint model's validation decoded by the keypoint SVD), the
+    launches of quant_s8 by mode and by kernel (one a call for 'x' and
+    'g': no fill launch), of wgrad_s8 by route, of the gather and of
+    their GEMMs, a step's equal to `actq_expected`, every distinct call
+    of one step held against the plain version, and on the card the
+    median step time and one step's peak memory beside the estimate.
+    Under REMAT: the gradients of each policy equal to those without
+    (the recompute quantizes the forward's bits), and the modes of
+    ACTQ_NO_REMAT stepped once more without REMAT, their launches and on
+    the card their step time and peak. Returns per mode the numbers, and
+    the kernel rows of 'wgrad8' (and True)."""
     dev = torch.device(device)
     cuda = dev.type == 'cuda'
-    tma_only = cfg is None      # the flagship's int8 convs all take 'tma'
+    timed = timed and cuda
     cfg = cfg or flagship_config(f16=True)
-    out = {'modes': {}, 'rows': Counter(), 'fused_err': 0.0}
+    out = {'modes': {}, 'rows': Counter(), 'fused_err': 0.0, 'tag': tag}
     for mode in ACTQ_MODES:
         c = copy.deepcopy(cfg)
         c.TRAIN_ACT_Q8 = mode
         c.update()
-        tag = f"TRAIN_ACT_Q8={mode}"
+        mtag = f"{tag} TRAIN_ACT_Q8={mode}"
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        warp_cuda.reset_counts()
-        int8_cuda.reset_counts()
-        actq_cuda.reset_counts()
+        _reset_launches()
         with _FusedWarps() as fused:
             res = run_main_path(c, dev, seed, steps)
         if cuda:
             torch.cuda.synchronize()
             out['fused_err'] = max(out['fused_err'], check_fused_call(
-                f"actq [{tag}]", fused.first))
+                f"actq [{mtag}]", fused.first))
         del fused
-        launches = {**actq_cuda.launches,
-                    **{f'quant_s8_{k}': v
-                       for k, v in actq_cuda.mode_launches.items()},
-                    **{f'wgrad_s8_{k}': v
-                       for k, v in actq_cuda.route_launches.items()},
-                    **{f'kernel_{k}': v
-                       for k, v in actq_cuda.kernel_launches.items()},
-                    'gemm_s8': int8_cuda.launches['gemm_s8'],
-                    'warp_mold': warp_cuda.launches['warp_mold']}
+        launches = _actq_launches()
+        out['rows']['warp_mold'] += launches['warp_mold']
         losses = [m['loss'] for m in res['train']]
-        log(f"actq [{tag}] losses: " + " ".join(f"{v:.6f}" for v in losses)
+        log(f"actq [{mtag}] losses: " + " ".join(f"{v:.6f}" for v in losses)
             + f"; validation {res['val']}; launches {launches}")
         check_main_path(res)
+        if c.REGRESS_KEYPOINTS:
+            sc = decode_keypoint_validation(res, c, seed)['scores']
+            log(f"actq [{mtag}] validation decoded by the keypoint SVD: "
+                f"mean ESA {sc['mean_esa']:.4f} (random weights)")
         per_step = {k: v // steps for k, v in launches.items()
                     if k not in ('warp_mold',)}
-        want = {False: {}, True: {'quant_s8_x': 1, 'quant_s8_dequant': 1},
-                'wgrad8': {'quant_s8_x': 1, 'quant_s8_g': 1,
-                           'wgrad_s8': 1}}[mode]
-        for k in want if cuda else ():
-            if per_step[k] < 1:
-                raise RuntimeError(f"actq [{tag}]: {k} never launched "
-                                   f"({launches})")
-        if mode is False and (launches['quant_s8'] or launches['wgrad_s8']):
-            raise RuntimeError(f"actq [{tag}] launched {launches}")
-        if cuda:
-            # one kernel launch a quantize or dequant call, none before
-            # it; the TMA route writes no patch matrix (no gather, no GEMM)
-            if launches['kernel_quant_x'] != launches['quant_s8_x'] \
-                    or launches['kernel_quant_g'] != launches['quant_s8_g'] \
-                    or launches['kernel_dequant'] \
-                    != launches['quant_s8_dequant'] \
-                    or launches['kernel_im2col'] != launches['wgrad_s8_ragged'] \
-                    or launches['kernel_wgrad_tma'] != launches['wgrad_s8_tma']:
-                raise RuntimeError(f"actq [{tag}]: launches do not add up "
-                                   f"({launches})")
-            if tma_only and launches['wgrad_s8_ragged']:
-                raise RuntimeError(f"actq [{tag}]: a flagship wgrad_s8 took "
-                                   f"the ragged route ({launches})")
+        want = actq_expected(c, mode)
         info = {'losses': losses, 'launches': launches,
-                'per_step': per_step}
+                'per_step': per_step, 'expected': want}
+        calls = None
         if mode:
             # one more step with the calls recorded: each distinct one
             actq_cuda.calls = []
             res['step'](res['raw'], torch.Generator().manual_seed(seed + 1))
             calls, actq_cuda.calls = actq_cuda.calls, None
-            info['kernels'] = check_actq_calls(calls, dev, seed,
-                                               timed and cuda)
-            for k, row in info['kernels'].items():
-                log(f"actq [{tag}] {k}: {row['launches']} launches a step "
-                    f"({row['distinct']} distinct calls, each equal to the "
-                    f"plain version on fresh operands"
-                    + (", on both routes" if k == 'wgrad_s8' else
-                       ", 'g' under a group too") + "); "
-                    + (f"routes {dict(row['routes'])}" if k == 'wgrad_s8'
-                       else f"modes {dict(row['modes'])}")
-                    + (f"; device {row['ms']:.4f} ms a step (graph), host "
-                       f"pace {row['host_ms']:.4f} ms, plain "
-                       f"{row['plain_ms']:.4f} ms, bound "
-                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                       f"{row['bytes']} B plain, {row['ops']} op; the "
-                       f"layouts add {row['layout_bytes']} B), library "
-                       f"{row['library_ms']} ms"
-                       + (f", ragged route {row['ragged_ms']:.4f} ms"
-                          if k == 'wgrad_s8' else
-                          f", by mode {dict(row['by_mode_ms'])}, plain by "
-                          f"mode {dict(row['by_mode_plain_ms'])}, bound by "
-                          f"mode {row['by_mode_bound_ms']}")
-                       + f" {card}" if timed and cuda else ""))
-            dq = info['kernels']['quant_s8']['dequant']
-            if dq['launches'] and timed and cuda:
-                log(f"actq [{tag}] quant_s8 'dequant': {dq['launches']} "
-                    f"launches a step ({dq['distinct']} distinct calls); "
-                    f"device {dq['ms']:.4f} ms a step (graph), host pace "
-                    f"{dq['host_ms']:.4f} ms, plain {dq['plain_ms']:.4f} ms, "
-                    f"bound {dq['bound_ms']:.4f} ms ({dq['bytes']} B), "
-                    f"{dq['bound_share']:.3f} of it; torch.mul "
-                    + (f"{dq['library_ms']:.4f} ms" if dq['library_ms']
-                       is not None else "differs from the plain version at "
-                       f"{dq['library_differs']}: not timed")
-                    + f" {card}")
-            out['rows']['quant_s8'] += launches['quant_s8']
-            out['rows']['dequant'] += launches['kernel_dequant']
-            out['rows']['wgrad_s8'] += launches['wgrad_s8']
-            out['rows']['gemm_s8_f32acc'] += launches['gemm_s8']
-        if cuda and timed:
+        check_actq_counts(mtag, mode, want, per_step, calls, cuda)
+        log(f"actq [{mtag}] a step: {want} as expected from the convs, "
+            "REMAT's recompute and the routes")
+        if mode:
+            info['kernels'] = check_actq_calls(calls, dev, seed, timed)
+            log_actq_kernels(mtag, info['kernels'], card, timed)
+            add_actq_rows(out['rows'], launches)
+        if timed:
             info['ms'] = time_train(res, seed)
-            info['peak'] = step_peak(res, seed)
-            info['estimate_gb'] = memory.calibrated_train_gb(c)
-            info['actq_saved_gb'] = memory.actq_saved_gb(c)
-            log(f"actq [{tag}] step: median {info['ms']:.3f} ms over 10 "
+            log(f"actq [{mtag}] step: median {info['ms']:.3f} ms over 10 "
                 f"after 2 warm-up, {c.BATCH_SIZE / info['ms'] * 1e3:.2f} "
                 f"imgs/s, batch {c.BATCH_SIZE} {c.IMAGE_SHAPE[0]}x"
-                f"{c.IMAGE_SHAPE[1]}; one step's peak {info['peak']} bytes "
-                f"({info['peak'] / 2**30:.2f} GiB) vs check_train_memory's "
-                f"estimate {info['estimate_gb']:.3f} GB, of which the int8 "
-                f"saved copies and their layout {info['actq_saved_gb']:.3f} "
-                f"GB {card}")
+                f"{c.IMAGE_SHAPE[1]} {card}")
+            info.update(actq_memory(mtag, c, step_peak(res, seed), card))
+        if c.REMAT and mode:
+            rels = remat_grad_rel(res, seed, c.REMAT)
+            log(f"actq [{mtag}] gradients of one forward under each REMAT "
+                f"policy vs without REMAT, largest relative L2 over the "
+                f"parameters (tol {REMAT_CARD_REL}): {rels}")
+            if not max(rels.values()) <= REMAT_CARD_REL:
+                raise RuntimeError(f"actq [{mtag}]: REMAT changed the "
+                                   f"gradients: {rels}")
+        if c.REMAT and mode in ACTQ_NO_REMAT:
+            info['no_remat'] = actq_no_remat(res, c, mode, mtag, seed, dev,
+                                             card, timed)
         out['modes'][mode] = info
         del res
     first = {m: v['losses'][0] for m, v in out['modes'].items()}
     if len(set(first.values())) != 1 or not np.isfinite(first[False]):
-        raise RuntimeError(f"actq: the first step's losses differ: {first}")
-    log(f"actq: the first step's loss {first[False]!r} in every mode (the "
-        "forward is exact)")
+        raise RuntimeError(f"actq [{tag}]: the first step's losses differ: "
+                           f"{first}")
+    log(f"actq [{tag}]: the first step's loss {first[False]!r} in every mode "
+        "(the forward is exact)")
+    return out
+
+
+def actq_no_remat(res, c, mode, mtag, seed, dev, card, timed) -> dict:
+    """`res`'s model and batch without REMAT: one step's launches against
+    `actq_expected` and, on the card, the step time and one step's peak
+    beside the estimate. The model is left under `c.REMAT`."""
+    plain = copy.deepcopy(c)
+    plain.REMAT = False
+    plain.update()
+    ntag = f"{mtag} REMAT=False"
+    res['model'].backbone.set_remat(False)
+    try:
+        _reset_launches()
+        calls = [] if mode else None
+        actq_cuda.calls = calls
+        res['step'](res['raw'], torch.Generator().manual_seed(seed + 1))
+        actq_cuda.calls = None
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+        per_step = {k: v for k, v in _actq_launches().items()
+                    if k != 'warp_mold'}
+        want = actq_expected(plain, mode)
+        check_actq_counts(ntag, mode, want, per_step, calls,
+                          dev.type == 'cuda')
+        info = {'per_step': per_step, 'expected': want}
+        log(f"actq [{ntag}] a step: {want} as expected")
+        if timed:
+            info['ms'] = time_train(res, seed)
+            log(f"actq [{ntag}] step: median {info['ms']:.3f} ms over 10 "
+                f"after 2 warm-up, batch {c.BATCH_SIZE} {card}")
+            info.update(actq_memory(ntag, plain, step_peak(res, seed), card))
+    finally:
+        actq_cuda.calls = None
+        res['model'].backbone.set_remat(c.REMAT)
+    return info
+
+
+class _FirstStep:
+    """While open, keeps the metrics of the first step of the train steps
+    that the engine makes (`engine.make_train_step`)."""
+
+    def __enter__(self):
+        from ursonet_torch import engine as engine_mod
+        self.module = engine_mod
+        self.saved = engine_mod.make_train_step
+        self.metrics = None
+
+        def make(*a, **kw):
+            step = self.saved(*a, **kw)
+
+            def run(*sa, **skw):
+                m = step(*sa, **skw)
+                if self.metrics is None:
+                    self.metrics = {k: float(v) for k, v in m.items()}
+                return m
+            return run
+        engine_mod.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_train_step = self.saved
+
+
+def run_actq_cli(root, device, seed: int = 0, card: str = '',
+                 flags=CONFIG2_FLAGS, steps: int = CONFIG2_STEPS,
+                 batch: int = 1, timed: bool = True) -> dict:
+    """Phase 8g's command-line recipe: benchmark config 2 (`flags`, batch
+    `batch`) through `run_cli` on the URSO frames under `root/urso`
+    (train `steps` steps streamed through the native loader, then
+    evaluate --weights last) under --set TRAIN_ACT_Q8=False, True and
+    wgrad8 in turns from the same seed: the first train step's loss equal
+    across the modes, the launches a step equal to `actq_expected` of the
+    command's Config (at batch 1 the C = 3 stem's weight gradient within
+    the int32 guard: the ragged route, one gather and one gemm_s8), every
+    distinct call of a step held against its plain version and timed on
+    the card, the train command's peak beside the estimate (ResNet-18:
+    not calibrated, printed), each command's seconds."""
+    from ursonet_torch import pose_estimator
+    dev = torch.device(device)
+    cuda = dev.type == 'cuda'
+    timed = timed and cuda
+    out = {'modes': {}, 'rows': Counter(), 'fused_err': 0.0,
+           'tag': 'config2 CLI'}
+    for mode in ACTQ_MODES:
+        mflags = list(flags) + ['--set', f'TRAIN_ACT_Q8={mode}']
+        mtag = f"config2 CLI TRAIN_ACT_Q8={mode}"
+        args = pose_estimator.build_parser().parse_args(
+            ['train', '--dataset', 'urso', '--data_dir', root, '--weights',
+             'none', '--batch_size', str(batch)] + mflags)
+        c = pose_estimator.make_config(args)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() if cuda else 0
+        actq_cuda.reset_counts()
+        actq_cuda.calls = []
+        try:
+            with _FirstStep() as first, _NativeBatches() as native:
+                cli = run_cli(root, dev, seed, flags=mflags,
+                              train_batch=batch, eval_batch=batch,
+                              steps=steps, card=card,
+                              name=f'actq_config2_{mode}', float_only=True)
+        finally:
+            calls, actq_cuda.calls = actq_cuda.calls, None
+        peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+        check_native_batches(f'{mtag} train', native)
+        out['fused_err'] = max(out['fused_err'], cli['fused_err'])
+        train_launches = cli['launches']['train']
+        launches = {**_actq_launches(), 'gemm_s8': train_launches['gemm_s8'],
+                    'warp_mold': train_launches['warp_mold']}
+        if len(calls) % steps:
+            raise RuntimeError(f"actq [{mtag}]: {len(calls)} calls in "
+                               f"{steps} steps")
+        step_calls = calls[:len(calls) // steps]
+        per_step = {k: v // steps for k, v in launches.items()
+                    if k != 'warp_mold'}
+        want = actq_expected(c, mode)
+        check_actq_counts(mtag, mode, want, per_step,
+                          step_calls if mode else None, cuda)
+        loss = first.metrics['loss']
+        if not np.isfinite(loss):
+            raise RuntimeError(f"actq [{mtag}]: first step's loss {loss}")
+        info = {'first_loss': loss, 'launches': launches,
+                'per_step': per_step, 'expected': want,
+                'seconds': cli['seconds'], 'peak': peak,
+                'evaluate_summary': None}
+        log(f"actq [{mtag}] first train step {first.metrics}; a step: "
+            f"{want} as expected; train and evaluate seconds "
+            f"{ {k: round(v, 2) for k, v in cli['seconds'].items()} } "
+            f"(host wall) {card}")
+        if cuda:
+            info.update(actq_memory(f"{mtag} train command", c, peak, card,
+                                    held))
+        if mode:
+            info['kernels'] = check_actq_calls(step_calls, dev, seed, timed)
+            log_actq_kernels(mtag, info['kernels'], card, timed)
+            add_actq_rows(out['rows'], launches)
+        out['rows']['warp_mold'] += launches['warp_mold']
+        out['modes'][mode] = info
+    first = {m: v['first_loss'] for m, v in out['modes'].items()}
+    if len(set(first.values())) != 1:
+        raise RuntimeError(f"actq [config2 CLI]: the first step's losses "
+                           f"differ: {first}")
+    log(f"actq [config2 CLI]: the first train step's loss {first[False]!r} "
+        "in every mode (the forward is exact)")
+    return out
+
+
+def actq_recipes() -> tuple:
+    """Phase 8g's recipes run by `run_actq`, as (tag, Config): the F16
+    flagship, benchmark_config(5) (ResNet-101, keypoints, F16, REMAT,
+    batch 16) and the f32 flagship (batch 32); config 2 runs through the
+    command line (`run_actq_cli`) between the last two."""
+    return (('F16 flagship', flagship_config(f16=True)),
+            ('config5', presets.benchmark_config(5)),
+            ('f32 flagship', flagship_config(f16=False)))
+
+
+def run_actq_phase(root, device, seed: int = 0, card: str = '',
+                   recipes=None, cli_flags=CONFIG2_FLAGS,
+                   cli_steps: int = CONFIG2_STEPS, steps: int = ACTQ_STEPS,
+                   timed: bool = True) -> dict:
+    """Phase 8g: TRAIN_ACT_Q8 in the recipes the JAX package trains it
+    with: each of `recipes` (default actq_recipes()) through `run_actq`,
+    and config 2 through the command line (`run_actq_cli`, on the frames
+    under `root/urso`) after the second. Returns per recipe its result,
+    and the launches by kernel row summed."""
+    recipes = actq_recipes() if recipes is None else recipes
+    out = {'recipes': {}, 'rows': Counter(), 'fused_err': 0.0}
+    for i, (tag, cfg) in enumerate(recipes):
+        t0 = time.perf_counter()
+        r = run_actq(device, seed, card, cfg=cfg, steps=steps, timed=timed,
+                     tag=tag)
+        out['recipes'][tag] = r
+        log(f"actq [{tag}]: {time.perf_counter() - t0:.1f} s")
+        if i == 1:
+            t0 = time.perf_counter()
+            r = run_actq_cli(root, device, seed, card, flags=cli_flags,
+                             steps=cli_steps, timed=timed)
+            out['recipes'][r['tag']] = r
+            log(f"actq [{r['tag']}]: {time.perf_counter() - t0:.1f} s")
+    for r in out['recipes'].values():
+        out['rows'].update(r['rows'])
+        out['fused_err'] = max(out['fused_err'], r['fused_err'])
+        if torch.device(device).type == 'cuda':
+            torch.cuda.empty_cache()
     return out
 
 
@@ -5050,6 +5450,133 @@ def run_video(root, device, seed: int = 0, card: str = '',
                             'wall': wall}
         del seen, eng
     return out
+
+
+def actq_kernel_rows(aqp) -> list:
+    """The kernels line's rows of phase 8g (`run_actq_phase`'s result;
+    the first recipe's 'wgrad8' step gives the times, True's beside
+    them)."""
+    keys = LINE_KEYS
+    # TRAIN_ACT_Q8's kernels (phase 8g), which replace XLA operations of
+    # the JAX package, no Pallas kernel: the F16 flagship's train step
+    # under 'wgrad8' (quant_s8 'x' and 'g', wgrad_s8), each distinct call
+    # timed on fresh operands by CUDA graph (device time; host_ms its host
+    # pace) and weighted by its count; under True beside them (quant_s8
+    # 'x' and 'dequant'). wgrad_s8 on the TMA route (implicit GEMM, no
+    # patch matrix); its library call torch._int_mm on the patch matrix of
+    # the same operands, and its ragged route (gather + gemm_s8) beside
+    # it. Each recipe's launches by path and its step's times beside them.
+    recipes = aqp['recipes']
+    aq = next(iter(recipes.values()))
+    rows = []
+
+    def by_recipe(fn):
+        return {tag: {str(m): fn(v) for m, v in r['modes'].items() if m}
+                for tag, r in recipes.items()}
+
+    def times(row):
+        return {k: row[k] for k in keys + ('host_ms',)
+                + (('library_null_reason',) if row['library_ms'] is None
+                   else ())}
+    for name, replaces in (('quant_s8', 'ursonet_tpu/models/actq.py:117'),
+                           ('wgrad_s8', 'ursonet_tpu/models/actq.py:90')):
+        w8 = aq['modes']['wgrad8']['kernels'][name]
+        row = {"name": name, "route": "cuda",
+               "source": "ursonet_torch/csrc/actq.cu", "replaces": replaces,
+               "replaces_kind": "XLA operations of the JAX package (no "
+                                "Pallas kernel)",
+               "launches": aqp['rows'][name],
+               "launches_by_path": {tag: r['rows'][name]
+                                    for tag, r in recipes.items()},
+               "launches_by_mode": {str(m): v['launches'][name]
+                                    for m, v in aq['modes'].items()},
+               "kernel_launches_by_mode": {
+                   str(m): {k[len('kernel_'):]: n
+                            for k, n in v['launches'].items()
+                            if k.startswith('kernel_')}
+                   for m, v in aq['modes'].items()},
+               "per_step_by_path": by_recipe(lambda v: {
+                   k: n for k, n in v['per_step'].items()
+                   if k.startswith(name)}),
+               "max_abs_err": 0.0,
+               **{k: w8[k] for k in keys}, "host_ms": w8['host_ms'],
+               "bound_bytes": w8['bytes'],
+               "layout_extra_bytes": w8['layout_bytes'],
+               "per": "train step, 'wgrad8', F16 flagship",
+               "by_path": by_recipe(lambda v: times(v['kernels'][name]))}
+        if name == 'quant_s8':
+            row["launches_by_quant_mode"] = {
+                str(m): {q: v['launches'][f'quant_s8_{q}']
+                         for q in actq_cuda.MODES}
+                for m, v in aq['modes'].items()}
+            row["ms_by_quant_mode"] = dict(w8['by_mode_ms'])
+            row["plain_ms_by_quant_mode"] = dict(w8['by_mode_plain_ms'])
+            row["bound_ms_by_quant_mode"] = w8['by_mode_bound_ms']
+            row["ms_by_quant_mode_by_path"] = by_recipe(
+                lambda v: dict(v['kernels']['quant_s8']['by_mode_ms']))
+            row["library_null_reason"] = (
+                "no one PyTorch call computes the per-sample amax, the "
+                "scale and the quantize")
+            tr = aq['modes'][True]['kernels'][name]
+            row["mode_true"] = {
+                **{k: tr[k] for k in keys}, "host_ms": tr['host_ms'],
+                "ms_by_quant_mode": dict(tr['by_mode_ms']),
+                "plain_ms_by_quant_mode": dict(tr['by_mode_plain_ms']),
+                "bound_ms_by_quant_mode": tr['by_mode_bound_ms']}
+        else:
+            row["launches_by_route"] = {
+                tag: {str(m): {q: v['launches'][f'wgrad_s8_{q}']
+                               for q in actq_cuda.ROUTES}
+                      for m, v in r['modes'].items()}
+                for tag, r in recipes.items()}
+            row["ragged_route_ms"] = w8['ragged_ms']
+        rows.append(row)
+    # quant_s8 'dequant' apart (its own kernel, `_q8_bwd`'s copy
+    # q.astype(dt) * scale.astype(dt)): a 'wgrad8' step's calls, True's
+    # beside them; its library call one torch.mul on the same operands.
+    # Its launches, times and bytes are also inside quant_s8's row.
+    dqs = {m: aq['modes'][m]['kernels']['quant_s8']['dequant']
+           for m in (True, 'wgrad8')}
+    dq_keys = keys + ('host_ms', 'bound_share', 'library_differs')
+    rows.append({
+        "name": "quant_s8_dequant", "route": "cuda",
+        "source": "ursonet_torch/csrc/actq.cu",
+        "replaces": "ursonet_tpu/models/actq.py:157",
+        "replaces_kind": "an XLA operation of the JAX package (no Pallas "
+                         "kernel)",
+        "included_in": "quant_s8",
+        "launches": aqp['rows']['dequant'],
+        "launches_by_path": {tag: r['rows']['dequant']
+                             for tag, r in recipes.items()},
+        "launches_by_mode": {str(m): v['launches']['kernel_dequant']
+                             for m, v in aq['modes'].items()},
+        "max_abs_err": 0.0,
+        **{k: dqs['wgrad8'][k] for k in dq_keys},
+        "bound_bytes": dqs['wgrad8']['bytes'],
+        "per": "train step, 'wgrad8', F16 flagship",
+        "mode_true": {k: dqs[True][k] for k in dq_keys + ('bytes',)},
+        "by_path": by_recipe(lambda v: {
+            k: v['kernels']['quant_s8']['dequant'][k] for k in dq_keys})})
+    # the gather of wgrad_s8's ragged route (im2col_s8): config 2's stem
+    # (C = 3) at batch 1 through the command line, a 'wgrad8' step's call
+    im = recipes['config2 CLI']['modes']['wgrad8']['kernels']['im2col_s8']
+    rows.append({
+        "name": "im2col_s8", "route": "cuda",
+        "source": "ursonet_torch/csrc/actq.cu",
+        "replaces": "ursonet_tpu/models/actq.py:90",
+        "replaces_kind": "the patches that XLA's conv of `_wgrad_conv` "
+                         "reads (no Pallas kernel); the gather half of "
+                         "wgrad_s8's ragged route",
+        "included_in": "wgrad_s8",
+        "launches": aqp['rows']['im2col_s8'],
+        "launches_by_path": {tag: r['rows']['im2col_s8']
+                             for tag, r in recipes.items()},
+        "max_abs_err": 0.0,
+        **{k: im[k] for k in keys + ('host_ms', 'bound_share')},
+        "bound_bytes": im['bytes'],
+        "library_null_reason": im['library_null_reason'],
+        "per": "train step, 'wgrad8', config 2 (batch 1) through the CLI"})
+    return rows
 
 
 def main(argv=None) -> int:
@@ -5292,15 +5819,24 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"parallel phase: {par['seconds']:.1f} s {card}")
 
-        # 8g. TRAIN_ACT_Q8: the F16 flagship with int8-saved activations
+        # 8g. TRAIN_ACT_Q8 in the recipes the JAX package trains it with:
+        # the F16 flagship, config 5, config 2 (the command line) and the
+        # f32 flagship
         t8 = time.perf_counter()
-        aq = run_actq(dev, args.seed, card=card)
-        fused_err = max(fused_err, aq['fused_err'])
+        aqp = run_actq_phase(root, dev, args.seed, card=card)
+        aq = aqp['recipes']['F16 flagship']
+        fused_err = max(fused_err, aqp['fused_err'])
         torch.cuda.empty_cache()
         log(f"actq phase: {time.perf_counter() - t8:.1f} s; step "
-            + ", ".join(f"TRAIN_ACT_Q8={m} {v['ms']:.3f} ms (peak "
-                        f"{v['peak'] / 2**30:.2f} GiB)"
-                        for m, v in aq['modes'].items()) + f" {card}")
+            + "; ".join(f"{tag}: " + ", ".join(
+                f"TRAIN_ACT_Q8={m} {v['ms']:.3f} ms (peak "
+                f"{v['peak'] / 2**30:.2f} GiB)"
+                + (f", without REMAT {v['no_remat']['ms']:.3f} ms (peak "
+                   f"{v['no_remat']['peak'] / 2**30:.2f} GiB)"
+                   if 'no_remat' in v else '')
+                for m, v in r['modes'].items())
+                for tag, r in aqp['recipes'].items() if tag != 'config2 CLI')
+            + f" {card}")
 
         # 8h. test --video on a clip of 1280x960 URSO frames
         t8 = time.perf_counter()
@@ -5435,7 +5971,7 @@ def main(argv=None) -> int:
     rates = {(kind, route): time_mma_rate(kind, route, dev, card)
              for kind in mma_rate.KINDS for route in mma_rate.ROUTES}
 
-    keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    keys = LINE_KEYS
     # stem_s8 and mma_rate have a row per route: the route the main path
     # takes under the kernel's name, the other with the route appended;
     # `kernel_route` names it, `sm_clock_mhz` is the clock while it ran.
@@ -5571,7 +6107,7 @@ def main(argv=None) -> int:
                           ('knobs', kn['rows']), ('orbax', ob['rows']),
                           ('parallel', par['rows']),
                           ('actq', {'gemm_s8_f32acc':
-                                    aq['rows']['gemm_s8_f32acc']}),
+                                    aqp['rows']['gemm_s8_f32acc']}),
                           ('video', vid['rows'])):
             n = got.get(row['name'], 0)
             if n:
@@ -5586,6 +6122,7 @@ def main(argv=None) -> int:
     kernels[0]['launches_fused_by_path']['orbax'] = ob['rows']['warp_mold']
     kernels[0]['launches_fused_by_path']['parallel'] = par['rows'][
         'warp_mold']
+    kernels[0]['launches_fused_by_path']['actq'] = aqp['rows']['warp_mold']
     # phase 8d's joins by mode and residual type, and its checks of them
     # (every distinct call on fresh operands: any difference raised)
     new_modes = int8_cuda.JOINS + ('f32_sum',)
@@ -5601,82 +6138,7 @@ def main(argv=None) -> int:
             row['max_abs_err_by_mode'] = checked
     # train --host_augment warps on the host: checked to launch none
     kernels[0]['launches_fused_by_path']['host_augment'] = 0
-    # TRAIN_ACT_Q8's kernels (phase 8g), which replace XLA operations of
-    # the JAX package, no Pallas kernel: a train step's calls under
-    # 'wgrad8' (quant_s8 'x' and 'g', wgrad_s8), each distinct call timed
-    # on fresh operands by CUDA graph (device time; host_ms its host pace)
-    # and weighted by its count; under True beside them (quant_s8 'x' and
-    # 'dequant'). wgrad_s8 on the TMA route (implicit GEMM, no patch
-    # matrix); its library call torch._int_mm on the patch matrix of the
-    # same operands, and its ragged route (gather + gemm_s8) beside it.
-    for name, replaces in (('quant_s8', 'ursonet_tpu/models/actq.py:117'),
-                           ('wgrad_s8', 'ursonet_tpu/models/actq.py:90')):
-        w8 = aq['modes']['wgrad8']['kernels'][name]
-        row = {"name": name, "route": "cuda",
-               "source": "ursonet_torch/csrc/actq.cu", "replaces": replaces,
-               "replaces_kind": "XLA operations of the JAX package (no "
-                                "Pallas kernel)",
-               "launches": aq['rows'][name],
-               "launches_by_mode": {str(m): v['launches'][name]
-                                    for m, v in aq['modes'].items()},
-               "kernel_launches_by_mode": {
-                   str(m): {k[len('kernel_'):]: n
-                            for k, n in v['launches'].items()
-                            if k.startswith('kernel_')}
-                   for m, v in aq['modes'].items()},
-               "max_abs_err": 0.0,
-               **{k: w8[k] for k in keys}, "host_ms": w8['host_ms'],
-               "bound_bytes": w8['bytes'],
-               "layout_extra_bytes": w8['layout_bytes'],
-               "per": "train step, 'wgrad8'"}
-        if name == 'quant_s8':
-            row["launches_by_quant_mode"] = {
-                str(m): {q: v['launches'][f'quant_s8_{q}']
-                         for q in actq_cuda.MODES}
-                for m, v in aq['modes'].items()}
-            row["ms_by_quant_mode"] = dict(w8['by_mode_ms'])
-            row["plain_ms_by_quant_mode"] = dict(w8['by_mode_plain_ms'])
-            row["bound_ms_by_quant_mode"] = w8['by_mode_bound_ms']
-            row["library_null_reason"] = (
-                "no one PyTorch call computes the per-sample amax, the "
-                "scale and the quantize")
-            tr = aq['modes'][True]['kernels'][name]
-            row["mode_true"] = {
-                **{k: tr[k] for k in keys}, "host_ms": tr['host_ms'],
-                "ms_by_quant_mode": dict(tr['by_mode_ms']),
-                "plain_ms_by_quant_mode": dict(tr['by_mode_plain_ms']),
-                "bound_ms_by_quant_mode": tr['by_mode_bound_ms']}
-        else:
-            row["launches_by_route"] = {
-                str(m): {r: v['launches'][f'wgrad_s8_{r}']
-                         for r in actq_cuda.ROUTES}
-                for m, v in aq['modes'].items()}
-            row["ragged_route_ms"] = w8['ragged_ms']
-        kernels.append(row)
-    # quant_s8 'dequant' apart (its own kernel, `_q8_bwd`'s copy
-    # q.astype(dt) * scale.astype(dt)): a 'wgrad8' step's calls, True's
-    # beside them; its library call one torch.mul on the same operands.
-    # Its launches, times and bytes are also inside quant_s8's row.
-    dqs = {m: aq['modes'][m]['kernels']['quant_s8']['dequant']
-           for m in (True, 'wgrad8')}
-    kernels.append({
-        "name": "quant_s8_dequant", "route": "cuda",
-        "source": "ursonet_torch/csrc/actq.cu",
-        "replaces": "ursonet_tpu/models/actq.py:157",
-        "replaces_kind": "an XLA operation of the JAX package (no Pallas "
-                         "kernel)",
-        "included_in": "quant_s8",
-        "launches": aq['rows']['dequant'],
-        "launches_by_mode": {str(m): v['launches']['kernel_dequant']
-                             for m, v in aq['modes'].items()},
-        "max_abs_err": 0.0,
-        **{k: dqs['wgrad8'][k] for k in keys},
-        **{k: dqs['wgrad8'][k] for k in ('host_ms', 'bound_share',
-                                         'library_differs')},
-        "bound_bytes": dqs['wgrad8']['bytes'],
-        "per": "train step, 'wgrad8'",
-        "mode_true": {k: dqs[True][k] for k in keys + (
-            'host_ms', 'bound_share', 'library_differs', 'bytes')}})
+    kernels += actq_kernel_rows(aqp)
     log(f"float forward [bf16]: {float_fwd['median_ms']:.3f} ms per batch "
         f"of 128; int8 serve [bf16] base {serve_ms['base', 'bf16']:.3f} ms, "
         f"host_s2d {serve_ms['host_s2d', 'bf16']:.3f} ms {card}")

@@ -55,6 +55,7 @@ from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops import actq_cuda, int8_cuda
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.step import make_train_step
+from ursonet_torch.utils import memory
 import torch_parallel_worker as W
 
 torch.set_num_threads(2)
@@ -493,6 +494,100 @@ def test_train_step_matches_jax(f16):
     units = np.linalg.norm(wt - wj) / np.linalg.norm(wj - w0)
     assert units <= (0.35 if f16 else 1e-3), units
     for k in ('loss', 'loc_loss', 'ori_loss'):
+        assert abs(float(tm[k]) - float(jm[k])) \
+            <= (3e-2 if f16 else 1e-5) * abs(float(jm[k])), k
+
+
+# chip_smoke.py phase 8g's recipes at a tiny width (the card runs them at
+# full width): config 5's keypoint head under F16 and REMAT in both modes
+# (ResNet-50 standing for its ResNet-101: the same blocks, fewer of them),
+# config 2's batch-1 ResNet-18, whose C = 3 stem's weight gradient takes
+# wgrad_s8's gather route, and the flagship's classification head in f32
+RECIPES = {
+    'config5_true': ('resnet50', dict(REGRESS_KEYPOINTS=True, F16=True,
+                                      REMAT=True, TRAIN_ACT_Q8=True)),
+    'config5_wgrad8': ('resnet50', dict(REGRESS_KEYPOINTS=True, F16=True,
+                                        REMAT=True, TRAIN_ACT_Q8='wgrad8')),
+    'config2_b1_wgrad8': ('resnet18', dict(TRAIN_ACT_Q8='wgrad8',
+                                           IMAGES_PER_GPU=1)),
+    'flagship_f32_wgrad8': ('resnet50', dict(TRAIN_ACT_Q8='wgrad8',
+                                             REGRESS_ORI=False,
+                                             ORI_BINS_PER_DIM=6)),
+}
+
+
+def _recipe_batch(cfg, jcfg, seed):
+    """A molded batch of the recipe's heads: keypoint targets of
+    plausible poses, or location and orientation (quaternions, or the
+    JAX package's PMFs for a classification head)."""
+    from ursonet_tpu.data.urso import encode_as_keypoints
+    from ursonet_tpu.ops import encoders as jenc
+    n = cfg.BATCH_SIZE
+    batch = _molded(seed, n)
+    if cfg.REGRESS_KEYPOINTS:
+        k1, k2 = encode_as_keypoints(batch.pop('gt_ori'), batch['gt_loc'],
+                                     3.0)
+        batch.update(gt_k1=k1.astype(np.float32), gt_k2=k2.astype(np.float32))
+    elif not cfg.REGRESS_ORI:
+        grid = jenc.build_ori_grid(jcfg.ORI_BINS_PER_DIM)
+        batch['gt_ori'] = jenc.encode_ori_pmf(
+            batch['gt_ori'], grid.quat, grid.mask, jcfg.BETA,
+            jcfg.ORI_BINS_PER_DIM).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize('recipe', list(RECIPES))
+def test_recipe_step_matches_jax(recipe):
+    """One train step of each recipe on both sides (the port's seeded
+    weights), at the file's bounds for its compute type; the launches the
+    port's step records are the recipe's: under REMAT every block's convs
+    quantized again in the recompute (the stem not), at batch 1 the
+    stem's weight gradient on the gather route and the others on the TMA
+    route."""
+    backbone, over = RECIPES[recipe]
+    over = {'IMAGES_PER_GPU': 2, **over}
+    f16 = over.get('F16', False)
+    cfg, jcfg = tiny(Config, backbone, **over), tiny(JaxConfig, backbone,
+                                                     **over)
+    batch = _recipe_batch(cfg, jcfg, 9)
+    model = build_model(cfg, 'cpu', torch.Generator().manual_seed(3))
+    tree = params_to_jax_layout(model.state_dict())
+    step = make_train_step(model, cfg, make_optimizer(cfg), device='cpu')
+    actq_cuda.calls = []
+    try:
+        tm = step(W.molded_batch(batch), torch.Generator().manual_seed(0))
+    finally:
+        calls, actq_cuda.calls = actq_cuda.calls, None
+    convs = [c[:4] for c in memory.backbone_convs(cfg)]
+    xs = [a['shape'] for n, a in calls if n == 'quant_s8' and a['mode'] == 'x']
+    wg = {a['q']: a['route'] for n, a in calls if n == 'wgrad_s8'}
+    assert xs[:len(convs)] == convs
+    if cfg.REMAT:
+        # every conv but the stem a second time, in its block's recompute
+        assert sorted(xs[len(convs):]) == sorted(convs[1:])
+    else:
+        assert len(xs) == len(convs)
+    if cfg.TRAIN_ACT_Q8 == 'wgrad8':
+        assert wg == {c: 'ragged' if c[1] < 64 else 'tma' for c in convs}
+        assert wg[convs[0]] == 'ragged' and convs[0][0] \
+            == cfg.BATCH_SIZE
+    else:
+        assert not wg
+    jmodel = jax_build_model(jcfg)
+    tx = jax_make_optimizer(jcfg)
+    state = jstate.state_from_params(tree['params'], tree['batch_stats'], tx)
+    jstep = jax_make_train_step(
+        jmodel, jcfg, tx, trainable=jstate.trainable_mask(state.params, 'all'))
+    state, jm = jstep(state, {k: jnp.asarray(v) for k, v in batch.items()},
+                      jax.random.PRNGKey(0))
+    names_j, wj = _flat(jax.device_get(state.params))
+    names_t, wt = _flat(params_to_jax_layout(model.state_dict())['params'])
+    assert names_j == names_t
+    _, w0 = _flat(tree['params'])
+    units = np.linalg.norm(wt - wj) / np.linalg.norm(wj - w0)
+    assert units <= (0.35 if f16 else 1e-3), units
+    assert set(tm) == set(jm)
+    for k in jm:
         assert abs(float(tm[k]) - float(jm[k])) \
             <= (3e-2 if f16 else 1e-5) * abs(float(jm[k])), k
 

@@ -19,8 +19,10 @@
     element's product reading its own sample's scale where a chunk spans
     samples, giving `dequant_torch`'s bits.
 The geometries: the F16 flagship's 29 stage-4/5 convs (ResNet-50,
-batch 32, 512x640; the box mirror at batch 2, the same widths), the
-probe's CHECK geometries, config 2's stem and odd shapes. The kernel's
+batch 32, 512x640; the box mirror at batch 2, the same widths), config
+5's convs from 128x160 and 64x80 (ResNet-101, batch 16; the box mirror
+at batch 2) and config 2's (ResNet-18, batch 1: basic blocks, the stem
+on the gather route), the probe's CHECK geometries and odd shapes. The kernel's
 constants are read from the source, so an edit there that the mirrors
 do not follow fails here.
 """
@@ -32,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from ursonet_torch import presets
 from ursonet_torch.ops import actq_cuda as aq
 from ursonet_torch.probes import actq_wgrad8 as aw
 
@@ -61,6 +64,18 @@ ODD = {'ci64_3x3s1': (3, 9, 13, 64, 200, 3, 1, 1),
        'wide_row': (1, 4, 300, 64, 32, 3, 1, 1),
        's2d_pads': (2, 11, 11, 64, 6, 4, 1, ((2, 1), (2, 1)))}
 STEM2 = (1, 512, 640, 3, 64, 7, 2, 3)     # config 2's stem at batch 1
+# chip_smoke.py phase 8g's recipes on the int8 route: config 5's convs
+# from 128x160 and 64x80 (ResNet-101, batch 16: stage 3 and the strided
+# convs into stage 4), the box mirror at batch 2 (the same widths), and
+# config 2's TMA-route convs (ResNet-18, batch 1: basic blocks, their
+# stride-2 3x3 convs)
+C5 = {nm: g for nm, (g, _) in aw.recipe_geometries(
+    presets.benchmark_config(5)).items() if g[1] >= 64}
+C5_SMALL = {nm.replace('n16_', 'n2_'): (2,) + g[1:] for nm, g in C5.items()}
+C2 = {nm: g for nm, (g, _) in aw.recipe_geometries(
+    presets.benchmark_config(2)).items() if g[3] >= 64}
+FULL = {**FLAGSHIP, **ODD, **C5, **C2}
+BOXED = {**SMALL, **ODD, **C5_SMALL, **C2}
 
 
 def plan_of(geom, route=None):
@@ -96,8 +111,17 @@ def test_routes_follow_the_shapes():
         assert plan_of(g).route == 'tma', nm
     for g in aw.CHECK + [STEM2]:
         assert plan_of(g).route == 'ragged', g
-    for g in ODD.values():
+    for g in list(ODD.values()) + list(C5.values()) + list(C2.values()):
         assert plan_of(g).route == 'tma', g
+    # the recipes' int8-route convs: config 5's 93 and config 2's 21, all
+    # on the TMA route but config 2's C = 3 stem, whose weight gradient
+    # (1 x 256 x 320 = 81,920 columns, within the int32 guard) is gathered
+    c5 = aw.recipe_geometries(presets.benchmark_config(5))
+    c2 = aw.recipe_geometries(presets.benchmark_config(2))
+    assert sum(n for _, n in c5.values()) == 93
+    assert sum(n for _, n in c2.values()) == 21
+    assert [g for g, _ in c2.values() if plan_of(g).route == 'ragged'] \
+        == [STEM2]
     with pytest.raises(ValueError, match='tma route'):
         plan_of(aw.CHECK[0], 'tma')
     # forcing the ragged route gives the dense layouts of a call without
@@ -131,6 +155,32 @@ def test_flagship_layouts():
     assert (p.kps, p.plain_q) == (384, True)
 
 
+def test_recipe_layouts():
+    """The layouts of the recipes' new plans: a 1x1 stride-2 conv from
+    128x160 keeps the even columns (80 bytes a row) in rows of Wop = 128
+    (`_wop(80)`), 64 output rows a sample; a 3x3 conv at 64x80 three
+    column-copy planes of 80-byte rows; config 2's stride-2 3x3 convs
+    three copies a row, row-major, from 128x160 into rows of 128 and from
+    32x40 into rows of 32."""
+    p = plan_of(C5['n16_256x128x160_k1s2_co128'])
+    assert (p.cmaj, p.copies, p.wph, p.wst, p.kps, p.hb) == (False, 1, 80,
+                                                            128, 8192, 1)
+    assert p.q_shape == (16, 256, 128, 80) and p.kp == 16 * 8192
+    p = plan_of(C5['n16_128x64x80_k3s1_co128'])
+    assert (p.cmaj, p.copies, p.wph, p.kps) == (True, 3, 80, 5120)
+    assert p.q_shape == (16, 128, 192, 80)
+    p = plan_of(C2['n1_64x128x160_k3s2_co128'])
+    assert (p.cmaj, p.copies, p.wph, p.wst, p.kps) == (False, 3, 80, 128,
+                                                      8192)
+    assert p.q_shape == (1, 64, 128, 240) and p.kp == 8192
+    p = plan_of(C2['n1_256x32x40_k3s2_co512'])
+    assert (p.cmaj, p.copies, p.wph, p.wst, p.kps, p.hb) == (False, 3, 32,
+                                                            32, 512, 4)
+    assert p.q_shape == (1, 256, 32, 96)
+    p = plan_of(C2['n1_64x128x160_k1s1_co64'])
+    assert (p.cmaj, p.plain_q, p.kps) == (True, True, 20480)
+
+
 def decode(t, item):
     """The kernel's `decode` of a work item."""
     split, tile = divmod(item, t['tiles'])
@@ -140,9 +190,9 @@ def decode(t, item):
     return tile, mt, tap, cb, k0, min(k0 + t['kps'], t['ksteps'])
 
 
-@pytest.mark.parametrize('name', list(FLAGSHIP) + list(ODD))
+@pytest.mark.parametrize('name', list(FULL))
 def test_tiles_and_splits_cover_each_output_once(name):
-    g = FLAGSHIP.get(name) or ODD[name]
+    g = FULL[name]
     p = plan_of(g)
     t = aq.wgrad_tiles(p, SMS)
     bn = t['bn']
@@ -232,12 +282,12 @@ def b_tile(q5, ks, p, dx, dy, pt, c0, bn):
     return np.concatenate(steps, axis=1)
 
 
-@pytest.mark.parametrize('name', list(SMALL) + list(ODD))
+@pytest.mark.parametrize('name', list(BOXED))
 def test_patch_boxes_are_the_im2col_rows(name):
     """Every stage's B tile the kernel's boxes load equals im2col_torch's
     rows of that tap and channel block wherever qgt's column is real
     (elsewhere qgt is zero and the box's bytes add nothing)."""
-    g = SMALL.get(name) or ODD[name]
+    g = BOXED[name]
     n, h, w, ci, co, k, s, pad = g
     p = plan_of(g)
     rng = np.random.RandomState(0)
@@ -299,6 +349,12 @@ QUANT_CASES = [('x', s, None) for s in flagship_inputs()] \
     + [('x', (g[0], g[3], g[1], g[2]), plan_of(g)) for g in FLAGSHIP.values()] \
     + [('g', (g[0], g[4], plan_of(g).ho, plan_of(g).wo), plan_of(g))
        for g in FLAGSHIP.values()] \
+    + [('x', (g[0], g[3], g[1], g[2]), plan_of(g))
+       for g in list(C5.values()) + list(C2.values())] \
+    + [('g', (g[0], g[4], plan_of(g).ho, plan_of(g).wo), plan_of(g))
+       for g in list(C5.values()) + list(C2.values())] \
+    + [('x', (1, 3, 512, 640), None),
+       ('g', (1, 64, 256, 320), plan_of(STEM2))] \
     + [('x', (3, 5, 7, 9), None), ('g', (3, 5, 7, 9), None),
        ('x', (2, 96, 11, 9), plan_of(ODD['ci96_3x3s2'])),
        ('g', (2, 40, 6, 5), plan_of(ODD['ci96_3x3s2'])),
@@ -381,9 +437,14 @@ def quant_layout_mirror(mode, rv, values, kp_rows=None):
 @pytest.mark.parametrize('name', ['res4_branch2b', 'res4a_branch1',
                                   'res5_branch2b', 'res4_branch2c',
                                   'res5_branch2a', 'ci96_3x3s2', '5x5s3',
-                                  '1x1s1_view', 's2d_pads'])
+                                  '1x1s1_view', 's2d_pads',
+                                  'n2_256x128x160_k1s2_co128',
+                                  'n2_128x64x80_k3s1_co128',
+                                  'n1_64x128x160_k3s2_co128',
+                                  'n1_256x32x40_k3s2_co512',
+                                  'n1_64x128x160_k1s1_co64'])
 def test_quant_addresses_write_the_layouts(name):
-    g = SMALL.get(name) or ODD[name]
+    g = BOXED[name]
     n, h, w, ci, co, k, s, pad = g
     p = plan_of(g)
     rng = np.random.RandomState(1)

@@ -1434,6 +1434,7 @@ def test_gloo_collectives_take_cuda_tensors(cuda_device, tmp_path):
 
 from ursonet_torch.models.actq import ConvQ8  # noqa: E402
 from ursonet_torch.ops import actq_cuda as aq  # noqa: E402
+from ursonet_torch import presets  # noqa: E402
 from ursonet_torch.probes import actq_wgrad8 as aw  # noqa: E402
 
 ACTQ_SHAPES = [(4, 64, 32, 40), (3, 5, 7, 9), (2, 3, 70, 90)]
@@ -1612,6 +1613,85 @@ def test_wgrad_s8_tma_route_at_odd_shapes(cuda_device, name):
 
 def test_wgrad_s8_check_geometries(cuda_device):
     aw.check(cuda_device)
+
+
+# chip_smoke.py phase 8g's recipes: config 5's convs from 128x160 and
+# 64x80 at its batch of 16 (stage 3 and the strided convs into stage 4:
+# TMA plans no other path takes) and config 2's at batch 1 (basic blocks'
+# stride-2 3x3 convs; the C = 3 stem on the gather route)
+ACTQ_C5 = {k: v for k, v in aw.recipe_geometries(
+    presets.benchmark_config(5)).items()
+    if '_256x128x160_' in k or 'x64x80_' in k}
+ACTQ_C2 = aw.recipe_geometries(chip_smoke.config2())
+ACTQ_RECIPES = {**ACTQ_C5, **ACTQ_C2}
+
+
+@pytest.mark.parametrize('name', list(ACTQ_RECIPES))
+def test_wgrad_s8_at_recipe_geometries_matches_plain(cuda_device, name):
+    """wgrad_s8 on the route the recipe's conv takes (TMA from 64 input
+    channels, the gather + gemm_s8 below), int32 and with the f32
+    epilogue, equal to the plain version; one launch a call."""
+    geom, _ = ACTQ_RECIPES[name]
+    n, h, w, ci, co, k, s, pad = geom
+    q, qgt, pads, plan = aw.operands(geom, 6, cuda_device)
+    assert plan.route == ('tma' if ci >= 64 else 'ragged')
+    before = dict(aq.route_launches)
+    got = aq.wgrad_s8(q, qgt, (k, k), s, pads, plan=plan)
+    want = aq.wgrad_s8_torch(q, qgt, (k, k), s, pads, plan)
+    assert torch.equal(got, want)
+    alpha = torch.full((ci * k * k,), 3e-7, device=cuda_device)
+    f = aq.wgrad_s8(q, qgt, (k, k), s, pads, alpha, plan=plan)
+    assert torch.equal(f, want.float() * alpha.view(1, ci, k, k))
+    assert aq.route_launches[plan.route] == before[plan.route] + 2
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('name', list(ACTQ_RECIPES))
+def test_quant_s8_at_recipe_geometries_matches_plain(cuda_device, name,
+                                                    dtype):
+    """'x' and 'g' at the recipe's shapes in its plan's layouts (at batch
+    1 a grid barrier over one sample's rows, and the stem's 'g' scale
+    over 7 * 7 * 3 columns), equal to the plain version on the card."""
+    geom, _ = ACTQ_RECIPES[name]
+    n, h, w, ci, co, k, s, pad = geom
+    plan = aq.wgrad_plan((n, ci, h, w), co, (k, k), s, aw._pads(pad))
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn((n, ci, h, w), generator=gen) * 3).to(dtype) \
+        .to(cuda_device)
+    g = (torch.randn((n, co, plan.ho, plan.wo), generator=gen) * 2) \
+        .to(dtype).to(cuda_device)
+    q, scale = aq.quant_s8(x, 'x', plan=plan)
+    pq, pscale = aq.quant_s8_torch(x, 'x', plan=plan)
+    assert q.shape == plan.q_shape
+    assert torch.equal(q, pq) and torch.equal(scale, pscale)
+    r = ci * k * k
+    qgt, alpha = aq.quant_s8(g, 'g', scale, alpha_len=r, plan=plan)
+    pqgt, palpha = aq.quant_s8_torch(g, 'g', scale, alpha_len=r, plan=plan)
+    assert qgt.shape == (co, plan.kp)
+    assert torch.equal(qgt, pqgt) and torch.equal(alpha, palpha)
+
+
+def test_im2col_s8_at_config2_stem_matches_plain(cuda_device):
+    """The gather of config 2's stem (1x3x512x640, 7x7/2, pads 3): the
+    patch matrix [147, 81920] in one launch, equal to im2col_torch."""
+    geom, count = ACTQ_C2['n1_3x512x640_k7s2_co64']
+    n, h, w, ci, co, k, s, pad = geom
+    plan = aq.wgrad_plan((n, ci, h, w), co, (k, k), s, aw._pads(pad))
+    assert plan.route == 'ragged' and count == 1
+    gen = torch.Generator().manual_seed(8)
+    q = torch.randint(-127, 128, (n, ci, h, w), generator=gen,
+                      dtype=torch.int8).to(cuda_device)
+    before = aq.kernel_launches['im2col']
+    p = aq.im2col_s8(q, plan)
+    torch.cuda.synchronize()
+    assert aq.kernel_launches['im2col'] == before + 1
+    assert p.shape == (147, 81920)
+    assert torch.equal(p, aq.im2col_torch(q, (k, k), s, plan.pads, plan))
+    with pytest.raises(ValueError):
+        aq.im2col_s8(q, aq.wgrad_plan((n, ci, h, w), co, (k, k), s,
+                                      plan.pads, route='ragged')._replace(
+                                          route='tma'))
 
 
 @pytest.mark.parametrize('ci', [16, 64])

@@ -107,47 +107,74 @@ def test_shallow_backbones_are_said_to_be_uncalibrated(arch):
 class _Cfg:
     """The fields backbone_convs and actq_saved_gb read."""
 
-    def __init__(self, arch, batch, hw, mode, inner=1.0):
+    def __init__(self, arch, batch, hw, mode, inner=1.0, remat=False):
         self.BACKBONE, self.BATCH_SIZE, self.IMAGE_SHAPE = arch, batch, hw
         self.TRAIN_ACT_Q8, self.INNER_WIDTH_MULT = mode, inner
+        self.REMAT = remat
 
 
-@pytest.mark.parametrize('arch,inner', [('resnet50', 1.0), ('resnet50', 0.6),
-                                        ('resnet18', 1.0)])
+@pytest.mark.parametrize('arch,inner,remat',
+                         [('resnet50', 1.0, False), ('resnet50', 0.6, False),
+                          ('resnet18', 1.0, False), ('resnet50', 1.0, True),
+                          ('resnet50', 1.0, 'narrow'),
+                          ('resnet18', 1.0, True)])
 @pytest.mark.parametrize('mode', [True, 'wgrad8'])
-def test_actq_saved_bytes_are_the_models(arch, inner, mode, monkeypatch):
+def test_actq_saved_bytes_are_the_models(arch, inner, remat, mode,
+                                         monkeypatch):
     """backbone_convs lists the inputs that the backbone's ConvQ8s
-    quantize, in order, and actq_saved_gb counts the bytes of the q they
-    save, in the layout each one's backward reads (plain, or the TMA
-    route's column copies under 'wgrad8')."""
+    quantize, in order, and actq_saved_gb counts the most bytes of the q
+    they save (in the layout each one's backward reads: plain, or the TMA
+    route's column copies under 'wgrad8') that one train step holds at
+    once: every conv's without REMAT; under REMAT, whose checkpoints drop
+    the copies of the convs inside them and remake them in the backward,
+    what the model's own 'x' calls leave alive at their most, measured
+    over a forward and a backward."""
+    import gc
+    import weakref
+
     import torch
 
     from ursonet_torch.models.resnet import make_backbone
     from ursonet_torch.ops import actq_cuda
-    seen = []
+    seen, live = [], {'now': 0, 'most': 0}
     quant = actq_cuda.quant_s8
+
+    def freed(nbytes):
+        live['now'] -= nbytes
 
     def spy(t, m, *a, **kw):
         out = quant(t, m, *a, **kw)
         if m == 'x':
-            seen.append((tuple(t.shape), out[0].numel()))
+            q = out[0]
+            seen.append((tuple(t.shape), q.numel()))
+            live['now'] += q.numel()
+            live['most'] = max(live['most'], live['now'])
+            weakref.finalize(q, freed, q.numel())
         return out
     monkeypatch.setattr(actq_cuda, 'quant_s8', spy)
     torch.manual_seed(0)
-    net = make_backbone(arch, inner_mult=inner, act_q8=mode)
-    net(torch.randn(2, 3, 64, 80))
-    cfg = _Cfg(arch, 2, (64, 80, 3), mode, inner)
-    assert [s for s, _ in seen] == [c[:4] for c in
-                                    tmemory.backbone_convs(cfg)]
+    net = make_backbone(arch, inner_mult=inner, act_q8=mode, remat=remat)
+    net(torch.randn(2, 3, 64, 80)).sum().backward()
+    del net
+    gc.collect()
+    assert live['now'] == 0
+    cfg = _Cfg(arch, 2, (64, 80, 3), mode, inner, remat)
+    convs = tmemory.backbone_convs(cfg)
+    forward = [s for s, _ in seen[:len(convs)]]
+    assert forward == [c[:4] for c in convs]
+    # the recompute quantizes again what its checkpoints recompute
+    assert len(seen) > len(convs) if remat else len(seen) == len(convs)
     assert tmemory.actq_saved_gb(cfg) * 1e9 == pytest.approx(
-        sum(b for _, b in seen), abs=0.5)
-    if mode == 'wgrad8' and arch == 'resnet50':
+        live['most'], abs=0.5)
+    if not remat:
+        assert live['most'] == sum(b for _, b in seen)
+    if mode == 'wgrad8' and arch == 'resnet50' and not remat:
         # the 3x3 convs' column copies make q larger than the input
         assert sum(b for _, b in seen) > sum(
             math.prod(s) for s, _ in seen)
     else:
         assert tmemory.actq_saved_gb(_Cfg(arch, 2, (64, 80, 3), False,
-                                          inner)) == 0.0
+                                          inner, remat)) == 0.0
 
 
 def test_actq_saved_bytes_join_the_calibrated_estimate():

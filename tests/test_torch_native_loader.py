@@ -263,3 +263,32 @@ def test_a_failed_build_raises_with_the_compilers_message(monkeypatch,
     monkeypatch.setattr(cuda_build, '_libs', {})
     with pytest.raises(RuntimeError, match='(?s)failed.*no-such-flag'):
         nl.load_batch([files['gray']], 8, 8, 8, 8, 0, 0)
+
+
+def test_threads_that_load_at_once_share_one_build(monkeypatch, tmp_path):
+    """A streamed epoch's train and validation prefetchers both load the
+    native loader at their first batch: threads that ask for a library
+    that is not built yet all get the one build, and none fails (a
+    failure there drops a batch and shifts the stream)."""
+    import threading
+
+    monkeypatch.setattr(cuda_build, 'BUILD_DIR', tmp_path / 'ext')
+    monkeypatch.setattr(cuda_build, '_libs', {})
+    got, errors = [], []
+    start = threading.Barrier(4)
+
+    def load():
+        start.wait()
+        try:
+            got.append(cuda_build.load('host_loader', nl._bind))
+        except Exception as e:      # noqa: BLE001 (reported below)
+            errors.append(repr(e))
+    threads = [threading.Thread(target=load) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [] and len(got) == 4
+    assert all(lib is got[0] for lib in got)
+    assert [p.name for p in (tmp_path / 'ext').iterdir()] \
+        == [cuda_build.library_path('host_loader').name]

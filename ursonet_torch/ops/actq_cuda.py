@@ -15,6 +15,8 @@ launch plans and their plain PyTorch versions:
     wgrad_s8(q, qgt, kernel_hw, stride, pads, alpha=None, plan=plan)
                                           -> dw [Co,Ci,KH,KW]: int32 sums,
                                           or f32(acc) * alpha with alpha
+    im2col_s8(q, plan)                    plain q -> P [Ci*KH*KW, Kp] int8,
+                                          the 'ragged' route's gather
 
 The formulas are the JAX package's (`ursonet_tpu/models/actq.py`):
 'x' is `_quantize_per_sample` (per-sample max|x|, scale =
@@ -70,10 +72,10 @@ applied in registers (`wgrad_tiles`: 128 x 256 or 128 x 128 tiles, K
 split over blocks where the tiles do not fill the SMs, each part's int32
 sums stored to a per-device workspace and added by the tile's last
 block; width and parts chosen by `wgrad_split_cost`).
-The 'ragged' route gathers P [Ci*KH*KW, Kp] (one launch) and multiplies
-qgt @ P^T with `gemm_s8` in its 's32' or 'f32' epilogue (alpha = sg,
-beta = 0). Sums fit int32 where N * Ho * Wo <= INT32_SAFE_ACC (the
-caller's guard, JAX's shape branch).
+The 'ragged' route gathers P [Ci*KH*KW, Kp] (`im2col_s8`, one launch)
+and multiplies qgt @ P^T with `gemm_s8` in its 's32' or 'f32' epilogue
+(alpha = sg, beta = 0). Sums fit int32 where N * Ho * Wo <=
+INT32_SAFE_ACC (the caller's guard, JAX's shape branch).
 
 On a CUDA tensor each wrapper launches its kernels or raises; on a CPU
 tensor it runs the plain version (wgrad_s8_torch: a float64
@@ -82,8 +84,9 @@ Counts: each wrapper call that launches on the card adds one to
 `launches['quant_s8']` (and `mode_launches[mode]`) or
 `launches['wgrad_s8']` (and `route_launches[route]`); each kernel launch
 adds one to `kernel_launches` ('quant_x', 'quant_g', 'quant_g_group'
-(two a call), 'dequant', 'wgrad_tma', 'im2col'; the 'ragged' route's
-GEMM counts in `int8_cuda.launches['gemm_s8']`). Each call appends its
+(two a call), 'dequant', 'wgrad_tma', 'im2col' (`im2col_s8`: once a
+'ragged' wgrad_s8 call); the 'ragged' route's GEMM counts in
+`int8_cuda.launches['gemm_s8']`). Each call appends its
 arguments to `calls` when that is a list.
 """
 
@@ -771,6 +774,31 @@ def quant_s8(t, mode, scale=None, dtype=None, group=None,
     return result
 
 
+def im2col_s8(q, plan):
+    """The gather route's patch matrix P [Ci*KH*KW, Kp] int8 of a plain q
+    [N,Ci,H,W] for a 'ragged' `plan` (one launch of the gather kernel);
+    on a CPU tensor, im2col_torch."""
+    if plan.route != "ragged" or tuple(q.shape) != plan.q_shape:
+        raise ValueError(f"im2col_s8: q {tuple(q.shape)} and a ragged plan "
+                         f"of {plan.q_shape}")
+    geo = ((plan.kh, plan.kw), plan.stride, plan.pads)
+    if q.device.type == "cpu":
+        return im2col_torch(q, *geo, plan)
+    _check_cuda("im2col_s8", q)
+    if q.dtype != torch.int8:
+        raise ValueError("im2col_s8: int8 q")
+    lib = _lib()
+    (pt, _), (pl, _) = plan.pads
+    p = torch.empty((plan.ci * plan.kh * plan.kw, plan.kp), dtype=torch.int8,
+                    device=q.device)
+    _raise_if(lib.ursonet_actq_im2col(
+        q.data_ptr(), plan.n, plan.ci, plan.h, plan.w, plan.kh, plan.kw,
+        plan.stride, pt, pl, plan.ho, plan.wo, plan.kp, p.data_ptr(),
+        _stream(q)), lib, "im2col_s8")
+    kernel_launches["im2col"] += 1
+    return p
+
+
 def wgrad_s8(q, qgt, kernel_hw, stride, pads, alpha=None, plan=None):
     """dw [Co, Ci, KH, KW] = sum over n, oh, ow of q[n, ci, oh*s+dy-pt,
     ow*s+dx-pl] * qg[n, co, oh, ow]: int32, or f32(acc) * alpha[r] (r =
@@ -810,14 +838,8 @@ def wgrad_s8(q, qgt, kernel_hw, stride, pads, alpha=None, plan=None):
     if q.dtype != torch.int8 or qgt.dtype != torch.int8:
         raise ValueError("wgrad_s8: int8 q and qgt")
     lib = _lib()
-    (pt, _), (pl, _) = plan.pads
     if plan.route == "ragged":
-        p = torch.empty((r, plan.kp), dtype=torch.int8, device=q.device)
-        _raise_if(lib.ursonet_actq_im2col(
-            q.data_ptr(), plan.n, c, plan.h, plan.w, kh, kw, plan.stride, pt,
-            pl, plan.ho, plan.wo, plan.kp, p.data_ptr(), _stream(q)), lib,
-            "wgrad_s8")
-        kernel_launches["im2col"] += 1
+        p = im2col_s8(q, plan)
         if alpha is None:
             out = int8_cuda.gemm_s8(qgt, p.t(), "s32")
         else:
@@ -839,9 +861,9 @@ def wgrad_s8(q, qgt, kernel_hw, stride, pads, alpha=None, plan=None):
             q.data_ptr(), qgt.data_ptr(),
             None if alpha is None else alpha.data_ptr(), out.data_ptr(), ws,
             counters, plan.n, c, plan.hk, plan.copies, plan.wph, co, kh, kw,
-            plan.stride, pt, int(plan.cmaj), plan.wst, plan.kps, plan.kp,
-            tiles["bn"], tiles["splits"], tiles["grid"], _stream(q)), lib,
-            "wgrad_s8")
+            plan.stride, plan.pads[0][0], int(plan.cmaj), plan.wst,
+            plan.kps, plan.kp, tiles["bn"], tiles["splits"], tiles["grid"],
+            _stream(q)), lib, "wgrad_s8")
         kernel_launches["wgrad_tma"] += 1
     launches["wgrad_s8"] += 1
     route_launches[plan.route] += 1

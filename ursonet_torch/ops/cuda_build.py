@@ -36,6 +36,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -52,6 +53,7 @@ HOST_SOURCES = tuple(HOST_LINK)
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _libs: dict = {}
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -114,9 +116,10 @@ def _start(name: str):
     if lib.exists():
         return lib, None, None, None
     BUILD_DIR.mkdir(exist_ok=True)
-    # a name of this process's own: concurrent builders (test workers)
-    # each rename a whole library into place
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    # a name of this thread's own: concurrent builds (test workers, a
+    # loader's threads) each rename a whole library into place
+    tmp = lib.with_name(
+        f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     if name in HOST_SOURCES:
         # link flags after the source, where the linker resolves them
         cmd = [_gxx(), *GXX_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -166,10 +169,12 @@ def build_all() -> dict:
 def load(name: str, bind) -> ctypes.CDLL:
     """Build if needed and load csrc/<name>.cu's (or, for a host source,
     csrc/<name>.cpp's) library once per process; `bind(lib)` sets the
-    argument and return types."""
-    if name not in _libs:
-        path, _ = build(name)
-        lib = ctypes.CDLL(str(path))
-        bind(lib)
-        _libs[name] = lib
-    return _libs[name]
+    argument and return types. Threads that ask at once (a loader's
+    train and validation prefetchers) wait for one build."""
+    with _load_lock:
+        if name not in _libs:
+            path, _ = build(name)
+            lib = ctypes.CDLL(str(path))
+            bind(lib)
+            _libs[name] = lib
+        return _libs[name]

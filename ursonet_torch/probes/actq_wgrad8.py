@@ -77,6 +77,24 @@ def flagship_geometries(batch: int = 32):
     return geoms
 
 
+def recipe_geometries(config) -> dict:
+    """{name: ((N, H, W, Ci, Co, k, stride, pad), count)} of the
+    backbone convs of `config`'s train step (`memory.backbone_convs`)
+    whose weight gradient takes the int8 route ('wgrad8', N * Ho * Wo
+    within the int32 guard), with how many convs share each; named
+    `n{N}_{Ci}x{H}x{W}_k{k}s{stride}_co{Co}`."""
+    from ursonet_torch.utils import memory
+    geoms = {}
+    for n, ci, h, w, co, k, s, p in memory.backbone_convs(config):
+        ho, wo = int8_cuda.conv_out_hw(h, w, k, k, s, ((p, p), (p, p)))
+        if n * ho * wo > actq_cuda.INT32_SAFE_ACC:
+            continue
+        name = f'n{n}_{ci}x{h}x{w}_k{k}s{s}_co{co}'
+        geom, count = geoms.get(name, ((n, h, w, ci, co, k, s, p), 0))
+        geoms[name] = (geom, count + 1)
+    return geoms
+
+
 def _pads(pad):
     return pad if isinstance(pad, tuple) else ((pad, pad), (pad, pad))
 

@@ -42,12 +42,19 @@ drift; `chip_smoke.py` phase 4 also holds the flagship's step at half
 its batch (16), which no factor was fitted on, to ±25% of its peak.
 
 TRAIN_ACT_Q8 (True or 'wgrad8') is not in the structure or the factors:
-`actq_saved_gb` adds, on top of the calibrated figure, the int8 copy of
-every backbone conv's input that the backward keeps (the eager step
-keeps the float inputs too, for the BN and ReLU backward) and, under
-'wgrad8', what the int8 weight-gradient route's layout adds to those
-copies (q as KW column copies of padded rows, `actq_cuda.wgrad_plan`).
-`chip_smoke.py` phase 8g prints it beside each mode's measured peak.
+`actq_saved_gb` adds, on top of the calibrated figure, the int8 copies
+of the backbone convs' inputs that the step holds at once (the eager
+step keeps the float inputs too, for the BN and ReLU backward) and,
+under 'wgrad8', what the int8 weight-gradient route's layout adds to
+those copies (q as KW column copies of padded rows,
+`actq_cuda.wgrad_plan`). Without REMAT that is every conv's copy. Under
+REMAT a residual block's checkpoint drops the copies of the convs inside
+it and its recompute in the backward makes them again, one block at a
+time: while block k's backward runs, the step holds the copies of the
+convs outside every checkpoint that are still to be used (the stem's;
+under 'narrow' also the 2a and 2b of blocks up to k) and block k's
+recomputed copies; the estimate takes the most of that over the blocks.
+`chip_smoke.py` phase 8g prints it beside each recipe's measured peak.
 
 `check_train_memory` warns when the calibrated figure passes 60% of the
 card's memory (`torch.cuda.get_device_properties(dev).total_memory`);
@@ -166,17 +173,17 @@ def _ceil_half(v: int, s: int) -> int:
     return -(-v // s)
 
 
-def backbone_convs(config) -> list:
-    """(N, Ci, H, W, Co, k, stride, pad) of every backbone conv of a train
-    step, in the model's order (`models/resnet.py`), N the global batch:
-    the convs that TRAIN_ACT_Q8 quantizes the input of, one 'x' call
-    each. The s2d stem reads the image's elements as the 7x7/2 stem does
-    and is counted as it."""
+def backbone_blocks(config) -> list:
+    """`backbone_convs` grouped as a train step runs them under REMAT:
+    [stem], then one list a residual block, each entry (conv, part):
+    part 'narrow' for a bottleneck's 2a and 2b (outside the checkpoint
+    under REMAT='narrow'), 'expand' for its 2c and shortcut, 'block' for
+    a basic block's convs (one checkpoint under every policy)."""
     from ursonet_torch.models.resnet import (SHALLOW_REPS, STAGE4_BLOCKS,
                                              scale_inner)
     n = int(config.BATCH_SIZE)
     h, w = int(config.IMAGE_SHAPE[0]), int(config.IMAGE_SHAPE[1])
-    convs = [(n, 3, h, w, 64, 7, 2, 3)]
+    groups = [[((n, 3, h, w, 64, 7, 2, 3), 'stem')]]
     h, w = _ceil_half(_ceil_half(h, 2), 2), _ceil_half(_ceil_half(w, 2), 2)
     cin = 64
     arch = config.BACKBONE
@@ -188,46 +195,86 @@ def backbone_convs(config) -> list:
             for b in range(nb):
                 s = 2 if b == 0 and stage > 0 else 1
                 ho, wo = _ceil_half(h, s), _ceil_half(w, s)
-                convs += [(n, cin, h, w, f1, 1, s, 0),
-                          (n, f1, ho, wo, f1, 3, 1, 1),
-                          (n, f1, ho, wo, f3, 1, 1, 0)]
+                block = [((n, cin, h, w, f1, 1, s, 0), 'narrow'),
+                         ((n, f1, ho, wo, f1, 3, 1, 1), 'narrow'),
+                         ((n, f1, ho, wo, f3, 1, 1, 0), 'expand')]
                 if b == 0:          # the shortcut runs after the branch
-                    convs.append((n, cin, h, w, f3, 1, s, 0))
+                    block.append(((n, cin, h, w, f3, 1, s, 0), 'expand'))
+                groups.append(block)
                 h, w, cin = ho, wo, f3
-        return convs
+        return groups
     for stage, nb in enumerate(SHALLOW_REPS[arch]):
         f = 64 * 2 ** stage
         for b in range(nb):
             s = 2 if b == 0 and stage > 0 else 1
             ho, wo = _ceil_half(h, s), _ceil_half(w, s)
-            if b == 0:
-                convs.append((n, cin, h, w, f, 1, s, 0))
-            convs += [(n, cin, h, w, f, 3, s, 1), (n, f, ho, wo, f, 3, 1, 1)]
+            block = [((n, cin, h, w, f, 1, s, 0), 'block')] if b == 0 else []
+            block += [((n, cin, h, w, f, 3, s, 1), 'block'),
+                      ((n, f, ho, wo, f, 3, 1, 1), 'block')]
+            groups.append(block)
             h, w, cin = ho, wo, f
-    return convs
+    return groups
+
+
+def recomputed(part, remat) -> bool:
+    """Whether a backbone conv of `part` (`backbone_blocks`) runs inside
+    a checkpoint under the REMAT policy `remat`, so that the backward
+    recomputes it: every block's convs under True, 'all' and 'dots', a
+    bottleneck's 2c and shortcut alone under 'narrow', the stem never."""
+    if not remat or part == 'stem':
+        return False
+    return not (remat == 'narrow' and part == 'narrow')
+
+
+def backbone_convs(config) -> list:
+    """(N, Ci, H, W, Co, k, stride, pad) of every backbone conv of a train
+    step, in the model's order (`models/resnet.py`), N the global batch:
+    the convs that TRAIN_ACT_Q8 quantizes the input of, one 'x' call
+    each. The s2d stem reads the image's elements as the 7x7/2 stem does
+    and is counted as it."""
+    return [conv for group in backbone_blocks(config) for conv, _ in group]
+
+
+def _q_bytes(conv, mode) -> int:
+    """Bytes of the int8 copy that a ConvQ8 saves of its input: plain, or
+    under 'wgrad8' on the int8 route (N * Ho * Wo within the int32 guard)
+    the layout its weight-gradient kernel reads."""
+    from ursonet_torch.ops import actq_cuda
+    n, ci, h, w, co, k, s, p = conv
+    plain = n * ci * h * w
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    if mode != 'wgrad8' or n * ho * wo > actq_cuda.INT32_SAFE_ACC:
+        return plain
+    plan = actq_cuda.wgrad_plan((n, ci, h, w), co, (k, k), s,
+                                ((p, p), (p, p)))
+    return math.prod(plan.q_shape)
 
 
 def actq_saved_gb(config) -> float:
-    """What TRAIN_ACT_Q8 adds to a step's peak (GB): one byte an element
-    of every backbone conv's input (the int8 copy its backward keeps)
-    and, under 'wgrad8', the bytes that the int8 route's layout adds to
-    the copies of the convs under the int32 guard (`actq_cuda.wgrad_plan`:
-    KW column copies of rows padded to 16 bytes). 0 without
-    TRAIN_ACT_Q8."""
+    """What TRAIN_ACT_Q8 adds to a step's peak (GB): the int8 copies of
+    the backbone convs' inputs that the step holds at once, one byte an
+    element, under 'wgrad8' in the layout of the int8 route's convs
+    (`_q_bytes`). Without REMAT every conv's; under REMAT, at the most
+    over the blocks' backwards, the copies of the convs outside the
+    checkpoints still alive (the stem's; under 'narrow' each bottleneck's
+    2a and 2b up to that block) beside the block's recomputed copies (the
+    module docstring). 0 without TRAIN_ACT_Q8."""
     mode = getattr(config, 'TRAIN_ACT_Q8', False)
     if not mode:
         return 0.0
-    from ursonet_torch.ops import actq_cuda
-    total = 0
-    for n, ci, h, w, co, k, s, p in backbone_convs(config):
-        plain = n * ci * h * w
-        total += plain
-        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
-        if mode == 'wgrad8' and n * ho * wo <= actq_cuda.INT32_SAFE_ACC:
-            plan = actq_cuda.wgrad_plan((n, ci, h, w), co, (k, k), s,
-                                        ((p, p), (p, p)))
-            total += math.prod(plan.q_shape) - plain
-    return total / 1e9
+    remat = getattr(config, 'REMAT', False)
+    groups = backbone_blocks(config)
+    if not remat:
+        return sum(_q_bytes(c, mode) for g in groups for c, _ in g) / 1e9
+    # the backward of block k runs while the kept copies of the stem and
+    # of blocks 0..k are alive, beside block k's recomputed ones
+    held, most = 0, 0
+    for g in groups:
+        held += sum(_q_bytes(c, mode) for c, part in g
+                    if not recomputed(part, remat))
+        most = max(most, held + sum(_q_bytes(c, mode) for c, part in g
+                                    if recomputed(part, remat)))
+    return most / 1e9
 
 
 def calibration_gap(config):
