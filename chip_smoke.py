@@ -31,8 +31,11 @@ Phases, in order; any failure exits non-zero:
               accumulation modes (f32, bf16) and on both of their routes
               (TMA + wgmma, and mma.sync), and at C5's depth with
               accumulators above 2^24, stem_s8 in both input modes and
-              both accumulation modes on both of its routes (persistent
-              TMA + wgmma, and mma.sync), block_s8 (persistent TMA + wgmma)
+              both accumulation modes on both of its packed routes
+              (persistent TMA + wgmma, and mma.sync) and on its 'nhwc'
+              route from the raw batch (against its plain version, the
+              7x7 chain, and the 'tma' route on the packed pixels),
+              block_s8 (persistent TMA + wgmma)
               at the probe's shape and on ragged tiles, also against its
               unfused route, mma_rate in every kind on both of its routes
               (wgmma, mma.sync; integers bit-exact).
@@ -98,7 +101,8 @@ Phases, in order; any failure exits non-zero:
               launched);
               evaluate in float; evaluate --int8 on the `base` stem and
               with --f16 and the s2d / host-s2d knobs (gemm_s8, conv_s8
-              and there stem_s8 launched on their TMA routes, the raw
+              and stem_s8 launched on their TMA routes, the stem's 'nhwc'
+              one under `base`, the raw
               heads and the summary equal to those of the same served
               batches through the plain version); export (h5 and the
               int8 artifact), then evaluate --weights <h5>: the raw heads
@@ -275,12 +279,14 @@ Phases, in order; any failure exits non-zero:
               through ServingEngine.predict_molded, in the `base` and the
               `host_s2d` variant, under F16 (bench.py's mode) and with
               f32 epilogues: every int8 kernel of the variant launched
-              (stem_s8 exactly once per batch), in the served mode,
+              (stem_s8 exactly once per batch: its 'nhwc' route from the
+              raw batch under `base` and `s2d`, its 'tma' route on the
+              host's packed pixels under `host_s2d`), in the served mode,
               outputs within the random-init gate of the float twin,
               decode and ESA score finite; the `s2d` variant equal to
               `host_s2d` bit for bit under F16; every GEMM, every 3x3
               conv and the fused stem of the served model must have
-              taken the TMA + wgmma route.
+              taken the TMA + wgmma route (no mma.sync stem conv).
  11. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
@@ -298,10 +304,13 @@ Phases, in order; any failure exits non-zero:
               the same two ways, the share of tiles on the global path),
               the library call and the card's bound (the stem and the
               rate loops on both routes, with the SM clock read while
-              they run; the block beside its unfused route, with the SM
-              clock); every distinct int8 call of a served batch, and the
-              block at the probe's shape, equal to its plain version at
-              its full shape.
+              they run; the stem's 'nhwc' route at the `base` batch's
+              call, equal to its plain version and to the unfused chain
+              it replaced (input quantize, conv_s8 on mma.sync,
+              maxpool_s8), timed beside that chain; the block beside its
+              unfused route, with the SM clock); every distinct int8 call
+              of a served batch, and the block at the probe's shape, equal
+              to its plain version at its full shape.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}.
 """
@@ -338,7 +347,8 @@ from ursonet_torch.data.synthetic import make_urso_dataset
 from ursonet_torch.data.urso import Camera, Urso
 from ursonet_torch.engine import ServingEngine, UrsoNet
 from ursonet_torch.models import quant
-from ursonet_torch.models.resnet import FrozenBN
+from ursonet_torch.models.resnet import FrozenBN, space_to_depth2, \
+    stem_kernel_to_s2d
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops import (actq_cuda, augment, cuda_build, int8_cuda,
                                warp_cuda)
@@ -536,9 +546,10 @@ def demangle(names) -> dict:
 
 
 # The epilogues' instantiations of the bf16 accumulation mode: the last
-# template flag of the TMA GEMM / conv kernel, the flag of the stem's.
+# template flag of the TMA GEMM / conv kernel, the first of the stem's
+# (its second: the 'nhwc' route).
 _BF16_INSTANCE = re.compile(r"(tma_s8_kernel<\d+, (true|false), true>|"
-                            r"stem_s8_tma_kernel<true>)")
+                            r"stem_s8_tma_kernel<true, (true|false)>)")
 
 
 def log_bf16_instances(builds) -> None:
@@ -991,6 +1002,21 @@ def stem_operands(dev, rng, b, h2, w2):
     return x.to(dev), w.to(dev)
 
 
+def nhwc_operands(dev, rng, b, h, w):
+    """A raw u8 batch [b, h, w, 3], a 7x7 stem kernel and its s2d form
+    (the 'nhwc' route's)."""
+    x = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3), np.uint8))
+    w7 = rng.randint(-127, 128, (7, 7, 3, 64)).astype(np.int8)
+    return (x.to(dev), int8_cuda.kernel_layout(w7).to(dev),
+            int8_cuda.kernel_layout(stem_kernel_to_s2d(w7)).to(dev))
+
+
+def nhwc_args(dev, rng, mode) -> dict:
+    """stem_args with the pixel mean per raw channel."""
+    kw = stem_args(dev, rng, mode)
+    return dict(kw, mean=kw['mean'][:3])
+
+
 def check_stem_kernel(dev, rng, batch=8) -> float:
     """stem_s8 against its plain version in both input modes and both
     accumulation modes, on the
@@ -1016,6 +1042,25 @@ def check_stem_kernel(dev, rng, batch=8) -> float:
                                 want)
         log(f"check stem_s8 {b}x{h2}x{w2}x12 -> 64 [{'+'.join(routes)}]: "
             "calibrated and shift128, f32 and bf16 epilogues, bit-exact")
+    # the 'nhwc' route from the raw batch: the flagship's images, and
+    # tiles that overhang every border
+    for b, h, w in [(batch, 512, 640), (3, 74, 96), (2, 58, 208)]:
+        x, w7, w4 = nhwc_operands(dev, rng, b, h, w)
+        if int8_cuda.stem_route(w, True, 3, h) != 'nhwc':
+            raise RuntimeError(f"stem_s8 {b}x{h}x{w}x3: not the nhwc route")
+        for mode in int8_cuda.STEM_MODES:
+            for acc in int8_cuda.ACC_DTYPES:
+                kw = dict(nhwc_args(dev, rng, mode), acc_dtype=acc)
+                want = int8_cuda.stem_s8_nhwc_torch(x, w7, **kw)
+                tag = f"stem_s8 {mode} {ACC_NAMES[acc]} {b}x{h}x{w}x3"
+                _must_equal(f"{tag} [nhwc]", int8_cuda.stem_s8(x, w4, **kw),
+                            want)
+                _must_equal(f"{tag} [tma, packed]", int8_cuda.stem_s8(
+                    space_to_depth2(x).contiguous(), w4, route='tma',
+                    **dict(kw, mean=np.tile(kw['mean'], 4))), want)
+        log(f"check stem_s8 {b}x{h}x{w}x3 -> 64 [nhwc]: calibrated and "
+            "shift128, f32 and bf16 epilogues, bit-exact against the 7x7 "
+            "chain and the tma route on the packed pixels")
     return 0.0
 
 
@@ -1165,9 +1210,9 @@ def serve_flagship(dev, seed: int, variant: str = 'base',
     served batch of random uint8 images through
     ServingEngine.predict_molded, decoded and ESA-scored against seeded
     poses. Every int8 kernel of the variant must launch (stem_s8 exactly
-    once per batch under the s2d variants, never under `base`), every
-    launch in the mode, and the outputs stay within the random-init gate
-    of the float twin."""
+    once per batch: on its 'nhwc' route under `base` and `s2d`, on 'tma'
+    under `host_s2d`), every launch in the mode, and the outputs stay
+    within the random-init gate of the float twin."""
     cfg = presets.serving_config(variant=variant, f16=f16)
     tag = f"{variant} {'bf16' if f16 else 'f32'}"
     rng = np.random.RandomState(seed)
@@ -1209,13 +1254,13 @@ def serve_flagship(dev, seed: int, variant: str = 'base',
         if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
             raise RuntimeError(f"serve {k}: {tuple(out[k].shape)}, finite "
                                f"{bool(torch.isfinite(out[k]).all())}")
-    want_stem = 0 if variant == 'base' else 1
     if min(launches['gemm_s8'], launches['conv_s8']) < 1 \
-            or launches['stem_s8'] != want_stem:
+            or launches['stem_s8'] != 1:
         raise RuntimeError(f"the {variant} serving path must launch gemm_s8 "
-                           f"and conv_s8, and stem_s8 {want_stem} times a "
-                           f"batch: {launches}")
-    check_served_routes(tag, calls)
+                           f"and conv_s8, and stem_s8 once a batch: "
+                           f"{launches}")
+    check_served_routes(tag, calls,
+                        stem='tma' if variant == 'host_s2d' else 'nhwc')
     modes = Counter(a['acc'] for _, a in calls)
     if set(modes) != {'bf16' if f16 else 'f32'}:
         raise RuntimeError(f"serve [{tag}]: launches in modes {modes}")
@@ -1360,18 +1405,28 @@ def speed_forward(dev, seed: int) -> dict:
     return {'ms': ms, 'shapes': {k: tuple(v.shape) for k, v in out.items()}}
 
 
-def check_served_routes(variant, calls) -> None:
+def check_served_routes(variant, calls, stem=None) -> None:
     """Every GEMM, every 3x3 conv and the fused stem of a served batch
-    must have taken the TMA + wgmma route; only the C = 3 stem conv of
-    `base` may take the mma.sync one."""
+    must have taken the TMA + wgmma route: the fused stem its 'tma' route
+    on packed pixels or its 'nhwc' one on the raw batch (`stem`: the
+    route each stem_s8 call of the batch must take, where given). A C = 3
+    stem conv on mma.sync only where the 'nhwc' route does not take the
+    batch's shape."""
     routes = Counter((name, a['route']) for name, a in calls if 'route' in a)
     log(f"serve [{variant}] routes per batch: "
         + ", ".join(f"{n} {r} x{c}" for (n, r), c in sorted(routes.items())))
     for name, a in calls:
-        stem = name == 'conv_s8' and a['c'] == 3
-        if not stem and a['route'] != 'tma':
-            raise RuntimeError(f"serve [{variant}]: {name} {a} did not take "
-                               "the tma route")
+        if name == 'stem_s8':
+            ok = a['route'] == (stem or ('nhwc' if a['c'] == 3 else 'tma'))
+        elif name == 'conv_s8' and a['c'] == 3:
+            ok = a['route'] == 'ragged' and int8_cuda.stem_route(
+                a['w'], True, 3, a['h']) is None
+        else:
+            ok = a['route'] == 'tma'
+        if not ok:
+            raise RuntimeError(f"serve [{variant}]: {name} {a} is off its "
+                               "route (tma; the fused stem's nhwc on the raw "
+                               "batch)")
 
 
 def check_device_s2d(dev, served) -> ServingEngine:
@@ -1388,8 +1443,10 @@ def check_device_s2d(dev, served) -> ServingEngine:
     int8_cuda.reset_counts()
     out = eng.predict_molded(images)
     torch.cuda.synchronize()
-    if int8_cuda.launches['stem_s8'] != 1:
-        raise RuntimeError(f"s2d did not run stem_s8: {int8_cuda.launches}")
+    if int8_cuda.launches['stem_s8'] != 1 \
+            or int8_cuda.launches['stem_s8_nhwc'] != 1:
+        raise RuntimeError("s2d did not run stem_s8 on its nhwc route: "
+                           f"{int8_cuda.launches}")
     for k, v in served['out'].items():
         diff = int((out[k] != v).sum())
         log(f"serve [s2d] vs [host_s2d] {k}: {diff} of {v.numel()} values "
@@ -1647,8 +1704,10 @@ def time_int8_kernels(calls, dev, rng, card) -> dict:
     larger of operations at 1979 TOP/s and bytes at 3.35 TB/s. gemm_s8's
     q8_relu calls are also summed apart, under C2_REQUANT. `routes`
     counts the launches per route (the timed call takes the route the
-    recorded one took: the wrapper picks it from the same shapes)."""
-    groups = Counter((name, tuple(sorted(a.items()))) for name, a in calls)
+    recorded one took: the wrapper picks it from the same shapes). The
+    fused stem's call is timed apart (time_stem_nhwc)."""
+    groups = Counter((name, tuple(sorted(a.items()))) for name, a in calls
+                     if name in ('gemm_s8', 'conv_s8'))
     tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
                    t_ops=0.0, launches=0, routes=Counter(),
                    library_ms=0.0 if k.startswith('gemm_s8') else None)
@@ -1840,6 +1899,64 @@ def time_stem(dev, rng, card, a) -> dict:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops} op at 1979 "
             f"TOP/s, {nbytes} B at 3.35 TB/s), no library call {card}")
     return rows
+
+
+def time_stem_nhwc(dev, rng, card, a) -> dict:
+    """stem_s8's 'nhwc' route at the raw batch, input mode and
+    accumulation mode of the served `base` call `a`: equal to its plain
+    version (the 7x7 chain in float64, 32 images at a time) and to the
+    unfused chain of kernels it replaced on the same images (input
+    quantize, conv_s8 7x7/2 on its mma.sync route with the q8_relu
+    epilogue, maxpool_s8), 0 differing elements; both timed by 10
+    launches, the SM clock read while the kernel runs. The bound counts
+    the 7x7 conv's 2 * 147 * 64 operations at every conv pixel (not the
+    s2d form's 192-deep products) and the raw pixels read once, the
+    pooled output written once, the weights and epilogue vectors. No
+    library call computes it (PyTorch has no CUDA int8 conv)."""
+    b, h, w = a['b'], 2 * a['h2'], 2 * a['w2']
+    x, w7, w4 = nhwc_operands(dev, rng, b, h, w)
+    kw = dict(nhwc_args(dev, rng, a['mode']), acc_dtype=ACC_DTYPES[a['acc']])
+
+    def plain():
+        return torch.cat([int8_cuda.stem_s8_nhwc_torch(x[i:i + 32], w7, **kw)
+                          for i in range(0, b, 32)])
+
+    def kernel():
+        return int8_cuda.stem_s8(x, w4, **kw)
+
+    def chain():
+        q, _ = int8_cuda.stem_input_s8(x, kw['mode'], kw['mean'],
+                                       kw['inv_s_in'])
+        y = int8_cuda.conv_s8(q, w7, 2, ((3, 3), (3, 3)), 'q8_relu',
+                              kw['alpha'], kw['beta'], kw['inv_s_out'],
+                              acc_dtype=kw['acc_dtype'])
+        return int8_cuda.maxpool_s8(y)
+    if int8_cuda.conv_route(3, 64, 49) != 'ragged':
+        raise RuntimeError("the unfused C = 3 stem conv is not on mma.sync")
+    want = plain()
+    plain_ms = cuda_ms(plain, 1, 0)
+    _must_equal(f"stem_s8 [nhwc] {b}x{h}x{w}x3", kernel(), want)
+    _must_equal(f"stem chain [conv_s8 ragged] {b}x{h}x{w}x3", chain(), want)
+    del want
+    turns = [cuda_ms(kernel, 10, 1), cuda_ms(chain, 10, 1),
+             cuda_ms(kernel, 10, 1)]
+    ms, chain_ms = statistics.mean(turns[::2]), turns[1]
+    h2, w2 = h // 2, w // 2
+    ops = 2 * b * h2 * w2 * 147 * 64
+    nbytes = b * h * w * 3 + b * (-(-h2 // 2)) * (-(-w2 // 2)) * 64 \
+        + 147 * 64 + 8 * 64
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None, chain_ms=chain_ms,
+               sm_clock_mhz=sm_clock_mhz(kernel, ms, dev),
+               **_bound(ops, nbytes, INT8_OP_PER_S))
+    log(f"stem_s8 [nhwc] {b}x{h}x{w}x3 {a['mode']} {a['acc']}: 0 differing "
+        f"elements against the plain version and against the unfused chain "
+        f"(input quantize, conv_s8 7x7/2 on mma.sync, maxpool_s8); kernel "
+        f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s of the 7x7 conv, "
+        f"{nbytes / ms / 1e6:.1f} GB/s, SM clock {out['sm_clock_mhz']:.0f} "
+        f"MHz), the unfused chain {chain_ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}: {ops} op at "
+        f"1979 TOP/s, {nbytes} B at 3.35 TB/s), no library call {card}")
+    return out
 
 
 def time_mma_rate(kind, route, dev, card, mnk=(1024, 1024, 512),
@@ -2668,8 +2785,7 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
                 check_served_calls(f'{name} {tag}', calls, dev,
                                    np.random.RandomState(seed))
         mode = '' if '--f16' in extra else '_f32acc'
-        for k in want:
-            res['rows'][k + mode] += launches[k]
+        res['rows'].update(launch_rows(launches, mode))
         # the same served batches through the plain version
         with _Recorder() as plain:
             evaluate.evaluate(_PlainServing(served['engine']),
@@ -2697,8 +2813,8 @@ def run_cli(root, device, seed: int = 0, flags=CLI_FLAGS,
     refined = not (args.regress_ori and args.regress_loc)
     if cuda and refined and min(launches['gemm_s8'], launches['conv_s8']) < 1:
         raise RuntimeError(f"{name} export --int8: launches {launches}")
-    for k in ('gemm_s8', 'conv_s8'):     # calibration, bias_correct
-        res['rows'][k + '_f32acc'] += launches[k]
+    # calibration, bias_correct
+    res['rows'].update(launch_rows(launches, '_f32acc'))
     h5 = os.path.join(out_dir, 'urso_weights.h5')
     artifact = os.path.join(out_dir, 'urso_int8.msgpack')
     if not (os.path.exists(h5) and os.path.exists(artifact)):
@@ -3057,8 +3173,7 @@ def run_speed(root, device, seed: int = 0, frames=None, wh=SPEED_WH,
                                        f"{modes}")
                 check_served_calls(f'speed {tag}', calls, dev,
                                    np.random.RandomState(seed))
-            for k in ('gemm_s8', 'conv_s8'):
-                res['rows'][k + '_f32acc'] += launches[k]
+            res['rows'].update(launch_rows(launches, '_f32acc'))
             # the served batches of both test sets through the plain version
             if len(rec.served) != 2:
                 raise RuntimeError(f"speed {tag}: {len(rec.served)} served "
@@ -3217,8 +3332,7 @@ def run_config2(root, device, seed: int = 0, flags=CONFIG2_FLAGS,
             raise RuntimeError(f"config2 resnet34 serve: {launches}")
         check_served_routes('config2 resnet34', calls)
         check_served_calls('config2 resnet34', calls, dev, rng)
-    for k in ('gemm_s8', 'conv_s8'):
-        rows[k + '_f32acc'] += launches[k]
+    rows.update(launch_rows(launches, '_f32acc'))
     plain = qm(images, plain=True)
     for k, v in served.items():
         diff = int((v != plain[k]).sum())
@@ -3449,8 +3563,7 @@ def run_trainbn(root, device, seed: int = 0, card: str = '',
         check_served_calls('trainbn serve', calls, dev, rng)
     mode = ACC_NAMES[engine.qmodel.acc_dtype]
     sfx = '' if mode == 'bf16' else '_f32acc'
-    for k in ('gemm_s8', 'conv_s8'):
-        rows[k + sfx] += launches[k]
+    rows.update(launch_rows(launches, sfx))
     rows[C2_REQUANT + sfx] += sum(1 for n, a in calls if n == 'gemm_s8'
                                   and a.get('epilogue') == 'q8_relu')
     plain = engine.qmodel(engine.served_batch(molded), plain=True)
@@ -3601,11 +3714,35 @@ def knob_serving_config(batch, variant='base', f16=True, inner_mult=1.0,
 
 def _stem_call(a, dev, rng):
     """Fresh operands for one recorded stem_s8 call: (kernel fn, plain
-    fn)."""
+    fn); the raw batch and the 7x7 chain for an 'nhwc' call."""
+    acc = ACC_DTYPES[a['acc']]
+    if a['route'] == 'nhwc':
+        x, w7, w4 = nhwc_operands(dev, rng, a['b'], 2 * a['h2'], 2 * a['w2'])
+        kw = dict(nhwc_args(dev, rng, a['mode']), acc_dtype=acc)
+        return (lambda: int8_cuda.stem_s8(x, w4, **kw),
+                lambda: int8_cuda.stem_s8_nhwc_torch(x, w7, **kw))
     x, w = stem_operands(dev, rng, a['b'], a['h2'], a['w2'])
-    kw = dict(stem_args(dev, rng, a['mode']), acc_dtype=ACC_DTYPES[a['acc']])
+    kw = dict(stem_args(dev, rng, a['mode']), acc_dtype=acc)
     return (lambda: int8_cuda.stem_s8(x, w, **kw),
             lambda: int8_cuda.stem_s8_torch(x, w, **kw))
+
+
+def kernel_row(name, a) -> str:
+    """The kernels line's row of a recorded int8 call: the kernel, the
+    stem's 'nhwc' route apart, `_f32acc` in the f32-epilogue mode."""
+    nhwc = name == 'stem_s8' and a['route'] == 'nhwc'
+    return name + ('_nhwc' if nhwc else '') \
+        + ('' if a['acc'] == 'bf16' else '_f32acc')
+
+
+def launch_rows(launches, sfx, names=('gemm_s8', 'conv_s8', 'stem_s8')):
+    """Launches by kernels-line row from an `int8_cuda.launches`
+    snapshot: the stem's 'nhwc' route under a row of its own."""
+    out = Counter({k + sfx: launches[k] for k in names})
+    if 'stem_s8' in names:
+        out['stem_s8' + sfx] -= launches['stem_s8_nhwc']
+        out['stem_s8_nhwc' + sfx] += launches['stem_s8_nhwc']
+    return out
 
 
 def check_new_calls(tag, calls, dev, rng, seen: set) -> Counter:
@@ -3627,17 +3764,20 @@ def check_new_calls(tag, calls, dev, rng, seen: set) -> Counter:
                     fn(), plain())
         del fn, plain
         seen.add((name, items))
-        row = name + ('' if a['acc'] == 'bf16' else '_f32acc')
-        done[row, a.get('epilogue', 'q8_relu'), a.get('res', '-')] += 1
+        done[kernel_row(name, a), a.get('epilogue', 'q8_relu'),
+             a.get('res', '-')] += 1
     return done
 
 
 def _aligned_route(name, a) -> str:
     """The route a served call must take, from its shapes alone: TMA
     where K (C for a conv) and N are multiples of 16, else the mma.sync
-    one."""
+    one; for the fused stem `stem_route`'s (its 'nhwc' route on the raw
+    batch)."""
     if name == 'stem_s8':
-        return 'tma'
+        if a['c'] == 3:
+            return int8_cuda.stem_route(2 * a['w2'], True, 3, 2 * a['h2'])
+        return int8_cuda.stem_route(a['w2'])
     k = a['k'] if name == 'gemm_s8' else a['c']
     return 'tma' if k % 16 == 0 and a['n'] % 16 == 0 else 'ragged'
 
@@ -3761,8 +3901,7 @@ def run_knobs(root, device, seed: int = 0, card: str = '',
 
     def add(tag, res, f16=True):
         sfx = '' if f16 else '_f32acc'
-        for k in ('gemm_s8', 'conv_s8', 'stem_s8'):
-            out['rows'][k + sfx] += res['launches'][k]
+        out['rows'].update(launch_rows(res['launches'], sfx))
         out['rows'][C2_REQUANT + sfx] += sum(
             1 for n, a in res['calls']
             if n == 'gemm_s8' and a['epilogue'] == 'q8_relu')
@@ -4053,8 +4192,7 @@ def run_orbax(root, device, seed: int = 0, card: str = '',
         check_served_routes('orbax', calls)
         check_served_calls('orbax', calls, dev, np.random.RandomState(seed))
     sfx = '' if ACC_NAMES[qm.acc_dtype] == 'bf16' else '_f32acc'
-    for k in ('gemm_s8', 'conv_s8'):
-        out['rows'][k + sfx] += launches[k]
+    out['rows'].update(launch_rows(launches, sfx))
     out['rows'][C2_REQUANT + sfx] += sum(
         1 for n, a in calls if n == 'gemm_s8' and a.get('epilogue') ==
         'q8_relu')
@@ -4165,6 +4303,9 @@ def _par_steps(cfg, dev, seed, raw, mesh=None, model=None, tx=None):
 def _count_int8(calls, rows, sfx='_f32acc') -> None:
     for k in ('gemm_s8', 'conv_s8'):
         rows[k + sfx] += sum(1 for n, _ in calls if n == k)
+    for n, a in calls:
+        if n == 'stem_s8':
+            rows[kernel_row(n, a)] += 1
     rows[C2_REQUANT + sfx] += sum(1 for n, a in calls if n == 'gemm_s8'
                                   and a.get('epilogue') == 'q8_relu')
 
@@ -5444,8 +5585,7 @@ def run_video(root, device, seed: int = 0, card: str = '',
             f"calibration; launches {launches} {card}")
         sfx = '' if '--f16' in extra else '_f32acc'
         if extra:
-            for k in ('gemm_s8', 'conv_s8', 'stem_s8'):
-                out['rows'][k + sfx] += launches[k]
+            out['rows'].update(launch_rows(launches, sfx))
         out['runs'][tag] = {'frames_per_s': frames / busy, 'split': split,
                             'wall': wall}
         del seen, eng
@@ -5853,6 +5993,7 @@ def main(argv=None) -> int:
     # 10. serving path at full width and batch: F16 (bench.py's mode) and
     # the f32-epilogue mode, in the base and host_s2d variants
     int8_launches, calls, serve_ms, stem_call = {}, {}, {}, {}
+    nhwc_call = {}
     for f16 in (True, False):
         mode = 'bf16' if f16 else 'f32'
         for variant in ('base', 'host_s2d'):
@@ -5884,16 +6025,18 @@ def main(argv=None) -> int:
                 f"over 3, {batch / t['host_ms'] * 1e3:.2f} imgs/s {card}")
             log(f"serve [{tag}] peak memory allocated: {peak} bytes "
                 f"({peak / 2**30:.2f} GiB) {card}")
-            # gemm_s8 and conv_s8 are counted and timed on the base path,
-            # stem_s8 on the host_s2d path
+            # gemm_s8, conv_s8 and the stem's 'nhwc' route are counted
+            # and timed on the base path, stem_s8's 'tma' route on the
+            # host_s2d path
             for name, count in served['launches'].items():
                 if (name == 'stem_s8') == (variant == 'host_s2d'):
                     int8_launches[name, mode] = count
+            stem = next(a for n, a in served['calls'] if n == 'stem_s8')
             if variant == 'base':
                 calls[mode] = served['calls']
+                nhwc_call[mode] = stem
             else:
-                stem_call[mode] = next(a for n, a in served['calls']
-                                       if n == 'stem_s8')
+                stem_call[mode] = stem
             del served
             torch.cuda.empty_cache()
     for mode in ('bf16', 'f32'):
@@ -5950,7 +6093,7 @@ def main(argv=None) -> int:
     on_path = fused_t['flagship', cfg.WARP_INTERPOLATION]
     gray = fused_t['gray', cfg4.WARP_INTERPOLATION]
     log(f"memory: calibrated estimate / measured peak {mem}")
-    int8, stem = {}, {}
+    int8, stem, nhwc = {}, {}, {}
     for mode in ('bf16', 'f32'):
         int8[mode] = time_int8_kernels(calls[mode], dev, rng, card)
         int8_launches[C2_REQUANT, mode] = int8[mode][C2_REQUANT]['launches']
@@ -5966,6 +6109,8 @@ def main(argv=None) -> int:
                 f"{tk['plain_ms']:.4f} ms, bound {tk['bound_ms']:.4f} ms "
                 f"({tk['bound_by']}), library {lib} ms {card}{earlier}")
         stem[mode] = time_stem(dev, rng, card, stem_call[mode])
+        nhwc[mode] = time_stem_nhwc(dev, rng, card, nhwc_call[mode])
+        torch.cuda.empty_cache()
     float_fwd = time_float_forward(dev, args.seed, card)
     block = time_block(dev, card)
     rates = {(kind, route): time_mma_rate(kind, route, dev, card)
@@ -6025,6 +6170,22 @@ def main(argv=None) -> int:
             "launches": int8_launches['stem_s8', mode],
             "max_abs_err": stem_err,
             **{k: stem[mode]['tma'][k] for k in timed_keys}})
+        # the 'nhwc' route: the `base` batch's stem section in one launch
+        # (`chain_ms`: the unfused chain it replaced); the engine serves
+        # benchmark_config(3) with f32 epilogues
+        eng_nhwc = eng['int8_launches']['stem_s8_nhwc'] if mode == 'f32' \
+            else 0
+        int8_rows.append({
+            "name": "stem_s8_nhwc" + sfx, "route": "cuda",
+            "kernel_route": "nhwc", "acc": mode,
+            "source": "ursonet_torch/csrc/int8_stem.cu",
+            "replaces": "ursonet_tpu/models/quant.py:294, :307, :396",
+            "launches": int8_launches['stem_s8_nhwc', mode] + eng_nhwc,
+            **({"launches_by_path": {
+                "serve_base": int8_launches['stem_s8_nhwc', mode],
+                "engine": eng_nhwc}} if eng_nhwc else {}),
+            "max_abs_err": stem_err,
+            **{k: nhwc[mode][k] for k in timed_keys + ('chain_ms',)}})
     # The warp's row: the fused mode (warp_mold) at the flagship's u8 batch
     # on its interpolation and its configuration's drawn M and identity
     # flags, device time by CUDA graph (the mean over the draws,

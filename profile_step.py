@@ -46,9 +46,12 @@ from ursonet_torch.models import quant
 # gemm_s8 and conv_s8 each have two kernels, reported apart: the
 # persistent TMA + wgmma one, `tma_s8_kernel<BN, kConv>` (kConv false for
 # the GEMM, true for the conv), and the mma.sync one of the ragged route;
-# so has stem_s8 (`stem_s8_tma_kernel`, `stem_s8_kernel`).
+# so has stem_s8 (`stem_s8_tma_kernel`, `stem_s8_kernel`), whose TMA
+# kernel's second template flag is its 'nhwc' route (the raw batch).
 FAMILIES = (
     ('warp kernel (ours)', ('warp_homography',)),
+    ('int8 stem kernel, nhwc route (ours)',
+     tuple(f'stem_s8_tma_kernel<{b}, true>' for b in ('true', 'false'))),
     ('int8 stem kernel, TMA + wgmma route (ours)', ('stem_s8_tma_kernel',)),
     ('int8 stem kernel, mma.sync route (ours)', ('stem_s8_kernel',)),
     # tma_s8_kernel<BN, conv, bf16 epilogues>
@@ -146,7 +149,7 @@ def stem_section(qm, x):
     ops = quant.Int8Ops(qm._prepared_q(), {}, qm.act_scales,
                         mean_pixel=qm._mcfg['mean_pixel'], alphas=qm._alphas,
                         fused_stem=qm._mcfg['stem_s2d'],
-                        acc_dtype=qm.acc_dtype)
+                        acc_dtype=qm.acc_dtype, stem_w4=qm._stem_w4)
     with quant.no_tf32(), torch.no_grad():
         y = quant._stem(ops, ops.input(x), qm._mcfg, 'conv1')
         return ops.maxpool(ops.relu(y, 'conv1/out')).arr

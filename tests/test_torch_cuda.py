@@ -18,6 +18,7 @@ from ursonet_torch.probes import fused_block as fb
 from ursonet_torch.probes import mma_rate as mr
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 import test_torch_warp_tiles as tile_mirror
+import test_torch_im2col_plan as im2col_mirror
 
 pytestmark = pytest.mark.cuda
 
@@ -290,6 +291,7 @@ def test_sim2real_preprocess_launches_the_fused_gray_kernel(cuda_device,
 # --------------------------------------------------------------------------
 # int8 kernels (csrc/int8_gemm.cu, csrc/int8_conv.cu)
 
+from ursonet_torch.models.resnet import space_to_depth2  # noqa: E402
 from ursonet_torch.ops import int8_cuda as ic  # noqa: E402
 
 EPILOGUES = list(ic.EPILOGUES)
@@ -693,9 +695,13 @@ def test_small_serve_under_the_knobs_equals_plain(cuda_device, knobs):
     torch.cuda.synchronize()
     calls, ic.calls = ic.calls, None
     routes = {a['route'] for n, a in calls
-              if not (n == 'conv_s8' and a['c'] == 3)}
+              if n != 'stem_s8' and not (n == 'conv_s8' and a['c'] == 3)}
     assert routes == ({'tma', 'ragged'} if 'INNER_WIDTH_MULT' in knobs
                       else {'tma'})
+    # the `base` stem section: one launch of the fused stem's 'nhwc'
+    # route, none under the bf16 stem
+    assert [a['route'] for n, a in calls if n == 'stem_s8'] == (
+        [] if cfg.QUANT_BF16_STEM else ['nhwc'])
     if cfg.QUANT_S8_JOIN:
         assert {k[1] for k in ic.join_launches} == {'join_s8'}
     plain = qm(imgs, plain=True)
@@ -806,6 +812,119 @@ def test_stem_s8_rejects_what_it_does_not_take(cuda_device):
         ic.stem_s8(x, w, **dict(kw, alpha=kw['alpha'].cpu()))
 
 
+# the 'nhwc' route: (batch, H, W) of raw batches it takes: tiles that
+# overhang every border (H / 2 odd and even), one tile, the flagship's
+# 512x640 (the full served batch in the next test)
+NHWC_SHAPES = [(2, 74, 96), (3, 58, 208), (1, 10, 16), (2, 2, 32),
+               (4, 512, 640)]
+
+
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
+@pytest.mark.parametrize('mode', list(ic.STEM_MODES))
+@pytest.mark.parametrize('b,h,w', NHWC_SHAPES)
+def test_stem_s8_nhwc_matches_plain_and_packed(cuda_device, b, h, w, mode,
+                                               acc):
+    """The 'nhwc' route on the raw batch equals its plain version (the
+    7x7 chain) and the 'tma' route on the same pixels packed, both input
+    modes, both accumulation modes: bit for bit."""
+    rng = np.random.RandomState(b * h + w)
+    x, w7, w4 = chip_smoke.nhwc_operands(cuda_device, rng, b, h, w)
+    kw = dict(chip_smoke.nhwc_args(cuda_device, rng, mode), acc_dtype=acc)
+    want = ic.stem_s8_nhwc_torch(x, w7, **kw)
+    before = ic.launches['stem_s8']
+    ic.calls = []
+    got = ic.stem_s8(x, w4, **kw)
+    torch.cuda.synchronize()
+    (_, call), ic.calls = ic.calls[0], None
+    assert call['route'] == 'nhwc' and ic.launches['stem_s8'] == before + 1
+    assert got.shape == (b, -(-h // 4), -(-w // 4), 64)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    packed = ic.stem_s8(space_to_depth2(x).contiguous(), w4, route='tma',
+                        **dict(kw, mean=np.tile(kw['mean'], 4)))
+    assert torch.equal(packed, want)
+    assert int(got.max()) > 0
+
+
+@pytest.mark.parametrize('acc', ic.ACC_DTYPES, ids=['f32', 'bf16'])
+def test_stem_s8_nhwc_at_the_served_batch(cuda_device, acc):
+    """The flagship's served batch, 128 x 512x640: the 'nhwc' route
+    equals its plain version (16 images at a time: the float64 conv is
+    large) and the 'tma' route on the packed pixels."""
+    rng = np.random.RandomState(128)
+    x, w7, w4 = chip_smoke.nhwc_operands(cuda_device, rng, 128, 512, 640)
+    kw = dict(chip_smoke.nhwc_args(cuda_device, rng, 'calibrated'),
+              acc_dtype=acc)
+    got = ic.stem_s8(x, w4, **kw)
+    packed = ic.stem_s8(space_to_depth2(x).contiguous(), w4, route='tma',
+                        **dict(kw, mean=np.tile(kw['mean'], 4)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, packed)
+    for i in range(0, 128, 16):
+        assert torch.equal(got[i:i + 16],
+                           ic.stem_s8_nhwc_torch(x[i:i + 16], w7, **kw)), i
+
+
+def test_stem_s8_nhwc_refuses_what_it_cannot_address(cuda_device):
+    """Raw batches the 'nhwc' route does not take raise (odd H, W not a
+    multiple of 16, a pointer off 16 bytes, a forced packed route), and
+    the stem's route says so from the shapes alone."""
+    rng = np.random.RandomState(2)
+    kw = chip_smoke.nhwc_args(cuda_device, rng, 'calibrated')
+    for h, w in ((9, 16), (10, 24)):
+        x, _, w4 = chip_smoke.nhwc_operands(cuda_device, rng, 1, h, w)
+        assert ic.stem_route(w, True, 3, h) is None
+        with pytest.raises(ValueError):
+            ic.stem_s8(x, w4, **kw)
+    x, _, w4 = chip_smoke.nhwc_operands(cuda_device, rng, 1, 10, 16)
+    assert ic.stem_route(16, True, 3, 10) == 'nhwc'
+    for route in ic.ROUTES:
+        with pytest.raises(ValueError):
+            ic.stem_s8(x, w4, route=route, **kw)
+    buf = torch.empty(x.numel() + 4, dtype=torch.uint8, device=cuda_device)
+    x4 = buf[4:].view(x.shape)                               # 4-byte aligned
+    x4.copy_(x)
+    assert ic.stem_route(16, ic._aligned(x4), 3, 10) is None
+    with pytest.raises(ValueError):
+        ic.stem_s8(x4, w4, **kw)
+    with pytest.raises(ValueError):
+        ic.stem_s8(x, w4, **dict(kw, mean=np.tile(kw['mean'], 4)))
+
+
+@pytest.mark.parametrize('f16', [False, True], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('backbone', ['resnet50', 'resnet18'])
+def test_base_batch_equals_the_unfused_chain(cuda_device, backbone, f16):
+    """A `base` model on a uint8 batch (the stem section in one 'nhwc'
+    launch) and on the same batch molded in float (input quantize ->
+    conv_s8 on the ragged route -> maxpool): the same bits, and each
+    takes its route."""
+    from ursonet_torch.engine import ServingEngine
+    cfg = chip_smoke.small_serving_config('base')
+    cfg.BACKBONE, cfg.F16 = backbone, f16
+    cfg.update()
+    rng = np.random.RandomState(3)
+    imgs = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    eng = ServingEngine(cfg, cuda_device,
+                        generator=torch.Generator().manual_seed(0))
+    qm = eng.quantize(list(imgs))
+    x = torch.from_numpy(imgs).to(cuda_device)
+    molded = x.float() - torch.tensor(cfg.MEAN_PIXEL, dtype=torch.float32,
+                                      device=cuda_device)
+    outs, stems = {}, {}
+    for name, inp in (('u8', x), ('molded', molded)):
+        ic.calls = []
+        outs[name] = qm(inp)
+        torch.cuda.synchronize()
+        calls, ic.calls = ic.calls, None
+        stems[name] = [a['route'] for n, a in calls if n == 'stem_s8'] + [
+            a['route'] for n, a in calls if n == 'conv_s8' and a['c'] == 3]
+    assert stems == {'u8': ['nhwc'], 'molded': ['ragged']}
+    for k in outs['u8']:
+        assert torch.equal(outs['u8'][k], outs['molded'][k]), k
+    plain = qm(x, plain=True)
+    for k in plain:
+        assert torch.equal(outs['u8'][k], plain[k]), k
+
+
 @pytest.mark.parametrize('variant', ['s2d', 'host_s2d'])
 def test_small_s2d_serve_launches_the_stem(cuda_device, variant):
     """A small int8 serve of the s2d variants through the engine: one
@@ -825,10 +944,11 @@ def test_small_s2d_serve_launches_the_stem(cuda_device, variant):
         outs[v] = eng.predict_molded(imgs)
         torch.cuda.synchronize()
         calls, ic.calls = ic.calls, None
-        assert ic.launches['stem_s8'] == (0 if v == 'base' else 1)
-        # the served stem takes the persistent TMA + wgmma kernel
+        assert ic.launches['stem_s8'] == 1
+        # the served stem takes the persistent TMA + wgmma kernel: on the
+        # raw batch (`base`, `s2d`) or on the host's packed pixels
         assert [a['route'] for n, a in calls if n == 'stem_s8'] == (
-            [] if v == 'base' else ['tma'])
+            ['tma'] if v == 'host_s2d' else ['nhwc'])
         plain = eng.qmodel(eng._host_s2d_maybe(imgs), plain=True)
         for k in plain:
             torch.testing.assert_close(outs[v][k], plain[k], rtol=1e-6,
@@ -1692,6 +1812,28 @@ def test_im2col_s8_at_config2_stem_matches_plain(cuda_device):
         aq.im2col_s8(q, aq.wgrad_plan((n, ci, h, w), co, (k, k), s,
                                       plan.pads, route='ragged')._replace(
                                           route='tma'))
+
+
+@pytest.mark.parametrize('name', list(im2col_mirror.IM2COL_GEOMETRIES))
+def test_im2col_s8_at_mirror_geometries_matches_plain(cuda_device, name):
+    """The gather at the geometries of its numpy mirror (stride 1 and 2,
+    pads, C = 1, 3 and 32, N = 1 and 2, ragged kp), with q 16-byte
+    aligned (the bulk copy where the rows allow it) and off by one byte
+    (q read directly): equal to im2col_torch."""
+    geo = im2col_mirror.IM2COL_GEOMETRIES[name]
+    plan = im2col_mirror.plan_for(geo)
+    q = torch.from_numpy(im2col_mirror.operands(geo)).to(cuda_device)
+    want = aq.im2col_torch(q, (plan.kh, plan.kw), plan.stride, plan.pads,
+                           plan)
+    buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda_device)
+    q1 = buf[1:].view(q.shape)
+    q1.copy_(q)
+    for x in (q, q1):
+        before = aq.kernel_launches['im2col']
+        p = aq.im2col_s8(x, plan)
+        torch.cuda.synchronize()
+        assert aq.kernel_launches['im2col'] == before + 1
+        assert torch.equal(p, want)
 
 
 @pytest.mark.parametrize('ci', [16, 64])

@@ -272,11 +272,12 @@ def _carried(pair):
     return qm
 
 
-@pytest.mark.parametrize('variant', ['s2d', 'host_s2d'])
+@pytest.mark.parametrize('variant', ['s2d', 'host_s2d', 'base'])
 @pytest.mark.parametrize('u8', [True, False])
 def test_int8_forward_s2d_matches_jax(jax_pair, variant, u8):
-    """uint8 pixels take the fused stem, molded floats the unfused route:
-    both the JAX package's bits."""
+    """uint8 pixels take the fused stem (the raw batch its 'nhwc' route
+    under `base` and `s2d`), molded floats the unfused route: both the
+    JAX package's bits."""
     pair = jax_pair[variant]
     x = _images(2)
     if not u8:
@@ -287,8 +288,8 @@ def test_int8_forward_s2d_matches_jax(jax_pair, variant, u8):
     ref = {k: np.asarray(v) for k, v in pair['qm'](jnp.asarray(x)).items()}
     qm = _carried(pair)
     assert qm._mcfg == pair['qm']._mcfg
-    assert qm._mcfg['stem_s2d'] and qm._mcfg['host_s2d'] == (
-        variant == 'host_s2d')
+    assert qm._mcfg['stem_s2d'] == (variant != 'base') \
+        and qm._mcfg['host_s2d'] == (variant == 'host_s2d')
     got = qm(x)
     for k in ref:
         assert rel_l2(got[k].numpy(), ref[k]) <= 1e-3, k

@@ -101,8 +101,24 @@
 //     rate); each 128-byte stage of K reads 128 x (128 + BN) bytes from
 //     L2, which at 128 x 128 tiles asks more of L2 than it gives.
 //   The gather route (`ursonet_actq_im2col` + gemm_s8), for shapes the TMA
-//     route does not take (fewer than 64 input channels):
-//     P [R, Kp] written to device memory, 16 bytes a thread.
+//     route does not take (fewer than 64 input channels): P [R, Kp]
+//     written to device memory. Bound: P's bytes (R times the input's
+//     pixels at stride 1; 13.0 MB for config 2's C = 3 stem, 49 rows
+//     a channel). im2col_kernel: one block a (channel, sample, band of
+//     output rows). The band's input rows of q[n, ci] are contiguous
+//     bytes: one cp.async.bulk brings them into shared memory (rows of
+//     16-byte multiples; other widths read q directly), and a pass splits
+//     them into `stride` phase planes with the padding written as zeros
+//     (plane f holds padded columns f, f + s, ..), so each tap's run of a
+//     P row over the band, band * Wo contiguous bytes, is read from one
+//     plane row at unit stride: a thread's 16 output bytes are two
+//     aligned 16-byte shared loads (a quarter-warp's 128 contiguous
+//     bytes, no bank conflict) shifted into place, written as one
+//     16-byte store. A chunk that crosses an output row, band or sample
+//     (Wo not a multiple of 16) goes a byte at a time; the last band of
+//     the last sample writes the zero tail to kp. The old kernel (PR 18)
+//     assembled every byte with div/mod carries from q in L2: 0.148 of
+//     its bound.
 //   dequant_kernel: bound by bytes (1 read and 2 written an element in
 //     bf16, 1 and 4 in f32). One launch a call over a 1-D grid of
 //     persistent blocks (8 a SM, all resident; any N), one 16-element
@@ -135,7 +151,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBf16 = 1;
 
@@ -196,10 +211,6 @@ __device__ __forceinline__ int8_t quantize_as(float v, float scale) {
 
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
-unsigned blocks_for(long long threads) {
-  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
 // ===========================================================================
@@ -975,43 +986,191 @@ int launch(const Params& p, int grid, cudaStream_t st) {
 // wgrad_s8's gather route
 
 // The gather of wgrad_s8's gather route: P [C * KH * KW, kp] from q [N,
-// C, H, W], 16 bytes a thread.
-__global__ void __launch_bounds__(kThreads)
-im2col_kernel(const int8_t* __restrict__ q, int n, int c, int h, int w,
-              int kh, int kw, int stride, int pt, int pl, int ho, int wo,
-              int kp, int8_t* __restrict__ p) {
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  const long long rows = static_cast<long long>(c) * kh * kw;
-  if (t >= rows * (kp / 16)) return;
-  const int r = static_cast<int>(t / (kp / 16));
-  const int k0 = static_cast<int>(t % (kp / 16)) * 16;
-  const int ci = r / (kh * kw), tap = r % (kh * kw);
-  const int dy = tap / kw, dx = tap % kw;
-  const int hw = ho * wo, kvalid = n * hw;
-  int s = k0 / hw, rem = k0 % hw;
-  int oh = rem / wo, ow = rem % wo;
-  alignas(16) int8_t o[16];
+// C, H, W] (module note). One block a (channel ci, sample n, band of
+// `band` output rows); im2col::Params holds the plan (actq_cuda.im2col_plan).
+namespace im2col {
+
+constexpr int kThreadsI = 256;
+
+struct Params {
+  const int8_t* q;
+  int8_t* p;
+  int n, c, h, w, kh, kw, stride, pt, pl, ho, wo, kp;
+  int band, bands;   // output rows a block, bands a (channel, sample)
+  int rows;          // staged input rows a band: (band - 1) * stride + kh
+  int pw;            // bytes a phase plane row (a multiple of 16)
+  int raw;           // bytes of the bulk-copy area (0: no bulk copy)
+  int tab;           // entries of the chunk table: the most chunks a block
+};
+
+// Rounds `v` (8 words, 32 bytes from a 16-byte boundary) down by `o` =
+// 0..15 bytes: the 16 bytes from byte o, without indexing registers.
+__device__ __forceinline__ uint4 shift_bytes(uint32_t (&v)[8], int o) {
+  if (o & 8) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    int8_t v = 0;
-    if (k0 + j < kvalid) {
-      const int ih = oh * stride + dy - pt, iw = ow * stride + dx - pl;
-      if (ih >= 0 && ih < h && iw >= 0 && iw < w)
-        v = q[((static_cast<long long>(s) * c + ci) * h + ih) * w + iw];
-    }
-    o[j] = v;
-    if (++ow == wo) {
-      ow = 0;
-      if (++oh == ho) {
-        oh = 0;
-        ++s;
+    for (int i = 0; i < 6; ++i) v[i] = v[i + 2];
+  }
+  if (o & 4) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) v[i] = v[i + 1];
+  }
+  const int sh = 8 * (o & 3);
+  return make_uint4(__funnelshift_r(v[0], v[1], sh),
+                    __funnelshift_r(v[1], v[2], sh),
+                    __funnelshift_r(v[2], v[3], sh),
+                    __funnelshift_r(v[3], v[4], sh));
+}
+
+// q's byte at (sample, channel, input row ih, column iw), 0 outside.
+__device__ __forceinline__ int8_t q_at(const Params& p, int s, int ci,
+                                       int ih, int iw) {
+  if (ih < 0 || ih >= p.h || iw < 0 || iw >= p.w) return 0;
+  return p.q[((static_cast<long long>(s) * p.c + ci) * p.h + ih) * p.w + iw];
+}
+
+// Shared memory: the bulk copy's rows (p.raw bytes), the phase planes
+// (rows * stride rows of pw bytes), then two tables that keep integer
+// divisions out of the store loop: each tap's offset into the planes,
+// (dy * s + dx % s) * pw + dx / s, and each chunk's offset, (oh - oh0)
+// * s * s * pw + ow, or -1 where the chunk is not one run of one output
+// row of the band.
+__global__ void __launch_bounds__(kThreadsI) im2col_kernel(const Params p) {
+  extern __shared__ __align__(16) uint8_t sm_i[];
+  __shared__ __align__(8) uint64_t bar;
+  const int tid = threadIdx.x;
+  const int band = blockIdx.x % p.bands;
+  const int rest = blockIdx.x / p.bands;
+  const int n = rest % p.n, ci = rest / p.n;
+  const int s = p.stride, taps = p.kh * p.kw;
+  const int oh0 = band * p.band, oh1 = min(oh0 + p.band, p.ho);
+  const int ih0 = oh0 * s - p.pt;   // staged row 0
+  const int rows = (oh1 - oh0 - 1) * s + p.kh;
+  const int lo = max(ih0, 0), hi = min(ih0 + rows, p.h);
+  uint8_t* planes = sm_i + p.raw;
+  int* tap_off = reinterpret_cast<int*>(planes + p.rows * s * p.pw);
+  int* chunk_off = tap_off + taps;
+  const long long plane0 =
+      (static_cast<long long>(n) * p.c + ci) * p.h * p.w;
+  const bool bulk = p.raw > 0 && hi > lo;
+  const uint32_t b = hopper::smem_u32(&bar);
+
+  // 1. the band's input rows lo..hi-1, contiguous in q: one bulk copy
+  // into shared memory where the plan allows it (16-byte aligned rows)
+  if (bulk && tid == 0) {
+    hopper::mbar_init(b, 1);
+    hopper::fence_barrier_init();
+    const uint32_t bytes = static_cast<uint32_t>((hi - lo) * p.w);
+    hopper::mbar_arrive_expect_tx(b, bytes);
+    hopper::bulk_load(hopper::smem_u32(sm_i),
+                      p.q + plane0 + static_cast<long long>(lo) * p.w,
+                      bytes, b);
+  }
+  // 2. while it lands, the tables. The block's run of a P row is
+  // columns [k_lo, k_hi); it writes the 16-byte chunks that start in it
+  // (a chunk that runs past k_hi takes its last bytes from the next band
+  // or sample through q; the chunks past n * ho * wo are zeros, written
+  // by the last band of the last sample)
+  const int hw = p.ho * p.wo, kvalid = p.n * hw;
+  const int k_lo = n * hw + oh0 * p.wo, k_hi = n * hw + oh1 * p.wo;
+  const int m0 = (k_lo + 15) / 16;
+  const bool last = n == p.n - 1 && oh1 == p.ho;
+  const int chunks = (last ? p.kp / 16 : (k_hi + 15) / 16) - m0;
+  for (int t = tid; t < taps; t += kThreadsI) {
+    const int dy = t / p.kw, dx = t - dy * p.kw;
+    tap_off[t] = (dy * s + dx % s) * p.pw + dx / s;
+  }
+  for (int c = tid; c < chunks; c += kThreadsI) {
+    const int k = (m0 + c) * 16;
+    const int rel = k - n * hw;
+    const int oh = rel / p.wo, ow = rel - oh * p.wo;
+    chunk_off[c] = k + 16 <= kvalid && oh < oh1 && ow + 16 <= p.wo
+                       ? (oh - oh0) * s * s * p.pw + ow
+                       : -1;
+  }
+  if (bulk) {
+    __syncthreads();   // the barrier's init, before anyone waits on it
+    hopper::mbar_wait(b, 0);
+  }
+  // 3. the phase planes: plane row (j * s + f) holds padded columns f,
+  // f + s, f + 2s, .. (input column e * s + f - pl) of staged row j, zero
+  // outside the image, so a tap's run of output columns is contiguous;
+  // a warp a plane row
+  const int pw4 = p.pw / 4, warp = tid >> 5, lane = tid & 31;
+  for (int jf = warp; jf < rows * s; jf += kThreadsI / 32) {
+    const int j = jf / s, f = jf - j * s;
+    const int ih = ih0 + j;
+    const bool row_in = ih >= 0 && ih < p.h;
+    const uint8_t* from_raw = sm_i + (ih - lo) * p.w;
+    const int8_t* from_q = p.q + plane0 + static_cast<long long>(ih) * p.w;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(planes + jf * p.pw);
+    for (int e4 = lane; e4 < pw4; e4 += 32) {
+      uint32_t v = 0;
+      if (row_in) {
+        int iw = e4 * 4 * s + f - p.pl;
+#pragma unroll
+        for (int k = 0; k < 4; ++k, iw += s) {
+          if (iw >= 0 && iw < p.w) {
+            const uint32_t byte = p.raw > 0 ? from_raw[iw]
+                                            : static_cast<uint8_t>(from_q[iw]);
+            v |= byte << (8 * k);
+          }
+        }
       }
+      dst[e4] = v;
     }
   }
-  *reinterpret_cast<uint4*>(p + static_cast<long long>(r) * kp + k0) =
-      *reinterpret_cast<const uint4*>(o);
+  __syncthreads();
+
+  // 4. for each tap, the chunks: one 16-byte store each, assembled from
+  // two aligned 16-byte shared loads where the chunk is one run of a
+  // plane row, a byte at a time otherwise (across rows, bands or
+  // samples), zeros past n * ho * wo. (tap, chunk) advance without a
+  // division.
+  int tap = tid / max(chunks, 1), c = tid - tap * max(chunks, 1);
+  const int step_tap = kThreadsI / max(chunks, 1);
+  const int step_c = kThreadsI - step_tap * max(chunks, 1);
+  for (; chunks > 0 && tap < taps; tap += step_tap, c += step_c) {
+    if (c >= chunks) {
+      c -= chunks;
+      ++tap;
+      if (tap >= taps) break;
+    }
+    const int k = (m0 + c) * 16;
+    const int run = chunk_off[c];
+    uint4 out = make_uint4(0, 0, 0, 0);
+    if (run >= 0) {
+      const int off = run + tap_off[tap];
+      const uint4* a = reinterpret_cast<const uint4*>(planes + (off & ~15));
+      const uint4 u0 = a[0], u1 = a[1];
+      uint32_t v[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+      out = shift_bytes(v, off & 15);
+    } else if (k < kvalid) {
+      const int dy = tap / p.kw, dx = tap - dy * p.kw;
+      alignas(16) int8_t o[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int kk = k + j;
+        int8_t byte = 0;
+        if (kk < kvalid) {
+          const int sn = kk / hw, r2 = kk - sn * hw;
+          const int oh2 = r2 / p.wo, ow2 = r2 - oh2 * p.wo;
+          if (sn == n && oh2 >= oh0 && oh2 < oh1) {
+            byte = static_cast<int8_t>(
+                planes[(oh2 - oh0) * s * s * p.pw + ow2 + tap_off[tap]]);
+          } else {
+            byte = q_at(p, sn, ci, oh2 * s + dy - p.pt, ow2 * s + dx - p.pl);
+          }
+        }
+        o[j] = byte;
+      }
+      out = *reinterpret_cast<const uint4*>(o);
+    }
+    *reinterpret_cast<uint4*>(
+        p.p + (static_cast<long long>(ci) * taps + tap) * p.kp + k) = out;
+  }
 }
+
+}  // namespace im2col
 
 }  // namespace
 
@@ -1118,18 +1277,56 @@ extern "C" int ursonet_actq_dequant(const int8_t* q, const float* scale,
              : dq::launch<__nv_bfloat16>(p, grid, st);
 }
 
+// wgrad_s8's gather route: the plan (band, rows, pw, raw, tab, smem and
+// the grid's bands) is actq_cuda.im2col_plan's; raw > 0 only where w %
+// 16 == 0 and q is 16-byte aligned (the bulk copy's rows).
 extern "C" int ursonet_actq_im2col(const int8_t* q, int n, int c, int h,
                                    int w, int kh, int kw, int stride, int pt,
-                                   int pl, int ho, int wo, int kp, int8_t* p,
-                                   void* stream) {
+                                   int pl, int ho, int wo, int kp, int band,
+                                   int rows, int pw, int raw, int tab,
+                                   int smem, int8_t* p, void* stream) {
+  const int bands = band > 0 ? (ho + band - 1) / band : 0;
   if (n <= 0 || c <= 0 || h <= 0 || w <= 0 || kh <= 0 || kw <= 0 ||
       stride <= 0 || ho <= 0 || wo <= 0 || kp <= 0 || kp % 16 != 0 ||
-      static_cast<long long>(n) * ho * wo > kp || !aligned16(p))
+      static_cast<long long>(n) * ho * wo > kp ||
+      kp - static_cast<long long>(n) * ho * wo >= 16 || !aligned16(p) ||
+      band <= 0 || rows != (band - 1) * stride + kh || pw <= 0 ||
+      pw % 16 != 0 ||
+      pw < ((wo - 1 + (kw - 1) / stride + 16) / 16 + 1) * 16 ||
+      (raw != 0 && (raw < rows * w || w % 16 != 0 || !aligned16(q) ||
+                    raw % 16 != 0)) ||
+      tab < (band * wo + 15) / 16 + 1 ||
+      smem != raw + rows * stride * pw + 4 * (kh * kw + tab) ||
+      static_cast<long long>(c) * n * bands > 0x7fffffffLL ||
+      static_cast<long long>(c) * kh * kw * kp > (1LL << 40))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long chunks = static_cast<long long>(c) * kh * kw * (kp / 16);
-  im2col_kernel<<<blocks_for(chunks), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      q, n, c, h, w, kh, kw, stride, pt, pl, ho, wo, kp, p);
+  im2col::Params a;
+  a.q = q;
+  a.p = p;
+  a.n = n;
+  a.c = c;
+  a.h = h;
+  a.w = w;
+  a.kh = kh;
+  a.kw = kw;
+  a.stride = stride;
+  a.pt = pt;
+  a.pl = pl;
+  a.ho = ho;
+  a.wo = wo;
+  a.kp = kp;
+  a.band = band;
+  a.bands = bands;
+  a.rows = rows;
+  a.pw = pw;
+  a.raw = raw;
+  a.tab = tab;
+  cudaError_t err = cudaFuncSetAttribute(
+      im2col::im2col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  im2col::im2col_kernel<<<c * n * bands, im2col::kThreadsI, smem,
+                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,9 @@
 // int8_block.cu; mma_rate.cu), as inline PTX:
 //   mbarrier      init, arrive, arrive.expect_tx, try_wait.parity
 //   TMA           cp.async.bulk.tensor.2d / .3d / .4d loads that complete
-//                 on an mbarrier, 2-D and 4-D stores tracked by bulk
-//                 groups, and the host side: a CUtensorMap over a byte
+//                 on an mbarrier, a plain cp.async.bulk load (actq.cu),
+//                 2-D and 4-D stores tracked by bulk groups, and the host
+//                 side: a CUtensorMap over a byte
 //                 matrix, a 3-D word array or a 4-D byte array in the
 //                 128-byte swizzle, encoded through cuTensorMapEncodeTiled
 //                 looked up at run time (cudaGetDriverEntryPoint), so
@@ -114,6 +115,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared in one bulk copy (no tensor
+// map), completing on `bar`: both addresses 16-byte aligned, `bytes` a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
       : "memory");
 }
 

@@ -11,8 +11,10 @@
 // the NHWC input (zeros for taps in the padding), so any KH x KW, stride
 // and explicit (top, bottom, left, right) pads work on an unpadded
 // input. On the serving path it carries the sixteen 3x3/1 res*_branch2b
-// convs, the 7x7/2 stem (C = 3, K = 147: the ragged byte-wise gather)
-// and the 3x3/2 bottleneck conv with Flax-SAME pads (0, 1).
+// convs and the 3x3/2 bottleneck conv with Flax-SAME pads (0, 1); the
+// 7x7/2 stem (C = 3, K = 147: the ragged byte-wise gather) only for a
+// float molded batch or a raw one the fused stem's 'nhwc' route
+// (int8_stem.cu) does not take.
 //
 // Computes out[B, OH, OW, N] = epilogue(sum over (ky, kx, c) of
 //   x[b, oy*s - pad_t + ky, ox*s - pad_l + kx, c] * w[n, ky, kx, c]),
@@ -37,9 +39,10 @@
 //     the (b, oy, ox) of a row is decomposed once per tile, the tap once
 //     per stage and chunk.
 //   ursonet_conv_s8      (any shape: the ragged route; on the serving
-//     path only the C = 3 stem of the `base` variant) the mma.sync tile
-//     loop of int8_common.cuh with a register-staged gather, byte-wise
-//     when C % 16 != 0.
+//     path only the C = 3 stem of the `base` variant where the fused
+//     stem does not take the batch) the mma.sync tile loop of
+//     int8_common.cuh with a register-staged gather, byte-wise when
+//     C % 16 != 0.
 // Later work: TMA im2col loads for the patches.
 
 #include "int8_common.cuh"

@@ -94,6 +94,36 @@
 //            contiguous output bytes a pixel.
 //   Stalls   every mbarrier wait is hopper::mbar_wait, which traps after
 //            ~3 s instead of hanging the card.
+//
+// The 'nhwc' route (the same kernel, NHWC = true; H even, W % 16 == 0
+// and 16-byte aligned pointers) takes the uint8 NHWC batch x [B, H, W, 3]
+// itself, the `base` variant's input, and computes the same bits as the
+// 'tma' route on space_to_depth2(x) (packed channel (dy * 2 + dx) * 3 + c
+// of packed pixel (r, s) is raw pixel (2r + dy, 2s + dx), channel c):
+// the 7x7/2 stem with pads (3, 3) is exactly the s2d stem with pads
+// (2, 1) on the packed image (models/resnet.py::stem_kernel_to_s2d), so
+// the whole `base` stem section (input quantize, conv, requant, pool) is
+// one launch and nothing is packed in device memory.
+//   Input    TMA boxes over x viewed as 32-bit words [B][H][W * 3 / 4]
+//            (a raw row of W * 3 bytes is a multiple of 16 when W % 16 ==
+//            0): a tile's 20 x 36 packed pixels are 2 * 20 raw rows of 72
+//            raw pixels, 216 bytes from byte 6 * ic0 of each. The box
+//            starts at the multiple of 16 bytes at or below it and is 240
+//            bytes (60 words) x 40 rows: the tile's bytes lie `shift` = 0,
+//            2, .., 14 bytes in. 40 x 240 = 9600 bytes, the packed box's
+//            size; the same ring of 3 stages.
+//   Quantize reads the raw stage (a packed pixel's 12 bytes are 6 of raw
+//            row 2r and 6 of raw row 2r + 1, as 16-bit loads: the shift
+//            is even) through the same table and writes the packed,
+//            quantized tile into a buffer of its own in the layout load_a
+//            reads (rows of 480 bytes, the pixel's bytes in packed channel
+//            order); pixels outside the image take the mode's fill. The
+//            stage is then free: its next TMA load is issued right after
+//            the quantize, a GEMM earlier than on the 'tma' route.
+//   The GEMM, the epilogue, the conv tile and the pool are the 'tma'
+//   route's. Bound: the 7x7 conv's 2 * 147 * 64 operations a conv pixel
+//   (0.0997 ms at batch 128, 512x640; the s2d form does 192 / 147 of them,
+//   the rewrite's zeros) against 125.8 MB in and 167.8 MB out (0.0876 ms).
 
 #include <math.h>
 
@@ -316,14 +346,31 @@ constexpr int kWsBytes = 2 * N * 128;                    // two K-blocks
 constexpr int kQRow = 144;
 constexpr int kQsBytes = CM * kQRow;
 constexpr int kTabBytes = 12 * 256;
-constexpr int kSmemBytes = 1024 + kWsBytes + kStages * kStageBytes +
-                           kQsBytes + N * 8 + kTabBytes + kStages * 8;
+// the 'nhwc' route's box: 2 * IR raw rows of 240 bytes (60 words), the
+// same bytes as the packed route's box
+constexpr int kRawRow = 240;
+constexpr int kRawRows = 2 * IR;
+static_assert(kRawRow * kRawRows == kBoxBytes, "the boxes' bytes agree");
+static_assert((IC * 6 + 14) <= kRawRow, "the shifted tile fits the box");
+constexpr int kEndBytes = kWsBytes + kStages * kStageBytes + kQsBytes +
+                          N * 8 + kTabBytes + kStages * 8;
+// the 'nhwc' route's packed, quantized tile, after everything else
+constexpr int kXqOff = (kEndBytes + 127) / 128 * 128;
+template <bool NHWC>
+constexpr int smem_bytes() {
+  return 1024 + (NHWC ? kXqOff + kBoxBytes : kEndBytes);
+}
 
+// w0, shift: the box's first word (a multiple of 4) and how far the
+// tile's first pixel lies into each staged row: 3 * ic0 - w0 words on
+// the 'tma' route; on the 'nhwc' route 6 * ic0 - 4 * w0 bytes (raw row
+// 2 * ir0 onward).
 struct StemTile {
   int b, py0, px0, cr0, cc0, ir0, ic0;
-  int w0, shift;   // the box's first word (a multiple of 4), 3 * ic0 - w0
+  int w0, shift;
 };
 
+template <bool NHWC>
 __device__ __forceinline__ StemTile tile_at(const StemArgs& p, int tile) {
   StemTile t;
   const int tx = tile % p.tiles_x;
@@ -336,17 +383,36 @@ __device__ __forceinline__ StemTile tile_at(const StemArgs& p, int tile) {
   t.cc0 = 2 * t.px0 - p.plo_x;
   t.ir0 = t.cr0 - 2;
   t.ic0 = t.cc0 - 2;
-  t.shift = (3 * t.ic0) & 3;   // two's complement: the floor's remainder
-  t.w0 = 3 * t.ic0 - t.shift;
+  // two's complement: the floor's remainder
+  if (NHWC) {
+    t.shift = (6 * t.ic0) & 15;
+    t.w0 = (6 * t.ic0 - t.shift) / 4;
+  } else {
+    t.shift = (3 * t.ic0) & 3;
+    t.w0 = 3 * t.ic0 - t.shift;
+  }
   return t;
 }
 
+template <bool NHWC>
 __device__ __forceinline__ void load_tile(const CUtensorMap* map,
                                           const StemArgs& p, int tile,
                                           uint32_t dst, uint32_t bar) {
-  const StemTile t = tile_at(p, tile);
+  const StemTile t = tile_at<NHWC>(p, tile);
   hopper::mbar_arrive_expect_tx(bar, kBoxBytes);
-  hopper::tma_load_3d(dst, map, bar, t.w0, t.ir0, t.b);
+  hopper::tma_load_3d(dst, map, bar, t.w0, NHWC ? 2 * t.ir0 : t.ir0, t.b);
+}
+
+// One word of 4 pixel bytes through the quantize table of its 4
+// channels (`tab`: the first one's 256 entries, the next 256 on).
+__device__ __forceinline__ uint32_t quantize_word(uint32_t v,
+                                                  const int8_t* tab) {
+  return __byte_perm(
+      __byte_perm(static_cast<uint8_t>(tab[v & 0xff]),
+                  static_cast<uint8_t>(tab[256 + ((v >> 8) & 0xff)]), 0x0040),
+      __byte_perm(static_cast<uint8_t>(tab[512 + ((v >> 16) & 0xff)]),
+                  static_cast<uint8_t>(tab[768 + (v >> 24)]), 0x0040),
+      0x5410);
 }
 
 // The GEMM's depth runs in a permuted order, the same for A and B (the
@@ -460,7 +526,7 @@ __device__ __forceinline__ void epilogue(const StemArgs& p,
   }
 }
 
-template <bool BF16>
+template <bool BF16, bool NHWC>
 __global__ void __launch_bounds__(kThreads, 1)
 stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
                    const StemArgs p) {
@@ -473,6 +539,7 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   float2* ab = reinterpret_cast<float2*>(qs + kQsBytes);
   int8_t* qtab = reinterpret_cast<int8_t*>(ab + N);
   uint64_t* bars = reinterpret_cast<uint64_t*>(qtab + kTabBytes);
+  uint8_t* xq = sm + kXqOff;   // the 'nhwc' route's packed tile
   const uint32_t full = smem_u32(bars);
   const int tid = threadIdx.x;
 
@@ -482,8 +549,8 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
     for (int s = 0; s < kStages; ++s) {
       const int tile = blockIdx.x + s * gridDim.x;
       if (tile < p.tiles)
-        load_tile(&map_x, p, tile, smem_u32(ring) + s * kStageBytes,
-                  full + 8 * s);
+        load_tile<NHWC>(&map_x, p, tile, smem_u32(ring) + s * kStageBytes,
+                        full + 8 * s);
     }
   }
   // weights in the permuted depth order (load_a): 16-byte chunk c of
@@ -533,13 +600,16 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   int it = 0;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
     const int slot = it % kStages;
-    const StemTile tl = tile_at(p, tile);
+    const StemTile tl = tile_at<NHWC>(p, tile);
     uint8_t* stage = ring + slot * kStageBytes;
-    uint8_t* xs = stage + 4 * tl.shift;
+    // the tile's first packed pixel, rows kXRow bytes apart
+    uint8_t* xs = NHWC ? xq : stage + 4 * tl.shift;
     mbar_wait(full + 8 * slot, (it / kStages) & 1);
 
-    // quantize in place, a pixel (3 words) a thread; every pixel outside
-    // the image takes the fill
+    // quantize, a pixel (3 words) a thread: in place on the 'tma' route;
+    // on the 'nhwc' route from the raw stage into xq, the pixel's 6 bytes
+    // of raw row 2r then its 6 of row 2r + 1. Every pixel outside the
+    // image takes the fill.
     uint32_t* xs32 = reinterpret_cast<uint32_t*>(xs);
     const bool interior = tl.ir0 >= 0 && tl.ir0 + IR <= p.H2 &&
                           tl.ic0 >= 0 && tl.ic0 + IC <= p.W2;
@@ -548,25 +618,41 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
       const int gr = tl.ir0 + r, gc = tl.ic0 + col;
       uint32_t* px = xs32 + r * kBoxWords + 3 * col;
       if (interior || (gr >= 0 && gr < p.H2 && gc >= 0 && gc < p.W2)) {
-#pragma unroll
-        for (int w = 0; w < 3; ++w) {
-          const uint32_t v = px[w];
-          const int8_t* tab = qtab + w * 1024;
-          px[w] = __byte_perm(
-              __byte_perm(static_cast<uint8_t>(tab[v & 0xff]),
-                          static_cast<uint8_t>(tab[256 + ((v >> 8) & 0xff)]),
-                          0x0040),
-              __byte_perm(static_cast<uint8_t>(tab[512 + ((v >> 16) & 0xff)]),
-                          static_cast<uint8_t>(tab[768 + (v >> 24)]), 0x0040),
-              0x5410);
+        uint32_t v[3];
+        if (NHWC) {
+          const uint16_t* top = reinterpret_cast<const uint16_t*>(
+              stage + tl.shift + 2 * r * kRawRow + 6 * col);
+          const uint16_t* bot = top + kRawRow / 2;
+          v[0] = top[0] | (static_cast<uint32_t>(top[1]) << 16);
+          v[1] = top[2] | (static_cast<uint32_t>(bot[0]) << 16);
+          v[2] = bot[1] | (static_cast<uint32_t>(bot[2]) << 16);
+        } else {
+          v[0] = px[0];
+          v[1] = px[1];
+          v[2] = px[2];
         }
+#pragma unroll
+        for (int w = 0; w < 3; ++w)
+          px[w] = quantize_word(v[w], qtab + w * 1024);
       } else {
         px[0] = fillw[0];
         px[1] = fillw[1];
         px[2] = fillw[2];
       }
     }
-    __syncthreads();
+    if (NHWC) {
+      // the raw stage is read: refill it now (the generic reads ordered
+      // before the async proxy's writes)
+      fence_proxy_async();
+      __syncthreads();
+      if (tid == 0) {
+        const int next = tile + kStages * gridDim.x;
+        if (next < p.tiles)
+          load_tile<NHWC>(&map_x, p, next, smem_u32(stage), full + 8 * slot);
+      }
+    } else {
+      __syncthreads();
+    }
 
     // the tile's GEMM, chunks wg, wg + 3, wg + 6: one chunk's wgmmas run
     // while the previous chunk is requantized
@@ -588,13 +674,13 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
     fence_registers(acc0);
     epilogue<BF16>(p, tl, acc0, wg + 2 * kWgs, warp, lane, ab, qs);
     // the stage was written through the generic proxy; the next TMA load
-    // into it writes through the async one
-    fence_proxy_async();
+    // into it writes through the async one ('tma' route)
+    if (!NHWC) fence_proxy_async();
     __syncthreads();
-    if (tid == 0) {
+    if (!NHWC && tid == 0) {
       const int next = tile + kStages * gridDim.x;
       if (next < p.tiles)
-        load_tile(&map_x, p, next, smem_u32(stage), full + 8 * slot);
+        load_tile<NHWC>(&map_x, p, next, smem_u32(stage), full + 8 * slot);
     }
 
     // 3x3/2 max-pool of the conv tile, 8 channels a thread: per row the
@@ -631,6 +717,26 @@ stem_s8_tma_kernel(const __grid_constant__ CUtensorMap map_x,
                                 __byte_perm(m2, m3, 0x6420));
     }
   }
+}
+
+// One launch of the persistent kernel: a block an SM (at most one a
+// tile).
+template <bool NHWC>
+int launch(const CUtensorMap& map, const StemArgs& a, int device,
+           cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kernel = a.bf16 ? stem_s8_tma_kernel<true, NHWC>
+                             : stem_s8_tma_kernel<false, NHWC>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<NHWC>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = a.tiles < sms ? a.tiles : sms;
+  kernel<<<grid, kThreads, smem_bytes<NHWC>(), stream>>>(map, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tma_stem
@@ -724,25 +830,46 @@ extern "C" int ursonet_stem_s8_tma(const void* x, const void* wt, int B,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
   const uint64_t row = static_cast<uint64_t>(W2) * 12;
   if (!hopper::make_word_map_3d(&map, x, static_cast<uint64_t>(W2) * 3, H2,
                                 B, row, row * H2, tma_stem::kBoxWords, IR)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = a.bf16 ? tma_stem::stem_s8_tma_kernel<true>
-                             : tma_stem::stem_s8_tma_kernel<false>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tma_stem::kSmemBytes);
+  return tma_stem::launch<false>(map, a, device,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// The 'nhwc' route: x the uint8 NHWC batch [B, H, W, 3], H even, W % 16
+// == 0 (a raw row of W * 3 bytes is a multiple of 16), x, wt and out
+// 16-byte aligned; wt the s2d stem kernel as on the other routes, mean12
+// the pixel mean tiled over the four packed phases.
+extern "C" int ursonet_stem_s8_nhwc(const void* x, const void* wt, int B,
+                                    int H, int W, int mode,
+                                    const float* mean12, float inv_s_in,
+                                    const void* alpha, const void* beta,
+                                    float inv_s_out, int bf16, void* out,
+                                    int device, void* stream) {
+  using namespace ursonet_int8;
+  StemArgs a;
+  if (H <= 0 || W <= 0 || H % 2 != 0 || W % 16 != 0 ||
+      !stem_args(x, wt, B, H / 2, W / 2, mode, mean12, inv_s_in, alpha,
+                 beta, inv_s_out, bf16, out, &a) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(wt) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = a.tiles < sms ? a.tiles : sms;
-  kernel<<<grid, tma_stem::kThreads, tma_stem::kSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(map, a);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap map;
+  const uint64_t row = static_cast<uint64_t>(W) * 3;
+  if (!hopper::make_word_map_3d(&map, x, row / 4, H, B, row, row * H,
+                                tma_stem::kRawRow / 4, tma_stem::kRawRows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return tma_stem::launch<true>(map, a, device,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ursonet_int8_error_string(int code) {

@@ -15,23 +15,28 @@ kernels HWIO and [in, out], and sites carry the JAX package's names, so
 the phases compare with the JAX package's site for site.
 
 On the card, `Int8Ops` computes every int8 product through the
-hand-written kernels of `ops/int8_cuda.py`: `conv_s8` for the 7x7/2 stem,
+hand-written kernels of `ops/int8_cuda.py`: `stem_s8` for the whole stem
+section of a uint8 batch, `conv_s8` for the stem of a float molded batch,
 the 3x3 convs and the 3x3/2 bottleneck conv, `gemm_s8` for the 1x1 convs
 and the int8 head denses. A conv or dense returns a pending product that
 its consumer (ReLU + requantize, shortcut requantize, residual join,
 flatten) resolves with the matching fused epilogue, so no s32
 accumulator or float activation is written between two int8 sites. The
-maxpool, the input quantize, the float final denses and the bf16
-stem's conv stay plain PyTorch ops, as they were XLA ops in the JAX
-package.
+maxpool and the input quantize of the unfused stem, the float final
+denses and the bf16 stem's conv stay plain PyTorch ops, as they were XLA
+ops in the JAX package.
 
-The space-to-depth stem (QUANT_STEM_S2D, or a kernel already in
-(4,4,12,64) form) dispatches on the input's type: a uint8 batch runs the
-whole stem section (input quantize, 4x4/1 conv, ReLU + requantize,
-maxpool) as one launch of `stem_s8`, packed on the host under
-QUANT_HOST_S2D and on the device otherwise; a float molded batch, like
-the 7x7 stem, takes input quantize -> `conv_s8` -> maxpool. Both give
-the same bits.
+The stem dispatches on the input's type and shape, before any launch: a
+uint8 batch runs the whole stem section (input quantize, conv, ReLU +
+requantize, maxpool) as one launch of `stem_s8`. The raw batch [B,H,W,3]
+(H even, W % 16 == 0: `int8_cuda.stem_route`) takes its 'nhwc' route in
+the `base` and `s2d` variants alike, with the stem kernel's (4,4,12,64)
+space-to-depth form (the 7x7 kernel's exact rewrite, made once in
+`QuantizedModel._prepared_q`); packed pixels (QUANT_HOST_S2D) take its
+'tma' route, and a raw batch of another shape is packed on the device
+first under QUANT_STEM_S2D. A float molded batch, a capture pass and a
+raw batch the routes do not take under `base` run input quantize ->
+`conv_s8` -> maxpool. All give the same bits.
 
 Under F16 (`acc_dtype` bfloat16, as the JAX package sets it from the
 config) every epilogue runs in the kernels' bf16 mode
@@ -337,6 +342,13 @@ class _Pending:
         self.x, self.site, self.stride, self.padding = x, site, stride, padding
 
 
+class _U8NHWC(_U8):
+    """The raw uint8 batch [B,H,W,3] on its way to the fused stem's
+    'nhwc' route: neither packed nor quantized before it."""
+
+    __slots__ = ()
+
+
 class _PendingStem:
     """The s2d stem conv over raw uint8 pixels with its ReLU + requantize
     site, waiting for the maxpool that launches the fused stem."""
@@ -359,7 +371,12 @@ class Int8Ops:
     bf16 (F16: the kernels' bf16 mode, and the dequantize and the float
     finals in bf16). plain=True computes the products with the kernels'
     plain versions (float64 accumulation) on any device. fused_stem: the
-    stem kernel is in s2d form, so a uint8 batch takes `stem_s8`.
+    stem kernel is in s2d form, so a packed uint8 batch takes `stem_s8`
+    (and a raw one of a shape its 'nhwc' route does not take is packed on
+    the device first). A raw uint8 batch [B,H,W,3] that the 'nhwc' route
+    takes goes to `stem_s8` whatever the kernel's form: `stem_w4` caches
+    {site: the s2d form of a 7x7 stem kernel} (made here where it is
+    missing).
 
     bf16_stem (QUANT_BF16_STEM): the input is molded into bf16 pixels
     and the stem conv is a float conv (f32 accumulation) over them and
@@ -378,8 +395,11 @@ class Int8Ops:
 
     def __init__(self, q, ffinal, act_scales, mean_pixel=None,
                  alphas=None, plain=False, fused_stem=False,
-                 acc_dtype=torch.float32, bf16_stem=False, s8_join=False):
+                 acc_dtype=torch.float32, bf16_stem=False, s8_join=False,
+                 stem_w4=None):
         self.q = q
+        self.plain = plain
+        self.stem_w4 = {} if stem_w4 is None else stem_w4
         self.bf16_stem = bf16_stem
         self.s8_join = s8_join
         self.ffinal = ffinal
@@ -467,9 +487,14 @@ class Int8Ops:
         if self.bf16_stem:
             # molded pixels in bf16 (integers up to 255 keep 8 bits)
             return F32Ops._mold_maybe(self, x).to(torch.bfloat16)
-        if self.fused_stem and x.dtype == torch.uint8 \
-                and self.capture is None:
-            return _U8(x)
+        if x.dtype == torch.uint8 and self.capture is None:
+            if x.dim() == 4 and x.shape[3] == 3:
+                x = x.contiguous()
+                if int8_cuda.stem_route(x.shape[2], int8_cuda._aligned(x), 3,
+                                        x.shape[1]) == 'nhwc':
+                    return _U8NHWC(x)
+            if self.fused_stem:
+                return _U8(x)
         return self._q8(F32Ops._mold_maybe(self, x), 'input')
 
     def conv(self, x, site, stride=1, padding='SAME'):
@@ -495,17 +520,43 @@ class Int8Ops:
         _capture_mean(self.capture, p.site, y)
         return y
 
+    def _stem_kernel(self, site, s2d):
+        """`site`'s stem kernel in the kernels' layout, in its s2d form
+        (the fused stem's) or as the 7x7 kernel (the 'nhwc' route's plain
+        version), whichever form `q` holds."""
+        w8 = self.q[site][0]
+        if (w8.shape[0] == 4) == s2d:
+            return w8
+        if not s2d:
+            return int8_cuda.stem_kernel_7x7(w8)
+        if site not in self.stem_w4:
+            self.stem_w4[site] = int8_cuda.kernel_layout(
+                stem_kernel_to_s2d(w8.cpu().numpy())).to(w8.device)
+        return self.stem_w4[site]
+
     def _run_stem(self, p: _PendingStem):
         """One stem_s8 launch: input quantize at the 'input' step, the
-        s2d conv, q8_relu onto `out_site`'s step, the 3x3/2 maxpool."""
+        s2d conv (the 7x7/2 conv on the raw batch), q8_relu onto
+        `out_site`'s step, the 3x3/2 maxpool; the 'nhwc' route's plain
+        version (the 7x7 chain) where `plain`."""
         s_in, step = self._step('input'), self._step(p.out_site)
         w8, _, b = self.q[p.site]
         x = p.x.arr.contiguous()
-        out = self._stem(
-            x, w8, self._alpha(p.site, s_in, x.device), b,
-            inv_s_out=self._inv(step), mode='calibrated',
-            mean=_mean_for(self.mean_pixel, 12), inv_s_in=self._inv(s_in),
-            acc_dtype=self.acc_dtype)
+        kw = dict(inv_s_out=self._inv(step), mode='calibrated',
+                  inv_s_in=self._inv(s_in), acc_dtype=self.acc_dtype)
+        alpha = self._alpha(p.site, s_in, x.device)
+        if isinstance(p.x, _U8NHWC):
+            mean = _mean_for(self.mean_pixel, 3)
+            if self.plain:
+                out = int8_cuda.stem_s8_nhwc_torch(
+                    x, self._stem_kernel(p.site, False), alpha, b, mean=mean,
+                    **kw)
+            else:
+                out = int8_cuda.stem_s8(x, self._stem_kernel(p.site, True),
+                                        alpha, b, mean=mean, **kw)
+        else:
+            out = self._stem(x, w8, alpha, b,
+                             mean=_mean_for(self.mean_pixel, 12), **kw)
         return _QT(out, step)
 
     def dense(self, x, site):
@@ -724,9 +775,12 @@ def _stem(ops, x, mcfg, name):
     """Stem conv: 7x7/2 with (3,3) pads, or its exact space-to-depth
     rewrite when the folded kernel is in (4,4,12,O) form: 4x4/1 with
     (2,1) pads on the packed input, which the device packs here unless
-    the host already did (host_s2d)."""
+    the host already did (host_s2d) or the fused stem reads the raw
+    batch (Int8Ops' 'nhwc' route)."""
     if mcfg.get('stem_s2d'):
-        if not mcfg.get('host_s2d'):
+        # the raw batch of the fused stem's 'nhwc' route is packed inside
+        # the kernel
+        if not mcfg.get('host_s2d') and not isinstance(x, _U8NHWC):
             if isinstance(x, _QT):
                 x = type(x)(space_to_depth2(x.arr), x.scale)
             else:
@@ -872,6 +926,7 @@ class QuantizedModel:
         self.device = resolve_device(device)
         self.flat = flat_params
         stem = 'conv0' if config.BACKBONE in SHALLOW_REPS else 'conv1'
+        self._stem_site = stem
         if (getattr(config, 'QUANT_STEM_S2D', False)
                 and self.flat[stem][0].shape[0] == 7):
             # the 7x7/2 stem rewritten exactly into its (4,4,12,O)/1
@@ -916,6 +971,8 @@ class QuantizedModel:
         self._flat_dev = None
         self._q_base = None
         self._q_dev = None
+        # {stem site: the s2d form of its int8 7x7 kernel} (_prepared_q)
+        self._stem_w4: dict = {}
         self._alphas: dict = {}
         # the data-parallel serving mesh (shard_over)
         self.mesh = None
@@ -1108,11 +1165,14 @@ class QuantizedModel:
     def _prepared_q(self):
         """Device int8 weight tree {site: (w8 in the kernels' layout, sw,
         bias + bias_delta)}; the float sites keep their f32 kernels. The
-        weights are quantized once (`_q_base`); a change of bias_delta
-        rebuilds the biases only."""
+        weights are quantized once (`_q_base`), a 7x7 stem kernel's s2d
+        form beside it (`_stem_w4`, the fused stem's 'nhwc' route: the
+        same int8 values and scales); a change of bias_delta rebuilds the
+        biases only."""
         if self._q_base is None:
             fsites = float_sites(self._mcfg)
             base = {}
+            self._stem_w4 = {}
             for site, (w, b) in self.flat.items():
                 if site in fsites:
                     continue
@@ -1120,6 +1180,9 @@ class QuantizedModel:
                 base[site] = (int8_cuda.kernel_layout(w8).to(self.device),
                               torch.from_numpy(sw).to(self.device),
                               np.asarray(b, np.float32))
+                if site == self._stem_site and w8.shape[0] == 7:
+                    self._stem_w4[site] = int8_cuda.kernel_layout(
+                        stem_kernel_to_s2d(w8)).to(self.device)
             self._q_base = base
         if self._q_dev is None:
             q = {}
@@ -1144,7 +1207,8 @@ class QuantizedModel:
                        acc_dtype=self.acc_dtype,
                        bf16_stem=self._mcfg['bf16_stem'],
                        s8_join=(self._mcfg['s8_join'] if s8_join is None
-                                else s8_join))
+                                else s8_join),
+                       stem_w4=self._stem_w4)
 
     def __call__(self, images, plain: bool = False):
         """int8 forward of a molded (float) or raw (uint8) [B,H,W,3]

@@ -72,7 +72,8 @@ applied in registers (`wgrad_tiles`: 128 x 256 or 128 x 128 tiles, K
 split over blocks where the tiles do not fill the SMs, each part's int32
 sums stored to a per-device workspace and added by the tile's last
 block; width and parts chosen by `wgrad_split_cost`).
-The 'ragged' route gathers P [Ci*KH*KW, Kp] (`im2col_s8`, one launch)
+The 'ragged' route gathers P [Ci*KH*KW, Kp] (`im2col_s8`, one launch
+of a block a channel, sample and band of output rows: `im2col_plan`)
 and multiplies qgt @ P^T with `gemm_s8` in its 's32' or 'f32' epilogue
 (alpha = sg, beta = 0). Sums fit int32 where N * Ho * Wo <=
 INT32_SAFE_ACC (the caller's guard, JAX's shape branch).
@@ -121,6 +122,12 @@ DEQUANT_THREADS = 256        # threads of a dequant block
 DEQUANT_BLOCKS = 8           # its blocks a SM (all resident at once)
 DEQUANT_UNROLL = 1           # chunks a thread a pass (loaded at once)
 DEQUANT_CHUNK = 16           # elements (q bytes) a chunk
+IM2COL_THREADS = 256         # threads of a gather block
+# The gather's blocks (`im2col_plan`): about IM2COL_BLOCKS_PER_SM a SM,
+# each a band of output rows of one (channel, sample), its shared memory
+# at most IM2COL_SMEM_CAP bytes.
+IM2COL_BLOCKS_PER_SM = 3
+IM2COL_SMEM_CAP = 96 * 1024
 
 # Wrapper calls that launched on the card since the last reset_counts().
 launches = {"quant_s8": 0, "wgrad_s8": 0}
@@ -147,7 +154,7 @@ def _bind(lib) -> None:
     lib.ursonet_actq_quant.argtypes = [P, I, I, I, P, P, P, P, P] \
         + [I] * 9 + [L, L] + [I] * 6 + [P]
     lib.ursonet_actq_dequant.argtypes = [P, P, I, L, P, I, L, L, I, P]
-    lib.ursonet_actq_im2col.argtypes = [P] + [I] * 12 + [P, P]
+    lib.ursonet_actq_im2col.argtypes = [P] + [I] * 18 + [P, P]
     lib.ursonet_actq_wgrad_tma.argtypes = [P] * 6 + [I] * 12 \
         + [L, L, I, I, I, P]
     for fn in (lib.ursonet_actq_quant, lib.ursonet_actq_dequant,
@@ -613,6 +620,52 @@ def im2col_torch(q, kernel_hw, stride, pads, plan=None):
     return _qgt(cols, plan=plan)
 
 
+class Im2colPlan(NamedTuple):
+    """The gather's launch (csrc/actq.cu `im2col_kernel`): `band` output
+    rows a block, `bands` a (channel, sample), `grid` = C * N * bands
+    blocks; each stages `rows` = (band - 1) * stride + KH input rows as
+    `stride` phase planes of `pw` bytes a row, after a bulk copy of the
+    rows into the first `raw` bytes (0: rows that are not 16-byte
+    multiples, read from q directly), beside a table of KH * KW tap
+    offsets and one of `tab` chunk offsets (the most 16-byte chunks a
+    block writes); `smem` bytes of shared memory."""
+    band: int
+    bands: int
+    rows: int
+    pw: int
+    raw: int
+    tab: int
+    smem: int
+    grid: int
+
+
+def im2col_plan(plan: WgradPlan, sms: int, aligned: bool = True
+                ) -> Im2colPlan:
+    """The gather's blocks for a 'ragged' `plan` on a card of `sms` SMs:
+    bands of output rows such that about IM2COL_BLOCKS_PER_SM blocks a SM
+    cover the C * N * Ho rows, fewer rows where the shared memory would
+    pass IM2COL_SMEM_CAP. `aligned`: q is 16-byte aligned."""
+    s, kh, w = plan.stride, plan.kh, plan.w
+    pw = _round_up(plan.wo + (plan.kw - 1) // s, 16) + 16
+    bulk = aligned and w % 16 == 0
+
+    def shape(band):
+        rows = (band - 1) * s + kh
+        raw = rows * w if bulk else 0
+        tab = (band * plan.wo + 15) // 16 + 1
+        return rows, raw, tab, raw + rows * s * pw + 4 * (kh * plan.kw
+                                                          + tab)
+
+    rows_all = plan.ci * plan.n * plan.ho
+    band = max(1, min(plan.ho, -(-rows_all // (IM2COL_BLOCKS_PER_SM * sms))))
+    while band > 1 and shape(band)[3] > IM2COL_SMEM_CAP:
+        band -= 1
+    rows, raw, tab, smem = shape(band)
+    bands = -(-plan.ho // band)
+    return Im2colPlan(band, bands, rows, pw, raw, tab, smem,
+                      plan.ci * plan.n * bands)
+
+
 # --------------------------------------------------------------------------
 # workspaces, per device (calls on a device are ordered: one stream at a
 # time): the amax slots and barrier counters and wgrad_s8's tile counters
@@ -789,12 +842,14 @@ def im2col_s8(q, plan):
         raise ValueError("im2col_s8: int8 q")
     lib = _lib()
     (pt, _), (pl, _) = plan.pads
+    ip = im2col_plan(plan, int8_cuda._sms(q.device), q.data_ptr() % 16 == 0)
     p = torch.empty((plan.ci * plan.kh * plan.kw, plan.kp), dtype=torch.int8,
                     device=q.device)
     _raise_if(lib.ursonet_actq_im2col(
         q.data_ptr(), plan.n, plan.ci, plan.h, plan.w, plan.kh, plan.kw,
-        plan.stride, pt, pl, plan.ho, plan.wo, plan.kp, p.data_ptr(),
-        _stream(q)), lib, "im2col_s8")
+        plan.stride, pt, pl, plan.ho, plan.wo, plan.kp, ip.band, ip.rows,
+        ip.pw, ip.raw, ip.tab, ip.smem, p.data_ptr(), _stream(q)), lib,
+        "im2col_s8")
     kernel_launches["im2col"] += 1
     return p
 

@@ -8,9 +8,11 @@ epilogues: the CUDA kernels `csrc/int8_gemm.cu`, `csrc/int8_conv.cu` and
                                    (HWIO) -> [B,OH,OW,N]
     stem_s8(x, w, alpha, beta, ...)
                                    x [B,H/2,W/2,12] u8 (space-to-depth
-                                   pixels), w [4,4,12,64] s8 (HWIO) ->
+                                   pixels) or [B,H,W,3] u8 (the raw
+                                   batch), w [4,4,12,64] s8 (HWIO) ->
                                    [B,H/4,W/4,64] s8: input quantize, 4x4/1
-                                   conv, ReLU + requant, 3x3/2 max-pool
+                                   conv (the 7x7/2 stem on the raw batch),
+                                   ReLU + requant, 3x3/2 max-pool
 
 They are the Hopper ports of the Pallas TPU kernels
 `tools/probe_pallas_int8_matmul.py::_matmul_kernel` and
@@ -108,18 +110,26 @@ the launch (`gemm_route`, `conv_route`), never by catching a failure:
               pipeline, whether the weights stay in shared memory, and
               the split over K for outputs of few rows.
     'ragged'  the mma.sync kernel of `csrc/int8_common.cuh`, for any
-              shape (the C = 3 stem conv of the `base` variant, odd K).
+              shape (C = 3 stem convs the fused stem does not take, odd
+              K).
 
 `stem_s8` has two kernels in `csrc/int8_stem.cu`, picked by `stem_route`:
 
     'tma'     persistent blocks, TMA loads of the packed pixels into a
               ring, resident weights, wgmma with A in registers: W2 % 4
-              == 0 and 16-byte aligned pointers (every served batch).
+              == 0 and 16-byte aligned pointers (the `host_s2d` batch).
     'ragged'  one block a tile, mma.sync on 32-bit shared loads: any
               width.
+    'nhwc'    the 'tma' kernel reading the raw uint8 batch [B,H,W,3]
+              and packing each tile as it quantizes it (H even, W % 16
+              == 0, 16-byte aligned pointers): the `base` and `s2d`
+              variants' served batch, in one launch. Its plain version
+              is `stem_s8_nhwc_torch`, the unfused chain with the 7x7
+              kernel.
 
-`route=` forces one (the checks hold both against the plain version); a
-forced 'tma' on a shape it does not take raises.
+`route=` forces one of the first two on packed pixels (the checks hold
+both against the plain version); a forced 'tma' on a shape it does not
+take raises. Raw pixels take 'nhwc' or raise.
 """
 
 from __future__ import annotations
@@ -150,10 +160,11 @@ _OUT_F32 = {"s32": torch.int32, "f32": torch.float32,
 OUT_DTYPES = {torch.float32: _OUT_F32,
               torch.bfloat16: dict(_OUT_F32, f32=torch.bfloat16,
                                    f32_relu=torch.bfloat16)}
-# Kernel launches since the last reset_counts(), by kernel name, and the
-# joins among them by kernel, epilogue and residual type ('s8', 'f32',
-# 'bf16'), e.g. ('gemm_s8', 'join_s8', 's8').
-launches = {"gemm_s8": 0, "conv_s8": 0, "stem_s8": 0}
+# Kernel launches since the last reset_counts(), by kernel name
+# ('stem_s8_nhwc': those of stem_s8's 'nhwc' route, counted under
+# 'stem_s8' too), and the joins among them by kernel, epilogue and
+# residual type ('s8', 'f32', 'bf16'), e.g. ('gemm_s8', 'join_s8', 's8').
+launches = {"gemm_s8": 0, "conv_s8": 0, "stem_s8": 0, "stem_s8_nhwc": 0}
 join_launches: dict = {}
 # None, or a list that each launch appends (name, shapes, epilogue,
 # route, accumulation mode 'f32' or 'bf16', and for a join the
@@ -200,7 +211,8 @@ def _bind_conv(lib) -> None:
 
 def _bind_stem(lib) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.ursonet_stem_s8, lib.ursonet_stem_s8_tma):
+    for fn in (lib.ursonet_stem_s8, lib.ursonet_stem_s8_tma,
+               lib.ursonet_stem_s8_nhwc):
         fn.argtypes = [P, P, I, I, I, I, P, Fl, P, P, Fl, I, P, I, P]
         fn.restype = I
     lib.ursonet_int8_error_string.argtypes = [I]
@@ -291,11 +303,18 @@ def conv_route(c: int, n: int, taps: int = 9, padded_numel: int = 0,
     return "tma" if ok else "ragged"
 
 
-def stem_route(w2: int, aligned: bool = True) -> str:
-    """'tma' for the fused stem when TMA can address the packed pixels
-    as rows of 32-bit words (a row of W2 * 12 bytes is a multiple of 16:
-    W2 % 4 == 0) and `aligned` (every pointer 16-byte aligned), else
-    'ragged'."""
+def stem_route(w2: int, aligned: bool = True, channels: int = 12,
+               h: int = 0):
+    """The fused stem's route for packed pixels [B,H2,W2,12] (`w2` =
+    W2): 'tma' when TMA can address them as rows of 32-bit words (a row
+    of W2 * 12 bytes is a multiple of 16: W2 % 4 == 0) and `aligned`
+    (every pointer 16-byte aligned), else 'ragged'. For the raw batch
+    [B,H,W,3] (`channels` 3, `w2` = W, `h` = H): 'nhwc' when H is even,
+    W % 16 == 0 (a raw row of W * 3 bytes is a multiple of 16) and
+    `aligned`, else None: no kernel takes it."""
+    if channels == 3:
+        ok = aligned and h > 0 and h % 2 == 0 and w2 > 0 and w2 % 16 == 0
+        return "nhwc" if ok else None
     return "tma" if aligned and w2 % 4 == 0 else "ragged"
 
 
@@ -537,8 +556,9 @@ STEM_MODES = {"calibrated": 0, "shift128": 1}
 
 
 def stem_input_s8(x: torch.Tensor, mode: str, mean, inv_s_in: float):
-    """The stem's input quantize on u8 pixels [..., 12]: (s8 tensor, the
-    s8 value per channel that fills the conv's padding).
+    """The stem's input quantize on u8 pixels [..., C] (12 packed or 3
+    raw channels, `mean` per channel): (s8 tensor, the s8 value per
+    channel that fills the conv's padding).
       calibrated  clip(rint((f32(x) - mean[c]) * inv_s_in), -127, 127),
                   the subtraction and the product each rounded to f32;
                   padding 0
@@ -568,6 +588,39 @@ def stem_s8_torch(x, w, alpha, beta, inv_s_out=1.0, mode="calibrated",
     xp = fill.expand(b, h + 3, wd + 3, c).contiguous()
     xp[:, 2:h + 2, 2:wd + 2] = q
     y = conv_s8_torch(xp, w, 1, ((0, 0), (0, 0)), "q8_relu", alpha, beta,
+                      inv_s_out, acc_dtype=acc_dtype)
+    return maxpool_s8(y)
+
+
+def stem_kernel_7x7(w: torch.Tensor) -> torch.Tensor:
+    """The 7x7 stem kernel [7,7,C,O] of an s2d stem kernel [4,4,4C,O]
+    (HWIO): the inverse of `models/resnet.py::stem_kernel_to_s2d`,
+    W[u, v, c, o] = W'[(u + 1) // 2, (v + 1) // 2, (dy * 2 + dx) * C + c,
+    o] with dy = (u + 1) % 2, dx = (v + 1) % 2 (the rewrite's zeros
+    dropped)."""
+    c = w.shape[2] // 4
+    u = torch.arange(7, device=w.device)
+    r, d = (u + 1) // 2, (u + 1) % 2
+    t = w[r[:, None], r[None, :]]                       # [7,7,4C,O]
+    ch = (d[:, None] * 2 + d[None, :])[:, :, None] * c \
+        + torch.arange(c, device=w.device)               # [7,7,C]
+    return torch.gather(t, 2, ch[..., None].expand(7, 7, c, t.shape[3]))
+
+
+def stem_s8_nhwc_torch(x, w7, alpha, beta, inv_s_out=1.0,
+                       mode="calibrated", mean=(0.0,) * 3, inv_s_in=1.0,
+                       acc_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of stem_s8's 'nhwc' route, as the `base` variant's
+    unfused chain on the raw batch x [B,H,W,3] u8 with the 7x7 stem
+    kernel w7 [7,7,3,64]: input quantize (`stem_input_s8`, `mean` per
+    pixel channel), the (3,3) pads filled with the mode's value,
+    conv_s8_torch 7x7/2 with the q8_relu epilogue in the accumulation
+    mode `acc_dtype`, maxpool_s8."""
+    q, fill = stem_input_s8(x, mode, mean, inv_s_in)
+    b, h, wd, c = q.shape
+    xp = fill.expand(b, h + 6, wd + 6, c).contiguous()
+    xp[:, 3:h + 3, 3:wd + 3] = q
+    y = conv_s8_torch(xp, w7, 2, ((0, 0), (0, 0)), "q8_relu", alpha, beta,
                       inv_s_out, acc_dtype=acc_dtype)
     return maxpool_s8(y)
 
@@ -798,24 +851,33 @@ def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
     """The fused int8 stem in one launch: out[B,ceil(H2/2),ceil(W2/2),64]
     s8 = maxpool3x3/2_SAME(q8_relu(conv4x4/1(quantize(x)))) for
     space-to-depth u8 pixels x [B,H2,W2,12] and the s2d stem kernel w
-    [4,4,12,64] s8 (HWIO view, `kernel_layout`), pads (2,1),(2,1). `mode`
-    picks the input quantize and the padding value (`stem_input_s8`);
-    the epilogue is q8_relu with alpha, beta and inv_s_out in the
-    accumulation mode `acc_dtype`. The 64-wide conv output stays in
-    shared memory. `route`: None picks by shape (`stem_route`), or one of
-    ROUTES."""
+    [4,4,12,64] s8 (HWIO view, `kernel_layout`), pads (2,1),(2,1). For
+    the raw batch x [B,H,W,3] u8 ('nhwc' route) the same with x packed
+    by `space_to_depth2` inside the kernel: the 7x7/2 stem with pads
+    (3,3), whose kernel `stem_kernel_7x7(w)` is. `mode` picks the input
+    quantize and the padding value (`stem_input_s8`; `mean` per packed
+    channel, or per pixel channel for the raw batch); the epilogue is
+    q8_relu with alpha, beta and inv_s_out in the accumulation mode
+    `acc_dtype`. The 64-wide conv output stays in shared memory.
+    `route`: None picks by shape (`stem_route`), or one of ROUTES on
+    packed pixels, 'nhwc' on the raw batch."""
     _check_acc(acc_dtype)
+    raw = x.dim() == 4 and x.shape[3] == 3
     if x.device.type == "cpu" and w.device.type == "cpu":
+        if raw:
+            return stem_s8_nhwc_torch(x, stem_kernel_7x7(w), alpha, beta,
+                                      inv_s_out, mode, mean, inv_s_in,
+                                      acc_dtype)
         return stem_s8_torch(x, w, alpha, beta, inv_s_out, mode, mean,
                              inv_s_in, acc_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if mode not in STEM_MODES:
         raise ValueError(f"unknown stem mode {mode!r}")
-    if x.dim() != 4 or x.shape[3] != 12 or x.dtype != torch.uint8 \
+    if x.dim() != 4 or x.shape[3] not in (3, 12) or x.dtype != torch.uint8 \
             or not x.is_contiguous() or x.data_ptr() % 4:
-        raise ValueError("x must be a contiguous [B,H/2,W/2,12] uint8 "
-                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+        raise ValueError("x must be a contiguous [B,H/2,W/2,12] or [B,H,W,3] "
+                         f"uint8 tensor, got {tuple(x.shape)} {x.dtype}")
     if tuple(w.shape) != (4, 4, 12, 64) or w.dtype != torch.int8 \
             or not w.permute(3, 0, 1, 2).is_contiguous() \
             or w.device != x.device or w.data_ptr() % 16:
@@ -823,24 +885,38 @@ def stem_s8(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
                          f"[64,4,4,12] tensor on {x.device} (kernel_layout), "
                          f"got {tuple(w.shape)} {w.dtype}")
     mean = np.ascontiguousarray(np.asarray(mean, np.float32))
-    if mean.shape != (12,):
-        raise ValueError(f"mean must hold 12 values, got {mean.shape}")
-    bsz, h2, w2, _ = x.shape
-    if bsz == 0 or h2 == 0 or w2 == 0:
+    if mean.shape != (x.shape[3],):
+        raise ValueError(f"mean must hold {x.shape[3]} values, got "
+                         f"{mean.shape}")
+    bsz, h, wd, _ = x.shape
+    if bsz == 0 or h == 0 or wd == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
+    h2, w2 = (-(-h // 2), -(-wd // 2)) if raw else (h, wd)
     _check_epilogue(x.device, 0, 64, "q8_relu", alpha, beta, None)
     out = torch.empty((bsz, -(-h2 // 2), -(-w2 // 2), 64), dtype=torch.int8,
                       device=x.device)
-    route = _pick_route("stem_s8", route, stem_route(w2, _aligned(x, w, out)))
+    if raw:
+        if stem_route(wd, _aligned(x, w, out), 3, h) != "nhwc" \
+                or route not in (None, "nhwc"):
+            raise ValueError(f"stem_s8: the nhwc route does not take "
+                             f"{tuple(x.shape)} (H even, W % 16 == 0, "
+                             f"16-byte aligned) or route {route!r}")
+        route, mean = "nhwc", np.tile(mean, 4)
+    else:
+        route = _pick_route("stem_s8", route,
+                            stem_route(w2, _aligned(x, w, out)))
     lib = cuda_build.load("int8_stem", _bind_stem)
-    launch = lib.ursonet_stem_s8_tma if route == "tma" else lib.ursonet_stem_s8
+    launch = {"nhwc": lib.ursonet_stem_s8_nhwc,
+              "tma": lib.ursonet_stem_s8_tma}.get(route, lib.ursonet_stem_s8)
     rc = launch(
-        x.data_ptr(), w.data_ptr(), bsz, h2, w2, STEM_MODES[mode],
+        x.data_ptr(), w.data_ptr(), bsz, h, wd, STEM_MODES[mode],
         mean.ctypes.data, float(inv_s_in), alpha.data_ptr(), beta.data_ptr(),
         float(inv_s_out), int(acc_dtype == torch.bfloat16), out.data_ptr(),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_if(rc, lib, "stem_s8")
+    if route == "nhwc":
+        launches["stem_s8_nhwc"] += 1
     _record("stem_s8", "q8_relu", None, dict(
-        b=bsz, h2=h2, w2=w2, mode=mode, route=route,
+        b=bsz, h2=h2, w2=w2, c=x.shape[3], mode=mode, route=route,
         acc=ACC_NAMES[acc_dtype]))
     return out

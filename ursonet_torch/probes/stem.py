@@ -12,9 +12,11 @@ Rows, one JSON line each:
     2 * B * H/2 * W/2 * 192 * 64 operations over the time, `sm_clock_mhz`
     the SM clock read while it runs. A width the `tma` route does not
     take (W/2 % 4 != 0) is recorded as unsupported;
-  * `unfused-7x7`: the `base` variant's stem section on [B, H, W, 3]
-    pixels: input quantize, the 7x7/2 conv through `conv_s8` (q8_relu),
-    the 3x3/2 maxpool (as the TPU probe timed XLA's section).
+  * `unfused-7x7`: the unfused stem section on [B, H, W, 3] pixels (the
+    `base` variant's before stem_s8's 'nhwc' route, and still a float
+    molded batch's): input quantize, the 7x7/2 conv through `conv_s8`
+    (q8_relu), the 3x3/2 maxpool (as the TPU probe timed XLA's
+    section).
 """
 
 from __future__ import annotations
