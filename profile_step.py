@@ -16,13 +16,14 @@ batch 16), runs 3 warm-up steps, then traces --steps train steps. With
 chip_smoke.py does, serves 3 warm-up batches of device-resident uint8
 images, then traces --steps served batches; --variant names one or more
 of the serving variants (base, s2d, host_s2d), profiled one after the
-other in the same process, each followed by the device time and the
-kernel launches of its stem section alone (input quantize, stem conv,
-ReLU + requantize, maxpool), so the variants read side by side. Prints,
+other in the same process, so the variants read side by side. Prints,
 with torch.profiler: the device time by PyTorch operator and by kernel
-(top rows), the device time of each kernel family, and the share of the
-traced window in which the card ran no kernel. --trace writes the Chrome
-trace (of the last variant). Needs a CUDA card.
+(top rows), the device time of each kernel family, the share of the
+traced window in which the card ran no kernel, and the host and device
+milliseconds of each of the program's spans (`ursonet_torch/utils/
+profiling.py`: a served batch's stem section, stages and heads; a train
+step's gather, preprocess, forward, backward and update). --trace writes
+the Chrome trace (of the last variant). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import argparse
 import subprocess
 import sys
 import time
-from collections import Counter
 
 import numpy as np
 import torch
@@ -40,7 +40,6 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from ursonet_torch import presets
 from ursonet_torch.engine import ServingEngine
-from ursonet_torch.models import quant
 
 # Kernel families by substrings of the kernel name, first match wins.
 # gemm_s8 and conv_s8 each have two kernels, reported apart: the
@@ -98,8 +97,32 @@ def busy_share(kernels) -> tuple[float, float]:
 
 
 def device_kernels(prof):
+    """The device operations: not the GPU-side annotations of spans."""
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def span_table(prof, steps, unit) -> None:
+    """The program's spans, ms per step or batch: the host's range, and
+    the device's from the span's GPU-side annotation, in order of first
+    start. The annotation runs from the first to the last kernel
+    launched from inside the span and not from a nested one, nor from
+    another thread: a parent span (a step, a forward) and the backward,
+    whose kernels autograd's device thread launches, read about 0."""
+    cuda = torch.autograd.DeviceType.CUDA
+    host, dev, first = {}, {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if not name.startswith('ursonet.'):
+            continue
+        into = dev if ev.device_type() == cuda else host
+        into[name] = into.get(name, 0.0) + (ev.end_ns() - ev.start_ns()) / 1e6
+        first[name] = min(first.get(name, ev.start_ns()), ev.start_ns())
+    print(f"program spans, ms per {unit}: host, device")
+    for name in sorted(host, key=first.get):
+        print(f"  {name:26s} {host[name] / steps:9.3f} "
+              f"{dev.get(name, 0.0) / steps:9.3f}")
 
 
 def report(prof, steps, unit, trace=None) -> None:
@@ -126,6 +149,7 @@ def report(prof, steps, unit, trace=None) -> None:
     busy, window = busy_share(kernels)
     print(f"device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms "
           f"kernel window: idle share {1 - busy / window:.4f}")
+    span_table(prof, steps, unit)
     if trace:
         prof.export_chrome_trace(trace)
         print(f"trace: {trace}")
@@ -140,19 +164,6 @@ def traced(run, steps):
             run(i)
         torch.cuda.synchronize()
     return prof, (time.perf_counter() - t0) * 1e3
-
-
-def stem_section(qm, x):
-    """The int8 model's stem section alone on a device-resident batch:
-    input quantize, stem conv, ReLU + requantize onto conv1/out, 3x3/2
-    maxpool. Returns the pooled int8 activations."""
-    ops = quant.Int8Ops(qm._prepared_q(), {}, qm.act_scales,
-                        mean_pixel=qm._mcfg['mean_pixel'], alphas=qm._alphas,
-                        fused_stem=qm._mcfg['stem_s2d'],
-                        acc_dtype=qm.acc_dtype, stem_w4=qm._stem_w4)
-    with quant.no_tf32(), torch.no_grad():
-        y = quant._stem(ops, ops.input(x), qm._mcfg, 'conv1')
-        return ops.maxpool(ops.relu(y, 'conv1/out')).arr
 
 
 def profile_serving(variant, args, smi) -> None:
@@ -174,17 +185,6 @@ def profile_serving(variant, args, smi) -> None:
           f"{args.steps} traced served "
           f"batches of {cfg.BATCH_SIZE}, host wall {wall_ms:.3f} ms")
     report(prof, args.steps, 'batch', args.trace)
-    stem_ms = cs.cuda_ms(lambda: stem_section(qm, x), 10)
-    prof, _ = traced(lambda i: stem_section(qm, x), 1)
-    kernels = device_kernels(prof)
-    fams = Counter(family(k.name) for k in kernels)
-    dev_ms = sum(k.time_range.end - k.time_range.start for k in kernels) / 1e3
-    print(f"serve [{variant}] stem section alone (input quantize, stem conv, "
-          f"ReLU + requantize, maxpool), batch {cfg.BATCH_SIZE}: "
-          f"{dev_ms:.3f} ms device kernel time in {len(kernels)} launches ("
-          + ', '.join(f"{n} x{c}" for n, c in sorted(fams.items()))
-          + f"); {stem_ms:.3f} ms a call by CUDA events, mean of 10, host "
-          f"gaps included [{smi}]")
 
 
 def main(argv=None) -> int:

@@ -90,6 +90,7 @@ from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import check_nans, make_eval_step, \
     make_resident_eval_step, make_resident_train_step, make_train_step
 from ursonet_torch.utils.memory import check_train_memory
+from ursonet_torch.utils.profiling import span
 
 
 class ServingEngine:
@@ -173,34 +174,39 @@ class ServingEngine:
         batch is padded to a multiple of the data rows (repeating its
         last row), each rank serves its rows, the outputs are gathered
         (the int8 model's on the host under gloo) and trimmed; every
-        rank of the mesh calls it with the same batch."""
-        n, rows = int(molded.shape[0]), self._data_rows
-        pad = (-n) % rows
-        if pad:
-            last = molded[-1:]
-            molded = torch.cat([molded] + [last] * pad) \
-                if isinstance(molded, torch.Tensor) \
-                else np.concatenate([molded] + [last] * pad)
-        if self.qmodel is not None:
-            x = self.served_batch(molded)
-            if self.qmodel.act_scales is None:
-                self.qmodel.calibrate(x)
-            out = self.qmodel(x)
-        else:
-            x = molded if isinstance(molded, torch.Tensor) \
-                else torch.from_numpy(np.ascontiguousarray(molded))
-            if rows > 1:
-                lo, hi = multihost.local_batch_slice(self.mesh, len(x))
-                x = x[lo:hi]
-            x = x.to(self.device, torch.float32).permute(0, 3, 1, 2)
-            with torch.no_grad():
-                # the model casts to its compute dtype (bf16 under F16)
-                # and returns f32 head outputs
-                out = self.model(x)
-            if rows > 1:
-                group = self.mesh.group(AXIS_DATA)
-                out = {k: gather_rows(v, group) for k, v in out.items()}
-        return {k: v[:n] for k, v in out.items()} if pad else out
+        rank of the mesh calls it with the same batch. Spans
+        (`utils/profiling.py`): ursonet.serve.predict around it all,
+        .pack, .h2d and .forward inside."""
+        with span('ursonet.serve.predict'):
+            n, rows = int(molded.shape[0]), self._data_rows
+            pad = (-n) % rows
+            if pad:
+                last = molded[-1:]
+                molded = torch.cat([molded] + [last] * pad) \
+                    if isinstance(molded, torch.Tensor) \
+                    else np.concatenate([molded] + [last] * pad)
+            if self.qmodel is not None:
+                with span('ursonet.serve.pack'):
+                    x = self.served_batch(molded)
+                if self.qmodel.act_scales is None:
+                    self.qmodel.calibrate(x)
+                out = self.qmodel(x)
+            else:
+                x = molded if isinstance(molded, torch.Tensor) \
+                    else torch.from_numpy(np.ascontiguousarray(molded))
+                if rows > 1:
+                    lo, hi = multihost.local_batch_slice(self.mesh, len(x))
+                    x = x[lo:hi]
+                with span('ursonet.serve.h2d'):
+                    x = x.to(self.device, torch.float32).permute(0, 3, 1, 2)
+                with span('ursonet.serve.forward'), torch.no_grad():
+                    # the model casts to its compute dtype (bf16 under
+                    # F16) and returns f32 head outputs
+                    out = self.model(x)
+                if rows > 1:
+                    group = self.mesh.group(AXIS_DATA)
+                    out = {k: gather_rows(v, group) for k, v in out.items()}
+            return {k: v[:n] for k, v in out.items()} if pad else out
 
     def served_batch(self, molded):
         """The batch the int8 model is given for a molded one: under

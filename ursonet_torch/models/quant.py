@@ -92,6 +92,7 @@ from ursonet_torch.models.folding import _bn_name_for, fold_bn
 from ursonet_torch.models.resnet import SHALLOW_REPS, same_pads, \
     space_to_depth2, stem_kernel_to_s2d
 from ursonet_torch.ops import int8_cuda
+from ursonet_torch.utils.profiling import span
 
 # Accuracy-gate thresholds of the JAX package (bench.py, test_quant.py):
 # int8 vs float twin on the committed trained artifact, and on a
@@ -789,12 +790,18 @@ def _stem(ops, x, mcfg, name):
     return ops.conv(x, name, 2, [(3, 3), (3, 3)])
 
 
+def _stem_section(ops, x, mcfg, name):
+    """The stem conv, its ReLU + requantize onto '<name>/out' and the
+    3x3/2 maxpool, in the span ursonet.qmodel.stem."""
+    with span('ursonet.qmodel.stem'):
+        return ops.maxpool(ops.relu(_stem(ops, x, mcfg, name),
+                                    name + '/out'))
+
+
 def _bottleneck_backbone(ops, x, mcfg):
-    """ResNet-50/101."""
+    """ResNet-50/101: the stem section, then a span a stage."""
     architecture = mcfg['backbone']
-    y = _stem(ops, x, mcfg, 'conv1')
-    y = ops.relu(y, 'conv1/out')
-    y = ops.maxpool(y)
+    y = _stem_section(ops, x, mcfg, 'conv1')
 
     def block(y, stage, blk, strides, conv_shortcut):
         c = f'res{stage}{blk}_branch'
@@ -807,40 +814,43 @@ def _bottleneck_backbone(ops, x, mcfg):
         r = ops.conv(r, c + '2c', 1, 'VALID')
         return ops.join(r, sc, c + '/out')
 
-    y = block(y, 2, 'a', 1, True)
-    y = block(y, 2, 'b', 1, False)
-    y = block(y, 2, 'c', 1, False)
-    y = block(y, 3, 'a', 2, True)
-    for b in 'bcd':
-        y = block(y, 3, b, 1, False)
-    y = block(y, 4, 'a', 2, True)
-    n4 = {'resnet50': 5, 'resnet101': 22}[architecture]
-    for i in range(n4):
-        y = block(y, 4, chr(98 + i), 1, False)
-    y = block(y, 5, 'a', 2, True)
-    y = block(y, 5, 'b', 1, False)
-    y = block(y, 5, 'c', 1, False)
+    with span('ursonet.qmodel.res2'):
+        y = block(y, 2, 'a', 1, True)
+        y = block(y, 2, 'b', 1, False)
+        y = block(y, 2, 'c', 1, False)
+    with span('ursonet.qmodel.res3'):
+        y = block(y, 3, 'a', 2, True)
+        for b in 'bcd':
+            y = block(y, 3, b, 1, False)
+    with span('ursonet.qmodel.res4'):
+        y = block(y, 4, 'a', 2, True)
+        n4 = {'resnet50': 5, 'resnet101': 22}[architecture]
+        for i in range(n4):
+            y = block(y, 4, chr(98 + i), 1, False)
+    with span('ursonet.qmodel.res5'):
+        y = block(y, 5, 'a', 2, True)
+        y = block(y, 5, 'b', 1, False)
+        y = block(y, 5, 'c', 1, False)
     return y
 
 
 def _basic_backbone(ops, x, mcfg):
-    """ResNet-18/34: the 'conv0' stem, then basic blocks (single BN
-    folded into conv1; conv2 joins the shortcut raw, the join's sum
-    requantized onto '<base>/out')."""
-    y = _stem(ops, x, mcfg, 'conv0')
-    y = ops.relu(y, 'conv0/out')
-    y = ops.maxpool(y)
+    """ResNet-18/34: the 'conv0' stem section, then basic blocks (single
+    BN folded into conv1; conv2 joins the shortcut raw, the join's sum
+    requantized onto '<base>/out'), stage1-4 in the spans of res2-5."""
+    y = _stem_section(ops, x, mcfg, 'conv0')
     reps = SHALLOW_REPS[mcfg['backbone']]
     for stage, rep in enumerate(reps):
-        for blk in range(rep):
-            base = f'stage{stage + 1}_unit{blk + 1}_'
-            strides = 2 if (blk == 0 and stage > 0) else 1
-            sc = ops.requant(ops.conv(y, base + 'sc', strides, 'VALID'),
-                             base + 'sc/out') if blk == 0 else y
-            r = ops.conv(y, base + 'conv1', strides, [(1, 1), (1, 1)])
-            r = ops.relu(r, base + 'conv1/out')
-            r = ops.conv(r, base + 'conv2', 1, [(1, 1), (1, 1)])
-            y = ops.join(r, sc, base + '/out')
+        with span(f'ursonet.qmodel.res{stage + 2}'):
+            for blk in range(rep):
+                base = f'stage{stage + 1}_unit{blk + 1}_'
+                strides = 2 if (blk == 0 and stage > 0) else 1
+                sc = ops.requant(ops.conv(y, base + 'sc', strides, 'VALID'),
+                                 base + 'sc/out') if blk == 0 else y
+                r = ops.conv(y, base + 'conv1', strides, [(1, 1), (1, 1)])
+                r = ops.relu(r, base + 'conv1/out')
+                r = ops.conv(r, base + 'conv2', 1, [(1, 1), (1, 1)])
+                y = ops.join(r, sc, base + '/out')
     return y
 
 
@@ -853,61 +863,65 @@ def _l2norm(x):
 
 def twin_forward(ops, images, mcfg: dict) -> Dict[str, torch.Tensor]:
     """The graph shared by all phases; `mcfg` is the model-config
-    snapshot (QuantizedModel._mcfg)."""
+    snapshot (QuantizedModel._mcfg). Spans (`utils/profiling.py`):
+    ursonet.qmodel.stem, .res2 to .res5 and .head, in graph order. The
+    input step runs before the stem's span: for a uint8 batch that the
+    fused stem reads it launches nothing."""
     x = ops.input(images)
     if mcfg['backbone'] in SHALLOW_REPS:
         y = _basic_backbone(ops, x, mcfg)
     else:
         y = _bottleneck_backbone(ops, x, mcfg)
-    y = ops.conv(y, 'bottleneck_layer', 2, 'SAME')
-    feats = ops.flatten(y, 'bottleneck/out')
+    with span('ursonet.qmodel.head'):
+        y = ops.conv(y, 'bottleneck_layer', 2, 'SAME')
+        feats = ops.flatten(y, 'bottleneck/out')
 
-    def dense_stack(prefix, quant_last, float_hidden=False):
-        h = feats
-        n = mcfg['nr_dense_layers']
-        for i in range(n):
-            site = f'{prefix}_head/{prefix}_dense_{i}'
-            if float_hidden:
-                h = ops.relu(ops.dense_final(h, site))
-                continue
-            h = ops.dense(h, site)
-            keep_q = quant_last or i < n - 1
-            h = ops.relu(h, site + '/out' if keep_q else None)
-        return h
+        def dense_stack(prefix, quant_last, float_hidden=False):
+            h = feats
+            n = mcfg['nr_dense_layers']
+            for i in range(n):
+                site = f'{prefix}_head/{prefix}_dense_{i}'
+                if float_hidden:
+                    h = ops.relu(ops.dense_final(h, site))
+                    continue
+                h = ops.dense(h, site)
+                keep_q = quant_last or i < n - 1
+                h = ops.relu(h, site + '/out' if keep_q else None)
+            return h
 
-    def head(prefix, final_site, final_act):
-        quant_final = (final_act == 'relu'
-                       and not mcfg.get('float_cls_final'))
-        float_head = (final_act != 'relu'
-                      and mcfg.get('float_reg_head', False))
-        h = dense_stack(prefix, quant_final, float_hidden=float_head)
-        site = f'{prefix}_head/{final_site}'
-        h = ops.dense(h, site) if quant_final else ops.dense_final(h, site)
-        if final_act == 'relu':
-            h = ops.relu(h)
-        elif final_act == 'l2norm':
-            h = _l2norm(h)
-        return h
+        def head(prefix, final_site, final_act):
+            quant_final = (final_act == 'relu'
+                           and not mcfg.get('float_cls_final'))
+            float_head = (final_act != 'relu'
+                          and mcfg.get('float_reg_head', False))
+            h = dense_stack(prefix, quant_final, float_hidden=float_head)
+            site = f'{prefix}_head/{final_site}'
+            h = ops.dense(h, site) if quant_final else ops.dense_final(h, site)
+            if final_act == 'relu':
+                h = ops.relu(h)
+            elif final_act == 'l2norm':
+                h = _l2norm(h)
+            return h
 
-    out: Dict[str, torch.Tensor] = {}
-    if mcfg['regress_keypoints']:
-        h = dense_stack('loc', quant_last=False,
-                        float_hidden=mcfg.get('float_reg_head', False))
-        out['loc'] = ops.dense_final(h, 'loc_head/k1_final')
-        out['k1'] = ops.dense_final(h, 'loc_head/k2_final')
-        out['k2'] = ops.dense_final(h, 'loc_head/k3_final')
-        return ops.finalize(out)
+        out: Dict[str, torch.Tensor] = {}
+        if mcfg['regress_keypoints']:
+            h = dense_stack('loc', quant_last=False,
+                            float_hidden=mcfg.get('float_reg_head', False))
+            out['loc'] = ops.dense_final(h, 'loc_head/k1_final')
+            out['k1'] = ops.dense_final(h, 'loc_head/k2_final')
+            out['k2'] = ops.dense_final(h, 'loc_head/k3_final')
+            return ops.finalize(out)
 
-    out['loc'] = head('loc', 'loc_final',
-                      'linear' if mcfg['regress_loc'] else 'relu')
-    if mcfg['regress_ori']:
-        if mcfg['orientation_param'] == 'quaternion':
-            out['ori'] = head('ori', 'ori_q', 'l2norm')
+        out['loc'] = head('loc', 'loc_final',
+                          'linear' if mcfg['regress_loc'] else 'relu')
+        if mcfg['regress_ori']:
+            if mcfg['orientation_param'] == 'quaternion':
+                out['ori'] = head('ori', 'ori_q', 'l2norm')
+            else:
+                out['ori'] = head('ori', 'ori_final', 'linear')
         else:
-            out['ori'] = head('ori', 'ori_final', 'linear')
-    else:
-        out['ori'] = head('ori', 'ori_final', 'relu')
-    return ops.finalize(out)
+            out['ori'] = head('ori', 'ori_final', 'relu')
+        return ops.finalize(out)
 
 
 # --------------------------------------------------------------------------
@@ -1048,9 +1062,12 @@ class QuantizedModel:
         self._alphas = {}
 
     def _images(self, images):
+        """The batch on the device, its copy in the span
+        ursonet.serve.h2d."""
         x = images if isinstance(images, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(images))
-        return x.to(self.device)
+        with span('ursonet.serve.h2d'):
+            return x.to(self.device)
 
     def _flat_f32(self):
         """Device copy of the float weights: conv kernels OIHW
@@ -1220,8 +1237,9 @@ class QuantizedModel:
         ops = self._int8_ops(plain)
         if self.mesh is not None:
             return self._sharded(ops, images)
-        with no_tf32(), torch.no_grad():
-            return twin_forward(ops, self._images(images), self._mcfg)
+        x = self._images(images)
+        with span('ursonet.serve.forward'), no_tf32(), torch.no_grad():
+            return twin_forward(ops, x, self._mcfg)
 
     def _sharded(self, ops, images):
         """This rank's rows through `ops`, the outputs gathered over
@@ -1236,8 +1254,9 @@ class QuantizedModel:
                 f"({rows}); pad the batch (the engine's predict_molded "
                 f"does) or serve unsharded")
         lo, hi = local_batch_slice(self.mesh, n)
-        with no_tf32(), torch.no_grad():
-            out = twin_forward(ops, self._images(images[lo:hi]), self._mcfg)
+        x = self._images(images[lo:hi])
+        with span('ursonet.serve.forward'), no_tf32(), torch.no_grad():
+            out = twin_forward(ops, x, self._mcfg)
         group = self.mesh.group('data')
         return {k: gather_rows(v, group, via_host=True)
                 for k, v in out.items()}

@@ -8,7 +8,9 @@ over the trainable parameters, the global-norm clip and the Keras SGD
 update. It updates the model's parameters in place and returns the
 metrics dict (the loss parts of `losses.compute_losses`, 'loss' and
 'l2_reg') as 0-d tensors on the device (reading them synchronises with
-the card).
+the card). Spans (`utils/profiling.py`): ursonet.train.step around a
+step, holding .preprocess, .forward, .backward and .update; the
+resident step's gather in ursonet.train.gather.
 
 Under F16 the forward and its backward compute in bf16 (the model's
 casts, `models/resnet.py`), while the parameters, their gradients, the
@@ -51,6 +53,7 @@ from ursonet_torch.parallel.multihost import local_batch_slice
 from ursonet_torch.parallel.sharding import all_reduce_bucket, \
     data_reduce, model_split, scale_grad, slice_draws
 from ursonet_torch.train import losses as L
+from ursonet_torch.utils.profiling import span
 
 
 def _model_batch(batch, preprocess, generator, dev, rows=None):
@@ -118,28 +121,33 @@ def make_train_step(model, config, tx, trainable: Optional[dict] = None,
     sharded = [n in split for n in names]
 
     def step(batch, generator: Optional[torch.Generator] = None):
-        with torch.no_grad():
-            batch = _model_batch(batch, preprocess, generator, dev, rows)
-        model.train()
-        outputs = model(batch['images'])
-        total, parts = L.compute_losses(outputs, batch, config,
-                                        L.log_vars_of(model), red)
-        reg = L.l2_regularization(model, config.WEIGHT_DECAY, trainable,
-                                  split, model_group)
-        if red is not None:
-            # every data rank computes the L2 term's whole gradient
-            reg = scale_grad(reg, 1.0 / red.size)
-        loss = total + reg
-        grads = list(torch.autograd.grad(loss, params))
-        if data_group is not None:
-            all_reduce_bucket(grads, data_group)
-        tx.step(params, grads, sharded, model_group)
-        if update_bn:
-            commit_batch_stats(model)
-        metrics = {k: v.detach() for k, v in parts.items()}
-        metrics['loss'] = loss.detach()
-        metrics['l2_reg'] = reg.detach()
-        return metrics
+        with span('ursonet.train.step'):
+            with span('ursonet.train.preprocess'), torch.no_grad():
+                batch = _model_batch(batch, preprocess, generator, dev, rows)
+            with span('ursonet.train.forward'):
+                model.train()
+                outputs = model(batch['images'])
+                total, parts = L.compute_losses(outputs, batch, config,
+                                                L.log_vars_of(model), red)
+                reg = L.l2_regularization(model, config.WEIGHT_DECAY,
+                                          trainable, split, model_group)
+                if red is not None:
+                    # every data rank computes the L2 term's whole
+                    # gradient
+                    reg = scale_grad(reg, 1.0 / red.size)
+                loss = total + reg
+            with span('ursonet.train.backward'):
+                grads = list(torch.autograd.grad(loss, params))
+                if data_group is not None:
+                    all_reduce_bucket(grads, data_group)
+            with span('ursonet.train.update'):
+                tx.step(params, grads, sharded, model_group)
+                if update_bn:
+                    commit_batch_stats(model)
+                metrics = {k: v.detach() for k, v in parts.items()}
+                metrics['loss'] = loss.detach()
+                metrics['l2_reg'] = reg.detach()
+            return metrics
 
     return step
 
@@ -223,9 +231,10 @@ def make_resident_train_step(model, config, tx, n_images: int,
 
     def resident_step(data, perm, i: int,
                       generator: Optional[torch.Generator] = None):
-        idx = perm.index_select(0, _positions(i, steps, bsz, n_images,
-                                              arange))
-        batch = {k: v.index_select(0, idx) for k, v in data.items()}
+        with span('ursonet.train.gather'):
+            idx = perm.index_select(0, _positions(i, steps, bsz, n_images,
+                                                  arange))
+            batch = {k: v.index_select(0, idx) for k, v in data.items()}
         return i + 1, step(batch, generator)
 
     return resident_step

@@ -16,6 +16,60 @@
     character (torch tensors are read on the host; bf16 as f32 values
     with the dtype named 'bfloat16').
   * initialize_multihost delegates to `parallel/multihost.initialize`.
+  * span(name) is the port's one span primitive: a `record_function`
+    range while a `torch.profiler` is recording, else one shared no-op
+    context (no allocation, no synchronisation, no device operation). The
+    ranges land in the profiler's kineto trace beside the CUDA kernels
+    and copies, on the same clock, so a reader of the trace can put each
+    stretch of device time, or of device idleness, down to the program
+    phase the host was in.
+
+Spans, by name (each host range also gets a GPU-side annotation, which a
+reader of device operations leaves out):
+
+  Serving (`engine.py::ServingEngine`, `models/quant.py`), at most 10 a
+  served batch:
+    ursonet.serve.predict   the whole of `predict_molded`: the host's time
+                            for a served batch, short of the heads' copy
+                            back.
+    ursonet.serve.pack      `served_batch`: the uint8 conversion and the
+                            host space-to-depth, host work only.
+    ursonet.serve.h2d       the host-to-device copy of the served batch
+                            (`QuantizedModel._images`, or the float
+                            path's `.to(device)`): the card waits on it.
+    ursonet.serve.forward   the forward on the card, from its first launch
+                            to the return of the head tensors (under a
+                            mesh the gather is left out): the host issuing
+                            the forward, and the card's idle time while it
+                            does.
+    ursonet.qmodel.stem, ursonet.qmodel.res2 ... res5, ursonet.qmodel.head
+                            inside the twin graph (`twin_forward`), under
+                            every phase that runs it (serving,
+                            calibration, `bias_correct`, `float_twin`):
+                            the stem section (stem conv, ReLU +
+                            requantize, maxpool; the input step before it
+                            launches nothing for a uint8 batch the fused
+                            stem reads), each backbone stage (a basic
+                            backbone's stage1-4 as res2-5), and the
+                            bottleneck conv, flatten, denses and finals.
+                            Their GPU-side annotations give each stage's
+                            device time inside the real forward.
+
+  Training (`train/step.py`), at most 6 a step:
+    ursonet.train.gather      the resident step's index gather of the
+                              batch.
+    ursonet.train.step        the whole of the train step, holding:
+    ursonet.train.preprocess  the on-device augmentation, warp and
+                              re-encode (`_model_batch`);
+    ursonet.train.forward     the model, the losses and the L2 term;
+    ursonet.train.backward    `torch.autograd.grad` (and under a mesh the
+                              gradients' all-reduce). Its kernels are
+                              launched from autograd's device thread;
+                              this span covers their launches in time,
+                              since `grad` returns once autograd has issued
+                              them all: attribute by time, not by thread;
+    ursonet.train.update      the optimizer step, the batch norms'
+                              running statistics and the metrics' detach.
 """
 
 from __future__ import annotations
@@ -26,6 +80,19 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+
+# the context `span` returns while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range `name` around a `with` block while a profiler
+    records, else the shared no-op context (module docstring: the
+    spans)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def cost_analysis(fn, *args, **kwargs) -> Dict[str, Any]:
