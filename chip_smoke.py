@@ -287,6 +287,17 @@ Phases, in order; any failure exits non-zero:
               `host_s2d` bit for bit under F16; every GEMM, every 3x3
               conv and the fused stem of the served model must have
               taken the TMA + wgmma route (no mma.sync stem conv).
+ 10b. staging the served batch's host-to-device copy through the pinned
+              staging ring (`utils/staging.py::to_device`, check_staging)
+              against `.to(device)`: byte for byte for uint8 and float32,
+              numpy and CPU tensors, non-contiguous inputs, batches of 1,
+              7 and 128, and two calls back to back with the caller's
+              array overwritten as soon as the first returns; the F16
+              base flagship's served heads equal to those of the same
+              batch copied by `.to()`, and every served call counted
+              staged; the 126 MB copy both ways, its host copy and DMA
+              alone, the served call both ways, and the ring at each
+              slot size and count of STAGING_SWEEP, timed.
  11. probes   the four kernel-probe entry points at their own shapes
               (ursonet_torch.probes.fused_block, int8_mma, int4_mma,
               stem), their JSON lines printed as they come; the rate
@@ -359,7 +370,7 @@ from ursonet_torch.probes.timing import graph_ms, sm_clock_mhz
 from ursonet_torch.train.optim import make_optimizer
 from ursonet_torch.train.state import trainable_mask
 from ursonet_torch.train.step import make_eval_step, make_train_step
-from ursonet_torch.utils import memory
+from ursonet_torch.utils import memory, staging
 from ursonet_torch.utils.memory import (check_train_memory,
                                         estimate_train_hbm_gb)
 
@@ -387,6 +398,10 @@ SPEED_TRAIN_SHAPE = (4, 640, 960)
 REMAT_CARD_REL = 0.0
 STEPS = 5            # train steps of the main path, then 1 validation step
 SERVE_ITERS = 10     # timed serving calls, after 2 warm-up calls
+# the staging ring's sizes timed beside staging.SLOT_BYTES and SLOTS
+# (phase 10b): (slot MiB, slots)
+STAGING_SWEEP = ((2, 3), (4, 2), (4, 3), (8, 2), (8, 3), (16, 2), (16, 3),
+                 (32, 2), (32, 3))
 # What this script measured while gemm_s8 and conv_s8 had only their
 # mma.sync kernels (the ragged route of today), printed beside this run's
 # numbers for the reader: train step, served batch per variant, and the
@@ -1774,6 +1789,143 @@ def time_serving(engine, images, dev, iters: int = SERVE_ITERS,
             wall.append((time.perf_counter() - t0) * 1e3)
         out['host_ms'] = statistics.median(wall)
     return out
+
+
+def host_batches(dev, n: int, shape, dtype=np.uint8) -> list:
+    """n arrays of random bytes of `shape` and `dtype` in host memory,
+    drawn on the card."""
+    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    return [torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=dev)
+            .cpu().numpy().view(dtype).reshape(shape) for _ in range(n)]
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                            b.contiguous().view(-1).view(torch.uint8)))
+
+
+def wall_ms(fn, iters: int) -> list:
+    """Host wall ms of fn(i) to a synchronize, for i in range(iters),
+    after one warm-up call."""
+    fn(0)
+    torch.cuda.synchronize()
+    out = []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_staging(dev, served, card: str = '', iters: int = 10) -> dict:
+    """Phase 10b: the served batch's copy through the pinned staging ring
+    (`utils/staging.py::to_device`) against `.to(device)`. Byte for byte:
+    uint8 and float32, numpy arrays, CPU tensors and non-contiguous
+    inputs, batches of 1, 7 and 128 at the flagship's 512x640; two calls
+    back to back with the caller's array overwritten right after the
+    first returns; the flagship's served heads (`served`: serve_flagship's
+    result) through the ring equal to those of the same batch copied by
+    `.to()`, and every served call counted staged. Then host wall ms to a
+    synchronize, medians of `iters`, on a pool of 4 batches of 128 as
+    the benchmark serves them: the batch's copy both ways, the host copy
+    into pinned memory and the pinned DMA alone, the served call with its
+    heads brought back both ways, and the ring at each size of
+    STAGING_SWEEP, in two rounds of opposite order."""
+    engine, images = served['engine'], served['images']
+    qm = engine.qmodel
+    h, w = images.shape[1:3]
+    cases = 0
+    for dtype in (np.uint8, np.float32):
+        for batch in (1, 7, 128):
+            a = host_batches(dev, 1, (batch, h, w, 3), dtype)[0]
+            t = torch.from_numpy(a)
+            for kind, x in (('numpy', a), ('tensor', t),
+                            ('transposed', t.transpose(1, 2)),
+                            ('numpy strided', a[:, ::2])):
+                want = (x if isinstance(x, torch.Tensor) else
+                        torch.from_numpy(np.ascontiguousarray(x))).to(dev)
+                got = staging.to_device(x, dev)
+                torch.cuda.synchronize()
+                if not _same_bytes(got, want):
+                    raise RuntimeError(
+                        f"staging: {kind} {np.dtype(dtype).name} batch "
+                        f"{batch} differs from .to(device)")
+                cases += 1
+    a = host_batches(dev, 1, (128, h, w, 3))[0]
+    keep = a.copy()
+    first = staging.to_device(a, dev)
+    np.subtract(255, a, out=a)
+    second = staging.to_device(a, dev)
+    a[:] = 0
+    torch.cuda.synchronize()
+    if not (torch.equal(first.cpu(), torch.from_numpy(keep))
+            and torch.equal(second.cpu(), torch.from_numpy(255 - keep))):
+        raise RuntimeError("staging: a batch changed when the caller "
+                           "overwrote its array after the call returned")
+    before = staging.counts['passed']
+    if staging.to_device(first, dev) is not first \
+            or staging.counts['passed'] != before + 1:
+        raise RuntimeError("staging: a tensor on the card must pass through")
+    log(f"staging: {cases} inputs and the overwritten batch equal to "
+        f".to(device) byte for byte; slots {staging.SLOTS} x "
+        f"{staging.SLOT_BYTES >> 20} MiB; host threads "
+        f"{torch.get_num_threads()} of {os.cpu_count()} cores")
+
+    staging.reset_counts()
+    outs = [engine.predict_molded(images) for _ in range(3)]
+    counts = dict(staging.counts)
+    nbytes = images.nbytes
+    want = {'staged': 3, 'passed': 0,
+            'chunks': 3 * len(staging.chunk_plan(nbytes)), 'bytes': 3 * nbytes}
+    if counts != want:
+        raise RuntimeError(f"staging: served calls counted {counts}, "
+                           f"want {want}")
+    paged = qm(torch.from_numpy(engine.served_batch(images)).to(dev))
+    for out in outs:
+        for k, v in paged.items():
+            if not torch.equal(out[k], v):
+                raise RuntimeError(f"staging: served head {k} differs from "
+                                   f"the pageable copy's")
+    log(f"staging: 3 served batches counted {counts}; their heads equal "
+        f"the pageable copy's bit for bit")
+
+    pool = host_batches(dev, 4, tuple(images.shape))
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    flat = [torch.from_numpy(p).view(-1) for p in pool]
+
+    def served_heads(x):
+        return {k: v.cpu() for k, v in qm(x).items()}
+
+    ways = {
+        'pageable .to()': lambda i: torch.from_numpy(pool[i % 4]).to(dev),
+        'staged': lambda i: staging.to_device(pool[i % 4], dev),
+        'host copy alone': lambda i: pinned.copy_(flat[i % 4]),
+        'pinned DMA alone': lambda i: dst.copy_(pinned, non_blocking=True),
+        'serve, pageable': lambda i: served_heads(
+            torch.from_numpy(pool[i % 4]).to(dev)),
+        'serve, staged': lambda i: served_heads(pool[i % 4]),
+    }
+    card_dev = torch.device('cuda', torch.cuda.current_device())
+    for mib, slots in STAGING_SWEEP:
+        ring = staging.Ring(card_dev, mib << 20, slots)
+        ways[f'ring {mib} MiB x {slots}'] = \
+            lambda i, ring=ring: staging.stage(flat[i % 4], dst, ring)
+    # two rounds in opposite orders, so a drift of the host's pace
+    # weighs on every way alike
+    ms = {k: [] for k in ways}
+    for order in (list(ways), list(ways)[::-1]):
+        for k in order:
+            ms[k] += wall_ms(ways[k], iters)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    for k, v in med.items():
+        rate = f", {nbytes / v / 1e6:.2f} GB/s" if 'serve' not in k else ""
+        qs = ' '.join(f'{q:.3f}' for q in statistics.quantiles(ms[k], n=4))
+        log(f"staging: {k}: median {v:.3f} ms of {len(ms[k])} (quartiles "
+            f"{qs}){rate} {card}")
+    return {'ms': med, 'counts': counts, 'cases': cases}
 
 
 def time_float_forward(dev, seed: int, card) -> dict:
@@ -5999,6 +6151,9 @@ def main(argv=None) -> int:
         for variant in ('base', 'host_s2d'):
             served = serve_flagship(dev, args.seed, variant, f16)
             tag = f"{variant} {mode}"
+            if variant == 'base' and f16:
+                # 10b. the served batch's copy through the staging ring
+                check_staging(dev, served, card)
             if variant == 'host_s2d' and f16:
                 t = time_serving(check_device_s2d(dev, served),
                                  served['images'], dev)

@@ -16,6 +16,7 @@ from ursonet_torch.ops import augment
 from ursonet_torch.ops import warp_cuda as wc
 from ursonet_torch.probes import fused_block as fb
 from ursonet_torch.probes import mma_rate as mr
+from ursonet_torch.utils import staging
 from torch_parity import cuda_device  # noqa: F401  (fixture)
 import test_torch_warp_tiles as tile_mirror
 import test_torch_im2col_plan as im2col_mirror
@@ -1865,3 +1866,31 @@ def test_convq8_on_the_card_matches_the_cpu(cuda_device, mode, dtype, ci):
         assert torch.equal(dw_g, dw_c)
     else:
         assert float((dw_g - dw_c).norm() / dw_c.norm()) <= 1e-2
+
+
+@pytest.mark.parametrize('batch', [1, 7])
+@pytest.mark.parametrize('kind', ['numpy', 'tensor', 'transposed'])
+@pytest.mark.parametrize('dtype', [np.uint8, np.float32],
+                         ids=['u8', 'f32'])
+def test_staged_copy_gives_the_bytes_of_to(cuda_device, dtype, kind, batch):
+    """`utils/staging.py::to_device` through the pinned ring (a float32
+    batch of 7 spans several slots) gives `.to(device)`'s bytes, and the
+    first of two calls stays whole when the caller overwrites its array
+    as soon as the call returns."""
+    a = chip_smoke.host_batches(cuda_device, 1, (batch, 512, 640, 3),
+                                dtype)[0]
+    t = torch.from_numpy(a)
+    x = {'numpy': a, 'tensor': t, 'transposed': t.transpose(1, 2)}[kind]
+    want = (x if kind != 'numpy' else t).to(cuda_device)
+    before = dict(staging.counts)
+    got = staging.to_device(x, cuda_device)
+    a[:] = 0
+    again = staging.to_device(x, cuda_device)
+    torch.cuda.synchronize()
+    assert chip_smoke._same_bytes(got, want)
+    assert not again.any()
+    nbytes = a.nbytes
+    assert staging.counts['staged'] == before['staged'] + 2
+    assert staging.counts['bytes'] == before['bytes'] + 2 * nbytes
+    assert staging.counts['chunks'] == before['chunks'] + 2 * len(
+        staging.chunk_plan(nbytes))

@@ -93,6 +93,7 @@ from ursonet_torch.models.resnet import SHALLOW_REPS, same_pads, \
     space_to_depth2, stem_kernel_to_s2d
 from ursonet_torch.ops import int8_cuda
 from ursonet_torch.utils.profiling import span
+from ursonet_torch.utils.staging import to_device
 
 # Accuracy-gate thresholds of the JAX package (bench.py, test_quant.py):
 # int8 vs float twin on the committed trained artifact, and on a
@@ -1063,11 +1064,10 @@ class QuantizedModel:
 
     def _images(self, images):
         """The batch on the device, its copy in the span
-        ursonet.serve.h2d."""
-        x = images if isinstance(images, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(images))
+        ursonet.serve.h2d: a host batch bound for the card goes through
+        the pinned staging ring (`utils/staging.py::to_device`)."""
         with span('ursonet.serve.h2d'):
-            return x.to(self.device)
+            return to_device(images, self.device)
 
     def _flat_f32(self):
         """Device copy of the float weights: conv kernels OIHW

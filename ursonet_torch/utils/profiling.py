@@ -36,7 +36,13 @@ reader of device operations leaves out):
                             host space-to-depth, host work only.
     ursonet.serve.h2d       the host-to-device copy of the served batch
                             (`QuantizedModel._images`, or the float
-                            path's `.to(device)`): the card waits on it.
+                            path's `.to(device)`). `_images` sends a host
+                            batch through the pinned staging ring
+                            (`utils/staging.py::to_device`): the span
+                            holds the host's copies into the ring and
+                            the issues of their DMAs, and the last
+                            chunk's DMA may end after it, inside
+                            ursonet.serve.forward.
     ursonet.serve.forward   the forward on the card, from its first launch
                             to the return of the head tensors (under a
                             mesh the gather is left out): the host issuing
