@@ -37,7 +37,7 @@ class Config:
     VALIDATION_STEPS = 50
 
     # --- model ----------------------------------------------------------------
-    BACKBONE = "resnet101"          # resnet18/34/50/101
+    BACKBONE = "resnet101"          # resnet18/34/50/101, hrnet_w32
     BOTTLENECK_WIDTH = 128
     BRANCH_SIZE = 1024
     NR_DENSE_LAYERS = 1
@@ -50,6 +50,15 @@ class Config:
     # selection (`python -m ursonet_torch.prune_inner`). ResNet-18/34 take
     # 1.0 only.
     INNER_WIDTH_MULT = 1.0
+
+    # The landmark model (BACKBONE 'hrnet_w32', models/hrnet.py): one
+    # heatmap a landmark at a quarter of the input's resolution, trained on
+    # HRNet's Gaussian targets of HEATMAP_SIGMA heatmap pixels (ops/
+    # landmarks.py) under JointsMSE. LANDMARKS: the body-frame landmarks,
+    # NUM_LANDMARKS x 3 metres (None: ops/landmarks.py::default_landmarks).
+    NUM_LANDMARKS = 11
+    HEATMAP_SIGMA = 2.0
+    LANDMARKS = None
 
     # --- input resizing ---------------------------------------------------------
     IMAGE_RESIZE_MODE = "pad64"     # none | square | pad64 | crop

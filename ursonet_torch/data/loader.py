@@ -23,7 +23,13 @@ sim2real, from the one gray plane) and re-encodes the orientation PMF
 from the rotated quaternion. Without rotation the cast and the mold
 are plain PyTorch. In keypoint
 mode (REGRESS_KEYPOINTS) it passes the raw keypoint targets through, or
-recomputes them from the rotated pose. The images stay f32 into the
+recomputes them from the rotated pose. For the landmark model (BACKBONE
+'hrnet_w32') it projects the configuration's landmarks with the network
+intrinsics and the (rotated) pose (URSO's labels permuted from the
+Unreal frame) and renders HRNet's Gaussian heatmap
+targets and visibility weights (`ops/landmarks.py`, span
+ursonet.train.targets), counting the landmarks rendered and dropped as
+out of view in `ops/landmarks.py::counts`. The images stay f32 into the
 warp under F16 too (the model casts them to bf16), as in the JAX
 package.
 
@@ -57,9 +63,11 @@ from ursonet_torch.device import resolve_device
 from ursonet_torch.ops import augment as aug
 from ursonet_torch.ops import encoders
 from ursonet_torch.ops import image as imops
+from ursonet_torch.ops import landmarks as lm
 from ursonet_torch.ops import warp_cuda
 from ursonet_torch.ops.image import resize_geometry
 from ursonet_torch.parallel.multihost import slice_rows
+from ursonet_torch.utils.profiling import span
 
 
 def as_tensor(x, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -78,7 +86,8 @@ def keypoint_scale(dataset_name: str) -> float:
 class DevicePreprocess:
     """raw batch dict -> model batch dict {'images' [B,3,H,W] f32,
     'image_meta', 'gt_loc', 'gt_ori'} ({'gt_loc', 'gt_k1', 'gt_k2'} in
-    keypoint mode).
+    keypoint mode; {'gt_heatmaps' [B,K,H/4,W/4], 'gt_weights' [B,K],
+    'gt_landmarks' [B,K,2] network pixels} for the landmark model).
 
     `draw(generator, b)` makes the random draws of one batch: the
     rotation's (`augment.draw_rotation`) with, under SIM2REAL_AUG, the
@@ -110,6 +119,12 @@ class DevicePreprocess:
             grid = encoders.build_ori_grid(config.ORI_BINS_PER_DIM)
             self.ori_grid_quat = torch.as_tensor(grid.quat, device=dev)
             self.ori_grid_mask = torch.as_tensor(grid.mask, device=dev)
+        self.landmarks = None
+        # URSO's labels are in the Unreal frame (`ops/landmarks.py`)
+        self.label_frame = 'unreal' if dataset_name == 'Urso' else 'camera'
+        if lm.is_heatmap_model(config.BACKBONE):
+            self.landmarks = torch.as_tensor(lm.landmarks_of(config),
+                                             device=dev)
 
     def draw(self, generator: torch.Generator, b: int):
         """Random draws for a batch of `b` (None when nothing is random).
@@ -157,6 +172,9 @@ class DevicePreprocess:
         batch = {'images': images,
                  'image_meta': as_tensor(raw['image_meta'], dev,
                                          torch.float32)}
+        if self.landmarks is not None:
+            batch.update(self.targets(locs, quats))
+            return batch
         if cfg.REGRESS_KEYPOINTS:
             batch['gt_loc'] = locs
             if self.rot:
@@ -185,6 +203,20 @@ class DevicePreprocess:
                 quats, self.ori_grid_quat, self.ori_grid_mask, cfg.BETA,
                 cfg.ORI_BINS_PER_DIM)
         return batch
+
+    def targets(self, locs, quats) -> dict:
+        """The landmark model's targets for the batch's poses."""
+        with span('ursonet.train.targets'):
+            pixels, depths = lm.project(self.landmarks, locs, quats,
+                                        self.K_net, self.label_frame)
+            hm, wm = (n // lm.HEATMAP_STRIDE for n in self.shape)
+            heat, weights = lm.render(pixels, depths, (hm, wm),
+                                      lm.HEATMAP_STRIDE,
+                                      float(self.config.HEATMAP_SIGMA))
+            lm.count(rendered=weights.numel(),
+                        dropped=weights.numel() - weights.sum().long())
+        return {'gt_heatmaps': heat, 'gt_weights': weights,
+                'gt_landmarks': pixels}
 
 
 def make_device_preprocess(config, camera=None, device="cuda",

@@ -33,7 +33,10 @@ NaN (`train/step.py::check_nans`, the counterpart of jax_debug_nans).
 INT8_U8_INPUT it ships the batch as uint8 pixels, rint(molded + mean)
 clipped to 0..255; otherwise it runs the float model in eval mode, in
 bf16 under F16 with its head outputs widened to f32 (`bench.py`'s
-BENCH_QUANT=0 forward). Under
+BENCH_QUANT=0 forward); the landmark model (BACKBONE 'hrnet_w32')
+serves in float only, returning its heatmaps and the landmarks decoded
+from them (`ops/landmarks.py::decode`: 'landmarks' [B,K,2] input
+pixels, 'landmark_scores' [B,K] the heatmaps' maxima). Under
 QUANT_HOST_S2D every batch the int8 model sees, served or calibrated, is
 packed space-to-depth on the host first (`_host_s2d_maybe`), so the
 device reads [B,H/2,W/2,12] pixels straight into the fused stem kernel.
@@ -76,11 +79,14 @@ from ursonet_torch.checkpoint.orbax_store import ORBAX_SUFFIX
 from ursonet_torch.checkpoint.quant_store import load_quantized
 from ursonet_torch.data import loader
 from ursonet_torch.device import resolve_device
+from ursonet_torch.models.hrnet import is_hrnet
 from ursonet_torch.models.quant import QuantizedModel
 from ursonet_torch.models.resnet import space_to_depth2
 from ursonet_torch.models.ursonet import build_model
 from ursonet_torch.ops.image import compose_image_meta, mold_image, \
     resize_image
+from ursonet_torch.ops.landmarks import HEATMAP_STRIDE
+from ursonet_torch.ops.landmarks import decode as decode_landmarks
 from ursonet_torch.parallel import make_mesh, multihost
 from ursonet_torch.parallel.mesh import AXIS_DATA
 from ursonet_torch.parallel.sharding import gather_rows, gathered, \
@@ -129,7 +135,12 @@ class ServingEngine:
                  headroom: float = 1.0) -> QuantizedModel:
         """Switch predict_molded() to the int8 model of the current float
         weights. calib_images: raw images for the activation calibration;
-        without them it happens on the first served batch."""
+        without them it happens on the first served batch. The landmark
+        model has no int8 form and raises ValueError."""
+        if is_hrnet(self.config.BACKBONE):
+            raise ValueError(f"int8 PTQ covers the ResNet backbones; "
+                             f"BACKBONE={self.config.BACKBONE!r} serves in "
+                             f"float only (predict_molded before quantize)")
         # the heads made whole (collective over 'model')
         tree = params_to_jax_layout(self.model.state_dict(), self.mesh,
                                     model_split(self.model))
@@ -206,6 +217,9 @@ class ServingEngine:
                 if rows > 1:
                     group = self.mesh.group(AXIS_DATA)
                     out = {k: gather_rows(v, group) for k, v in out.items()}
+                if 'heatmaps' in out:
+                    out['landmarks'], out['landmark_scores'] = \
+                        decode_landmarks(out['heatmaps'], HEATMAP_STRIDE)
             return {k: v[:n] for k, v in out.items()} if pad else out
 
     def served_batch(self, molded):

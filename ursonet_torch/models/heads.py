@@ -5,7 +5,10 @@ Both start with NR_DENSE_LAYERS × (Dense(BRANCH_SIZE) [+ BN under
 TRAIN_BN=True] + ReLU). PoseHead
 then has one final Dense: linear (location regression), ReLU
 (soft-classification logits) or L2-normalized (quaternion regression).
-KeypointHead has three linear Dense(3) finals, k1/k2/k3. Layer names are
+KeypointHead has three linear Dense(3) finals, k1/k2/k3. HeatmapHead,
+the landmark model's (BACKBONE 'hrnet_w32'), is HRNet's `final_layer`
+instead: a 1×1 conv with bias from the backbone's features to one
+heatmap a landmark. Layer names are
 the Keras ones: '{prefix}_dense_{i}', '{prefix}_bn_{i}' and the final
 layers' own names.
 Under F16 they compute in bf16 like the backbone (`Linear`).
@@ -31,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ursonet_torch.models.resnet import FrozenBN, Linear
+from ursonet_torch.models.resnet import Conv2d, FrozenBN, Linear
 from ursonet_torch.parallel.mesh import AXIS_MODEL
 from ursonet_torch.parallel.sharding import copy_to, gather_from, \
     reduce_from, split_bounds
@@ -109,6 +112,18 @@ class KeypointHead(_DenseStack):
         if self.gather_hidden is not None:
             x = self.gather_hidden(x)
         return self.k1_final(x), self.k2_final(x), self.k3_final(x)
+
+
+class HeatmapHead(nn.Module):
+    """[N,C,h,w] features -> [N,K,h,w] heatmaps: `final_layer`, a 1×1 conv
+    with bias (HRNet's FINAL_CONV_KERNEL 1)."""
+
+    def __init__(self, in_channels: int, landmarks: int):
+        super().__init__()
+        self.final_layer = Conv2d(in_channels, landmarks, 1)
+
+    def forward(self, x):
+        return self.final_layer(x)
 
 
 # ---------------------------------------------------------------------------

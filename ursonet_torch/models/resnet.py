@@ -515,7 +515,16 @@ def make_backbone(architecture: str, train_bn=False, stem_s2d: bool = False,
     package's `make_backbone` dispatches. `inner_mult`
     (INNER_WIDTH_MULT) scales a bottleneck's inner widths; a basic block
     has none, so anything but 1 raises for ResNet-18/34. `act_q8`
-    (TRAIN_ACT_Q8) makes every backbone conv a ConvQ8."""
+    (TRAIN_ACT_Q8) makes every backbone conv a ConvQ8. 'hrnet_w32' is
+    the landmark-heatmap backbone (`models/hrnet.py`), which takes
+    neither the s2d stem, nor inner widths, nor TRAIN_ACT_Q8."""
+    from ursonet_torch.models import hrnet
+    if hrnet.is_hrnet(architecture):
+        if stem_s2d or inner_mult != 1.0 or act_q8:
+            raise ValueError(f'{architecture} takes no '
+                             'STEM_SPACE_TO_DEPTH, INNER_WIDTH_MULT or '
+                             'TRAIN_ACT_Q8')
+        return hrnet.HRNetBackbone(architecture, train_bn, remat)
     if architecture in STAGE4_BLOCKS:
         return ResNetBackbone(architecture, train_bn, stem_s2d, remat,
                               inner_mult, act_q8)

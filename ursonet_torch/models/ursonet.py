@@ -7,6 +7,11 @@ under the module name 'loc_head'. Returns a dict of raw head outputs, in
 f32: {'loc', 'ori'}, or {'loc': k1, 'k1': k2, 'k2': k3} in keypoint mode
 (the JAX package's names, shifted by one on purpose).
 
+The landmark model (BACKBONE 'hrnet_w32', `models/hrnet.py`) has no
+bottleneck conv, flatten or dense heads: HRNet's branch 0 goes through
+the heatmap head (`HeatmapHead`, span ursonet.hrnet.head), and the model
+returns {'heatmaps' [N,K,H/4,W/4]} in f32, K = `landmarks`.
+
 Under F16 (`dtype` bfloat16) the forward computes in bf16 with f32
 parameters, as the JAX package's `UrsoNetModule(dtype=bfloat16)`: the
 images are cast to bf16 first, every conv and dense runs in bf16 (batch
@@ -23,10 +28,12 @@ import torch
 from torch import nn
 
 from ursonet_torch.device import resolve_device
-from ursonet_torch.models.heads import KeypointHead, PoseHead
+from ursonet_torch.models.heads import HeatmapHead, KeypointHead, PoseHead
+from ursonet_torch.models.hrnet import is_hrnet
 from ursonet_torch.models.resnet import C5_CHANNELS, Conv2d, FrozenBN, \
     make_backbone, pad_same
 from ursonet_torch.train.state import add_loss_log_vars
+from ursonet_torch.utils.profiling import span
 
 
 def _c6_hw(h: int, w: int) -> tuple[int, int]:
@@ -37,8 +44,8 @@ def _c6_hw(h: int, w: int) -> tuple[int, int]:
 
 
 class UrsoNetModule(nn.Module):
-    """images [N,3,H,W] f32 -> {'loc', 'ori'} (or {'loc', 'k1', 'k2'})
-    f32, computed in `dtype`."""
+    """images [N,3,H,W] f32 -> {'loc', 'ori'} (or {'loc', 'k1', 'k2'}, or
+    {'heatmaps'}) f32, computed in `dtype`."""
 
     def __init__(self, image_hw, backbone: str = 'resnet50',
                  bottleneck_width: int = 128, branch_size: int = 1024,
@@ -48,12 +55,18 @@ class UrsoNetModule(nn.Module):
                  ori_bins: int = 32, train_bn=False, stem_s2d: bool = False,
                  dtype: torch.dtype = torch.float32,
                  regress_keypoints: bool = False, remat=False,
-                 inner_mult: float = 1.0, act_q8=False):
+                 inner_mult: float = 1.0, act_q8=False,
+                 landmarks: int = 11):
         super().__init__()
         self.dtype = dtype
         self.regress_keypoints = regress_keypoints
         self.backbone = make_backbone(backbone, train_bn, stem_s2d, remat,
                                       inner_mult, act_q8)
+        self.heatmaps = is_hrnet(backbone)
+        if self.heatmaps:
+            self.heatmap_head = HeatmapHead(self.backbone.out_channels,
+                                            landmarks)
+            return
         self.bottleneck_layer = Conv2d(C5_CHANNELS[backbone],
                                        bottleneck_width, 3, 2)
         h6, w6 = _c6_hw(*image_hw)
@@ -79,6 +92,11 @@ class UrsoNetModule(nn.Module):
                                  *ori, train_bn)
 
     def forward(self, images) -> Dict[str, torch.Tensor]:
+        if self.heatmaps:
+            feats = self.backbone(images.to(self.dtype))
+            with span('ursonet.hrnet.head'):
+                return {'heatmaps': self.heatmap_head(feats)
+                        .to(torch.float32)}
         c5 = self.backbone(images.to(self.dtype))
         c6 = self.bottleneck_layer(pad_same(c5, 3, 2))
         # NHWC row-major flatten, as the Keras Reshape the dense kernels
@@ -122,7 +140,8 @@ def build_model(config, device="cuda",
     computing in bf16 under config.F16, its residual blocks recomputed in
     the backward pass under config.REMAT, its backbone convs saving int8
     activations under config.TRAIN_ACT_Q8, with zero Kendall
-    log-variances (`loss_log_vars`) under LEARNABLE_LOSS_WEIGHTS.
+    log-variances (`loss_log_vars`) under LEARNABLE_LOSS_WEIGHTS, with
+    NUM_LANDMARKS heatmaps for the landmark model (BACKBONE 'hrnet_w32').
     Validates the %64 image-shape contract."""
     dev = resolve_device(device)
     h, w = int(config.IMAGE_SHAPE[0]), int(config.IMAGE_SHAPE[1])
@@ -145,7 +164,8 @@ def build_model(config, device="cuda",
             regress_keypoints=config.REGRESS_KEYPOINTS,
             remat=config.REMAT,
             inner_mult=float(getattr(config, 'INNER_WIDTH_MULT', 1.0)),
-            act_q8=getattr(config, 'TRAIN_ACT_Q8', False))
+            act_q8=getattr(config, 'TRAIN_ACT_Q8', False),
+            landmarks=int(getattr(config, 'NUM_LANDMARKS', 11)))
     model.to_empty(device='cpu')
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.SEED))

@@ -70,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'train', 'test', 'evaluate', 'submit' or "
                         "'export'")
     p.add_argument('--backbone', default='resnet50',
-                   help='resnet18/34/50/101')
+                   help='resnet18/34/50/101, or hrnet_w32 (landmark '
+                        'heatmaps)')
     p.add_argument('--dataset', required=True, help='Dataset name')
     p.add_argument('--epochs', default=100, type=int)
     p.add_argument('--image_scale', default=1.0, type=float)

@@ -8,6 +8,10 @@ with the reference's quirks kept:
     row.
   * keypoint mode: mean squared error of the three keypoints, named
     'loc_loss', 'k2_loss' and 'k3_loss' (against gt_loc, gt_k1, gt_k2).
+  * landmark model (BACKBONE 'hrnet_w32'): HRNet's JointsMSELoss with
+    target weights, ½ · mean over landmarks of the mean squared error of
+    the weighted heatmaps, mean((w·(ŷ − y))²) / 2 over the batch, the
+    landmarks and the pixels, named 'landmark_loss'.
   * l2_regularization: WEIGHT_DECAY · mean(w²) per tensor, summed over
     the trainable parameters that are not batch norm, nor the Kendall
     log-variances.
@@ -73,6 +77,14 @@ def mse_loss(y_gt, y_pred, red=None):
     return _mean(torch.square(y_gt.float() - y_pred.float()), red)
 
 
+def joints_mse(heatmaps, target, weight, red=None):
+    """HRNet's JointsMSELoss(use_target_weight=True): heatmaps, target
+    [B,K,h,w], weight [B,K]."""
+    w = weight.float()[..., None, None]
+    return 0.5 * _mean(torch.square(w * (heatmaps.float() - target.float())),
+                       red)
+
+
 def rel_loss(y_gt, y_pred, red=None):
     """Frobenius-relative location loss; norms over the entire batch."""
     y_gt = y_gt.float()
@@ -116,7 +128,15 @@ def compute_losses(outputs, batch, config, log_vars=None, red=None):
     (None: this batch is the whole one); each data rank then computes
     the log-variances' whole gradient, so it is scaled by 1/D."""
     parts = {}
-    if config.REGRESS_KEYPOINTS:
+    if 'heatmaps' in outputs:
+        if 'gt_heatmaps' not in batch:
+            raise ValueError("the landmark model trains on the heatmap "
+                             "targets the on-device preprocess renders "
+                             "(AUGMENT_ON_DEVICE)")
+        parts['landmark_loss'] = joints_mse(
+            outputs['heatmaps'], batch['gt_heatmaps'], batch['gt_weights'],
+            red)
+    elif config.REGRESS_KEYPOINTS:
         parts['loc_loss'] = mse_loss(batch['gt_loc'], outputs['loc'], red)
         parts['k2_loss'] = mse_loss(batch['gt_k1'], outputs['k1'], red)
         parts['k3_loss'] = mse_loss(batch['gt_k2'], outputs['k2'], red)

@@ -17,6 +17,8 @@ import re
 import torch
 from torch import nn
 
+from ursonet_torch.models.hrnet import is_hrnet
+
 LAYER_REGEX = {
     "heads": r"(ori\_.*)|(loc\_.*)|(k\d\_.*)|(bottleneck_layer)",
     "3+": r"(res3.*)|(bn3.*)|(res4.*)|(bn4.*)|(res5.*)|(bn5.*)"
@@ -45,6 +47,8 @@ def trainable_mask(model, layers: str) -> dict:
 
 def loss_log_var_names(config) -> tuple:
     """The loss parts that get a learnable log-variance."""
+    if is_hrnet(config.BACKBONE):
+        return ('landmark_loss',)
     if config.REGRESS_KEYPOINTS:
         return ('loc_loss', 'k2_loss', 'k3_loss')
     return ('loc_loss', 'ori_loss')

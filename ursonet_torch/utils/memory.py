@@ -279,12 +279,13 @@ def actq_saved_gb(config) -> float:
 
 def calibration_gap(config):
     """Why no measured peak stands behind `config`'s factor, or None:
-    an f32 step under REMAT, a ResNet-18/34 backbone, or batch-statistics
-    BN."""
+    an f32 step under REMAT, a backbone other than ResNet-50/101 (the
+    structural count of ResNet-18/34 is a guess for HRNet), or
+    batch-statistics BN."""
     if getattr(config, 'TRAIN_BN', False) is not False:
         return (f"the eager factors were fitted on frozen-BN steps "
                 f"(TRAIN_BN=False), not on TRAIN_BN={config.TRAIN_BN!r}")
-    if config.BACKBONE in ('resnet18', 'resnet34'):
+    if config.BACKBONE not in ('resnet50', 'resnet101'):
         return (f"the eager factors were fitted on ResNet-50/101 steps "
                 f"only, not on a {config.BACKBONE} one")
     if getattr(config, 'REMAT', False) and not getattr(config, 'F16', False):

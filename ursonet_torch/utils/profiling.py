@@ -76,6 +76,28 @@ reader of device operations leaves out):
                               them all: attribute by time, not by thread;
     ursonet.train.update      the optimizer step, the batch norms'
                               running statistics and the metrics' detach.
+    ursonet.train.targets     inside .preprocess, for the landmark model
+                              (BACKBONE 'hrnet_w32'): the landmarks'
+                              projection and the heatmap targets
+                              (`data/loader.py::DevicePreprocess.targets`).
+
+  The landmark model (`models/hrnet.py`, `models/ursonet.py`), in every
+  forward that runs it, 2 + 2 a module + 1 (20 a forward):
+    ursonet.hrnet.stem        the two 3x3/2 stem convs, their BN and ReLU;
+    ursonet.hrnet.stage1      stage 1's four bottlenecks;
+    ursonet.hrnet.branch      a module's parallel basic blocks (a REMAT
+                              recompute runs in the backward, outside it);
+    ursonet.hrnet.fuse        a module's fusion: the 1x1 and strided 3x3
+                              convs with their BN, the upsampling, the sums
+                              and ReLUs;
+    ursonet.hrnet.head        the 1x1 heatmap head.
+  The transitions between stages run outside every span.
+
+Counters (host-side, no synchronisation): `utils/staging.py::counts`
+(the served batches' copies) and `ops/landmarks.py::counts` (the landmark
+model's modules run and fusion sums made; the landmarks rendered into
+heatmaps and, as a 0-d device tensor read only when asked, those
+dropped as out of view).
 """
 
 from __future__ import annotations
